@@ -1,0 +1,99 @@
+"""Carry weights from the JAX package's param trees into the port.
+
+`load_jax_params(module, tree)` takes a JAX param pytree as nested
+dicts/lists of numpy arrays (what `jax.tree.map(np.asarray, params)` gives)
+and fills the port module whose attributes follow the same keys:
+
+  conv "w" (HWIO) → weight (OIHW);  dense "w" (out, in) → weight;
+  norm "g" → weight;  "b" → bias;   a bare array → the parameter of that name.
+
+It is strict: a shape that differs, a key the module lacks, or a parameter
+the tree leaves unfilled raises. Keys a module lists in `_jax_unported`
+(the VAE's encoding half) are skipped. `jax_tree_to_torch` carries a JAX
+`init_lora` tree into the port's LoRA tree. No JAX is imported: this walks
+dicts.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+_LEAF_NAMES = {"w": "weight", "g": "weight", "b": "bias"}
+
+
+def _tensor(arr) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16 has no torch.from_numpy route
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
+def _copy(param: nn.Parameter, arr, path: str, filled: set) -> None:
+    t = _tensor(arr)
+    if t.dim() == 4:
+        t = t.permute(3, 2, 0, 1)  # HWIO → OIHW
+    if tuple(t.shape) != tuple(param.shape):
+        raise ValueError(f"{path}: tree shape {tuple(t.shape)} != module shape {tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(t)
+    filled.add(id(param))
+
+
+def _is_leaf(node: dict) -> bool:
+    """A {"w"/"g", "b"} dict of arrays: one layer's parameters."""
+    return bool(node) and set(node) <= set(_LEAF_NAMES) and all(hasattr(v, "__array__") for v in node.values())
+
+
+def _walk(mod, node, path: str, filled: set) -> None:
+    if node is None or mod is None:
+        if node is not None or mod is not None:
+            raise ValueError(f"{path}: tree has {type(node).__name__}, module has {type(mod).__name__}")
+        return
+    if isinstance(node, (list, tuple)):
+        if len(node) != len(mod):
+            raise ValueError(f"{path}: tree has {len(node)} entries, module {len(mod)}")
+        for i, sub in enumerate(node):
+            _walk(mod[i], sub, f"{path}.{i}", filled)
+        return
+    if isinstance(node, dict) and _is_leaf(node):
+        for key, arr in node.items():
+            _copy(getattr(mod, _LEAF_NAMES[key]), arr, f"{path}.{key}", filled)
+        return
+    if isinstance(node, dict):
+        skip = getattr(mod, "_jax_unported", ())
+        for key, sub in node.items():
+            if key in skip:
+                continue
+            if not hasattr(mod, key):
+                raise KeyError(f"{path}.{key}: the module has no such attribute")
+            child = getattr(mod, key)
+            if isinstance(child, nn.Parameter):
+                _copy(child, sub, f"{path}.{key}", filled)
+            else:
+                _walk(child, sub, f"{path}.{key}", filled)
+        return
+    raise TypeError(f"{path}: unexpected tree node {type(node).__name__}")
+
+
+def load_jax_params(module: nn.Module, tree) -> nn.Module:
+    """Fill every parameter of `module` from the JAX param tree `tree`."""
+    filled: set = set()
+    _walk(module, tree, type(module).__name__, filled)
+    missing = [n for n, p in module.named_parameters() if id(p) not in filled]
+    if missing:
+        raise KeyError(f"parameters not in the tree: {missing[:8]}{' …' if len(missing) > 8 else ''}")
+    return module
+
+
+def jax_tree_to_torch(tree, device=None, dtype: torch.dtype = None):
+    """The same nested dicts/lists with each array as a tensor (e.g. a JAX
+    `init_lora` tree → the port's LoRA tree)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: jax_tree_to_torch(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [jax_tree_to_torch(v, device, dtype) for v in tree]
+    return _tensor(tree).to(device=device, dtype=dtype)

@@ -1,0 +1,150 @@
+"""DDPM scheduler (port of `faceposegenerator_tpu/diffusion/schedulers.py:28-239`).
+
+The tables live on the host as fp32 numpy arrays, and the sampler steps with
+Python-int step indices, so every per-step coefficient is a host scalar
+computed in fp32 as the JAX package computes it on the device: a step costs
+the card a few elementwise ops and never a host sync. DPM-Solver++ waits
+for a later slice.
+
+SD2.1-base `scheduler_config.json` semantics: scaled_linear betas
+0.00085 → 0.012 over 1000 steps, epsilon prediction, "leading" spacing with
+steps_offset 1, fixed_small variance, no sample clipping.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    beta_schedule: str = "scaled_linear"  # or "linear", "squaredcos_cap_v2"
+    prediction_type: str = "epsilon"  # or "v_prediction", "sample"
+    steps_offset: int = 1
+    timestep_spacing: str = "leading"
+    clip_sample: bool = False
+    clip_sample_range: float = 1.0
+    variance_type: str = "fixed_small"
+
+
+def _make_betas(cfg: SchedulerConfig) -> np.ndarray:
+    T = cfg.num_train_timesteps
+    if cfg.beta_schedule == "scaled_linear":
+        return np.linspace(cfg.beta_start**0.5, cfg.beta_end**0.5, T, dtype=np.float64) ** 2
+    if cfg.beta_schedule == "linear":
+        return np.linspace(cfg.beta_start, cfg.beta_end, T, dtype=np.float64)
+    if cfg.beta_schedule == "squaredcos_cap_v2":
+        def alpha_bar(t):
+            return np.cos((t + 0.008) / 1.008 * np.pi / 2) ** 2
+        ts = np.arange(T, dtype=np.float64)
+        return np.minimum(1 - alpha_bar((ts + 1) / T) / alpha_bar(ts / T), 0.999)
+    raise ValueError(cfg.beta_schedule)
+
+
+def inference_timesteps(cfg: SchedulerConfig, num_inference_steps: int) -> np.ndarray:
+    """Descending integer timesteps for a sampling run (schedulers.py:59-73)."""
+    T = cfg.num_train_timesteps
+    if cfg.timestep_spacing == "leading":
+        step_ratio = T // num_inference_steps
+        ts = (np.arange(num_inference_steps) * step_ratio).round()[::-1].astype(np.int64)
+        ts = ts + cfg.steps_offset
+    elif cfg.timestep_spacing == "trailing":
+        step_ratio = T / num_inference_steps
+        ts = np.round(np.arange(T, 0, -step_ratio)).astype(np.int64) - 1
+    elif cfg.timestep_spacing == "linspace":
+        ts = np.linspace(0, T - 1, num_inference_steps).round()[::-1].astype(np.int64)
+    else:
+        raise ValueError(cfg.timestep_spacing)
+    return ts
+
+
+@dataclasses.dataclass(frozen=True)
+class DDPMSchedule:
+    """Constant DDPM tables; `timesteps` is the descending inference schedule."""
+
+    betas: np.ndarray  # (T,) fp32
+    alphas_cumprod: np.ndarray  # (T,) fp32
+    timesteps: np.ndarray  # (S,) int32, descending
+    prev_timesteps: np.ndarray  # (S,) int32, t - T//S (may be < 0)
+    num_inference_steps: int = 0
+    clip_sample: bool = False
+    clip_sample_range: float = 1.0
+    prediction_type: str = "epsilon"
+
+    def _acp_prev(self, prev_t: int) -> np.float32:
+        return self.alphas_cumprod[prev_t] if prev_t >= 0 else np.float32(1.0)
+
+    def pred_original(self, model_out: torch.Tensor, t: int, x_t: torch.Tensor) -> torch.Tensor:
+        """x̂0 from the model output at integer t, in fp32."""
+        acp = self.alphas_cumprod[t]
+        x32, o32 = x_t.float(), model_out.float()
+        if self.prediction_type == "epsilon":
+            x0 = (x32 - float(np.sqrt(np.float32(1.0) - acp)) * o32) / float(np.sqrt(acp))
+        elif self.prediction_type == "v_prediction":
+            x0 = float(np.sqrt(acp)) * x32 - float(np.sqrt(np.float32(1.0) - acp)) * o32
+        elif self.prediction_type == "sample":
+            x0 = o32
+        else:
+            raise ValueError(self.prediction_type)
+        if self.clip_sample:
+            x0 = x0.clamp(-self.clip_sample_range, self.clip_sample_range)
+        return x0
+
+    def variance(self, t: int, prev_t: int) -> np.float32:
+        """fixed_small posterior variance, floored at 1e-20 (schedulers.py:174-180)."""
+        acp_t = self.alphas_cumprod[t]
+        acp_prev = self._acp_prev(prev_t)
+        beta_t = np.float32(1.0) - acp_t / acp_prev
+        var = (np.float32(1.0) - acp_prev) / (np.float32(1.0) - acp_t) * beta_t
+        return np.maximum(var, np.float32(1e-20))
+
+    def step(self, model_out: torch.Tensor, step_index: int, x_t: torch.Tensor,
+             noise: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One reverse step x_t → x_{t-1} at `timesteps[step_index]`
+        (schedulers.py:182-212); `noise` is pre-drawn N(0, 1) of x_t's shape.
+        Returns (x_prev in x_t's dtype, x̂0 in fp32)."""
+        t = int(self.timesteps[step_index])
+        prev_t = int(self.prev_timesteps[step_index])
+        x0 = self.pred_original(model_out, t, x_t)
+        acp_t = self.alphas_cumprod[t]
+        acp_prev = self._acp_prev(prev_t)
+        beta_prod_t = np.float32(1.0) - acp_t
+        alpha_t = acp_t / acp_prev
+        beta_t = np.float32(1.0) - alpha_t
+        x0_coef = (np.sqrt(acp_prev) * beta_t) / beta_prod_t
+        xt_coef = np.sqrt(alpha_t) * (np.float32(1.0) - acp_prev) / beta_prod_t
+        mean = float(x0_coef) * x0 + float(xt_coef) * x_t.float()
+        if t > 0:
+            mean = mean + float(np.sqrt(self.variance(t, prev_t))) * noise.float()
+        return mean.to(x_t.dtype), x0
+
+
+def make_ddpm(cfg: SchedulerConfig = SchedulerConfig(),
+              num_inference_steps: Optional[int] = None) -> DDPMSchedule:
+    betas = _make_betas(cfg)
+    acp = np.cumprod(1.0 - betas)
+    if num_inference_steps:
+        ts = inference_timesteps(cfg, num_inference_steps)
+        prev = ts - cfg.num_train_timesteps // num_inference_steps  # schedulers.py:224
+        S = num_inference_steps
+    else:
+        ts = np.arange(cfg.num_train_timesteps)[::-1]
+        prev = ts - 1
+        S = 0
+    return DDPMSchedule(
+        betas=betas.astype(np.float32),
+        alphas_cumprod=acp.astype(np.float32),
+        timesteps=ts.astype(np.int32),
+        prev_timesteps=prev.astype(np.int32),
+        num_inference_steps=S,
+        clip_sample=cfg.clip_sample,
+        clip_sample_range=cfg.clip_sample_range,
+        prediction_type=cfg.prediction_type,
+    )

@@ -1,0 +1,321 @@
+"""SD2.1 UNet2DCondition (port of `faceposegenerator_tpu/models/unet2d.py`).
+
+NHWC at the boundary, as in the JAX package; each conv sees the
+channels_last NCHW view of its NHWC input. The module tree follows the JAX
+param tree key for key (`init`, unet2d.py:178), so `bridge.jax_params`
+loads a JAX tree by walking it, and `init_lora` returns the layout of JAX
+`init_lora` (unet2d.py:244-272). Every attention goes through
+`ops.attention.dot_product_attention`: kernel K1 on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..core.device import resolve_device
+from ..core.precision import DEFAULT_POLICY, Policy
+from ..ops.attention import dot_product_attention
+from ..ops.lora import lora_delta, lora_dense
+from ..ops.norms import group_norm, layer_norm
+from .layers import Affine, conv2d, materialize
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Sequence[int] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 1024
+    head_dim: int = 64
+    norm_groups: int = 32
+    down_block_has_attn: Sequence[bool] = (True, True, True, False)
+    transformer_layers: int = 1
+    freq_shift: int = 0
+    flip_sin_to_cos: bool = True
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+SD21_UNET_CONFIG = UNetConfig()
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, flip_sin_to_cos: bool, freq_shift: float,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal timestep features, diffusers `Timesteps` semantics (unet2d.py:88-95)."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device)
+    exponent = exponent / (half - freq_shift)
+    emb = t.float()[:, None] * torch.exp(exponent)[None, :]
+    sin, cos = torch.sin(emb), torch.cos(emb)
+    return torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+
+
+def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
+    """NHWC nearest-neighbour ×2 (`jnp.repeat` on H then W)."""
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+
+
+class ResBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, temb_dim: int):
+        super().__init__()
+        self.norm1 = Affine(cin)
+        self.conv1 = nn.Conv2d(cin, cout, 3)
+        self.time_emb_proj = nn.Linear(temb_dim, cout)
+        self.norm2 = Affine(cout)
+        self.conv2 = nn.Conv2d(cout, cout, 3)
+        self.conv_shortcut = nn.Conv2d(cin, cout, 1) if cin != cout else None
+
+    def forward(self, x, temb, num_groups: int):
+        # GN eps 1e-5 in resblocks (unet2d.py:297)
+        h = conv2d(group_norm(x, self.norm1.weight, self.norm1.bias, num_groups, 1e-5, "silu"), self.conv1)
+        t = lora_dense(F.silu(temb), self.time_emb_proj.weight, self.time_emb_proj.bias)
+        h = h + t[:, None, None, :].to(h.dtype)
+        h = conv2d(group_norm(h, self.norm2.weight, self.norm2.bias, num_groups, 1e-5, "silu"), self.conv2)
+        if self.conv_shortcut is not None:
+            x = conv2d(x, self.conv_shortcut, padding=0)
+        return x + h
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, ctx_dim: int):
+        super().__init__()
+        self.q = nn.Linear(dim, dim, bias=False)
+        self.k = nn.Linear(ctx_dim, dim, bias=False)
+        self.v = nn.Linear(ctx_dim, dim, bias=False)
+        self.out = nn.Linear(dim, dim)
+
+    def forward(self, x, ctx, head_dim: int, lora=None, lora_scale: float = 1.0,
+                attn_impl: str = "auto", kv_len: Optional[int] = None):
+        """x: (B, S, C) queries; ctx: (B, Skv, Cctx). Self-attention (ctx is
+        x) runs the q/k/v projections as one GEMM (unet2d.py:331-355); the
+        q/k/v views of its output go to the kernel without a copy."""
+        b, s, c = x.shape
+        nh = c // head_dim
+
+        def proj(name, inp):
+            layer = getattr(self, name)
+            la = None if lora is None else lora.get(name)
+            return lora_dense(
+                inp, layer.weight, layer.bias,
+                lora_a=None if la is None else la["a"],
+                lora_b=None if la is None else la["b"], scale=lora_scale,
+            )
+
+        if ctx is x:
+            wqkv = torch.cat([self.q.weight, self.k.weight, self.v.weight], dim=0)
+            q, k, v = F.linear(x, wqkv.to(x.dtype)).split(c, dim=-1)
+            for name, view in (("q", q), ("k", k), ("v", v)):
+                la = None if lora is None else lora.get(name)
+                if la is not None:  # in place: the views stay views of one buffer
+                    view.add_(lora_delta(x, la["a"], la["b"]), alpha=lora_scale)
+            skv = s
+        else:
+            q, k, v = proj("q", x), proj("k", ctx), proj("v", ctx)
+            skv = ctx.shape[1]
+        q = q.reshape(b, s, nh, head_dim)
+        k = k.reshape(b, skv, nh, head_dim)
+        v = v.reshape(b, skv, nh, head_dim)
+        o = dot_product_attention(q, k, v, impl=attn_impl, kv_len=kv_len).reshape(b, s, c)
+        return proj("out", o)
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim: int, ctx_dim: int):
+        super().__init__()
+        self.ln1 = Affine(dim)
+        self.attn1 = Attention(dim, dim)
+        self.ln2 = Affine(dim)
+        self.attn2 = Attention(dim, ctx_dim)
+        self.ln3 = Affine(dim)
+        self.ff_in = nn.Linear(dim, dim * 8)  # GEGLU: 2 × 4·dim
+        self.ff_out = nn.Linear(dim * 4, dim)
+
+
+class Transformer2D(nn.Module):
+    def __init__(self, cfg: UNetConfig, dim: int):
+        super().__init__()
+        self.norm = Affine(dim)
+        self.proj_in = nn.Linear(dim, dim)
+        self.proj_out = nn.Linear(dim, dim)
+        self.blocks = nn.ModuleList(
+            BasicTransformerBlock(dim, cfg.cross_attention_dim) for _ in range(cfg.transformer_layers)
+        )
+
+    def forward(self, x, ctx, cfg: UNetConfig, lora=None, lora_scale=1.0, attn_impl="auto", ctx_len=None):
+        b, hh, ww, c = x.shape
+        res = x
+        # GN eps 1e-6 in transformers (unet2d.py:381)
+        h = group_norm(x, self.norm.weight, self.norm.bias, cfg.norm_groups, 1e-6).reshape(b, hh * ww, c)
+        h = lora_dense(h, self.proj_in.weight, self.proj_in.bias)
+        for i, blk in enumerate(self.blocks):
+            blora = None if lora is None else lora["blocks"][i]
+            hn = layer_norm(h, blk.ln1.weight, blk.ln1.bias)
+            h = h + blk.attn1(hn, hn, cfg.head_dim, None if blora is None else blora["attn1"],
+                              lora_scale, attn_impl)
+            hn = layer_norm(h, blk.ln2.weight, blk.ln2.bias)
+            h = h + blk.attn2(hn, ctx, cfg.head_dim, None if blora is None else blora["attn2"],
+                              lora_scale, attn_impl, kv_len=ctx_len)
+            hn = layer_norm(h, blk.ln3.weight, blk.ln3.bias)
+            val, gate = lora_dense(hn, blk.ff_in.weight, blk.ff_in.bias).chunk(2, dim=-1)
+            h = h + lora_dense(val * F.gelu(gate), blk.ff_out.weight, blk.ff_out.bias)
+        h = lora_dense(h, self.proj_out.weight, self.proj_out.bias)
+        return res + h.reshape(b, hh, ww, c)
+
+
+class UNetBlock(nn.Module):
+    """A down block (`downsample`) or an up block (`upsample`)."""
+
+    def __init__(self, resnets, attentions, resample: Optional[nn.Conv2d], resample_name: str):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        self.attentions = None if attentions is None else nn.ModuleList(attentions)
+        setattr(self, resample_name, resample)
+
+
+class MidBlock(nn.Module):
+    def __init__(self, cfg: UNetConfig, c: int, temb: int):
+        super().__init__()
+        self.resnets = nn.ModuleList([ResBlock(c, c, temb), ResBlock(c, c, temb)])
+        self.attentions = nn.ModuleList([Transformer2D(cfg, c)])
+
+
+class TimeEmbedding(nn.Module):
+    def __init__(self, cin: int, temb: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(cin, temb)
+        self.linear_2 = nn.Linear(temb, temb)
+
+
+class UNet2DCondition(nn.Module):
+    """ε-prediction UNet; `forward` ports `unet2d.apply` (unet2d.py:448)."""
+
+    def __init__(self, cfg: UNetConfig = SD21_UNET_CONFIG, *, device=None,
+                 dtype: torch.dtype = torch.float32, seed: int = 0):
+        device = resolve_device(device)
+        super().__init__()
+        self.cfg = cfg
+        C = list(cfg.block_out_channels)
+        temb = cfg.time_embed_dim
+        with torch.device("meta"):
+            self.conv_in = nn.Conv2d(cfg.in_channels, C[0], 3)
+            self.time_embedding = TimeEmbedding(C[0], temb)
+            down, cin = [], C[0]
+            for lvl, cout in enumerate(C):
+                has_attn = cfg.down_block_has_attn[lvl]
+                resnets = [ResBlock(cin if j == 0 else cout, cout, temb) for j in range(cfg.layers_per_block)]
+                attns = [Transformer2D(cfg, cout) for _ in resnets] if has_attn else None
+                ds = None if lvl == len(C) - 1 else nn.Conv2d(cout, cout, 3)
+                down.append(UNetBlock(resnets, attns, ds, "downsample"))
+                cin = cout
+            self.down_blocks = nn.ModuleList(down)
+            self.mid_block = MidBlock(cfg, C[-1], temb)
+            rev = list(reversed(C))
+            has_attn_rev = list(reversed(cfg.down_block_has_attn))
+            up, prev_out = [], C[-1]
+            for lvl, cout in enumerate(rev):
+                resnets = []
+                for j in range(cfg.layers_per_block + 1):
+                    res_skip = rev[min(lvl + 1, len(rev) - 1)] if j == cfg.layers_per_block else cout
+                    rin = prev_out if j == 0 else cout
+                    resnets.append(ResBlock(rin + res_skip, cout, temb))
+                attns = [Transformer2D(cfg, cout) for _ in resnets] if has_attn_rev[lvl] else None
+                us = None if lvl == len(rev) - 1 else nn.Conv2d(cout, cout, 3)
+                up.append(UNetBlock(resnets, attns, us, "upsample"))
+                prev_out = cout
+            self.up_blocks = nn.ModuleList(up)
+            self.conv_norm_out = Affine(C[0])
+            self.conv_out = nn.Conv2d(C[0], cfg.out_channels, 3)
+        materialize(self, device, dtype, torch.Generator(device=device).manual_seed(seed))
+
+    def forward(self, latents, timesteps, encoder_hidden_states, policy: Policy = DEFAULT_POLICY,
+                lora: Optional[dict] = None, lora_scale: float = 1.0, attn_impl: str = "auto",
+                ctx_len: Optional[int] = None) -> torch.Tensor:
+        """latents (B, H, W, 4) NHWC, timesteps (B,) or a scalar,
+        encoder_hidden_states (B, 77, Cctx) → ε̂ (B, H, W, 4) in fp32."""
+        cfg = self.cfg
+        x = latents.to(policy.compute_dtype)
+        ctx = encoder_hidden_states.to(policy.compute_dtype)
+        t = torch.as_tensor(timesteps, device=x.device)
+        if t.dim() == 0:
+            t = t.expand(x.shape[0])
+        temb = timestep_embedding(t, cfg.block_out_channels[0], cfg.flip_sin_to_cos, cfg.freq_shift)
+        temb = temb.to(policy.compute_dtype)
+        te = self.time_embedding
+        temb = lora_dense(temb, te.linear_1.weight, te.linear_1.bias)
+        temb = lora_dense(F.silu(temb), te.linear_2.weight, te.linear_2.bias)
+        G = cfg.norm_groups
+
+        def transformer(tr, h, tlora):
+            return tr(h, ctx, cfg, tlora, lora_scale, attn_impl, ctx_len)
+
+        x = conv2d(x, self.conv_in)
+        skips = [x]
+        for bi, block in enumerate(self.down_blocks):
+            blora = None if lora is None else lora["down_blocks"][bi]
+            for j, rb in enumerate(block.resnets):
+                x = rb(x, temb, G)
+                if block.attentions is not None:
+                    x = transformer(block.attentions[j], x, None if blora is None else blora["attentions"][j])
+                skips.append(x)
+            if block.downsample is not None:
+                x = conv2d(x, block.downsample, stride=2, padding=1)
+                skips.append(x)
+
+        mid = self.mid_block
+        mlora = None if lora is None else lora["mid_block"]
+        x = mid.resnets[0](x, temb, G)
+        x = transformer(mid.attentions[0], x, None if mlora is None else mlora["attentions"][0])
+        x = mid.resnets[1](x, temb, G)
+
+        for bi, block in enumerate(self.up_blocks):
+            blora = None if lora is None else lora["up_blocks"][bi]
+            for j, rb in enumerate(block.resnets):
+                # skip concat order [x, skip] (unet2d.py:535)
+                x = rb(torch.cat([x, skips.pop().to(x.dtype)], dim=-1), temb, G)
+                if block.attentions is not None:
+                    x = transformer(block.attentions[j], x, None if blora is None else blora["attentions"][j])
+            if block.upsample is not None:
+                x = conv2d(upsample_nearest2x(x), block.upsample)
+
+        x = group_norm(x, self.conv_norm_out.weight, self.conv_norm_out.bias, G, 1e-5, "silu")
+        return conv2d(x, self.conv_out).float()
+
+
+def init_lora(unet: UNet2DCondition, rank: int = 4, *, generator: Optional[torch.Generator] = None,
+              dtype: torch.dtype = torch.float32, targets=("q", "k", "v", "out")) -> dict:
+    """Gaussian-A / zero-B LoRA pairs for every attention projection, in the
+    tree layout of JAX `init_lora` (unet2d.py:244-272): A (r, in) ~ N(0,1)/r,
+    B (out, r) = 0. Tensors on the UNet's device."""
+    device = unet.conv_in.weight.device
+
+    def attn_lora(attn: Attention):
+        out = {}
+        for name in targets:
+            w = getattr(attn, name).weight
+            a = torch.randn(rank, w.shape[1], generator=generator, device=device, dtype=torch.float32) / rank
+            out[name] = {"a": a.to(dtype), "b": torch.zeros(w.shape[0], rank, device=device, dtype=dtype)}
+        return out
+
+    def block_lora(block):
+        if block.attentions is None:
+            return {"attentions": None}
+        return {"attentions": [
+            {"blocks": [{"attn1": attn_lora(b.attn1), "attn2": attn_lora(b.attn2)} for b in tr.blocks]}
+            for tr in block.attentions
+        ]}
+
+    return {
+        "down_blocks": [block_lora(b) for b in unet.down_blocks],
+        "mid_block": block_lora(unet.mid_block),
+        "up_blocks": [block_lora(b) for b in unet.up_blocks],
+    }

@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels (`csrc/*.cu`).
+
+Each source compiles with `nvcc` into its own shared library with a plain C
+interface under `build/kernels/` at the repository root, named by a hash of
+the source and the flags, so an edited source rebuilds and an unchanged one
+is reused. The library is loaded with `ctypes`. Nothing here runs at import
+time: the first kernel launch builds what it needs, and `build_all` builds
+every source at once (one `nvcc` process per source, started together).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return nvcc
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for `csrc/<name>.cu` unless its library exists. Returns
+    (target, job) where job is None or (process, temporary output)."""
+    target = _target(name)
+    if target.exists():
+        return target, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    with open(target.with_suffix(".log"), "w") as log:
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=log, stderr=subprocess.STDOUT,
+        )
+    return target, (proc, tmp)
+
+
+def _finish(name: str, target: Path, job) -> None:
+    if job is None:
+        return
+    proc, tmp = job
+    rc = proc.wait()
+    if rc != 0:
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu (exit {rc}):\n" + target.with_suffix(".log").read_text()
+        )
+    os.replace(tmp, target)
+
+
+def build_all() -> dict[str, Path]:
+    """Build every `csrc/*.cu` in parallel; returns {name: library path}."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    started = {n: _start(n) for n in names}
+    for n, (target, job) in started.items():
+        _finish(n, target, job)
+    return {n: t for n, (t, _) in started.items()}
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas register and spill report) for a built source."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        target, job = _start(name)
+        _finish(name, target, job)
+        lib = _loaded[name] = ctypes.CDLL(str(target))
+    return lib

@@ -1,0 +1,41 @@
+"""Scaled dot-product attention in (B, S, H, D) layout (port of
+`faceposegenerator_tpu/ops/attention.py:23-75`).
+
+`impl="reference"` is the plain einsum with fp32 softmax. `"auto"` and
+`"flash"` send CUDA tensors to a hand-written kernel (head dim 64 → K1,
+head dim % 128 == 0 → K2) and raise for shapes or dtypes no kernel takes;
+CPU tensors take the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .flash_attention import attention_plain, flash_fwd_d64, flash_fwd_wide
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    kv_len: Optional[int] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Non-causal multi-head attention; q: (B, Sq, H, D), k/v: (B, Skv, H, D).
+    `kv_len` excludes keys at positions >= kv_len."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if impl == "reference":
+        return attention_plain(q, k, v, scale, kv_len)
+    if impl not in ("auto", "flash"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    d = q.shape[-1]
+    if d == 64:
+        return flash_fwd_d64(q, k, v, scale, kv_len)
+    if d % 128 == 0 or not q.is_cuda:
+        return flash_fwd_wide(q, k, v, scale, kv_len)
+    raise ValueError(f"no attention kernel takes head dim {d}; use impl='reference'")

@@ -1,0 +1,35 @@
+"""LoRA projection ops (port of `faceposegenerator_tpu/ops/lora.py:23-78`).
+
+LoRA stays factored: y = x·Wᵀ + b + scale·(x·Aᵀ)·Bᵀ with A: (r, in) and
+B: (out, r), one adapter shared by the whole batch. Per-sample adapters
+(B, r, in) wait for the serving slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def lora_delta(x: torch.Tensor, lora_a: torch.Tensor, lora_b: torch.Tensor) -> torch.Tensor:
+    """Unscaled (x·Aᵀ)·Bᵀ in x's dtype (fp32 accumulation inside each matmul)."""
+    return F.linear(F.linear(x, lora_a.to(x.dtype)), lora_b.to(x.dtype))
+
+
+def lora_dense(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    lora_a: Optional[torch.Tensor] = None,
+    lora_b: Optional[torch.Tensor] = None,
+    scale: float = 1.0,
+) -> torch.Tensor:
+    """Dense layer, w: (out, in) torch-Linear orientation, with an optional
+    factored LoRA delta. The bias rides the matmul's epilogue; the delta is
+    added in place, so the layer costs one pass over its output."""
+    y = F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+    if lora_a is not None and lora_b is not None:
+        y.add_(lora_delta(x, lora_a, lora_b), alpha=scale)
+    return y

@@ -1,0 +1,47 @@
+"""Normalisation ops with fp32 statistics (port of
+`faceposegenerator_tpu/ops/norms.py:17,78`).
+
+Layout is channels-last (N, ..., C), as in the JAX package. On this slice
+these are plain torch, as the JAX main path leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def group_norm(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    num_groups: int = 32,
+    eps: float = 1e-6,
+    act: Optional[str] = None,
+) -> torch.Tensor:
+    """GroupNorm over (N, ..., C) with optional fused SiLU; statistics and
+    the affine in fp32, output in x's dtype. As in the JAX twin, the
+    statistics fold with gamma/beta into a per-(image, channel) scale and
+    shift, so the normalisation is one fused multiply-add pass."""
+    if act not in (None, "silu"):
+        raise ValueError(act)
+    n, c = x.shape[0], x.shape[-1]
+    cg = c // num_groups
+    xg = x.reshape(n, -1, num_groups, cg)
+    var, mean = torch.var_mean(xg.float(), dim=(1, 3), keepdim=True, correction=0)
+    scale = torch.rsqrt(var + eps) * gamma.float().reshape(num_groups, cg)
+    shift = beta.float().reshape(num_groups, cg) - mean * scale
+    out = torch.addcmul(shift, xg, scale)  # fp32 result from x in its own dtype
+    if act == "silu":
+        F.silu(out, inplace=True)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def layer_norm(
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """LayerNorm over the last axis, output in x's dtype; the kernel keeps
+    its statistics and affine in fp32 whatever x's dtype."""
+    return F.layer_norm(x, (x.shape[-1],), gamma.to(x.dtype), beta.to(x.dtype), eps)

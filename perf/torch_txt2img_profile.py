@@ -1,0 +1,96 @@
+"""Where one txt2img request of the PyTorch port spends its device time.
+
+    python3 perf/torch_txt2img_profile.py
+
+Builds the pipeline as chip_smoke.py does (SD2.1-base widths, bf16, random
+weights, rank-4 UNet LoRA), serves one warm-up request at batch 8, 512², 30
+DDPM steps, CFG 5.0, then traces one more with torch.profiler. Prints the
+request's wall time, the device's busy and idle share, device time by
+category of kernel and the top kernels, and writes the full table to
+chiprun_out/torch_txt2img_profile.txt. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+CATEGORIES = [  # first match wins; matched against the kernel's name
+    ("attention K1 (flash_fwd_d64)", r"flash_fwd_d64"),
+    ("attention K2 (flash_fwd_wide)", r"flash_fwd_wide"),
+    ("convolution", r"conv|fprop|implicit|winograd|nchw|nhwc"),
+    ("matmul", r"gemm|cutlass|xmma|sm90_|matmul|cublas|nvjet"),
+    ("normalisation and softmax", r"norm|welford|softmax|reduce"),
+    ("elementwise, copies, concat", r"elementwise|vectorized|copy|cat|index|fill|unrolled|gelu|silu"),
+]
+
+
+def main() -> int:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("FAIL: needs a CUDA card", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    pipe = StableDiffusionPipeline.from_random(seed=0, dtype=torch.bfloat16)
+    pipe.set_lora(chip_smoke.make_lora(pipe.nets["unet"], 10, torch))
+    ids = torch.randint(0, 49408, (8, 77), generator=torch.Generator().manual_seed(1))
+
+    def request(seed):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pipe(input_ids=ids, num_inference_steps=30, guidance_scale=5.0, height=512, width=512, seed=seed)
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    warm = request(0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = request(1)
+
+    by_kernel = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] += e.time_range.elapsed_us() / 1e3
+    busy = sum(by_kernel.values())
+    if busy == 0:
+        print("FAIL: the profiler saw no device time", file=sys.stderr)
+        return 1
+    by_cat = defaultdict(float)
+    for name, ms in by_kernel.items():
+        cat = next((c for c, rx in CATEGORIES if re.search(rx, name, re.I)), "other")
+        by_cat[cat] += ms
+    wall_ms = 1e3 * wall
+    print(f"request: warm-up {warm:.3f} s, profiled {wall:.3f} s; device busy {busy:.1f} ms = "
+          f"{100 * busy / wall_ms:.1f}% of wall, idle {100 * (1 - busy / wall_ms):.1f}% ({card})")
+    for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+        print(f"  {cat:32s} {ms:9.1f} ms  {100 * ms / busy:5.1f}% of device time")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+    print("top kernels:")
+    for name, ms in top[:15]:
+        print(f"  {ms:9.1f} ms  {name[:110]}")
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "torch_txt2img_profile.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    print(json.dumps({"card": card, "wall_ms": wall_ms, "device_busy_ms": busy,
+                      "idle_share": 1 - busy / wall_ms, "by_category_ms": dict(by_cat)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,108 @@
+"""Rules the PyTorch port keeps: it never imports JAX or the JAX package,
+its entry points do not fall back to the CPU, CPU tensors never count as
+kernel launches, and its modules import without a CUDA toolkit."""
+
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import faceposegenerator_tpu_torch as port
+from faceposegenerator_tpu_torch.ops import flash_attention as fa
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_DIR = Path(port.__file__).parent
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages([str(PORT_DIR)], prefix="faceposegenerator_tpu_torch."))
+
+
+def _run(code: str, env_extra=None, cwd=REPO):
+    env = dict(os.environ, PYTHONPATH=str(REPO), **(env_extra or {}))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    mods = _port_modules() + ["chip_smoke"]
+    assert "faceposegenerator_tpu_torch.pipelines.txt2img" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'faceposegenerator_tpu' or m.startswith('faceposegenerator_tpu.')]\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = _run(code)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_sources_use_no_library_attention_or_compile():
+    """No port module imports JAX or the JAX package, or calls
+    `scaled_dot_product_attention` or `torch.compile` (chip_smoke.py times
+    the former as a yardstick only)."""
+    for path in PORT_DIR.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            where = f"{path.relative_to(REPO)}:{getattr(node, 'lineno', '?')}"
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                roots = [(node.module or "").split(".")[0]] if node.level == 0 else []
+            else:
+                roots = []
+            assert not {"jax", "faceposegenerator_tpu"} & set(roots), where
+            if isinstance(node, ast.Attribute):
+                assert node.attr != "scaled_dot_product_attention", where
+                assert not (node.attr == "compile" and isinstance(node.value, ast.Name)
+                            and node.value.id == "torch"), where
+
+
+def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+    from faceposegenerator_tpu_torch.models.unet2d import UNet2DCondition
+    from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StableDiffusionPipeline.from_random()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        UNet2DCondition()
+
+
+def test_cpu_tensors_never_count_launches():
+    from faceposegenerator_tpu_torch.ops.attention import dot_product_attention
+
+    fa.reset_launch_counts()
+    q = torch.randn(1, 64, 2, 64)
+    fa.flash_fwd_d64(q, q, q, 0.125)
+    w = torch.randn(1, 32, 1, 512)
+    fa.flash_fwd_wide(w, w, w, 512**-0.5)
+    dot_product_attention(q, q, q, kv_len=7)
+    assert fa.LAUNCHES == {"flash_fwd_d64": 0, "flash_fwd_wide": 0}
+
+
+def test_kernel_module_imports_without_nvcc():
+    r = _run(
+        "import faceposegenerator_tpu_torch.ops.flash_attention as fa, "
+        "faceposegenerator_tpu_torch.ops._build as b; "
+        "assert not b._loaded; print(sorted(fa.LAUNCHES))",
+        env_extra={"PATH": "/nonexistent", "CUDA_HOME": "/nonexistent"},
+    )
+    assert r.returncode == 0, r.stderr
+    assert "flash_fwd_d64" in r.stdout
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    for cwd in (REPO, tmp_path):
+        r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True, text=True,
+                           timeout=300, env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+        assert r.returncode != 0
+        assert '"ok": true' not in r.stdout
