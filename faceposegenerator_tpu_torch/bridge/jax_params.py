@@ -1,17 +1,19 @@
 """Carry weights from the JAX package's param trees into the port.
 
-`load_jax_params(module, tree)` takes a JAX param pytree as nested
-dicts/lists of numpy arrays (what `jax.tree.map(np.asarray, params)` gives)
-and fills the port module whose attributes follow the same keys:
+`load_jax_params(module, tree, state=None)` takes a JAX param pytree as
+nested dicts/lists of numpy arrays (what `jax.tree.map(np.asarray, params)`
+gives) and fills the port module whose attributes follow the same keys:
 
   conv "w" (HWIO) → weight (OIHW);  dense "w" (out, in) → weight;
-  norm "g" → weight;  "b" → bias;   a bare array → the parameter of that name.
+  norm "g" → weight;  "b" → bias;   a bare array → the parameter of that name;
+  any other key of a dict of arrays (BatchNorm's "mean", "var") → the
+  parameter of that name.
 
-It is strict: a shape that differs, a key the module lacks, or a parameter
-the tree leaves unfilled raises. Keys a module lists in `_jax_unported`
-(the VAE's encoding half) are skipped. `jax_tree_to_torch` carries a JAX
-`init_lora` tree into the port's LoRA tree. No JAX is imported: this walks
-dicts.
+`state` (IResNet's BatchNorm running statistics) is merged into the tree
+key by key first. It is strict: a shape that differs, a key the module
+lacks, or a parameter the tree leaves unfilled raises. `jax_tree_to_torch`
+carries a JAX `init_lora` tree into the port's LoRA tree. No JAX is
+imported: this walks dicts.
 """
 
 from __future__ import annotations
@@ -42,8 +44,9 @@ def _copy(param: nn.Parameter, arr, path: str, filled: set) -> None:
 
 
 def _is_leaf(node: dict) -> bool:
-    """A {"w"/"g", "b"} dict of arrays: one layer's parameters."""
-    return bool(node) and set(node) <= set(_LEAF_NAMES) and all(hasattr(v, "__array__") for v in node.values())
+    """A dict of arrays ({"w"/"g", "b"}, BatchNorm's {"g", "b", "mean",
+    "var"}): one layer's parameters."""
+    return bool(node) and all(hasattr(v, "__array__") for v in node.values())
 
 
 def _walk(mod, node, path: str, filled: set) -> None:
@@ -59,13 +62,13 @@ def _walk(mod, node, path: str, filled: set) -> None:
         return
     if isinstance(node, dict) and _is_leaf(node):
         for key, arr in node.items():
-            _copy(getattr(mod, _LEAF_NAMES[key]), arr, f"{path}.{key}", filled)
+            name = _LEAF_NAMES.get(key, key)
+            if not isinstance(getattr(mod, name, None), nn.Parameter):
+                raise KeyError(f"{path}.{key}: the module has no parameter {name!r}")
+            _copy(getattr(mod, name), arr, f"{path}.{key}", filled)
         return
     if isinstance(node, dict):
-        skip = getattr(mod, "_jax_unported", ())
         for key, sub in node.items():
-            if key in skip:
-                continue
             if not hasattr(mod, key):
                 raise KeyError(f"{path}.{key}: the module has no such attribute")
             child = getattr(mod, key)
@@ -77,8 +80,23 @@ def _walk(mod, node, path: str, filled: set) -> None:
     raise TypeError(f"{path}: unexpected tree node {type(node).__name__}")
 
 
-def load_jax_params(module: nn.Module, tree) -> nn.Module:
-    """Fill every parameter of `module` from the JAX param tree `tree`."""
+def _merge(tree, state, path: str):
+    if state is None:
+        return tree
+    if isinstance(tree, dict) and isinstance(state, dict):
+        out = dict(tree)
+        for key, sub in state.items():
+            out[key] = _merge(tree.get(key), sub, f"{path}.{key}") if key in tree else sub
+        return out
+    if isinstance(tree, (list, tuple)) and isinstance(state, (list, tuple)) and len(tree) == len(state):
+        return [_merge(a, b, f"{path}.{i}") for i, (a, b) in enumerate(zip(tree, state))]
+    raise ValueError(f"{path}: the state does not follow the param tree")
+
+
+def load_jax_params(module: nn.Module, tree, state=None) -> nn.Module:
+    """Fill every parameter of `module` from the JAX param tree `tree` (and
+    the state tree `state`, merged into it)."""
+    tree = _merge(tree, state, type(module).__name__)
     filled: set = set()
     _walk(module, tree, type(module).__name__, filled)
     missing = [n for n, p in module.named_parameters() if id(p) not in filled]

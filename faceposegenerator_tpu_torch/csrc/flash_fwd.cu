@@ -40,70 +40,17 @@
 //   * Loop bounds stop at kv_end, so masked tiles are never loaded; the
 //     ragged last tile is zero-filled and its columns masked to -inf before
 //     the row max.
+//   * For training both kernels also write each row's log-sum-exp (natural
+//     log, scaled logits; `save_lse` in the JAX package) when given a
+//     buffer for it: one fp32 per query row, from the statistics they keep
+//     anyway. flash_bwd.cu recomputes the normalised p from it.
 //
 // Plain C interface, loaded with ctypes. Every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-// 2^x on the special-function unit (ex2(-inf) = 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// two consecutive bf16 (lower index in the low half)
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 `stride` elements apart (lower index in the low half)
-__device__ __forceinline__ uint32_t ld_strided_pair(const bf16* p, int stride) {
-  const uint16_t* u = reinterpret_cast<const uint16_t*>(p);
-  return static_cast<uint32_t>(u[0]) | (static_cast<uint32_t>(u[stride]) << 16);
-}
-
-// Copy rows [row0, row0 + ROWS) of a (rows, D) slice with row stride
-// `row_stride` (elements, D contiguous) into shared memory with row stride
-// SST; rows >= nrows are zero-filled. 16-byte vector accesses.
-template <int ROWS, int D, int SST, int NTHREADS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long row_stride,
-                                          int row0, int nrows) {
-  constexpr int CHUNKS = D / 8;
-  for (int c = threadIdx.x; c < ROWS * CHUNKS; c += NTHREADS) {
-    const int r = c / CHUNKS;
-    const int cc = c % CHUNKS;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < nrows) {
-      val = *reinterpret_cast<const uint4*>(src + row * row_stride + cc * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * SST + cc * 8) = val;
-  }
-}
 
 struct Strides {
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
@@ -120,53 +67,11 @@ constexpr int D64_BM = 128, D64_BN = 64, D64_SST = 64 + 8, D64_THREADS = 256;
 // Q tile + two (K, V) tile pairs
 constexpr int D64_SMEM = (D64_BM + 4 * D64_BN) * D64_SST * static_cast<int>(sizeof(bf16));
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16-byte async copy global → shared; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async_16(bf16* dst, const bf16* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Start copying rows [row0, row0 + ROWS) of a (rows, 64) bf16 slice into
-// shared memory (row stride D64_SST); rows >= nrows are zero-filled.
-template <int ROWS>
-__device__ __forceinline__ void cp_tile_d64(bf16* dst, const bf16* src, long long row_stride,
-                                            int row0, int nrows) {
-  for (int c = threadIdx.x; c < ROWS * 8; c += D64_THREADS) {
-    const int r = c >> 3, cc = c & 7, row = row0 + r;
-    const bool live = row < nrows;
-    cp_async_16(dst + r * D64_SST + cc * 8, live ? src + row * row_stride + cc * 8 : src,
-                live ? 16 : 0);
-  }
-}
-
 __global__ void __launch_bounds__(D64_THREADS, 2)
     flash_fwd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Sq,
-                         int kv_end, Strides st, float scale_log2) {
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         float* __restrict__ lse, int H, int Sq, int kv_end, Strides st,
+                         float scale_log2) {
   constexpr int BM = D64_BM, BN = D64_BN, SST = D64_SST, D = 64;
   extern __shared__ __align__(16) unsigned char smem_d64[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_d64);
@@ -182,9 +87,9 @@ __global__ void __launch_bounds__(D64_THREADS, 2)
   bf16* ob = o + b * st.o_b + h * st.o_h;
   const int n_tiles = (kv_end + BN - 1) / BN;
 
-  cp_tile_d64<BM>(sQ, qb, st.q_s, q0, Sq);
-  cp_tile_d64<BN>(sKV, kb, st.k_s, 0, kv_end);
-  cp_tile_d64<BN>(sKV + BN * SST, vb, st.v_s, 0, kv_end);
+  cp_tile_d64<BM, SST, D64_THREADS>(sQ, qb, st.q_s, q0, Sq);
+  cp_tile_d64<BN, SST, D64_THREADS>(sKV, kb, st.k_s, 0, kv_end);
+  cp_tile_d64<BN, SST, D64_THREADS>(sKV + BN * SST, vb, st.v_s, 0, kv_end);
   cp_async_commit();
 
   // ldmatrix lane → row/column offsets within a 16×16 operand block
@@ -199,8 +104,8 @@ __global__ void __launch_bounds__(D64_THREADS, 2)
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 1 < n_tiles) {  // prefetch the next K/V tile into the other buffer
       bf16* nk = sKV + ((j + 1) & 1) * 2 * BN * SST;
-      cp_tile_d64<BN>(nk, kb, st.k_s, (j + 1) * BN, kv_end);
-      cp_tile_d64<BN>(nk + BN * SST, vb, st.v_s, (j + 1) * BN, kv_end);
+      cp_tile_d64<BN, SST, D64_THREADS>(nk, kb, st.k_s, (j + 1) * BN, kv_end);
+      cp_tile_d64<BN, SST, D64_THREADS>(nk + BN * SST, vb, st.v_s, (j + 1) * BN, kv_end);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -312,6 +217,13 @@ __global__ void __launch_bounds__(D64_THREADS, 2)
       *reinterpret_cast<uint32_t*>(ob + row1 * st.o_s + col) =
           pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
   }
+  // natural-log LSE of the scaled logits: the running max is in raw-score
+  // units and the sum in the log2 domain of the ex2 above
+  if (lse != nullptr && t4 == 0) {
+    float* lb = lse + static_cast<long long>(blockIdx.y) * Sq;
+    if (row0 < Sq) lb[row0] = (m0 * scale_log2 + log2f(l0)) * LN2;
+    if (row1 < Sq) lb[row1] = (m1 * scale_log2 + log2f(l1)) * LN2;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -336,8 +248,9 @@ struct WideSmem {
 template <int D>
 __global__ void __launch_bounds__(256)
     flash_fwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o, int H, int Sq,
-                          int kv_end, Strides st, float scale_log2) {
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ lse, int H, int Sq, int kv_end, Strides st,
+                          float scale_log2) {
   using L = WideSmem<D>;
   constexpr int BM = L::BM, BN = L::BN, SST = L::SST, SFS = L::SFS, PST = L::PST, NT = 256;
   constexpr int DW = D / 8;    // output columns per warp
@@ -489,10 +402,13 @@ __global__ void __launch_bounds__(256)
             pack_bf16(acc[mt][dt][2] * inv1, acc[mt][dt][3] * inv1);
     }
   }
+  // statistics are in the log2 domain of the scaled logits
+  if (lse != nullptr && tid < BM && q0 + tid < Sq)
+    lse[static_cast<long long>(blockIdx.y) * Sq + q0 + tid] = (sM[tid] + log2f(sL[tid])) * LN2;
 }
 
 template <int D>
-cudaError_t launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H,
+cudaError_t launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B, int H,
                         int Sq, int kv_end, const Strides& st, float scale_log2,
                         cudaStream_t stream) {
   const size_t bytes = WideSmem<D>::bytes;
@@ -501,7 +417,8 @@ cudaError_t launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, in
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + WideSmem<D>::BM - 1) / WideSmem<D>::BM, B * H);
-  flash_fwd_wide_kernel<D><<<grid, 256, bytes, stream>>>(q, k, v, o, H, Sq, kv_end, st, scale_log2);
+  flash_fwd_wide_kernel<D><<<grid, 256, bytes, stream>>>(q, k, v, o, lse, H, Sq, kv_end, st,
+                                                          scale_log2);
   return cudaGetLastError();
 }
 
@@ -520,8 +437,10 @@ Strides make_strides(int q_b, int q_s, int q_h, int k_b, int k_s, int k_h, int v
 extern "C" {
 
 // q: (B, Sq, H, 64), k/v: (B, Skv, H, 64), o: (B, Sq, H, 64), bf16; strides
-// in elements, head dim contiguous; keys [kv_end, Skv) are excluded.
-int flash_fwd_d64(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
+// in elements, head dim contiguous; keys [kv_end, Skv) are excluded. lse:
+// null, or (B, H, Sq) fp32 contiguous, which receives the natural-log
+// log-sum-exp of each row's scaled logits (what the backward kernels read).
+int flash_fwd_d64(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Sq,
                   int kv_end, int q_b, int q_s, int q_h, int k_b, int k_s, int k_h, int v_b,
                   int v_s, int v_h, int o_b, int o_s, int o_h, float scale, void* stream) {
   static bool smem_set = false;
@@ -535,27 +454,28 @@ int flash_fwd_d64(const void* q, const void* k, const void* v, void* o, int B, i
   dim3 grid((Sq + D64_BM - 1) / D64_BM, B * H);
   flash_fwd_d64_kernel<<<grid, D64_THREADS, D64_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), H, Sq, kv_end, st, scale * 1.4426950408889634f);
+      static_cast<bf16*>(o), static_cast<float*>(lse), H, Sq, kv_end, st, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The same contract for D in {128, 256, 384, 512}.
-int flash_fwd_wide(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq,
+int flash_fwd_wide(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Sq,
                    int kv_end, int D, int q_b, int q_s, int q_h, int k_b, int k_s, int k_h,
                    int v_b, int v_s, int v_h, int o_b, int o_s, int o_h, float scale,
                    void* stream) {
   const Strides st = make_strides(q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h);
-  const float sl2 = scale * 1.4426950408889634f;
+  const float sl2 = scale * LOG2E;
+  float* ll = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* qq = static_cast<const bf16*>(q);
   const bf16* kk = static_cast<const bf16*>(k);
   const bf16* vv = static_cast<const bf16*>(v);
   bf16* oo = static_cast<bf16*>(o);
   switch (D) {
-    case 128: return static_cast<int>(launch_wide<128>(qq, kk, vv, oo, B, H, Sq, kv_end, st, sl2, s));
-    case 256: return static_cast<int>(launch_wide<256>(qq, kk, vv, oo, B, H, Sq, kv_end, st, sl2, s));
-    case 384: return static_cast<int>(launch_wide<384>(qq, kk, vv, oo, B, H, Sq, kv_end, st, sl2, s));
-    case 512: return static_cast<int>(launch_wide<512>(qq, kk, vv, oo, B, H, Sq, kv_end, st, sl2, s));
+    case 128: return static_cast<int>(launch_wide<128>(qq, kk, vv, oo, ll, B, H, Sq, kv_end, st, sl2, s));
+    case 256: return static_cast<int>(launch_wide<256>(qq, kk, vv, oo, ll, B, H, Sq, kv_end, st, sl2, s));
+    case 384: return static_cast<int>(launch_wide<384>(qq, kk, vv, oo, ll, B, H, Sq, kv_end, st, sl2, s));
+    case 512: return static_cast<int>(launch_wide<512>(qq, kk, vv, oo, ll, B, H, Sq, kv_end, st, sl2, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

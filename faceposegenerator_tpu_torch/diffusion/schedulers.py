@@ -3,8 +3,10 @@
 The tables live on the host as fp32 numpy arrays, and the sampler steps with
 Python-int step indices, so every per-step coefficient is a host scalar
 computed in fp32 as the JAX package computes it on the device: a step costs
-the card a few elementwise ops and never a host sync. DPM-Solver++ waits
-for a later slice.
+the card a few elementwise ops and never a host sync. Training draws one
+timestep per sample, so `add_noise` and `pred_original` also take a (B,)
+timestep tensor and gather from the tables on the device. DPM-Solver++
+waits for a later slice.
 
 SD2.1-base `scheduler_config.json` semantics: scaled_linear betas
 0.00085 → 0.012 over 1000 steps, epsilon prediction, "leading" spacing with
@@ -78,17 +80,39 @@ class DDPMSchedule:
     clip_sample_range: float = 1.0
     prediction_type: str = "epsilon"
 
+    @property
+    def num_train_timesteps(self) -> int:
+        return self.betas.shape[0]
+
     def _acp_prev(self, prev_t: int) -> np.float32:
         return self.alphas_cumprod[prev_t] if prev_t >= 0 else np.float32(1.0)
 
-    def pred_original(self, model_out: torch.Tensor, t: int, x_t: torch.Tensor) -> torch.Tensor:
-        """x̂0 from the model output at integer t, in fp32."""
-        acp = self.alphas_cumprod[t]
+    def _acp_per_sample(self, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        """alphas_cumprod[t] for a (B,) timestep tensor, fp32, shaped to
+        broadcast against a (B, ...) tensor of `ndim` dims."""
+        table = torch.from_numpy(self.alphas_cumprod).to(t.device)
+        return table[t.long()].reshape((-1,) + (1,) * (ndim - 1))
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0) at per-sample timesteps t (B,) (schedulers.py:134-140)."""
+        acp = self._acp_per_sample(t, x0.dim()).to(x0.dtype)
+        return torch.sqrt(acp) * x0 + torch.sqrt(1.0 - acp) * noise
+
+    def pred_original(self, model_out: torch.Tensor, t, x_t: torch.Tensor) -> torch.Tensor:
+        """x̂0 from the model output in fp32, at an integer t (the sampler's
+        form, coefficients on the host) or at per-sample timesteps, a (B,)
+        tensor (the train step's form, schedulers.py:149-170)."""
         x32, o32 = x_t.float(), model_out.float()
+        if isinstance(t, torch.Tensor):
+            acp = self._acp_per_sample(t, x_t.dim())
+            sqrt_acp, sqrt_1m = torch.sqrt(acp), torch.sqrt(1.0 - acp)
+        else:
+            acp = self.alphas_cumprod[t]
+            sqrt_acp, sqrt_1m = float(np.sqrt(acp)), float(np.sqrt(np.float32(1.0) - acp))
         if self.prediction_type == "epsilon":
-            x0 = (x32 - float(np.sqrt(np.float32(1.0) - acp)) * o32) / float(np.sqrt(acp))
+            x0 = (x32 - sqrt_1m * o32) / sqrt_acp
         elif self.prediction_type == "v_prediction":
-            x0 = float(np.sqrt(acp)) * x32 - float(np.sqrt(np.float32(1.0) - acp)) * o32
+            x0 = sqrt_acp * x32 - sqrt_1m * o32
         elif self.prediction_type == "sample":
             x0 = o32
         else:

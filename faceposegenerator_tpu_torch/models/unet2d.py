@@ -5,7 +5,8 @@ channels_last NCHW view of its NHWC input. The module tree follows the JAX
 param tree key for key (`init`, unet2d.py:178), so `bridge.jax_params`
 loads a JAX tree by walking it, and `init_lora` returns the layout of JAX
 `init_lora` (unet2d.py:244-272). Every attention goes through
-`ops.attention.dot_product_attention`: kernel K1 on the card.
+`ops.attention.dot_product_attention`: kernel K1 on the card, and K5 for its
+backward when a gradient is taken through the LoRA.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from ..core.precision import DEFAULT_POLICY, Policy
@@ -113,11 +115,17 @@ class Attention(nn.Module):
 
         if ctx is x:
             wqkv = torch.cat([self.q.weight, self.k.weight, self.v.weight], dim=0)
-            q, k, v = F.linear(x, wqkv.to(x.dtype)).split(c, dim=-1)
-            for name, view in (("q", q), ("k", k), ("v", v)):
+            qkv = list(F.linear(x, wqkv.to(x.dtype)).split(c, dim=-1))
+            for i, name in enumerate(("q", "k", "v")):
                 la = None if lora is None else lora.get(name)
-                if la is not None:  # in place: the views stay views of one buffer
-                    view.add_(lora_delta(x, la["a"], la["b"]), alpha=lora_scale)
+                if la is None:
+                    continue
+                delta = lora_delta(x, la["a"], la["b"])
+                if torch.is_grad_enabled():  # autograd refuses in-place ops on split views
+                    qkv[i] = torch.add(qkv[i], delta, alpha=lora_scale)
+                else:  # in place: the views stay views of one buffer
+                    qkv[i].add_(delta, alpha=lora_scale)
+            q, k, v = qkv
             skv = s
         else:
             q, k, v = proj("q", x), proj("k", ctx), proj("v", ctx)
@@ -239,9 +247,12 @@ class UNet2DCondition(nn.Module):
 
     def forward(self, latents, timesteps, encoder_hidden_states, policy: Policy = DEFAULT_POLICY,
                 lora: Optional[dict] = None, lora_scale: float = 1.0, attn_impl: str = "auto",
-                ctx_len: Optional[int] = None) -> torch.Tensor:
+                ctx_len: Optional[int] = None, remat: bool = False) -> torch.Tensor:
         """latents (B, H, W, 4) NHWC, timesteps (B,) or a scalar,
-        encoder_hidden_states (B, 77, Cctx) → ε̂ (B, H, W, 4) in fp32."""
+        encoder_hidden_states (B, 77, Cctx) → ε̂ (B, H, W, 4) in fp32.
+        `remat` (gradient checkpointing) recomputes each down, mid and up
+        unit in the backward instead of keeping its activations, the units
+        `jax.checkpoint` wraps in the JAX twin (unet2d.py:482-533)."""
         cfg = self.cfg
         x = latents.to(policy.compute_dtype)
         ctx = encoder_hidden_states.to(policy.compute_dtype)
@@ -255,35 +266,50 @@ class UNet2DCondition(nn.Module):
         temb = lora_dense(F.silu(temb), te.linear_2.weight, te.linear_2.bias)
         G = cfg.norm_groups
 
-        def transformer(tr, h, tlora):
-            return tr(h, ctx, cfg, tlora, lora_scale, attn_impl, ctx_len)
+        def unit(fn, *args):
+            if remat and torch.is_grad_enabled():
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
+        def level_unit(x, rb, tr, tlora):
+            h = rb(x, temb, G)
+            if tr is not None:
+                h = tr(h, ctx, cfg, tlora, lora_scale, attn_impl, ctx_len)
+            return h
 
         x = conv2d(x, self.conv_in)
         skips = [x]
         for bi, block in enumerate(self.down_blocks):
             blora = None if lora is None else lora["down_blocks"][bi]
             for j, rb in enumerate(block.resnets):
-                x = rb(x, temb, G)
-                if block.attentions is not None:
-                    x = transformer(block.attentions[j], x, None if blora is None else blora["attentions"][j])
+                tr = None if block.attentions is None else block.attentions[j]
+                tlora = None if blora is None or tr is None else blora["attentions"][j]
+                x = unit(level_unit, x, rb, tr, tlora)
                 skips.append(x)
             if block.downsample is not None:
                 x = conv2d(x, block.downsample, stride=2, padding=1)
                 skips.append(x)
 
         mid = self.mid_block
-        mlora = None if lora is None else lora["mid_block"]
-        x = mid.resnets[0](x, temb, G)
-        x = transformer(mid.attentions[0], x, None if mlora is None else mlora["attentions"][0])
-        x = mid.resnets[1](x, temb, G)
+        mlora = None if lora is None else lora["mid_block"]["attentions"][0]
+
+        def mid_unit(x):
+            h = level_unit(x, mid.resnets[0], mid.attentions[0], mlora)
+            return mid.resnets[1](h, temb, G)
+
+        x = unit(mid_unit, x)
 
         for bi, block in enumerate(self.up_blocks):
             blora = None if lora is None else lora["up_blocks"][bi]
             for j, rb in enumerate(block.resnets):
-                # skip concat order [x, skip] (unet2d.py:535)
-                x = rb(torch.cat([x, skips.pop().to(x.dtype)], dim=-1), temb, G)
-                if block.attentions is not None:
-                    x = transformer(block.attentions[j], x, None if blora is None else blora["attentions"][j])
+                tr = None if block.attentions is None else block.attentions[j]
+                tlora = None if blora is None or tr is None else blora["attentions"][j]
+
+                def up_unit(x, skip, rb=rb, tr=tr, tlora=tlora):
+                    # skip concat order [x, skip] (unet2d.py:535)
+                    return level_unit(torch.cat([x, skip.to(x.dtype)], dim=-1), rb, tr, tlora)
+
+                x = unit(up_unit, x, skips.pop())
             if block.upsample is not None:
                 x = conv2d(upsample_nearest2x(x), block.upsample)
 

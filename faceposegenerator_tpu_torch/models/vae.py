@@ -1,10 +1,10 @@
-"""AutoencoderKL decoder (port of `faceposegenerator_tpu/models/vae.py:177-196`).
+"""AutoencoderKL (port of `faceposegenerator_tpu/models/vae.py:145-196`).
 
-Only `decode` is on the sampling path; the encoder (`encode_moments`) waits
-for the training slice, so its JAX params (`encoder`, `quant_conv`) have no
-counterpart here and `bridge.jax_params` skips them. The mid block's
-single-head 512-channel attention goes through `dot_product_attention`:
-kernel K2 on the card.
+`decode` is on the sampling path and, differentiated, in the ID-Booth
+identity branch; `encode_moments` and `sample_latents` start the train step.
+Both mid blocks' single-head 512-channel attention goes through
+`dot_product_attention`: K2 on the card (with the log-sum-exp, and K6 for
+its backward, when a gradient is taken).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..core.precision import DEFAULT_POLICY, Policy
@@ -86,6 +87,29 @@ class VAEUpBlock(nn.Module):
         self.upsample = upsample
 
 
+class VAEDownBlock(nn.Module):
+    def __init__(self, resnets, downsample):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        self.downsample = downsample
+
+
+class VAEEncoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        C = list(cfg.block_out_channels)
+        self.conv_in = nn.Conv2d(cfg.in_channels, C[0], 3)
+        blocks, cin = [], C[0]
+        for lvl, cout in enumerate(C):
+            resnets = [VAEResBlock(cin if j == 0 else cout, cout) for j in range(cfg.layers_per_block)]
+            blocks.append(VAEDownBlock(resnets, nn.Conv2d(cout, cout, 3) if lvl < len(C) - 1 else None))
+            cin = cout
+        self.down_blocks = nn.ModuleList(blocks)
+        self.mid = VAEMid(C[-1])
+        self.norm_out = Affine(C[-1])
+        self.conv_out = nn.Conv2d(C[-1], 2 * cfg.latent_channels, 3)
+
+
 class VAEDecoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
@@ -103,9 +127,7 @@ class VAEDecoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """The decoding half of the SD VAE."""
-
-    _jax_unported = ("encoder", "quant_conv")  # JAX param keys of the encoding half
+    """The SD VAE: `encode_moments`/`sample_latents` and `decode`, NHWC."""
 
     def __init__(self, cfg: VAEConfig = SD_VAE_CONFIG, *, device=None,
                  dtype: torch.dtype = torch.float32, seed: int = 0):
@@ -113,9 +135,39 @@ class AutoencoderKL(nn.Module):
         super().__init__()
         self.cfg = cfg
         with torch.device("meta"):
+            # the decoding half first, so its seeded weights do not depend on the encoder
             self.decoder = VAEDecoder(cfg)
             self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+            self.encoder = VAEEncoder(cfg)
+            self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
         materialize(self, device, dtype, torch.Generator(device=device).manual_seed(seed))
+
+    def encode_moments(self, images: torch.Tensor, policy: Policy = DEFAULT_POLICY,
+                       attn_impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+        """Images (B, H, W, 3) in [-1, 1] → (mean, logvar), each (B, H/8,
+        W/8, 4) in fp32, logvar clipped to (-30, 20) (vae.py:145-166)."""
+        enc = self.encoder
+        x = conv2d(images.to(policy.compute_dtype), enc.conv_in)
+        for block in enc.down_blocks:
+            for rb in block.resnets:
+                x = rb(x)
+            if block.downsample is not None:
+                # diffusers' VAE downsample pads asymmetrically: (0, 1) on H and W
+                x = conv2d(F.pad(x, (0, 0, 0, 1, 0, 1)), block.downsample, stride=2, padding=0)
+        x = enc.mid.res1(x)
+        x = enc.mid.attn(x, attn_impl)
+        x = enc.mid.res2(x)
+        x = group_norm(x, enc.norm_out.weight, enc.norm_out.bias, 32, 1e-6, "silu")
+        x = conv2d(x, enc.conv_out)
+        x = conv2d(x, self.quant_conv, padding=0)
+        mean, logvar = x.float().chunk(2, dim=-1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def sample_latents(self, moments, noise: torch.Tensor) -> torch.Tensor:
+        """A draw from the diagonal Gaussian with the given N(0, 1) `noise`,
+        times the scaling factor (vae.py:169-174)."""
+        mean, logvar = moments
+        return (mean + torch.exp(0.5 * logvar) * noise) * self.cfg.scaling_factor
 
     def decode(self, latents: torch.Tensor, policy: Policy = DEFAULT_POLICY,
                attn_impl: str = "auto") -> torch.Tensor:

@@ -1,10 +1,12 @@
 """Scaled dot-product attention in (B, S, H, D) layout (port of
 `faceposegenerator_tpu/ops/attention.py:23-75`).
 
-`impl="reference"` is the plain einsum with fp32 softmax. `"auto"` and
-`"flash"` send CUDA tensors to a hand-written kernel (head dim 64 → K1,
-head dim % 128 == 0 → K2) and raise for shapes or dtypes no kernel takes;
-CPU tensors take the plain version.
+`impl="reference"` is the plain einsum with fp32 softmax (differentiated by
+autograd). `"auto"` and `"flash"` send CUDA tensors to hand-written kernels
+(head dim 64 → K1, head dim % 128 == 0 → K2) and raise for shapes or dtypes
+no kernel takes. When a gradient is being taken through q, k or v they go
+through `FlashAttention` instead: K1/K2 with the log-sum-exp forward, K5/K6
+backward. CPU tensors take the plain versions either way.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import attention_plain, flash_fwd_d64, flash_fwd_wide
+from .flash_attention import FlashAttention, attention_plain, flash_fwd_d64, flash_fwd_wide
 
 
 def dot_product_attention(
@@ -34,8 +36,10 @@ def dot_product_attention(
     if impl not in ("auto", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
     d = q.shape[-1]
+    if q.is_cuda and d != 64 and d % 128:
+        raise ValueError(f"no attention kernel takes head dim {d}; use impl='reference'")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, scale, kv_len)
     if d == 64:
         return flash_fwd_d64(q, k, v, scale, kv_len)
-    if d % 128 == 0 or not q.is_cuda:
-        return flash_fwd_wide(q, k, v, scale, kv_len)
-    raise ValueError(f"no attention kernel takes head dim {d}; use impl='reference'")
+    return flash_fwd_wide(q, k, v, scale, kv_len)

@@ -1,19 +1,26 @@
-"""Flash-attention forward kernels for the card, their launch counts and
-their plain PyTorch version (port of `faceposegenerator_tpu/ops/
-flash_attention.py:1084`, `flash_attention`).
+"""Flash-attention kernels for the card, their launch counts, their plain
+PyTorch versions and the autograd Function that joins them (port of
+`faceposegenerator_tpu/ops/flash_attention.py:1084`, `flash_attention`, and
+its custom VJP, `:966-1081`).
 
-Two CUDA kernels in `csrc/flash_fwd.cu` replace the two Pallas kernels of the
-sampling path:
+Six CUDA kernels replace the Pallas kernels of the sampling and training
+paths:
 
-  `flash_fwd_d64`   K1, `_fwd_kernel_packed` (flash_attention.py:258): every
-                    UNet attention, head dim 64;
-  `flash_fwd_wide`  K2, `_fwd_kernel` (flash_attention.py:104): head dim
-                    % 128 == 0, the VAE's one 512-dim head.
+  `flash_fwd_d64`       K1, `_fwd_kernel_packed` (:258): every UNet
+                        attention, head dim 64 (csrc/flash_fwd.cu);
+  `flash_fwd_wide`      K2, `_fwd_kernel` (:104): head dim % 128 == 0, the
+                        VAE's one 512-dim head (csrc/flash_fwd.cu);
+  `flash_bwd_d64_dkv`,  K5, `_bwd_kernel_packed_dkv` (:711) and
+  `flash_bwd_d64_dq`    `_bwd_kernel_packed_dq` (:777) (csrc/flash_bwd.cu);
+  `flash_bwd_wide_dkv`, K6, `_bwd_kernel_plain_dkv` (:542) and
+  `flash_bwd_wide_dq`   `_bwd_kernel_plain_dq` (:585) (csrc/flash_bwd.cu).
 
-Both take (B, S, H, D) bf16 tensors whose head dim is contiguous; other
+All take (B, S, H, D) bf16 tensors whose head dim is contiguous; other
 strides are passed to the kernel, so the q/k/v views split out of a fused
-projection need no copy. A CPU tensor goes to `attention_plain`; a CUDA
-tensor goes to its kernel or raises. Each wrapper adds one to
+projection need no copy. The forward kernels also write the per-row
+log-sum-exp (B, H, Sq) fp32 when asked (`with_lse=True`); the backward
+kernels recompute the normalised p from it. A CPU tensor goes to the plain
+version; a CUDA tensor goes to its kernel or raises. Each wrapper adds one to
 `LAUNCHES[name]` where it launches its kernel, and nowhere else.
 """
 
@@ -26,7 +33,11 @@ import torch
 
 from . import _build
 
-LAUNCHES = {"flash_fwd_d64": 0, "flash_fwd_wide": 0}
+LAUNCHES = {
+    "flash_fwd_d64": 0, "flash_fwd_wide": 0,
+    "flash_bwd_d64_dkv": 0, "flash_bwd_d64_dq": 0,
+    "flash_bwd_wide_dkv": 0, "flash_bwd_wide_dq": 0,
+}
 _WIDE_DIMS = (128, 256, 384, 512)
 _INT32_MAX = 2**31 - 1
 _fns: dict = {}
@@ -37,75 +48,212 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def _logits(q, k, scale, kv_len):
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if kv_len is not None and kv_len < k.shape[1]:
+        logits[..., kv_len:] = float("-inf")
+    return logits
+
+
 def attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, kv_len: Optional[int] = None
 ) -> torch.Tensor:
     """The kernels' function in plain PyTorch (`ops/attention.py:23-39` of
     the JAX package): fp32 logits and softmax, keys >= kv_len masked to
     -inf, weights rounded to q's dtype before P·V, fp32 accumulation."""
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if kv_len is not None and kv_len < k.shape[1]:
-        logits[..., kv_len:] = float("-inf")
-    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    w = torch.softmax(_logits(q, k, scale, kv_len), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w.float(), v.float()).to(q.dtype)
+
+
+def attention_plain_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, kv_len: Optional[int] = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`attention_plain` that also returns each row's log-sum-exp of the
+    scaled logits, (B, H, Sq) fp32 in natural-log units (the JAX kernels'
+    `save_lse`, flash_attention.py:148-153,271-274)."""
+    logits = _logits(q, k, scale, kv_len)
+    lse = torch.logsumexp(logits, dim=-1)
+    w = torch.exp(logits - lse[..., None]).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w.float(), v.float()).to(q.dtype), lse
+
+
+def attention_bwd_plain(q, k, v, o, lse, do, scale: float, kv_len: Optional[int] = None):
+    """The backward kernels' function in fp32 PyTorch: p recomputed from
+    lse, D = rowsum(dO∘O), dV = pᵀ·dO with p rounded to q's dtype,
+    dS = p∘(dP − D) rounded to q's dtype, dQ = scale·dS·k, dK = scale·dSᵀ·q.
+    Returns (dq, dk, dv) in the dtypes of q, k and v."""
+    p = torch.exp(_logits(q, k, scale, kv_len) - lse.float()[..., None])
+    dof = do.float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    dd = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]  # (B, H, Sq, 1)
+    ds = (p * (dp - dd)).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {  # the C signatures in csrc/flash_fwd.cu and csrc/flash_bwd.cu
+    "flash_fwd_d64": [_PTR] * 5 + [_INT] * 16 + [_FLOAT, _PTR],
+    "flash_fwd_wide": [_PTR] * 5 + [_INT] * 17 + [_FLOAT, _PTR],
+    "flash_bwd_d64_dkv": [_PTR] * 8 + [_INT] * 5 + [_PTR, _FLOAT, _PTR],
+    "flash_bwd_d64_dq": [_PTR] * 7 + [_INT] * 4 + [_PTR, _FLOAT, _PTR],
+    "flash_bwd_wide_dkv": [_PTR] * 8 + [_INT] * 6 + [_PTR, _FLOAT, _PTR],
+    "flash_bwd_wide_dq": [_PTR] * 7 + [_INT] * 5 + [_PTR, _FLOAT, _PTR],
+}
 
 
 def _fn(name: str):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(_build.load("flash_fwd"), name)
-        n_ints = 4 + (name == "flash_fwd_wide") + 12
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_void_p]
+        fn = getattr(_build.load("flash_fwd" if name.startswith("flash_fwd") else "flash_bwd"), name)
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
-def _launch(name: str, q, k, v, scale: float, kv_len: Optional[int]) -> torch.Tensor:
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash attention takes (B, S, H, D) tensors")
-    b, sq, h, d = q.shape
-    skv = k.shape[1]
-    if k.shape != (b, skv, h, d) or v.shape != k.shape:
-        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not match")
-    for t in (q, k, v):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError("q, k and v must lie on one CUDA device")
+def _call(name: str, *args) -> None:
+    err = _fn(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def _check(name: str, *tensors) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: every tensor must lie on one CUDA device")
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{name} takes bf16 tensors, got {t.dtype}")
         if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(f"{name} needs a contiguous head dim and 16-byte aligned rows")
         if max(t.stride()) > _INT32_MAX:
             raise ValueError(f"{name}: strides exceed int32")
+
+
+def _shapes(name: str, q, k, v, kv_len):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash attention takes (B, S, H, D) tensors")
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if k.shape != (b, skv, h, d) or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not match")
     kv_end = skv if kv_len is None else min(skv, int(kv_len))
     if kv_end < 1 or sq < 1:
         raise ValueError("flash attention needs at least one query and one key")
+    return b, sq, skv, h, d, kv_end
+
+
+def _head_dim_ok(name: str, d: int) -> None:
+    if name.startswith("flash_fwd_d64") or name.startswith("flash_bwd_d64"):
+        if d != 64:
+            raise ValueError(f"{name} takes head dim 64, got {d}")
+    elif d not in _WIDE_DIMS:
+        raise ValueError(f"{name} takes head dim in {_WIDE_DIMS}, got {d}")
+
+
+def _launch_fwd(name: str, q, k, v, scale: float, kv_len, with_lse: bool):
+    b, sq, skv, h, d, kv_end = _shapes(name, q, k, v, kv_len)
+    _head_dim_ok(name, d)
+    _check(name, q, k, v)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]]
     head = [b, h, sq, kv_end] + ([d] if name == "flash_fwd_wide" else [])
-    err = _fn(name)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *head, *strides,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
-    return o
+    _call(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+          None if lse is None else lse.data_ptr(), *head, *strides,
+          float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    return (o, lse) if with_lse else o
 
 
-def flash_fwd_d64(q, k, v, scale: float, kv_len: Optional[int] = None) -> torch.Tensor:
-    """K1: attention at head dim 64 over (B, S, H, 64)."""
+def _fwd(name: str, q, k, v, scale: float, kv_len, with_lse: bool):
     if not q.is_cuda:
+        if with_lse:
+            return attention_plain_lse(q, k, v, scale, kv_len)
         return attention_plain(q, k, v, scale, kv_len)
-    if q.shape[-1] != 64:
-        raise ValueError(f"flash_fwd_d64 takes head dim 64, got {q.shape[-1]}")
-    return _launch("flash_fwd_d64", q, k, v, scale, kv_len)
+    return _launch_fwd(name, q, k, v, scale, kv_len, with_lse)
 
 
-def flash_fwd_wide(q, k, v, scale: float, kv_len: Optional[int] = None) -> torch.Tensor:
+def flash_fwd_d64(q, k, v, scale: float, kv_len: Optional[int] = None, with_lse: bool = False):
+    """K1: attention at head dim 64 over (B, S, H, 64); with `with_lse`,
+    returns (o, lse) with lse (B, H, Sq) fp32."""
+    return _fwd("flash_fwd_d64", q, k, v, scale, kv_len, with_lse)
+
+
+def flash_fwd_wide(q, k, v, scale: float, kv_len: Optional[int] = None, with_lse: bool = False):
     """K2: attention at head dim 128, 256, 384 or 512 over (B, S, H, D)."""
+    return _fwd("flash_fwd_wide", q, k, v, scale, kv_len, with_lse)
+
+
+def _bwd(kind: str, q, k, v, o, lse, do, scale: float, kv_len, passes=("dkv", "dq")):
+    """Launch the dK/dV pass and the dQ pass of `kind` ("d64" or "wide");
+    `passes` may name one of them alone (its gradients come back, the
+    others are None), which is how chip_smoke.py times each kernel."""
     if not q.is_cuda:
-        return attention_plain(q, k, v, scale, kv_len)
-    if q.shape[-1] not in _WIDE_DIMS:
-        raise ValueError(f"flash_fwd_wide takes head dim in {_WIDE_DIMS}, got {q.shape[-1]}")
-    return _launch("flash_fwd_wide", q, k, v, scale, kv_len)
+        return attention_bwd_plain(q, k, v, o, lse, do, scale, kv_len)
+    dkv, dqn = f"flash_bwd_{kind}_dkv", f"flash_bwd_{kind}_dq"
+    b, sq, skv, h, d, kv_end = _shapes(dkv, q, k, v, kv_len)
+    _head_dim_ok(dkv, d)
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, sq):
+        raise ValueError(f"{dkv}: o {tuple(o.shape)}, do {tuple(do.shape)}, lse {tuple(lse.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"{dkv} takes a contiguous fp32 lse on q's device")
+    if do.stride(-1) != 1 or do.data_ptr() % 16 or any(s % 8 for s in do.stride()[:3]):
+        do = do.contiguous()
+    _check(dkv, q, k, v, do)
+    dd = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()  # rowsum(dO∘O), (B, H, Sq)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device) if "dq" in passes else None
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device) if "dkv" in passes else None
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device) if "dkv" in passes else None
+    outs = [t if t is not None else q for t in (dq, dk, dv)]  # strides only
+    strides = (ctypes.c_longlong * 21)(*(s for t in (q, k, v, do, *outs) for s in t.stride()[:3]))
+    wide = [d] if kind == "wide" else []
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr())
+    if dk is not None:
+        _call(dkv, *ptrs, dk.data_ptr(), dv.data_ptr(), b, h, sq, skv, kv_end, *wide, strides,
+              float(scale), stream)
+    if dq is not None:
+        _call(dqn, *ptrs, dq.data_ptr(), b, h, sq, kv_end, *wide, strides, float(scale), stream)
+    return dq, dk, dv
+
+
+def flash_bwd_d64(q, k, v, o, lse, do, scale: float, kv_len: Optional[int] = None,
+                  passes=("dkv", "dq")):
+    """K5: (dq, dk, dv) at head dim 64 from the forward's o and lse and the
+    output gradient do; two launches, dK/dV then dQ."""
+    return _bwd("d64", q, k, v, o, lse, do, scale, kv_len, passes)
+
+
+def flash_bwd_wide(q, k, v, o, lse, do, scale: float, kv_len: Optional[int] = None,
+                   passes=("dkv", "dq")):
+    """K6: the same at head dim 128, 256, 384 or 512."""
+    return _bwd("wide", q, k, v, o, lse, do, scale, kv_len, passes)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the JAX `_flash_attention` custom
+    VJP): the forward runs K1/K2 with the log-sum-exp and saves q, k, v, o
+    and lse; the backward runs K5/K6. CPU tensors take the plain versions.
+
+        o = FlashAttention.apply(q, k, v, scale, kv_len)
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, kv_len: Optional[int]):
+        fwd = flash_fwd_d64 if q.shape[-1] == 64 else flash_fwd_wide
+        o, lse = fwd(q, k, v, scale, kv_len, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.kv_len = scale, kv_len
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_bwd_d64 if q.shape[-1] == 64 else flash_bwd_wide
+        dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.scale, ctx.kv_len)
+        return dq, dk, dv, None, None

@@ -1,0 +1,45 @@
+"""Differentiable image ops of the ID-Booth identity branch (port of
+`faceposegenerator_tpu/ops/image.py:19-96`).
+
+`crop_and_resize` samples a bilinear grid over each box, so its output shape
+is fixed and its gradient flows back into the image (and from there through
+the VAE decode into the LoRA).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_size: int = 112) -> torch.Tensor:
+    """Bilinear crop-and-resize, NHWC. images (B, H, W, C); boxes (B, 4) as
+    (x0, y0, x1, y1) in pixels, clamped to [0, W-1] × [0, H-1]. Returns
+    (B, out_size, out_size, C), differentiable into `images`."""
+    b, h, w, _ = images.shape
+    boxes = boxes.float()
+    x0, x1 = boxes[:, 0].clamp(0, w - 1), boxes[:, 2].clamp(0, w - 1)
+    y0, y1 = boxes[:, 1].clamp(0, h - 1), boxes[:, 3].clamp(0, h - 1)
+    # the centres of out_size samples along each box edge
+    t = (torch.arange(out_size, dtype=torch.float32, device=images.device) + 0.5) / out_size
+    ys = y0[:, None] + t[None, :] * (y1 - y0)[:, None]  # (B, S)
+    xs = x0[:, None] + t[None, :] * (x1 - x0)[:, None]
+    yf, xf = torch.floor(ys), torch.floor(xs)
+    wy = (ys - yf)[:, :, None, None]  # (B, S, 1, 1)
+    wx = (xs - xf)[:, None, :, None]  # (B, 1, S, 1)
+    yi0 = yf.long().clamp(0, h - 1)
+    yi1 = (yi0 + 1).clamp(0, h - 1)
+    xi0 = xf.long().clamp(0, w - 1)
+    xi1 = (xi0 + 1).clamp(0, w - 1)
+    bi = torch.arange(b, device=images.device)[:, None, None]
+
+    def gather(yi, xi):  # (B, S, S, C)
+        return images[bi, yi[:, :, None], xi[:, None, :]]
+
+    top = gather(yi0, xi0) * (1 - wx) + gather(yi0, xi1) * wx
+    bot = gather(yi1, xi0) * (1 - wx) + gather(yi1, xi1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def normalize_to_arcface(face: torch.Tensor) -> torch.Tensor:
+    """[0, 255] face crop → [-1, 1] ArcFace input (image.py:92-96)."""
+    return (face / 255.0 - 0.5) / 0.5

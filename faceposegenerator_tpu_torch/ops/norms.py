@@ -1,5 +1,5 @@
 """Normalisation ops with fp32 statistics (port of
-`faceposegenerator_tpu/ops/norms.py:17,78`).
+`faceposegenerator_tpu/ops/norms.py:17,78,98`).
 
 Layout is channels-last (N, ..., C), as in the JAX package. On this slice
 these are plain torch, as the JAX main path leaves them to XLA.
@@ -45,3 +45,18 @@ def layer_norm(
     """LayerNorm over the last axis, output in x's dtype; the kernel keeps
     its statistics and affine in fp32 whatever x's dtype."""
     return F.layer_norm(x, (x.shape[-1],), gamma.to(x.dtype), beta.to(x.dtype), eps)
+
+
+def batch_norm_inference(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    mean: torch.Tensor,
+    var: torch.Tensor,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Inference-mode BatchNorm over (N, ..., C) with frozen running
+    statistics, folded to one fp32 scale and shift; output in x's dtype."""
+    scale = gamma.float() * torch.rsqrt(var.float() + eps)
+    shift = beta.float() - mean.float() * scale
+    return torch.addcmul(shift, x, scale).to(x.dtype)

@@ -33,6 +33,7 @@ def _run(code: str, env_extra=None, cwd=REPO):
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _port_modules() + ["chip_smoke"]
     assert "faceposegenerator_tpu_torch.pipelines.txt2img" in mods
+    assert "faceposegenerator_tpu_torch.training.idbooth" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -66,14 +67,15 @@ def test_port_sources_use_no_library_attention_or_compile():
 
 
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+    from faceposegenerator_tpu_torch.models.iresnet import IResNet
     from faceposegenerator_tpu_torch.models.unet2d import UNet2DCondition
+    from faceposegenerator_tpu_torch.models.vae import AutoencoderKL
     from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        StableDiffusionPipeline.from_random()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        UNet2DCondition()
+    for entry in (StableDiffusionPipeline.from_random, UNet2DCondition, AutoencoderKL, IResNet):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
 
 
 def test_cpu_tensors_never_count_launches():
@@ -85,7 +87,28 @@ def test_cpu_tensors_never_count_launches():
     w = torch.randn(1, 32, 1, 512)
     fa.flash_fwd_wide(w, w, w, 512**-0.5)
     dot_product_attention(q, q, q, kv_len=7)
-    assert fa.LAUNCHES == {"flash_fwd_d64": 0, "flash_fwd_wide": 0}
+    g = torch.randn(1, 64, 2, 64, requires_grad=True)
+    dot_product_attention(g, g, g).sum().backward()
+    o, lse = fa.attention_plain_lse(q, q, q, 0.125)
+    fa.flash_bwd_d64(q, q, q, o, lse, o, 0.125)
+    fa.flash_bwd_wide(w, w, w, w, torch.zeros(1, 1, 32), w, 512**-0.5)
+    assert set(fa.LAUNCHES) == {"flash_fwd_d64", "flash_fwd_wide", "flash_bwd_d64_dkv", "flash_bwd_d64_dq",
+                                "flash_bwd_wide_dkv", "flash_bwd_wide_dq"}
+    assert all(n == 0 for n in fa.LAUNCHES.values())
+
+
+def test_cuda_sources_include_only_cuda_and_their_own_headers():
+    """The kernels under csrc/ are written here: they include the CUDA
+    toolkit's basic headers and each other, and nothing else (no JAX, no
+    PyTorch, no library of finished kernels)."""
+    allowed = {"cuda_bf16.h", "cuda_runtime.h", "stdint.h"}
+    sources = sorted((PORT_DIR / "csrc").glob("*.cu*"))
+    assert {p.name for p in sources} >= {"flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"}
+    local = {p.name for p in sources}
+    for path in sources:
+        includes = [line.split()[1].strip('<>"') for line in path.read_text().splitlines()
+                    if line.startswith("#include")]
+        assert includes and set(includes) <= allowed | local, f"{path.name}: {includes}"
 
 
 def test_kernel_module_imports_without_nvcc():
