@@ -19,7 +19,29 @@ Phases, in order; any failure exits non-zero without the final result line:
      path on a small input, then 3 requests at batch 8, 512², 30 DDPM steps,
      CFG 5.0, swapping the LoRA before the third; each request must launch
      the d=64 kernel 960 times and the wide kernel once;
-  5. train: the ID-Booth train step at its op point (SD2.1-base widths,
+  5. K7 and K8 against plain: qdense (csrc/qdense.cu) in its dynamic and
+     static modes at the turbo request's dense shapes, against qdense_plain
+     on the same bf16 inputs (the same codes, so within 1 bf16 ulp of the
+     output plus 1e-3 relative), timed beside its plain version, the card's
+     bound, torch._int_mm on the pre-quantized x (the int8 GEMM alone) and
+     bf16 F.linear (yardsticks the port never calls); flash_int8
+     (csrc/flash_int8.cu) at the UNet's attention shapes of the CFG batch
+     against attention_int8_plain (it makes the same codes: within 1 bf16
+     ulp + 1e-3 relative, mean abs err <= 1e-4) and, with q and k at half
+     scale as the JAX test has them, within 3e-2 relative of exact
+     attention, timed beside its plain version, its bound, K1 on the same
+     tensors and SDPA; one more row puts every row's maximum in the last
+     64 keys and shows that the gate refuses both exact attention and a
+     softmax that quantizes p against a running max over 64-key tiles;
+  6. turbo: the turbo preset at SD2.1-base widths in bf16 with a rank-4
+     LoRA: first the kernel routes against the plain routes of qdense,
+     flash_int8 and attention on 2×128² (image diff max 1e-1, mean 1e-2),
+     then get_preset("turbo").apply (dpm, w8a8+vae, 8 calibration steps: 1280
+     dynamic qdense launches), 3 requests at batch 8, 512², 12 DPM-Solver++
+     steps (4 full UNet passes and 8 DeepCache partial ones: 1040 static
+     qdense and 208 K1 launches and 1 K2 launch each), then 2 requests of
+     the flash_int8 configuration (208 flash_int8 launches instead of K1);
+  7. train: the ID-Booth train step at its op point (SD2.1-base widths,
      ArcFace r100, random bf16 frozen weights, fp32 rank-4 LoRA, batch 4
      with prior preservation = 8 images of 512², triplet_prior, AdamW +
      cosine + clip 1.0), first the kernel path against the plain-attention
@@ -40,6 +62,10 @@ import sys
 import time
 
 MAX_ERR, MEAN_ERR, LSE_ERR = 2e-2, 2e-3, 1e-3
+# K7 and K8 reproduce their plain versions' codes and roundings: each output
+# within 1 bf16 ulp + INT8_REL_ERR of it, and K8's mean abs err within
+# INT8_MEAN_ERR
+INT8_REL_ERR, INT8_MEAN_ERR = 1e-3, 1e-4
 # (name, B, H, Sq, Skv, D, launches per request) at the txt2img op point:
 # batch 8 under CFG is 16 UNet rows; 30 steps; the VAE decodes 8 images.
 SHAPES = [
@@ -69,8 +95,25 @@ TRAIN_SHAPES = [
     ("vae encode mid", 8, 1, 4096, 4096, 512, 1),  # forward only (no_grad)
     ("vae decode mid", 4, 1, 4096, 4096, 512, 1),
 ]
-# dense bf16 tensor-core FLOP/s and memory bytes/s, from NVIDIA's data sheets
-PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H100 NVL": (835e12, 3.9e12), "H100": (989e12, 3.35e12)}
+# (name, M, K, N) of K7 at the turbo op point: batch 8 under CFG is 16 UNet
+# rows, 8 on the cond-only steps outside the guidance interval
+QDENSE_SHAPES = [
+    ("fused qkv L0", 16 * 4096, 320, 960),
+    ("ff_in L0", 16 * 4096, 320, 2560),
+    ("ff_out L2", 16 * 256, 5120, 1280),
+    ("cross k/v", 16 * 77, 1024, 320),
+    ("ff_in L0 cond-only", 8 * 4096, 320, 2560),
+]
+# (name, B, H, Sq, Skv, D) of the UNet's attention on the CFG batch
+INT8_SHAPES = [s[:6] for s in SHAPES if s[5] == 64]
+LAST_TILE_MAX = "self L0, max in the last tile"
+# dense bf16 tensor-core FLOP/s, int8 tensor-core OP/s and memory bytes/s,
+# from NVIDIA's data sheets
+PEAKS = {"H100 PCIe": (756e12, 1513e12, 2.0e12), "H100 NVL": (835e12, 1671e12, 3.9e12),
+         "H100": (989e12, 1979e12, 3.35e12)}
+TURBO_CALIB_LAUNCHES = {"qdense": 1280}
+TURBO_LAUNCHES = {"auto": {"qdense": 1040, "flash_fwd_d64": 208, "flash_fwd_wide": 1},
+                  "flash_int8": {"qdense": 1040, "flash_int8": 208, "flash_fwd_wide": 1}}
 STEP_LAUNCHES = {"flash_fwd_d64": 32, "flash_fwd_wide": 2, "flash_bwd_d64_dkv": 32, "flash_bwd_d64_dq": 32,
                  "flash_bwd_wide_dkv": 1, "flash_bwd_wide_dq": 1}
 REPLACES = {
@@ -80,6 +123,8 @@ REPLACES = {
     "flash_bwd_d64_dq": "faceposegenerator_tpu/ops/flash_attention.py:777",
     "flash_bwd_wide_dkv": "faceposegenerator_tpu/ops/flash_attention.py:542",
     "flash_bwd_wide_dq": "faceposegenerator_tpu/ops/flash_attention.py:585",
+    "flash_int8": "faceposegenerator_tpu/ops/flash_attention.py:1108",
+    "qdense": "faceposegenerator_tpu/ops/quant_pallas.py:47",
 }
 
 
@@ -124,15 +169,24 @@ def _inputs(torch, g, b, h, sq, skv, d):
     return q, k, v
 
 
-def _bound(card, flops, nbytes):
-    peak_flops, peak_bw = peaks(card)
-    t_ops, t_bytes = flops / peak_flops, nbytes / peak_bw
+def _bound(card, flops, nbytes, int8=False):
+    peak_bf16, peak_int8, peak_bw = peaks(card)
+    t_ops, t_bytes = flops / (peak_int8 if int8 else peak_bf16), nbytes / peak_bw
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def _err(out, ref):
     e = (out.float() - ref.float()).abs()
     return e.max().item(), e.mean().item()
+
+
+def _ulp_err(out, ref):
+    """(max abs err, mean abs err, how many outputs differ from ref by more
+    than 1 bf16 ulp + INT8_REL_ERR relative)."""
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    over = int((err > _bf16_ulp(ref) + INT8_REL_ERR * ref.abs()).sum())
+    return err.max().item(), err.mean().item(), over
 
 
 def check_kernels(torch, fa, card, shapes=SHAPES, with_lse=False, per="request"):
@@ -237,6 +291,136 @@ def check_backward(torch, fa, card, shapes):
     return rows
 
 
+def _bf16_ulp(t):
+    """The spacing of bf16 numbers at |t| (8 significant bits)."""
+    import torch
+
+    return torch.ldexp(torch.ones_like(t), torch.frexp(t.abs().clamp_min(2.0**-126))[1] - 8)
+
+
+def check_qdense(torch, card):
+    """K7 in both modes at the turbo dense shapes against qdense_plain on the
+    same inputs: x unit-normal bf16, a random weight quantized per channel,
+    the static scale from x's amax with the calibration margin 1.1."""
+    import torch.nn.functional as F
+
+    from faceposegenerator_tpu_torch.ops import qdense as qd
+    from faceposegenerator_tpu_torch.ops.quant import quantize_weight
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for label, m, k, n in QDENSE_SHAPES:
+        x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=g, device="cuda") * k**-0.5).to(torch.bfloat16)
+        qw = quantize_weight(w)
+        for mode in ("dynamic", "static"):
+            a = float(x.float().abs().amax()) * 1.1 / 127.0 if mode == "static" else None
+            out = qd.qdense_kernel(x, qw.q, qw.s, a)
+            torch.cuda.synchronize()
+            max_err, mean_err, over = _ulp_err(out, qd.qdense_plain(x, qw.q, qw.s, a))
+            del out
+            ms = time_ms(lambda: qd.qdense_kernel(x, qw.q, qw.s, a), torch)
+            plain_ms = time_ms(lambda: qd.qdense_plain(x, qw.q, qw.s, a), torch)
+            codes = qd.quantize(x, -1, a)[0].to(torch.int8)
+            int_mm_ms = time_ms(lambda: torch._int_mm(codes, qw.q.t()), torch)
+            linear_ms = time_ms(lambda: F.linear(x, w), torch)
+            del codes
+            # x bf16 and the int8 weight with its scales read once, y bf16 written once
+            bound_ms, bound_by = _bound(card, 2.0 * m * n * k, 2.0 * m * k + n * k + 4.0 * n + 2.0 * m * n, int8=True)
+            row = dict(kernel="qdense", shape=label, mode=mode, M=m, K=k, N=n, ms=ms, plain_ms=plain_ms,
+                       int_mm_ms=int_mm_ms, bf16_linear_ms=linear_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       max_abs_err=max_err, mean_abs_err=mean_err, over_limit=over)
+            print("kernel " + json.dumps(row), flush=True)
+            rows.append(row)
+            if over:
+                fail(f"qdense {mode} at {label}: {over} outputs differ from the plain version by more than "
+                     f"1 bf16 ulp + {INT8_REL_ERR} relative (max abs err {max_err})")
+        del x, w, qw
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _last_tile_max_inputs(torch, g, b, h, s, d):
+    """q unit-normal; the last 64 keys are 2·q of the first 64 queries and
+    the others 0.3·N(0, 1), so every row's maximum lies in the last 64-key
+    tile, far above what came before it."""
+    q = torch.randn(b, s, h, d, generator=g, device="cuda")
+    k = 0.3 * torch.randn(b, s, h, d, generator=g, device="cuda")
+    k[:, -64:] = 2.0 * q[:, :64]
+    v = torch.randn(b, s, h, d, generator=g, device="cuda")
+    return tuple(t.to(torch.bfloat16) for t in (q, k, v))
+
+
+def _int8_gate_refuses(torch, fa, q, k, v, scale, want):
+    """The errors of exact attention and of a running-max softmax over
+    64-key tiles against K8's plain version `want`; both must fail the K8
+    gate, or the gate could not tell them from the kernel."""
+    exact = fa.attention_plain(q.float(), k.float(), v.float(), scale).to(q.dtype)
+    saved, fa._INT8_BLOCK_K = fa._INT8_BLOCK_K, 64
+    try:
+        running = fa.attention_int8_plain(q, k, v, scale)
+    finally:
+        fa._INT8_BLOCK_K = saved
+    errs = {"exact": _ulp_err(exact, want), "running_max": _ulp_err(running, want)}
+    for name, (mx, mean, over) in errs.items():
+        if not (over or mean > INT8_MEAN_ERR):
+            fail(f"the flash_int8 gate passes {name} attention at {LAST_TILE_MAX} (max abs err {mx}, mean {mean})")
+    return {name: [mx, mean] for name, (mx, mean, _) in errs.items()}
+
+
+def check_int8(torch, fa, card, shapes=INT8_SHAPES):
+    """K8 at the UNet's attention shapes against attention_int8_plain and
+    exact attention on the same bf16 inputs, then at the 4096-token
+    self-attention with every row's maximum in the last key tile."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for label, b, h, sq, skv, d in [*shapes, (LAST_TILE_MAX, *shapes[0][1:])]:
+        last_tile = label == LAST_TILE_MAX
+        q, k, v = _last_tile_max_inputs(torch, g, b, h, sq, d) if last_tile else _inputs(torch, g, b, h, sq, skv, d)
+        scale = d**-0.5
+        out = fa.flash_attention_int8(q, k, v, scale)
+        torch.cuda.synchronize()
+        want = fa.attention_int8_plain(q, k, v, scale)
+        max_err, mean_err, over = _ulp_err(out, want)
+        extra = {}
+        if last_tile:
+            extra["refused_errs"] = _int8_gate_refuses(torch, fa, q, k, v, scale, want)
+            rel = None
+        else:
+            # against exact attention as the JAX test holds it (q and k at
+            # half the unit scale, tests/test_ops.py:391-393); at unit scale
+            # over 4096 keys most p fall on the lowest codes of the 1/127
+            # grid (reported)
+            exact = fa.attention_plain(q.float(), k.float(), v.float(), scale)
+            extra["rel_err_vs_exact_unit_scale"] = ((out.float() - exact).norm() / exact.norm()).item()
+            qh, kh = q * 0.5, k * 0.5
+            exact = fa.attention_plain(qh.float(), kh.float(), v.float(), scale)
+            rel = ((fa.flash_attention_int8(qh, kh, v, scale).float() - exact).norm() / exact.norm()).item()
+            del exact, qh, kh
+        del out, want
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: fa.flash_attention_int8(q, k, v, scale), torch)
+        plain_ms = time_ms(lambda: fa.attention_int8_plain(q, k, v, scale), torch)
+        k1_ms = time_ms(lambda: fa.flash_fwd_d64(q, k, v, scale), torch)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), torch)
+        # QKᵀ and PV in int8; q, k, v read once in bf16, o written once
+        bound_ms, bound_by = _bound(card, 4.0 * b * h * sq * skv * d, 2.0 * b * h * d * (2 * sq + 2 * skv), int8=True)
+        row = dict(kernel="flash_int8", shape=label, B=b, H=h, Sq=sq, Skv=skv, D=d, ms=ms, plain_ms=plain_ms,
+                   k1_ms=k1_ms, sdpa_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
+                   mean_abs_err=mean_err, over_limit=over, rel_err_vs_exact=rel, **extra)
+        print("kernel " + json.dumps(row), flush=True)
+        rows.append(row)
+        if over or mean_err > INT8_MEAN_ERR or not (last_tile or rel <= 3e-2):
+            fail(f"flash_int8 at {label}: {over} outputs beyond 1 bf16 ulp + {INT8_REL_ERR} relative of the plain "
+                 f"version, max abs err {max_err}, mean {mean_err} (limit {INT8_MEAN_ERR}); rel err {rel} vs exact")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
 def make_lora(unet, seed, torch):
     """A rank-4 UNet LoRA with nonzero B."""
     from faceposegenerator_tpu_torch.models.unet2d import init_lora
@@ -317,6 +501,135 @@ def run_pipeline(torch, fa, card_line):
           f"{min(secs[1:]):.3f} s = {8 / min(secs[1:]):.3f} img/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card_line})", flush=True)
     return launches
+
+
+def _launch_counts():
+    from faceposegenerator_tpu_torch.ops import flash_attention as fa
+    from faceposegenerator_tpu_torch.ops import qdense as qd
+
+    return {**fa.LAUNCHES, **qd.LAUNCHES}
+
+
+def _reset_launch_counts():
+    from faceposegenerator_tpu_torch.ops import flash_attention as fa
+    from faceposegenerator_tpu_torch.ops import qdense as qd
+
+    fa.reset_launch_counts()
+    qd.reset_launch_counts()
+
+
+class plain_route:
+    """Within the block, qdense and the int8 attention take their plain
+    versions on the card (the comparison of the kernel routes with the
+    plain ones; nothing on the main path does this)."""
+
+    def __enter__(self):
+        from faceposegenerator_tpu_torch.ops import attention, quant
+        from faceposegenerator_tpu_torch.ops import flash_attention as fa
+        from faceposegenerator_tpu_torch.ops import qdense as qd
+
+        self.saved = (quant.qdense_kernel, attention.flash_attention_int8)
+        quant.qdense_kernel = qd.qdense_plain
+        attention.flash_attention_int8 = fa.attention_int8_plain
+        return self
+
+    def __exit__(self, *exc):
+        from faceposegenerator_tpu_torch.ops import attention, quant
+
+        quant.qdense_kernel, attention.flash_attention_int8 = self.saved
+
+
+def _check_images(img, b, res, label):
+    import numpy as np
+
+    if img.shape != (b, res, res, 3):
+        fail(f"{label}: image shape {img.shape}")
+    if not (np.isfinite(img).all() and img.min() >= 0.0 and img.max() <= 1.0):
+        fail(f"{label}: images not finite or outside [0, 1]")
+
+
+def run_turbo(torch, card_line):
+    """The turbo preset on the card: the small-input gate, calibration, 3
+    requests, then 2 requests of the flash_int8 configuration, each with
+    exact launch counts. Returns the launch counts of the phase."""
+    import numpy as np
+
+    from faceposegenerator_tpu_torch.diffusion.sampler import SamplerModels
+    from faceposegenerator_tpu_torch.pipelines.presets import get_preset
+    from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+
+    g = torch.Generator().manual_seed(4)
+    ids = torch.randint(0, 49408, (8, 77), generator=g)
+    calib_ids = torch.randint(0, 49408, (8, 77), generator=g)
+    preset = get_preset("turbo")
+
+    # the kernel routes against the plain routes on a small input, with the
+    # turbo sampler settings and static scales calibrated on that input
+    t0 = time.time()
+    pipe = StableDiffusionPipeline.from_random(seed=0, dtype=torch.bfloat16)
+    pipe.set_lora(make_lora(pipe.nets["unet"], 12, torch))
+    small = dict(input_ids=ids[:2], num_inference_steps=6, height=128, width=128, seed=5)
+    kw = preset.apply(pipe, input_ids=ids[:2], height=128, width=128)
+    kw = dict(kw, cfg_interval=(1, 5))
+    torch.cuda.synchronize()
+    print(f"turbo: built, quantized and calibrated at 2×128² in {time.time() - t0:.1f} s", flush=True)
+    for impl in ("auto", "flash_int8"):
+        p = StableDiffusionPipeline(pipe.nets, SamplerModels(attn_impl=impl), pipe.policy)
+        p.set_scheduler("dpm")
+        p.set_lora(pipe.lora)
+        got = p(**small, **kw)
+        with plain_route():
+            p.models = SamplerModels(attn_impl="reference" if impl == "auto" else impl)
+            want = p(**small, **kw)
+        diff = np.abs(got - want)
+        print(f"turbo: kernel routes vs plain routes ({impl}) at 2×128², 6 DPM steps, DeepCache-4, "
+              f"cfg_interval (1, 5), static w8a8+vae, bf16: image diff max {diff.max():.3e} mean "
+              f"{diff.mean():.3e} (limits 1e-1, 1e-2)", flush=True)
+        if not (diff.max() <= 1e-1 and diff.mean() <= 1e-2):
+            fail(f"the turbo kernel routes and plain routes disagree ({impl})")
+    del pipe, p
+    torch.cuda.empty_cache()
+
+    # the request as a user makes it
+    t0 = time.time()
+    pipe = StableDiffusionPipeline.from_random(seed=0, dtype=torch.bfloat16)
+    pipe.set_lora(make_lora(pipe.nets["unet"], 12, torch))
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t1 = time.time()
+    kw = preset.apply(pipe, input_ids=calib_ids)
+    torch.cuda.synchronize()
+    calib = {n: c for n, c in _launch_counts().items() if c}
+    print(f"turbo: built in {t1 - t0:.1f} s; preset applied (dpm, w8a8+vae, 8 calibration steps at 8×512²) "
+          f"in {time.time() - t1:.1f} s; kwargs {kw}; calibration launches {json.dumps(calib)}", flush=True)
+    if any(calib.get(n) != c for n, c in TURBO_CALIB_LAUNCHES.items()):
+        fail(f"calibration launched {calib}, expected {TURBO_CALIB_LAUNCHES} among them")
+    torch.cuda.reset_peak_memory_stats()
+    for impl, seeds in (("auto", (0, 1, 2)), ("flash_int8", (0, 3))):
+        p = pipe if impl == "auto" else StableDiffusionPipeline(pipe.nets, SamplerModels(attn_impl=impl), pipe.policy)
+        p.set_scheduler("dpm")
+        p.set_lora(pipe.lora)
+        images, secs = [], []
+        for r, seed in enumerate(seeds):
+            before = _launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            img = p(input_ids=ids, num_inference_steps=preset.steps, guidance_scale=5.0, height=512, width=512,
+                    seed=seed, **kw)
+            secs.append(time.time() - t0)
+            per = {n: c - before[n] for n, c in _launch_counts().items() if c != before[n]}
+            print(f"turbo {impl} request {r}: seed {seed}, {secs[-1]:.3f} s, {8 / secs[-1]:.3f} img/s, "
+                  f"launches {json.dumps(per)} ({card_line})", flush=True)
+            _check_images(img, 8, 512, f"turbo {impl} request {r}")
+            if per != TURBO_LAUNCHES[impl]:
+                fail(f"turbo {impl} request {r} launched {per}, expected {TURBO_LAUNCHES[impl]}")
+            images.append(img)
+        if float(np.abs(images[0] - images[1]).max()) < 1e-3:
+            fail(f"turbo {impl}: images do not differ between seeds")
+        print(f"turbo {impl}: bs8 512² DPM++ 12 steps, DeepCache-4, cfg_interval (2, 8), static w8a8+vae: "
+              f"{secs} s per request; after the first {min(secs[1:]):.3f} s = {8 / min(secs[1:]):.3f} img/s; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card_line})", flush=True)
+    return dict(_launch_counts())
 
 
 # remat_identity recomputes the VAE decode in the backward; off at the op point
@@ -416,7 +729,7 @@ def run_train(torch, fa, card_line):
         vals = {k: float(v) for k, v in metrics.items()}
         torch.cuda.synchronize()
         secs.append(time.time() - t0)
-        per = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+        per = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES if fa.LAUNCHES[n] != before[n]}
         print(f"train step {i}: {secs[-1]:.3f} s, {json.dumps(vals)}, launches {json.dumps(per)} ({card_line})",
               flush=True)
         if not all(math.isfinite(v) for v in vals.values()) or set(vals) != {
@@ -437,13 +750,16 @@ def run_train(torch, fa, card_line):
     return launches
 
 
-def _kernel_entries(fwd_rows, bwd_rows, launches):
+def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, launches):
+    from faceposegenerator_tpu_torch.ops._build import SOURCE_OF
+
+    sources = {name: f"faceposegenerator_tpu_torch/csrc/{src}.cu" for name, src in SOURCE_OF.items()}
     kernels = []
     for name in ("flash_fwd_d64", "flash_fwd_wide"):
         mine = [r for r in fwd_rows if r["kernel"] == name]
         top = max(mine, key=lambda r: r["bound_ms"])  # the shape with the most work
         kernels.append(dict(
-            name=name, route="cuda", source="faceposegenerator_tpu_torch/csrc/flash_fwd.cu",
+            name=name, route="cuda", source=sources[name],
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in mine), ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
@@ -455,12 +771,25 @@ def _kernel_entries(fwd_rows, bwd_rows, launches):
         for p, errs in (("dkv", ("dk_err", "dv_err")), ("dq", ("dq_err",))):
             name = f"flash_bwd_{kind}_{p}"
             kernels.append(dict(
-                name=name, route="cuda", source="faceposegenerator_tpu_torch/csrc/flash_bwd.cu",
+                name=name, route="cuda", source=sources[name],
                 replaces=REPLACES[name], launches=launches[name],
                 max_abs_err=max(r[e][0] for r in mine for e in errs), ms=top[f"{p}_ms"],
                 plain_ms=top["plain_ms"], bound_ms=top[f"{p}_bound_ms"], bound_by=top[f"{p}_bound_by"],
                 library_ms=top["library_ms"], shape=f"{top['shape']} B{top['B']}", pair_ms=top["pair_ms"],
             ))
+    # K7 and K8: no single library call computes their function (the int8
+    # GEMM alone, bf16 F.linear and exact SDPA are yardsticks, in extra keys)
+    for name, rows in (("qdense", q_rows), ("flash_int8", i8_rows)):
+        top = max(rows, key=lambda r: r["bound_ms"] + (r.get("mode") == "static") * 1e-9)
+        extra = (dict(int_mm_ms=top["int_mm_ms"], bf16_linear_ms=top["bf16_linear_ms"], mode=top["mode"],
+                      shape=f"{top['shape']} M{top['M']} K{top['K']} N{top['N']}")
+                 if name == "qdense" else dict(k1_ms=top["k1_ms"], sdpa_ms=top["sdpa_ms"],
+                                               shape=f"{top['shape']} B{top['B']}"))
+        kernels.append(dict(
+            name=name, route="cuda", source=sources[name], replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=top["ms"], plain_ms=top["plain_ms"],
+            bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None, **extra,
+        ))
     return kernels
 
 
@@ -496,16 +825,21 @@ def main() -> int:
     fwd_rows = check_kernels(torch, fa, card)
     fwd_rows += check_kernels(torch, fa, card, TRAIN_SHAPES, with_lse=True, per="step")
     bwd_rows = check_backward(torch, fa, card, [s for s in TRAIN_SHAPES if s[0] != "vae encode mid"])
+    q_rows = check_qdense(torch, card)
+    i8_rows = check_int8(torch, fa, card)
     txt2img = run_pipeline(torch, fa, card_line)
     torch.cuda.empty_cache()
+    turbo = run_turbo(torch, card_line)
+    torch.cuda.empty_cache()
     train = run_train(torch, fa, card_line)
-    launches = {n: txt2img[n] + train[n] for n in fa.LAUNCHES}
-    print(f"launches on the main paths: txt2img {json.dumps(txt2img)}, train {json.dumps(train)}", flush=True)
+    launches = {n: txt2img.get(n, 0) + turbo.get(n, 0) + train.get(n, 0) for n in REPLACES}
+    print(f"launches on the main paths: txt2img {json.dumps(txt2img)}, turbo {json.dumps(turbo)}, "
+          f"train {json.dumps(train)}", flush=True)
     for name, count in launches.items():
         if count == 0:
             fail(f"{name} was not launched on the main paths")
 
-    print(json.dumps({"kernels": _kernel_entries(fwd_rows, bwd_rows, launches)}), flush=True)
+    print(json.dumps({"kernels": _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -9,6 +9,12 @@ gives) and fills the port module whose attributes follow the same keys:
   any other key of a dict of arrays (BatchNorm's "mean", "var") → the
   parameter of that name.
 
+A quantized leaf of `ops/quant.py` in JAX, {"q": int8, "s": fp32 (out,)[,
+"a": scalar]} in place of "w", replaces the layer's weight with a
+`QuantizedWeight` holding the same codes and scales (a conv's q from HWIO to
+OIHW, still int8), so a tree quantized and calibrated in JAX carries over
+as it is.
+
 `state` (IResNet's BatchNorm running statistics) is merged into the tree
 key by key first. It is strict: a shape that differs, a key the module
 lacks, or a parameter the tree leaves unfilled raises. `jax_tree_to_torch`
@@ -21,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn as nn
+
+from ..ops.quant import QuantizedWeight, is_quantized
 
 _LEAF_NAMES = {"w": "weight", "g": "weight", "b": "bias"}
 
@@ -43,6 +51,27 @@ def _copy(param: nn.Parameter, arr, path: str, filled: set) -> None:
     filled.add(id(param))
 
 
+def _is_quantized_leaf(node) -> bool:
+    return (isinstance(node, dict) and {"q", "s"} <= set(node) <= {"q", "s", "a"}
+            and getattr(node["q"], "dtype", None) == np.int8)
+
+
+def _quantized(mod, node: dict, path: str, filled: set) -> None:
+    q = torch.from_numpy(np.array(node["q"]))
+    if q.dim() == 4:
+        q = q.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)  # HWIO → OIHW
+    w = getattr(mod, "weight", None)
+    if tuple(q.shape) != tuple(getattr(w, "shape", ())):
+        raise ValueError(f"{path}: quantized shape {tuple(q.shape)} != module shape {tuple(getattr(w, 'shape', ()))}")
+    device = w.q.device if is_quantized(w) else w.device
+    a = node.get("a")
+    if isinstance(w, nn.Parameter):
+        del mod.weight  # a registered parameter cannot be reassigned a module
+    mod.weight = QuantizedWeight(q.to(device), _tensor(node["s"]).float().to(device),
+                                 None if a is None else float(np.asarray(a)))
+    filled.add(id(mod.weight))
+
+
 def _is_leaf(node: dict) -> bool:
     """A dict of arrays ({"w"/"g", "b"}, BatchNorm's {"g", "b", "mean",
     "var"}): one layer's parameters."""
@@ -60,6 +89,9 @@ def _walk(mod, node, path: str, filled: set) -> None:
         for i, sub in enumerate(node):
             _walk(mod[i], sub, f"{path}.{i}", filled)
         return
+    if isinstance(node, dict) and _is_quantized_leaf(node.get("w")):
+        _quantized(mod, node["w"], f"{path}.w", filled)
+        node = {k: v for k, v in node.items() if k != "w"}
     if isinstance(node, dict) and _is_leaf(node):
         for key, arr in node.items():
             name = _LEAF_NAMES.get(key, key)
@@ -100,6 +132,7 @@ def load_jax_params(module: nn.Module, tree, state=None) -> nn.Module:
     filled: set = set()
     _walk(module, tree, type(module).__name__, filled)
     missing = [n for n, p in module.named_parameters() if id(p) not in filled]
+    missing += [n for n, m in module.named_modules() if is_quantized(m) and id(m) not in filled]
     if missing:
         raise KeyError(f"parameters not in the tree: {missing[:8]}{' …' if len(missing) > 8 else ''}")
     return module

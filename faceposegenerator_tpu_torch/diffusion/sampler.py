@@ -1,10 +1,16 @@
-"""txt2img sampler, exact path (port of `faceposegenerator_tpu/diffusion/sampler.py:59-406`):
-CLIP on [uncond; cond] → S × (UNet on [x; x] → guidance → DDPM step) →
-VAE decode → [0, 1].
+"""txt2img sampler (port of `faceposegenerator_tpu/diffusion/sampler.py:59-406`):
+CLIP on [uncond; cond] → S × (UNet on [x; x] → guidance → scheduler step) →
+VAE decode → [0, 1], with DDPM or DPM-Solver++ 2M, and the opt-in
+approximations of the turbo preset: a guidance interval (`cfg_interval`) and
+DeepCache (`deepcache_interval`, `deepcache_depth`).
 
 The JAX package compiles this into one program; here it is an eager Python
 loop whose step indices are host ints, so the loop never waits on the card.
-Capturing it in a CUDA graph is later work.
+The JAX loop's static segmentation is kept: under `cfg_interval=(i0, i1)`
+the steps [0, i0) and [i1, S) run cond-only at batch B on the cond half of
+the text context, each segment carries its own DeepCache cache, and a
+segment's first step and every step whose index is a multiple of the
+interval run the full UNet. Capturing the loop in a CUDA graph is later work.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import torch
 
 from ..core.precision import DEFAULT_POLICY, Policy
 from ..models import clip_text, unet2d, vae
-from .schedulers import DDPMSchedule
+from .schedulers import DDPMSchedule, DPMSolverSchedule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +39,7 @@ class SamplerModels:
 @torch.inference_mode()
 def sample(
     nets: dict,
-    schedule: DDPMSchedule,
+    schedule,
     input_ids: torch.Tensor,
     negative_input_ids: torch.Tensor,
     *,
@@ -42,21 +48,36 @@ def sample(
     height: int = 512,
     width: int = 512,
     policy: Policy = DEFAULT_POLICY,
+    scheduler: str = "ddpm",
     attn_impl: str = "auto",
     lora: Optional[dict] = None,
     lora_scale: float = 1.0,
     noise_override=None,
+    deepcache_interval: int = 1,
+    deepcache_depth: int = 1,
+    cfg_interval: Optional[tuple] = None,
     return_trajectory: bool = False,
 ):
     """Generate (B, H, W, 3) fp32 images in [0, 1].
 
     nets: {"text_encoder": CLIPTextModel, "unet": UNet2DCondition,
-    "vae": AutoencoderKL}. input_ids / negative_input_ids: (B, 77) token ids.
-    lora: {"unet": tree or None, "text_encoder": tree or None}.
+    "vae": AutoencoderKL}. schedule: a DDPMSchedule (scheduler "ddpm") or a
+    DPMSolverSchedule ("dpm"). input_ids / negative_input_ids: (B, 77) token
+    ids. lora: {"unet": tree or None, "text_encoder": tree or None}.
     noise_override: (S+1, B, h, w, 4), the initial latent at index 0 and
-    step i's noise at index i+1 (sampler.py:93-95), replacing `generator`.
-    return_trajectory: also return the latents after each step, (S, B, h, w, 4).
+    step i's noise at index i+1 (sampler.py:93-95), replacing `generator`;
+    DPM-Solver++ draws no step noise and reads index 0 only.
+    deepcache_interval=k > 1: full UNet on a segment's first step and on
+    steps i % k == 0, the cached partial UNet otherwise (`forward_cached`).
+    cfg_interval=(i0, i1): guidance only on steps i0 <= i < i1.
+    return_trajectory: also return the latents after each step, (S, B, h, w,
+    4); exact paths only.
     """
+    expected = DDPMSchedule if scheduler == "ddpm" else DPMSolverSchedule if scheduler == "dpm" else None
+    if expected is None:
+        raise ValueError(scheduler)
+    if not isinstance(schedule, expected):
+        raise TypeError(f"scheduler {scheduler!r} takes a {expected.__name__}, got {type(schedule).__name__}")
     policy.configure_backends()
     unet = nets["unet"]
     device = unet.conv_in.weight.device
@@ -64,6 +85,15 @@ def sample(
     h, w = height // 8, width // 8
     S = schedule.num_inference_steps
     lora = lora or {}
+    if cfg_interval is not None:
+        i0, i1 = int(cfg_interval[0]), int(cfg_interval[1])
+        if not (0 <= i0 <= i1 <= S):
+            raise ValueError(f"cfg_interval {cfg_interval} not within [0, {S}]")
+    if return_trajectory and (deepcache_interval > 1 or cfg_interval is not None):
+        raise ValueError(
+            "return_trajectory is a parity probe for the EXACT chain; "
+            "it does not compose with deepcache/cfg_interval"
+        )
     if noise_override is not None:
         if not isinstance(noise_override, torch.Tensor):
             noise_override = torch.from_numpy(np.asarray(noise_override, np.float32))
@@ -78,17 +108,40 @@ def sample(
 
     ids = torch.cat([torch.as_tensor(negative_input_ids), torch.as_tensor(input_ids)]).to(device)
     ctx = nets["text_encoder"](ids, policy, lora=lora.get("text_encoder"), lora_scale=lora_scale)
+    kw = dict(policy=policy, lora=lora.get("unet"), lora_scale=lora_scale, attn_impl=attn_impl)
 
+    def guided_eps(x, t, cond_only, cache, full):
+        """ε̂ at step timestep t: CFG on [x; x] or cond-only on x; with
+        DeepCache, the full pass (which refreshes the cache) or the partial
+        one over `cache`."""
+        lat, c = (x, ctx[B:]) if cond_only else (torch.cat([x, x]), ctx)
+        if deepcache_interval > 1:
+            eps, cache = unet.forward_cached(lat, t, c, depth=deepcache_depth,
+                                             cached=None if full else cache, **kw)
+        else:
+            eps = unet(lat, t, c, **kw)
+        if not cond_only:
+            eps_u, eps_c = eps.chunk(2)
+            eps = eps_u + guidance_scale * (eps_c - eps_u)
+        return eps, cache
+
+    segments = [(0, S, False)] if cfg_interval is None else [(0, i0, True), (i0, i1, False), (i1, S, True)]
     x = noise(0)
+    state = schedule.init_state(x) if scheduler == "dpm" else None
     traj = []
-    for i in range(S):
-        t = int(schedule.timesteps[i])
-        eps = unet(torch.cat([x, x]), t, ctx, policy, lora=lora.get("unet"),
-                   lora_scale=lora_scale, attn_impl=attn_impl)
-        eps_u, eps_c = eps.chunk(2)
-        x, _ = schedule.step(eps_u + guidance_scale * (eps_c - eps_u), i, x, noise(i + 1))
-        if return_trajectory:
-            traj.append(x)
+    for lo, hi, cond_only in segments:
+        cache = None
+        for i in range(lo, hi):
+            t = int(schedule.timesteps[i])
+            full = i == lo or i % deepcache_interval == 0
+            eps, cache = guided_eps(x, t, cond_only, cache, full)
+            if scheduler == "dpm":
+                state, _ = schedule.step(eps, i, state)
+                x = state[0]
+            else:
+                x, _ = schedule.step(eps, i, x, noise(i + 1))
+            if return_trajectory:
+                traj.append(x)
 
     images = nets["vae"].decode(x, policy, attn_impl=attn_impl)
     images = (images * 0.5 + 0.5).clamp(0.0, 1.0)

@@ -1,12 +1,12 @@
-"""DDPM scheduler (port of `faceposegenerator_tpu/diffusion/schedulers.py:28-239`).
+"""DDPM and DPM-Solver++ 2M schedulers (port of
+`faceposegenerator_tpu/diffusion/schedulers.py:28-349`).
 
 The tables live on the host as fp32 numpy arrays, and the sampler steps with
 Python-int step indices, so every per-step coefficient is a host scalar
 computed in fp32 as the JAX package computes it on the device: a step costs
 the card a few elementwise ops and never a host sync. Training draws one
 timestep per sample, so `add_noise` and `pred_original` also take a (B,)
-timestep tensor and gather from the tables on the device. DPM-Solver++
-waits for a later slice.
+timestep tensor and gather from the tables on the device.
 
 SD2.1-base `scheduler_config.json` semantics: scaled_linear betas
 0.00085 → 0.012 over 1000 steps, epsilon prediction, "leading" spacing with
@@ -34,6 +34,10 @@ class SchedulerConfig:
     clip_sample: bool = False
     clip_sample_range: float = 1.0
     variance_type: str = "fixed_small"
+    # DPM-Solver++ (diffusers DPMSolverMultistepScheduler defaults)
+    solver_order: int = 2
+    algorithm_type: str = "dpmsolver++"
+    lower_order_final: bool = True
 
 
 def _make_betas(cfg: SchedulerConfig) -> np.ndarray:
@@ -64,6 +68,25 @@ def inference_timesteps(cfg: SchedulerConfig, num_inference_steps: int) -> np.nd
         ts = np.linspace(0, T - 1, num_inference_steps).round()[::-1].astype(np.int64)
     else:
         raise ValueError(cfg.timestep_spacing)
+    return ts
+
+
+def dpm_inference_timesteps(cfg: SchedulerConfig, num_inference_steps: int, spacing: str) -> np.ndarray:
+    """Descending timesteps of diffusers `DPMSolverMultistepScheduler.
+    set_timesteps` (schedulers.py:76-102): the linspace and leading
+    spacings sample S+1 points and drop the last, not the DDPM `T//S` rule."""
+    T = cfg.num_train_timesteps
+    if spacing == "linspace":
+        ts = np.linspace(0, T - 1, num_inference_steps + 1).round()[::-1][:-1].astype(np.int64)
+    elif spacing == "leading":
+        step_ratio = T // (num_inference_steps + 1)
+        ts = (np.arange(0, num_inference_steps + 1) * step_ratio).round()[::-1][:-1].astype(np.int64)
+        ts = ts + cfg.steps_offset
+    elif spacing == "trailing":
+        step_ratio = T / num_inference_steps
+        ts = np.arange(T, 0, -step_ratio).round().astype(np.int64) - 1
+    else:
+        raise ValueError(spacing)
     return ts
 
 
@@ -171,4 +194,86 @@ def make_ddpm(cfg: SchedulerConfig = SchedulerConfig(),
         clip_sample=cfg.clip_sample,
         clip_sample_range=cfg.clip_sample_range,
         prediction_type=cfg.prediction_type,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class DPMSolverSchedule:
+    """DPM-Solver++ 2M (schedulers.py:249-315): deterministic, so the state
+    is (x, m0, m1, count), x and the last two data predictions in fp32 and
+    the number of steps taken. σ, α and λ hold S+1 points, the last one the
+    terminal α = 1, σ = 0."""
+
+    alphas_cumprod: np.ndarray  # (T,) fp32
+    timesteps: np.ndarray  # (S,) int32, descending
+    sigma_t: np.ndarray  # (S+1,) fp32
+    alpha_t: np.ndarray  # (S+1,) fp32
+    lambda_t: np.ndarray  # (S+1,) fp32, log(α) - log(max(σ, 1e-10))
+    num_inference_steps: int = 0
+    prediction_type: str = "epsilon"
+    solver_order: int = 2
+    lower_order_final: bool = True
+
+    def init_state(self, x: torch.Tensor):
+        x = x.float()
+        return (x, torch.zeros_like(x), torch.zeros_like(x), 0)
+
+    def data_prediction(self, model_out: torch.Tensor, step_index: int, x_t: torch.Tensor) -> torch.Tensor:
+        """x̂0 from the model output at step position `step_index`, fp32."""
+        acp = self.alphas_cumprod[int(self.timesteps[step_index])]
+        sqrt_a, sqrt_s = float(np.sqrt(acp)), float(np.sqrt(np.float32(1.0) - acp))
+        x32, o32 = x_t.float(), model_out.float()
+        if self.prediction_type == "epsilon":
+            return (x32 - sqrt_s * o32) / sqrt_a
+        if self.prediction_type == "v_prediction":
+            return sqrt_a * x32 - sqrt_s * o32
+        return o32
+
+    def step(self, model_out: torch.Tensor, step_index: int, state):
+        """One 2M update; returns (new state, x̂0). The first step, and the
+        last one whenever S > 1 (`lower_order_final`, the JAX rule of
+        schedulers.py:312-313, not diffusers' "below 15 steps"), fall back to
+        first order. Coefficients are fp32 host scalars, combined in the JAX
+        expression's order."""
+        x, m0, _, count = state
+        i = int(step_index)
+        S = self.num_inference_steps
+        x0 = self.data_prediction(model_out, i, x)
+        sigma_s, sigma_tt = self.sigma_t[i], self.sigma_t[i + 1]
+        alpha_tt = self.alpha_t[i + 1]
+        lam_s, lam_tt = self.lambda_t[i], self.lambda_t[i + 1]
+        h = lam_tt - lam_s
+        ratio = sigma_tt / sigma_s
+        phi = np.expm1(-h)
+        use_first = count < 1 or (self.lower_order_final and S > 1 and i == S - 1)
+        x_new = float(ratio) * x.float() - float(alpha_tt * phi) * x0
+        if not use_first:
+            h0 = lam_s - self.lambda_t[max(i - 1, 0)]
+            r0 = h0 / (h if h != 0 else np.float32(1.0))
+            d1 = (x0 - m0) / float(r0 if r0 != 0 else np.float32(1.0))
+            x_new = x_new - float(np.float32(0.5) * alpha_tt * phi) * d1
+        return (x_new.to(x.dtype), x0, m0, count + 1), x0
+
+
+def make_dpm_solver(cfg: SchedulerConfig = SchedulerConfig(), num_inference_steps: int = 30,
+                    timestep_spacing: Optional[str] = None) -> DPMSolverSchedule:
+    """`timestep_spacing=None` means "linspace", the DPMSolverMultistepScheduler
+    class default (schedulers.py:318-349)."""
+    betas = _make_betas(cfg)
+    acp = np.cumprod(1.0 - betas)
+    ts = dpm_inference_timesteps(cfg, num_inference_steps, timestep_spacing or "linspace")
+    acp_path = np.concatenate([acp[ts], [1.0]])
+    alpha_t = np.sqrt(acp_path)
+    sigma_t = np.sqrt(1.0 - acp_path)
+    lambda_t = np.log(alpha_t) - np.log(np.maximum(sigma_t, 1e-10))
+    return DPMSolverSchedule(
+        alphas_cumprod=acp.astype(np.float32),
+        timesteps=ts.astype(np.int32),
+        sigma_t=sigma_t.astype(np.float32),
+        alpha_t=alpha_t.astype(np.float32),
+        lambda_t=lambda_t.astype(np.float32),
+        num_inference_steps=num_inference_steps,
+        prediction_type=cfg.prediction_type,
+        solver_order=cfg.solver_order,
+        lower_order_final=cfg.lower_order_final,
     )

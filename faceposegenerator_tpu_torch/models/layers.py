@@ -9,6 +9,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..ops.quant import is_quantized, qconv2d
 
 
 class Affine(nn.Module):
@@ -22,7 +23,10 @@ class Affine(nn.Module):
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, stride: int = 1, padding: int = 1) -> torch.Tensor:
     """NHWC in and out. The NCHW view of a contiguous NHWC tensor is
-    channels_last, which is what cuDNN wants; no copy is made either way."""
+    channels_last, which is what cuDNN wants; no copy is made either way. A
+    quantized layer goes to `qconv2d` (unet2d.py:64-72)."""
+    if is_quantized(conv.weight):
+        return qconv2d(x, conv, stride=stride, padding=padding)
     y = F.conv2d(
         x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), conv.bias.to(x.dtype),
         stride=stride, padding=padding,

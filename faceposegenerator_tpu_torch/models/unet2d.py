@@ -5,8 +5,11 @@ channels_last NCHW view of its NHWC input. The module tree follows the JAX
 param tree key for key (`init`, unet2d.py:178), so `bridge.jax_params`
 loads a JAX tree by walking it, and `init_lora` returns the layout of JAX
 `init_lora` (unet2d.py:244-272). Every attention goes through
-`ops.attention.dot_product_attention`: kernel K1 on the card, and K5 for its
-backward when a gradient is taken through the LoRA.
+`ops.attention.dot_product_attention`: kernel K1 on the card (K8 under
+`attn_impl="flash_int8"`), and K5 for its backward when a gradient is taken
+through the LoRA. After `ops.quant.quantize_unet` every dense layer but the
+time path runs kernel K7 and every conv but conv_in/conv_out runs
+`qconv2d`. `forward_cached` is the DeepCache forward.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from ..core.precision import DEFAULT_POLICY, Policy
 from ..ops.attention import dot_product_attention
 from ..ops.lora import lora_delta, lora_dense
 from ..ops.norms import group_norm, layer_norm
+from ..ops.quant import is_quantized, qdense_fused
 from .layers import Affine, conv2d, materialize
 
 
@@ -99,8 +103,9 @@ class Attention(nn.Module):
     def forward(self, x, ctx, head_dim: int, lora=None, lora_scale: float = 1.0,
                 attn_impl: str = "auto", kv_len: Optional[int] = None):
         """x: (B, S, C) queries; ctx: (B, Skv, Cctx). Self-attention (ctx is
-        x) runs the q/k/v projections as one GEMM (unet2d.py:331-355); the
-        q/k/v views of its output go to the kernel without a copy."""
+        x) runs the q/k/v projections as one GEMM (unet2d.py:331-355), one
+        `qdense_fused` when the layers are quantized; the q/k/v views of its
+        output go to the kernel without a copy."""
         b, s, c = x.shape
         nh = c // head_dim
 
@@ -114,8 +119,12 @@ class Attention(nn.Module):
             )
 
         if ctx is x:
-            wqkv = torch.cat([self.q.weight, self.k.weight, self.v.weight], dim=0)
-            qkv = list(F.linear(x, wqkv.to(x.dtype)).split(c, dim=-1))
+            ws = [self.q.weight, self.k.weight, self.v.weight]
+            if is_quantized(ws[0]):
+                qkv = qdense_fused(x, ws)
+            else:
+                qkv = F.linear(x, torch.cat(ws, dim=0).to(x.dtype))
+            qkv = list(qkv.split(c, dim=-1))
             for i, name in enumerate(("q", "k", "v")):
                 la = None if lora is None else lora.get(name)
                 if la is None:
@@ -253,6 +262,32 @@ class UNet2DCondition(nn.Module):
         `remat` (gradient checkpointing) recomputes each down, mid and up
         unit in the backward instead of keeping its activations, the units
         `jax.checkpoint` wraps in the JAX twin (unet2d.py:482-533)."""
+        return self._run(latents, timesteps, encoder_hidden_states, policy, lora, lora_scale, attn_impl,
+                         ctx_len, remat)[0]
+
+    def forward_cached(self, latents, timesteps, encoder_hidden_states, policy: Policy = DEFAULT_POLICY,
+                       lora: Optional[dict] = None, lora_scale: float = 1.0, attn_impl: str = "auto",
+                       ctx_len: Optional[int] = None, depth: int = 1,
+                       cached: Optional[torch.Tensor] = None):
+        """ε̂ with a DeepCache deep-feature cache (`apply_cached`,
+        unet2d.py:559-681); returns (eps, cache). With `cached=None` the full
+        network runs and the cache is the feature entering
+        `up_blocks[L - depth]`. With `cached` given, only the first `depth`
+        down blocks (the last of them without its downsample) and the last
+        `depth` up blocks run, and `cached` is spliced in at
+        `up_blocks[L - depth]`: on the latent that made the cache this equals
+        the full pass bit for bit."""
+        L = len(self.down_blocks)
+        if not 1 <= depth < L:
+            raise ValueError(f"depth must be in [1, {L - 1}], got {depth}")
+        return self._run(latents, timesteps, encoder_hidden_states, policy, lora, lora_scale, attn_impl,
+                         ctx_len, False, L - depth, cached)
+
+    def _run(self, latents, timesteps, encoder_hidden_states, policy, lora, lora_scale, attn_impl, ctx_len,
+             remat, splice=None, cached=None):
+        """The one down/mid/up loop: (ε̂, the feature entering
+        up_blocks[splice]). With `cached`, the down blocks below the splice
+        and the mid block are skipped and `cached` enters there instead."""
         cfg = self.cfg
         x = latents.to(policy.compute_dtype)
         ctx = encoder_hidden_states.to(policy.compute_dtype)
@@ -265,6 +300,8 @@ class UNet2DCondition(nn.Module):
         temb = lora_dense(temb, te.linear_1.weight, te.linear_1.bias)
         temb = lora_dense(F.silu(temb), te.linear_2.weight, te.linear_2.bias)
         G = cfg.norm_groups
+        L = len(self.down_blocks)
+        depth = L if cached is None else L - splice
 
         def unit(fn, *args):
             if remat and torch.is_grad_enabled():
@@ -279,27 +316,36 @@ class UNet2DCondition(nn.Module):
 
         x = conv2d(x, self.conv_in)
         skips = [x]
-        for bi, block in enumerate(self.down_blocks):
+        for bi, block in enumerate(self.down_blocks[:depth]):
             blora = None if lora is None else lora["down_blocks"][bi]
             for j, rb in enumerate(block.resnets):
                 tr = None if block.attentions is None else block.attentions[j]
                 tlora = None if blora is None or tr is None else blora["attentions"][j]
                 x = unit(level_unit, x, rb, tr, tlora)
                 skips.append(x)
-            if block.downsample is not None:
+            # the last recomputed block's downsample feeds only skipped blocks
+            if block.downsample is not None and not (cached is not None and bi == depth - 1):
                 x = conv2d(x, block.downsample, stride=2, padding=1)
                 skips.append(x)
 
-        mid = self.mid_block
-        mlora = None if lora is None else lora["mid_block"]["attentions"][0]
+        if cached is None:
+            mid = self.mid_block
+            mlora = None if lora is None else lora["mid_block"]["attentions"][0]
 
-        def mid_unit(x):
-            h = level_unit(x, mid.resnets[0], mid.attentions[0], mlora)
-            return mid.resnets[1](h, temb, G)
+            def mid_unit(x):
+                h = level_unit(x, mid.resnets[0], mid.attentions[0], mlora)
+                return mid.resnets[1](h, temb, G)
 
-        x = unit(mid_unit, x)
+            x = unit(mid_unit, x)
+        else:
+            x = cached.to(x.dtype)
 
+        cache = cached
         for bi, block in enumerate(self.up_blocks):
+            if cached is not None and bi < splice:
+                continue
+            if bi == splice and cached is None:
+                cache = x
             blora = None if lora is None else lora["up_blocks"][bi]
             for j, rb in enumerate(block.resnets):
                 tr = None if block.attentions is None else block.attentions[j]
@@ -314,7 +360,7 @@ class UNet2DCondition(nn.Module):
                 x = conv2d(upsample_nearest2x(x), block.upsample)
 
         x = group_norm(x, self.conv_norm_out.weight, self.conv_norm_out.bias, G, 1e-5, "silu")
-        return conv2d(x, self.conv_out).float()
+        return conv2d(x, self.conv_out).float(), cache
 
 
 def init_lora(unet: UNet2DCondition, rank: int = 4, *, generator: Optional[torch.Generator] = None,

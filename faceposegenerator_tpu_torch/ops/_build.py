@@ -24,6 +24,15 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# the C entry point of each kernel, by the source that defines it
+KERNELS = {
+    "flash_fwd": ("flash_fwd_d64", "flash_fwd_wide"),
+    "flash_bwd": ("flash_bwd_d64_dkv", "flash_bwd_d64_dq", "flash_bwd_wide_dkv", "flash_bwd_wide_dq"),
+    "flash_int8": ("flash_int8",),
+    "qdense": ("qdense",),
+}
+SOURCE_OF = {kernel: src for src, kernels in KERNELS.items() for kernel in kernels}
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -83,6 +92,11 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas register and spill report) for a built source."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def kernel(name: str):
+    """The C entry point of kernel `name` from its source's library."""
+    return getattr(load(SOURCE_OF[name]), name)
 
 
 def load(name: str) -> ctypes.CDLL:

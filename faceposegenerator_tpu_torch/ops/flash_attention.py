@@ -13,7 +13,10 @@ paths:
   `flash_bwd_d64_dkv`,  K5, `_bwd_kernel_packed_dkv` (:711) and
   `flash_bwd_d64_dq`    `_bwd_kernel_packed_dq` (:777) (csrc/flash_bwd.cu);
   `flash_bwd_wide_dkv`, K6, `_bwd_kernel_plain_dkv` (:542) and
-  `flash_bwd_wide_dq`   `_bwd_kernel_plain_dq` (:585) (csrc/flash_bwd.cu).
+  `flash_bwd_wide_dq`   `_bwd_kernel_plain_dq` (:585) (csrc/flash_bwd.cu);
+  `flash_int8`          K8, `_fwd_kernel_packed_int8` (:1108): the int8
+                        attention of `flash_attention_int8` (:1261), head
+                        dim 64, inference only (csrc/flash_int8.cu).
 
 All take (B, S, H, D) bf16 tensors whose head dim is contiguous; other
 strides are passed to the kernel, so the q/k/v views split out of a fused
@@ -32,11 +35,12 @@ from typing import Optional
 import torch
 
 from . import _build
+from .qdense import INV127, quantize
 
 LAUNCHES = {
     "flash_fwd_d64": 0, "flash_fwd_wide": 0,
     "flash_bwd_d64_dkv": 0, "flash_bwd_d64_dq": 0,
-    "flash_bwd_wide_dkv": 0, "flash_bwd_wide_dq": 0,
+    "flash_bwd_wide_dkv": 0, "flash_bwd_wide_dq": 0, "flash_int8": 0,
 }
 _WIDE_DIMS = (128, 256, 384, 512)
 _INT32_MAX = 2**31 - 1
@@ -94,20 +98,21 @@ def attention_bwd_plain(q, k, v, o, lse, do, scale: float, kv_len: Optional[int]
 
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {  # the C signatures in csrc/flash_fwd.cu and csrc/flash_bwd.cu
+_ARGTYPES = {  # the C signatures in csrc/flash_fwd.cu, flash_bwd.cu and flash_int8.cu
     "flash_fwd_d64": [_PTR] * 5 + [_INT] * 16 + [_FLOAT, _PTR],
     "flash_fwd_wide": [_PTR] * 5 + [_INT] * 17 + [_FLOAT, _PTR],
     "flash_bwd_d64_dkv": [_PTR] * 8 + [_INT] * 5 + [_PTR, _FLOAT, _PTR],
     "flash_bwd_d64_dq": [_PTR] * 7 + [_INT] * 4 + [_PTR, _FLOAT, _PTR],
     "flash_bwd_wide_dkv": [_PTR] * 8 + [_INT] * 6 + [_PTR, _FLOAT, _PTR],
     "flash_bwd_wide_dq": [_PTR] * 7 + [_INT] * 5 + [_PTR, _FLOAT, _PTR],
+    "flash_int8": [_PTR] * 5 + [_INT] * 5 + [_PTR],
 }
 
 
 def _fn(name: str):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(_build.load("flash_fwd" if name.startswith("flash_fwd") else "flash_bwd"), name)
+        fn = _build.kernel(name)
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -257,3 +262,87 @@ class FlashAttention(torch.autograd.Function):
         bwd = flash_bwd_d64 if q.shape[-1] == 64 else flash_bwd_wide
         dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.scale, ctx.kv_len)
         return dq, dk, dv, None, None
+
+
+# ---------------------------------------------------------------------------
+# K8: int8 attention (SageAttention-style, arXiv:2410.02367), inference only
+# ---------------------------------------------------------------------------
+
+_INT8_BLOCK_K = 4096  # JAX's DEFAULT_BLOCK_K: p is quantized against this block's row max
+NEG_INF = -1e30
+
+
+def attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                         kv_len: Optional[int] = None) -> torch.Tensor:
+    """`flash_attention_int8`'s function in plain PyTorch: per-tensor int8
+    codes of q, k and v; logits (q8·k8ᵀ)·(sq·sk·scale) with keys >= kv_len
+    masked (per-tensor scales over every batch row, head and key,
+    flash_attention.py:1202-1210); in blocks of 4096 keys (one block on every path here) the online
+    softmax of the JAX kernel: p = exp(s − m) against the running row max,
+    p8 = trunc(p·127 + 0.5), o = Σ(p8·v8)·(sv/127) / Σp. The integer products
+    run in fp32, exact while |Σ| < 2²⁴: always for q8·k8ᵀ at head dim 64
+    (≤ 127²·64), and for p8·v8 unless nearly all of a row's weight sits on
+    keys whose v codes share a sign and a magnitude near 127."""
+    (q8, sq), (k8, sk), (v8, sv) = (quantize(t) for t in (q, k, v))
+    c_qk, c_v = sq * sk * scale, sv * INV127
+    skv = k.shape[1]
+    kv_end = skv if kv_len is None else min(skv, int(kv_len))
+    b, sq_len, h, d = q.shape
+    m = torch.full((b, h, sq_len, 1), NEG_INF, device=q.device)
+    l = torch.zeros((b, h, sq_len, 1), device=q.device)
+    acc = torch.zeros((b, h, sq_len, d), device=q.device)
+    for k0 in range(0, skv, _INT8_BLOCK_K):
+        kb, vb = k8[:, k0:k0 + _INT8_BLOCK_K], v8[:, k0:k0 + _INT8_BLOCK_K]
+        s = torch.einsum("bqhd,bkhd->bhqk", q8, kb) * c_qk
+        if kv_end < k0 + kb.shape[1]:
+            s[..., max(kv_end - k0, 0):] = NEG_INF
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        p8 = torch.trunc(p * 127.0 + 0.5)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", p8, vb) * c_v
+        m = m_new
+    return (acc / l).transpose(1, 2).to(q.dtype)
+
+
+# V codes are handed to the kernel transposed, (B, H, D, Skv padded to 64),
+# and within each block of 32 keys in the order in which the kernel's score
+# fragments hold them, so that those fragments are the A operand of the
+# int8 P·V product as they are (see csrc/flash_int8.cu).
+_V_PERM = torch.tensor([half * 16 + (2 * t + e if e < 2 else 8 + 2 * t + e - 2)
+                        for half in range(2) for t in range(4) for e in range(4)])
+
+
+def _launch_int8(q, k, v, scale: float, kv_len):
+    b, sq, skv, h, d, kv_end = _shapes("flash_int8", q, k, v, kv_len)
+    if d != 64:
+        raise ValueError(f"flash_int8 takes head dim 64, got {d}")
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_int8 takes bf16 tensors, got {q.dtype}")
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_int8: every tensor must lie on one CUDA device")
+    if skv > _INT8_BLOCK_K:
+        raise ValueError(f"flash_int8 takes at most {_INT8_BLOCK_K} keys on the card, got {skv}")
+    (q8, sq_s), (k8, sk_s), (v8, sv_s) = (quantize(t) for t in (q, k, v))
+    q8, k8 = q8.to(torch.int8), k8.to(torch.int8)
+    skv_p = -(-skv // 64) * 64
+    vt = torch.zeros((b, h, d, skv_p), dtype=torch.int8, device=q.device)
+    vt[..., :skv] = v8.permute(0, 2, 3, 1)
+    perm = (torch.arange(0, skv_p, 32).repeat_interleave(32) + _V_PERM.repeat(skv_p // 32)).to(q.device)
+    vt = vt.index_select(-1, perm)
+    scalars = torch.stack([sq_s * sk_s * scale, sv_s * INV127])
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _call("flash_int8", q8.data_ptr(), k8.data_ptr(), vt.data_ptr(), o.data_ptr(), scalars.data_ptr(),
+          b, h, sq, skv, kv_end, torch.cuda.current_stream(q.device).cuda_stream)
+    return o
+
+
+def flash_attention_int8(q, k, v, scale: float, kv_len: Optional[int] = None) -> torch.Tensor:
+    """K8: int8 attention over (B, S, H, 64) (`flash_attention_int8`,
+    flash_attention.py:1261). A CPU tensor takes `attention_int8_plain`; a
+    CUDA tensor takes the kernel or raises. Other head dims are the caller's
+    to send to the exact kernels (`ops.attention`)."""
+    if not q.is_cuda:
+        return attention_int8_plain(q, k, v, scale, kv_len)
+    return _launch_int8(q, k, v, scale, kv_len)

@@ -1,13 +1,17 @@
 """Where one txt2img request of the PyTorch port spends its device time.
 
-    python3 perf/torch_txt2img_profile.py
+    python3 perf/torch_txt2img_profile.py [--preset turbo] [--attn flash_int8]
 
 Builds the pipeline as chip_smoke.py does (SD2.1-base widths, bf16, random
 weights, rank-4 UNet LoRA), serves one warm-up request at batch 8, 512², 30
-DDPM steps, CFG 5.0, then traces one more with torch.profiler. Prints the
-request's wall time, the device's busy and idle share, device time by
-category of kernel and the top kernels, and writes the full table to
-chiprun_out/torch_txt2img_profile.txt. Needs a CUDA card.
+DDPM steps, CFG 5.0, then traces one more with torch.profiler. With
+`--preset turbo` the pipeline first takes `get_preset("turbo").apply` (dpm,
+w8a8+vae, 8 calibration steps at 8×512²) and the requests run its 12 steps
+and sampling kwargs; `--attn flash_int8` serves them with the int8
+attention. Prints the request's wall time, the device's busy and idle share,
+device time by category of kernel and the top kernels, and writes the full
+table to chiprun_out/torch_txt2img_profile[_turbo][_flash_int8].txt. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 CATEGORIES = [  # first match wins; matched against the kernel's name
+    ("int8 dense K7 (qdense)", r"qdense|row_scale"),
+    ("int8 attention K8 (flash_int8)", r"flash_int8"),
     ("attention K1 (flash_fwd_d64)", r"flash_fwd_d64"),
     ("attention K2 (flash_fwd_wide)", r"flash_fwd_wide"),
     ("convolution", r"conv|fprop|implicit|winograd|nchw|nhwc"),
@@ -41,20 +47,35 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA card", file=sys.stderr)
         return 1
+    import argparse
+
     import chip_smoke
+    from faceposegenerator_tpu_torch.diffusion.sampler import SamplerModels
+    from faceposegenerator_tpu_torch.pipelines.presets import get_preset
     from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--preset", choices=["turbo"], default=None)
+    ap.add_argument("--attn", choices=["auto", "flash_int8"], default="auto")
+    args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    pipe = StableDiffusionPipeline.from_random(seed=0, dtype=torch.bfloat16)
+    pipe = StableDiffusionPipeline.from_random(seed=0, models=SamplerModels(attn_impl=args.attn),
+                                               dtype=torch.bfloat16)
     pipe.set_lora(chip_smoke.make_lora(pipe.nets["unet"], 10, torch))
     ids = torch.randint(0, 49408, (8, 77), generator=torch.Generator().manual_seed(1))
+    steps, kw = 30, {}
+    if args.preset:
+        preset = get_preset(args.preset)
+        calib = torch.randint(0, 49408, (8, 77), generator=torch.Generator().manual_seed(2))
+        steps, kw = preset.steps, preset.apply(pipe, input_ids=calib)
+    print(f"preset {args.preset}, attention {args.attn}: {steps} steps, kwargs {kw}", flush=True)
 
     def request(seed):
         torch.cuda.synchronize()
         t0 = time.time()
-        pipe(input_ids=ids, num_inference_steps=30, guidance_scale=5.0, height=512, width=512, seed=seed)
+        pipe(input_ids=ids, num_inference_steps=steps, guidance_scale=5.0, height=512, width=512, seed=seed, **kw)
         torch.cuda.synchronize()
         return time.time() - t0
 
@@ -85,9 +106,11 @@ def main() -> int:
         print(f"  {ms:9.1f} ms  {name[:110]}")
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "torch_txt2img_profile.txt").write_text(
+    suffix = "".join(f"_{x}" for x in (args.preset, None if args.attn == "auto" else args.attn) if x)
+    (out / f"torch_txt2img_profile{suffix}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    print(json.dumps({"card": card, "wall_ms": wall_ms, "device_busy_ms": busy,
+    print(json.dumps({"card": card, "preset": args.preset, "attn": args.attn, "wall_ms": wall_ms,
+                      "device_busy_ms": busy,
                       "idle_share": 1 - busy / wall_ms, "by_category_ms": dict(by_cat)}))
     return 0
 

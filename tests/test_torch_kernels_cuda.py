@@ -7,7 +7,9 @@ imports no JAX, so it runs where only the port's dependencies are installed.
 Limits: outputs within 2e-2 max and 2e-3 mean absolute error of the fp32
 plain version on the same bf16 inputs, gradients within 2e-2 and 2e-3 of
 their max abs (a key's dk and dv sum over every query, so they grow with
-Sq/Skv); the log-sum-exp within 1e-3.
+Sq/Skv); the log-sum-exp within 1e-3. K7 (qdense) makes the same codes as
+its plain version, so each output is within 1 bf16 ulp plus 1e-3 relative of
+it; K8 (flash_int8) within 2e-2 max and 2e-3 mean of its plain version.
 """
 
 import numpy as np
@@ -15,6 +17,8 @@ import pytest
 import torch
 
 from faceposegenerator_tpu_torch.ops import flash_attention as fa
+from faceposegenerator_tpu_torch.ops import qdense as qd
+from faceposegenerator_tpu_torch.ops.quant import quantize_weight
 from faceposegenerator_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -32,6 +36,16 @@ def _close(out, ref, max_err=2e-2, mean_err=2e-3, relative=False):
     err = (out.float() - ref.float()).abs()
     n = ref.float().abs().max().item() if relative else 1.0
     assert err.max().item() <= max_err * n and err.mean().item() <= mean_err * n, (err.max().item(), err.mean().item(), n)
+
+
+def _same_codes(out, ref, mean_err=1e-4):
+    """K7 and K8 make their plain versions' codes: each output within 1 bf16
+    ulp + 1e-3 relative of the plain one, and the mean abs err within
+    `mean_err`."""
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref.abs().clamp_min(2.0**-126))[1] - 8)
+    assert (err <= ulp + 1e-3 * ref.abs()).all() and err.mean().item() <= mean_err, (err.max().item(), err.mean().item())
 
 
 @pytest.mark.cuda
@@ -112,10 +126,85 @@ def test_cuda_autograd_goes_through_the_kernels():
     out.float().square().sum().backward()
     torch.cuda.synchronize()
     assert fa.LAUNCHES == {"flash_fwd_d64": 1, "flash_fwd_wide": 0, "flash_bwd_d64_dkv": 1,
-                           "flash_bwd_d64_dq": 1, "flash_bwd_wide_dkv": 0, "flash_bwd_wide_dq": 0}
+                           "flash_bwd_d64_dq": 1, "flash_bwd_wide_dkv": 0, "flash_bwd_wide_dq": 0,
+                           "flash_int8": 0}
     ref_in = qkv.detach().float().requires_grad_()
     rq, rk, rv = ref_in.unbind(2)
     fa.attention_plain(rq, rk, rv, 0.125).square().sum().backward()
     assert torch.isfinite(qkv.grad).all()
     cos = torch.nn.functional.cosine_similarity(qkv.grad.float().flatten(), ref_in.grad.flatten(), dim=0)
     assert cos.item() >= 0.99
+
+
+QDENSE_CASES = [  # (lead, K, N, static): ragged M and N, the widest K, the cross k/v rows
+    ((130,), 64, 72, False), ((2, 77), 1024, 320, True), ((257,), 320, 960, False),
+    ((3, 100), 5120, 1280, False), ((4, 333), 640, 2568, True), ((1232,), 1024, 320, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,k,n,static", QDENSE_CASES)
+def test_cuda_qdense_matches_plain(lead, k, n, static):
+    _card()
+    rng = np.random.default_rng(k + n)
+    x = torch.from_numpy(rng.standard_normal((*lead, k)).astype(np.float32)).cuda().to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32) * k**-0.5).cuda()
+    qw = quantize_weight(w)
+    a = float(x.float().abs().amax()) / 127.0 if static else None
+    qd.reset_launch_counts()
+    out = qd.qdense_kernel(x, qw.q, qw.s, a)
+    torch.cuda.synchronize()
+    assert qd.LAUNCHES["qdense"] == 1 and out.shape == (*lead, n) and out.dtype == torch.bfloat16
+    _same_codes(out, qd.qdense_plain(x, qw.q, qw.s, a))
+
+
+@pytest.mark.cuda
+def test_cuda_qdense_rejects_what_the_kernel_does_not_take():
+    _card()
+    qw = quantize_weight(torch.randn(64, 48, device="cuda"))
+    with pytest.raises(ValueError, match="K % 32"):
+        qd.qdense_kernel(torch.randn(8, 48, device="cuda", dtype=torch.bfloat16), qw.q, qw.s)
+    qw = quantize_weight(torch.randn(64, 64, device="cuda"))
+    with pytest.raises(ValueError, match="bf16"):
+        qd.qdense_kernel(torch.randn(8, 64, device="cuda"), qw.q, qw.s)
+
+
+INT8_CASES = [  # (b, sq, skv, h, kv_len): odd heads, ragged tiles, masked keys, the UNet's largest
+    (2, 256, 256, 5, None), (2, 130, 77, 3, None), (1, 64, 128, 2, 77), (2, 200, 333, 4, 300),
+    (16, 4096, 4096, 5, None), (16, 4096, 77, 5, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kv_len", INT8_CASES)
+def test_cuda_flash_int8_matches_plain(b, sq, skv, h, kv_len):
+    _card()
+    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in _qkv(11, b, sq, skv, h, 64))
+    fa.reset_launch_counts()
+    out = dot_product_attention(q, k, v, kv_len=kv_len, impl="flash_int8")
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_int8"] == 1 and fa.LAUNCHES["flash_fwd_d64"] == 0
+    _same_codes(out, fa.attention_int8_plain(q, k, v, 0.125, kv_len))
+    # close to exact attention as the JAX test holds it, q and k at half
+    # scale: at unit scale over 4096 keys most p sit on the lowest codes of
+    # the 1/127 grid and the relative error of the function itself is ~4%
+    q, k = q * 0.5, k * 0.5
+    out = fa.flash_attention_int8(q, k, v, 0.125, kv_len)
+    exact = fa.attention_plain(q.float(), k.float(), v.float(), 0.125, kv_len)
+    assert ((out.float() - exact).norm() / exact.norm()).item() < 3e-2
+
+
+@pytest.mark.cuda
+def test_cuda_flash_int8_quantizes_p_against_the_full_row_max():
+    """The row max sits in the last 64-key tile: a kernel that quantized p
+    against a running max would make other codes and miss the plain version."""
+    _card()
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((1, 128, 2, 64)).astype(np.float32)
+    k = rng.standard_normal((1, 256, 2, 64)).astype(np.float32) * 0.3
+    k[:, 200:] = 3.0 * q[:, :56].mean(1, keepdims=True)  # keys the queries align with
+    v = rng.standard_normal((1, 256, 2, 64)).astype(np.float32)
+    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in (q, k, v))
+    out = fa.flash_attention_int8(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    _same_codes(out, fa.attention_int8_plain(q, k, v, 0.125))

@@ -107,8 +107,10 @@ def test_pipeline_surface():
         vae_cfg=vae.VAEConfig(**TINY_VAE),
     )
     pipe = StableDiffusionPipeline.from_random(models=pmodels, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pipe.set_scheduler("dpm")
+    pipe.set_scheduler("dpm")
+    assert pipe.scheduler_kind == "dpm"
+    with pytest.raises(ValueError, match="unknown scheduler"):
+        pipe.set_scheduler("euler")
     pipe.set_scheduler("ddpm")
     pipe.set_lora({"unet": unet2d.init_lora(pipe.nets["unet"]), "text_encoder": None}, 0.5)
     assert pipe.lora is not None and pipe.lora_scale == 0.5

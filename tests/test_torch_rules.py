@@ -1,6 +1,8 @@
 """Rules the PyTorch port keeps: it never imports JAX or the JAX package,
 its entry points do not fall back to the CPU, CPU tensors never count as
-kernel launches, and its modules import without a CUDA toolkit."""
+kernel launches, every CUDA source has a launch counter that chip_smoke.py
+reports, no library kernel stands in for a hand-written one, the kernels
+build without fast math, and its modules import without a CUDA toolkit."""
 
 import ast
 import os
@@ -14,7 +16,9 @@ import pytest
 import torch
 
 import faceposegenerator_tpu_torch as port
+from faceposegenerator_tpu_torch.ops import _build
 from faceposegenerator_tpu_torch.ops import flash_attention as fa
+from faceposegenerator_tpu_torch.ops import qdense as qd
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_DIR = Path(port.__file__).parent
@@ -48,8 +52,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_port_sources_use_no_library_attention_or_compile():
     """No port module imports JAX or the JAX package, or calls
-    `scaled_dot_product_attention` or `torch.compile` (chip_smoke.py times
-    the former as a yardstick only)."""
+    `scaled_dot_product_attention`, `torch._int_mm` or `torch.compile`
+    (chip_smoke.py times the first two as yardsticks only)."""
     for path in PORT_DIR.rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             where = f"{path.relative_to(REPO)}:{getattr(node, 'lineno', '?')}"
@@ -61,7 +65,7 @@ def test_port_sources_use_no_library_attention_or_compile():
                 roots = []
             assert not {"jax", "faceposegenerator_tpu"} & set(roots), where
             if isinstance(node, ast.Attribute):
-                assert node.attr != "scaled_dot_product_attention", where
+                assert node.attr not in ("scaled_dot_product_attention", "_int_mm"), where
                 assert not (node.attr == "compile" and isinstance(node.value, ast.Name)
                             and node.value.id == "torch"), where
 
@@ -92,9 +96,36 @@ def test_cpu_tensors_never_count_launches():
     o, lse = fa.attention_plain_lse(q, q, q, 0.125)
     fa.flash_bwd_d64(q, q, q, o, lse, o, 0.125)
     fa.flash_bwd_wide(w, w, w, w, torch.zeros(1, 1, 32), w, 512**-0.5)
+    dot_product_attention(q, q, q, kv_len=7, impl="flash_int8")
+    qd.reset_launch_counts()
+    qd.qdense_kernel(torch.randn(3, 64), torch.ones(8, 64, dtype=torch.int8), torch.ones(8))
     assert set(fa.LAUNCHES) == {"flash_fwd_d64", "flash_fwd_wide", "flash_bwd_d64_dkv", "flash_bwd_d64_dq",
-                                "flash_bwd_wide_dkv", "flash_bwd_wide_dq"}
-    assert all(n == 0 for n in fa.LAUNCHES.values())
+                                "flash_bwd_wide_dkv", "flash_bwd_wide_dq", "flash_int8"}
+    assert all(n == 0 for n in fa.LAUNCHES.values()) and qd.LAUNCHES == {"qdense": 0}
+
+
+def test_every_cuda_source_has_a_counted_kernel_in_chip_smoke():
+    """Each csrc/*.cu is the source of a kernel with a launch counter in
+    `_build.KERNELS`, and chip_smoke.py's kernels line names every counted
+    kernel, its source (from that table) and the TPU kernel it replaces."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    counted = set(fa.LAUNCHES) | set(qd.LAUNCHES)
+    assert set(chip_smoke.REPLACES) == counted == set(_build.SOURCE_OF)
+    assert set(_build.KERNELS) == {p.stem for p in (PORT_DIR / "csrc").glob("*.cu")}
+    for name, where in chip_smoke.REPLACES.items():
+        path, line = where.split(":")
+        assert "pallas_call" in (REPO / path).read_text() and int(line) > 0, name
+
+
+def test_kernels_build_without_fast_math():
+    """Fast math would make the quantizers' division approximate and let the
+    compiler contract the roundings K7 and K8 reproduce."""
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "fast_math" not in flags and "fast-math" not in flags
 
 
 def test_cuda_sources_include_only_cuda_and_their_own_headers():
@@ -114,6 +145,7 @@ def test_cuda_sources_include_only_cuda_and_their_own_headers():
 def test_kernel_module_imports_without_nvcc():
     r = _run(
         "import faceposegenerator_tpu_torch.ops.flash_attention as fa, "
+        "faceposegenerator_tpu_torch.ops.qdense, faceposegenerator_tpu_torch.ops.quant, "
         "faceposegenerator_tpu_torch.ops._build as b; "
         "assert not b._loaded; print(sorted(fa.LAUNCHES))",
         env_extra={"PATH": "/nonexistent", "CUDA_HOME": "/nonexistent"},
