@@ -48,9 +48,33 @@ Phases, in order; any failure exits non-zero without the final result line:
      path on 2(+2) images of 128² (loss within 1e-2 relative, LoRA gradient
      cosine >= 0.99), then 3 train steps, each of which must launch K1 32,
      K2 2, and K5 and K6 32 and 1 times per pass, move the LoRA and leave
-     the frozen weights untouched.
-The line before the last is a JSON object with one entry per kernel; the
-last is {"ok": true, "device": {...}}.
+     the frozen weights untouched;
+  8. K3 and K4 against plain: fused_group_norm (csrc/fused_gn.cu) at every
+     GroupNorm shape K3 takes on the fused txt2img request and train step,
+     against fused_group_norm_plain on the same bf16 inputs (each output
+     within 1 bf16 ulp + 1e-3 relative + 1e-5 of the output's max abs),
+     timed beside its plain version, the card's bound and F.group_norm (+
+     F.silu) on the channels_last NCHW view; gn_silu_conv3x3
+     (csrc/gn_conv.cu) at every conv shape K4 takes there, against
+     gn_silu_conv3x3_plain (within 1 bf16 ulp + 1e-3 of the output's max
+     abs), timed beside its plain version, the bound and the default
+     route's plain GroupNorm+SiLU and cuDNN conv (yardsticks the port never
+     calls in this configuration); one more K4 row with β + 3, on which a
+     pad-before-activation variant must fail the gate;
+  9. fused txt2img: GN_IMPL and GN_CONV_IMPL at pallas on a new pipeline as
+     in phase 4, first against the default routes on 2×128² (image diff max
+     1e-1, mean 1e-2), then 2 requests at batch 8, 512², 30 DDPM steps, CFG
+     5.0, each launching exactly K4 480, K3 371, K1 960 and K2 1 times,
+     their s/request beside phase 4's;
+ 10. fused train: the train step of phase 7's op point in that
+     configuration, first against the default routes at 2(+2)×128² (loss
+     within 1e-2 relative, LoRA gradient cosine >= 0.99), then 2 steps, each
+     launching exactly K4 16 and K3 33 times besides phase 7's counts (the
+     backward recomputes K3 and K4's functions in plain torch), moving the
+     LoRA and leaving the frozen weights untouched.
+Phases 3-7 run the default configuration (GN_IMPL and GN_CONV_IMPL at xla)
+whatever the environment says. The line before the last is a JSON object
+with one entry per kernel; the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -107,10 +131,10 @@ QDENSE_SHAPES = [
 # (name, B, H, Sq, Skv, D) of the UNet's attention on the CFG batch
 INT8_SHAPES = [s[:6] for s in SHAPES if s[5] == 64]
 LAST_TILE_MAX = "self L0, max in the last tile"
-# dense bf16 tensor-core FLOP/s, int8 tensor-core OP/s and memory bytes/s,
-# from NVIDIA's data sheets
-PEAKS = {"H100 PCIe": (756e12, 1513e12, 2.0e12), "H100 NVL": (835e12, 1671e12, 3.9e12),
-         "H100": (989e12, 1979e12, 3.35e12)}
+# dense bf16 tensor-core FLOP/s, int8 tensor-core OP/s, memory bytes/s and
+# fp32 FLOP/s outside the tensor cores, from NVIDIA's data sheets
+PEAKS = {"H100 PCIe": (756e12, 1513e12, 2.0e12, 51e12), "H100 NVL": (835e12, 1671e12, 3.9e12, 60e12),
+         "H100": (989e12, 1979e12, 3.35e12, 67e12)}
 TURBO_CALIB_LAUNCHES = {"qdense": 1280}
 TURBO_LAUNCHES = {"auto": {"qdense": 1040, "flash_fwd_d64": 208, "flash_fwd_wide": 1},
                   "flash_int8": {"qdense": 1040, "flash_int8": 208, "flash_fwd_wide": 1}}
@@ -125,7 +149,55 @@ REPLACES = {
     "flash_bwd_wide_dq": "faceposegenerator_tpu/ops/flash_attention.py:585",
     "flash_int8": "faceposegenerator_tpu/ops/flash_attention.py:1108",
     "qdense": "faceposegenerator_tpu/ops/quant_pallas.py:47",
+    "fused_group_norm": "faceposegenerator_tpu/ops/fused_gn.py:76",
+    "gn_silu_conv3x3": "faceposegenerator_tpu/ops/fused_gn_conv.py:92",
 }
+# K3 and K4 round where their plain versions round. K3 sums its statistics
+# in another order, which moves an output near 0 by ~1e-6 of the largest:
+# each K3 output within 1 ulp + GN_REL_ERR relative + GN_MAX_FLOOR of the
+# output's max abs of the plain one; each K4 output within 1 bf16 ulp +
+# CONV_MAX_ERR of the output's max abs
+GN_REL_ERR, GN_MAX_FLOOR, CONV_MAX_ERR = 1e-3, 1e-5, 1e-3
+# (name, N, H, W, C, eps, act, launches per request) of K3 in the fused
+# configuration (GN_IMPL and GN_CONV_IMPL at pallas) of the txt2img op point:
+# per UNet pass the 5 + 5 transformer norms at 64² and 32², down L2's first
+# norm1 (its conv goes to 1280 channels, which K4 refuses) and conv_norm_out;
+# the VAE decode's resblocks at 64² (mid 4, first up block 6) and its mid
+# attention's norm (S·C caps K3 at 64²·640: 128² and up stay plain)
+GN_SHAPES = [
+    ("unet xf L0", 16, 64, 64, 320, 1e-6, None, 150),
+    ("unet xf L1", 16, 32, 32, 640, 1e-6, None, 150),
+    ("unet down L2 norm1", 16, 16, 16, 640, 1e-5, "silu", 30),
+    ("unet conv_norm_out", 16, 64, 64, 320, 1e-5, "silu", 30),
+    ("vae decode resblocks", 8, 64, 64, 512, 1e-6, "silu", 10),
+    ("vae decode attention", 8, 64, 64, 512, 1e-6, None, 1),
+]
+# per train step: one UNet pass on 8 rows, the VAE encoding 8 images (its
+# last down block 4, mid 4 + 1, norm_out 1) and decoding 4 (11)
+GN_TRAIN_SHAPES = [
+    ("unet xf L0", 8, 64, 64, 320, 1e-6, None, 5),
+    ("unet xf L1", 8, 32, 32, 640, 1e-6, None, 5),
+    ("unet down L2 norm1", 8, 16, 16, 640, 1e-5, "silu", 1),
+    ("unet conv_norm_out", 8, 64, 64, 320, 1e-5, "silu", 1),
+    ("vae encode resblocks, norm_out", 8, 64, 64, 512, 1e-6, "silu", 9),
+    ("vae encode attention", 8, 64, 64, 512, 1e-6, None, 1),
+    ("vae decode resblocks", 4, 64, 64, 512, 1e-6, "silu", 10),
+    ("vae decode attention", 4, 64, 64, 512, 1e-6, None, 1),
+]
+# (name, N, H, W, Cin, Cout, launches per request) of K4: per UNet pass down
+# L0's 4, down L1's 1 + 3, up L1's 3 norm2/conv2, up L0's 2 at 640 → 320
+# and 3 norm2/conv2 (up L0's first resblock takes 960 channels; the
+# 1280-wide levels fail `supported`)
+CONV_SHAPES = [
+    ("L0 320→320", 16, 64, 64, 320, 320, 210),
+    ("L1 320→640", 16, 32, 32, 320, 640, 30),
+    ("L1 640→640", 16, 32, 32, 640, 640, 180),
+    ("L0 up 640→320", 16, 64, 64, 640, 320, 60),
+]
+CONV_TRAIN_SHAPES = [(label, 8, h, w, cin, cout, per // 30) for label, _, h, w, cin, cout, per in CONV_SHAPES]
+BORDER = "L0 320→320, beta + 3"
+FUSED_LAUNCHES = {"gn_silu_conv3x3": 480, "fused_group_norm": 371, "flash_fwd_d64": 960, "flash_fwd_wide": 1}
+FUSED_STEP_LAUNCHES = dict(STEP_LAUNCHES, gn_silu_conv3x3=16, fused_group_norm=33)
 
 
 def fail(msg: str):
@@ -169,9 +241,9 @@ def _inputs(torch, g, b, h, sq, skv, d):
     return q, k, v
 
 
-def _bound(card, flops, nbytes, int8=False):
-    peak_bf16, peak_int8, peak_bw = peaks(card)
-    t_ops, t_bytes = flops / (peak_int8 if int8 else peak_bf16), nbytes / peak_bw
+def _bound(card, flops, nbytes, int8=False, fp32=False):
+    peak_bf16, peak_int8, peak_bw, peak_fp32 = peaks(card)
+    t_ops, t_bytes = flops / (peak_int8 if int8 else peak_fp32 if fp32 else peak_bf16), nbytes / peak_bw
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -180,12 +252,12 @@ def _err(out, ref):
     return e.max().item(), e.mean().item()
 
 
-def _ulp_err(out, ref):
+def _ulp_err(out, ref, rel=INT8_REL_ERR, of_max=0.0):
     """(max abs err, mean abs err, how many outputs differ from ref by more
-    than 1 bf16 ulp + INT8_REL_ERR relative)."""
+    than 1 bf16 ulp + rel·|ref| + of_max·max |ref|)."""
     ref = ref.float()
     err = (out.float() - ref).abs()
-    over = int((err > _bf16_ulp(ref) + INT8_REL_ERR * ref.abs()).sum())
+    over = int((err > _bf16_ulp(ref) + rel * ref.abs() + of_max * ref.abs().max()).sum())
     return err.max().item(), err.mean().item(), over
 
 
@@ -421,6 +493,156 @@ def check_int8(torch, fa, card, shapes=INT8_SHAPES):
     return rows
 
 
+class gn_route:
+    """Within the block, GN_IMPL and GN_CONV_IMPL are `impl`, as the two
+    environment variables set them at import (perf/r3_gnconv_bs.py:39 sets
+    the JAX modules' attributes the same way); the previous values after."""
+
+    def __init__(self, impl):
+        self.impl = impl
+
+    def __enter__(self):
+        from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
+
+        self.saved = (fused_gn._GN_IMPL, fused_gn_conv._IMPL)
+        fused_gn._GN_IMPL = fused_gn_conv._IMPL = self.impl
+        return self
+
+    def __exit__(self, *exc):
+        from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
+
+        fused_gn._GN_IMPL, fused_gn_conv._IMPL = self.saved
+
+
+def check_gn(torch, card, shapes, per):
+    """K3 at `shapes` against fused_group_norm_plain on the same bf16
+    inputs (x = 3·N(0, 1) + 1, γ and β unit normal, 32 groups), timed beside
+    its plain version, F.group_norm (+ F.silu) on the channels_last NCHW view
+    (a yardstick the port never calls) and the card's bound."""
+    import torch.nn.functional as F
+
+    from faceposegenerator_tpu_torch.ops import fused_gn as fg
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for label, n, h, w, c, eps, act, per_run in shapes:
+        x = (torch.randn(n, h, w, c, generator=g, device="cuda") * 3 + 1).to(torch.bfloat16)
+        gamma, beta = (torch.randn(c, generator=g, device="cuda").to(torch.bfloat16) for _ in "gb")
+        out = fg.fused_group_norm(x, gamma, beta, 32, eps, act)
+        torch.cuda.synchronize()
+        want = fg.fused_group_norm_plain(x, gamma, beta, 32, eps, act)
+        max_err, mean_err, over = _ulp_err(out, want, GN_REL_ERR, GN_MAX_FLOOR)
+        # reported, not gated: how many outputs a gate without the floor would refuse
+        beyond_relative = _ulp_err(out, want, GN_REL_ERR)[2]
+        del out, want
+        ms = time_ms(lambda: fg.fused_group_norm(x, gamma, beta, 32, eps, act), torch)
+        plain_ms = time_ms(lambda: fg.fused_group_norm_plain(x, gamma, beta, 32, eps, act), torch)
+        xv = x.permute(0, 3, 1, 2)
+        library = (lambda: F.silu(F.group_norm(xv, 32, gamma, beta, eps))) if act else \
+            (lambda: F.group_norm(xv, 32, gamma, beta, eps))
+        library_ms = time_ms(library, torch)
+        # x read once and y written once in bf16; per element a sum, a square
+        # and its sum, the affine FMA and, with SiLU, ~4 more, in fp32
+        elems = n * h * w * c
+        bound_ms, bound_by = _bound(card, (5.0 + 4.0 * (act == "silu")) * elems, 4.0 * elems + 4.0 * c, fp32=True)
+        row = dict(kernel="fused_group_norm", shape=label, N=n, H=h, W=w, C=c, act=act, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
+                   mean_abs_err=mean_err, over_limit=over, beyond_relative_gate=beyond_relative,
+                   **{f"launches_per_{per}": per_run})
+        print("kernel " + json.dumps(row), flush=True)
+        rows.append(row)
+        if over:
+            fail(f"fused_group_norm at {label}: {over} outputs beyond 1 bf16 ulp + {GN_REL_ERR} relative + "
+                 f"{GN_MAX_FLOOR} of the max abs of the plain version (max abs err {max_err})")
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _conv_inputs(torch, g, n, h, w, cin, cout, beta_shift=0.0):
+    """bf16 x = N(0, 1) + 0.5, γ and β unit normal (β shifted), the weight
+    uniform ±1/√(9·Cin) stored channels_last as the port keeps it, the bias
+    uniform likewise."""
+    x = (torch.randn(n, h, w, cin, generator=g, device="cuda") + 0.5).to(torch.bfloat16)
+    gamma = torch.randn(cin, generator=g, device="cuda").to(torch.bfloat16)
+    beta = (torch.randn(cin, generator=g, device="cuda") + beta_shift).to(torch.bfloat16)
+    conv = torch.nn.Conv2d(cin, cout, 3, device="cuda", dtype=torch.bfloat16)
+    bound = (9 * cin) ** -0.5
+    with torch.no_grad():
+        conv.weight.uniform_(-bound, bound, generator=g)
+        conv.bias.uniform_(-bound, bound, generator=g)
+    conv.weight.data = conv.weight.data.contiguous(memory_format=torch.channels_last)
+    conv.requires_grad_(False)
+    return x, gamma, beta, conv
+
+
+def _pad_before_activation(torch, fgc, x, gamma, beta, conv):
+    """The plain version with the zero padding applied to x before the
+    normalisation and SiLU: every border tap reads SiLU(shift), not 0."""
+    import torch.nn.functional as F
+
+    scale, shift = fgc.group_scale_shift(x, gamma, beta, 32, 1e-5)
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    a = F.silu(xp * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
+    cudnn = torch.backends.cudnn
+    prev, cudnn.allow_tf32 = cudnn.allow_tf32, False
+    try:
+        y = F.conv2d(a.permute(0, 3, 1, 2).float(), conv.weight.float(), conv.bias.float())
+    finally:
+        cudnn.allow_tf32 = prev
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def check_conv(torch, card, shapes, per, border=False):
+    """K4 at `shapes` against gn_silu_conv3x3_plain on the same inputs
+    (_conv_inputs, 32 groups), timed beside its plain version, the default
+    route's plain GroupNorm+SiLU and cuDNN bf16 conv (a yardstick) and the
+    card's bound. With `border`, one more row at the first shape with β + 3,
+    on which a pad-before-activation variant must fail the gate."""
+    from faceposegenerator_tpu_torch.models.layers import conv2d
+    from faceposegenerator_tpu_torch.ops import fused_gn_conv as fgc
+    from faceposegenerator_tpu_torch.ops.norms import group_norm_plain
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    cases = [(*s[:6], 0.0, s[6]) for s in shapes] + ([(BORDER, *shapes[0][1:6], 3.0, 0)] if border else [])
+    for label, n, h, w, cin, cout, beta_shift, per_run in cases:
+        x, gamma, beta, conv = _conv_inputs(torch, g, n, h, w, cin, cout, beta_shift)
+        out = fgc.gn_silu_conv3x3(x, gamma, beta, conv, 32)
+        torch.cuda.synchronize()
+        want = fgc.gn_silu_conv3x3_plain(x, gamma, beta, conv.weight, conv.bias, 32)
+        max_err, mean_err, over = _ulp_err(out, want, 0.0, CONV_MAX_ERR)
+        extra = {}
+        if label == BORDER:
+            mx, mean, refused = _ulp_err(_pad_before_activation(torch, fgc, x, gamma, beta, conv), want, 0.0,
+                                        CONV_MAX_ERR)
+            extra["pad_before_activation_err"] = [mx, mean, refused]
+            if not refused:
+                fail(f"the gn_silu_conv3x3 gate passes a pad-before-activation conv at {label} "
+                     f"(max abs err {mx}, mean {mean})")
+        del out, want
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: fgc.gn_silu_conv3x3(x, gamma, beta, conv, 32), torch)
+        plain_ms = time_ms(lambda: fgc.gn_silu_conv3x3_plain(x, gamma, beta, conv.weight, conv.bias, 32), torch)
+        library_ms = time_ms(lambda: conv2d(group_norm_plain(x, gamma, beta, 32, 1e-5, "silu"), conv), torch)
+        # x and y read and written once in bf16, the weight read once
+        m = n * h * w
+        bound_ms, bound_by = _bound(card, 2.0 * m * cout * 9 * cin,
+                                    2.0 * m * (cin + cout) + 18.0 * cin * cout + 2.0 * cout)
+        row = dict(kernel="gn_silu_conv3x3", shape=label, N=n, H=h, W=w, Cin=cin, Cout=cout, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   max_abs_err=max_err, mean_abs_err=mean_err, over_limit=over,
+                   **{f"launches_per_{per}": per_run}, **extra)
+        print("kernel " + json.dumps(row), flush=True)
+        rows.append(row)
+        if over:
+            fail(f"gn_silu_conv3x3 at {label}: {over} outputs beyond 1 bf16 ulp + {CONV_MAX_ERR} of the max abs of "
+                 f"the plain version (max abs err {max_err})")
+        del x, conv
+        torch.cuda.empty_cache()
+    return rows
+
+
 def make_lora(unet, seed, torch):
     """A rank-4 UNet LoRA with nonzero B."""
     from faceposegenerator_tpu_torch.models.unet2d import init_lora
@@ -500,22 +722,24 @@ def run_pipeline(torch, fa, card_line):
     print(f"pipeline: bs8 512² 30-step DDPM CFG 5.0: {secs} s per request; steady "
           f"{min(secs[1:]):.3f} s = {8 / min(secs[1:]):.3f} img/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card_line})", flush=True)
-    return launches
+    return launches, min(secs[1:])
 
 
 def _launch_counts():
     from faceposegenerator_tpu_torch.ops import flash_attention as fa
+    from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
     from faceposegenerator_tpu_torch.ops import qdense as qd
 
-    return {**fa.LAUNCHES, **qd.LAUNCHES}
+    return {**fa.LAUNCHES, **qd.LAUNCHES, **fused_gn.LAUNCHES, **fused_gn_conv.LAUNCHES}
 
 
 def _reset_launch_counts():
     from faceposegenerator_tpu_torch.ops import flash_attention as fa
+    from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
     from faceposegenerator_tpu_torch.ops import qdense as qd
 
-    fa.reset_launch_counts()
-    qd.reset_launch_counts()
+    for module in (fa, qd, fused_gn, fused_gn_conv):
+        module.reset_launch_counts()
 
 
 class plain_route:
@@ -671,20 +895,15 @@ def _frozen_checksum(torch, frozen):
         return sum(float(p.double().sum() + p.double().abs().sum()) for m in frozen.values() for p in m.parameters())
 
 
-def run_train(torch, fa, card_line):
-    import dataclasses
-
-    from faceposegenerator_tpu_torch.core.rng import train_step_generator
+def _small_train_check(torch, op, label, variants):
+    """One loss and LoRA gradient on 2(+2) images of 128² with the same draws
+    and a LoRA with nonzero B for each of the two `variants`, {name: (model
+    bundle, GN route)}: the losses within 1e-2 relative, the gradients'
+    cosine >= 0.99."""
     from faceposegenerator_tpu_torch.diffusion.schedulers import make_ddpm
     from faceposegenerator_tpu_torch.training import idbooth
 
-    t0 = time.time()
-    policy, models, frozen, cfg = build_train_op_point(torch)
-    torch.cuda.synchronize()
-    print(f"train: op point built in {time.time() - t0:.1f} s (remat_identity={cfg.remat_identity})", flush=True)
-
-    # the kernel path against the plain-attention path: one loss and gradient
-    # on 2(+2) images of 128² with the same draws and a LoRA with nonzero B
+    policy, models, frozen, cfg = op
     small = cfg.replace(train_batch_size=2, resolution=128)
     batch = make_train_batch(torch, 4, 128, seed=7)
     g = torch.Generator(device="cuda").manual_seed(8)
@@ -694,34 +913,42 @@ def run_train(torch, fa, card_line):
         for leaf in leaves[1::2]:  # the B factors
             leaf.copy_(0.01 * torch.randn(leaf.shape, generator=g, device="cuda"))
     draws = idbooth.draw((4, 16, 16, 4), 4, 1000, g, "cuda")
-    got = {}
-    for impl in ("auto", "reference"):
-        loss_fn = idbooth.make_loss_fn(small, dataclasses.replace(models, attn_impl=impl), make_ddpm(), policy)
-        loss, _ = loss_fn(lora, frozen, batch, draws=draws)
-        grads = torch.autograd.grad(loss, leaves)
-        got[impl] = (float(loss.detach()), torch.cat([x.float().flatten() for x in grads]))
-    rel = abs(got["auto"][0] - got["reference"][0]) / abs(got["reference"][0])
-    cos = float(torch.nn.functional.cosine_similarity(got["auto"][1], got["reference"][1], dim=0))
-    print(f"train: kernels vs plain attention at 2(+2)×128², bf16: loss {got['auto'][0]:.6f} vs "
-          f"{got['reference'][0]:.6f} (rel diff {rel:.3e}, limit 1e-2); LoRA gradient cosine {cos:.6f} "
-          "(limit 0.99)", flush=True)
+    got = []
+    for bundle, route in variants.values():
+        with gn_route(route):
+            loss, _ = idbooth.make_loss_fn(small, bundle, make_ddpm(), policy)(lora, frozen, batch, draws=draws)
+            grads = torch.autograd.grad(loss, leaves)
+        got.append((float(loss.detach()), torch.cat([x.float().flatten() for x in grads])))
+    (loss_a, grad_a), (loss_b, grad_b) = got
+    rel = abs(loss_a - loss_b) / abs(loss_b)
+    cos = float(torch.nn.functional.cosine_similarity(grad_a, grad_b, dim=0))
+    print(f"{label} at 2(+2)×128², bf16: loss {loss_a:.6f} vs {loss_b:.6f} (rel diff {rel:.3e}, limit 1e-2); "
+          f"LoRA gradient cosine {cos:.6f} (limit 0.99)", flush=True)
     if not (rel <= 1e-2 and cos >= 0.99):
-        fail("the train step's kernel path and plain-attention path disagree")
-    del got, lora, leaves, batch, draws
+        fail(f"{label}: the two paths disagree")
 
+
+def _train_steps(torch, op, steps, expect, label, card_line):
+    """`steps` train steps at the op point, each launching exactly `expect`,
+    moving the LoRA and leaving the frozen weights untouched; the launch
+    counts are set to 0 just before the first and read just after the last.
+    Returns (launches, the fastest step after the first)."""
+    from faceposegenerator_tpu_torch.core.rng import train_step_generator
+    from faceposegenerator_tpu_torch.training import idbooth
+
+    policy, models, frozen, cfg = op
     trainable = idbooth.init_trainable(4, cfg, models, frozen["unet"])
     optimizer = idbooth.make_optimizer(cfg, total_steps=1000)
     opt_state = optimizer.init(trainable)
     step = idbooth.make_train_step(cfg, models, optimizer, policy=policy)
     batch = make_train_batch(torch, 8, 512, seed=5)
     checksum = _frozen_checksum(torch, frozen)
-    expect = dict(STEP_LAUNCHES, flash_fwd_wide=3 if cfg.remat_identity else 2)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    _reset_launch_counts()
     secs = []
-    for i in range(3):
-        before = dict(fa.LAUNCHES)
+    for i in range(steps):
+        before = _launch_counts()
         torch.cuda.synchronize()
         t0 = time.time()
         trainable, opt_state, metrics = step(trainable, opt_state, frozen, batch,
@@ -729,28 +956,110 @@ def run_train(torch, fa, card_line):
         vals = {k: float(v) for k, v in metrics.items()}
         torch.cuda.synchronize()
         secs.append(time.time() - t0)
-        per = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES if fa.LAUNCHES[n] != before[n]}
-        print(f"train step {i}: {secs[-1]:.3f} s, {json.dumps(vals)}, launches {json.dumps(per)} ({card_line})",
+        per = {n: c - before[n] for n, c in _launch_counts().items() if c != before[n]}
+        print(f"{label} step {i}: {secs[-1]:.3f} s, {json.dumps(vals)}, launches {json.dumps(per)} ({card_line})",
               flush=True)
         if not all(math.isfinite(v) for v in vals.values()) or set(vals) != {
                 "loss", "instance_loss", "prior_loss", "id_loss", "grad_norm"} or not vals["grad_norm"] > 0:
-            fail(f"train step {i}: metrics {vals}")
+            fail(f"{label} step {i}: metrics {vals}")
         if per != expect:
-            fail(f"train step {i} launched {per}, expected {expect}")
-    launches = dict(fa.LAUNCHES)
+            fail(f"{label} step {i} launched {per}, expected {expect}")
+    launches = _launch_counts()
     moved = max(float(leaf.detach().abs().max()) for leaf in idbooth.tree_leaves(trainable)[1::2])
     if not moved > 0:
-        fail("no LoRA B factor moved off zero")
+        fail(f"{label}: no LoRA B factor moved off zero")
     if _frozen_checksum(torch, frozen) != checksum:
-        fail("the frozen weights changed")
+        fail(f"{label}: the frozen weights changed")
     steady = min(secs[1:])
-    print(f"train: bs4(+prior) 512² triplet_prior r100: {secs} s per step; steady {steady:.3f} s/step = "
+    print(f"{label}: bs4(+prior) 512² triplet_prior r100: {secs} s per step; steady {steady:.3f} s/step = "
           f"{4 / steady:.3f} train img/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
           f"LoRA B max {moved:.3e}; frozen weights unchanged ({card_line})", flush=True)
+    return launches, steady
+
+
+def run_train(torch, card_line):
+    """The train op point: the kernel path against the plain-attention path
+    on a small input, then 3 steps. Returns (launches, the op point, the
+    steady s/step)."""
+    import dataclasses
+
+    t0 = time.time()
+    op = build_train_op_point(torch)
+    models, cfg = op[1], op[3]
+    torch.cuda.synchronize()
+    print(f"train: op point built in {time.time() - t0:.1f} s (remat_identity={cfg.remat_identity})", flush=True)
+    _small_train_check(torch, op, "train: kernels vs plain attention", {
+        impl: (dataclasses.replace(models, attn_impl=impl), "xla") for impl in ("auto", "reference")})
+    expect = dict(STEP_LAUNCHES, flash_fwd_wide=3 if cfg.remat_identity else 2)
+    launches, steady = _train_steps(torch, op, 3, expect, "train", card_line)
+    return launches, op, steady
+
+
+def run_fused_txt2img(torch, card_line, default_secs):
+    """The txt2img request in the fused configuration (GN_IMPL and
+    GN_CONV_IMPL at pallas): the kernel routes against the default routes on
+    a small input, then 2 requests with exact launch counts. Returns the
+    phase's launch counts."""
+    import numpy as np
+
+    from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+
+    t0 = time.time()
+    pipe = StableDiffusionPipeline.from_random(seed=0, dtype=torch.bfloat16)
+    pipe.set_lora(make_lora(pipe.nets["unet"], 10, torch))
+    ids = torch.randint(0, 49408, (8, 77), generator=torch.Generator().manual_seed(1))
+    small = dict(input_ids=ids[:2], num_inference_steps=2, height=128, width=128, seed=5)
+    want = pipe(**small)
+    with gn_route("pallas"):
+        got = pipe(**small)
+    diff = np.abs(got - want)
+    print(f"fused txt2img: built in {time.time() - t0:.1f} s; K3/K4 routes vs the default routes at 2×128², "
+          f"2 steps, bf16: image diff max {diff.max():.3e} mean {diff.mean():.3e} (limits 1e-1, 1e-2)", flush=True)
+    if not (diff.max() <= 1e-1 and diff.mean() <= 1e-2):
+        fail("the fused GroupNorm routes and the default routes disagree")
+
+    images, secs = [], []
+    with gn_route("pallas"):
+        _reset_launch_counts()
+        for r, seed in enumerate((0, 1)):
+            before = _launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            img = pipe(input_ids=ids, num_inference_steps=30, guidance_scale=5.0, height=512, width=512, seed=seed)
+            secs.append(time.time() - t0)
+            per = {n: c - before[n] for n, c in _launch_counts().items() if c != before[n]}
+            print(f"fused txt2img request {r}: seed {seed}, {secs[-1]:.3f} s, {8 / secs[-1]:.3f} img/s, "
+                  f"launches {json.dumps(per)} ({card_line})", flush=True)
+            _check_images(img, 8, 512, f"fused txt2img request {r}")
+            if per != FUSED_LAUNCHES:
+                fail(f"fused txt2img request {r} launched {per}, expected {FUSED_LAUNCHES}")
+            images.append(img)
+        launches = _launch_counts()
+    if float(np.abs(images[0] - images[1]).max()) < 1e-3:
+        fail("fused txt2img: images do not differ between seeds")
+    best = min(secs)
+    print(f"fused txt2img: bs8 512² 30-step DDPM CFG 5.0: {secs} s per request; best {best:.3f} s = "
+          f"{8 / best:.3f} img/s against the default configuration's {default_secs:.3f} s = "
+          f"{8 / default_secs:.3f} img/s in this process ({card_line})", flush=True)
     return launches
 
 
-def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, launches):
+def run_fused_train(torch, card_line, op, default_steady):
+    """The train step at the op point `op` in the fused configuration: the
+    kernel routes against the default routes at 2(+2)×128², then 2 steps
+    with exact launch counts. Returns the phase's launch counts."""
+    models, cfg = op[1], op[3]
+    _small_train_check(torch, op, "fused train: K3/K4 routes vs the default routes",
+                       {route: (models, route) for route in ("pallas", "xla")})
+    expect = dict(FUSED_STEP_LAUNCHES, flash_fwd_wide=3 if cfg.remat_identity else 2)
+    with gn_route("pallas"):
+        launches, steady = _train_steps(torch, op, 2, expect, "fused train", card_line)
+    print(f"fused train: {steady:.3f} s/step against the default configuration's {default_steady:.3f} s/step "
+          f"in this process ({card_line})", flush=True)
+    return launches
+
+
+def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, launches):
     from faceposegenerator_tpu_torch.ops._build import SOURCE_OF
 
     sources = {name: f"faceposegenerator_tpu_torch/csrc/{src}.cu" for name, src in SOURCE_OF.items()}
@@ -790,6 +1099,16 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, launches):
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None, **extra,
         ))
+    # K3 and K4: the library time is F.group_norm (+ F.silu), and the default
+    # route's plain GroupNorm+SiLU with cuDNN's conv
+    for name, rows in (("fused_group_norm", gn_rows), ("gn_silu_conv3x3", conv_rows)):
+        top = max(rows, key=lambda r: r["bound_ms"])
+        kernels.append(dict(
+            name=name, route="cuda", source=sources[name], replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=top["ms"], plain_ms=top["plain_ms"],
+            bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
+            shape=f"{top['shape']} N{top['N']}",
+        ))
     return kernels
 
 
@@ -822,24 +1141,38 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
+    from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
+
+    # phases 3-7 run the default configuration, whatever GN_IMPL and
+    # GN_CONV_IMPL say; phases 9 and 10 switch both to pallas
+    fused_gn._GN_IMPL = fused_gn_conv._IMPL = "xla"
     fwd_rows = check_kernels(torch, fa, card)
     fwd_rows += check_kernels(torch, fa, card, TRAIN_SHAPES, with_lse=True, per="step")
     bwd_rows = check_backward(torch, fa, card, [s for s in TRAIN_SHAPES if s[0] != "vae encode mid"])
     q_rows = check_qdense(torch, card)
     i8_rows = check_int8(torch, fa, card)
-    txt2img = run_pipeline(torch, fa, card_line)
+    txt2img, txt2img_secs = run_pipeline(torch, fa, card_line)
     torch.cuda.empty_cache()
     turbo = run_turbo(torch, card_line)
     torch.cuda.empty_cache()
-    train = run_train(torch, fa, card_line)
-    launches = {n: txt2img.get(n, 0) + turbo.get(n, 0) + train.get(n, 0) for n in REPLACES}
-    print(f"launches on the main paths: txt2img {json.dumps(txt2img)}, turbo {json.dumps(turbo)}, "
-          f"train {json.dumps(train)}", flush=True)
+    train, train_op, train_secs = run_train(torch, card_line)
+    torch.cuda.empty_cache()
+    gn_rows = check_gn(torch, card, GN_SHAPES, "request") + check_gn(torch, card, GN_TRAIN_SHAPES, "step")
+    conv_rows = check_conv(torch, card, CONV_SHAPES, "request", border=True)
+    conv_rows += check_conv(torch, card, CONV_TRAIN_SHAPES, "step")
+    fused_txt2img = run_fused_txt2img(torch, card_line, txt2img_secs)
+    torch.cuda.empty_cache()
+    fused_train = run_fused_train(torch, card_line, train_op, train_secs)
+    paths = {"txt2img": txt2img, "turbo": turbo, "train": train, "fused txt2img": fused_txt2img,
+             "fused train": fused_train}
+    launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in REPLACES}
+    print("launches on the main paths: " + ", ".join(f"{k} {json.dumps(v)}" for k, v in paths.items()), flush=True)
     for name, count in launches.items():
         if count == 0:
             fail(f"{name} was not launched on the main paths")
 
-    print(json.dumps({"kernels": _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, launches)}), flush=True)
+    print(json.dumps({"kernels": _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows,
+                                                 launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

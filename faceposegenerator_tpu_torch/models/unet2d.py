@@ -9,7 +9,10 @@ loads a JAX tree by walking it, and `init_lora` returns the layout of JAX
 `attn_impl="flash_int8"`), and K5 for its backward when a gradient is taken
 through the LoRA. After `ops.quant.quantize_unet` every dense layer but the
 time path runs kernel K7 and every conv but conv_in/conv_out runs
-`qconv2d`. `forward_cached` is the DeepCache forward.
+`qconv2d`. `forward_cached` is the DeepCache forward. Under
+GN_CONV_IMPL=pallas each resblock's `conv(silu(gn(x)))` that K4 takes runs
+kernel K4, and under GN_IMPL=pallas every GroupNorm that K3 takes runs
+kernel K3 (`ops.norms`).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from ..core.precision import DEFAULT_POLICY, Policy
+from ..ops import fused_gn_conv
 from ..ops.attention import dot_product_attention
 from ..ops.lora import lora_delta, lora_dense
 from ..ops.norms import group_norm, layer_norm
@@ -71,6 +75,19 @@ def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
     return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
 
 
+def _gn_silu_conv(x: torch.Tensor, norm: Affine, conv: nn.Conv2d, num_groups: int) -> torch.Tensor:
+    """conv3x3(silu(gn(x))) with the resblocks' GN eps 1e-5 (unet2d.py:280-298):
+    with GN_CONV_IMPL=pallas, an unquantized 3×3 conv on a shape that
+    `fused_gn_conv.supported` accepts goes to K4 (the kernel on the card,
+    its plain version on the CPU); everything else to `group_norm` (which
+    may route to K3) and the conv."""
+    if fused_gn_conv.gn_conv_impl() == "pallas" and not is_quantized(conv.weight) and conv.kernel_size == (3, 3):
+        n, h, w, cin = x.shape
+        if fused_gn_conv.supported(n, h, w, cin, conv.out_channels, num_groups):
+            return fused_gn_conv.gn_silu_conv3x3(x, norm.weight, norm.bias, conv, num_groups, 1e-5)
+    return conv2d(group_norm(x, norm.weight, norm.bias, num_groups, 1e-5, "silu"), conv)
+
+
 class ResBlock(nn.Module):
     def __init__(self, cin: int, cout: int, temb_dim: int):
         super().__init__()
@@ -82,11 +99,10 @@ class ResBlock(nn.Module):
         self.conv_shortcut = nn.Conv2d(cin, cout, 1) if cin != cout else None
 
     def forward(self, x, temb, num_groups: int):
-        # GN eps 1e-5 in resblocks (unet2d.py:297)
-        h = conv2d(group_norm(x, self.norm1.weight, self.norm1.bias, num_groups, 1e-5, "silu"), self.conv1)
+        h = _gn_silu_conv(x, self.norm1, self.conv1, num_groups)
         t = lora_dense(F.silu(temb), self.time_emb_proj.weight, self.time_emb_proj.bias)
         h = h + t[:, None, None, :].to(h.dtype)
-        h = conv2d(group_norm(h, self.norm2.weight, self.norm2.bias, num_groups, 1e-5, "silu"), self.conv2)
+        h = _gn_silu_conv(h, self.norm2, self.conv2, num_groups)
         if self.conv_shortcut is not None:
             x = conv2d(x, self.conv_shortcut, padding=0)
         return x + h

@@ -30,6 +30,8 @@ KERNELS = {
     "flash_bwd": ("flash_bwd_d64_dkv", "flash_bwd_d64_dq", "flash_bwd_wide_dkv", "flash_bwd_wide_dq"),
     "flash_int8": ("flash_int8",),
     "qdense": ("qdense",),
+    "fused_gn": ("fused_group_norm",),
+    "gn_conv": ("gn_silu_conv3x3",),
 }
 SOURCE_OF = {kernel: src for src, kernels in KERNELS.items() for kernel in kernels}
 

@@ -1,8 +1,10 @@
 """Normalisation ops with fp32 statistics (port of
 `faceposegenerator_tpu/ops/norms.py:17,78,98`).
 
-Layout is channels-last (N, ..., C), as in the JAX package. On this slice
-these are plain torch, as the JAX main path leaves them to XLA.
+Layout is channels-last (N, ..., C), as in the JAX package. These are plain
+torch, as the JAX package leaves them to XLA, except that `group_norm`
+sends the shapes K3 takes to `ops.fused_gn` under GN_IMPL=pallas
+(norms.py:38-49).
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from . import fused_gn
 
 
 def group_norm(
@@ -21,10 +25,32 @@ def group_norm(
     eps: float = 1e-6,
     act: Optional[str] = None,
 ) -> torch.Tensor:
-    """GroupNorm over (N, ..., C) with optional fused SiLU; statistics and
-    the affine in fp32, output in x's dtype. As in the JAX twin, the
-    statistics fold with gamma/beta into a per-(image, channel) scale and
-    shift, so the normalisation is one fused multiply-add pass."""
+    """GroupNorm over (N, ..., C) with optional fused SiLU. With
+    GN_IMPL=pallas, the shapes `fused_gn.slab_supported` accepts go to K3
+    (`fused_gn.fused_group_norm`: the kernel on the card, its plain version
+    on the CPU); every other shape, and every shape under GN_IMPL=xla, to
+    `group_norm_plain`. JAX routes only on a TPU; the port routes on every
+    device, so that the CPU tests exercise the route."""
+    if fused_gn.gn_impl() == "pallas":
+        n, c = x.shape[0], x.shape[-1]
+        if fused_gn.slab_supported(n, x.numel() // max(n * c, 1), c, num_groups):
+            return fused_gn.fused_group_norm(x, gamma, beta, num_groups, eps, act)
+    return group_norm_plain(x, gamma, beta, num_groups, eps, act)
+
+
+def group_norm_plain(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    num_groups: int = 32,
+    eps: float = 1e-6,
+    act: Optional[str] = None,
+) -> torch.Tensor:
+    """GroupNorm over (N, ..., C) with optional fused SiLU, never routed to
+    a kernel; statistics and the affine in fp32, output in x's dtype. As in
+    the JAX twin, the statistics fold with gamma/beta into a per-(image,
+    channel) scale and shift, so the normalisation is one fused
+    multiply-add pass."""
     if act not in (None, "silu"):
         raise ValueError(act)
     n, c = x.shape[0], x.shape[-1]

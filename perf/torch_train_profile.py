@@ -1,6 +1,7 @@
 """Where one ID-Booth train step of the PyTorch port spends its device time.
 
     python3 perf/torch_train_profile.py
+    GN_IMPL=pallas GN_CONV_IMPL=pallas python3 perf/torch_train_profile.py
 
 Builds the train op point as chip_smoke.py does (SD2.1-base widths, ArcFace
 r100, random bf16 frozen weights, fp32 rank-4 LoRA, batch 4 with prior
@@ -9,7 +10,10 @@ times ten more with the host clock around a synchronised step (min, median
 and max: the step is partly host-bound, so it varies between processes),
 then traces one with torch.profiler. Prints the step's wall time, the device's busy and
 idle share, device time by category of kernel and the top kernels, and
-writes the full table to chiprun_out/torch_train_profile.txt. Needs a CUDA
+writes the full table as torch_train_profile[_fused_gn].txt to the output
+directory (`out` below).
+With GN_IMPL and GN_CONV_IMPL at pallas (read when the port is imported) the
+steps run the fused GroupNorm configuration: K3 and K4 forward. Needs a CUDA
 card.
 """
 
@@ -31,6 +35,8 @@ CATEGORIES = [  # first match wins; matched against the kernel's name
     ("attention fwd K2 (flash_fwd_wide)", r"flash_fwd_wide"),
     ("attention bwd K5 (flash_bwd_d64_*)", r"flash_bwd_d64"),
     ("attention bwd K6 (flash_bwd_wide_*)", r"flash_bwd_wide"),
+    ("GroupNorm+SiLU K3 (fused_group_norm)", r"gn_k3_"),
+    ("GN+SiLU→conv3x3 K4 (gn_silu_conv3x3)", r"gn_k4_"),
     ("convolution (fwd and bwd)", r"conv|fprop|dgrad|wgrad|implicit|winograd|nchw|nhwc"),
     ("matmul", r"gemm|cutlass|xmma|sm90_|matmul|cublas|nvjet"),
     ("normalisation and softmax (fwd and bwd)", r"norm|welford|softmax|reduce"),
@@ -49,11 +55,14 @@ def main() -> int:
         return 1
     import chip_smoke
     from faceposegenerator_tpu_torch.core.rng import train_step_generator
+    from faceposegenerator_tpu_torch.ops.fused_gn import gn_impl
+    from faceposegenerator_tpu_torch.ops.fused_gn_conv import gn_conv_impl
     from faceposegenerator_tpu_torch.training import idbooth
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    print(card, flush=True)
+    gn = f"GN_IMPL={gn_impl()} GN_CONV_IMPL={gn_conv_impl()}"
+    print(card, gn, flush=True)
     policy, models, frozen, cfg = chip_smoke.build_train_op_point(torch)
     trainable = idbooth.init_trainable(4, cfg, models, frozen["unet"])
     optimizer = idbooth.make_optimizer(cfg, total_steps=1000)
@@ -103,9 +112,11 @@ def main() -> int:
         print(f"  {ms:9.1f} ms  {name[:110]}")
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "torch_train_profile.txt").write_text(
+    suffix = "_fused_gn" if gn_impl() == gn_conv_impl() == "pallas" else ""
+    (out / f"torch_train_profile{suffix}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=80))
-    print(json.dumps({"card": card, "untraced_step_ms": [1e3 * t for t in timed], "median_step_ms": steady_ms,
+    print(json.dumps({"card": card, "gn": gn, "untraced_step_ms": [1e3 * t for t in timed],
+                      "median_step_ms": steady_ms,
                       "traced_step_ms": 1e3 * wall,
                       "device_busy_ms": busy, "idle_share": 1 - busy / steady_ms,
                       "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,

@@ -1,6 +1,7 @@
 """Where one txt2img request of the PyTorch port spends its device time.
 
     python3 perf/torch_txt2img_profile.py [--preset turbo] [--attn flash_int8]
+    GN_IMPL=pallas GN_CONV_IMPL=pallas python3 perf/torch_txt2img_profile.py
 
 Builds the pipeline as chip_smoke.py does (SD2.1-base widths, bf16, random
 weights, rank-4 UNet LoRA), serves one warm-up request at batch 8, 512², 30
@@ -8,10 +9,13 @@ DDPM steps, CFG 5.0, then traces one more with torch.profiler. With
 `--preset turbo` the pipeline first takes `get_preset("turbo").apply` (dpm,
 w8a8+vae, 8 calibration steps at 8×512²) and the requests run its 12 steps
 and sampling kwargs; `--attn flash_int8` serves them with the int8
-attention. Prints the request's wall time, the device's busy and idle share,
-device time by category of kernel and the top kernels, and writes the full
-table to chiprun_out/torch_txt2img_profile[_turbo][_flash_int8].txt. Needs a
-CUDA card.
+attention. With GN_IMPL and GN_CONV_IMPL at pallas (read when the port is
+imported) the requests run the fused GroupNorm configuration: K3 and K4.
+Prints the request's wall time, the device's busy and idle share, device
+time by category of kernel and the top kernels, and writes the full table
+as torch_txt2img_profile[_turbo][_flash_int8][_fused_gn].txt to the output
+directory (`out` below).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ CATEGORIES = [  # first match wins; matched against the kernel's name
     ("int8 attention K8 (flash_int8)", r"flash_int8"),
     ("attention K1 (flash_fwd_d64)", r"flash_fwd_d64"),
     ("attention K2 (flash_fwd_wide)", r"flash_fwd_wide"),
+    ("GroupNorm+SiLU K3 (fused_group_norm)", r"gn_k3_"),
+    ("GN+SiLU→conv3x3 K4 (gn_silu_conv3x3)", r"gn_k4_"),
     ("convolution", r"conv|fprop|implicit|winograd|nchw|nhwc"),
     ("matmul", r"gemm|cutlass|xmma|sm90_|matmul|cublas|nvjet"),
     ("normalisation and softmax", r"norm|welford|softmax|reduce"),
@@ -51,6 +57,8 @@ def main() -> int:
 
     import chip_smoke
     from faceposegenerator_tpu_torch.diffusion.sampler import SamplerModels
+    from faceposegenerator_tpu_torch.ops.fused_gn import gn_impl
+    from faceposegenerator_tpu_torch.ops.fused_gn_conv import gn_conv_impl
     from faceposegenerator_tpu_torch.pipelines.presets import get_preset
     from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
 
@@ -70,7 +78,8 @@ def main() -> int:
         preset = get_preset(args.preset)
         calib = torch.randint(0, 49408, (8, 77), generator=torch.Generator().manual_seed(2))
         steps, kw = preset.steps, preset.apply(pipe, input_ids=calib)
-    print(f"preset {args.preset}, attention {args.attn}: {steps} steps, kwargs {kw}", flush=True)
+    gn = f"GN_IMPL={gn_impl()} GN_CONV_IMPL={gn_conv_impl()}"
+    print(f"preset {args.preset}, attention {args.attn}, {gn}: {steps} steps, kwargs {kw}", flush=True)
 
     def request(seed):
         torch.cuda.synchronize()
@@ -106,10 +115,11 @@ def main() -> int:
         print(f"  {ms:9.1f} ms  {name[:110]}")
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    suffix = "".join(f"_{x}" for x in (args.preset, None if args.attn == "auto" else args.attn) if x)
+    fused = "fused_gn" if gn_impl() == gn_conv_impl() == "pallas" else None
+    suffix = "".join(f"_{x}" for x in (args.preset, None if args.attn == "auto" else args.attn, fused) if x)
     (out / f"torch_txt2img_profile{suffix}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    print(json.dumps({"card": card, "preset": args.preset, "attn": args.attn, "wall_ms": wall_ms,
+    print(json.dumps({"card": card, "preset": args.preset, "attn": args.attn, "gn": gn, "wall_ms": wall_ms,
                       "device_busy_ms": busy,
                       "idle_share": 1 - busy / wall_ms, "by_category_ms": dict(by_cat)}))
     return 0

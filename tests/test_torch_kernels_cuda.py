@@ -10,6 +10,11 @@ their max abs (a key's dk and dv sum over every query, so they grow with
 Sq/Skv); the log-sum-exp within 1e-3. K7 (qdense) makes the same codes as
 its plain version, so each output is within 1 bf16 ulp plus 1e-3 relative of
 it; K8 (flash_int8) within 2e-2 max and 2e-3 mean of its plain version.
+K3 (fused_group_norm) makes the same fp32 statistics as its plain version in
+another order: each output within 1 ulp of its dtype + 1e-3 relative + 1e-5
+of the output's max abs (the order moves outputs near 0 by ~1e-6 of the
+largest) of the plain one. K4 (gn_silu_conv3x3) within 1 bf16 ulp + 1e-3 of
+the output's max abs.
 """
 
 import numpy as np
@@ -17,6 +22,8 @@ import pytest
 import torch
 
 from faceposegenerator_tpu_torch.ops import flash_attention as fa
+from faceposegenerator_tpu_torch.ops import fused_gn as fg
+from faceposegenerator_tpu_torch.ops import fused_gn_conv as fgc
 from faceposegenerator_tpu_torch.ops import qdense as qd
 from faceposegenerator_tpu_torch.ops.quant import quantize_weight
 from faceposegenerator_tpu_torch.ops.attention import dot_product_attention
@@ -208,3 +215,125 @@ def test_cuda_flash_int8_quantizes_p_against_the_full_row_max():
     out = fa.flash_attention_int8(q, k, v, 0.125)
     torch.cuda.synchronize()
     _same_codes(out, fa.attention_int8_plain(q, k, v, 0.125))
+
+
+def _ulp(ref, bits):
+    return torch.ldexp(torch.ones_like(ref), torch.frexp(ref.abs().clamp_min(2.0**-126))[1] - bits)
+
+
+def _within_ulp(out, ref, rel, of_max):
+    """How many outputs are not within 1 ulp of their dtype (8 or 24
+    significant bits) + `rel`·|ref| + `of_max`·max |ref| of ref."""
+    ref = ref.float()
+    bits = 8 if out.dtype == torch.bfloat16 else 24
+    slack = rel * ref.abs() + of_max * ref.abs().max()
+    return int(((out.float() - ref).abs() > _ulp(ref, bits) + slack).sum())
+
+
+GN_CASES = [  # (shape, groups, act, dtype): the JAX test's shapes, then main-path shapes
+    ((2, 16, 16, 320), 32, "silu", torch.bfloat16), ((2, 8, 8, 64), 8, None, torch.float32),
+    ((1, 24, 8, 96), 16, "silu", torch.bfloat16), ((2, 8, 8, 64), 8, "silu", torch.float32),
+    ((16, 64, 64, 320), 32, None, torch.bfloat16), ((16, 32, 32, 640), 32, None, torch.bfloat16),
+    ((16, 16, 16, 640), 32, "silu", torch.bfloat16), ((8, 64, 64, 512), 32, "silu", torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,act,dtype", GN_CASES)
+def test_cuda_fused_group_norm_matches_plain(shape, groups, act, dtype):
+    _card()
+    rng = np.random.default_rng(sum(shape))
+    c = shape[-1]
+    x = torch.from_numpy((rng.standard_normal(shape) * 3 + 1).astype(np.float32)).cuda().to(dtype)
+    gamma, beta = (torch.from_numpy(rng.standard_normal(c).astype(np.float32)).cuda() for _ in "gb")
+    fg.reset_launch_counts()
+    out = fg.fused_group_norm(x, gamma, beta, groups, 1e-6, act)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["fused_group_norm"] == 1 and out.dtype == dtype and out.shape == x.shape
+    assert _within_ulp(out, fg.fused_group_norm_plain(x, gamma, beta, groups, 1e-6, act), 1e-3, 1e-5) == 0
+
+
+def _conv_case(seed, shape, cout, beta_shift=0.0):
+    rng = np.random.default_rng(seed)
+    n, h, w, cin = shape
+    x = torch.from_numpy((rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)).cuda().to(torch.bfloat16)
+    gamma = torch.from_numpy(rng.standard_normal(cin).astype(np.float32)).cuda().to(torch.bfloat16)
+    beta = torch.from_numpy(rng.standard_normal(cin).astype(np.float32) + beta_shift).cuda().to(torch.bfloat16)
+    conv = torch.nn.Conv2d(cin, cout, 3, padding=1, device="cuda", dtype=torch.bfloat16)
+    conv.weight.data = conv.weight.data.contiguous(memory_format=torch.channels_last)
+    return x, gamma, beta, conv
+
+
+CONV_CASES = [  # (shape, cout, groups): the JAX test's shapes, ragged widths, then main-path shapes
+    ((2, 16, 16, 320), 320, 32), ((1, 8, 8, 64), 96, 8), ((1, 24, 16, 96), 64, 16), ((2, 5, 7, 32), 16, 8),
+    ((1, 6, 96, 64), 72, 32), ((2, 64, 64, 320), 320, 32), ((2, 32, 32, 320), 640, 32),
+    ((2, 32, 32, 640), 640, 32), ((2, 64, 64, 640), 320, 32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,groups", CONV_CASES)
+def test_cuda_gn_silu_conv3x3_matches_plain(shape, cout, groups):
+    _card()
+    x, gamma, beta, conv = _conv_case(sum(shape) + cout, shape, cout)
+    fgc.reset_launch_counts()
+    out = fgc.gn_silu_conv3x3(x, gamma, beta, conv, groups)
+    torch.cuda.synchronize()
+    assert fgc.LAUNCHES["gn_silu_conv3x3"] == 1 and out.dtype == torch.bfloat16
+    assert out.shape == (*shape[:3], cout)
+    ref = fgc.gn_silu_conv3x3_plain(x, gamma, beta, conv.weight, conv.bias, groups)
+    assert _within_ulp(out, ref, 0.0, 1e-3) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_gn_silu_conv3x3_pads_after_the_activation():
+    """With beta far from 0, SiLU(shift) at the border is far from 0: the
+    kernel matches the plain version, and a variant that pads x before the
+    activation misses it."""
+    _card()
+    x, gamma, beta, conv = _conv_case(5, (2, 16, 16, 64), 64, beta_shift=3.0)
+    out = fgc.gn_silu_conv3x3(x, gamma, beta, conv, 8)
+    ref = fgc.gn_silu_conv3x3_plain(x, gamma, beta, conv.weight, conv.bias, 8)
+    assert _within_ulp(out, ref, 0.0, 1e-3) == 0
+    scale, shift = fgc.group_scale_shift(x, gamma, beta, 8, 1e-5)
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    a = torch.nn.functional.silu(xp * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
+    pad_first = torch.nn.functional.conv2d(a.permute(0, 3, 1, 2).float(), conv.weight.float(),
+                                           conv.bias.float()).permute(0, 2, 3, 1).to(x.dtype)
+    assert _within_ulp(pad_first, ref, 0.0, 1e-3) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_gn_kernels_reject_what_they_do_not_take():
+    _card()
+    x, gamma, beta, conv = _conv_case(6, (1, 8, 8, 64), 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fgc.gn_silu_conv3x3(x.float(), gamma, beta, conv, 8)
+    conv.weight.data = conv.weight.data.contiguous()
+    with pytest.raises(ValueError, match="channels_last"):
+        fgc.gn_silu_conv3x3(x, gamma, beta, conv, 8)
+    with pytest.raises(ValueError):
+        fg.fused_group_norm(x.half(), gamma, beta, 8)
+    with pytest.raises(ValueError):
+        fg.fused_group_norm(x[..., :60], gamma[:60], beta[:60], 6)
+
+
+@pytest.mark.cuda
+def test_cuda_gn_autograd_runs_the_kernels_forward_only():
+    """With a gradient to take, K3 and K4 run forward once each and the
+    backward recomputes in plain torch: the gradients match plain autograd."""
+    _card()
+    x, gamma, beta, conv = _conv_case(7, (2, 16, 16, 64), 64)
+    x.requires_grad_()
+    fg.reset_launch_counts()
+    fgc.reset_launch_counts()
+    y = fgc.gn_silu_conv3x3(fg.fused_group_norm(x, gamma, beta, 8, 1e-6, "silu"), gamma, beta, conv, 8)
+    (gx,) = torch.autograd.grad(y.float().square().sum(), x)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["fused_group_norm"] == 1 and fgc.LAUNCHES["gn_silu_conv3x3"] == 1
+    xr = x.detach().requires_grad_()
+    yr = fgc.gn_silu_conv3x3_plain(fg.fused_group_norm_plain(xr, gamma, beta, 8, 1e-6, "silu"), gamma, beta,
+                                   conv.weight, conv.bias, 8)
+    (gr,) = torch.autograd.grad(yr.float().square().sum(), xr)
+    cos = torch.nn.functional.cosine_similarity(gx.float().flatten(), gr.float().flatten(), dim=0)
+    assert cos.item() >= 0.99

@@ -53,8 +53,12 @@ def test_ddpm_step_matches_jax(steps, index):
     np.testing.assert_allclose(tx0.numpy(), np.asarray(jx0), atol=1e-5, rtol=1e-5)
 
 
-def test_txt2img_slice_matches_jax_sample():
-    S, B, H = 3, 2, 128
+S, B, H = 3, 2, 128
+
+
+@pytest.fixture(scope="module")
+def jax_slice():
+    """The JAX sample of the slice (and what both sides are given), once per module."""
     jmodels = jsampler.SamplerModels(
         text_cfg=jclip.CLIPTextConfig(**TINY_CLIP), unet_cfg=junet.UNetConfig(**TINY_UNET),
         vae_cfg=jvae.VAEConfig(**TINY_VAE), attn_impl="flash",
@@ -76,23 +80,33 @@ def test_txt2img_slice_matches_jax_sample():
         lora={"unet": lora, "text_encoder": None}, noise_override=jnp.asarray(noise),
         return_trajectory=True,
     )
+    return dict(params=params, lora=lora, ids=ids, neg=neg, noise=noise, jimg=jimg, jtraj=jtraj)
 
+
+def _port_slice(j):
+    """The port's pipeline with the JAX weights and LoRA, and its sample."""
     pmodels = sampler.SamplerModels(
         text_cfg=clip_text.CLIPTextConfig(**TINY_CLIP), unet_cfg=unet2d.UNetConfig(**TINY_UNET),
         vae_cfg=vae.VAEConfig(**TINY_VAE),
     )
     pipe = StableDiffusionPipeline.from_random(models=pmodels, device="cpu", policy=PARITY_POLICY)
     for name, net in pipe.nets.items():
-        load_jax_params(net, jax.tree.map(np.asarray, params[name]))
-    tlora = {"unet": jax_tree_to_torch(jax.tree.map(np.asarray, lora), "cpu", torch.float32),
+        load_jax_params(net, jax.tree.map(np.asarray, j["params"][name]))
+    tlora = {"unet": jax_tree_to_torch(jax.tree.map(np.asarray, j["lora"]), "cpu", torch.float32),
              "text_encoder": None}
     timg, ttraj = sampler.sample(
-        pipe.nets, schedulers.make_ddpm(num_inference_steps=S), torch.from_numpy(ids),
-        torch.from_numpy(neg), guidance_scale=5.0, height=H, width=H, policy=PARITY_POLICY,
-        lora=tlora, noise_override=noise, return_trajectory=True,
+        pipe.nets, schedulers.make_ddpm(num_inference_steps=S), torch.from_numpy(j["ids"]),
+        torch.from_numpy(j["neg"]), guidance_scale=5.0, height=H, width=H, policy=PARITY_POLICY,
+        lora=tlora, noise_override=j["noise"], return_trajectory=True,
     )
-    np.testing.assert_allclose(ttraj.numpy(), np.asarray(jtraj), atol=1e-3, rtol=1e-3)
-    np.testing.assert_allclose(timg.numpy(), np.asarray(jimg), atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(ttraj.numpy(), np.asarray(j["jtraj"]), atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(timg.numpy(), np.asarray(j["jimg"]), atol=1e-3, rtol=1e-3)
+    return pipe, tlora, timg
+
+
+def test_txt2img_slice_matches_jax_sample(jax_slice):
+    ids, noise = jax_slice["ids"], jax_slice["noise"]
+    pipe, tlora, timg = _port_slice(jax_slice)
 
     # the user-facing call takes the same path (missing negative ids mean zeros)
     pipe.set_lora(tlora)
@@ -123,3 +137,24 @@ def test_pipeline_surface():
     np.testing.assert_array_equal(a, b)
     assert np.abs(a - c).max() > 0
     assert a.shape == (1, 64, 64, 3) and np.isfinite(a).all() and a.min() >= 0 and a.max() <= 1
+
+
+def test_txt2img_slice_fused_gn_matches_jax_sample(jax_slice, monkeypatch):
+    """The same slice with GN_IMPL and GN_CONV_IMPL at pallas (K3 and K4's
+    plain versions on the CPU) against the JAX XLA path, within the same 1e-3.
+    Per UNet call K4 takes all 44 resblock convs and K3 16 GroupNorms (see
+    tests/test_torch_fused_gn_conv.py); K3 takes all 30 of the VAE decoder's
+    (at most 128²·32 elements an image): 3·44 and 3·16 + 30 calls."""
+    from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
+
+    monkeypatch.setattr(fused_gn, "_GN_IMPL", "pallas")
+    monkeypatch.setattr(fused_gn_conv, "_IMPL", "pallas")
+    calls = {"fused_group_norm": 0, "gn_silu_conv3x3": 0}
+    for module, name in ((fused_gn, "fused_group_norm"), (fused_gn_conv, "gn_silu_conv3x3")):
+        def counted(*args, fn=getattr(module, name), name=name):
+            calls[name] += 1
+            return fn(*args)
+
+        monkeypatch.setattr(module, name, counted)
+    _port_slice(jax_slice)
+    assert calls == {"fused_group_norm": 3 * 16 + 30, "gn_silu_conv3x3": 3 * 44}

@@ -18,6 +18,8 @@ import torch
 import faceposegenerator_tpu_torch as port
 from faceposegenerator_tpu_torch.ops import _build
 from faceposegenerator_tpu_torch.ops import flash_attention as fa
+from faceposegenerator_tpu_torch.ops import fused_gn as fg
+from faceposegenerator_tpu_torch.ops import fused_gn_conv as fgc
 from faceposegenerator_tpu_torch.ops import qdense as qd
 
 REPO = Path(__file__).resolve().parent.parent
@@ -99,9 +101,15 @@ def test_cpu_tensors_never_count_launches():
     dot_product_attention(q, q, q, kv_len=7, impl="flash_int8")
     qd.reset_launch_counts()
     qd.qdense_kernel(torch.randn(3, 64), torch.ones(8, 64, dtype=torch.int8), torch.ones(8))
+    fg.reset_launch_counts()
+    fgc.reset_launch_counts()
+    x = torch.randn(2, 4, 4, 32, requires_grad=True)
+    fg.fused_group_norm(x, torch.ones(32), torch.zeros(32), 8, 1e-6, "silu").sum().backward()
+    fgc.gn_silu_conv3x3(x, torch.ones(32), torch.zeros(32), torch.nn.Conv2d(32, 16, 3, padding=1), 8).sum().backward()
     assert set(fa.LAUNCHES) == {"flash_fwd_d64", "flash_fwd_wide", "flash_bwd_d64_dkv", "flash_bwd_d64_dq",
                                 "flash_bwd_wide_dkv", "flash_bwd_wide_dq", "flash_int8"}
     assert all(n == 0 for n in fa.LAUNCHES.values()) and qd.LAUNCHES == {"qdense": 0}
+    assert fg.LAUNCHES == {"fused_group_norm": 0} and fgc.LAUNCHES == {"gn_silu_conv3x3": 0}
 
 
 def test_every_cuda_source_has_a_counted_kernel_in_chip_smoke():
@@ -113,7 +121,7 @@ def test_every_cuda_source_has_a_counted_kernel_in_chip_smoke():
         import chip_smoke
     finally:
         sys.path.remove(str(REPO))
-    counted = set(fa.LAUNCHES) | set(qd.LAUNCHES)
+    counted = set(fa.LAUNCHES) | set(qd.LAUNCHES) | set(fg.LAUNCHES) | set(fgc.LAUNCHES)
     assert set(chip_smoke.REPLACES) == counted == set(_build.SOURCE_OF)
     assert set(_build.KERNELS) == {p.stem for p in (PORT_DIR / "csrc").glob("*.cu")}
     for name, where in chip_smoke.REPLACES.items():
@@ -134,7 +142,8 @@ def test_cuda_sources_include_only_cuda_and_their_own_headers():
     PyTorch, no library of finished kernels)."""
     allowed = {"cuda_bf16.h", "cuda_runtime.h", "stdint.h"}
     sources = sorted((PORT_DIR / "csrc").glob("*.cu*"))
-    assert {p.name for p in sources} >= {"flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"}
+    assert {p.name for p in sources} >= {"flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh", "fused_gn.cu",
+                                         "gn_conv.cu", "gn_common.cuh"}
     local = {p.name for p in sources}
     for path in sources:
         includes = [line.split()[1].strip('<>"') for line in path.read_text().splitlines()
@@ -146,6 +155,7 @@ def test_kernel_module_imports_without_nvcc():
     r = _run(
         "import faceposegenerator_tpu_torch.ops.flash_attention as fa, "
         "faceposegenerator_tpu_torch.ops.qdense, faceposegenerator_tpu_torch.ops.quant, "
+        "faceposegenerator_tpu_torch.ops.fused_gn, faceposegenerator_tpu_torch.ops.fused_gn_conv, "
         "faceposegenerator_tpu_torch.ops._build as b; "
         "assert not b._loaded; print(sorted(fa.LAUNCHES))",
         env_extra={"PATH": "/nonexistent", "CUDA_HOME": "/nonexistent"},

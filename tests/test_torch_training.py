@@ -268,6 +268,47 @@ def test_loss_and_grads_match_jax(setup, which_loss):
         assert err <= 1e-3, (path, err)
 
 
+def test_loss_and_grads_fused_gn_match_jax(setup, monkeypatch):
+    """triplet_prior (the UNet, the VAE encode and the decode with its
+    gradient) with GN_IMPL and GN_CONV_IMPL at pallas, against the JAX XLA
+    path with the tolerances above. On the CPU K3 and K4 run their plain
+    versions, and the decode's gradient goes through their autograd
+    Functions; every routed call satisfies the JAX predicates."""
+    from faceposegenerator_tpu.ops import fused_gn as jfg
+    from faceposegenerator_tpu.ops import fused_gn_conv as jfgc
+    from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
+
+    monkeypatch.setattr(fused_gn, "_GN_IMPL", "pallas")
+    monkeypatch.setattr(fused_gn_conv, "_IMPL", "pallas")
+    routed = {"fused_group_norm": [], "gn_silu_conv3x3": []}
+    for module, name in ((fused_gn, "fused_group_norm"), (fused_gn_conv, "gn_silu_conv3x3")):
+        def recorded(x, *args, fn=getattr(module, name), name=name):
+            # (shape, groups) of K3's calls; (shape, Cout, groups) of K4's
+            routed[name].append((tuple(x.shape), args[2]) if name == "fused_group_norm" else
+                                (tuple(x.shape), args[2].out_channels, args[3]))
+            return fn(x, *args)
+
+        monkeypatch.setattr(module, name, recorded)
+    loss, metrics, grads = _jax_ref(setup, "triplet_prior")
+    cfg = idbooth.IDBoothConfig(which_loss="triplet_prior", resolution=RES, train_batch_size=N // 2)
+    loss_fn = idbooth.make_loss_fn(cfg, TINY, make_ddpm(), policy=PARITY_POLICY)
+    trainable = _port_trainable(setup)
+    tloss, tmetrics = loss_fn(trainable, setup["frozen"], _port_batch(setup), draws=_port_draws(setup))
+    np.testing.assert_allclose(float(tloss.detach()), loss, rtol=2e-4)
+    for k, v in metrics.items():
+        np.testing.assert_allclose(float(tmetrics[k]), v, rtol=2e-4, atol=1e-7)
+    tgrads = torch.autograd.grad(tloss, idbooth.tree_leaves(trainable))
+    ref = _paths(grads["unet_lora"])
+    for path, g in zip(_paths(trainable["unet_lora"]), tgrads):
+        scale = max(float(np.abs(ref[path]).max()), 1e-12)
+        assert float(np.abs(g.numpy() - ref[path]).max()) / scale <= 1e-3, path
+    assert routed["fused_group_norm"] and routed["gn_silu_conv3x3"]
+    for (n, h, w, cin), cout, groups in routed["gn_silu_conv3x3"]:
+        assert jfgc.supported(n, h, w, cin, cout, groups)
+    for shape, groups in routed["fused_group_norm"]:
+        assert jfg.slab_supported(shape[0], int(np.prod(shape[1:-1])), shape[-1], groups)
+
+
 def test_train_step_matches_jax(setup):
     """One make_train_step update (triplet_prior) against JAX's: the JAX side
     applies its optimizer to its own gradients, which is the body of its
