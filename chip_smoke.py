@@ -4,7 +4,10 @@
 
 Phases, in order; any failure exits non-zero without the final result line:
   1. environment: the card's name and power limit (nvidia-smi), torch and CUDA;
-  2. build: every kernel under faceposegenerator_tpu_torch/csrc, with nvcc;
+  2. build: every kernel under faceposegenerator_tpu_torch/csrc, with nvcc,
+     and what ptxas reported for each kernel function (registers, spill
+     bytes, any "Performance Loss" line; K1's and K5's registers and spills
+     also go into their entries of the kernels line);
   3. kernels against plain: each kernel at every shape the main paths give
      it, bf16 unit-normal inputs from a seed, against its plain PyTorch
      version in fp32 on the same inputs (max abs err <= 2e-2, mean <= 2e-3;
@@ -12,7 +15,8 @@ Phases, in order; any failure exits non-zero without the final result line:
      log-sum-exp within 1e-3), timed beside that plain
      version, the PyTorch library call (`scaled_dot_product_attention`
      forward or its backward through autograd: a yardstick, used nowhere in
-     the port) and the card's bound. The sampling shapes (K1, K2 forward)
+     the port) and the card's bound, with the rate (`tflops`: the FLOPs
+     the bound counts over the measured time). The sampling shapes (K1, K2 forward)
      first, then the train shapes (K1, K2 with the log-sum-exp; K5, K6);
   4. txt2img: StableDiffusionPipeline.from_random at SD2.1-base widths in
      bf16 with a rank-4 UNet LoRA, first against its own plain-attention
@@ -290,9 +294,11 @@ def check_kernels(torch, fa, card, shapes=SHAPES, with_lse=False, per="request")
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), torch)
         # q, k, v read once, o (and lse) written once
         nbytes = 2.0 * b * h * d * (2 * sq + 2 * skv) + (4.0 * b * h * sq if with_lse else 0.0)
-        bound_ms, bound_by = _bound(card, 4.0 * b * h * sq * skv * d, nbytes)
+        flops = 4.0 * b * h * sq * skv * d
+        bound_ms, bound_by = _bound(card, flops, nbytes)
         row = dict(kernel=name, shape=label, lse=with_lse, B=b, H=h, Sq=sq, Skv=skv, D=d, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   tflops=flops / ms * 1e-9,
                    max_abs_err=max_err, mean_abs_err=mean_err, lse_max_err=lse_err, **{f"launches_per_{per}": per_run})
         print("kernel " + json.dumps(row), flush=True)
         rows.append(row)
@@ -349,7 +355,8 @@ def check_backward(torch, fa, card, shapes):
         row = dict(kernel=f"flash_bwd_{kind}", shape=label, B=b, H=h, Sq=sq, Skv=skv, D=d,
                    dkv_ms=ms["dkv"], dq_ms=ms["dq"], pair_ms=pair_ms, plain_ms=plain_ms, library_ms=library_ms,
                    pair_bound_ms=pair_bound, pair_bound_by=pair_by, dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
-                   dq_bound_ms=dq_bound, dq_bound_by=dq_by,
+                   dq_bound_ms=dq_bound, dq_bound_by=dq_by, tflops=10.0 * unit / pair_ms * 1e-9,
+                   dkv_tflops=8.0 * unit / ms["dkv"] * 1e-9, dq_tflops=6.0 * unit / ms["dq"] * 1e-9,
                    dq_err=[dq_max, dq_mean], dk_err=[dk_max, dk_mean], dv_err=[dv_max, dv_mean],
                    grad_max_abs=norms, launches_per_step=per_step)
         print("kernel " + json.dumps(row), flush=True)
@@ -1059,7 +1066,7 @@ def run_fused_train(torch, card_line, op, default_steady):
     return launches
 
 
-def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, launches):
+def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, launches, ptxas):
     from faceposegenerator_tpu_torch.ops._build import SOURCE_OF
 
     sources = {name: f"faceposegenerator_tpu_torch/csrc/{src}.cu" for name, src in SOURCE_OF.items()}
@@ -1073,6 +1080,7 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, lau
             max_abs_err=max(r["max_abs_err"] for r in mine), ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
             shape=f"{top['shape']} B{top['B']}", lse_max_err=max(r["lse_max_err"] or 0.0 for r in mine),
+            tflops=top["tflops"], **({"ptxas": ptxas[f"{name}_kernel"]} if f"{name}_kernel" in ptxas else {}),
         ))
     for kind in ("d64", "wide"):
         mine = [r for r in bwd_rows if r["kernel"] == f"flash_bwd_{kind}"]
@@ -1085,6 +1093,8 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, lau
                 max_abs_err=max(r[e][0] for r in mine for e in errs), ms=top[f"{p}_ms"],
                 plain_ms=top["plain_ms"], bound_ms=top[f"{p}_bound_ms"], bound_by=top[f"{p}_bound_by"],
                 library_ms=top["library_ms"], shape=f"{top['shape']} B{top['B']}", pair_ms=top["pair_ms"],
+                tflops=top[f"{p}_tflops"], pair_tflops=top["tflops"],
+                **({"ptxas": ptxas[f"{name}_kernel"]} if f"{name}_kernel" in ptxas else {}),
             ))
     # K7 and K8: no single library call computes their function (the int8
     # GEMM alone, bf16 F.linear and exact SDPA are yardsticks, in extra keys)
@@ -1136,10 +1146,19 @@ def main() -> int:
     t0 = time.time()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.time() - t0:.1f} s", flush=True)
+    ptxas = {}  # the d = 64 attention kernels' registers and spills (each instance), for their entries
     for name in libs:
+        # e.g. "wgmma.mma_async instructions are serialized": a kernel that builds and is right, but slow
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "Performance Loss" in line:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+        for rep in _build.ptxas_report(name):
+            print(f"ptxas {name} {rep['function']}: {rep.get('registers')} registers, "
+                  f"{rep.get('spill_stores')} bytes spill stores, {rep.get('spill_loads')} bytes spill loads",
+                  flush=True)
+            if rep["function"].startswith(("flash_fwd_d64", "flash_bwd_d64")):
+                ptxas.setdefault(rep["function"], []).append(
+                    {k: rep.get(k) for k in ("registers", "spill_stores", "spill_loads")})
 
     from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
 
@@ -1172,7 +1191,7 @@ def main() -> int:
             fail(f"{name} was not launched on the main paths")
 
     print(json.dumps({"kernels": _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows,
-                                                 launches)}), flush=True)
+                                                 launches, ptxas)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -27,19 +27,27 @@
 //
 // What bounds them on the card: at the 4096-token self-attention the work
 // is ~10·Sq·Skv·D tensor-core FLOPs per head against ~(4·Sq + 4·Skv)·D·2
-// bytes, far above the ~295 FLOP/byte ridge: tensor-core and exp bound. The
-// 77-key cross-attention backward moves q, dO and dq once for few FLOPs:
-// bytes and launches bound.
+// bytes, far above the ~295 FLOP/byte ridge: tensor cores first, then the
+// exp of every score on the special-function units (recomputed in both
+// passes) and the chain that turns each score into the operand of the next
+// product. The 77-key cross-attention backward moves q, dO and dq once for
+// few FLOPs: bytes and launches bound.
 //
-// What the design does about it (mma.sync + ldmatrix + cp.async; wgmma/TMA
-// and warp specialisation are later work):
-//   * D = 64: each warp owns 16 rows of its CTA's tile and keeps the operand
-//     fragments of those rows (k and v in the dK/dV pass, q and dO in the dQ
-//     pass) in registers for the whole loop; the streamed tile (q and dO, or
-//     k and v) is double-buffered in shared memory with cp.async. The score
-//     and dP fragments never leave registers: they are re-packed in place as
-//     the A operand of the next product (the forward's P·V trick), and the
-//     operand that must be transposed is read with ldmatrix.trans.
+// What the design does about it:
+//   * D = 64 (sm90_common.cuh): wgmma on 64-row warpgroup tiles. In the
+//     dK/dV pass a CTA keeps 128 key rows of K and V resident in shared
+//     memory as the A operands of Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, so no K or V
+//     fragments sit in registers (the mma.sync version held 254 registers a
+//     thread); the dQ pass keeps 128 query rows of Q and dO resident the
+//     same way. The streamed tiles (Q and dO with their lse and D slices, or
+//     K and V) arrive by TMA from a producer warpgroup into a three-stage
+//     mbarrier ring, read straight by the tensor cores (once per warpgroup,
+//     not four times per warp as with ldmatrix). pᵀ, dSᵀ (or dS) are
+//     re-packed in registers as the A operand of dV += pᵀ·dO and dK += dSᵀ·Q
+//     (or dQ += dS·K), with B read MN-major. Each consumer issues the score
+//     products of the next streamed tile before it waits for the gradient
+//     products of the last, so p and dS are computed while the tensor cores
+//     run, and the two consumer warpgroups interleave.
 //   * D = 512: a 64-row fp32 dK+dV accumulator would be 256 KB, so the
 //     dK/dV pass takes 16 key rows per CTA and splits their 512 columns over
 //     the 8 warps (64 fp32 registers a thread for dK and dV together), and
@@ -52,6 +60,7 @@
 // given stream, allocates nothing, and returns cudaGetLastError().
 
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -74,304 +83,305 @@ __device__ __forceinline__ void zero_rows(bf16* dst, long long row_stride, int r
 }
 
 // ---------------------------------------------------------------------------
-// D = 64, dK/dV pass: one CTA per (b·h, 64 key rows), 4 warps of 16 key rows.
-// Query tiles of 64 rows (q, dO, lse, D) are double-buffered with cp.async.
+// D = 64 (K5): both passes run one CTA of three warpgroups. Warpgroup 2 is
+// the producer: TMA loads of the CTA's resident tiles once, then the
+// streamed tiles into a ring of B64_STAGES shared-memory stages behind
+// full/empty mbarriers. Warpgroups 0 and 1 are the consumers, 64 resident
+// rows each. Each consumer issues the score products of streamed tile j
+// before it waits for the gradient products of tile j-1, so the tensor
+// cores go on while it computes p and dS; the other consumer's work
+// interleaves with its own.
 // ---------------------------------------------------------------------------
 
-constexpr int B64_BM = 64, B64_BN = 64, B64_SST = 64 + 8, B64_THREADS = 128;
-// K, V, two (Q, dO) buffers, two (lse, D) buffers
-constexpr int B64_DKV_SMEM =
-    (2 * B64_BN + 4 * B64_BM) * B64_SST * static_cast<int>(sizeof(bf16)) + 4 * B64_BM * 4;
-// Q, dO, two (K, V) buffers
-constexpr int B64_DQ_SMEM = (2 * B64_BM + 4 * B64_BN) * B64_SST * static_cast<int>(sizeof(bf16));
+constexpr int B64_ROWS = 128, B64_STREAM = 64, B64_STAGES = 3, B64_THREADS = 384;
+constexpr int B64_TILE = 64 * 64 * 2;  // a 64-row bf16 tile: 8 KB, 1024-byte aligned
+// dK/dV pass: K, V (128 rows each); per stage Q, dO (64 rows each); per
+// stage lse·log2(e) and D (64 fp32 each); mbarriers; alignment slack
+constexpr int DKV_STAGE_OFF = 4 * B64_TILE;
+constexpr int DKV_STAT_OFF = DKV_STAGE_OFF + B64_STAGES * 2 * B64_TILE;
+constexpr int DKV_BAR_OFF = DKV_STAT_OFF + B64_STAGES * 2 * B64_STREAM * 4;
+constexpr int DKV_SMEM = DKV_BAR_OFF + 8 * (1 + 2 * B64_STAGES) + 1024;
+// dQ pass: Q, dO (128 rows each); per stage K, V (64 rows each); mbarriers
+constexpr int DQ_STAGE_OFF = 4 * B64_TILE;
+constexpr int DQ_BAR_OFF = DQ_STAGE_OFF + B64_STAGES * 2 * B64_TILE;
+constexpr int DQ_SMEM = DQ_BAR_OFF + 8 * (1 + 2 * B64_STAGES) + 1024;
 
-__global__ void __launch_bounds__(B64_THREADS)
-    flash_bwd_d64_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ dd,
-                             bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Skv,
-                             int kv_end, BwdStrides st, float scale, float scale_log2) {
-  constexpr int BM = B64_BM, BN = B64_BN, SST = B64_SST, D = 64, NT = B64_THREADS;
-  extern __shared__ __align__(16) unsigned char smem_dkv[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_dkv);
-  bf16* sV = sK + BN * SST;
-  bf16* sQD = sV + BN * SST;  // buffer i: Q at sQD + 2i·BM·SST, dO right after it
-  float* sStat = reinterpret_cast<float*>(sQD + 4 * BM * SST);  // buffer i: lse, then D
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int kv0 = blockIdx.x * BN;
-  const bf16* qb = q + b * st.q_b + h * st.q_h;
-  const bf16* kb = k + b * st.k_b + h * st.k_h;
-  const bf16* vb = v + b * st.v_b + h * st.v_h;
-  const bf16* dob = dout + b * st.do_b + h * st.do_h;
-  bf16* dkb = dk + b * st.dk_b + h * st.dk_h;
-  bf16* dvb = dv + b * st.dv_b + h * st.dv_h;
-  const float* lseb = lse + static_cast<long long>(blockIdx.y) * Sq;
-  const float* ddb = dd + static_cast<long long>(blockIdx.y) * Sq;
-
-  if (kv0 >= kv_end) {  // masked keys: zero gradients
-    zero_rows<BN, D, NT>(dkb, st.dk_s, kv0, Skv);
-    zero_rows<BN, D, NT>(dvb, st.dv_s, kv0, Skv);
-    return;
-  }
-  const int n_tiles = (Sq + BM - 1) / BM;
-
-  auto load_q_tile = [&](int j) {
-    bf16* dst = sQD + (j & 1) * 2 * BM * SST;
-    cp_tile_d64<BM, SST, NT>(dst, qb, st.q_s, j * BM, Sq);
-    cp_tile_d64<BM, SST, NT>(dst + BM * SST, dob, st.do_s, j * BM, Sq);
-    float* stat = sStat + (j & 1) * 2 * BM;
-    for (int i = threadIdx.x; i < 2 * BM; i += NT) {
-      const int row = j * BM + (i % BM);
-      const float* src = (i < BM ? lseb : ddb) + row;
-      cp_async_4(stat + i, row < Sq ? src : lseb, row < Sq ? 4 : 0);
-    }
-    cp_async_commit();
-  };
-
-  cp_tile_d64<BN, SST, NT>(sK, kb, st.k_s, kv0, kv_end);
-  cp_tile_d64<BN, SST, NT>(sV, vb, st.v_s, kv0, kv_end);
-  load_q_tile(0);
-
-  const int lr = lm_row(lane), lc = lm_col(lane);
-  const int r0 = kv0 + warp * 16 + g, r1 = r0 + 8;  // this thread's key rows
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  float dka[D / 8][4], dva[D / 8][4];
+// Rows r0 and r0 + 8 of a 64×64 fp32 accumulator, times `mul`, as bf16
+// into a (rows, 64) slice; rows >= nrows are skipped.
+__device__ __forceinline__ void store_rows(bf16* dst, long long row_stride, const float (&c)[32], int r0,
+                                           int nrows, int t4, float mul) {
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      load_q_tile(j + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        ldsm_x4(kf[kc], sK + (warp * 16 + lr) * SST + kc * 16 + lc);
-        ldsm_x4(vf[kc], sV + (warp * 16 + lr) * SST + kc * 16 + lc);
-      }
-    }
-    const bf16* sQ = sQD + (j & 1) * 2 * BM * SST;
-    const bf16* sdO = sQ + BM * SST;
-    const float* sL = sStat + (j & 1) * 2 * BM;
-    const float* sDd = sL + BM;
-    const int q0 = j * BM;
-
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ for this warp's 16 key rows × 64 query columns
-    float s[BM / 8][4], dp[BM / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BM / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int p = 0; p < D / 32; ++p) {
-        uint32_t qf[4], df[4];
-        ldsm_x4(qf, sQ + (nt * 8 + (lane & 7)) * SST + p * 32 + (lane >> 3) * 8);
-        mma_16816(s[nt], kf[2 * p], qf[0], qf[1]);
-        mma_16816(s[nt], kf[2 * p + 1], qf[2], qf[3]);
-        ldsm_x4(df, sdO + (nt * 8 + (lane & 7)) * SST + p * 32 + (lane >> 3) * 8);
-        mma_16816(dp[nt], vf[2 * p], df[0], df[1]);
-        mma_16816(dp[nt], vf[2 * p + 1], df[2], df[3]);
-      }
-    }
-
-    // pᵀ = exp2(s·scale·log2e − lse·log2e); dSᵀ = pᵀ ∘ (dPᵀ − D)
-    const bool ragged = q0 + BM > Sq || kv0 + BN > kv_end;
-#pragma unroll
-    for (int nt = 0; nt < BM / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = nt * 8 + t4 * 2 + e;
-        const float l2 = sL[c] * LOG2E, dsum = sDd[c];
-        float p0 = ex2(fmaf(s[nt][e], scale_log2, -l2));
-        float p1 = ex2(fmaf(s[nt][2 + e], scale_log2, -l2));
-        if (ragged) {
-          const bool qlive = q0 + c < Sq;
-          if (!(qlive && r0 < kv_end)) p0 = 0.f;
-          if (!(qlive && r1 < kv_end)) p1 = 0.f;
-        }
-        s[nt][e] = p0;
-        s[nt][2 + e] = p1;
-        dp[nt][e] = p0 * (dp[nt][e] - dsum);
-        dp[nt][2 + e] = p1 * (dp[nt][2 + e] - dsum);
-      }
-    }
-
-    // dV += pᵀ·dO and dK += dSᵀ·Q over the 64 query rows of this tile
-#pragma unroll
-    for (int kc = 0; kc < BM / 16; ++kc) {
-      uint32_t pa[4], da[4];
-      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      da[0] = pack_bf16(dp[2 * kc][0], dp[2 * kc][1]);
-      da[1] = pack_bf16(dp[2 * kc][2], dp[2 * kc][3]);
-      da[2] = pack_bf16(dp[2 * kc + 1][0], dp[2 * kc + 1][1]);
-      da[3] = pack_bf16(dp[2 * kc + 1][2], dp[2 * kc + 1][3]);
-#pragma unroll
-      for (int p = 0; p < D / 16; ++p) {
-        uint32_t of[4], qt[4];
-        ldsm_x4_trans(of, sdO + (kc * 16 + lr) * SST + p * 16 + lc);
-        mma_16816(dva[2 * p], pa, of[0], of[1]);
-        mma_16816(dva[2 * p + 1], pa, of[2], of[3]);
-        ldsm_x4_trans(qt, sQ + (kc * 16 + lr) * SST + p * 16 + lc);
-        mma_16816(dka[2 * p], da, qt[0], qt[1]);
-        mma_16816(dka[2 * p + 1], da, qt[2], qt[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two tiles from now
-  }
-
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + t4 * 2;
-    if (r0 < Skv) {
-      *reinterpret_cast<uint32_t*>(dkb + r0 * st.dk_s + col) = pack_bf16(dka[dt][0] * scale, dka[dt][1] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + r0 * st.dv_s + col) = pack_bf16(dva[dt][0], dva[dt][1]);
-    }
-    if (r1 < Skv) {
-      *reinterpret_cast<uint32_t*>(dkb + r1 * st.dk_s + col) = pack_bf16(dka[dt][2] * scale, dka[dt][3] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + r1 * st.dv_s + col) = pack_bf16(dva[dt][2], dva[dt][3]);
-    }
+  for (int i = 0; i < 8; ++i) {
+    const int col = i * 8 + t4 * 2;
+    if (r0 < nrows)
+      *reinterpret_cast<uint32_t*>(dst + r0 * row_stride + col) = pack_bf16(c[4 * i] * mul, c[4 * i + 1] * mul);
+    if (r0 + 8 < nrows)
+      *reinterpret_cast<uint32_t*>(dst + (r0 + 8) * row_stride + col) =
+          pack_bf16(c[4 * i + 2] * mul, c[4 * i + 3] * mul);
   }
 }
 
-// ---------------------------------------------------------------------------
-// D = 64, dQ pass: one CTA per (b·h, 64 query rows), 4 warps of 16 query
-// rows; key/value tiles of 64 rows double-buffered with cp.async.
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(B64_THREADS)
-    flash_bwd_d64_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                            const float* __restrict__ lse, const float* __restrict__ dd,
-                            bf16* __restrict__ dq, int H, int Sq, int kv_end, BwdStrides st,
-                            float scale, float scale_log2) {
-  constexpr int BM = B64_BM, BN = B64_BN, SST = B64_SST, D = 64, NT = B64_THREADS;
-  extern __shared__ __align__(16) unsigned char smem_dq[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_dq);
-  bf16* sdO = sQ + BM * SST;
-  bf16* sKV = sdO + BM * SST;  // buffer i: K at sKV + 2i·BN·SST, V right after it
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+// dK/dV pass: a CTA owns 128 key rows (64 a consumer, K and V resident as
+// the A operands of Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ) and walks the 64-row query
+// tiles; pᵀ and dSᵀ in registers are the A operands of dV += pᵀ·dO and
+// dK += dSᵀ·Q (B = dO and Q, MN-major).
+__global__ void __launch_bounds__(B64_THREADS, 1)
+    flash_bwd_d64_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                             const float* __restrict__ lse, const float* __restrict__ dd,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Skv, int kv_end,
+                             BwdStrides st, float scale, float scale_log2) {
+  constexpr int ST = B64_STAGES, QB = B64_STREAM;
+  extern __shared__ __align__(1024) unsigned char smem_dkv[];
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BM;
-  const bf16* qb = q + b * st.q_b + h * st.q_h;
-  const bf16* kb = k + b * st.k_b + h * st.k_h;
-  const bf16* vb = v + b * st.v_b + h * st.v_h;
-  const bf16* dob = dout + b * st.do_b + h * st.do_h;
-  bf16* dqb = dq + b * st.dq_b + h * st.dq_h;
-  const int n_tiles = (kv_end + BN - 1) / BN;
-
-  cp_tile_d64<BM, SST, NT>(sQ, qb, st.q_s, q0, Sq);
-  cp_tile_d64<BM, SST, NT>(sdO, dob, st.do_s, q0, Sq);
-  cp_tile_d64<BN, SST, NT>(sKV, kb, st.k_s, 0, kv_end);
-  cp_tile_d64<BN, SST, NT>(sKV + BN * SST, vb, st.v_s, 0, kv_end);
-  cp_async_commit();
-
-  const int lr = lm_row(lane), lc = lm_col(lane);
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;  // this thread's query rows
-  const long long stat0 = static_cast<long long>(blockIdx.y) * Sq;
-  const float l2_0 = row0 < Sq ? lse[stat0 + row0] * LOG2E : 0.f;
-  const float l2_1 = row1 < Sq ? lse[stat0 + row1] * LOG2E : 0.f;
-  const float dd0 = row0 < Sq ? dd[stat0 + row0] : 0.f;
-  const float dd1 = row1 < Sq ? dd[stat0 + row1] : 0.f;
-
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      bf16* nk = sKV + ((j + 1) & 1) * 2 * BN * SST;
-      cp_tile_d64<BN, SST, NT>(nk, kb, st.k_s, (j + 1) * BN, kv_end);
-      cp_tile_d64<BN, SST, NT>(nk + BN * SST, vb, st.v_s, (j + 1) * BN, kv_end);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        ldsm_x4(qf[kc], sQ + (warp * 16 + lr) * SST + kc * 16 + lc);
-        ldsm_x4(df[kc], sdO + (warp * 16 + lr) * SST + kc * 16 + lc);
-      }
-    }
-    const bf16* sK = sKV + (j & 1) * 2 * BN * SST;
-    const bf16* sV = sK + BN * SST;
-    const int kv0 = j * BN;
-
-    // S = Q·Kᵀ and dP = dO·Vᵀ for this warp's 16 query rows × 64 key columns
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int p = 0; p < D / 32; ++p) {
-        uint32_t kt[4], vt[4];
-        ldsm_x4(kt, sK + (nt * 8 + (lane & 7)) * SST + p * 32 + (lane >> 3) * 8);
-        mma_16816(s[nt], qf[2 * p], kt[0], kt[1]);
-        mma_16816(s[nt], qf[2 * p + 1], kt[2], kt[3]);
-        ldsm_x4(vt, sV + (nt * 8 + (lane & 7)) * SST + p * 32 + (lane >> 3) * 8);
-        mma_16816(dp[nt], df[2 * p], vt[0], vt[1]);
-        mma_16816(dp[nt], df[2 * p + 1], vt[2], vt[3]);
-      }
-    }
-
-    // p = exp2(s·scale·log2e − lse·log2e); dS = p ∘ (dP − D)
-    const bool ragged = kv0 + BN > kv_end;
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float p0 = ex2(fmaf(s[nt][e], scale_log2, -l2_0));
-        float p1 = ex2(fmaf(s[nt][2 + e], scale_log2, -l2_1));
-        if (ragged && kv0 + nt * 8 + t4 * 2 + e >= kv_end) p0 = p1 = 0.f;
-        dp[nt][e] = p0 * (dp[nt][e] - dd0);
-        dp[nt][2 + e] = p1 * (dp[nt][2 + e] - dd1);
-      }
-    }
-
-    // dQ += dS·K over the 64 keys of this tile
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      uint32_t a[4];
-      a[0] = pack_bf16(dp[2 * kc][0], dp[2 * kc][1]);
-      a[1] = pack_bf16(dp[2 * kc][2], dp[2 * kc][3]);
-      a[2] = pack_bf16(dp[2 * kc + 1][0], dp[2 * kc + 1][1]);
-      a[3] = pack_bf16(dp[2 * kc + 1][2], dp[2 * kc + 1][3]);
-#pragma unroll
-      for (int p = 0; p < D / 16; ++p) {
-        uint32_t kt[4];
-        ldsm_x4_trans(kt, sK + (kc * 16 + lr) * SST + p * 16 + lc);
-        mma_16816(acc[2 * p], a, kt[0], kt[1]);
-        mma_16816(acc[2 * p + 1], a, kt[2], kt[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two tiles from now
+  const int kv0 = blockIdx.x * B64_ROWS;
+  bf16* dkb = dk + b * st.dk_b + h * st.dk_h;
+  bf16* dvb = dv + b * st.dv_b + h * st.dv_h;
+  if (kv0 >= kv_end) {  // masked keys: zero gradients
+    zero_rows<B64_ROWS, 64, B64_THREADS>(dkb, st.dk_s, kv0, Skv);
+    zero_rows<B64_ROWS, 64, B64_THREADS>(dvb, st.dv_s, kv0, Skv);
+    return;
   }
+  const uint32_t pad = ((smem_u32(smem_dkv) + 1023u) & ~1023u) - smem_u32(smem_dkv);
+  const uint32_t base = smem_u32(smem_dkv) + pad;
+  const uint32_t sK = base, sV = base + 2 * B64_TILE, sQ0 = base + DKV_STAGE_OFF;  // stage s: Q, then dO
+  float* stat0 = reinterpret_cast<float*>(smem_dkv + pad + DKV_STAT_OFF);        // stage s: lse·log2e, then D
+  const uint32_t full_kv = base + DKV_BAR_OFF, full0 = full_kv + 8, empty0 = full0 + 8 * ST;
+  const int n_tiles = (Sq + QB - 1) / QB;
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
 
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full0 + 8 * s, 32);  // the producer warp's lanes: the statistics are plain stores
+      mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 256 + 32) {
+      const long long stat_row = static_cast<long long>(blockIdx.y) * Sq;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full_kv, 4 * B64_TILE);
+        tma_load_4d(sK, &tm_k, full_kv, 0, kv0, h, b);
+        tma_load_4d(sV, &tm_v, full_kv, 0, kv0, h, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST;
+        mbar_wait(empty0 + 8 * s, ((j / ST) & 1) ^ 1);
+        float* stat = stat0 + s * 2 * QB;
+        for (int i = lane; i < QB; i += 32) {
+          const int row = j * QB + i;
+          stat[i] = row < Sq ? lse[stat_row + row] * LOG2E : 0.f;
+          stat[QB + i] = row < Sq ? dd[stat_row + row] : 0.f;
+        }
+        if (lane == 0) {
+          const uint32_t sQ = sQ0 + s * 2 * B64_TILE;
+          mbar_arrive_expect_tx(full0 + 8 * s, 2 * B64_TILE);
+          tma_load_4d(sQ, &tm_q, full0 + 8 * s, 0, j * QB, h, b);
+          tma_load_4d(sQ + B64_TILE, &tm_do, full0 + 8 * s, 0, j * QB, h, b);
+        } else {
+          mbar_arrive(full0 + 8 * s);
+        }
+      }
+    }
+  } else {  // consumers
+    setmaxnreg_inc<232>();
+    const int w = (threadIdx.x >> 5) & 3, g = lane >> 2, t4 = lane & 3;
+    const uint32_t sKw = sK + wg * B64_TILE, sVw = sV + wg * B64_TILE;
+    const int kw0 = kv0 + wg * 64;                 // this warpgroup's first key
+    const int r0 = kw0 + w * 16 + g, r1 = r0 + 8;  // this thread's key rows
+    float dk_acc[32], dv_acc[32], s_acc[32], dp_acc[32];
+    uint32_t pa[16], da[16];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + t4 * 2;
-    if (row0 < Sq)
-      *reinterpret_cast<uint32_t*>(dqb + row0 * st.dq_s + col) = pack_bf16(acc[dt][0] * scale, acc[dt][1] * scale);
-    if (row1 < Sq)
-      *reinterpret_cast<uint32_t*>(dqb + row1 * st.dq_s + col) = pack_bf16(acc[dt][2] * scale, acc[dt][3] * scale);
+    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    fence_regs(dk_acc);  // zeroed here, not later next to a wgmma in flight
+    fence_regs(dv_acc);
+
+    mbar_wait(full_kv, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % ST;
+      const uint32_t sQ = sQ0 + s * 2 * B64_TILE, sdO = sQ + B64_TILE;
+      mbar_wait(full0 + 8 * s, (j / ST) & 1);
+      fence_regs(s_acc);
+      fence_regs(dp_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma_ss_m64n64(s_acc, desc_k(sKw + 32 * k), desc_k(sQ + 32 * k), k);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma_ss_m64n64(dp_acc, desc_k(sVw + 32 * k), desc_k(sdO + 32 * k), k);
+      wgmma_commit();
+      wgmma_wait<1>();  // dV and dK of tile j-1 are done: release its stage
+      fence_regs(pa);
+      fence_regs(da);
+      mbar_arrive_if(empty0 + 8 * ((j + ST - 1) % ST), lane == 0 && j > 0);
+      wgmma_wait<0>();
+      fence_regs(s_acc);
+      fence_regs(dp_acc);
+
+      // pᵀ = exp2(s·scale·log2e − lse·log2e); dSᵀ = pᵀ ∘ (dPᵀ − D)
+      const float* sl = stat0 + s * 2 * QB;
+      const float* sd = sl + QB;
+      const int q0 = j * QB;
+      const bool ragged = q0 + QB > Sq || kw0 + 64 > kv_end;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 l2s = *reinterpret_cast<const float2*>(sl + i * 8 + t4 * 2);
+        const float2 dsums = *reinterpret_cast<const float2*>(sd + i * 8 + t4 * 2);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = i * 8 + t4 * 2 + e;
+          const float l2 = e ? l2s.y : l2s.x, dsum = e ? dsums.y : dsums.x;
+          float p0 = ex2(fmaf(s_acc[4 * i + e], scale_log2, -l2));
+          float p1 = ex2(fmaf(s_acc[4 * i + 2 + e], scale_log2, -l2));
+          if (ragged) {
+            const bool qlive = q0 + c < Sq;
+            if (!(qlive && r0 < kv_end)) p0 = 0.f;
+            if (!(qlive && r1 < kv_end)) p1 = 0.f;
+          }
+          s_acc[4 * i + e] = p0;
+          s_acc[4 * i + 2 + e] = p1;
+          dp_acc[4 * i + e] = p0 * (dp_acc[4 * i + e] - dsum);
+          dp_acc[4 * i + 2 + e] = p1 * (dp_acc[4 * i + 2 + e] - dsum);
+        }
+      }
+      pack_a<4>(pa, s_acc);
+      pack_a<4>(da, dp_acc);
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      fence_regs(pa);
+      fence_regs(da);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        wgmma_rs_m64n64_mn(dv_acc, pa[4 * kc], pa[4 * kc + 1], pa[4 * kc + 2], pa[4 * kc + 3],
+                           desc_mn(sdO + 2048 * kc));
+        wgmma_rs_m64n64_mn(dk_acc, da[4 * kc], da[4 * kc + 1], da[4 * kc + 2], da[4 * kc + 3],
+                           desc_mn(sQ + 2048 * kc));
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    fence_regs(pa);
+    fence_regs(da);
+    store_rows(dkb, st.dk_s, dk_acc, r0, Skv, t4, scale);
+    store_rows(dvb, st.dv_s, dv_acc, r0, Skv, t4, 1.f);
+  }
+}
+
+// dQ pass: a CTA owns 128 query rows (64 a consumer, Q and dO resident as
+// the A operands of S = Q·Kᵀ and dP = dO·Vᵀ) and walks the 64-row key tiles
+// up to kv_end; dS in registers is the A operand of dQ += dS·K (B = K,
+// MN-major).
+__global__ void __launch_bounds__(B64_THREADS, 1)
+    flash_bwd_d64_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                            const float* __restrict__ lse, const float* __restrict__ dd, bf16* __restrict__ dq,
+                            int H, int Sq, int kv_end, BwdStrides st, float scale, float scale_log2) {
+  constexpr int ST = B64_STAGES, KB = B64_STREAM;
+  extern __shared__ __align__(1024) unsigned char smem_dq[];
+  const uint32_t base = (smem_u32(smem_dq) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sdO = base + 2 * B64_TILE, sK0 = base + DQ_STAGE_OFF;  // stage s: K, then V
+  const uint32_t full_qd = base + DQ_BAR_OFF, full0 = full_qd + 8, empty0 = full0 + 8 * ST;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = blockIdx.x * B64_ROWS;
+  const int n_tiles = (kv_end + KB - 1) / KB;
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_qd, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(full_qd, 4 * B64_TILE);
+      tma_load_4d(sQ, &tm_q, full_qd, 0, q0, h, b);
+      tma_load_4d(sdO, &tm_do, full_qd, 0, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST;
+        const uint32_t sK = sK0 + s * 2 * B64_TILE;
+        mbar_wait(empty0 + 8 * s, ((j / ST) & 1) ^ 1);
+        mbar_arrive_expect_tx(full0 + 8 * s, 2 * B64_TILE);
+        tma_load_4d(sK, &tm_k, full0 + 8 * s, 0, j * KB, h, b);
+        tma_load_4d(sK + B64_TILE, &tm_v, full0 + 8 * s, 0, j * KB, h, b);
+      }
+    }
+  } else {  // consumers
+    setmaxnreg_inc<232>();
+    const int w = (threadIdx.x >> 5) & 3, g = lane >> 2, t4 = lane & 3;
+    const uint32_t sQw = sQ + wg * B64_TILE, sdOw = sdO + wg * B64_TILE;
+    const int row0 = q0 + wg * 64 + w * 16 + g, row1 = row0 + 8;  // this thread's query rows
+    const long long stat = static_cast<long long>(blockIdx.y) * Sq;
+    const float l2_0 = row0 < Sq ? lse[stat + row0] * LOG2E : 0.f;
+    const float l2_1 = row1 < Sq ? lse[stat + row1] * LOG2E : 0.f;
+    const float dd0 = row0 < Sq ? dd[stat + row0] : 0.f;
+    const float dd1 = row1 < Sq ? dd[stat + row1] : 0.f;
+    float dq_acc[32], s_acc[32], dp_acc[32];
+    uint32_t da[16];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+    fence_regs(dq_acc);  // zeroed here, not later next to a wgmma in flight
+
+    mbar_wait(full_qd, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % ST;
+      const uint32_t sK = sK0 + s * 2 * B64_TILE, sV = sK + B64_TILE;
+      mbar_wait(full0 + 8 * s, (j / ST) & 1);
+      fence_regs(s_acc);
+      fence_regs(dp_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma_ss_m64n64(s_acc, desc_k(sQw + 32 * k), desc_k(sK + 32 * k), k);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma_ss_m64n64(dp_acc, desc_k(sdOw + 32 * k), desc_k(sV + 32 * k), k);
+      wgmma_commit();
+      wgmma_wait<1>();  // dQ of tile j-1 is done: release its stage
+      fence_regs(da);
+      mbar_arrive_if(empty0 + 8 * ((j + ST - 1) % ST), lane == 0 && j > 0);
+      wgmma_wait<0>();
+      fence_regs(s_acc);
+      fence_regs(dp_acc);
+
+      // p = exp2(s·scale·log2e − lse·log2e); dS = p ∘ (dP − D)
+      const int kv0 = j * KB;
+      const bool ragged = kv0 + KB > kv_end;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p0 = ex2(fmaf(s_acc[4 * i + e], scale_log2, -l2_0));
+          float p1 = ex2(fmaf(s_acc[4 * i + 2 + e], scale_log2, -l2_1));
+          if (ragged && kv0 + i * 8 + t4 * 2 + e >= kv_end) p0 = p1 = 0.f;
+          dp_acc[4 * i + e] = p0 * (dp_acc[4 * i + e] - dd0);
+          dp_acc[4 * i + 2 + e] = p1 * (dp_acc[4 * i + 2 + e] - dd1);
+        }
+      }
+      pack_a<4>(da, dp_acc);
+      fence_regs(dq_acc);
+      fence_regs(da);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_rs_m64n64_mn(dq_acc, da[4 * kc], da[4 * kc + 1], da[4 * kc + 2], da[4 * kc + 3],
+                           desc_mn(sK + 2048 * kc));
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    fence_regs(da);
+    store_rows(dq + b * st.dq_b + h * st.dq_h, st.dq_s, dq_acc, row0, Sq, t4, scale);
   }
 }
 
@@ -730,16 +740,22 @@ int flash_bwd_d64_dkv(const void* q, const void* k, const void* v, const void* d
   static bool smem_set = false;
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_d64_dkv_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, B64_DKV_SMEM);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
-  dim3 grid((Skv + B64_BN - 1) / B64_BN, B * H);
-  flash_bwd_d64_dkv_kernel<<<grid, B64_THREADS, B64_DKV_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<const float*>(dd),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Skv, kv_end, make_strides(strides), scale,
-      scale * LOG2E);
+  const BwdStrides st = make_strides(strides);
+  // keys at or past kv_end lie outside the K and V maps and read as zeros
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_map_d64(&tq, q, Sq, H, B, st.q_s, st.q_h, st.q_b, B64_STREAM);
+  if (err == 0) err = make_map_d64(&tdo, dout, Sq, H, B, st.do_s, st.do_h, st.do_b, B64_STREAM);
+  if (err == 0) err = make_map_d64(&tk, k, kv_end, H, B, st.k_s, st.k_h, st.k_b, B64_ROWS);
+  if (err == 0) err = make_map_d64(&tv, v, kv_end, H, B, st.v_s, st.v_h, st.v_b, B64_ROWS);
+  if (err != 0) return err;
+  dim3 grid((Skv + B64_ROWS - 1) / B64_ROWS, B * H);
+  flash_bwd_d64_dkv_kernel<<<grid, B64_THREADS, DKV_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(dd), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, Sq, Skv, kv_end, st, scale, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -749,15 +765,21 @@ int flash_bwd_d64_dq(const void* q, const void* k, const void* v, const void* do
   static bool smem_set = false;
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_d64_dq_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, B64_DQ_SMEM);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
-  dim3 grid((Sq + B64_BM - 1) / B64_BM, B * H);
-  flash_bwd_d64_dq_kernel<<<grid, B64_THREADS, B64_DQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse), static_cast<const float*>(dd),
-      static_cast<bf16*>(dq), H, Sq, kv_end, make_strides(strides), scale, scale * LOG2E);
+  const BwdStrides st = make_strides(strides);
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_map_d64(&tq, q, Sq, H, B, st.q_s, st.q_h, st.q_b, B64_ROWS);
+  if (err == 0) err = make_map_d64(&tdo, dout, Sq, H, B, st.do_s, st.do_h, st.do_b, B64_ROWS);
+  if (err == 0) err = make_map_d64(&tk, k, kv_end, H, B, st.k_s, st.k_h, st.k_b, B64_STREAM);
+  if (err == 0) err = make_map_d64(&tv, v, kv_end, H, B, st.v_s, st.v_h, st.v_b, B64_STREAM);
+  if (err != 0) return err;
+  dim3 grid((Sq + B64_ROWS - 1) / B64_ROWS, B * H);
+  flash_bwd_d64_dq_kernel<<<grid, B64_THREADS, DQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(dd), static_cast<bf16*>(dq), H,
+      Sq, kv_end, st, scale, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 

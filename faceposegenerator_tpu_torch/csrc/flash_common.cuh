@@ -1,7 +1,9 @@
-// Device helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): bf16 tensor-core MMA (mma.sync m16n8k16, fp32 accumulate),
-// ldmatrix operand loads from shared memory, cp.async copies and the
-// special-function exp2.
+// Device helpers shared by the kernels built on mma.sync (the wide
+// flash-attention kernels K2 and K6, flash_int8.cu, qdense.cu, gn_conv.cu)
+// and by the d = 64 wgmma kernels (flash_fwd.cu, flash_bwd.cu, with
+// sm90_common.cuh): bf16 tensor-core MMA (mma.sync m16n8k16, fp32
+// accumulate), ldmatrix operand loads from shared memory, cp.async copies,
+// bf16 packing and the special-function exp2.
 //
 // Fragment layout of mma m16n8k16 (g = lane / 4, t4 = lane % 4):
 //   A (16×16, row-major): a0 (g, 2t4..), a1 (g+8, 2t4..), a2 (g, 8+2t4..), a3 (g+8, 8+2t4..)
@@ -46,6 +48,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// An fp32 accumulator tile (mma.sync C fragments, or a wgmma accumulator:
+// 4 values per 8-column chunk) packed to bf16 as the A fragments of the KS
+// k16 slices of the next product (see the layout note above).
+template <int KS>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4 * KS], const float (&c)[8 * KS]) {
+#pragma unroll
+  for (int kc = 0; kc < KS; ++kc) {
+    a[4 * kc + 0] = pack_bf16(c[8 * kc + 0], c[8 * kc + 1]);
+    a[4 * kc + 1] = pack_bf16(c[8 * kc + 2], c[8 * kc + 3]);
+    a[4 * kc + 2] = pack_bf16(c[8 * kc + 4], c[8 * kc + 5]);
+    a[4 * kc + 3] = pack_bf16(c[8 * kc + 6], c[8 * kc + 7]);
+  }
+}
+
 // two consecutive bf16 (lower index in the low half)
 __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -83,13 +99,6 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_
                : "memory");
 }
 
-// 4-byte async copy global → shared; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
 template <int N>
@@ -113,18 +122,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long 
       val = *reinterpret_cast<const uint4*>(src + row * row_stride + cc * 8);
     }
     *reinterpret_cast<uint4*>(dst + r * SST + cc * 8) = val;
-  }
-}
-
-// Start copying rows [row0, row0 + ROWS) of a (rows, 64) bf16 slice into
-// shared memory with row stride SST; rows >= nrows are zero-filled.
-template <int ROWS, int SST, int NTHREADS>
-__device__ __forceinline__ void cp_tile_d64(bf16* dst, const bf16* src, long long row_stride,
-                                            int row0, int nrows) {
-  for (int c = threadIdx.x; c < ROWS * 8; c += NTHREADS) {
-    const int r = c >> 3, cc = c & 7, row = row0 + r;
-    const bool live = row < nrows;
-    cp_async_16(dst + r * SST + cc * 8, live ? src + row * row_stride + cc * 8 : src, live ? 16 : 0);
   }
 }
 

@@ -13,42 +13,52 @@
 // What bounds them on the card. At the UNet's 4096-token self-attention and
 // at the VAE's 4096×4096×512 the work is 4·Sq·Skv·D tensor-core FLOPs per head
 // against (Sq + 2·Skv + Sq)·D·2 bytes, far above the card's ~295 FLOP/byte
-// ridge: they are bound by the tensor cores (and, at D = 64, by the exp of every
-// score on the special-function units, which costs about as much). The
-// 77-token cross-attention reads q and writes o once for few FLOPs: it is
-// bound by bytes, and the small levels (64 and 256 query tokens) by launches.
+// ridge: they are bound by the tensor cores and, at D = 64, by the exp of
+// every score on the special-function units (MUFU), which costs about as
+// much: at 80 heads × 4096² that is 1.34 G ex2, ~0.33 ms of MUFU time against
+// a 0.35 ms tensor-core bound. The 77-token cross-attention reads q and
+// writes o once for few FLOPs: it is bound by bytes, and the small levels
+// (64 and 256 query tokens) by launches.
 //
-// What the design does about it (wgmma/TMA and warp specialisation are later work):
-//   * Scores and P·V run on the tensor cores with mma.sync m16n8k16
-//     bf16 → fp32. The S tile never leaves registers at D = 64 (the register
-//     fragment of S is re-packed in place as the A operand of P·V), so the
-//     O(S²) score matrix is never written to memory.
-//   * D = 64: 128 query rows per CTA, so each K/V tile fetched from L2 serves
-//     8 warps; K/V tiles are double-buffered with cp.async, so the next tile
-//     loads while this one's MMAs run; operands come by ldmatrix from padded
-//     shared-memory rows (no bank conflicts).
+// What the D = 64 design (flash_fwd_d64, sm90_common.cuh) does about it:
+//   * wgmma on 64-row warpgroup tiles: S = Q·Kᵀ as m64n128k16 with Q and K
+//     read by the tensor cores straight from shared memory, once per
+//     warpgroup (not once per warp, as ldmatrix + mma.sync did), and P·V as
+//     m64n64k16 with P from registers (the S accumulator re-packed to bf16 in
+//     place) and V read MN-major, so the score matrix never leaves registers.
+//   * TMA: one producer thread loads Q once and streams the K and V tiles
+//     through a ring of shared-memory stages guarded by mbarriers; the 4-D
+//     tensor maps take the strided q/k/v views of the fused projection with
+//     no copy, zero-fill the ragged last tile and never cross into the next
+//     batch row or head. The producer warpgroup gives its registers to the
+//     consumers (setmaxnreg 40 / 232 or 24 / 160), so nothing spills.
+//   * The exps run under the tensor cores twice over: inside a warpgroup,
+//     the softmax of S_j runs while P_{j-1}·V_{j-1} is in flight; across the
+//     consumer warpgroups (two or three), named barriers make them issue their
+//     products in turn (ping-pong, FlashAttention-3, arXiv:2407.08608), so
+//     one's exps run under the others' products.
 //   * exp is exp2 of a score pre-multiplied by scale·log2(e): one FMA and one
-//     MUFU op per score.
+//     MUFU op per score; the statistics stay in raw-score units.
+//   * Loop bounds stop at kv_end, so masked tiles are never loaded; in the
+//     tile that holds kv_end the columns past it are masked to -inf.
 //   * The TPU kernel's head-pair lane packing and ones-column MXU row sum are
-//     not carried over: Hopper's MMA tile is 16×8×16, so D = 64 is native and
-//     an odd head count needs no zero head.
-//   * D = 512: a 64×512 fp32 O tile does not fit in registers, so the wide
-//     kernel uses 32-row Q and K/V tiles in shared memory (~105 KB of dynamic
-//     shared memory) and splits the O accumulator by D-columns over 8 warps
-//     (64 fp32 registers per thread); scores go through a 32×32 tile in
-//     shared memory.
-//   * Loop bounds stop at kv_end, so masked tiles are never loaded; the
-//     ragged last tile is zero-filled and its columns masked to -inf before
-//     the row max.
-//   * For training both kernels also write each row's log-sum-exp (natural
-//     log, scaled logits; `save_lse` in the JAX package) when given a
-//     buffer for it: one fp32 per query row, from the statistics they keep
-//     anyway. flash_bwd.cu recomputes the normalised p from it.
+//     not carried over: a wgmma takes 16-deep slices, so D = 64 is native
+//     and an odd head count needs no zero head.
+// The D % 128 design (flash_fwd_wide) keeps mma.sync: a 64×512 fp32 O tile
+// does not fit in registers, so it uses 32-row Q and K/V tiles in shared
+// memory (~105 KB of dynamic shared memory), splits the O accumulator by
+// D-columns over 8 warps (64 fp32 registers per thread) and passes scores
+// through a 32×32 tile in shared memory.
+// For training both kernels also write each row's log-sum-exp (natural log,
+// scaled logits; `save_lse` in the JAX package) when given a buffer for it:
+// one fp32 per query row, from the statistics they keep anyway. flash_bwd.cu
+// recomputes the normalised p from it.
 //
 // Plain C interface, loaded with ctypes. Every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
 
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -57,172 +67,239 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// D = 64: one CTA per (b·h, 128-row Q tile), 8 warps of 16 Q rows each. K/V
-// tiles of 64 rows are double-buffered in shared memory with cp.async (the
-// next tile loads while the MMAs run on this one); every MMA operand comes
-// from shared memory by ldmatrix (.trans for V).
+// D = 64 (K1): one CTA per (b·h, 64·NC query rows), NC + 1 warpgroups.
+//   warpgroup NC, the producer: one thread issues the TMA loads, Q once and
+//     then the 128-key K and V tiles into a ring of two stages, each tile
+//     behind its own full/empty mbarrier pair (K may be refilled as soon as
+//     S is computed, V only after P·V);
+//   warpgroups 0..NC-1, the consumers: 64 query rows each. Iteration j issues
+//     S_j = Q·K_jᵀ (wgmma m64n128k16, A and B from shared memory) and
+//     P_{j-1}·V_{j-1} (m64n64k16, A = P from registers, B = V MN-major), then
+//     runs the softmax of S_j while P_{j-1}·V_{j-1} is on the tensor cores.
+//     The consumers take turns to issue their products (named barriers
+//     1..NC), so one's exps run under the others' products.
+// NC = 3 from 1024 query tokens up: each K/V tile fetched from L2 then serves
+// 192 query rows instead of 128 (PERF.md, PR 5, times the two side by
+// side); below, NC = 2, whose 128-row tiles leave less of a CTA idle (at 256
+// tokens, 192-row tiles make one full and one third-full CTA per head).
 // ---------------------------------------------------------------------------
 
-constexpr int D64_BM = 128, D64_BN = 64, D64_SST = 64 + 8, D64_THREADS = 256;
-// Q tile + two (K, V) tile pairs
-constexpr int D64_SMEM = (D64_BM + 4 * D64_BN) * D64_SST * static_cast<int>(sizeof(bf16));
+template <int NC>
+struct D64 {
+  static constexpr int BM = 64 * NC, BN = 128, STAGES = 2, THREADS = 128 * (NC + 1);
+  // registers a thread: the producer gives back what the consumers take;
+  // the launch starts every thread at 65536 / THREADS (168 or 128), so the
+  // consumers' count is at least that
+  static constexpr int PRODUCER_REGS = NC == 2 ? 40 : 24, CONSUMER_REGS = NC == 2 ? 232 : 160;
+  static_assert(128 * (PRODUCER_REGS + NC * CONSUMER_REGS) <= 65536, "register file");
+  static constexpr int Q_BYTES = BM * 64 * 2, KV_BYTES = BN * 64 * 2;
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  // tiles, 1 + 4·STAGES mbarriers, and room to align the base to 1024 bytes
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
+};
 
-__global__ void __launch_bounds__(D64_THREADS, 2)
-    flash_fwd_d64_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                         float* __restrict__ lse, int H, int Sq, int kv_end, Strides st,
-                         float scale_log2) {
-  constexpr int BM = D64_BM, BN = D64_BN, SST = D64_SST, D = 64;
-  extern __shared__ __align__(16) unsigned char smem_d64[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_d64);
-  bf16* sKV = sQ + BM * SST;  // buffer i: K at sKV + 2i·BN·SST, V right after it
+template <int NC>
+__global__ void __launch_bounds__(D64<NC>::THREADS, 1)
+    flash_fwd_d64_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                         float* __restrict__ lse, int H, int Sq, int kv_end, long long o_b, long long o_s,
+                         long long o_h, float scale_log2) {
+  using C = D64<NC>;
+  constexpr int BM = C::BM, BN = C::BN, ST = C::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_d64[];
+  const uint32_t base = (smem_u32(smem_d64) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK0 = base + C::Q_BYTES, sV0 = sK0 + ST * C::KV_BYTES;
+  // mbarriers: Q full, then per stage K full, V full, K empty, V empty
+  const uint32_t full_q = base + C::BAR_OFF, full_k0 = full_q + 8, full_v0 = full_k0 + 8 * ST;
+  const uint32_t empty_k0 = full_v0 + 8 * ST, empty_v0 = empty_k0 + 8 * ST;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int q0 = blockIdx.x * BM;
-  const bf16* qb = q + b * st.q_b + h * st.q_h;
-  const bf16* kb = k + b * st.k_b + h * st.k_h;
-  const bf16* vb = v + b * st.v_b + h * st.v_h;
-  bf16* ob = o + b * st.o_b + h * st.o_h;
   const int n_tiles = (kv_end + BN - 1) / BN;
+  const int wg = threadIdx.x >> 7;
 
-  cp_tile_d64<BM, SST, D64_THREADS>(sQ, qb, st.q_s, q0, Sq);
-  cp_tile_d64<BN, SST, D64_THREADS>(sKV, kb, st.k_s, 0, kv_end);
-  cp_tile_d64<BN, SST, D64_THREADS>(sKV + BN * SST, vb, st.v_s, 0, kv_end);
-  cp_async_commit();
-
-  // ldmatrix lane → row/column offsets within a 16×16 operand block
-  const int lm_row = (lane & 7) + ((lane >> 3) & 1) * 8;  // A (Q) and V (.trans)
-  const int lm_col = (lane >> 4) * 8;
-  uint32_t qf[D / 16][4];
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m0 = neg_inf(), m1 = neg_inf(), l0 = 0.f, l1 = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {  // prefetch the next K/V tile into the other buffer
-      bf16* nk = sKV + ((j + 1) & 1) * 2 * BN * SST;
-      cp_tile_d64<BN, SST, D64_THREADS>(nk, kb, st.k_s, (j + 1) * BN, kv_end);
-      cp_tile_d64<BN, SST, D64_THREADS>(nk + BN * SST, vb, st.v_s, (j + 1) * BN, kv_end);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full_k0 + 8 * s, 1);
+      mbar_init(full_v0 + 8 * s, 1);
+      mbar_init(empty_k0 + 8 * s, 4 * NC);  // one arrival per consumer warp
+      mbar_init(empty_v0 + 8 * s, 4 * NC);
     }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc)
-        ldsm_x4(qf[kc], sQ + (warp * 16 + lm_row) * SST + kc * 16 + lm_col);
-    }
-    const bf16* sK = sKV + (j & 1) * 2 * BN * SST;
-    const bf16* sV = sK + BN * SST;
-    const int kv0 = j * BN;
-
-    float s[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int p = 0; p < D / 32; ++p) {  // 4 8×8 blocks: k columns p·32 .. p·32+31
-        uint32_t kf[4];
-        ldsm_x4(kf, sK + (nt * 8 + (lane & 7)) * SST + p * 32 + (lane >> 3) * 8);
-        mma_16816(s[nt], qf[2 * p], kf[0], kf[1]);
-        mma_16816(s[nt], qf[2 * p + 1], kf[2], kf[3]);
-      }
-    }
-
-    // Statistics stay in raw-score units (scale > 0 commutes with max); the
-    // scale and the max shift fold into one FMA in front of each ex2. Only
-    // the tile that holds kv_end needs masking.
-    if (kv0 + BN > kv_end) {
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (kv0 + nt * 8 + t4 * 2 + e >= kv_end) s[nt][e] = s[nt][2 + e] = neg_inf();
-        }
-      }
-    }
-    float mx0 = neg_inf(), mx1 = neg_inf();
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float base0 = (mn0 == neg_inf() ? 0.f : mn0) * scale_log2;
-    const float base1 = (mn1 == neg_inf() ? 0.f : mn1) * scale_log2;
-    const float al0 = ex2(fmaf(m0, scale_log2, -base0)), al1 = ex2(fmaf(m1, scale_log2, -base1));
-    m0 = mn0;
-    m1 = mn1;
-
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = ex2(fmaf(s[nt][0], scale_log2, -base0));
-      s[nt][1] = ex2(fmaf(s[nt][1], scale_log2, -base0));
-      s[nt][2] = ex2(fmaf(s[nt][2], scale_log2, -base1));
-      s[nt][3] = ex2(fmaf(s[nt][3], scale_log2, -base1));
-      rs0 += s[nt][0] + s[nt][1];
-      rs1 += s[nt][2] + s[nt][3];
-    }
-    l0 = l0 * al0 + rs0;  // per-thread partial row sums; summed over the quad at the end
-    l1 = l1 * al1 + rs1;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= al0;
-      acc[dt][1] *= al0;
-      acc[dt][2] *= al1;
-      acc[dt][3] *= al1;
-    }
-
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      uint32_t a[4];  // the score fragment, re-packed as the A operand of P·V
-      a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int p = 0; p < D / 16; ++p) {  // output column tiles 2p and 2p+1
-        uint32_t vf[4];
-        ldsm_x4_trans(vf, sV + (kc * 16 + lm_row) * SST + p * 16 + lm_col);
-        mma_16816(acc[2 * p], a, vf[0], vf[1]);
-        mma_16816(acc[2 * p + 1], a, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two tiles from now
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  if (wg == NC) {  // producer
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (threadIdx.x == 128 * NC) {
+      mbar_arrive_expect_tx(full_q, C::Q_BYTES);
+      tma_load_4d(sQ, &tm_q, full_q, 0, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST;
+        const uint32_t ph = (j / ST) & 1;
+        mbar_wait(empty_k0 + 8 * s, ph ^ 1);
+        mbar_arrive_expect_tx(full_k0 + 8 * s, C::KV_BYTES);
+        tma_load_4d(sK0 + s * C::KV_BYTES, &tm_k, full_k0 + 8 * s, 0, j * BN, h, b);
+        mbar_wait(empty_v0 + 8 * s, ph ^ 1);
+        mbar_arrive_expect_tx(full_v0 + 8 * s, C::KV_BYTES);
+        tma_load_4d(sV0 + s * C::KV_BYTES, &tm_v, full_v0 + 8 * s, 0, j * BN, h, b);
+      }
+    }
+  } else {  // consumers
+    setmaxnreg_inc<C::CONSUMER_REGS>();
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    const uint32_t sQw = sQ + wg * 64 * 128;  // this warpgroup's 64 query rows
+    float s_acc[BN / 2], o_acc[32];
+    uint32_t pa[BN / 4];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + t4 * 2;
-    if (row0 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + row0 * st.o_s + col) =
-          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
-    if (row1 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + row1 * st.o_s + col) =
-          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
-  }
-  // natural-log LSE of the scaled logits: the running max is in raw-score
-  // units and the sum in the log2 domain of the ex2 above
-  if (lse != nullptr && t4 == 0) {
-    float* lb = lse + static_cast<long long>(blockIdx.y) * Sq;
-    if (row0 < Sq) lb[row0] = (m0 * scale_log2 + log2f(l0)) * LN2;
-    if (row1 < Sq) lb[row1] = (m1 * scale_log2 + log2f(l1)) * LN2;
+    for (int i = 0; i < 32; ++i) o_acc[i] = 0.f;
+    fence_regs(o_acc);  // zeroed here, not later next to a wgmma in flight
+    float m0 = neg_inf(), m1 = neg_inf(), l0 = 0.f, l1 = 0.f, al0 = 1.f, al1 = 1.f;
+
+    // S_j = Q·K_jᵀ
+    auto issue_s = [&](int j) {
+      const uint32_t sK = sK0 + (j % ST) * C::KV_BYTES;
+      fence_regs(s_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma_ss_m64n128(s_acc, desc_k(sQw + 32 * k), desc_k(sK + 32 * k), k);
+      wgmma_commit();
+    };
+    // P_j (in s_acc) → bf16 A fragments; O rescaled to the running max
+    auto pack_p = [&]() {
+      pack_a<BN / 16>(pa, s_acc);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        o_acc[4 * i + 0] *= al0;
+        o_acc[4 * i + 1] *= al0;
+        o_acc[4 * i + 2] *= al1;
+        o_acc[4 * i + 3] *= al1;
+      }
+    };
+    // O += P_j·V_j, once V_j has arrived
+    auto issue_pv = [&](int j) {
+      const int s = j % ST;
+      mbar_wait(full_v0 + 8 * s, (j / ST) & 1);
+      const uint32_t sV = sV0 + s * C::KV_BYTES;
+      fence_regs(o_acc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc)
+        wgmma_rs_m64n64_mn(o_acc, pa[4 * kc], pa[4 * kc + 1], pa[4 * kc + 2], pa[4 * kc + 3],
+                           desc_mn(sV + 2048 * kc));
+      wgmma_commit();
+    };
+    // online softmax of S_j: statistics stay in raw-score units (scale > 0
+    // commutes with max); the scale and the max shift fold into one FMA in
+    // front of each ex2. Only the tile that holds kv_end needs masking.
+    auto softmax = [&](int j) {
+      const int kv0 = j * BN;
+      if (kv0 + BN > kv_end) {
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (kv0 + i * 8 + t4 * 2 + e >= kv_end) s_acc[4 * i + e] = s_acc[4 * i + 2 + e] = neg_inf();
+      }
+      float mx0 = neg_inf(), mx1 = neg_inf();
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(s_acc[4 * i], s_acc[4 * i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s_acc[4 * i + 2], s_acc[4 * i + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float base0 = (mn0 == neg_inf() ? 0.f : mn0) * scale_log2;
+      const float base1 = (mn1 == neg_inf() ? 0.f : mn1) * scale_log2;
+      al0 = ex2(fmaf(m0, scale_log2, -base0));
+      al1 = ex2(fmaf(m1, scale_log2, -base1));
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        s_acc[4 * i + 0] = ex2(fmaf(s_acc[4 * i + 0], scale_log2, -base0));
+        s_acc[4 * i + 1] = ex2(fmaf(s_acc[4 * i + 1], scale_log2, -base0));
+        s_acc[4 * i + 2] = ex2(fmaf(s_acc[4 * i + 2], scale_log2, -base1));
+        s_acc[4 * i + 3] = ex2(fmaf(s_acc[4 * i + 3], scale_log2, -base1));
+        rs0 += s_acc[4 * i + 0] + s_acc[4 * i + 1];
+        rs1 += s_acc[4 * i + 2] + s_acc[4 * i + 3];
+      }
+      l0 = l0 * al0 + rs0;  // per-thread partial row sums; summed over the quad at the end
+      l1 = l1 * al1 + rs1;
+    };
+
+    // Ping-pong: warpgroup w issues its products between bar.sync on
+    // barrier 1 + w and bar.arrive on the next one's barrier, in turn;
+    // warpgroup 0 goes first. Each warpgroup syncs n_tiles + 1 times and is
+    // arrived for as often (the last skips its arrival after its last
+    // products).
+    const int next_bar = 1 + (wg + 1) % NC;
+    if (wg == NC - 1) named_bar_arrive(1, 256);
+    mbar_wait(full_q, 0);
+    mbar_wait(full_k0, 0);
+    named_bar_sync(1 + wg, 256);
+    issue_s(0);
+    named_bar_arrive(next_bar, 256);
+    wgmma_wait<0>();
+    fence_regs(s_acc);
+    mbar_arrive_if(empty_k0, lane == 0);
+    softmax(0);
+    // iteration j: S_j and P_{j-1}·V_{j-1} on the tensor cores, then the
+    // softmax of S_j while P_{j-1}·V_{j-1} runs
+    for (int j = 1; j < n_tiles; ++j) {
+      const int s = j % ST;
+      pack_p();
+      mbar_wait(full_k0 + 8 * s, (j / ST) & 1);
+      named_bar_sync(1 + wg, 256);
+      issue_s(j);
+      issue_pv(j - 1);
+      named_bar_arrive(next_bar, 256);
+      wgmma_wait<1>();
+      fence_regs(s_acc);
+      mbar_arrive_if(empty_k0 + 8 * s, lane == 0);
+      softmax(j);
+      wgmma_wait<0>();
+      fence_regs(o_acc);
+      fence_regs(pa);
+      mbar_arrive_if(empty_v0 + 8 * ((j - 1) % ST), lane == 0);
+    }
+    pack_p();
+    named_bar_sync(1 + wg, 256);
+    issue_pv(n_tiles - 1);
+    if (wg != NC - 1) named_bar_arrive(next_bar, 256);
+    wgmma_wait<0>();
+    fence_regs(o_acc);
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    const int row0 = q0 + wg * 64 + w * 16 + g, row1 = row0 + 8;
+    bf16* ob = o + b * o_b + h * o_h;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = i * 8 + t4 * 2;
+      if (row0 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + row0 * o_s + col) = pack_bf16(o_acc[4 * i] * inv0, o_acc[4 * i + 1] * inv0);
+      if (row1 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + row1 * o_s + col) =
+            pack_bf16(o_acc[4 * i + 2] * inv1, o_acc[4 * i + 3] * inv1);
+    }
+    // natural-log LSE of the scaled logits: the running max is in raw-score
+    // units and the sum in the log2 domain of the ex2 above
+    if (lse != nullptr && t4 == 0) {
+      float* lb = lse + static_cast<long long>(blockIdx.y) * Sq;
+      if (row0 < Sq) lb[row0] = (m0 * scale_log2 + log2f(l0)) * LN2;
+      if (row1 < Sq) lb[row1] = (m1 * scale_log2 + log2f(l1)) * LN2;
+    }
   }
 }
 
@@ -422,6 +499,30 @@ cudaError_t launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, fl
   return cudaGetLastError();
 }
 
+template <int NC>
+int launch_d64(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Sq, int kv_end,
+               int q_b, int q_s, int q_h, int k_b, int k_s, int k_h, int v_b, int v_s, int v_h, int o_b, int o_s,
+               int o_h, float scale, cudaStream_t stream) {
+  using C = D64<NC>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_d64_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  // keys at or past kv_end lie outside the K and V maps and read as zeros
+  CUtensorMap tq, tk, tv;
+  int err = make_map_d64(&tq, q, Sq, H, B, q_s, q_h, q_b, C::BM);
+  if (err == 0) err = make_map_d64(&tk, k, kv_end, H, B, k_s, k_h, k_b, C::BN);
+  if (err == 0) err = make_map_d64(&tv, v, kv_end, H, B, v_s, v_h, v_b, C::BN);
+  if (err != 0) return err;
+  dim3 grid((Sq + C::BM - 1) / C::BM, B * H);
+  flash_fwd_d64_kernel<NC><<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), H, Sq, kv_end, o_b, o_s, o_h, scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Strides make_strides(int q_b, int q_s, int q_h, int k_b, int k_s, int k_h, int v_b, int v_s,
                      int v_h, int o_b, int o_s, int o_h) {
   Strides st;
@@ -443,19 +544,12 @@ extern "C" {
 int flash_fwd_d64(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Sq,
                   int kv_end, int q_b, int q_s, int q_h, int k_b, int k_s, int k_h, int v_b,
                   int v_s, int v_h, int o_b, int o_s, int o_h, float scale, void* stream) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_d64_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, D64_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = true;
-  }
-  const Strides st = make_strides(q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h);
-  dim3 grid((Sq + D64_BM - 1) / D64_BM, B * H);
-  flash_fwd_d64_kernel<<<grid, D64_THREADS, D64_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<float*>(lse), H, Sq, kv_end, st, scale * LOG2E);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Sq >= 1024)  // three consumer warpgroups (see the kernel's notes)
+    return launch_d64<3>(q, k, v, o, lse, B, H, Sq, kv_end, q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s,
+                         o_h, scale, s);
+  return launch_d64<2>(q, k, v, o, lse, B, H, Sq, kv_end, q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s,
+                       o_h, scale, s);
 }
 
 // The same contract for D in {128, 256, 384, 512}.

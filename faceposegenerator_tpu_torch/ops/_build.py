@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -94,6 +95,42 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas register and spill report) for a built source."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def _innermost(mangled: str) -> str:
+    """The function's own name in an Itanium-mangled name: the last
+    <length><identifier> of `_ZN...E` (namespaces first), or of `_Z...`."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+        if not mangled.startswith("_ZN"):
+            break
+    return name
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Per kernel function of a built source, what ptxas reported: its own
+    name, registers and spill bytes."""
+    rows, cur = [], None
+    for line in build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = dict(function=_innermost(m.group(1)), mangled=m.group(1))
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
 
 
 def kernel(name: str):

@@ -59,7 +59,9 @@ def _same_codes(out, ref, mean_err=1e-4):
 @pytest.mark.parametrize(
     "b,sq,skv,h,d,kv_len",
     [(2, 200, 200, 5, 64, None), (2, 130, 77, 3, 64, None), (1, 64, 128, 2, 64, 77),
-     (2, 100, 100, 1, 512, None), (1, 64, 96, 2, 128, 50)],
+     (2, 100, 100, 1, 512, None), (1, 64, 96, 2, 128, 50),
+     # K1: kv_len inside the first 128-key tile; Sq = 64 (half a CTA idle) and a ragged Sq = 200
+     (1, 64, 128, 2, 64, 50), (2, 64, 64, 4, 64, None), (2, 200, 333, 3, 64, 300)],
 )
 def test_cuda_kernels_match_plain(b, sq, skv, h, d, kv_len):
     _card()
@@ -88,6 +90,8 @@ BWD_CASES = [  # (b, sq, skv, h, d, kv_len): small and ragged, then a train shap
     (2, 200, 200, 5, 64, None), (1, 130, 128, 2, 64, 77), (2, 64, 77, 3, 64, None),
     (8, 1024, 1024, 10, 64, None), (8, 4096, 77, 5, 64, None),
     (1, 100, 100, 1, 512, None), (1, 64, 96, 2, 128, 50), (4, 4096, 4096, 1, 512, None),
+    # K5: kv_len inside the first 128-key tile; Sq = 64 and a ragged Sq = 200 over 77 keys
+    (1, 64, 128, 2, 64, 50), (2, 64, 64, 4, 64, None), (2, 200, 77, 3, 64, None),
 ]
 
 
@@ -141,6 +145,71 @@ def test_cuda_autograd_goes_through_the_kernels():
     assert torch.isfinite(qkv.grad).all()
     cos = torch.nn.functional.cosine_similarity(qkv.grad.float().flatten(), ref_in.grad.flatten(), dim=0)
     assert cos.item() >= 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_d64_kernels_keep_batch_rows_apart():
+    """Batch row 1's k and v are 1e3 times batch row 0's scale, over 77 keys
+    (a ragged tile): batch row 0's output, lse and gradients match the plain
+    version on row 0 alone, which fails if a tile reads past its row's S."""
+    _card()
+    b, sq, skv, h = 2, 200, 77, 3
+    q, k, v = (torch.from_numpy(a).cuda() for a in _qkv(21, b, sq, skv, h, 64))
+    k[1] *= 1e3
+    v[1] *= 1e3
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    do = torch.from_numpy(np.random.default_rng(22).standard_normal((b, sq, h, 64)).astype(np.float32))
+    do = do.cuda().to(torch.bfloat16)
+    o, lse = fa.flash_fwd_d64(q, k, v, 0.125, with_lse=True)
+    grads = fa.flash_bwd_d64(q, k, v, o, lse, do, 0.125)
+    torch.cuda.synchronize()
+    r = [t[:1].float() for t in (q, k, v)]
+    o_ref, lse_ref = fa.attention_plain_lse(*r, 0.125)
+    _close(o[:1], o_ref)
+    assert (lse[:1] - lse_ref).abs().max().item() <= 1e-3
+    refs = fa.attention_bwd_plain(*r, o[:1].float(), lse[:1], do[:1].float(), 0.125)
+    for g, ref in zip(grads, refs):
+        _close(g[:1], ref, relative=True)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_d64_is_deterministic():
+    """Two passes with no atomics: two runs on the same inputs give bitwise
+    equal dq, dk and dv."""
+    _card()
+    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in _qkv(23, 2, 1024, 1024, 5, 64))
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(24), device="cuda")
+    do = do.to(torch.bfloat16)
+    o, lse = fa.flash_fwd_d64(q, k, v, 0.125, with_lse=True)
+    first = fa.flash_bwd_d64(q, k, v, o, lse, do, 0.125)
+    second = fa.flash_bwd_d64(q, k, v, o, lse, do, 0.125)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_d64_kernels_take_strided_fused_qkv_views():
+    """q, k and v as strided views of one fused projection (row stride
+    3·H·64) at the UNet's largest self-attention, 2 × 4096 tokens × 5 heads:
+    forward, lse and gradients against the plain version."""
+    _card()
+    qkv = torch.from_numpy(np.random.default_rng(25).standard_normal((2, 4096, 3, 5, 64)).astype(np.float32))
+    q, k, v = qkv.cuda().to(torch.bfloat16).unbind(2)
+    assert q.stride() == (4096 * 960, 960, 64, 1)
+    do = torch.from_numpy(np.random.default_rng(26).standard_normal((2, 4096, 5, 64)).astype(np.float32))
+    do = do.cuda().to(torch.bfloat16)
+    o, lse = fa.flash_fwd_d64(q, k, v, 0.125, with_lse=True)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.attention_plain_lse(q.float(), k.float(), v.float(), 0.125)
+    _close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    del o_ref
+    grads = fa.flash_bwd_d64(q, k, v, o, lse, do, 0.125)
+    torch.cuda.synchronize()
+    refs = fa.attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse, do.float(), 0.125)
+    for g, ref in zip(grads, refs):
+        _close(g, ref, relative=True)
 
 
 QDENSE_CASES = [  # (lead, K, N, static): ragged M and N, the widest K, the cross k/v rows

@@ -138,17 +138,38 @@ def test_kernels_build_without_fast_math():
 
 def test_cuda_sources_include_only_cuda_and_their_own_headers():
     """The kernels under csrc/ are written here: they include the CUDA
-    toolkit's basic headers and each other, and nothing else (no JAX, no
-    PyTorch, no library of finished kernels)."""
-    allowed = {"cuda_bf16.h", "cuda_runtime.h", "stdint.h"}
+    toolkit's basic headers (cuda.h for the TMA tensor-map types) and each
+    other, and nothing else (no JAX, no PyTorch, no library of finished
+    kernels)."""
+    allowed = {"cuda.h", "cuda_bf16.h", "cuda_runtime.h", "stdint.h"}
     sources = sorted((PORT_DIR / "csrc").glob("*.cu*"))
-    assert {p.name for p in sources} >= {"flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh", "fused_gn.cu",
-                                         "gn_conv.cu", "gn_common.cuh"}
+    assert {p.name for p in sources} >= {"flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh", "sm90_common.cuh",
+                                         "fused_gn.cu", "gn_conv.cu", "gn_common.cuh"}
     local = {p.name for p in sources}
     for path in sources:
         includes = [line.split()[1].strip('<>"') for line in path.read_text().splitlines()
                     if line.startswith("#include")]
         assert includes and set(includes) <= allowed | local, f"{path.name}: {includes}"
+
+
+def test_ptxas_report_names_each_kernel_function(monkeypatch):
+    """chip_smoke.py prints registers and spills per kernel function from
+    nvcc's log: names demangled to the function's own, whatever namespace
+    (nvcc 12.9 names the anonymous one after the file) or template."""
+    from faceposegenerator_tpu_torch.ops import _build
+
+    ns = "_GLOBAL__N__c9275e25_12_flash_fwd_cu_8d485bde"
+    log = (f"ptxas info    : Compiling entry function '_ZN{len(ns)}{ns}20flash_fwd_d64_kernelILi3EEEv14CUtensorMap_st' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _ZN...\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 128 registers, used 1 barriers, 1024 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_Z12plain_kernelPf' for 'sm_90a'\n"
+           "    8 bytes stack frame, 12 bytes spill stores, 24 bytes spill loads\n"
+           "ptxas info    : Used 64 registers\n")
+    monkeypatch.setattr(_build, "build_log", lambda name: log)
+    rows = _build.ptxas_report("flash_fwd")
+    assert [(r["function"], r["registers"], r["spill_stores"], r["spill_loads"]) for r in rows] == [
+        ("flash_fwd_d64_kernel", 128, 0, 0), ("plain_kernel", 64, 12, 24)]
 
 
 def test_kernel_module_imports_without_nvcc():
