@@ -63,8 +63,9 @@ Phases, in order; any failure exits non-zero without the final result line:
      gn_silu_conv3x3_plain (within 1 bf16 ulp + 1e-3 of the output's max
      abs), timed beside its plain version, the bound and the default
      route's plain GroupNorm+SiLU and cuDNN conv (yardsticks the port never
-     calls in this configuration); one more K4 row with β + 3, on which a
-     pad-before-activation variant must fail the gate;
+     calls in this configuration), with its rate (`tflops`; the kernels
+     line adds its ptxas registers and spills); one more K4 row with β + 3,
+     on which a pad-before-activation variant must fail the gate;
   9. fused txt2img: GN_IMPL and GN_CONV_IMPL at pallas on a new pipeline as
      in phase 4, first against the default routes on 2×128² (image diff max
      1e-1, mean 1e-2), then 2 requests at batch 8, 512², 30 DDPM steps, CFG
@@ -75,7 +76,30 @@ Phases, in order; any failure exits non-zero without the final result line:
      within 1e-2 relative, LoRA gradient cosine >= 0.99), then 2 steps, each
      launching exactly K4 16 and K3 33 times besides phase 7's counts (the
      backward recomputes K3 and K4's functions in plain torch), moving the
-     LoRA and leaving the frozen weights untouched.
+     LoRA and leaving the frozen weights untouched;
+ 11. fp32: with TF32 off, each fp32 instance against its plain version in
+     fp32: flash_fwd_f32 (csrc/flash_f32.cu) at every sampling shape and,
+     with the log-sum-exp, every train shape (max abs err within 1e-4 and
+     mean within 1e-5 of the output's max abs, the LSE within 1e-5), one
+     more row where attention with TF32 allowed must miss that gate;
+     flash_bwd_f32_dkv/_dq at the train shapes (each gradient relative to
+     its max abs); gn_silu_conv3x3_f32 at the fused request's conv shapes;
+     qdense_f32 and flash_int8_f32 (the same codes: 1 fp32 ulp + 1e-3
+     relative) at the turbo shapes; each timed beside its plain version,
+     the fp32 (or int8) bound and a yardstick the port never calls (SDPA on
+     fp32 tensors, cuDNN's fp32 conv, torch._int_mm and fp32 F.linear).
+     Then StableDiffusionPipeline.from_random() with no dtype (fp32 weights
+     and compute) at SD2.1-base widths with a rank-4 LoRA: its kernel path
+     against its plain-attention path on 2×128² (image diff max 1e-3, mean
+     1e-4), its fused-GroupNorm routes on the same input (K4's and K3's
+     fp32 instances) and, after the requests, its w8a8 + flash_int8 routes
+     against their plain versions (qdense_f32, flash_int8_f32; 1e-1, 1e-2);
+     2 requests at batch 8, 512², 10 DDPM steps, CFG 5.0, each launching
+     flash_fwd_f32 exactly 321 times and no bf16 kernel; and the train op
+     point with fp32 frozen weights and policy: one loss and LoRA gradient at
+     2(+2)×128² against the plain-attention path (loss within 1e-4
+     relative, cosine >= 0.9999) launching flash_fwd_f32 34 and each fp32
+     backward pass 33 times.
 Phases 3-7 run the default configuration (GN_IMPL and GN_CONV_IMPL at xla)
 whatever the environment says. The line before the last is a JSON object
 with one entry per kernel; the last is {"ok": true, "device": {...}}.
@@ -155,6 +179,13 @@ REPLACES = {
     "qdense": "faceposegenerator_tpu/ops/quant_pallas.py:47",
     "fused_group_norm": "faceposegenerator_tpu/ops/fused_gn.py:76",
     "gn_silu_conv3x3": "faceposegenerator_tpu/ops/fused_gn_conv.py:92",
+    # the fp32 instances (JAX's kernels take fp32 operands as well as bf16)
+    "flash_fwd_f32": "faceposegenerator_tpu/ops/flash_attention.py:258",
+    "flash_bwd_f32_dkv": "faceposegenerator_tpu/ops/flash_attention.py:711",
+    "flash_bwd_f32_dq": "faceposegenerator_tpu/ops/flash_attention.py:777",
+    "flash_int8_f32": "faceposegenerator_tpu/ops/flash_attention.py:1108",
+    "qdense_f32": "faceposegenerator_tpu/ops/quant_pallas.py:47",
+    "gn_silu_conv3x3_f32": "faceposegenerator_tpu/ops/fused_gn_conv.py:92",
 }
 # K3 and K4 round where their plain versions round. K3 sums its statistics
 # in another order, which moves an output near 0 by ~1e-6 of the largest:
@@ -200,6 +231,20 @@ CONV_SHAPES = [
 ]
 CONV_TRAIN_SHAPES = [(label, 8, h, w, cin, cout, per // 30) for label, _, h, w, cin, cout, per in CONV_SHAPES]
 BORDER = "L0 320→320, beta + 3"
+# The fp32 instances compute in fp32 (FFMA) and are held to their plain
+# versions in fp32 with TF32 off: max abs err within F32_MAX_ERR and mean
+# abs err within F32_MEAN_ERR of the output's max abs (each gradient's, for
+# the backward), the log-sum-exp within F32_LSE_ERR; TF32 attention must miss
+# that gate. qdense_f32 and flash_int8_f32 keep K7's and K8's gates with the
+# fp32 ulp. The fp32 pipeline's kernel path within F32_IMG_MAX / F32_IMG_MEAN
+# of its plain-attention path; the fp32 train check's loss within 1e-4
+# relative and LoRA gradient cosine >= 0.9999.
+F32_MAX_ERR, F32_MEAN_ERR, F32_LSE_ERR = 1e-4, 1e-5, 1e-5
+F32_IMG_MAX, F32_IMG_MEAN = 1e-3, 1e-4
+# per fp32 request (10 steps of 32 UNet attentions, the VAE's one) and per
+# fp32 loss and gradient at the train op point (as STEP_LAUNCHES)
+F32_REQUEST_LAUNCHES = {"flash_fwd_f32": 321}
+F32_TRAIN_LAUNCHES = {"flash_fwd_f32": 34, "flash_bwd_f32_dkv": 33, "flash_bwd_f32_dq": 33}
 FUSED_LAUNCHES = {"gn_silu_conv3x3": 480, "fused_group_norm": 371, "flash_fwd_d64": 960, "flash_fwd_wide": 1}
 FUSED_STEP_LAUNCHES = dict(STEP_LAUNCHES, gn_silu_conv3x3=16, fused_group_norm=33)
 
@@ -234,14 +279,15 @@ def time_ms(fn, torch, target_ms: float = 200.0) -> float:
     return start.elapsed_time(end) / n
 
 
-def _inputs(torch, g, b, h, sq, skv, d):
-    """bf16 unit-normal q, k, v; self-attention as strided views of one fused
-    q/k/v projection, as the UNet makes them."""
+def _inputs(torch, g, b, h, sq, skv, d, dtype=None):
+    """Unit-normal q, k, v in `dtype` (bf16 by default); self-attention as
+    strided views of one fused q/k/v projection, as the UNet makes them."""
+    dtype = dtype or torch.bfloat16
     if sq == skv:
-        qkv = torch.randn(b, sq, 3, h, d, generator=g, device="cuda").to(torch.bfloat16)
+        qkv = torch.randn(b, sq, 3, h, d, generator=g, device="cuda").to(dtype)
         return qkv.unbind(2)
-    q = torch.randn(b, sq, h, d, generator=g, device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn(b, skv, h, d, generator=g, device="cuda").to(torch.bfloat16) for _ in "kv")
+    q = torch.randn(b, sq, h, d, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(b, skv, h, d, generator=g, device="cuda").to(dtype) for _ in "kv")
     return q, k, v
 
 
@@ -258,10 +304,13 @@ def _err(out, ref):
 
 def _ulp_err(out, ref, rel=INT8_REL_ERR, of_max=0.0):
     """(max abs err, mean abs err, how many outputs differ from ref by more
-    than 1 bf16 ulp + rel·|ref| + of_max·max |ref|)."""
+    than 1 ulp of out's dtype (bf16, or fp32) + rel·|ref| + of_max·max |ref|)."""
+    import torch
+
     ref = ref.float()
     err = (out.float() - ref).abs()
-    over = int((err > _bf16_ulp(ref) + rel * ref.abs() + of_max * ref.abs().max()).sum())
+    ulp = _bf16_ulp(ref, 24 if out.dtype == torch.float32 else 8)
+    over = int((err > ulp + rel * ref.abs() + of_max * ref.abs().max()).sum())
     return err.max().item(), err.mean().item(), over
 
 
@@ -370,11 +419,11 @@ def check_backward(torch, fa, card, shapes):
     return rows
 
 
-def _bf16_ulp(t):
-    """The spacing of bf16 numbers at |t| (8 significant bits)."""
+def _bf16_ulp(t, bits=8):
+    """The spacing of bf16 numbers at |t| (8 significant bits; 24: fp32)."""
     import torch
 
-    return torch.ldexp(torch.ones_like(t), torch.frexp(t.abs().clamp_min(2.0**-126))[1] - 8)
+    return torch.ldexp(torch.ones_like(t), torch.frexp(t.abs().clamp_min(2.0**-126))[1] - bits)
 
 
 def check_qdense(torch, card):
@@ -638,7 +687,7 @@ def check_conv(torch, card, shapes, per, border=False):
                                     2.0 * m * (cin + cout) + 18.0 * cin * cout + 2.0 * cout)
         row = dict(kernel="gn_silu_conv3x3", shape=label, N=n, H=h, W=w, Cin=cin, Cout=cout, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   max_abs_err=max_err, mean_abs_err=mean_err, over_limit=over,
+                   tflops=2.0 * m * cout * 9 * cin / ms * 1e-9, max_abs_err=max_err, mean_abs_err=mean_err, over_limit=over,
                    **{f"launches_per_{per}": per_run}, **extra)
         print("kernel " + json.dumps(row), flush=True)
         rows.append(row)
@@ -650,17 +699,18 @@ def check_conv(torch, card, shapes, per, border=False):
     return rows
 
 
-def make_lora(unet, seed, torch):
-    """A rank-4 UNet LoRA with nonzero B."""
+def make_lora(unet, seed, torch, dtype=None):
+    """A rank-4 UNet LoRA with nonzero B, in `dtype` (bf16 by default)."""
     from faceposegenerator_tpu_torch.models.unet2d import init_lora
 
+    dtype = dtype or torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(seed)
-    tree = init_lora(unet, rank=4, generator=g, dtype=torch.bfloat16)
+    tree = init_lora(unet, rank=4, generator=g, dtype=dtype)
 
     def fill_b(node):
         if isinstance(node, dict):
             if "b" in node and "a" in node:
-                node["b"] = (torch.randn(node["b"].shape, generator=g, device="cuda") * 0.05).to(torch.bfloat16)
+                node["b"] = (torch.randn(node["b"].shape, generator=g, device="cuda") * 0.05).to(dtype)
             else:
                 for v in node.values():
                     fill_b(v)
@@ -867,24 +917,25 @@ def run_turbo(torch, card_line):
 REMAT_IDENTITY = False
 
 
-def build_train_op_point(torch):
+def build_train_op_point(torch, dtype=None):
     """The ID-Booth train op point on the card (bench.py:99-190 with
-    BENCH_KIND=train): SD2.1-base widths, ArcFace r100, random bf16 frozen
-    weights from seeds 0-3, batch 4 with prior preservation, triplet_prior."""
+    BENCH_KIND=train): SD2.1-base widths, ArcFace r100, random frozen
+    weights from seeds 0-3 in `dtype` (bf16 by default; the compute policy
+    takes the same dtype), batch 4 with prior preservation, triplet_prior."""
     from faceposegenerator_tpu_torch.core.precision import Policy
     from faceposegenerator_tpu_torch.models import clip_text, iresnet, unet2d, vae
     from faceposegenerator_tpu_torch.training import idbooth
 
-    bf16 = torch.bfloat16
+    dtype = dtype or torch.bfloat16
     models = idbooth.ModelBundle(arcface_cfg=iresnet.config_for("r100"))
     frozen = {
-        "text_encoder": clip_text.CLIPTextModel(models.text_cfg, dtype=bf16, seed=0),
-        "unet": unet2d.UNet2DCondition(models.unet_cfg, dtype=bf16, seed=1),
-        "vae": vae.AutoencoderKL(models.vae_cfg, dtype=bf16, seed=2),
-        "arcface": iresnet.IResNet(models.arcface_cfg, dtype=bf16, seed=3),
+        "text_encoder": clip_text.CLIPTextModel(models.text_cfg, dtype=dtype, seed=0),
+        "unet": unet2d.UNet2DCondition(models.unet_cfg, dtype=dtype, seed=1),
+        "vae": vae.AutoencoderKL(models.vae_cfg, dtype=dtype, seed=2),
+        "arcface": iresnet.IResNet(models.arcface_cfg, dtype=dtype, seed=3),
     }
     cfg = idbooth.IDBoothConfig(which_loss="triplet_prior", train_batch_size=4, remat_identity=REMAT_IDENTITY)
-    return Policy(param_dtype=bf16, compute_dtype=bf16), models, frozen, cfg
+    return Policy(param_dtype=dtype, compute_dtype=dtype), models, frozen, cfg
 
 
 def make_train_batch(torch, n, res, seed):
@@ -902,11 +953,12 @@ def _frozen_checksum(torch, frozen):
         return sum(float(p.double().sum() + p.double().abs().sum()) for m in frozen.values() for p in m.parameters())
 
 
-def _small_train_check(torch, op, label, variants):
+def _small_train_check(torch, op, label, variants, loss_tol=1e-2, cos_min=0.99, expect=None):
     """One loss and LoRA gradient on 2(+2) images of 128² with the same draws
     and a LoRA with nonzero B for each of the two `variants`, {name: (model
-    bundle, GN route)}: the losses within 1e-2 relative, the gradients'
-    cosine >= 0.99."""
+    bundle, GN route)}: the losses within `loss_tol` relative, the
+    gradients' cosine >= `cos_min`; the first variant's kernel launches
+    exactly `expect` where given. Returns those launches."""
     from faceposegenerator_tpu_torch.diffusion.schedulers import make_ddpm
     from faceposegenerator_tpu_torch.training import idbooth
 
@@ -920,19 +972,25 @@ def _small_train_check(torch, op, label, variants):
         for leaf in leaves[1::2]:  # the B factors
             leaf.copy_(0.01 * torch.randn(leaf.shape, generator=g, device="cuda"))
     draws = idbooth.draw((4, 16, 16, 4), 4, 1000, g, "cuda")
-    got = []
+    got, launches = [], []
     for bundle, route in variants.values():
+        _reset_launch_counts()
         with gn_route(route):
             loss, _ = idbooth.make_loss_fn(small, bundle, make_ddpm(), policy)(lora, frozen, batch, draws=draws)
             grads = torch.autograd.grad(loss, leaves)
         got.append((float(loss.detach()), torch.cat([x.float().flatten() for x in grads])))
+        launches.append({n: c for n, c in _launch_counts().items() if c})
     (loss_a, grad_a), (loss_b, grad_b) = got
     rel = abs(loss_a - loss_b) / abs(loss_b)
     cos = float(torch.nn.functional.cosine_similarity(grad_a, grad_b, dim=0))
-    print(f"{label} at 2(+2)×128², bf16: loss {loss_a:.6f} vs {loss_b:.6f} (rel diff {rel:.3e}, limit 1e-2); "
-          f"LoRA gradient cosine {cos:.6f} (limit 0.99)", flush=True)
-    if not (rel <= 1e-2 and cos >= 0.99):
+    print(f"{label} at 2(+2)×128², {str(policy.compute_dtype)[6:]}: loss {loss_a:.8f} vs {loss_b:.8f} (rel diff "
+          f"{rel:.3e}, limit {loss_tol}); LoRA gradient cosine {cos:.8f} (limit {cos_min}); launches "
+          f"{json.dumps(launches[0])}", flush=True)
+    if not (rel <= loss_tol and cos >= cos_min):
         fail(f"{label}: the two paths disagree")
+    if expect is not None and launches[0] != expect:
+        fail(f"{label}: the kernel path launched {launches[0]}, expected {expect}")
+    return launches[0]
 
 
 def _train_steps(torch, op, steps, expect, label, card_line):
@@ -1066,7 +1124,390 @@ def run_fused_train(torch, card_line, op, default_steady):
     return launches
 
 
-def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, launches, ptxas):
+class tf32:
+    """Within the block, cuBLAS matmuls and cuDNN convolutions may (True) or
+    may not (False) round fp32 operands to TF32; the previous settings after."""
+
+    def __init__(self, allow):
+        self.allow = allow
+
+    def __enter__(self):
+        import torch
+
+        self.saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = self.allow
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
+
+
+def _f32_errs(out, ref):
+    """(max abs err, mean abs err, the reference's max abs, within the fp32 gate)."""
+    max_err, mean_err = _err(out, ref)
+    n = ref.float().abs().max().item()
+    return max_err, mean_err, n, max_err <= F32_MAX_ERR * n and mean_err <= F32_MEAN_ERR * n
+
+
+def check_f32_forward(torch, fa, card, shapes, with_lse=False, per="request"):
+    """flash_fwd_f32 at `shapes` on fp32 unit-normal inputs against
+    attention_plain(_lse) in fp32 with TF32 off, timed beside it, SDPA on the
+    same fp32 tensors and the fp32 bound."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    rows = []
+    with tf32(False):
+        for label, b, h, sq, skv, d, per_run in shapes:
+            q, k, v = _inputs(torch, g, b, h, sq, skv, d, torch.float32)
+            scale = d**-0.5
+            out = fa.flash_fwd_f32(q, k, v, scale, with_lse=with_lse)
+            torch.cuda.synchronize()
+            lse_err = None
+            if with_lse:
+                out, lse = out
+                ref, ref_lse = fa.attention_plain_lse(q, k, v, scale)
+                lse_err = (lse - ref_lse).abs().max().item()
+            else:
+                ref = fa.attention_plain(q, k, v, scale)
+            max_err, mean_err, n, ok = _f32_errs(out, ref)
+            del ref, out
+            torch.cuda.empty_cache()
+            plain = fa.attention_plain_lse if with_lse else fa.attention_plain
+            ms = time_ms(lambda: fa.flash_fwd_f32(q, k, v, scale, with_lse=with_lse), torch)
+            plain_ms = time_ms(lambda: plain(q, k, v, scale), torch)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), torch)
+            flops = 4.0 * b * h * sq * skv * d
+            bound_ms, bound_by = _bound(card, flops, 4.0 * b * h * d * (2 * sq + 2 * skv) + 4.0 * b * h * sq * with_lse,
+                                        fp32=True)
+            row = dict(kernel="flash_fwd_f32", shape=label, lse=with_lse, B=b, H=h, Sq=sq, Skv=skv, D=d, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       tflops=flops / ms * 1e-9, max_abs_err=max_err, mean_abs_err=mean_err, out_max_abs=n,
+                       lse_max_err=lse_err, **{f"launches_per_{per}": per_run})
+            print("kernel " + json.dumps(row), flush=True)
+            rows.append(row)
+            if not ok or (with_lse and not lse_err <= F32_LSE_ERR):
+                fail(f"flash_fwd_f32 at {label}: max abs err {max_err} mean {mean_err} of max abs {n} "
+                     f"(limits {F32_MAX_ERR}, {F32_MEAN_ERR} of it), lse err {lse_err}")
+            del q, k, v
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_tf32_refused(torch, fa):
+    """Attention at 80 × 4096² × 64 with TF32 allowed (the plain version's
+    matmuls round q, k, p and v to 10 bits) must miss the fp32 gate, or the
+    gate could not tell fp32 from TF32."""
+    label, b, h, sq, skv, d, _ = SHAPES[0]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = _inputs(torch, g, b, h, sq, skv, d, torch.float32)
+    with tf32(False):
+        ref = fa.attention_plain(q, k, v, d**-0.5)
+    with tf32(True):
+        approx = fa.attention_plain(q, k, v, d**-0.5)
+    max_err, mean_err, n, ok = _f32_errs(approx, ref)
+    print(f"fp32: TF32 attention at {label} B{b}: max abs err {max_err:.3e}, mean {mean_err:.3e} of max abs "
+          f"{n:.3e} (the gate {F32_MAX_ERR}, {F32_MEAN_ERR} of it must refuse it)", flush=True)
+    if ok:
+        fail(f"the fp32 gate passes TF32 attention at {label} (max abs err {max_err}, mean {mean_err})")
+    del q, k, v, ref, approx
+    torch.cuda.empty_cache()
+    return [max_err, mean_err, n]
+
+
+def check_f32_backward(torch, fa, card, shapes):
+    """The fp32 dK/dV and dQ passes at `shapes` on the fp32 forward's o and
+    lse against attention_bwd_plain in fp32 with TF32 off, each gradient
+    relative to its max abs; timed beside the plain backward and SDPA's fp32
+    backward through autograd."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    with tf32(False):
+        for label, b, h, sq, skv, d, per_step in shapes:
+            q, k, v = _inputs(torch, g, b, h, sq, skv, d, torch.float32)
+            do = torch.randn(b, sq, h, d, generator=g, device="cuda")
+            scale = d**-0.5
+            o, lse = fa.flash_fwd_f32(q, k, v, scale, with_lse=True)
+            grads = fa.flash_bwd_f32(q, k, v, o, lse, do, scale)
+            torch.cuda.synchronize()
+            refs = fa.attention_bwd_plain(q, k, v, o, lse, do, scale)
+            errs = [_f32_errs(x, r) for x, r in zip(grads, refs)]
+            del refs, grads
+            torch.cuda.empty_cache()
+            ms = {p: time_ms(lambda p=p: fa.flash_bwd_f32(q, k, v, o, lse, do, scale, passes=(p,)), torch)
+                  for p in ("dkv", "dq")}
+            pair_ms = time_ms(lambda: fa.flash_bwd_f32(q, k, v, o, lse, do, scale), torch)
+            plain_ms = time_ms(lambda: fa.attention_bwd_plain(q, k, v, o, lse, do, scale), torch)
+            torch.cuda.empty_cache()
+            qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+            dot = do.transpose(1, 2)
+            library_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), torch)
+            del out, qt, kt, vt
+            unit = b * h * sq * skv * d
+            io = 4.0 * b * h * d
+            pair_bound, pair_by = _bound(card, 10.0 * unit, io * (4 * sq + 4 * skv) + 8.0 * b * h * sq, fp32=True)
+            dkv_bound, dkv_by = _bound(card, 8.0 * unit, io * (2 * sq + 4 * skv) + 8.0 * b * h * sq, fp32=True)
+            dq_bound, dq_by = _bound(card, 6.0 * unit, io * (3 * sq + 2 * skv) + 8.0 * b * h * sq, fp32=True)
+            row = dict(kernel="flash_bwd_f32", shape=label, B=b, H=h, Sq=sq, Skv=skv, D=d, dkv_ms=ms["dkv"],
+                       dq_ms=ms["dq"], pair_ms=pair_ms, plain_ms=plain_ms, library_ms=library_ms,
+                       pair_bound_ms=pair_bound, pair_bound_by=pair_by, dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
+                       dq_bound_ms=dq_bound, dq_bound_by=dq_by, tflops=10.0 * unit / pair_ms * 1e-9,
+                       dkv_tflops=8.0 * unit / ms["dkv"] * 1e-9, dq_tflops=6.0 * unit / ms["dq"] * 1e-9,
+                       **{f"{n}_err": list(e[:3]) for n, e in zip(("dq", "dk", "dv"), errs)},
+                       launches_per_step=per_step)
+            print("kernel " + json.dumps(row), flush=True)
+            rows.append(row)
+            for name, (mx, mean, n, ok) in zip(("dq", "dk", "dv"), errs):
+                if not ok:
+                    fail(f"flash_bwd_f32 {name} at {label}: max abs err {mx} mean {mean}, gradient max abs {n} "
+                         f"(limits {F32_MAX_ERR} and {F32_MEAN_ERR} of it)")
+            del q, k, v, o, lse, do
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_conv_f32(torch, card, shapes, per):
+    """gn_silu_conv3x3_f32 at `shapes` on fp32 x and weights
+    (_conv_inputs cast to fp32) against gn_silu_conv3x3_plain in fp32 with
+    TF32 off, timed beside it, plain GroupNorm+SiLU with cuDNN's fp32 conv
+    (TF32 off) and the fp32 bound."""
+    from faceposegenerator_tpu_torch.models.layers import conv2d
+    from faceposegenerator_tpu_torch.ops import fused_gn_conv as fgc
+    from faceposegenerator_tpu_torch.ops.norms import group_norm_plain
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    with tf32(False):
+        for label, n, h, w, cin, cout, per_run in shapes:
+            x, gamma, beta, conv = _conv_inputs(torch, g, n, h, w, cin, cout)
+            x, conv = x.float(), conv.float()
+            conv.weight.data = conv.weight.data.contiguous(memory_format=torch.channels_last)
+            out = fgc.gn_silu_conv3x3(x, gamma, beta, conv, 32)
+            torch.cuda.synchronize()
+            max_err, mean_err, nmax, ok = _f32_errs(out, fgc.gn_silu_conv3x3_plain(x, gamma, beta, conv.weight,
+                                                                                   conv.bias, 32))
+            del out
+            torch.cuda.empty_cache()
+            ms = time_ms(lambda: fgc.gn_silu_conv3x3(x, gamma, beta, conv, 32), torch)
+            plain_ms = time_ms(lambda: fgc.gn_silu_conv3x3_plain(x, gamma, beta, conv.weight, conv.bias, 32), torch)
+            library_ms = time_ms(lambda: conv2d(group_norm_plain(x, gamma, beta, 32, 1e-5, "silu"), conv), torch)
+            m = n * h * w
+            flops = 2.0 * m * cout * 9 * cin
+            bound_ms, bound_by = _bound(card, flops, 4.0 * m * (cin + cout) + 36.0 * cin * cout + 4.0 * cout,
+                                        fp32=True)
+            row = dict(kernel="gn_silu_conv3x3_f32", shape=label, N=n, H=h, W=w, Cin=cin, Cout=cout, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       tflops=flops / ms * 1e-9, max_abs_err=max_err, mean_abs_err=mean_err, out_max_abs=nmax,
+                       **{f"launches_per_{per}": per_run})
+            print("kernel " + json.dumps(row), flush=True)
+            rows.append(row)
+            if not ok:
+                fail(f"gn_silu_conv3x3_f32 at {label}: max abs err {max_err} mean {mean_err} of max abs {nmax}")
+            del x, conv
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_qdense_f32(torch, card):
+    """qdense_f32 in both modes at the turbo dense shapes on fp32 x against
+    qdense_plain (the same codes: within 1 fp32 ulp + 1e-3 relative), timed
+    beside it, torch._int_mm on the pre-quantized x and fp32 F.linear with
+    TF32 off (yardsticks), and the bound."""
+    import torch.nn.functional as F
+
+    from faceposegenerator_tpu_torch.ops import qdense as qd
+    from faceposegenerator_tpu_torch.ops.quant import quantize_weight
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    rows = []
+    with tf32(False):
+        for label, m, k, n in QDENSE_SHAPES:
+            x = torch.randn(m, k, generator=g, device="cuda")
+            w = torch.randn(n, k, generator=g, device="cuda") * k**-0.5
+            qw = quantize_weight(w)
+            for mode in ("dynamic", "static"):
+                a = float(x.abs().amax()) * 1.1 / 127.0 if mode == "static" else None
+                out = qd.qdense_kernel(x, qw.q, qw.s, a)
+                torch.cuda.synchronize()
+                max_err, mean_err, over = _ulp_err(out, qd.qdense_plain(x, qw.q, qw.s, a))
+                del out
+                ms = time_ms(lambda: qd.qdense_kernel(x, qw.q, qw.s, a), torch)
+                plain_ms = time_ms(lambda: qd.qdense_plain(x, qw.q, qw.s, a), torch)
+                codes = qd.quantize(x, -1, a)[0].to(torch.int8)
+                int_mm_ms = time_ms(lambda: torch._int_mm(codes, qw.q.t()), torch)
+                linear_ms = time_ms(lambda: F.linear(x, w), torch)
+                del codes
+                bound_ms, bound_by = _bound(card, 2.0 * m * n * k, 4.0 * m * k + n * k + 4.0 * n + 4.0 * m * n,
+                                            int8=True)
+                row = dict(kernel="qdense_f32", shape=label, mode=mode, M=m, K=k, N=n, ms=ms, plain_ms=plain_ms,
+                           int_mm_ms=int_mm_ms, f32_linear_ms=linear_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           max_abs_err=max_err, mean_abs_err=mean_err, over_limit=over)
+                print("kernel " + json.dumps(row), flush=True)
+                rows.append(row)
+                if over:
+                    fail(f"qdense_f32 {mode} at {label}: {over} outputs beyond 1 fp32 ulp + {INT8_REL_ERR} relative "
+                         f"of the plain version (max abs err {max_err})")
+            del x, w, qw
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_int8_f32(torch, fa, card, shapes=INT8_SHAPES):
+    """flash_int8_f32 at the UNet's attention shapes on fp32 inputs against
+    attention_int8_plain (within 1 fp32 ulp + 1e-3 relative, mean abs err <=
+    1e-4), timed beside it, flash_fwd_f32 and SDPA on the same tensors."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    rows = []
+    with tf32(False):
+        for label, b, h, sq, skv, d in shapes:
+            q, k, v = _inputs(torch, g, b, h, sq, skv, d, torch.float32)
+            scale = d**-0.5
+            out = fa.flash_attention_int8(q, k, v, scale)
+            torch.cuda.synchronize()
+            max_err, mean_err, over = _ulp_err(out, fa.attention_int8_plain(q, k, v, scale))
+            del out
+            torch.cuda.empty_cache()
+            ms = time_ms(lambda: fa.flash_attention_int8(q, k, v, scale), torch)
+            plain_ms = time_ms(lambda: fa.attention_int8_plain(q, k, v, scale), torch)
+            f32_ms = time_ms(lambda: fa.flash_fwd_f32(q, k, v, scale), torch)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), torch)
+            bound_ms, bound_by = _bound(card, 4.0 * b * h * sq * skv * d, 4.0 * b * h * d * (2 * sq + 2 * skv),
+                                        int8=True)
+            row = dict(kernel="flash_int8_f32", shape=label, B=b, H=h, Sq=sq, Skv=skv, D=d, ms=ms, plain_ms=plain_ms,
+                       f32_ms=f32_ms, sdpa_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
+                       mean_abs_err=mean_err, over_limit=over)
+            print("kernel " + json.dumps(row), flush=True)
+            rows.append(row)
+            if over or mean_err > INT8_MEAN_ERR:
+                fail(f"flash_int8_f32 at {label}: {over} outputs beyond 1 fp32 ulp + {INT8_REL_ERR} relative of the "
+                     f"plain version, max abs err {max_err}, mean {mean_err} (limit {INT8_MEAN_ERR})")
+            del q, k, v
+            torch.cuda.empty_cache()
+    return rows
+
+
+def run_fp32_pipeline(torch, card_line):
+    """StableDiffusionPipeline.from_random() at its default dtype (fp32):
+    the kernel path against the plain-attention path on a small input, the
+    fused-GroupNorm and w8a8 + flash_int8 routes of the same pipeline on it
+    (the fp32 instances of K4, K7 and K8), and 2 requests at batch 8, 512²,
+    10 DDPM steps, CFG 5.0 with exact launch counts. Returns (the launch
+    counts of the requests, of the small-input routes, the best s/request)."""
+    import numpy as np
+
+    from faceposegenerator_tpu_torch.diffusion.sampler import SamplerModels
+    from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+
+    t0 = time.time()
+    pipe = StableDiffusionPipeline.from_random(seed=0)
+    if pipe.nets["unet"].conv_in.weight.dtype != torch.float32 or pipe.policy.compute_dtype != torch.float32:
+        fail("from_random() is not fp32 at its default dtype")
+    lora = make_lora(pipe.nets["unet"], 10, torch, torch.float32)
+    pipe.set_lora(lora)
+    ids = torch.randint(0, 49408, (8, 77), generator=torch.Generator().manual_seed(1))
+    small = dict(input_ids=ids[:2], num_inference_steps=2, height=128, width=128, seed=5)
+    _reset_launch_counts()
+    img_k = pipe(**small)
+    routes = {"auto": {n: c for n, c in _launch_counts().items() if c}}
+    plain = StableDiffusionPipeline(pipe.nets, SamplerModels(attn_impl="reference"), pipe.policy)
+    plain.set_lora(lora)
+    diff = np.abs(img_k - plain(**small))
+    print(f"fp32 pipeline: built in {time.time() - t0:.1f} s; kernels vs plain attention at 2×128², 2 steps: image "
+          f"diff max {diff.max():.3e} mean {diff.mean():.3e} (limits {F32_IMG_MAX}, {F32_IMG_MEAN}); launches "
+          f"{json.dumps(routes['auto'])}", flush=True)
+    if not (diff.max() <= F32_IMG_MAX and diff.mean() <= F32_IMG_MEAN):
+        fail("fp32: the kernel path and the plain-attention path disagree")
+    _reset_launch_counts()
+    with gn_route("pallas"):
+        img_f = pipe(**small)
+    routes["fused"] = {n: c for n, c in _launch_counts().items() if c}
+    diff = np.abs(img_f - img_k)
+    print(f"fp32 pipeline: K3/K4 routes vs the default routes at 2×128²: image diff max {diff.max():.3e} mean "
+          f"{diff.mean():.3e} (limits {F32_IMG_MAX}, {F32_IMG_MEAN}); launches {json.dumps(routes['fused'])}",
+          flush=True)
+    if not (diff.max() <= F32_IMG_MAX and diff.mean() <= F32_IMG_MEAN) or not routes["fused"].get(
+            "gn_silu_conv3x3_f32"):
+        fail("fp32: the fused GroupNorm routes disagree with the default routes or missed K4's fp32 instance")
+
+    images, secs = [], []
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    for r, seed in enumerate((0, 1)):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = pipe(input_ids=ids, num_inference_steps=10, guidance_scale=5.0, height=512, width=512, seed=seed)
+        secs.append(time.time() - t0)
+        per = {n: c - before[n] for n, c in _launch_counts().items() if c != before[n]}
+        print(f"fp32 request {r}: seed {seed}, {secs[-1]:.3f} s, {8 / secs[-1]:.3f} img/s, launches "
+              f"{json.dumps(per)} ({card_line})", flush=True)
+        _check_images(img, 8, 512, f"fp32 request {r}")
+        if per != F32_REQUEST_LAUNCHES:
+            fail(f"fp32 request {r} launched {per}, expected {F32_REQUEST_LAUNCHES}")
+        images.append(img)
+    launches = _launch_counts()
+    if float(np.abs(images[0] - images[1]).max()) < 1e-3:
+        fail("fp32: images do not differ between seeds")
+    print(f"fp32 pipeline: bs8 512² 10-step DDPM CFG 5.0, fp32 weights and compute (TF32 off): {secs} s per request; "
+          f"best {min(secs):.3f} s = {8 / min(secs):.3f} img/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card_line})", flush=True)
+
+    # the fp32 instances of K7 and K8: the same pipeline quantized (w8a8,
+    # dynamic scales) with the int8 attention, against their plain versions
+    pipe.quantize("w8a8")
+    q = StableDiffusionPipeline(pipe.nets, SamplerModels(attn_impl="flash_int8"), pipe.policy)
+    q.set_lora(lora)
+    _reset_launch_counts()
+    got = q(**small)
+    routes["w8a8 flash_int8"] = {n: c for n, c in _launch_counts().items() if c}
+    with plain_route():
+        want = q(**small)
+    diff = np.abs(got - want)
+    print(f"fp32 pipeline: w8a8 + flash_int8 kernel routes vs plain routes at 2×128², 2 steps: image diff max "
+          f"{diff.max():.3e} mean {diff.mean():.3e} (limits 1e-1, 1e-2); launches "
+          f"{json.dumps(routes['w8a8 flash_int8'])}", flush=True)
+    if not (diff.max() <= 1e-1 and diff.mean() <= 1e-2) or not all(
+            routes["w8a8 flash_int8"].get(n) for n in ("qdense_f32", "flash_int8_f32")):
+        fail("fp32: the w8a8 + flash_int8 routes disagree with their plain versions or missed a kernel")
+    del pipe, plain, q
+    torch.cuda.empty_cache()
+    small_launches = {}
+    for counts in routes.values():
+        for n, c in counts.items():
+            small_launches[n] = small_launches.get(n, 0) + c
+    return launches, small_launches, min(secs)
+
+
+def run_fp32_train(torch, card_line):
+    """The train op point with fp32 frozen weights and an fp32 compute
+    policy: one loss and LoRA gradient at 2(+2)×128² on the kernel path
+    against the plain-attention path (loss within 1e-4 relative, cosine >=
+    0.9999), the fp32 kernels' launches exact. Returns those launches."""
+    import dataclasses
+
+    t0 = time.time()
+    op = build_train_op_point(torch, torch.float32)
+    op[0].configure_backends()
+    print(f"fp32 train: op point built in {time.time() - t0:.1f} s", flush=True)
+    models = op[1]
+    launches = _small_train_check(
+        torch, op, "fp32 train: kernels vs plain attention",
+        {impl: (dataclasses.replace(models, attn_impl=impl), "xla") for impl in ("auto", "reference")},
+        loss_tol=1e-4, cos_min=0.9999, expect=F32_TRAIN_LAUNCHES)
+    del op
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32, launches, ptxas):
     from faceposegenerator_tpu_torch.ops._build import SOURCE_OF
 
     sources = {name: f"faceposegenerator_tpu_torch/csrc/{src}.cu" for name, src in SOURCE_OF.items()}
@@ -1082,8 +1523,16 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, lau
             shape=f"{top['shape']} B{top['B']}", lse_max_err=max(r["lse_max_err"] or 0.0 for r in mine),
             tflops=top["tflops"], **({"ptxas": ptxas[f"{name}_kernel"]} if f"{name}_kernel" in ptxas else {}),
         ))
-    for kind in ("d64", "wide"):
-        mine = [r for r in bwd_rows if r["kernel"] == f"flash_bwd_{kind}"]
+    top = max(f32["fwd"], key=lambda r: r["bound_ms"])
+    kernels.append(dict(
+        name="flash_fwd_f32", route="cuda", source=sources["flash_fwd_f32"], replaces=REPLACES["flash_fwd_f32"],
+        launches=launches["flash_fwd_f32"], max_abs_err=max(r["max_abs_err"] for r in f32["fwd"]), ms=top["ms"],
+        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
+        shape=f"{top['shape']} B{top['B']}", lse_max_err=max(r["lse_max_err"] or 0.0 for r in f32["fwd"]),
+        tflops=top["tflops"], tf32_err=f32["tf32"], ptxas=ptxas.get("flash_fwd_f32_kernel"),
+    ))
+    for kind in ("d64", "wide", "f32"):
+        mine = [r for r in (f32["bwd"] if kind == "f32" else bwd_rows) if r["kernel"] == f"flash_bwd_{kind}"]
         top = max(mine, key=lambda r: r["pair_bound_ms"])
         for p, errs in (("dkv", ("dk_err", "dv_err")), ("dq", ("dq_err",))):
             name = f"flash_bwd_{kind}_{p}"
@@ -1098,12 +1547,16 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, lau
             ))
     # K7 and K8: no single library call computes their function (the int8
     # GEMM alone, bf16 F.linear and exact SDPA are yardsticks, in extra keys)
-    for name, rows in (("qdense", q_rows), ("flash_int8", i8_rows)):
+    for name, rows in (("qdense", q_rows), ("flash_int8", i8_rows), ("qdense_f32", f32["qdense"]),
+                       ("flash_int8_f32", f32["int8"])):
         top = max(rows, key=lambda r: r["bound_ms"] + (r.get("mode") == "static") * 1e-9)
-        extra = (dict(int_mm_ms=top["int_mm_ms"], bf16_linear_ms=top["bf16_linear_ms"], mode=top["mode"],
-                      shape=f"{top['shape']} M{top['M']} K{top['K']} N{top['N']}")
-                 if name == "qdense" else dict(k1_ms=top["k1_ms"], sdpa_ms=top["sdpa_ms"],
-                                               shape=f"{top['shape']} B{top['B']}"))
+        if name.startswith("qdense"):
+            linear = "bf16_linear_ms" if name == "qdense" else "f32_linear_ms"
+            extra = dict(int_mm_ms=top["int_mm_ms"], mode=top["mode"], **{linear: top[linear]},
+                         shape=f"{top['shape']} M{top['M']} K{top['K']} N{top['N']}")
+        else:
+            other = "k1_ms" if name == "flash_int8" else "f32_ms"
+            extra = dict(sdpa_ms=top["sdpa_ms"], shape=f"{top['shape']} B{top['B']}", **{other: top[other]})
         kernels.append(dict(
             name=name, route="cuda", source=sources[name], replaces=REPLACES[name], launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=top["ms"], plain_ms=top["plain_ms"],
@@ -1111,13 +1564,16 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, lau
         ))
     # K3 and K4: the library time is F.group_norm (+ F.silu), and the default
     # route's plain GroupNorm+SiLU with cuDNN's conv
-    for name, rows in (("fused_group_norm", gn_rows), ("gn_silu_conv3x3", conv_rows)):
+    for name, rows in (("fused_group_norm", gn_rows), ("gn_silu_conv3x3", conv_rows),
+                       ("gn_silu_conv3x3_f32", f32["conv"])):
         top = max(rows, key=lambda r: r["bound_ms"])
+        fn = {"gn_silu_conv3x3": "gn_k4_conv", "gn_silu_conv3x3_f32": "gn_k4_conv_f32"}.get(name)
         kernels.append(dict(
             name=name, route="cuda", source=sources[name], replaces=REPLACES[name], launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows), ms=top["ms"], plain_ms=top["plain_ms"],
             bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
             shape=f"{top['shape']} N{top['N']}",
+            **({"tflops": top["tflops"], "ptxas": ptxas.get(fn)} if fn else {}),
         ))
     return kernels
 
@@ -1146,7 +1602,7 @@ def main() -> int:
     t0 = time.time()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.time() - t0:.1f} s", flush=True)
-    ptxas = {}  # the d = 64 attention kernels' registers and spills (each instance), for their entries
+    ptxas = {}  # registers and spills (each instance) of the wgmma and fp32 kernels, for their entries
     for name in libs:
         # e.g. "wgmma.mma_async instructions are serialized": a kernel that builds and is right, but slow
         for line in _build.build_log(name).splitlines():
@@ -1156,7 +1612,8 @@ def main() -> int:
             print(f"ptxas {name} {rep['function']}: {rep.get('registers')} registers, "
                   f"{rep.get('spill_stores')} bytes spill stores, {rep.get('spill_loads')} bytes spill loads",
                   flush=True)
-            if rep["function"].startswith(("flash_fwd_d64", "flash_bwd_d64")):
+            if rep["function"].startswith(("flash_fwd_d64", "flash_bwd_d64", "flash_fwd_f32", "flash_bwd_f32",
+                                           "gn_k4_conv")):
                 ptxas.setdefault(rep["function"], []).append(
                     {k: rep.get(k) for k in ("registers", "spill_stores", "spill_loads")})
 
@@ -1182,15 +1639,27 @@ def main() -> int:
     fused_txt2img = run_fused_txt2img(torch, card_line, txt2img_secs)
     torch.cuda.empty_cache()
     fused_train = run_fused_train(torch, card_line, train_op, train_secs)
+    del train_op
+    torch.cuda.empty_cache()
+    f32 = {"fwd": check_f32_forward(torch, fa, card, SHAPES)}
+    f32["fwd"] += check_f32_forward(torch, fa, card, TRAIN_SHAPES, with_lse=True, per="step")
+    f32["tf32"] = check_tf32_refused(torch, fa)
+    f32["bwd"] = check_f32_backward(torch, fa, card, [s for s in TRAIN_SHAPES if s[0] != "vae encode mid"])
+    f32["conv"] = check_conv_f32(torch, card, CONV_SHAPES, "request")
+    f32["qdense"] = check_qdense_f32(torch, card)
+    f32["int8"] = check_int8_f32(torch, fa, card)
+    fp32_txt2img, fp32_routes, _ = run_fp32_pipeline(torch, card_line)
+    fp32_train = run_fp32_train(torch, card_line)
     paths = {"txt2img": txt2img, "turbo": turbo, "train": train, "fused txt2img": fused_txt2img,
-             "fused train": fused_train}
+             "fused train": fused_train, "fp32 txt2img": fp32_txt2img, "fp32 routes at 2×128²": fp32_routes,
+             "fp32 train check": fp32_train}
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in REPLACES}
     print("launches on the main paths: " + ", ".join(f"{k} {json.dumps(v)}" for k, v in paths.items()), flush=True)
     for name, count in launches.items():
         if count == 0:
             fail(f"{name} was not launched on the main paths")
 
-    print(json.dumps({"kernels": _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows,
+    print(json.dumps({"kernels": _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32,
                                                  launches, ptxas)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,8 @@
-// Device helpers shared by the kernels built on mma.sync (the wide
-// flash-attention kernels K2 and K6, flash_int8.cu, qdense.cu, gn_conv.cu)
-// and by the d = 64 wgmma kernels (flash_fwd.cu, flash_bwd.cu, with
-// sm90_common.cuh): bf16 tensor-core MMA (mma.sync m16n8k16, fp32
-// accumulate), ldmatrix operand loads from shared memory, cp.async copies,
-// bf16 packing and the special-function exp2.
+// Device helpers shared by the flash-attention kernels of flash_fwd.cu and
+// flash_bwd.cu: the wide kernels K2 and K6, built on mma.sync, and the
+// d = 64 wgmma kernels K1 and K5 (with sm90_common.cuh): bf16 tensor-core
+// MMA (mma.sync m16n8k16, fp32 accumulate), ldmatrix operand loads from
+// shared memory, bf16 packing and the special-function exp2.
 //
 // Fragment layout of mma m16n8k16 (g = lane / 4, t4 = lane % 4):
 //   A (16×16, row-major): a0 (g, 2t4..), a1 (g+8, 2t4..), a2 (g, 8+2t4..), a3 (g+8, 8+2t4..)
@@ -90,20 +89,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
-}
-
-// 16-byte async copy global → shared; src_bytes = 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Copy rows [row0, row0 + ROWS) of a (rows, D) slice with row stride

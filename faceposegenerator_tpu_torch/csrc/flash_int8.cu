@@ -27,6 +27,10 @@
 // 4096-token self-attention the exps on the FP32 pipes and the tensor cores
 // bound it, at the 77-key cross-attention the bytes and the launch.
 //
+// The output is q's dtype: bf16 (`flash_int8`) or fp32 (`flash_int8_f32`,
+// as JAX's `flash_attention_int8` passes q.dtype through); the codes, the
+// kernel and every rounding before the last are the same.
+//
 // Design: one CTA per (b·h, 128 query rows), 8 warps of 16 rows; 64-key tiles
 // double-buffered with cp.async; mma.sync m16n8k32 s8·s8 → s32 for both
 // products. The score fragment of an m16n8 tile holds keys 2t..2t+1 and
@@ -106,9 +110,16 @@ __device__ __forceinline__ void scores(int (&s)[8][4], const uint32_t (&qf)[2][4
   }
 }
 
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
+
+template <typename OutT>
 __global__ void __launch_bounds__(NTHREADS)
     flash_int8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8, const int8_t* __restrict__ vt8,
-                      bf16* __restrict__ o, const float* __restrict__ scalars, int H, int Sq, int Skv, int kv_end) {
+                      OutT* __restrict__ o, const float* __restrict__ scalars, int H, int Sq, int Skv, int kv_end) {
   __shared__ __align__(16) unsigned char sQ[BM * ST];
   __shared__ __align__(16) unsigned char sK[2][BN * ST];
   __shared__ __align__(16) unsigned char sV[2][D * ST];
@@ -227,19 +238,27 @@ __global__ void __launch_bounds__(NTHREADS)
   l1 = __fadd_rn(l1, __shfl_xor_sync(0xffffffffu, l1, 1));
   l1 = __fadd_rn(l1, __shfl_xor_sync(0xffffffffu, l1, 2));
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  bf16* ob = o + (static_cast<long long>(b) * Sq * H + h) * D;
+  OutT* ob = o + (static_cast<long long>(b) * Sq * H + h) * D;
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) {
     const int col = dt * 8 + 2 * t4;
     if (row0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * row_stride + col) = __floats2bfloat162_rn(
-          __fdiv_rn(__fmul_rn(static_cast<float>(acc[dt][0]), c_v), l0),
-          __fdiv_rn(__fmul_rn(static_cast<float>(acc[dt][1]), c_v), l0));
+      store2(ob + row0 * row_stride + col, __fdiv_rn(__fmul_rn(static_cast<float>(acc[dt][0]), c_v), l0),
+             __fdiv_rn(__fmul_rn(static_cast<float>(acc[dt][1]), c_v), l0));
     if (row1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * row_stride + col) = __floats2bfloat162_rn(
-          __fdiv_rn(__fmul_rn(static_cast<float>(acc[dt][2]), c_v), l1),
-          __fdiv_rn(__fmul_rn(static_cast<float>(acc[dt][3]), c_v), l1));
+      store2(ob + row1 * row_stride + col, __fdiv_rn(__fmul_rn(static_cast<float>(acc[dt][2]), c_v), l1),
+             __fdiv_rn(__fmul_rn(static_cast<float>(acc[dt][3]), c_v), l1));
   }
+}
+
+template <typename OutT>
+int launch(const void* q8, const void* k8, const void* vt8, void* o, const void* scalars, int B, int H, int Sq,
+           int Skv, int kv_end, void* stream) {
+  const dim3 grid((Sq + BM - 1) / BM, B * H);
+  flash_int8_kernel<OutT><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q8), static_cast<const int8_t*>(k8), static_cast<const int8_t*>(vt8),
+      static_cast<OutT*>(o), static_cast<const float*>(scalars), H, Sq, Skv, kv_end);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -252,11 +271,13 @@ extern "C" {
 // {c_qk, c_v} on the device. Keys [kv_end, Skv) are excluded.
 int flash_int8(const void* q8, const void* k8, const void* vt8, void* o, const void* scalars, int B, int H,
                int Sq, int Skv, int kv_end, void* stream) {
-  const dim3 grid((Sq + BM - 1) / BM, B * H);
-  flash_int8_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q8), static_cast<const int8_t*>(k8), static_cast<const int8_t*>(vt8),
-      static_cast<bf16*>(o), static_cast<const float*>(scalars), H, Sq, Skv, kv_end);
-  return static_cast<int>(cudaGetLastError());
+  return launch<bf16>(q8, k8, vt8, o, scalars, B, H, Sq, Skv, kv_end, stream);
+}
+
+// The same contract with o (B, Sq, H, 64) fp32.
+int flash_int8_f32(const void* q8, const void* k8, const void* vt8, void* o, const void* scalars, int B, int H,
+                   int Sq, int Skv, int kv_end, void* stream) {
+  return launch<float>(q8, k8, vt8, o, scalars, B, H, Sq, Skv, kv_end, stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,13 @@
 // K4: conv3x3(SiLU(GroupNorm(x))) + bias for Hopper (sm_90a), an implicit
 // GEMM with the GroupNorm affine and SiLU as its operand prologue.
 //
-//   a = bf16(SiLU(x · scale + shift)),  y = bf16(conv3x3(pad0(a), w) + b)
+//   a = round(SiLU(x · scale + shift)),  y = round(conv3x3(pad0(a), w) + b)
 //
-// x (N, H, W, Cin) bf16 contiguous; w bf16 in the memory order (Cout, 3, 3,
-// Cin), which is the torch (Cout, Cin, 3, 3) weight stored channels_last; b
-// (Cout,) fp32 or bf16, added in fp32; y (N, H, W, Cout) bf16. The padding
+// x (N, H, W, Cin); w in the memory order (Cout, 3, 3, Cin), which is the
+// torch (Cout, Cin, 3, 3) weight stored channels_last; b (Cout,) fp32 or
+// bf16, added in fp32; y (N, H, W, Cout). `gn_silu_conv3x3` takes bf16 x, w
+// and y and rounds a and y to bf16; `gn_silu_conv3x3_f32` takes fp32 ones and
+// rounds nothing (JAX's kernel keeps its slab in x's dtype). The padding
 // comes after the activation: a tap outside the image reads 0, not
 // SiLU(shift). scale and shift come from stages 1-2 of gn_common.cuh.
 //
@@ -14,44 +16,75 @@
 //
 // What bounds it on the card. The GEMM has M = N·H·W output pixels, N = Cout
 // and K = 9·Cin: 2·M·Cout·9·Cin operations against one read of x, one write
-// of y and the weights. At the UNet's shapes (Cin, Cout ≥ 320) that is
-// over 1000 operations per byte, so the tensor cores bound it.
+// of y and the weights. At the UNet's shapes (Cin, Cout >= 320) that is over
+// 1000 operations per byte, so the tensor cores bound it; what each CTA
+// re-reads from L2 (the weight tile, once per 128 pixels) comes next.
 //
-// What the design does about it (wgmma, TMA and a pipelined ring of tiles
-// are later work):
-//   * A CTA computes 128 output pixels (TR = 128 / TW image rows of a
-//     power-of-two width TW ≤ 128: 2 rows of 64, 4 of 32) by 64 output
-//     channels, with 8 warps of 32 × 32. For each 32-channel chunk of Cin it
-//     loads the (TR + 2) × (TW + 2) halo of x, applies the affine and SiLU
-//     once per element, rounds to bf16 and stores it in shared memory (zeros
-//     outside the image), and copies the chunk's 64 × 9 × 32 weights with
-//     cp.async. The 9 taps are shifted views of the halo tile: each lane
-//     hands ldmatrix the address of its own output pixel's neighbour, so no
-//     im2col tile is built, and each element is normalised (TR + 2) / TR
-//     times per output-channel tile instead of 9 times.
-//   * mma.sync m16n8k16 (bf16 in, fp32 accumulate); operands by ldmatrix
-//     from rows padded to 80 and 592 bytes, which no two lanes of a phase
-//     share a bank in.
-//   * Epilogue: the fp32 bias added, rounded once to bf16, masked at the
-//     image's edge and at Cout.
+// The bf16 design (wgmma, TMA, warp specialisation; sm90_common.cuh). A CTA
+// computes 128 output pixels (a power-of-two tile width TW in [2, 64] of
+// 128 / TW image rows: 2 rows of 64, 4 of 32) by 160 output channels (a
+// legal wgmma N: 320 = 2 · 160, 640 = 4 · 160), over chunks of 64 input
+// channels. Three roles, 512 threads:
+//   * a producer thread issues TMA loads: the raw x halo of a chunk,
+//     (TR + 2) × (TW + 2) pixels × 64 channels (one 128-byte row a pixel;
+//     the tensor map's out-of-bounds fill gives 0 outside the image and past
+//     Cin), into a ring of 2 stages; and per tap the 160 × 64 weight tile,
+//     K-major with the 128-byte swizzle, into a ring of 4 stages, all on
+//     mbarriers. x of chunk c + 1 goes out before the weights of chunk c.
+//   * 7 normaliser warps turn each raw halo chunk into the activation once
+//     per CTA: affine, SiLU and one rounding to bf16, written 0 outside the
+//     image (the fill gave raw 0, but SiLU(shift) != 0), into a
+//     double-buffered A halo whose 16-byte channel groups are XOR-swizzled by
+//     the pixel's low 3 bits. So chunk c + 1 is normalised while chunk c's
+//     9 taps run, and each input element is normalised (TR + 2) / TR ×
+//     Cout / 160 times in all (4 at 64²·320→320, where the earlier mma.sync
+//     kernel with 64-channel tiles did it 10 times).
+//   * 2 consumer warpgroups of 64 pixels each: per tap, the A operand in
+//     registers (wgmma's RS form), 4 ldmatrix.x4 from per-lane addresses
+//     (each lane's own pixel shifted by the tap; the swizzle keeps the 8
+//     rows of a phase on distinct banks), then 4 wgmma m64n160k16 with B
+//     from the weight stage. A warpgroup waits for its tap's products
+//     before it loads the next tap's fragments (else ptxas serialises every
+//     wgmma, C7513); the two warpgroups' taps interleave on the tensor
+//     cores, so one's loads run under the other's products. The A operand
+//     could not come from shared memory by descriptor (the SS form): the 64
+//     rows of an m64 operand must be evenly spaced there, and at W = 32 the
+//     2 pad pixels of the halo split them into two image rows.
+// Epilogue: the fp32 bias added, rounded once to bf16, masked at the
+// image's edge and at Cout. The statistics (two launches before the conv)
+// fold in a fixed order: the kernel is deterministic.
 //
 // Plain C interface, loaded with ctypes: launches on the given stream,
 // allocates nothing, returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_common.cuh"
 #include "gn_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 64, KC = 32, NTHREADS = 256;
-constexpr int HST = KC + 8;       // shared stride of a halo pixel, bf16 (80 bytes)
-constexpr int WST = 9 * KC + 8;   // shared stride of an output channel's 9 taps, bf16 (592 bytes)
-constexpr int MAX_HALO = 390;     // max over TW of (BM / TW + 2) · (TW + 2), at TW = 1 and 128
-constexpr int SMEM = (MAX_HALO * HST + BN * WST) * 2;
+constexpr int BM = 128, BN = 160, KC = 64;  // pixels, output channels, input channels a chunk
+constexpr int W_STAGES = 4, X_STAGES = 2;
+constexpr int PIX_BYTES = KC * 2;                  // one pixel's chunk: 128 bytes
+constexpr int HALO_MAX = 264;                      // max over TW in [2, 64] of (128 / TW + 2) · (TW + 2)
+constexpr int HALO_BYTES = HALO_MAX * PIX_BYTES;   // 33,792: a multiple of 1024
+constexpr int W_BYTES = BN * PIX_BYTES;            // 20,480: one tap of the weight tile
+constexpr int X_OFF = W_STAGES * W_BYTES, A_OFF = X_OFF + X_STAGES * HALO_BYTES;
+constexpr int BAR_OFF = A_OFF + 2 * HALO_BYTES;
+constexpr int NBAR = 2 * W_STAGES + 4 * X_STAGES;  // weights full/empty; x full/empty; A full/empty
+constexpr int SMEM = BAR_OFF + 8 * NBAR + 1024;    // and room to align the base to 1024 bytes
+// with 3 normaliser warps the normalisation was the kernel's longest path
+// (perf/torch_conv_ablate.py; PERF.md), so they are 7
+constexpr int THREADS = 512, NORM_THREADS = 224;
+// the launch gives every thread 65536 / 512 = 128 registers; the producer and
+// normaliser warpgroups give back what the consumers take
+constexpr int AUX_REGS = 72, CONSUMER_REGS = 184;
+static_assert(128 * (2 * AUX_REGS + 2 * CONSUMER_REGS) <= 128 * THREADS, "register file");
+static_assert(SMEM <= 232448, "shared memory");
 
 __global__ void __launch_bounds__(GN_THREADS) gn_k4_partial(const bf16* __restrict__ x, float* __restrict__ part,
                                                              int S, int C, int rows, int chunks) {
@@ -64,122 +97,290 @@ __global__ void __launch_bounds__(GN_THREADS) gn_k4_fold(const float* __restrict
   gn_fold_body(part, gamma, beta, param_bf16, affine, chunks, S, C, G, eps);
 }
 
-// grid (ceil(Cout / BN), N · tiles_h · tiles_w); blockIdx.x picks the output
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t act2(uint32_t raw, float sc0, float sh0, float sc1, float sh1) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float a = fmaf(__low2float(h), sc0, sh0), b = fmaf(__high2float(h), sc1, sh1);
+  __nv_bfloat162 o = __floats2bfloat162_rn(__fdividef(a, 1.f + __expf(-a)), __fdividef(b, 1.f + __expf(-b)));
+  return *reinterpret_cast<uint32_t*>(&o);
+}
+
+// grid (ceil(Cout / 160), N · tiles_h · tiles_w); blockIdx.x picks the output
 // channels, so the CTAs that share a halo run side by side.
-__global__ void __launch_bounds__(NTHREADS, 2)
-    gn_k4_conv(const bf16* __restrict__ x, const float* __restrict__ affine, const bf16* __restrict__ w,
-               const void* bias, int bias_bf16, bf16* __restrict__ y, int N, int H, int W, int Cin, int Cout,
-               int tw_log2, int tiles_h, int tiles_w) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sA = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sW = sA + MAX_HALO * HST;
+__global__ void __launch_bounds__(THREADS, 1)
+    gn_k4_conv(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+               const float* __restrict__ affine, const void* bias, int bias_bf16, bf16* __restrict__ y, int N, int H,
+               int W, int Cin, int Cout, int tw_log2, int tiles_h, int tiles_w) {
+  extern __shared__ __align__(1024) unsigned char smem_k4[];
+  const uint32_t raw_base = smem_u32(smem_k4), base = (raw_base + 1023u) & ~1023u;
+  unsigned char* gbase = smem_k4 + (base - raw_base);  // the same bytes, as a generic pointer
+  const uint32_t sW = base, sX = base + X_OFF, sA = base + A_OFF, bars = base + BAR_OFF;
+  // mbarriers: weights full [0, 4), weights empty [4, 8), x full, x empty, A full, A empty (2 each)
+  auto w_full = [&](int s) { return bars + 8 * s; };
+  auto w_empty = [&](int s) { return bars + 8 * (W_STAGES + s); };
+  auto x_full = [&](int s) { return bars + 8 * (2 * W_STAGES + s); };
+  auto x_empty = [&](int s) { return bars + 8 * (2 * W_STAGES + 2 + s); };
+  auto a_full = [&](int s) { return bars + 8 * (2 * W_STAGES + 4 + s); };
+  auto a_empty = [&](int s) { return bars + 8 * (2 * W_STAGES + 6 + s); };
 
   const int TW = 1 << tw_log2, TR = BM >> tw_log2, HW2 = TW + 2, HP = (TR + 2) * HW2;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;  // this warp's 32 × 32 sub-tile
   const int n0 = blockIdx.x * BN;
   int tile = blockIdx.y;
-  const int tx = tile % tiles_w;
+  const int tile_x = tile % tiles_w;
   tile /= tiles_w;
-  const int ty = tile % tiles_h, img = tile / tiles_h;
-  const int y0 = ty * TR, x0 = tx * TW;
-  const bf16* xi = x + static_cast<long long>(img) * H * W * Cin;
+  const int tile_y = tile % tiles_h, img = tile / tiles_h;
+  const int y0 = tile_y * TR, x0 = tile_x * TW;
+  const int n_chunks = (Cin + KC - 1) / KC;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(w_full(s), 1);
+      mbar_init(w_empty(s), 8);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < X_STAGES; ++s) {
+      mbar_init(x_full(s), 1);
+      mbar_init(x_empty(s), NORM_THREADS);
+      mbar_init(a_full(s), NORM_THREADS);
+      mbar_init(a_empty(s), 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg >= 2) {
+    setmaxnreg_dec<AUX_REGS>();
+    const int t = threadIdx.x - 256;
+    if (t == 0) {  // producer
+      const uint32_t x_bytes = HP * PIX_BYTES;
+      auto load_x = [&](int c) {
+        const int s = c & 1;
+        mbar_wait(x_empty(s), ((c >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(x_full(s), x_bytes);
+        tma_load_4d(sX + s * HALO_BYTES, &tm_x, x_full(s), c * KC, x0 - 1, y0 - 1, img);
+      };
+      load_x(0);
+      for (int c = 0; c < n_chunks; ++c) {
+        if (c + 1 < n_chunks) load_x(c + 1);
+        for (int tap = 0; tap < 9; ++tap) {
+          const int u = c * 9 + tap, s = u % W_STAGES;
+          mbar_wait(w_empty(s), ((u / W_STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(w_full(s), W_BYTES);
+          tma_load_3d(sW + s * W_BYTES, &tm_w, w_full(s), c * KC, tap, n0);
+        }
+      }
+    } else if (t >= 32) {  // normaliser: thread t - 32 takes channel group g of every 28th pixel
+      const int nt = t - 32, g = nt & 7, p0 = nt >> 3, hr0 = p0 / HW2;
+      const float* scale = affine + static_cast<long long>(img) * Cin;
+      const float* shift = affine + static_cast<long long>(N + img) * Cin;
+      for (int c = 0; c < n_chunks; ++c) {
+        const int s = c & 1;
+        const uint32_t ph = (c >> 1) & 1;
+        const int ci = c * KC + g * 8;
+        float sc[8], sh[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {  // 0 past Cin: SiLU(0) = 0
+          sc[j] = ci + j < Cin ? scale[ci + j] : 0.f;
+          sh[j] = ci + j < Cin ? shift[ci + j] : 0.f;
+        }
+        const unsigned char* xs = gbase + X_OFF + s * HALO_BYTES;
+        unsigned char* as = gbase + A_OFF + s * HALO_BYTES;
+        mbar_wait(x_full(s), ph);
+        mbar_wait(a_empty(s), ph ^ 1);
+        int hr = hr0, hc = p0 - hr0 * HW2;
+        for (int p = p0; p < HP; p += NORM_THREADS / 8) {
+          const int gy = y0 - 1 + hr, gx = x0 - 1 + hc;
+          uint4 out = make_uint4(0u, 0u, 0u, 0u);
+          if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+            const uint4 r = *reinterpret_cast<const uint4*>(xs + p * PIX_BYTES + g * 16);
+            out.x = act2(r.x, sc[0], sh[0], sc[1], sh[1]);
+            out.y = act2(r.y, sc[2], sh[2], sc[3], sh[3]);
+            out.z = act2(r.z, sc[4], sh[4], sc[5], sh[5]);
+            out.w = act2(r.w, sc[6], sh[6], sc[7], sh[7]);
+          }
+          *reinterpret_cast<uint4*>(as + p * PIX_BYTES + ((g ^ (p & 7)) << 4)) = out;
+          for (hc += NORM_THREADS / 8; hc >= HW2; hc -= HW2) ++hr;
+        }
+        mbar_arrive(x_empty(s));
+        mbar_arrive(a_full(s));
+      }
+    }
+  } else {  // consumers: warpgroup wg computes pixels 64·wg .. 64·wg + 63
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+    // ldmatrix: lane l gives the address of A row l % 16 (its pixel), channel half l / 16
+    const int m = 64 * wg + 16 * w + (lane & 15), half = lane >> 4;
+    const int hbase = (m >> tw_log2) * HW2 + (m & (TW - 1));
+    float acc[80];
+#pragma unroll
+    for (int i = 0; i < 80; ++i) acc[i] = 0.f;
+    fence_regs(acc);  // zeroed here, not later next to a wgmma in flight
+    uint32_t af[16];
+    for (int c = 0; c < n_chunks; ++c) {
+      mbar_wait(a_full(c & 1), (c >> 1) & 1);
+      const uint32_t abuf = sA + (c & 1) * HALO_BYTES;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int hp = hbase + (tap / 3) * HW2 + tap % 3;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) ldsm_x4(af + 4 * ks, abuf + hp * PIX_BYTES + (((2 * ks + half) ^ (hp & 7)) << 4));
+        const int u = c * 9 + tap, s = u % W_STAGES;
+        mbar_wait(w_full(s), (u / W_STAGES) & 1);
+        fence_regs(af);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_rs_m64n160_k(acc, af[4 * ks], af[4 * ks + 1], af[4 * ks + 2], af[4 * ks + 3],
+                             desc_k(sW + s * W_BYTES + 32 * ks));
+        wgmma_commit();
+        // ptxas serialises every wgmma of the kernel if a register they read
+        // is written while a product is in flight (C7513), so the next tap's
+        // fragments load after this tap's products are done; the other
+        // consumer warpgroup's products fill the tensor cores meanwhile
+        wgmma_wait<0>();
+        fence_regs(af);
+        mbar_arrive_if(w_empty(s), lane == 0);
+      }
+      mbar_arrive_if(a_empty(c & 1), lane == 0);
+    }
+    fence_regs(acc);
+
+    // epilogue: + fp32 bias, rounded once to bf16; Cout % 8 == 0, so a
+    // column pair is whole or out
+    const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int mm = 64 * wg + 16 * w + g + 8 * h;
+      const int gy = y0 + (mm >> tw_log2), gx = x0 + (mm & (TW - 1));
+      if (gy >= H || gx >= W) continue;
+      bf16* yp = y + ((static_cast<long long>(img) * H + gy) * W + gx) * Cout;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const int co = n0 + 8 * i + 2 * t4;
+        if (co < Cout)
+          *reinterpret_cast<__nv_bfloat162*>(yp + co) =
+              __floats2bfloat162_rn(acc[4 * i + 2 * h] + load_param(bias, co, bias_bf16),
+                                    acc[4 * i + 2 * h + 1] + load_param(bias, co + 1, bias_bf16));
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 (gn_silu_conv3x3_f32): x, w and y fp32, for the fp32 compute policy
+// (JAX's K4 keeps its slab in x's dtype). fp32 arithmetic is FFMA on the CUDA
+// cores, so this is a simple SIMT implicit GEMM, right first: a CTA computes
+// 64 output pixels (a power-of-two width TW <= 64 of 64 / TW rows) by 64
+// output channels, 256 threads of 4 pixels × 4 channels. For each 16-channel
+// chunk of Cin it writes the halo's activations SiLU(x·scale + shift)
+// channel-major into shared memory (0 outside the image: the padding comes
+// after the activation), and the chunk's weights tap- and channel-major; the
+// 9 taps are offsets into the halo.
+// ---------------------------------------------------------------------------
+
+constexpr int F_BM = 64, F_BN = 64, F_KC = 16;
+constexpr int F_HALO = 200;  // max over TW of (64 / TW + 2) · (TW + 2) = 198, rounded up
+constexpr int F_SMEM = (F_KC * F_HALO + 9 * F_KC * F_BN) * 4;
+
+__global__ void __launch_bounds__(GN_THREADS) gn_k4_partial_f32(const float* __restrict__ x, float* __restrict__ part,
+                                                                 int S, int C, int rows, int chunks) {
+  gn_partial_body<float>(x, part, S, C, rows, chunks);
+}
+
+__global__ void __launch_bounds__(256)
+    gn_k4_conv_f32(const float* __restrict__ x, const float* __restrict__ affine, const float* __restrict__ w,
+                   const void* bias, int bias_bf16, float* __restrict__ y, int N, int H, int W, int Cin, int Cout,
+                   int tw_log2, int tiles_h, int tiles_w) {
+  extern __shared__ float4 smem_f32[];
+  float* sA = reinterpret_cast<float*>(smem_f32);  // [F_KC][halo pixel]
+  float* sW = sA + F_KC * F_HALO;                  // [tap][F_KC][F_BN]
+  const int TW = 1 << tw_log2, TR = F_BM >> tw_log2, HW2 = TW + 2, HP = (TR + 2) * HW2;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int n0 = blockIdx.x * F_BN;
+  int tile = blockIdx.y;
+  const int tile_x = tile % tiles_w;
+  tile /= tiles_w;
+  const int tile_y = tile % tiles_h, img = tile / tiles_h;
+  const int y0 = tile_y * TR, x0 = tile_x * TW;
+  const float* xi = x + static_cast<long long>(img) * H * W * Cin;
   const float* scale = affine + static_cast<long long>(img) * Cin;
   const float* shift = affine + static_cast<long long>(N + img) * Cin;
 
-  // ldmatrix rows: A row (lane & 15) of each 16-pixel m-tile at halo pixel
-  // hbase + the tap's offset, k half (lane >> 4); B rows: output channel
-  // wn + 16p + (lane & 7) + 8 (lane >> 4), k half (lane >> 3) & 1
-  int hbase[2];
+  int hbase[4];  // this thread's 4 output pixels 4ty..4ty+3 at tap (0, 0) of the halo
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int m = wm + mt * 16 + (lane & 15);
-    hbase[mt] = (m >> tw_log2) * HW2 + (m & (TW - 1));
+  for (int i = 0; i < 4; ++i) {
+    const int m = 4 * ty + i;
+    hbase[i] = (m >> tw_log2) * HW2 + (m & (TW - 1));
   }
-  const int koff = (lane >> 4) * 8;
-  const int nrow = wn + (lane & 7) + ((lane >> 4) << 3), boff = ((lane >> 3) & 1) * 8;
-
-  float acc[2][4][4];
+  float acc[4][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  const int vv = tid & 3;  // this thread's 8-channel vector of every halo pixel it loads
-  for (int kc = 0; kc < Cin; kc += KC) {
+  for (int kc = 0; kc < Cin; kc += F_KC) {
     __syncthreads();  // the previous chunk's operands are read
-    // weights: BN output channels × 9 taps × 4 vectors of 8 channels
-    for (int i = tid; i < BN * 36; i += NTHREADS) {
-      const int nl = i / 36, rem = i - nl * 36, tap = rem >> 2, ci = kc + (rem & 3) * 8, co = n0 + nl;
-      const bool live = co < Cout && ci < Cin;
-      cp_async_16(sW + nl * WST + tap * KC + (rem & 3) * 8,
-                  live ? w + (static_cast<long long>(co) * 9 + tap) * Cin + ci : w, live ? 16 : 0);
-    }
-    cp_async_commit();
-    // halo: normalise, SiLU, round to bf16; zero outside the image and past Cin
-    const int ci = kc + vv * 8;
-    const bool cl = ci < Cin;
-    float sc[8], sh[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      sc[j] = cl ? scale[ci + j] : 0.f;
-      sh[j] = cl ? shift[ci + j] : 0.f;
-    }
-    for (int i = tid; i < HP * 4; i += NTHREADS) {
-      const int p = i >> 2, hr = p / HW2, hc = p - hr * HW2, gy = y0 - 1 + hr, gx = x0 - 1 + hc;
-      uint4 out = make_uint4(0u, 0u, 0u, 0u);
-      if (cl && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        float e[8];
-        load16<bf16>(xi + (static_cast<long long>(gy) * W + gx) * Cin + ci, e);
-        out.x = pack_bf16(silu(fmaf(e[0], sc[0], sh[0])), silu(fmaf(e[1], sc[1], sh[1])));
-        out.y = pack_bf16(silu(fmaf(e[2], sc[2], sh[2])), silu(fmaf(e[3], sc[3], sh[3])));
-        out.z = pack_bf16(silu(fmaf(e[4], sc[4], sh[4])), silu(fmaf(e[5], sc[5], sh[5])));
-        out.w = pack_bf16(silu(fmaf(e[6], sc[6], sh[6])), silu(fmaf(e[7], sc[7], sh[7])));
+    for (int i = tid; i < HP * (F_KC / 4); i += 256) {  // halo: 4 channels a thread
+      const int p = i % HP, c = (i / HP) * 4, ci = kc + c;
+      const int hr = p / HW2, hc = p - hr * HW2, gy = y0 - 1 + hr, gx = x0 - 1 + hc;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ci < Cin && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+        const float4 e = *reinterpret_cast<const float4*>(xi + (static_cast<long long>(gy) * W + gx) * Cin + ci);
+        a.x = silu(fmaf(e.x, scale[ci], shift[ci]));
+        a.y = silu(fmaf(e.y, scale[ci + 1], shift[ci + 1]));
+        a.z = silu(fmaf(e.z, scale[ci + 2], shift[ci + 2]));
+        a.w = silu(fmaf(e.w, scale[ci + 3], shift[ci + 3]));
       }
-      *reinterpret_cast<uint4*>(sA + p * HST + vv * 8) = out;
+      sA[(c + 0) * F_HALO + p] = a.x;
+      sA[(c + 1) * F_HALO + p] = a.y;
+      sA[(c + 2) * F_HALO + p] = a.z;
+      sA[(c + 3) * F_HALO + p] = a.w;
     }
-    cp_async_wait<0>();
+    for (int i = tid; i < F_BN * 9 * (F_KC / 4); i += 256) {  // weights: 4 channels a thread
+      const int nl = i / (9 * F_KC / 4), rem = i % (9 * F_KC / 4), tap = rem / (F_KC / 4), c = (rem % (F_KC / 4)) * 4;
+      const int co = n0 + nl, ci = kc + c;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (co < Cout && ci < Cin) v = *reinterpret_cast<const float4*>(w + (static_cast<long long>(co) * 9 + tap) * Cin + ci);
+      float* dst = sW + (tap * F_KC + c) * F_BN + nl;
+      dst[0] = v.x;
+      dst[F_BN] = v.y;
+      dst[2 * F_BN] = v.z;
+      dst[3 * F_BN] = v.w;
+    }
     __syncthreads();
-
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int toff = (tap / 3) * HW2 + tap % 3;
+#pragma unroll 4
+      for (int c = 0; c < F_KC; ++c) {
+        const float4 wv = *reinterpret_cast<const float4*>(sW + (tap * F_KC + c) * F_BN + 4 * tx);
+        const float* ac = sA + c * F_HALO + toff;
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        uint32_t af[2][4], bfr[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) ldsm_x4(af[mt], sA + (hbase[mt] + toff) * HST + ks * 16 + koff);
-#pragma unroll
-        for (int p = 0; p < 2; ++p) ldsm_x4(bfr[p], sW + (nrow + p * 16) * WST + tap * KC + ks * 16 + boff);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_16816(acc[mt][nt], af[mt], bfr[nt >> 1][(nt & 1) * 2], bfr[nt >> 1][(nt & 1) * 2 + 1]);
+        for (int i = 0; i < 4; ++i) {
+          const float av = ac[hbase[i]];
+          acc[i][0] = fmaf(av, wv.x, acc[i][0]);
+          acc[i][1] = fmaf(av, wv.y, acc[i][1]);
+          acc[i][2] = fmaf(av, wv.z, acc[i][2]);
+          acc[i][3] = fmaf(av, wv.w, acc[i][3]);
+        }
       }
     }
   }
 
-  // epilogue: + fp32 bias, rounded once to bf16; Cout % 8 == 0, so a column
-  // pair is whole or out
+  const int co = n0 + 4 * tx;  // Cout % 8 == 0: four channels are whole or out
+  if (co >= Cout) return;
+  float b[4];
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int col = n0 + wn + nt * 8 + 2 * t4;
-    if (col >= Cout) continue;
-    const float b0 = load_param(bias, col, bias_bf16), b1 = load_param(bias, col + 1, bias_bf16);
+  for (int j = 0; j < 4; ++j) b[j] = load_param(bias, co + j, bias_bf16);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = wm + mt * 16 + g + 8 * h;
-        const int gy = y0 + (m >> tw_log2), gx = x0 + (m & (TW - 1));
-        if (gy < H && gx < W) {
-          bf16* yp = y + ((static_cast<long long>(img) * H + gy) * W + gx) * Cout + col;
-          *reinterpret_cast<__nv_bfloat162*>(yp) =
-              __floats2bfloat162_rn(acc[mt][nt][2 * h] + b0, acc[mt][nt][2 * h + 1] + b1);
-        }
-      }
-    }
+  for (int i = 0; i < 4; ++i) {
+    const int m = 4 * ty + i, gy = y0 + (m >> tw_log2), gx = x0 + (m & (TW - 1));
+    if (gy < H && gx < W)
+      *reinterpret_cast<float4*>(y + ((static_cast<long long>(img) * H + gy) * W + gx) * Cout + co) =
+          make_float4(acc[i][0] + b[0], acc[i][1] + b[1], acc[i][2] + b[2], acc[i][3] + b[3]);
   }
 }
 
@@ -190,7 +391,7 @@ extern "C" {
 // x: (N, H, W, Cin) bf16, w: (Cout, 3, 3, Cin) bf16, y: (N, H, W, Cout) bf16,
 // all contiguous and 16-byte aligned; gamma, beta: (Cin,) bf16 (param_bf16 =
 // 1) or fp32; bias: (Cout,) bf16 (bias_bf16 = 1) or fp32. Cin % 8 == 0, Cin ≤
-// 2048, Cin % G == 0, Cout % 8 == 0; the tile width is 2^tw_log2 ≤ 128.
+// 2048, Cin % G == 0, Cout % 8 == 0; the tile width is 2^tw_log2 in [2, 64].
 // part and affine: the statistics' scratch buffers (2 · N · chunks · Cin and
 // 2 · N · Cin fp32), `rows` and `chunks` as in fused_group_norm.
 int gn_silu_conv3x3(const void* x, const void* gamma, const void* beta, const void* w, const void* bias, void* y,
@@ -213,10 +414,48 @@ int gn_silu_conv3x3(const void* x, const void* gamma, const void* beta, const vo
     smem_set = true;
   }
   const int TW = 1 << tw_log2, TR = BM / TW;
+  // x as (Cin, W, H, N), a box the (TR + 2) × (TW + 2) halo of 64 channels;
+  // w as (Cin, 9, Cout), a box one tap of 64 channels × 160 output channels
+  CUtensorMap tm_x, tm_w;
+  const long long x_dims[4] = {Cin, W, H, N}, x_strides[3] = {2LL * Cin, 2LL * W * Cin, 2LL * H * W * Cin};
+  const int x_box[4] = {KC, TW + 2, TR + 2, 1};
+  const long long w_dims[3] = {Cin, 9, Cout}, w_strides[2] = {2LL * Cin, 18LL * Cin};
+  const int w_box[3] = {KC, 1, BN};
+  int e = make_map(&tm_x, x, 4, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e == 0) e = make_map(&tm_w, w, 3, w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != 0) return e;
   const int tiles_h = (H + TR - 1) / TR, tiles_w = (W + TW - 1) / TW;
   const dim3 grid((Cout + BN - 1) / BN, N * tiles_h * tiles_w);
-  gn_k4_conv<<<grid, NTHREADS, SMEM, st>>>(xx, a, static_cast<const bf16*>(w), bias, bias_bf16,
-                                           static_cast<bf16*>(y), N, H, W, Cin, Cout, tw_log2, tiles_h, tiles_w);
+  gn_k4_conv<<<grid, THREADS, SMEM, st>>>(tm_x, tm_w, a, bias, bias_bf16, static_cast<bf16*>(y), N, H, W, Cin, Cout,
+                                          tw_log2, tiles_h, tiles_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same contract with x, w and y fp32; the tile width is 2^tw_log2 <= 64.
+int gn_silu_conv3x3_f32(const void* x, const void* gamma, const void* beta, const void* w, const void* bias, void* y,
+                        void* part, void* affine, int N, int H, int W, int Cin, int Cout, int G, float eps, int rows,
+                        int chunks, int param_bf16, int bias_bf16, int tw_log2, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xx = static_cast<const float*>(x);
+  float* p = static_cast<float*>(part);
+  float* a = static_cast<float*>(affine);
+  gn_k4_partial_f32<<<dim3(chunks, N), GN_THREADS, 0, st>>>(xx, p, H * W, Cin, rows, chunks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gn_k4_fold<<<N, GN_THREADS, 0, st>>>(p, gamma, beta, param_bf16, a, chunks, H * W, Cin, G, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool smem_set = false;
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(gn_k4_conv_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const int TW = 1 << tw_log2, TR = F_BM / TW;
+  const int tiles_h = (H + TR - 1) / TR, tiles_w = (W + TW - 1) / TW;
+  const dim3 grid((Cout + F_BN - 1) / F_BN, N * tiles_h * tiles_w);
+  gn_k4_conv_f32<<<grid, 256, F_SMEM, st>>>(xx, a, static_cast<const float*>(w), bias, bias_bf16,
+                                            static_cast<float*>(y), N, H, W, Cin, Cout, tw_log2, tiles_h, tiles_w);
   return static_cast<int>(cudaGetLastError());
 }
 

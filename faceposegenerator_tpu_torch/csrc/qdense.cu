@@ -3,10 +3,12 @@
 //   y = (round(x / sx) · qᵀ) · sx · s     dynamic: sx = max(rowmax|x|, 1e-8) · fl(1/127)
 //   y = (round(x / a) · qᵀ) · (a · s)     static: one calibrated per-tensor scale a
 //
-// x bf16 (M, K) row-major, q int8 (N, K) row-major (the torch Linear
-// orientation), s fp32 (N,), y bf16 (M, N). Codes are round-half-to-even of a
-// true division, clipped to ±127; the products accumulate in int32; the
-// rescale is fp32 in the JAX package's order, rounded once to bf16.
+// x (M, K) row-major, q int8 (N, K) row-major (the torch Linear
+// orientation), s fp32 (N,), y (M, N) in x's dtype: bf16 (`qdense`) or fp32
+// (`qdense_f32`, the fp32 instance: JAX's `_qdense_kernel` quantizes any x
+// and writes `o_ref.dtype`). Codes are round-half-to-even of a true
+// division, clipped to ±127; the products accumulate in int32; the rescale
+// is fp32 in the JAX package's order, rounded once to bf16 (or kept, fp32).
 //
 // Replaces faceposegenerator_tpu/ops/quant_pallas.py `_qdense_kernel` (and
 // the static branch of quant._qdense_impl, which JAX leaves to XLA).
@@ -29,7 +31,8 @@
 //     shared memory by ldmatrix (rows padded to 80 bytes: conflict-free). One
 //     tile of x is loaded into registers while the previous one multiplies.
 //   * The epilogue rescales in fp32 and stages the bf16 tile through shared
-//     memory, so each thread stores 16 contiguous bytes.
+//     memory, so each thread stores 16 contiguous bytes; an fp32 tile is
+//     stored from registers, two values a thread.
 //   * Ragged M and N are masked (zero-filled loads, skipped stores); K must be
 //     a multiple of 32, N of 8 (the wrapper checks).
 //
@@ -86,39 +89,78 @@ __device__ __forceinline__ uint32_t code(float x, float scale) {
   return static_cast<uint32_t>(static_cast<int>(r)) & 0xffu;
 }
 
-__device__ __forceinline__ uint32_t codes4(uint32_t lo, uint32_t hi, float scale) {
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&lo);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&hi);
-  return code(__low2float(a), scale) | (code(__high2float(a), scale) << 8) |
-         (code(__low2float(b), scale) << 16) | (code(__high2float(b), scale) << 24);
-}
+// Eight consecutive activations of a row, as loaded: one 16-byte vector of
+// bf16 or two of fp32, and their values.
+template <typename T>
+struct X8;
 
-// sx[m] = max(max_k |x[m, k]|, 1e-8) · fl(1/127): one warp per row
-__global__ void __launch_bounds__(NTHREADS) row_scale_kernel(const bf16* __restrict__ x, float* __restrict__ sx,
-                                                             int M, int K) {
-  const int row = blockIdx.x * (NTHREADS / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const bf16* xr = x + static_cast<long long>(row) * K;
-  float m = 0.f;
-  for (int c = lane * 8; c < K; c += 256) {
-    const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
+template <>
+struct X8<bf16> {
+  uint4 v;
+  __device__ __forceinline__ void load(const bf16* p) { v = *reinterpret_cast<const uint4*>(p); }
+  __device__ __forceinline__ void clear() { v = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ void values(float (&f)[8]) const {
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-      m = fmaxf(m, fmaxf(fabsf(__low2float(p)), fabsf(__high2float(p))));
+      f[2 * i] = __low2float(p);
+      f[2 * i + 1] = __high2float(p);
     }
+  }
+};
+
+template <>
+struct X8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = *reinterpret_cast<const float4*>(p);
+    b = *reinterpret_cast<const float4*>(p + 4);
+  }
+  __device__ __forceinline__ void clear() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ void values(float (&f)[8]) const {
+    f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w, f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+  }
+};
+
+// the codes of eight activations, four to a word
+template <typename T>
+__device__ __forceinline__ uint2 codes8(const X8<T>& x, float scale) {
+  float f[8];
+  x.values(f);
+  uint2 r;
+  r.x = code(f[0], scale) | (code(f[1], scale) << 8) | (code(f[2], scale) << 16) | (code(f[3], scale) << 24);
+  r.y = code(f[4], scale) | (code(f[5], scale) << 8) | (code(f[6], scale) << 16) | (code(f[7], scale) << 24);
+  return r;
+}
+
+// sx[m] = max(max_k |x[m, k]|, 1e-8) · fl(1/127): one warp per row
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS) row_scale_kernel(const T* __restrict__ x, float* __restrict__ sx, int M,
+                                                             int K) {
+  const int row = blockIdx.x * (NTHREADS / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const T* xr = x + static_cast<long long>(row) * K;
+  float m = 0.f;
+  for (int c = lane * 8; c < K; c += 256) {  // K % 32 == 0: eight values a lane are whole
+    X8<T> v;
+    v.load(xr + c);
+    float f[8];
+    v.values(f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) m = fmaxf(m, fabsf(f[i]));
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
   if (lane == 0) sx[row] = __fmul_rn(fmaxf(m, 1e-8f), 1.f / 127.f);
 }
 
-template <bool STATIC>
-__global__ void __launch_bounds__(NTHREADS, 2)
-    qdense_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
-                  const float* __restrict__ sx, bf16* __restrict__ y, int M, int N, int K, float a) {
+// two CTAs an SM for bf16; the fp32 instance holds twice the x registers
+template <bool STATIC, typename T>
+__global__ void __launch_bounds__(NTHREADS, sizeof(T) == 2 ? 2 : 1)
+    qdense_kernel(const T* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
+                  const float* __restrict__ sx, T* __restrict__ y, int M, int N, int K, float a) {
   __shared__ __align__(16) unsigned char smem[SMEM];
   __shared__ float s_row[BM];
   unsigned char* sA = smem;             // x codes, buffers 0 and 1
@@ -134,14 +176,14 @@ __global__ void __launch_bounds__(NTHREADS, 2)
     for (int r = tid; r < BM; r += NTHREADS) s_row[r] = m0 + r < M ? sx[m0 + r] : 1.f;
   }
 
-  // x tile: 128 rows × 8 chunks of 8 bf16; 4 chunks per thread
-  uint4 xr[4];
+  // x tile: 128 rows × 8 chunks of 8 activations; 4 chunks per thread
+  X8<T> xr[4];
   auto load_x = [&](int kt) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = tid + i * NTHREADS, r = c >> 3, col = kt * BK + (c & 7) * 8;
-      xr[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M && col < K) xr[i] = *reinterpret_cast<const uint4*>(x + static_cast<long long>(m0 + r) * K + col);
+      xr[i].clear();
+      if (m0 + r < M && col < K) xr[i].load(x + static_cast<long long>(m0 + r) * K + col);
     }
   };
   auto store_x = [&](int buf) {
@@ -149,10 +191,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
     for (int i = 0; i < 4; ++i) {
       const int c = tid + i * NTHREADS, r = c >> 3;
       const float scale = STATIC ? a : s_row[r];
-      uint2 v;
-      v.x = codes4(xr[i].x, xr[i].y, scale);
-      v.y = codes4(xr[i].z, xr[i].w, scale);
-      *reinterpret_cast<uint2*>(sA + buf * TILE + r * ST + (c & 7) * 8) = v;
+      *reinterpret_cast<uint2*>(sA + buf * TILE + r * ST + (c & 7) * 8) = codes8(xr[i], scale);
     }
   };
   // weight tile: 128 rows × 4 chunks of 16 bytes; 2 chunks per thread
@@ -206,7 +245,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   }
   __syncthreads();  // the operand buffers become the output tile
 
-  bf16* sC = reinterpret_cast<bf16*>(smem);
+  bf16* sC = reinterpret_cast<bf16*>(smem);  // the bf16 tile; an fp32 one goes straight out
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
     const int cl = wn + nt * 8 + 2 * t4, col = n0 + cl;
@@ -226,10 +265,16 @@ __global__ void __launch_bounds__(NTHREADS, 2)
           v0 = __fmul_rn(__fmul_rn(f0, s_row[rl]), s0);
           v1 = __fmul_rn(__fmul_rn(f1, s_row[rl]), s1);
         }
-        *reinterpret_cast<__nv_bfloat162*>(sC + rl * CST + cl) = __floats2bfloat162_rn(v0, v1);
+        if constexpr (sizeof(T) == 4) {
+          if (m0 + rl < M && col < N)  // N % 8 == 0: a column pair is whole or out
+            *reinterpret_cast<float2*>(y + static_cast<long long>(m0 + rl) * N + col) = make_float2(v0, v1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(sC + rl * CST + cl) = __floats2bfloat162_rn(v0, v1);
+        }
       }
     }
   }
+  if constexpr (sizeof(T) == 4) return;
   __syncthreads();
   // 128 rows × 16 chunks of 8 bf16; N % 8 == 0, so a chunk is whole or out
   for (int c = tid; c < BM * (BN / 8); c += NTHREADS) {
@@ -238,6 +283,27 @@ __global__ void __launch_bounds__(NTHREADS, 2)
       *reinterpret_cast<uint4*>(y + static_cast<long long>(m0 + r) * N + n0 + cc) =
           *reinterpret_cast<const uint4*>(sC + r * CST + cc);
   }
+}
+
+template <typename T>
+int launch(const void* x, const void* q, const void* s, void* y, void* sx, int M, int N, int K, float a,
+           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const T* xx = static_cast<const T*>(x);
+  const int8_t* qq = static_cast<const int8_t*>(q);
+  const float* ss = static_cast<const float*>(s);
+  T* yy = static_cast<T*>(y);
+  if (sx == nullptr) {
+    qdense_kernel<true, T><<<grid, NTHREADS, 0, st>>>(xx, qq, ss, nullptr, yy, M, N, K, a);
+  } else {
+    float* rs = static_cast<float*>(sx);
+    row_scale_kernel<T><<<(M + NTHREADS / 32 - 1) / (NTHREADS / 32), NTHREADS, 0, st>>>(xx, rs, M, K);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    qdense_kernel<false, T><<<grid, NTHREADS, 0, st>>>(xx, qq, ss, rs, yy, M, N, K, 0.f);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -250,22 +316,13 @@ extern "C" {
 // in which every activation is quantized against `a`.
 int qdense(const void* x, const void* q, const void* s, void* y, void* sx, int M, int N, int K, float a,
            void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  const bf16* xx = static_cast<const bf16*>(x);
-  const int8_t* qq = static_cast<const int8_t*>(q);
-  const float* ss = static_cast<const float*>(s);
-  bf16* yy = static_cast<bf16*>(y);
-  if (sx == nullptr) {
-    qdense_kernel<true><<<grid, NTHREADS, 0, st>>>(xx, qq, ss, nullptr, yy, M, N, K, a);
-  } else {
-    float* rs = static_cast<float*>(sx);
-    row_scale_kernel<<<(M + NTHREADS / 32 - 1) / (NTHREADS / 32), NTHREADS, 0, st>>>(xx, rs, M, K);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    qdense_kernel<false><<<grid, NTHREADS, 0, st>>>(xx, qq, ss, rs, yy, M, N, K, 0.f);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<bf16>(x, q, s, y, sx, M, N, K, a, stream);
+}
+
+// The same contract with x and y fp32.
+int qdense_f32(const void* x, const void* q, const void* s, void* y, void* sx, int M, int N, int K, float a,
+               void* stream) {
+  return launch<float>(x, q, s, y, sx, M, N, K, a, stream);
 }
 
 }  // extern "C"

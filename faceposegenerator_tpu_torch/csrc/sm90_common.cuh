@@ -1,14 +1,14 @@
-// Hopper (sm_90a) building blocks shared by the d = 64 flash-attention
-// kernels (flash_fwd.cu: K1, flash_bwd.cu: K5), in raw PTX:
+// Hopper (sm_90a) building blocks shared by the wgmma kernels (flash_fwd.cu:
+// K1, flash_bwd.cu: K5, gn_conv.cu: K4), in raw PTX:
 //
 //   * mbarriers: init, arrive, arrive + expect-tx, parity wait;
-//   * TMA: 4-D tiled loads (cp.async.bulk.tensor) of a (B, S, H, 64) bf16
-//     view into shared memory with the 128-byte swizzle, completing on an
-//     mbarrier; the tensor map is encoded on the host through the driver
+//   * TMA: 3-D and 4-D tiled loads (cp.async.bulk.tensor) of bf16 tensors
+//     into shared memory, with or without the 128-byte swizzle, completing on
+//     an mbarrier; the tensor map is encoded on the host through the driver
 //     entry point that the CUDA runtime hands out (no -lcuda);
 //   * wgmma: shared-memory descriptors for 128-byte-swizzled tiles, the
 //     m64nNk16 bf16 → fp32 products with A from shared memory or from
-//     registers, wgmma.fence / commit_group / wait_group;
+//     registers (B K-major or MN-major), wgmma.fence / commit_group / wait_group;
 //   * warp specialisation: setmaxnreg and named barriers.
 //
 // Tile layout. A 64-wide bf16 row is 128 bytes, exactly one swizzle atom:
@@ -62,26 +62,37 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// A bf16 tensor map of `rank` dimensions (innermost first), the byte strides
+// of dimensions 1.. (a dimension of size 1 gets a valid dummy: its stride is
+// never used), a box, and the swizzle of the box in shared memory. Elements
+// outside the dimensions read as zeros. Returns a cudaError_t.
+int make_map(CUtensorMap* map, const void* base, int rank, const long long* dims, const long long* strides,
+             const int* box, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], elem[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    b[i] = static_cast<cuuint32_t>(box[i]);
+    elem[i] = 1;
+    if (i > 0) s[i - 1] = static_cast<cuuint64_t>(dims[i] > 1 ? strides[i - 1] : 128);
+  }
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d, s, b, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // The 4-D map (64, S, H, B) of a (B, S, H, 64) bf16 view with element
 // strides (b, s, h) and a contiguous head dim; a box is `box_rows` rows of one
 // (batch, head), 128-byte swizzled. Rows at or past S read as zeros, so a
 // tile never reaches into the next batch row or head. Returns a cudaError_t.
 int make_map_d64(CUtensorMap* map, const void* base, int S, int H, int B, long long s_stride,
                  long long h_stride, long long b_stride, int box_rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  // the stride of a dimension of size 1 is never used; keep it valid
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(S > 1 ? s_stride * 2 : 128),
-                                 static_cast<cuuint64_t>(H > 1 ? h_stride * 2 : 128),
-                                 static_cast<cuuint64_t>(B > 1 ? b_stride * 2 : 128)};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  const long long dims[4] = {64, S, H, B}, strides[3] = {s_stride * 2, h_stride * 2, b_stride * 2};
+  const int box[4] = {64, box_rows, 1, 1};
+  return make_map(map, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---------------------------------------------------------------------------
@@ -147,6 +158,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -270,6 +290,34 @@ __device__ __forceinline__ void wgmma_rs_m64n64_mn(float (&d)[32], uint32_t a0, 
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// D(64×160, fp32) += A(64×16, bf16 registers) · B(16×160): B K-major in
+// shared memory (desc_k). 160 = 320 / 2 = 640 / 4 output channels: K4's tile.
+__device__ __forceinline__ void wgmma_rs_m64n160_k(float (&d)[80], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 

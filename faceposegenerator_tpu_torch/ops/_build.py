@@ -29,10 +29,11 @@ NVCC_FLAGS = [
 KERNELS = {
     "flash_fwd": ("flash_fwd_d64", "flash_fwd_wide"),
     "flash_bwd": ("flash_bwd_d64_dkv", "flash_bwd_d64_dq", "flash_bwd_wide_dkv", "flash_bwd_wide_dq"),
-    "flash_int8": ("flash_int8",),
-    "qdense": ("qdense",),
+    "flash_f32": ("flash_fwd_f32", "flash_bwd_f32_dkv", "flash_bwd_f32_dq"),
+    "flash_int8": ("flash_int8", "flash_int8_f32"),
+    "qdense": ("qdense", "qdense_f32"),
     "fused_gn": ("fused_group_norm",),
-    "gn_conv": ("gn_silu_conv3x3",),
+    "gn_conv": ("gn_silu_conv3x3", "gn_silu_conv3x3_f32"),
 }
 SOURCE_OF = {kernel: src for src, kernels in KERNELS.items() for kernel in kernels}
 

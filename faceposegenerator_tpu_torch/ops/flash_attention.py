@@ -3,7 +3,7 @@ PyTorch versions and the autograd Function that joins them (port of
 `faceposegenerator_tpu/ops/flash_attention.py:1084`, `flash_attention`, and
 its custom VJP, `:966-1081`).
 
-Six CUDA kernels replace the Pallas kernels of the sampling and training
+CUDA kernels replace the Pallas kernels of the sampling and training
 paths:
 
   `flash_fwd_d64`       K1, `_fwd_kernel_packed` (:258): every UNet
@@ -16,9 +16,17 @@ paths:
   `flash_bwd_wide_dq`   `_bwd_kernel_plain_dq` (:585) (csrc/flash_bwd.cu);
   `flash_int8`          K8, `_fwd_kernel_packed_int8` (:1108): the int8
                         attention of `flash_attention_int8` (:1261), head
-                        dim 64, inference only (csrc/flash_int8.cu).
+                        dim 64, inference only (csrc/flash_int8.cu);
+  `flash_fwd_f32`,      the fp32 instance of K1/K2 and of K5/K6: JAX sends
+  `flash_bwd_f32_dkv`,  fp32 as well as bf16 to its kernels
+  `flash_bwd_f32_dq`    (`flash_supported`, :87-101), any head dim in
+                        {64, 128, 256, 384, 512} (csrc/flash_f32.cu);
+  `flash_int8_f32`      K8 writing fp32 for fp32 q, k, v.
 
-All take (B, S, H, D) bf16 tensors whose head dim is contiguous; other
+`kernel_for(dtype, head_dim, backward)` names the entry points a dtype and
+head dim go to, before any launch, or None where JAX's `flash_supported`
+refuses them. All take (B, S, H, D) tensors of one dtype (bf16 for K1, K2,
+K5, K6, K8; fp32 for the f32 instances) whose head dim is contiguous; other
 strides are passed to the kernel, so the q/k/v views split out of a fused
 projection need no copy. The forward kernels also write the per-row
 log-sum-exp (B, H, Sq) fp32 when asked (`with_lse=True`); the backward
@@ -41,8 +49,10 @@ LAUNCHES = {
     "flash_fwd_d64": 0, "flash_fwd_wide": 0,
     "flash_bwd_d64_dkv": 0, "flash_bwd_d64_dq": 0,
     "flash_bwd_wide_dkv": 0, "flash_bwd_wide_dq": 0, "flash_int8": 0,
+    "flash_fwd_f32": 0, "flash_bwd_f32_dkv": 0, "flash_bwd_f32_dq": 0, "flash_int8_f32": 0,
 }
 _WIDE_DIMS = (128, 256, 384, 512)
+_F32_DIMS = (64, *_WIDE_DIMS)
 _INT32_MAX = 2**31 - 1
 _fns: dict = {}
 
@@ -50,6 +60,22 @@ _fns: dict = {}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int, backward: bool = False):
+    """The kernel entry points that attention over `dtype` at `head_dim`
+    goes to on the card: the forward's name, or the backward's (dK/dV, dQ)
+    pair; None where JAX's `flash_supported` (flash_attention.py:87-101)
+    refuses the inputs (a dtype other than fp32 and bf16, a head dim that is
+    neither 64 nor a multiple of 128), which `impl="auto"` sends to the
+    plain einsum. The kernels' own limits (head dim at most 512) raise at
+    launch."""
+    if dtype not in (torch.float32, torch.bfloat16) or (head_dim != 64 and head_dim % 128):
+        return None
+    kind = "f32" if dtype == torch.float32 else "d64" if head_dim == 64 else "wide"
+    if backward:
+        return f"flash_bwd_{kind}_dkv", f"flash_bwd_{kind}_dq"
+    return f"flash_fwd_{kind}"
 
 
 def _logits(q, k, scale, kv_len):
@@ -98,7 +124,7 @@ def attention_bwd_plain(q, k, v, o, lse, do, scale: float, kv_len: Optional[int]
 
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {  # the C signatures in csrc/flash_fwd.cu, flash_bwd.cu and flash_int8.cu
+_ARGTYPES = {  # the C signatures in csrc/flash_fwd.cu, flash_bwd.cu, flash_f32.cu and flash_int8.cu
     "flash_fwd_d64": [_PTR] * 5 + [_INT] * 16 + [_FLOAT, _PTR],
     "flash_fwd_wide": [_PTR] * 5 + [_INT] * 17 + [_FLOAT, _PTR],
     "flash_bwd_d64_dkv": [_PTR] * 8 + [_INT] * 5 + [_PTR, _FLOAT, _PTR],
@@ -106,6 +132,10 @@ _ARGTYPES = {  # the C signatures in csrc/flash_fwd.cu, flash_bwd.cu and flash_i
     "flash_bwd_wide_dkv": [_PTR] * 8 + [_INT] * 6 + [_PTR, _FLOAT, _PTR],
     "flash_bwd_wide_dq": [_PTR] * 7 + [_INT] * 5 + [_PTR, _FLOAT, _PTR],
     "flash_int8": [_PTR] * 5 + [_INT] * 5 + [_PTR],
+    "flash_fwd_f32": [_PTR] * 5 + [_INT] * 17 + [_FLOAT, _PTR],
+    "flash_bwd_f32_dkv": [_PTR] * 8 + [_INT] * 6 + [_PTR, _FLOAT, _PTR],
+    "flash_bwd_f32_dq": [_PTR] * 7 + [_INT] * 5 + [_PTR, _FLOAT, _PTR],
+    "flash_int8_f32": [_PTR] * 5 + [_INT] * 5 + [_PTR],
 }
 
 
@@ -126,14 +156,21 @@ def _call(name: str, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _aligned(t) -> bool:
+    """A contiguous head dim and 16-byte aligned rows."""
+    per16 = 16 // t.element_size()
+    return t.stride(-1) == 1 and not t.data_ptr() % 16 and not any(s % per16 for s in t.stride()[:3])
+
+
 def _check(name: str, *tensors) -> None:
     dev = tensors[0].device
+    want = torch.float32 if "_f32" in name else torch.bfloat16
     for t in tensors:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{name}: every tensor must lie on one CUDA device")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} takes bf16 tensors, got {t.dtype}")
-        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+        if t.dtype != want:
+            raise ValueError(f"{name} takes {want} tensors, got {t.dtype}")
+        if not _aligned(t):
             raise ValueError(f"{name} needs a contiguous head dim and 16-byte aligned rows")
         if max(t.stride()) > _INT32_MAX:
             raise ValueError(f"{name}: strides exceed int32")
@@ -156,6 +193,9 @@ def _head_dim_ok(name: str, d: int) -> None:
     if name.startswith("flash_fwd_d64") or name.startswith("flash_bwd_d64"):
         if d != 64:
             raise ValueError(f"{name} takes head dim 64, got {d}")
+    elif "_f32" in name:
+        if d not in _F32_DIMS:
+            raise ValueError(f"{name} takes head dim in {_F32_DIMS}, got {d}")
     elif d not in _WIDE_DIMS:
         raise ValueError(f"{name} takes head dim in {_WIDE_DIMS}, got {d}")
 
@@ -167,7 +207,7 @@ def _launch_fwd(name: str, q, k, v, scale: float, kv_len, with_lse: bool):
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]]
-    head = [b, h, sq, kv_end] + ([d] if name == "flash_fwd_wide" else [])
+    head = [b, h, sq, kv_end] + ([d] if name != "flash_fwd_d64" else [])
     _call(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
           None if lse is None else lse.data_ptr(), *head, *strides,
           float(scale), torch.cuda.current_stream(q.device).cuda_stream)
@@ -193,8 +233,23 @@ def flash_fwd_wide(q, k, v, scale: float, kv_len: Optional[int] = None, with_lse
     return _fwd("flash_fwd_wide", q, k, v, scale, kv_len, with_lse)
 
 
+def flash_fwd_f32(q, k, v, scale: float, kv_len: Optional[int] = None, with_lse: bool = False):
+    """The fp32 instance of K1/K2: fp32 (B, S, H, D) at head dim 64, 128,
+    256, 384 or 512."""
+    return _fwd("flash_fwd_f32", q, k, v, scale, kv_len, with_lse)
+
+
+def flash_fwd(q, k, v, scale: float, kv_len: Optional[int] = None, with_lse: bool = False):
+    """The forward kernel `kernel_for` names for q's dtype and head dim; a
+    CPU tensor takes the plain version, inputs that no kernel takes raise."""
+    name = kernel_for(q.dtype, q.shape[-1])
+    if name is None and q.is_cuda:
+        raise ValueError(f"no attention kernel takes {q.dtype} at head dim {q.shape[-1]}")
+    return _fwd(name or "flash_fwd_d64", q, k, v, scale, kv_len, with_lse)
+
+
 def _bwd(kind: str, q, k, v, o, lse, do, scale: float, kv_len, passes=("dkv", "dq")):
-    """Launch the dK/dV pass and the dQ pass of `kind` ("d64" or "wide");
+    """Launch the dK/dV pass and the dQ pass of `kind` ("d64", "wide" or "f32");
     `passes` may name one of them alone (its gradients come back, the
     others are None), which is how chip_smoke.py times each kernel."""
     if not q.is_cuda:
@@ -207,7 +262,7 @@ def _bwd(kind: str, q, k, v, o, lse, do, scale: float, kv_len, passes=("dkv", "d
                          f"do not match q {tuple(q.shape)}")
     if lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError(f"{dkv} takes a contiguous fp32 lse on q's device")
-    if do.stride(-1) != 1 or do.data_ptr() % 16 or any(s % 8 for s in do.stride()[:3]):
+    if not _aligned(do):
         do = do.contiguous()
     _check(dkv, q, k, v, do)
     dd = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()  # rowsum(dO∘O), (B, H, Sq)
@@ -216,7 +271,7 @@ def _bwd(kind: str, q, k, v, o, lse, do, scale: float, kv_len, passes=("dkv", "d
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device) if "dkv" in passes else None
     outs = [t if t is not None else q for t in (dq, dk, dv)]  # strides only
     strides = (ctypes.c_longlong * 21)(*(s for t in (q, k, v, do, *outs) for s in t.stride()[:3]))
-    wide = [d] if kind == "wide" else []
+    wide = [d] if kind != "d64" else []
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr())
     if dk is not None:
@@ -240,18 +295,26 @@ def flash_bwd_wide(q, k, v, o, lse, do, scale: float, kv_len: Optional[int] = No
     return _bwd("wide", q, k, v, o, lse, do, scale, kv_len, passes)
 
 
+def flash_bwd_f32(q, k, v, o, lse, do, scale: float, kv_len: Optional[int] = None,
+                  passes=("dkv", "dq")):
+    """The fp32 instance of K5/K6: fp32 tensors at head dim 64, 128, 256,
+    384 or 512."""
+    return _bwd("f32", q, k, v, o, lse, do, scale, kv_len, passes)
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention (the JAX `_flash_attention` custom
-    VJP): the forward runs K1/K2 with the log-sum-exp and saves q, k, v, o
-    and lse; the backward runs K5/K6. CPU tensors take the plain versions.
+    VJP): the forward runs the kernel `kernel_for` names (K1/K2, or their
+    fp32 instance) with the log-sum-exp and saves q, k, v, o and lse; the
+    backward runs K5/K6 or their fp32 instance. CPU tensors take the plain
+    versions.
 
         o = FlashAttention.apply(q, k, v, scale, kv_len)
     """
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, kv_len: Optional[int]):
-        fwd = flash_fwd_d64 if q.shape[-1] == 64 else flash_fwd_wide
-        o, lse = fwd(q, k, v, scale, kv_len, with_lse=True)
+        o, lse = flash_fwd(q, k, v, scale, kv_len, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.kv_len = scale, kv_len
         return o
@@ -259,8 +322,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = flash_bwd_d64 if q.shape[-1] == 64 else flash_bwd_wide
-        dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.scale, ctx.kv_len)
+        kind = "f32" if q.dtype == torch.float32 else "d64" if q.shape[-1] == 64 else "wide"
+        dq, dk, dv = _bwd(kind, q, k, v, o, lse, do, ctx.scale, ctx.kv_len)
         return dq, dk, dv, None, None
 
 
@@ -318,8 +381,8 @@ def _launch_int8(q, k, v, scale: float, kv_len):
     b, sq, skv, h, d, kv_end = _shapes("flash_int8", q, k, v, kv_len)
     if d != 64:
         raise ValueError(f"flash_int8 takes head dim 64, got {d}")
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_int8 takes bf16 tensors, got {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_int8 takes bf16 or fp32 tensors of one dtype, got {q.dtype}")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_int8: every tensor must lie on one CUDA device")
     if skv > _INT8_BLOCK_K:
@@ -333,15 +396,18 @@ def _launch_int8(q, k, v, scale: float, kv_len):
     vt = vt.index_select(-1, perm)
     scalars = torch.stack([sq_s * sk_s * scale, sv_s * INV127])
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _call("flash_int8", q8.data_ptr(), k8.data_ptr(), vt.data_ptr(), o.data_ptr(), scalars.data_ptr(),
+    name = "flash_int8_f32" if q.dtype == torch.float32 else "flash_int8"
+    _call(name, q8.data_ptr(), k8.data_ptr(), vt.data_ptr(), o.data_ptr(), scalars.data_ptr(),
           b, h, sq, skv, kv_end, torch.cuda.current_stream(q.device).cuda_stream)
     return o
 
 
 def flash_attention_int8(q, k, v, scale: float, kv_len: Optional[int] = None) -> torch.Tensor:
     """K8: int8 attention over (B, S, H, 64) (`flash_attention_int8`,
-    flash_attention.py:1261). A CPU tensor takes `attention_int8_plain`; a
-    CUDA tensor takes the kernel or raises. Other head dims are the caller's
+    flash_attention.py:1261), writing q's dtype: bf16 q, k, v go to
+    `flash_int8`, fp32 ones to `flash_int8_f32` (the same codes: the
+    quantizer takes any float dtype, as JAX's does). A CPU tensor takes
+    `attention_int8_plain`; a CUDA tensor takes the kernel or raises. Other head dims are the caller's
     to send to the exact kernels (`ops.attention`)."""
     if not q.is_cuda:
         return attention_int8_plain(q, k, v, scale, kv_len)

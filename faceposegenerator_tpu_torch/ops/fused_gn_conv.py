@@ -11,9 +11,11 @@ tap reads 0, not SiLU(shift). w is cast to x's dtype, b is added in fp32.
 `GN_CONV_IMPL=pallas` (read at import, as in JAX; `gn_conv_impl()`) makes
 the UNet's resblocks send each `conv(silu(gn(x)))` that `supported` accepts
 here (`models.unet2d._gn_silu_conv`). A CPU tensor goes to
-`gn_silu_conv3x3_plain`; a CUDA tensor goes to the kernel
-(csrc/gn_conv.cu) or raises. The wrapper adds one to
-`LAUNCHES["gn_silu_conv3x3"]` where it launches the kernel, and nowhere else.
+`gn_silu_conv3x3_plain`; a CUDA tensor goes to the kernel (csrc/gn_conv.cu:
+`gn_silu_conv3x3` for bf16 x and weight, `gn_silu_conv3x3_f32` for fp32
+ones, as JAX's kernel keeps its slab in x's dtype) or raises. The wrapper
+adds one to `LAUNCHES[name]` where it launches kernel `name`, and nowhere
+else.
 
 When a gradient is taken through any operand, `GNSiLUConv3x3` runs the
 kernel forward and recomputes the backward with autograd through the plain
@@ -36,11 +38,11 @@ from .fused_gn import check_stats_operands, group_scale_shift, recompute_grads, 
 _IMPL = os.environ.get("GN_CONV_IMPL", "xla")  # xla | pallas
 _MAX_C = 640
 _ROWS_PER_CHUNK = int(os.environ.get("GN_CONV_ROWS", "8"))  # image rows / chunk
-# the kernel's tile: 128 output pixels (a power-of-two width TW ≤ 128 of
-# 128 / TW image rows) by 64 output channels
-_TILE_PIXELS = 128
-LAUNCHES = {"gn_silu_conv3x3": 0}
-_fn = None
+# the kernels' tiles of output pixels: a power-of-two width TW of
+# pixels / TW image rows
+_TILE_PIXELS = {"gn_silu_conv3x3": 128, "gn_silu_conv3x3_f32": 64}
+LAUNCHES = {"gn_silu_conv3x3": 0, "gn_silu_conv3x3_f32": 0}
+_fns: dict = {}
 
 
 def gn_conv_impl() -> str:
@@ -101,31 +103,33 @@ def _reference(x, gamma, beta, weight, bias, num_groups, eps):
     return y.permute(0, 2, 3, 1)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.kernel("gn_silu_conv3x3")
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _build.kernel(name)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def tile_width(w: int) -> int:
-    """The kernel's tile width: the power of two ≥ W, at most 128."""
-    return min(_TILE_PIXELS, 1 << max(0, (w - 1).bit_length()))
+    """The kernels' tile width: the power of two ≥ W, in [2, 64] (the bf16
+    kernel's shared memory holds the halo of 128 pixels at these widths)."""
+    return min(64, max(2, 1 << max(0, (w - 1).bit_length())))
 
 
 def _forward(x, gamma, beta, weight, bias, num_groups, eps):
     if not x.is_cuda:
         return gn_silu_conv3x3_plain(x, gamma, beta, weight, bias, num_groups, eps)
-    check_stats_operands(x, gamma, beta, num_groups, (torch.bfloat16,), "gn_silu_conv3x3")
+    check_stats_operands(x, gamma, beta, num_groups, (torch.bfloat16, torch.float32), "gn_silu_conv3x3")
+    name = "gn_silu_conv3x3_f32" if x.dtype == torch.float32 else "gn_silu_conv3x3"
     n, h, w, cin = x.shape
     cout = weight.shape[0]
-    if weight.dtype != torch.bfloat16 or weight.shape != (cout, cin, 3, 3) \
+    if weight.dtype != x.dtype or weight.shape != (cout, cin, 3, 3) \
             or not weight.is_contiguous(memory_format=torch.channels_last) or weight.data_ptr() % 16:
-        raise ValueError("gn_silu_conv3x3 takes a bf16 (Cout, Cin, 3, 3) weight stored channels_last, "
+        raise ValueError(f"{name} takes a (Cout, Cin, 3, 3) weight of x's dtype ({x.dtype}) stored channels_last, "
                          f"got {weight.dtype} {tuple(weight.shape)} strides {weight.stride()}")
     if bias.shape != (cout,) or bias.dtype not in (torch.float32, torch.bfloat16) or not bias.is_contiguous():
         raise ValueError("gn_silu_conv3x3 takes a contiguous fp32 or bf16 (Cout,) bias")
@@ -133,8 +137,9 @@ def _forward(x, gamma, beta, weight, bias, num_groups, eps):
         raise ValueError("gn_silu_conv3x3: every tensor must lie on one CUDA device")
     if cout % 8:
         raise ValueError(f"gn_silu_conv3x3 takes Cout % 8 == 0, got {cout}")
+    pixels = _TILE_PIXELS[name]
     tw = tile_width(w)
-    tiles = n * -(-h // (_TILE_PIXELS // tw)) * -(-w // tw)
+    tiles = n * -(-h // (pixels // tw)) * -(-w // tw)
     if tiles > 65535 or n * h * w * max(cin, cout) > 2**31 - 1:
         raise ValueError(f"gn_silu_conv3x3: {tuple(x.shape)} exceeds the kernel's grid or int32 indexing")
     x = x.contiguous()
@@ -143,14 +148,14 @@ def _forward(x, gamma, beta, weight, bias, num_groups, eps):
     part = torch.empty(2 * n * chunks * cin, dtype=torch.float32, device=x.device)
     affine = torch.empty(2 * n * cin, dtype=torch.float32, device=x.device)
     if y.numel():
-        err = _kernel()(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        err = _kernel(name)(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                         y.data_ptr(), part.data_ptr(), affine.data_ptr(), n, h, w, cin, cout, num_groups,
                         float(eps), rows, chunks, int(gamma.dtype == torch.bfloat16),
                         int(bias.dtype == torch.bfloat16), tw.bit_length() - 1,
                         torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"gn_silu_conv3x3 launch failed: CUDA error {err}")
-        LAUNCHES["gn_silu_conv3x3"] += 1
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        LAUNCHES[name] += 1
     return y
 
 

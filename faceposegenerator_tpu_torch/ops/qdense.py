@@ -10,8 +10,9 @@ with q int8 (N, K), s fp32 (N,), int32 accumulation, round half to even,
 codes clipped to ±127 and the result rounded once to x's dtype.
 `qdense_kernel` takes (..., K) and flattens the leading dimensions. A CPU
 tensor goes to `qdense_plain`; a CUDA tensor goes to the kernel
-(csrc/qdense.cu) or raises. The wrapper adds one to
-`LAUNCHES["qdense"]` where it launches the kernel, and nowhere else.
+(csrc/qdense.cu: `qdense` for bf16 x, `qdense_f32` for fp32 x, as JAX's
+kernel quantizes any x and writes x's dtype) or raises. The wrapper adds one
+to `LAUNCHES[name]` where it launches kernel `name`, and nowhere else.
 """
 
 from __future__ import annotations
@@ -24,9 +25,9 @@ import torch
 
 from . import _build
 
-LAUNCHES = {"qdense": 0}
+LAUNCHES = {"qdense": 0, "qdense_f32": 0}
 _EPS = 1e-8
-_fn = None
+_fns: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -65,15 +66,15 @@ def qdense_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, a: Optional[
     return y.to(x.dtype)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.kernel("qdense")
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _build.kernel(name)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def qdense_kernel(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, a: Optional[float] = None) -> torch.Tensor:
@@ -82,8 +83,9 @@ def qdense_kernel(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, a: Optional
     if not x.is_cuda:
         return qdense_plain(x, q, s, a)
     K, N = x.shape[-1], q.shape[0]
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"qdense takes bf16 activations on the card, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"qdense takes bf16 or fp32 activations on the card, got {x.dtype}")
+    name = "qdense_f32" if x.dtype == torch.float32 else "qdense"
     if q.dtype != torch.int8 or q.shape != (N, K) or not q.is_contiguous():
         raise ValueError(f"qdense takes a contiguous int8 (N, K) weight, got {q.dtype} {tuple(q.shape)}")
     if s.dtype != torch.float32 or s.shape != (N,) or not s.is_contiguous():
@@ -102,10 +104,10 @@ def qdense_kernel(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, a: Optional
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     sx = torch.empty((M,), dtype=torch.float32, device=x.device) if a is None else None
     if M:
-        err = _kernel()(xm.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
+        err = _kernel(name)(xm.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
                         None if sx is None else sx.data_ptr(), M, N, K,
                         0.0 if a is None else float(a), torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"qdense launch failed: CUDA error {err}")
-        LAUNCHES["qdense"] += 1
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        LAUNCHES[name] += 1
     return y.reshape(*lead, N)

@@ -36,6 +36,7 @@ CATEGORIES = [  # first match wins; matched against the kernel's name
     ("int8 attention K8 (flash_int8)", r"flash_int8"),
     ("attention K1 (flash_fwd_d64)", r"flash_fwd_d64"),
     ("attention K2 (flash_fwd_wide)", r"flash_fwd_wide"),
+    ("attention fp32 (flash_fwd_f32)", r"flash_fwd_f32"),
     ("GroupNorm+SiLU K3 (fused_group_norm)", r"gn_k3_"),
     ("GN+SiLU→conv3x3 K4 (gn_silu_conv3x3)", r"gn_k4_"),
     ("convolution", r"conv|fprop|implicit|winograd|nchw|nhwc"),

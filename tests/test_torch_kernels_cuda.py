@@ -10,6 +10,11 @@ their max abs (a key's dk and dv sum over every query, so they grow with
 Sq/Skv); the log-sum-exp within 1e-3. K7 (qdense) makes the same codes as
 its plain version, so each output is within 1 bf16 ulp plus 1e-3 relative of
 it; K8 (flash_int8) within 2e-2 max and 2e-3 mean of its plain version.
+The fp32 instances (flash_*_f32, gn_silu_conv3x3_f32) compute in fp32
+(FFMA): outputs within 1e-4 of the output's max abs and a mean abs error
+within 1e-5 of it, the log-sum-exp within 1e-5, gradients the same relative
+to their max abs; qdense_f32 and flash_int8_f32 make their plain versions'
+codes, so each output is within 1 fp32 ulp + 1e-3 relative of the plain one.
 K3 (fused_group_norm) makes the same fp32 statistics as its plain version in
 another order: each output within 1 ulp of its dtype + 1e-3 relative + 1e-5
 of the output's max abs (the order moves outputs near 0 by ~1e-6 of the
@@ -45,24 +50,34 @@ def _close(out, ref, max_err=2e-2, mean_err=2e-3, relative=False):
     assert err.max().item() <= max_err * n and err.mean().item() <= mean_err * n, (err.max().item(), err.mean().item(), n)
 
 
+def _close32(out, ref, max_err=1e-4, mean_err=1e-5):
+    """The fp32 gate: max and mean abs err within max_err and mean_err of
+    the output's max abs."""
+    assert out.dtype == torch.float32
+    _close(out, ref, max_err, mean_err, relative=True)
+
+
 def _same_codes(out, ref, mean_err=1e-4):
-    """K7 and K8 make their plain versions' codes: each output within 1 bf16
-    ulp + 1e-3 relative of the plain one, and the mean abs err within
-    `mean_err`."""
+    """K7 and K8 make their plain versions' codes: each output within 1 ulp
+    of its dtype (bf16 or fp32) + 1e-3 relative of the plain one, and the
+    mean abs err within `mean_err`."""
+    bits = 24 if out.dtype == torch.float32 else 8
     ref = ref.float()
     err = (out.float() - ref).abs()
-    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref.abs().clamp_min(2.0**-126))[1] - 8)
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref.abs().clamp_min(2.0**-126))[1] - bits)
     assert (err <= ulp + 1e-3 * ref.abs()).all() and err.mean().item() <= mean_err, (err.max().item(), err.mean().item())
 
 
+FWD_CASES = [  # (b, sq, skv, h, d, kv_len)
+    (2, 200, 200, 5, 64, None), (2, 130, 77, 3, 64, None), (1, 64, 128, 2, 64, 77),
+    (2, 100, 100, 1, 512, None), (1, 64, 96, 2, 128, 50),
+    # K1: kv_len inside the first 128-key tile; Sq = 64 (half a CTA idle) and a ragged Sq = 200
+    (1, 64, 128, 2, 64, 50), (2, 64, 64, 4, 64, None), (2, 200, 333, 3, 64, 300),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "b,sq,skv,h,d,kv_len",
-    [(2, 200, 200, 5, 64, None), (2, 130, 77, 3, 64, None), (1, 64, 128, 2, 64, 77),
-     (2, 100, 100, 1, 512, None), (1, 64, 96, 2, 128, 50),
-     # K1: kv_len inside the first 128-key tile; Sq = 64 (half a CTA idle) and a ragged Sq = 200
-     (1, 64, 128, 2, 64, 50), (2, 64, 64, 4, 64, None), (2, 200, 333, 3, 64, 300)],
-)
+@pytest.mark.parametrize("b,sq,skv,h,d,kv_len", FWD_CASES)
 def test_cuda_kernels_match_plain(b, sq, skv, h, d, kv_len):
     _card()
     q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in _qkv(7, b, sq, skv, h, d))
@@ -77,13 +92,70 @@ def test_cuda_kernels_match_plain(b, sq, skv, h, d, kv_len):
 
 @pytest.mark.cuda
 def test_cuda_rejects_what_no_kernel_takes():
+    """fp32 computes on the fp32 kernels; what JAX's flash_supported refuses
+    (fp16, head dim 96) raises under impl="flash" and is the plain einsum
+    under impl="auto", decided before any launch."""
     _card()
-    q = torch.zeros(1, 8, 2, 64, device="cuda")  # fp32: no kernel takes it
-    with pytest.raises(ValueError):
-        dot_product_attention(q, q, q)
-    q = torch.zeros(1, 8, 2, 96, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        dot_product_attention(q, q, q)
+    q = torch.randn(1, 8, 2, 64, device="cuda")
+    fa.reset_launch_counts()
+    out = dot_product_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd_f32"] == 1 and out.dtype == torch.float32
+    _close32(out, fa.attention_plain(q, q, q, 0.125))
+    for q in (torch.randn(1, 8, 2, 64, device="cuda").half(),
+              torch.randn(1, 8, 2, 96, device="cuda", dtype=torch.bfloat16)):
+        with pytest.raises(ValueError):
+            dot_product_attention(q, q, q, impl="flash")
+        fa.reset_launch_counts()
+        out = dot_product_attention(q, q, q)
+        assert not any(fa.LAUNCHES.values())
+        assert torch.equal(out, fa.attention_plain(q, q, q, q.shape[-1] ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d,kv_len", FWD_CASES + [(1, 100, 77, 2, 256, None), (1, 70, 90, 1, 384, 80)])
+def test_cuda_f32_forward_matches_plain(b, sq, skv, h, d, kv_len):
+    """flash_fwd_f32 through dot_product_attention and with the log-sum-exp."""
+    _card()
+    q, k, v = (torch.from_numpy(a).cuda() for a in _qkv(8, b, sq, skv, h, d))
+    fa.reset_launch_counts()
+    out = dot_product_attention(q, k, v, kv_len=kv_len)
+    o, lse = fa.flash_fwd_f32(q, k, v, d**-0.5, kv_len, with_lse=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd_f32"] == 2 and sum(fa.LAUNCHES.values()) == 2
+    ref, ref_lse = fa.attention_plain_lse(q, k, v, d**-0.5, kv_len)
+    _close32(out, ref)
+    _close32(o, ref)
+    assert (lse - ref_lse).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d,kv_len", [(2, 200, 200, 5, 64, None), (1, 130, 128, 2, 64, 77),
+                                                 (2, 64, 77, 3, 64, None), (1, 100, 100, 1, 512, None),
+                                                 (1, 64, 96, 2, 128, 50), (2, 200, 77, 3, 64, None),
+                                                 (1, 90, 70, 2, 256, None)])
+def test_cuda_f32_backward_matches_plain(b, sq, skv, h, d, kv_len):
+    """The fp32 dK/dV and dQ passes on the fp32 forward's o and lse, through
+    FlashAttention and alone; keys at >= kv_end get zero gradients."""
+    _card()
+    q, k, v = (torch.from_numpy(a).cuda().requires_grad_() for a in _qkv(5, b, sq, skv, h, d))
+    do = torch.from_numpy(np.random.default_rng(6).standard_normal((b, sq, h, d)).astype(np.float32)).cuda()
+    fa.reset_launch_counts()
+    out = dot_product_attention(q, k, v, kv_len=kv_len)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in fa.LAUNCHES.items() if c} == {
+        "flash_fwd_f32": 1, "flash_bwd_f32_dkv": 1, "flash_bwd_f32_dq": 1}
+    q, k, v = (t.detach() for t in (q, k, v))
+    o, lse = fa.attention_plain_lse(q, k, v, d**-0.5, kv_len)
+    refs = fa.attention_bwd_plain(q, k, v, o, lse, do, d**-0.5, kv_len)
+    for g, r in zip(grads, refs):
+        _close32(g, r)
+    alone = fa.flash_bwd_f32(q, k, v, o, lse, do, d**-0.5, kv_len)
+    for g, r in zip(alone, refs):
+        _close32(g, r)
+    if kv_len is not None:
+        assert grads[1][:, kv_len:].abs().max().item() == 0.0 and grads[2][:, kv_len:].abs().max().item() == 0.0
 
 
 BWD_CASES = [  # (b, sq, skv, h, d, kv_len): small and ragged, then a train shape of each kernel
@@ -136,9 +208,8 @@ def test_cuda_autograd_goes_through_the_kernels():
     out = dot_product_attention(q, k, v)
     out.float().square().sum().backward()
     torch.cuda.synchronize()
-    assert fa.LAUNCHES == {"flash_fwd_d64": 1, "flash_fwd_wide": 0, "flash_bwd_d64_dkv": 1,
-                           "flash_bwd_d64_dq": 1, "flash_bwd_wide_dkv": 0, "flash_bwd_wide_dq": 0,
-                           "flash_int8": 0}
+    assert {n: c for n, c in fa.LAUNCHES.items() if c} == {"flash_fwd_d64": 1, "flash_bwd_d64_dkv": 1,
+                                                          "flash_bwd_d64_dq": 1}
     ref_in = qkv.detach().float().requires_grad_()
     rq, rk, rv = ref_in.unbind(2)
     fa.attention_plain(rq, rk, rv, 0.125).square().sum().backward()
@@ -242,7 +313,23 @@ def test_cuda_qdense_rejects_what_the_kernel_does_not_take():
         qd.qdense_kernel(torch.randn(8, 48, device="cuda", dtype=torch.bfloat16), qw.q, qw.s)
     qw = quantize_weight(torch.randn(64, 64, device="cuda"))
     with pytest.raises(ValueError, match="bf16"):
-        qd.qdense_kernel(torch.randn(8, 64, device="cuda"), qw.q, qw.s)
+        qd.qdense_kernel(torch.randn(8, 64, device="cuda").half(), qw.q, qw.s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,k,n,static", QDENSE_CASES)
+def test_cuda_qdense_f32_matches_plain(lead, k, n, static):
+    _card()
+    rng = np.random.default_rng(k + n + 1)
+    x = torch.from_numpy(rng.standard_normal((*lead, k)).astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32) * k**-0.5).cuda()
+    qw = quantize_weight(w)
+    a = float(x.abs().amax()) / 127.0 if static else None
+    qd.reset_launch_counts()
+    out = qd.qdense_kernel(x, qw.q, qw.s, a)
+    torch.cuda.synchronize()
+    assert qd.LAUNCHES == {"qdense": 0, "qdense_f32": 1} and out.shape == (*lead, n)
+    _same_codes(out, qd.qdense_plain(x, qw.q, qw.s, a))
 
 
 INT8_CASES = [  # (b, sq, skv, h, kv_len): odd heads, ragged tiles, masked keys, the UNet's largest
@@ -268,6 +355,18 @@ def test_cuda_flash_int8_matches_plain(b, sq, skv, h, kv_len):
     out = fa.flash_attention_int8(q, k, v, 0.125, kv_len)
     exact = fa.attention_plain(q.float(), k.float(), v.float(), 0.125, kv_len)
     assert ((out.float() - exact).norm() / exact.norm()).item() < 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kv_len", INT8_CASES)
+def test_cuda_flash_int8_f32_matches_plain(b, sq, skv, h, kv_len):
+    _card()
+    q, k, v = (torch.from_numpy(a).cuda() for a in _qkv(13, b, sq, skv, h, 64))
+    fa.reset_launch_counts()
+    out = dot_product_attention(q, k, v, kv_len=kv_len, impl="flash_int8")
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_int8_f32"] == 1 and sum(fa.LAUNCHES.values()) == 1 and out.dtype == torch.float32
+    _same_codes(out, fa.attention_int8_plain(q, k, v, 0.125, kv_len))
 
 
 @pytest.mark.cuda
@@ -352,6 +451,58 @@ def test_cuda_gn_silu_conv3x3_matches_plain(shape, cout, groups):
     assert out.shape == (*shape[:3], cout)
     ref = fgc.gn_silu_conv3x3_plain(x, gamma, beta, conv.weight, conv.bias, groups)
     assert _within_ulp(out, ref, 0.0, 1e-3) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,groups", CONV_CASES)
+def test_cuda_gn_silu_conv3x3_f32_matches_plain(shape, cout, groups):
+    _card()
+    x, gamma, beta, conv = _conv_case(sum(shape) + cout + 1, shape, cout)
+    x, conv = x.float(), conv.float()
+    conv.weight.data = conv.weight.data.contiguous(memory_format=torch.channels_last)
+    fgc.reset_launch_counts()
+    out = fgc.gn_silu_conv3x3(x, gamma, beta, conv, groups)
+    torch.cuda.synchronize()
+    assert fgc.LAUNCHES == {"gn_silu_conv3x3": 0, "gn_silu_conv3x3_f32": 1} and out.shape == (*shape[:3], cout)
+    _close32(out, fgc.gn_silu_conv3x3_plain(x, gamma, beta, conv.weight, conv.bias, groups))
+
+
+@pytest.mark.cuda
+def test_cuda_gn_silu_conv3x3_is_deterministic():
+    """Two calls on the same inputs give the same bits (the statistics fold
+    in a fixed order; no atomics anywhere)."""
+    _card()
+    x, gamma, beta, conv = _conv_case(9, (2, 64, 64, 320), 320)
+    first = fgc.gn_silu_conv3x3(x, gamma, beta, conv, 32)
+    assert torch.equal(first, fgc.gn_silu_conv3x3(x, gamma, beta, conv, 32))
+
+
+@pytest.mark.cuda
+def test_cuda_from_random_runs_at_its_default_dtype():
+    """StableDiffusionPipeline.from_random() with no dtype is fp32: on a
+    tiny config its attention runs the fp32 kernel (UNet head dim 64, the
+    VAE's 128-wide head), and the images match the plain-attention route."""
+    _card()
+    from faceposegenerator_tpu_torch.diffusion.sampler import SamplerModels
+    from faceposegenerator_tpu_torch.models import clip_text, unet2d, vae
+    from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+
+    models = SamplerModels(
+        text_cfg=clip_text.CLIPTextConfig(vocab_size=1000, hidden_size=64, num_layers=2, num_heads=4,
+                                          intermediate_size=256),
+        unet_cfg=unet2d.UNetConfig(block_out_channels=(64, 128, 128, 128), cross_attention_dim=64, head_dim=64),
+        vae_cfg=vae.VAEConfig(block_out_channels=(128, 128, 128, 128)))
+    pipe = StableDiffusionPipeline.from_random(seed=0, models=models)
+    assert pipe.nets["unet"].conv_in.weight.dtype == torch.float32
+    ids = torch.randint(0, 1000, (2, 77), generator=torch.Generator().manual_seed(0))
+    fa.reset_launch_counts()
+    img = pipe(input_ids=ids, num_inference_steps=2, height=64, width=64, seed=3)
+    assert fa.LAUNCHES["flash_fwd_f32"] > 0 and fa.LAUNCHES["flash_fwd_d64"] == fa.LAUNCHES["flash_fwd_wide"] == 0
+    assert img.shape == (2, 64, 64, 3) and np.isfinite(img).all()
+    plain = StableDiffusionPipeline(pipe.nets, SamplerModels(models.text_cfg, models.unet_cfg, models.vae_cfg,
+                                                             attn_impl="reference"))
+    want = plain(input_ids=ids, num_inference_steps=2, height=64, width=64, seed=3)
+    assert np.abs(img - want).max() <= 1e-3
 
 
 @pytest.mark.cuda

@@ -106,10 +106,21 @@ def test_cpu_tensors_never_count_launches():
     x = torch.randn(2, 4, 4, 32, requires_grad=True)
     fg.fused_group_norm(x, torch.ones(32), torch.zeros(32), 8, 1e-6, "silu").sum().backward()
     fgc.gn_silu_conv3x3(x, torch.ones(32), torch.zeros(32), torch.nn.Conv2d(32, 16, 3, padding=1), 8).sum().backward()
+    # the fp32 instances, on fp32 CPU tensors
+    x32 = torch.randn(1, 64, 2, 64, requires_grad=True)
+    dot_product_attention(x32, x32, x32).sum().backward()
+    fa.flash_fwd_f32(q, q, q, 0.125, with_lse=True)
+    fa.flash_bwd_f32(q, q, q, o, lse, o, 0.125)
+    fa.flash_attention_int8(q, q, q, 0.125)
+    qd.qdense_kernel(torch.randn(3, 64), torch.ones(8, 64, dtype=torch.int8), torch.ones(8), 0.1)
+    fgc.gn_silu_conv3x3(torch.randn(1, 4, 4, 32), torch.ones(32), torch.zeros(32),
+                        torch.nn.Conv2d(32, 16, 3, padding=1), 8)
     assert set(fa.LAUNCHES) == {"flash_fwd_d64", "flash_fwd_wide", "flash_bwd_d64_dkv", "flash_bwd_d64_dq",
-                                "flash_bwd_wide_dkv", "flash_bwd_wide_dq", "flash_int8"}
-    assert all(n == 0 for n in fa.LAUNCHES.values()) and qd.LAUNCHES == {"qdense": 0}
-    assert fg.LAUNCHES == {"fused_group_norm": 0} and fgc.LAUNCHES == {"gn_silu_conv3x3": 0}
+                                "flash_bwd_wide_dkv", "flash_bwd_wide_dq", "flash_int8", "flash_fwd_f32",
+                                "flash_bwd_f32_dkv", "flash_bwd_f32_dq", "flash_int8_f32"}
+    assert all(n == 0 for n in fa.LAUNCHES.values()) and qd.LAUNCHES == {"qdense": 0, "qdense_f32": 0}
+    assert fg.LAUNCHES == {"fused_group_norm": 0}
+    assert fgc.LAUNCHES == {"gn_silu_conv3x3": 0, "gn_silu_conv3x3_f32": 0}
 
 
 def test_every_cuda_source_has_a_counted_kernel_in_chip_smoke():
@@ -127,6 +138,38 @@ def test_every_cuda_source_has_a_counted_kernel_in_chip_smoke():
     for name, where in chip_smoke.REPLACES.items():
         path, line = where.split(":")
         assert "pallas_call" in (REPO / path).read_text() and int(line) > 0, name
+
+
+def test_chip_smoke_kernels_line_names_every_counted_kernel():
+    """chip_smoke.py's kernels line has one entry per counted kernel, the
+    fp32 instances included, each with the contract's keys and its launch
+    count from the main paths (rows made up here; the card fills them)."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "tflops", "max_abs_err", "lse_max_err", "dkv_ms", "dq_ms",
+            "pair_ms", "pair_bound_ms", "dkv_bound_ms", "dq_bound_ms", "dkv_tflops", "dq_tflops", "int_mm_ms",
+            "bf16_linear_ms", "f32_linear_ms", "k1_ms", "f32_ms", "sdpa_ms")
+
+    def row(kernel, **kw):
+        return dict({k: 1.0 for k in keys}, kernel=kernel, shape="s", B=1, N=1, M=1, K=1, mode="static",
+                    bound_by="operations", dkv_bound_by="operations", dq_bound_by="operations",
+                    dq_err=[1.0, 0.1], dk_err=[1.0, 0.1], dv_err=[1.0, 0.1], **kw)
+
+    f32 = {"fwd": [row("flash_fwd_f32")], "tf32": [1.0, 0.1, 1.0], "bwd": [row("flash_bwd_f32")],
+           "conv": [row("gn_silu_conv3x3_f32")], "qdense": [row("qdense_f32")], "int8": [row("flash_int8_f32")]}
+    launches = {name: i + 1 for i, name in enumerate(chip_smoke.REPLACES)}
+    entries = chip_smoke._kernel_entries(
+        [row("flash_fwd_d64"), row("flash_fwd_wide")], [row("flash_bwd_d64"), row("flash_bwd_wide")],
+        [row("qdense")], [row("flash_int8")], [row("fused_group_norm")], [row("gn_silu_conv3x3")], f32, launches, {})
+    assert sorted(e["name"] for e in entries) == sorted(chip_smoke.REPLACES)
+    contract = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms"}
+    for e in entries:
+        assert contract <= set(e) and e["launches"] == launches[e["name"]], e
+        assert e["source"] == f"faceposegenerator_tpu_torch/csrc/{_build.SOURCE_OF[e['name']]}.cu"
 
 
 def test_kernels_build_without_fast_math():
