@@ -6,8 +6,10 @@ Phases, in order; any failure exits non-zero without the final result line:
   1. environment: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: every kernel under faceposegenerator_tpu_torch/csrc, with nvcc,
      and what ptxas reported for each kernel function (registers, spill
-     bytes, any "Performance Loss" line; K1's and K5's registers and spills
-     also go into their entries of the kernels line);
+     bytes, any "Performance Loss" line; the wgmma kernels' registers and
+     spills also go into their entries of the kernels line), and the count
+     of HGMMA instructions, and of those with TF32 operands, in each fp32
+     attention kernel (`cuobjdump -sass`; into their entries too);
   3. kernels against plain: each kernel at every shape the main paths give
      it, bf16 unit-normal inputs from a seed, against its plain PyTorch
      version in fp32 on the same inputs (max abs err <= 2e-2, mean <= 2e-3;
@@ -78,16 +80,20 @@ Phases, in order; any failure exits non-zero without the final result line:
      backward recomputes K3 and K4's functions in plain torch), moving the
      LoRA and leaving the frozen weights untouched;
  11. fp32: with TF32 off, each fp32 instance against its plain version in
-     fp32: flash_fwd_f32 (csrc/flash_f32.cu) at every sampling shape and,
-     with the log-sum-exp, every train shape (max abs err within 1e-4 and
-     mean within 1e-5 of the output's max abs, the LSE within 1e-5), one
-     more row where attention with TF32 allowed must miss that gate;
-     flash_bwd_f32_dkv/_dq at the train shapes (each gradient relative to
-     its max abs); gn_silu_conv3x3_f32 at the fused request's conv shapes;
-     qdense_f32 and flash_int8_f32 (the same codes: 1 fp32 ulp + 1e-3
-     relative) at the turbo shapes; each timed beside its plain version,
-     the fp32 (or int8) bound and a yardstick the port never calls (SDPA on
-     fp32 tensors, cuDNN's fp32 conv, torch._int_mm and fp32 F.linear).
+     fp32: flash_fwd_f32 (csrc/flash_f32.cu, 3xTF32 on the tensor cores) at
+     every sampling shape and, with the log-sum-exp, every train shape (max
+     abs err within 1e-4 and mean within 1e-5 of the output's max abs, the
+     LSE within 1e-5), one more row where attention with TF32 allowed must
+     miss that gate; flash_bwd_f32_dkv/_dq at the train shapes (each
+     gradient relative to its max abs); their split pre-pass
+     flash_f32_split at the main path's shapes (bit-exact against
+     f32_split_plain); gn_silu_conv3x3_f32 at the fused request's conv
+     shapes; qdense_f32 and flash_int8_f32 (the same codes: 1 fp32 ulp +
+     1e-3 relative) at the turbo shapes; each timed beside its plain
+     version, its bound (fp32 attention and K4 fp32: 3 × operations / the
+     TF32 peak, "bound_basis": "3xTF32"; the split: bytes; K7/K8 fp32:
+     int8) and a yardstick the port never calls (SDPA on fp32 tensors,
+     cuDNN's fp32 conv, torch._int_mm and fp32 F.linear).
      Then StableDiffusionPipeline.from_random() with no dtype (fp32 weights
      and compute) at SD2.1-base widths with a rank-4 LoRA: its kernel path
      against its plain-attention path on 2×128² (image diff max 1e-3, mean
@@ -95,11 +101,12 @@ Phases, in order; any failure exits non-zero without the final result line:
      fp32 instances) and, after the requests, its w8a8 + flash_int8 routes
      against their plain versions (qdense_f32, flash_int8_f32; 1e-1, 1e-2);
      2 requests at batch 8, 512², 10 DDPM steps, CFG 5.0, each launching
-     flash_fwd_f32 exactly 321 times and no bf16 kernel; and the train op
-     point with fp32 frozen weights and policy: one loss and LoRA gradient at
-     2(+2)×128² against the plain-attention path (loss within 1e-4
-     relative, cosine >= 0.9999) launching flash_fwd_f32 34 and each fp32
-     backward pass 33 times.
+     flash_fwd_f32 and flash_f32_split exactly 321 times each and no bf16
+     kernel; and the train op point with fp32 frozen weights and policy:
+     one loss and LoRA gradient at 2(+2)×128² against the plain-attention
+     path (loss within 1e-4 relative, cosine >= 0.9999) launching
+     flash_fwd_f32 34, each fp32 backward pass 33 and flash_f32_split 67
+     times.
 Phases 3-7 run the default configuration (GN_IMPL and GN_CONV_IMPL at xla)
 whatever the environment says. The line before the last is a JSON object
 with one entry per kernel; the last is {"ok": true, "device": {...}}.
@@ -159,10 +166,12 @@ QDENSE_SHAPES = [
 # (name, B, H, Sq, Skv, D) of the UNet's attention on the CFG batch
 INT8_SHAPES = [s[:6] for s in SHAPES if s[5] == 64]
 LAST_TILE_MAX = "self L0, max in the last tile"
-# dense bf16 tensor-core FLOP/s, int8 tensor-core OP/s, memory bytes/s and
-# fp32 FLOP/s outside the tensor cores, from NVIDIA's data sheets
-PEAKS = {"H100 PCIe": (756e12, 1513e12, 2.0e12, 51e12), "H100 NVL": (835e12, 1671e12, 3.9e12, 60e12),
-         "H100": (989e12, 1979e12, 3.35e12, 67e12)}
+# dense bf16 tensor-core FLOP/s, int8 tensor-core OP/s, memory bytes/s, fp32
+# FLOP/s outside the tensor cores and dense TF32 tensor-core FLOP/s, from
+# NVIDIA's data sheets
+PEAKS = {"H100 PCIe": (756e12, 1513e12, 2.0e12, 51e12, 378e12),
+         "H100 NVL": (835e12, 1671e12, 3.9e12, 60e12, 417.5e12),
+         "H100": (989e12, 1979e12, 3.35e12, 67e12, 495e12)}
 TURBO_CALIB_LAUNCHES = {"qdense": 1280}
 TURBO_LAUNCHES = {"auto": {"qdense": 1040, "flash_fwd_d64": 208, "flash_fwd_wide": 1},
                   "flash_int8": {"qdense": 1040, "flash_int8": 208, "flash_fwd_wide": 1}}
@@ -186,6 +195,8 @@ REPLACES = {
     "flash_int8_f32": "faceposegenerator_tpu/ops/flash_attention.py:1108",
     "qdense_f32": "faceposegenerator_tpu/ops/quant_pallas.py:47",
     "gn_silu_conv3x3_f32": "faceposegenerator_tpu/ops/fused_gn_conv.py:92",
+    # the fp32 attention's tf32 hi/lo pre-pass, part of the fp32 instance of K1/K2 and K5/K6
+    "flash_f32_split": "faceposegenerator_tpu/ops/flash_attention.py:258",
 }
 # K3 and K4 round where their plain versions round. K3 sums its statistics
 # in another order, which moves an output near 0 by ~1e-6 of the largest:
@@ -231,8 +242,9 @@ CONV_SHAPES = [
 ]
 CONV_TRAIN_SHAPES = [(label, 8, h, w, cin, cout, per // 30) for label, _, h, w, cin, cout, per in CONV_SHAPES]
 BORDER = "L0 320→320, beta + 3"
-# The fp32 instances compute in fp32 (FFMA) and are held to their plain
-# versions in fp32 with TF32 off: max abs err within F32_MAX_ERR and mean
+# The fp32 instances (attention in 3xTF32 on the tensor cores, the rest in
+# fp32 FFMA or exact int8) are held to their plain versions in fp32 with
+# TF32 off: max abs err within F32_MAX_ERR and mean
 # abs err within F32_MEAN_ERR of the output's max abs (each gradient's, for
 # the backward), the log-sum-exp within F32_LSE_ERR; TF32 attention must miss
 # that gate. qdense_f32 and flash_int8_f32 keep K7's and K8's gates with the
@@ -242,9 +254,22 @@ BORDER = "L0 320→320, beta + 3"
 F32_MAX_ERR, F32_MEAN_ERR, F32_LSE_ERR = 1e-4, 1e-5, 1e-5
 F32_IMG_MAX, F32_IMG_MEAN = 1e-3, 1e-4
 # per fp32 request (10 steps of 32 UNet attentions, the VAE's one) and per
-# fp32 loss and gradient at the train op point (as STEP_LAUNCHES)
-F32_REQUEST_LAUNCHES = {"flash_fwd_f32": 321}
-F32_TRAIN_LAUNCHES = {"flash_fwd_f32": 34, "flash_bwd_f32_dkv": 33, "flash_bwd_f32_dq": 33}
+# fp32 loss and gradient at the train op point (as STEP_LAUNCHES); every
+# fp32 attention forward and backward call splits its operands in one
+# flash_f32_split launch
+F32_REQUEST_LAUNCHES = {"flash_fwd_f32": 321, "flash_f32_split": 321}
+F32_TRAIN_LAUNCHES = {"flash_fwd_f32": 34, "flash_bwd_f32_dkv": 33, "flash_bwd_f32_dq": 33, "flash_f32_split": 67}
+# (name, B, H, S, D, jobs) of flash_f32_split at the fp32 main-path shapes:
+# the forward's q, k (natural) and v (transposed); the backward's q, k, v,
+# dO (natural), q, dO and k (transposed)
+F32_FWD_SPLIT = ((False, "q"), (False, "k"), (True, "v"))
+F32_BWD_SPLIT = ((False, "q"), (False, "k"), (False, "v"), (False, "do"), (True, "q"), (True, "do"), (True, "k"))
+SPLIT_SHAPES = [
+    ("fwd self L0", 16, 5, 4096, 64, F32_FWD_SPLIT),
+    ("fwd vae mid", 8, 1, 4096, 512, F32_FWD_SPLIT),
+    ("bwd self L0", 8, 5, 4096, 64, F32_BWD_SPLIT),
+    ("bwd vae decode mid", 4, 1, 4096, 512, F32_BWD_SPLIT),
+]
 FUSED_LAUNCHES = {"gn_silu_conv3x3": 480, "fused_group_norm": 371, "flash_fwd_d64": 960, "flash_fwd_wide": 1}
 FUSED_STEP_LAUNCHES = dict(STEP_LAUNCHES, gn_silu_conv3x3=16, fused_group_norm=33)
 
@@ -291,9 +316,17 @@ def _inputs(torch, g, b, h, sq, skv, d, dtype=None):
     return q, k, v
 
 
-def _bound(card, flops, nbytes, int8=False, fp32=False):
-    peak_bf16, peak_int8, peak_bw, peak_fp32 = peaks(card)
-    t_ops, t_bytes = flops / (peak_int8 if int8 else peak_fp32 if fp32 else peak_bf16), nbytes / peak_bw
+def _bound(card, flops, nbytes, int8=False, fp32=False, tf32x3=False):
+    """(ms, "operations" or "bytes"): the larger of flops over the peak of
+    their type and nbytes over the memory rate. fp32 work on the tensor
+    cores (`tf32x3`) counts three TF32 products per fp32 one: the least the
+    card needs for fp32 accuracy (the 3xTF32 bound)."""
+    peak_bf16, peak_int8, peak_bw, peak_fp32, peak_tf32 = peaks(card)
+    if tf32x3:
+        t_ops = 3.0 * flops / peak_tf32
+    else:
+        t_ops = flops / (peak_int8 if int8 else peak_fp32 if fp32 else peak_bf16)
+    t_bytes = nbytes / peak_bw
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -1181,9 +1214,10 @@ def check_f32_forward(torch, fa, card, shapes, with_lse=False, per="request"):
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), torch)
             flops = 4.0 * b * h * sq * skv * d
             bound_ms, bound_by = _bound(card, flops, 4.0 * b * h * d * (2 * sq + 2 * skv) + 4.0 * b * h * sq * with_lse,
-                                        fp32=True)
+                                        tf32x3=True)
             row = dict(kernel="flash_fwd_f32", shape=label, lse=with_lse, B=b, H=h, Sq=sq, Skv=skv, D=d, ms=ms,
                        plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       bound_basis="3xTF32",
                        tflops=flops / ms * 1e-9, max_abs_err=max_err, mean_abs_err=mean_err, out_max_abs=n,
                        lse_max_err=lse_err, **{f"launches_per_{per}": per_run})
             print("kernel " + json.dumps(row), flush=True)
@@ -1250,10 +1284,11 @@ def check_f32_backward(torch, fa, card, shapes):
             del out, qt, kt, vt
             unit = b * h * sq * skv * d
             io = 4.0 * b * h * d
-            pair_bound, pair_by = _bound(card, 10.0 * unit, io * (4 * sq + 4 * skv) + 8.0 * b * h * sq, fp32=True)
-            dkv_bound, dkv_by = _bound(card, 8.0 * unit, io * (2 * sq + 4 * skv) + 8.0 * b * h * sq, fp32=True)
-            dq_bound, dq_by = _bound(card, 6.0 * unit, io * (3 * sq + 2 * skv) + 8.0 * b * h * sq, fp32=True)
-            row = dict(kernel="flash_bwd_f32", shape=label, B=b, H=h, Sq=sq, Skv=skv, D=d, dkv_ms=ms["dkv"],
+            pair_bound, pair_by = _bound(card, 10.0 * unit, io * (4 * sq + 4 * skv) + 8.0 * b * h * sq, tf32x3=True)
+            dkv_bound, dkv_by = _bound(card, 8.0 * unit, io * (2 * sq + 4 * skv) + 8.0 * b * h * sq, tf32x3=True)
+            dq_bound, dq_by = _bound(card, 6.0 * unit, io * (3 * sq + 2 * skv) + 8.0 * b * h * sq, tf32x3=True)
+            row = dict(kernel="flash_bwd_f32", shape=label, B=b, H=h, Sq=sq, Skv=skv, D=d, bound_basis="3xTF32",
+                       dkv_ms=ms["dkv"],
                        dq_ms=ms["dq"], pair_ms=pair_ms, plain_ms=plain_ms, library_ms=library_ms,
                        pair_bound_ms=pair_bound, pair_bound_by=pair_by, dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by,
                        dq_bound_ms=dq_bound, dq_bound_by=dq_by, tflops=10.0 * unit / pair_ms * 1e-9,
@@ -1268,6 +1303,39 @@ def check_f32_backward(torch, fa, card, shapes):
                          f"(limits {F32_MAX_ERR} and {F32_MEAN_ERR} of it)")
             del q, k, v, o, lse, do
             torch.cuda.empty_cache()
+    return rows
+
+
+def check_f32_split(torch, fa, card, shapes=SPLIT_SHAPES):
+    """flash_f32_split at the fp32 attention's main-path shapes, one launch
+    with the forward's or the backward's jobs on strided views of a fused
+    q/k/v projection, against f32_split_plain, which it must match bit for
+    bit; timed beside it, with its bound: each input read once, each hi/lo
+    plane written once."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    rows = []
+    for label, b, h, s, d, jobs in shapes:
+        qkv = torch.randn(b, s, 3, h, d, generator=g, device="cuda")
+        src = dict(zip("qkv", qkv.unbind(2)), do=torch.randn(b, s, h, d, generator=g, device="cuda"))
+        specs = [(src[n], tr) for tr, n in jobs]
+        outs = fa.f32_split(specs)
+        torch.cuda.synchronize()
+        err = max((o - fa.f32_split_plain(t, tr)).abs().max().item() for o, (t, tr) in zip(outs, specs))
+        nbytes = 4.0 * sum(src[n].numel() for n in {n for _, n in jobs}) + 4.0 * sum(o.numel() for o in outs)
+        del outs
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: fa.f32_split(specs), torch)
+        plain_ms = time_ms(lambda: [fa.f32_split_plain(t, tr) for t, tr in specs], torch)
+        bound_ms, bound_by = _bound(card, 0.0, nbytes)
+        row = dict(kernel="flash_f32_split", shape=label, B=b, H=h, S=s, D=d, jobs=len(jobs), ms=ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   gb_per_s=nbytes / ms * 1e-6, max_abs_err=err)
+        print("kernel " + json.dumps(row), flush=True)
+        rows.append(row)
+        if err != 0.0:
+            fail(f"flash_f32_split at {label}: differs from f32_split_plain by {err}")
+        del qkv, src, specs
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1299,9 +1367,10 @@ def check_conv_f32(torch, card, shapes, per):
             m = n * h * w
             flops = 2.0 * m * cout * 9 * cin
             bound_ms, bound_by = _bound(card, flops, 4.0 * m * (cin + cout) + 36.0 * cin * cout + 4.0 * cout,
-                                        fp32=True)
+                                        tf32x3=True)
             row = dict(kernel="gn_silu_conv3x3_f32", shape=label, N=n, H=h, W=w, Cin=cin, Cout=cout, ms=ms,
                        plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       bound_basis="3xTF32",
                        tflops=flops / ms * 1e-9, max_abs_err=max_err, mean_abs_err=mean_err, out_max_abs=nmax,
                        **{f"launches_per_{per}": per_run})
             print("kernel " + json.dumps(row), flush=True)
@@ -1507,8 +1576,14 @@ def run_fp32_train(torch, card_line):
     return launches
 
 
-def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32, launches, ptxas):
+def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32, launches, ptxas, sass=None):
+    """The kernels line: one entry per counted kernel. `ptxas` holds each
+    wgmma or fp32 kernel function's registers and spills by instance;
+    `sass` its count of HGMMA instructions and of those with TF32 operands
+    in the built library."""
     from faceposegenerator_tpu_torch.ops._build import SOURCE_OF
+
+    sass = sass or {}
 
     sources = {name: f"faceposegenerator_tpu_torch/csrc/{src}.cu" for name, src in SOURCE_OF.items()}
     kernels = []
@@ -1529,7 +1604,15 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
         launches=launches["flash_fwd_f32"], max_abs_err=max(r["max_abs_err"] for r in f32["fwd"]), ms=top["ms"],
         plain_ms=top["plain_ms"], bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
         shape=f"{top['shape']} B{top['B']}", lse_max_err=max(r["lse_max_err"] or 0.0 for r in f32["fwd"]),
-        tflops=top["tflops"], tf32_err=f32["tf32"], ptxas=ptxas.get("flash_fwd_f32_kernel"),
+        tflops=top["tflops"], tf32_err=f32["tf32"], bound_basis="3xTF32", ptxas=ptxas.get("flash_fwd_f32_kernel"),
+        sass_hgmma=sass.get("flash_fwd_f32_kernel"),
+    ))
+    top = max(f32["split"], key=lambda r: r["bound_ms"])
+    kernels.append(dict(
+        name="flash_f32_split", route="cuda", source=sources["flash_f32_split"], replaces=REPLACES["flash_f32_split"],
+        launches=launches["flash_f32_split"], max_abs_err=max(r["max_abs_err"] for r in f32["split"]), ms=top["ms"],
+        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None,
+        shape=f"{top['shape']} B{top['B']}", ptxas=ptxas.get("flash_f32_split_kernel"),
     ))
     for kind in ("d64", "wide", "f32"):
         mine = [r for r in (f32["bwd"] if kind == "f32" else bwd_rows) if r["kernel"] == f"flash_bwd_{kind}"]
@@ -1544,6 +1627,7 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
                 library_ms=top["library_ms"], shape=f"{top['shape']} B{top['B']}", pair_ms=top["pair_ms"],
                 tflops=top[f"{p}_tflops"], pair_tflops=top["tflops"],
                 **({"ptxas": ptxas[f"{name}_kernel"]} if f"{name}_kernel" in ptxas else {}),
+                **({"bound_basis": "3xTF32", "sass_hgmma": sass.get(f"{name}_kernel")} if kind == "f32" else {}),
             ))
     # K7 and K8: no single library call computes their function (the int8
     # GEMM alone, bf16 F.linear and exact SDPA are yardsticks, in extra keys)
@@ -1574,6 +1658,7 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
             bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
             shape=f"{top['shape']} N{top['N']}",
             **({"tflops": top["tflops"], "ptxas": ptxas.get(fn)} if fn else {}),
+            **({"bound_basis": "3xTF32"} if name == "gn_silu_conv3x3_f32" else {}),
         ))
     return kernels
 
@@ -1613,9 +1698,12 @@ def main() -> int:
                   f"{rep.get('spill_stores')} bytes spill stores, {rep.get('spill_loads')} bytes spill loads",
                   flush=True)
             if rep["function"].startswith(("flash_fwd_d64", "flash_bwd_d64", "flash_fwd_f32", "flash_bwd_f32",
-                                           "gn_k4_conv")):
+                                           "flash_f32_split", "gn_k4_conv")):
                 ptxas.setdefault(rep["function"], []).append(
                     {k: rep.get(k) for k in ("registers", "spill_stores", "spill_loads")})
+    # the fp32 attention kernels must issue their products as TF32 HGMMA
+    sass = {f: n for f, n in _build.sass_hgmma("flash_f32").items() if f.startswith(("flash_fwd", "flash_bwd"))}
+    print(f"sass flash_f32: HGMMA instructions, with TF32 operands: {json.dumps(sass)}", flush=True)
 
     from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
 
@@ -1645,6 +1733,7 @@ def main() -> int:
     f32["fwd"] += check_f32_forward(torch, fa, card, TRAIN_SHAPES, with_lse=True, per="step")
     f32["tf32"] = check_tf32_refused(torch, fa)
     f32["bwd"] = check_f32_backward(torch, fa, card, [s for s in TRAIN_SHAPES if s[0] != "vae encode mid"])
+    f32["split"] = check_f32_split(torch, fa, card)
     f32["conv"] = check_conv_f32(torch, card, CONV_SHAPES, "request")
     f32["qdense"] = check_qdense_f32(torch, card)
     f32["int8"] = check_int8_f32(torch, fa, card)
@@ -1660,7 +1749,7 @@ def main() -> int:
             fail(f"{name} was not launched on the main paths")
 
     print(json.dumps({"kernels": _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32,
-                                                 launches, ptxas)}), flush=True)
+                                                 launches, ptxas, sass)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -3,12 +3,14 @@
 // fp32 compute policy (`StableDiffusionPipeline.from_random()`'s default, the
 // parity policy of the train step).
 //
+//   flash_f32_split    the pre-pass: fp32 operands split into tf32 hi and lo
+//                      planes, in natural or transposed layout (below);
 //   flash_fwd_f32      softmax(q·kᵀ·scale)·v, keys >= kv_end excluded, and the
 //                      natural-log log-sum-exp of each row when asked;
 //   flash_bwd_f32_dkv  dK = scale·dSᵀ·Q, dV = Pᵀ·dO;
 //   flash_bwd_f32_dq   dQ = scale·dS·K;
 // with P = exp(S·scale − lse) recomputed from the forward's LSE and
-// dS = P∘(dO·Vᵀ − D), D = rowsum(dO∘O) (computed by the wrapper), as
+// dS = P∘(dP − D), D = rowsum(dO∘O) (computed by the wrapper), as
 // `attention_bwd_plain` does. Two passes, no atomics: deterministic.
 //
 // Replaces faceposegenerator_tpu/ops/flash_attention.py at fp32 operands:
@@ -17,509 +19,788 @@
 // (:542, :585) backward; JAX's `flash_supported` sends fp32 to the same
 // kernels as bf16 (flash_attention.py:87-101).
 //
-// What bounds it on the card. fp32 arithmetic means FFMA on the CUDA cores
-// (TF32 tensor cores would round the operands to 10 bits, which the fp32
-// policy forbids): 67 TFLOP/s against 989 for bf16 wgmma, so every shape
-// with more than ~20 key columns a query row is bound by operations: 4·Sq·Skv·D
-// a head forward, 10·Sq·Skv·D backward.
+// Arithmetic: 3xTF32 on the tensor cores. fp32 FFMA peaks at 67 TFLOP/s on
+// an H100 SXM; tf32 wgmma at 495. One tf32 product rounds each operand to
+// 11 significant bits, ~1e-3 relative, which misses the fp32 gate
+// (chip_smoke.py phase 11 holds plain TF32 attention to it and sees it
+// fail). So every operand x is split as hi = rna_tf32(x), lo = rna_tf32(x −
+// hi) (`tf32_split`, explicit rounding, never the tensor core's own reading
+// of the 13 low bits), and each product a·b is a_lo·b_hi + a_hi·b_lo +
+// a_hi·b_hi, three wgmma into one fp32 accumulator (small terms first). hi
+// and lo carry 22 of fp32's 24 bits, and the dropped a_lo·b_lo is ~2^-22 of
+// |a·b|, so a dot product lands within a few fp32 ulps of its FFMA value
+// (tests/test_torch_tf32_split.py emulates this arithmetic on the CPU). The
+// tensor cores add into the accumulator with truncation, though, so a long
+// chain of products drifts: 64 key tiles × 24 products into one running
+// accumulator end ~4e-5 of the output's max abs off at 4096 keys, against
+// the fp32 gate's 1e-4 (LSE 1e-5). Where registers allow (the forward and
+// dQ at D <= 128), each tile's second product goes into a fresh
+// accumulator that FFMA adds to the running one: 5e-6. The cost is 3× the
+// tensor-core work: the bound is 3·ops / 495 TFLOP/s, 2.5× below FFMA's.
 //
-// The design is simple and right first (making it fast is later work):
-//   * 256 threads as 16 × 16, each owning a 4 × 4 block of a 64 × 64 tile of
-//     scores (query rows × keys) and of the outputs;
-//   * every product runs over 64-deep chunks of two tiles in shared memory
-//     whose reduction dimension is the row index, so a thread reads its four
-//     rows and its four columns as two float4 loads (a transposed load puts
-//     q, k, v and dO in that layout);
-//   * the forward keeps the whole 64-row Q tile in shared memory (D / 64
-//     chunks, 128 KB at D = 512), streams K in d-chunks for S and V in
-//     column chunks for P·V, and runs the online softmax with the row
-//     statistics in registers (a row lives in 16 lanes of one warp). The
-//     log-sum-exp is held to 1e-5, ~10 ulps at 4096 keys, so the sums are
-//     kept relative to the rounded base b = fl(m · scale · log2 e) of the
-//     running max, and a tile rescales them by exactly 2^(b_old − b_new):
-//     rescaling by 2^(m_old · scale · log2 e − b_new) instead, as K1 does,
-//     multiplies them by 2^(its rounding error) on every tile, a drift
-//     past the gate over 64 tiles (chip_smoke.py phase 11; PERF.md).
-//   * the backward passes split the head dim into column chunks of at most
-//     128 over the grid's z axis, so a thread's dK and dV (or dQ) stay at 32
-//     or 64 registers at any D; S and dO·Vᵀ are recomputed for each chunk.
+// Layouts. tf32 wgmma reads both shared-memory operands K-major only (the
+// transpose flags exist for 16-bit types alone). Where the reduction runs
+// along the rows of a stored tensor (V in O += P·V; dO and Q in dV += Pᵀ·dO
+// and dK += dSᵀ·Q; K in dQ += dS·K), the tensor has to reach shared memory
+// transposed. `flash_f32_split`, one launch per call of the wrapper, writes
+// each operand's hi and lo as the two planes of one buffer:
+//   natural     (2, B·H, S, D): q, k, v, dO as they are (A and B operands
+//               of S = Q·Kᵀ, dP = dO·Vᵀ, and of Sᵀ, dPᵀ in the dK/dV pass);
+//   transposed  (2, B·H, D, S_pad), S_pad = S rounded up to 64, zero past S:
+//               V, K, Q, dO for the second products.
+// The second products take P (or dS) from registers, straight from the
+// first product's accumulator (the RS form): a thread's accumulator holds
+// columns 2t, 2t + 1 of each 8-column chunk, and the tf32 A fragment wants
+// columns t and t + 4. Rather than shuffle, the transposed layout permutes
+// the keys within each group of 8 to the order (0, 2, 4, 6, 1, 3, 5, 7): a
+// sum over keys does not depend on their order, and accumulator registers
+// (4i, 4i + 2, 4i + 1, 4i + 3) are then the A fragment of k8 slice i as
+// they are.
+//
+// One kernel body (`flash_f32_body`) serves the three entry points. A CTA
+// has 384 threads: warpgroup 2 produces (TMA), warpgroups 0 and 1 consume
+// (setmaxnreg 40 / 232: 2·128·232 + 128·40 <= 65536). Two shapes:
+//   D = 64  the consumers own 64 rows each (128 rows a CTA) and share one
+//           ring of tiles; the A operands of the first products (Q; Q and
+//           dO; K and V in the dK/dV pass) stay in shared memory for the
+//           whole CTA;
+//   D >= 128 the consumers own the same 64 rows and one half of the head
+//           dim each: each computes the first products over its half,
+//           they swap the partial sums through shared memory and add them
+//           (mine + other's: the same sum in both, fp32 addition commutes),
+//           so each product runs once; each accumulates its half of the
+//           output columns (at D = 512: 4 × 64 columns, 128 registers), and
+//           each has its own ring, A operands streamed with B, since a
+//           64 × 512 hi/lo tile alone would fill shared memory (256 KB).
+//           The dK/dV pass runs dV and dK as two launches, each with one
+//           accumulator per warpgroup half: registers do not hold both.
+// Every tile moved is 64 rows × 32 fp32 columns × (hi, lo) = 16 KB: one
+// TMA box of a 4-D map (32, S or D, B·H, plane), 128-byte swizzled, which
+// zero-fills rows past the tensor. The producer thread of a ring walks the
+// same sequence of tiles as its consumers; each tile has a full and an empty
+// mbarrier. Each first product is 4 k8 slices × 3 wgmma per 32 columns of
+// the head dim; the consumer keeps one chunk's wgmma group in flight while
+// it waits for the next chunk's tiles where the ring holds two chunks.
+//
+// The online softmax keeps the rounded base: the running sums stay relative to
+// the rounded base b = fl(m · scale · log2 e) of the running max, and a tile
+// rescales them, and O, by exactly 2^(b_old − b_new); any other rescale
+// multiplies them by 2^(its rounding error) on every tile, a drift past the
+// 1e-5 LSE gate over 64 tiles.
 //
 // Plain C interface, loaded with ctypes. Every entry point launches on the
-// given stream, allocates nothing, and returns cudaGetLastError().
+// given stream, allocates nothing, and returns cudaGetLastError() (or the
+// error of encoding a tensor map).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int T = 64;    // the rows of every tile and the depth of every product chunk
-constexpr int NT = 256;  // 16 × 16 threads
-constexpr int TT = T * T;
 constexpr float LOG2E_F = 1.4426950408889634f, LN2_F = 0.6931471805599453f;
 
-struct Strides {
-  long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
+enum Mode { FWD, DQ, DKV, DV, DK };
+
+template <int D, int MODE>
+struct Cfg {
+  static constexpr int R = D == 64 ? 2 : 1;  // row groups of 64 (consumer warpgroups over rows)
+  static constexpr int G = 2 / R;            // head-dim halves (consumer warpgroups over D)
+  static constexpr int DG = D / G;           // head-dim columns of one consumer
+  static constexpr int NCH = DG / 32;        // its 32-column chunks of the first products
+  static constexpr int NB = DG / 64;         // its 64-column blocks of the second product's output
+  static constexpr int NA = (MODE == FWD || MODE == DV) ? 1 : 2;  // first products: S (and dP)
+  static constexpr int NS = MODE == DKV ? 2 : 1;                  // second products: dV (and dK)
+  static constexpr bool RES = R == 2;                              // A operands resident
+  static constexpr int ITEM = 16384, PLANE = 8192;
+  static constexpr int RES_BYTES = RES ? NA * 2 * R * ITEM : 0;  // A operand × 2 chunks × R row groups
+  static constexpr int X_BYTES = G == 2 ? NA * 2 * ITEM : 0;     // partial sums: first product × consumer
+  static constexpr int STAGES = (224 * 1024 - RES_BYTES - X_BYTES) / (G * ITEM);
+  static constexpr int IPC = NA * (RES ? 1 : 2);     // ring tiles per 32-column chunk
+  static constexpr int LAG = 2 * IPC <= STAGES;      // keep a chunk's group in flight
+  // each tile's second product into a fresh accumulator, added to the
+  // running one by FFMA, where registers allow (one 64-column block)
+  static constexpr bool FRESH = NB == 1 && (MODE == FWD || MODE == DQ);
+  static constexpr int THREADS = 384, PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static_assert(128 * (PRODUCER_REGS + 2 * CONSUMER_REGS) <= 65536, "register file");
+  static_assert(STAGES >= IPC && STAGES >= NB, "ring too shallow");
+  static constexpr int RING_OFF = RES_BYTES + X_BYTES;
+  static constexpr int BAR_OFF = RING_OFF + G * STAGES * ITEM;
+  // tiles, one resident-tile barrier, full and empty barriers per stage, alignment room
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * G * STAGES) + 1024;
 };
 
-struct BwdStrides {
-  long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, do_b, do_s, do_h, dq_b, dq_s, dq_h, dk_b, dk_s, dk_h,
-      dv_b, dv_s, dv_h;
+struct Args {
+  float* out0;  // FWD: o; DQ: dq; DKV and DV: dv; DK: dk
+  float* out1;  // DKV: dk
+  float* lse;   // FWD: written when not null; backward: read
+  const float* dd;
+  long long o0_b, o0_s, o0_h, o1_b, o1_s, o1_h;
+  int H, Sq;
+  int rows;      // rows of the output (Sq, or Skv in the dK/dV pass)
+  int n_tiles;   // 64-column tiles of the loop (keys up to kv_end, or queries)
+  int row_live;  // rows at or past it are masked (Sq, or kv_end)
+  int col_live;  // columns at or past it are masked (kv_end, or Sq)
+  float mult0, mult1, scale_log2;
 };
 
 __device__ __forceinline__ float neg_inf_f() { return __int_as_float(0xff800000); }
 
-// Rows [row0, row0 + 64) and columns [c0, c0 + 64) of a (rows, D) slice with
-// row stride `rs`, transposed into dst[c][r]; rows >= nrows read as 0.
-// Consecutive threads take consecutive rows, so the stores are conflict-free.
-__device__ __forceinline__ void load_t(float* dst, const float* __restrict__ src, long long rs, int row0, int nrows,
-                                       int c0) {
-#pragma unroll
-  for (int i = 0; i < TT / 4 / NT; ++i) {
-    const int idx = threadIdx.x + i * NT, r = idx & (T - 1), c = (idx >> 6) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < nrows) v = *reinterpret_cast<const float4*>(src + (row0 + r) * rs + c0 + c);
-    dst[(c + 0) * T + r] = v.x;
-    dst[(c + 1) * T + r] = v.y;
-    dst[(c + 2) * T + r] = v.z;
-    dst[(c + 3) * T + r] = v.w;
-  }
-}
+template <int D, int MODE>
+__device__ __forceinline__ void flash_f32_body(const CUtensorMap* tmA1, const CUtensorMap* tmB1,
+                                               const CUtensorMap* tmA2, const CUtensorMap* tmB2,
+                                               const CUtensorMap* tmT1, const CUtensorMap* tmT2, const Args& a) {
+  using C = Cfg<D, MODE>;
+  constexpr int ST = C::STAGES, NB = C::NB, ITEM = C::ITEM, PLANE = C::PLANE;
+  extern __shared__ __align__(1024) unsigned char smem_f32[];
+  const uint32_t raw = smem_u32(smem_f32), base = (raw + 1023u) & ~1023u;
+  const uint32_t sRes = base, sX = base + C::RES_BYTES, sRing = base + C::RING_OFF;
+  const uint32_t bar_res = base + C::BAR_OFF;
+  auto full = [&](int g, int s) { return bar_res + 8u * (1 + g * ST + s); };
+  auto empty = [&](int g, int s) { return bar_res + 8u * (1 + C::G * ST + g * ST + s); };
+  auto stage = [&](int g, int s) { return sRing + static_cast<uint32_t>((g * ST + s) * ITEM); };
+  const int bh = blockIdx.y, row0 = blockIdx.x * 64 * C::R;
+  const int wg = threadIdx.x >> 7;
 
-// Rows [row0, row0 + 64) and columns [c0, c0 + W) row-major into dst[r][c].
-template <int W>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, long long rs, int row0, int nrows,
-                                          int c0) {
-  constexpr int V4 = W / 4;
-#pragma unroll
-  for (int i = 0; i < T * V4 / NT; ++i) {
-    const int idx = threadIdx.x + i * NT, r = idx / V4, c = (idx % V4) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < nrows) v = *reinterpret_cast<const float4*>(src + (row0 + r) * rs + c0 + c);
-    *reinterpret_cast<float4*>(dst + r * W + c) = v;
-  }
-}
-
-// acc[i][j] += Σ_{d < 64} a[d·as + a0 + i] · b[d·bs + b0 + j]
-__device__ __forceinline__ void mm(float (&acc)[4][4], const float* a, int as, int a0, const float* b, int bs,
-                                   int b0) {
-#pragma unroll 8
-  for (int d = 0; d < T; ++d) {
-    const float4 x = *reinterpret_cast<const float4*>(a + d * as + a0);
-    const float4 y = *reinterpret_cast<const float4*>(b + d * bs + b0);
-    const float xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xs[i], ys[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-}
-
-// the 16 lanes of one row group (tx = lane % 16)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// ---------------------------------------------------------------------------
-// forward: one CTA per (64 query rows, b·h); thread (ty, tx) owns rows
-// 4ty..4ty+3 and, of every 64-wide chunk of S or O, columns 4tx..4tx+3.
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct Fwd {
-  static constexpr int DC = D / T;
-  static constexpr int SMEM = (DC * TT + 3 * TT) * 4;  // Q (all chunks), a K chunk, a V chunk, P
-};
-
-template <int D>
-__global__ void __launch_bounds__(NT, 1)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                         float* __restrict__ o, float* __restrict__ lse, int H, int Sq, int kv_end, Strides st,
-                         float scale_log2) {
-  constexpr int DC = Fwd<D>::DC;
-  extern __shared__ float4 smem_f4[];
-  float* sQ = reinterpret_cast<float*>(smem_f4);  // [DC][64 d][64 q]
-  float* sK = sQ + DC * TT;                       // [64 d][64 k]
-  float* sV = sK + TT;                            // [64 k][64 c]
-  float* sP = sV + TT;                            // [64 k][64 q]
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * T;
-  const float* qb = q + b * st.q_b + h * st.q_h;
-  const float* kb = k + b * st.k_b + h * st.k_h;
-  const float* vb = v + b * st.v_b + h * st.v_h;
-
-#pragma unroll
-  for (int dc = 0; dc < DC; ++dc) load_t(sQ + dc * TT, qb, st.q_s, q0, Sq, dc * T);
-
-  float acc[DC][4][4];
-#pragma unroll
-  for (int dc = 0; dc < DC; ++dc) zero(acc[dc]);
-  float m[4], mb[4], l[4];  // running max (raw-score units), its base b (log2 units), row sum relative to b
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = neg_inf_f();
-    mb[i] = l[i] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < kv_end; k0 += T) {
-    float s[4][4];
-    zero(s);
-#pragma unroll 1
-    for (int dc = 0; dc < DC; ++dc) {
-      __syncthreads();  // the previous chunk's K (and, at dc 0, Q) are in place or read
-      load_t(sK, kb, st.k_s, k0, kv_end, dc * T);
-      __syncthreads();
-      mm(s, sQ + dc * TT, T, 4 * ty, sK, T, 4 * tx);
-    }
-    // online softmax in raw-score units; scale and max shift fold into one FMA
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (k0 + 4 * tx + j >= kv_end) s[0][j] = s[1][j] = s[2][j] = s[3][j] = neg_inf_f();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float mn = fmaxf(m[i], row_max(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]))));
-      const float base = (mn == neg_inf_f() ? 0.f : mn) * scale_log2;
-      const float alpha = m[i] == neg_inf_f() ? 0.f : exp2f(mb[i] - base);  // 1 exactly while the max holds
-      m[i] = mn;
-      mb[i] = base;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = exp2f(fmaf(s[i][j], scale_log2, -base));
-        rs += s[i][j];
+  if (threadIdx.x == 0) {
+    mbar_init(bar_res, 1);
+    for (int g = 0; g < C::G; ++g)
+      for (int s = 0; s < ST; ++s) {
+        mbar_init(full(g, s), 1);
+        mbar_init(empty(g, s), 4 * C::R);  // one arrival per consumer warp
       }
-      l[i] = l[i] * alpha + rs;  // this thread's partial row sum
-#pragma unroll
-      for (int dc = 0; dc < DC; ++dc)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[dc][i][j] *= alpha;
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: lane 0 of warp g feeds ring g
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    const int lane = threadIdx.x & 31, g = (threadIdx.x >> 5) & 3;
+    if (lane == 0 && g < C::G) {
+      if (C::RES) {
+        mbar_arrive_expect_tx(bar_res, C::RES_BYTES);
+        for (int p = 0; p < C::NA; ++p)
+          for (int c = 0; c < 2; ++c)
+            for (int r = 0; r < C::R; ++r)
+              tma_load_4d(sRes + ((p * 2 + c) * C::R + r) * ITEM, p ? tmA2 : tmA1, bar_res, 32 * c, row0 + 64 * r,
+                          bh, 0);
+      }
+      int it = 0;
+      auto item = [&](const CUtensorMap* m, int x, int y) {
+        const int s = it % ST;
+        mbar_wait(empty(g, s), ((it / ST) & 1) ^ 1);
+        mbar_arrive_expect_tx(full(g, s), ITEM);
+        tma_load_4d(stage(g, s), m, full(g, s), x, y, bh, 0);
+        ++it;
+      };
+      for (int j = 0; j < a.n_tiles; ++j) {
+        const int col0 = 64 * j;
+        for (int c = 0; c < C::NCH; ++c) {
+          const int dc = g * C::DG + 32 * c;
+          if (!C::RES) item(tmA1, dc, row0);
+          item(tmB1, dc, col0);
+          if (C::NA == 2) {
+            if (!C::RES) item(tmA2, dc, row0);
+            item(tmB2, dc, col0);
+          }
+        }
+        for (int kc = 0; kc < 2; ++kc)
+          for (int s = 0; s < C::NS; ++s)
+            for (int vb = 0; vb < NB; ++vb) item(s ? tmT2 : tmT1, col0 + 32 * kc, g * C::DG + 64 * vb);
+      }
     }
-    // P into shared memory, key-major: the P·V product reduces over keys
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(sP + (4 * tx + j) * T + 4 * ty) = make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-#pragma unroll  // acc[dc] must stay in registers: no runtime index into it
-    for (int dc = 0; dc < DC; ++dc) {
-      __syncthreads();  // P written; the previous V chunk read
-      load_rows<T>(sV, vb, st.v_s, k0, kv_end, dc * T);
-      __syncthreads();
-      mm(acc[dc], sP, T, 4 * ty, sV, T, 4 * tx);
-    }
+    return;
   }
 
-  float* ob = o + b * st.o_b + h * st.o_h;
+  // consumers
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, t4 = lane & 3, tid = threadIdx.x & 127;
+  const int r = C::R == 2 ? wg : 0, g = C::G == 2 ? wg : 0;
+  const int rowA = row0 + 64 * r + 16 * w + (lane >> 2), rowB = rowA + 8;  // this thread's two rows
+  const bool liveA = rowA < a.row_live, liveB = rowB < a.row_live;
+  const float sl2 = a.scale_log2;
+  float* xbuf = reinterpret_cast<float*>(smem_f32 + (sX - raw));
+
+  float sacc[32], pacc[32];  // S and dP (Sᵀ and dPᵀ in the dK/dV pass)
+  float acc[C::NS][NB][32];
+  float tacc[NB][32];  // this tile's second product (FRESH)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float li = row_sum(l[i]);
-    const int row = q0 + 4 * ty + i;
-    if (row < Sq) {
+  for (int s = 0; s < C::NS; ++s)
 #pragma unroll
-      for (int dc = 0; dc < DC; ++dc)
-        *reinterpret_cast<float4*>(ob + row * st.o_s + dc * T + 4 * tx) =
-            make_float4(acc[dc][i][0] / li, acc[dc][i][1] / li, acc[dc][i][2] / li, acc[dc][i][3] / li);
-      // natural-log LSE of the scaled logits: l sums 2^(s · scale · log2 e − b)
-      if (lse != nullptr && tx == 0)
-        lse[static_cast<long long>(blockIdx.y) * Sq + row] = fmaf(mb[i], LN2_F, logf(li));
+    for (int vb = 0; vb < NB; ++vb) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[s][vb][i] = 0.f;
+      fence_regs(acc[s][vb]);  // zeroed here, not next to a wgmma in flight
     }
+  auto fence_acc = [&]() {
+#pragma unroll
+    for (int s = 0; s < C::NS; ++s)
+#pragma unroll
+      for (int vb = 0; vb < NB; ++vb) fence_regs(acc[s][vb]);
+    if (C::FRESH) fence_regs(tacc[0]);
+  };
+
+  // row statistics: the forward's running max, its base and sum; the dQ
+  // pass's log2-domain lse and D of its rows
+  float m0 = neg_inf_f(), m1 = neg_inf_f(), mb0 = 0.f, mb1 = 0.f, l0 = 0.f, l1 = 0.f, al0 = 1.f, al1 = 1.f;
+  float lr0 = 0.f, lr1 = 0.f, dr0 = 0.f, dr1 = 0.f;
+  if (MODE == DQ) {
+    const long long o = static_cast<long long>(bh) * a.Sq;
+    if (liveA) lr0 = a.lse[o + rowA] * LOG2E_F, dr0 = a.dd[o + rowA];
+    if (liveB) lr1 = a.lse[o + rowB] * LOG2E_F, dr1 = a.dd[o + rowB];
   }
-}
 
-// ---------------------------------------------------------------------------
-// backward: S and dP = dO·Vᵀ of a 64 × 64 (query, key) tile over d-chunks,
-// then P = exp(S·scale − lse) and dS = P∘(dP − D), masked to 0 at rows >= Sq
-// and keys >= kv_end. Thread (ty, tx) holds query rows 4ty.. and keys 4tx..
-// ---------------------------------------------------------------------------
+  int it = 0, rel = 0;  // the next ring tile to consume, and to release
+  auto release_upto = [&](int n) {
+    for (; rel < n; ++rel) mbar_arrive_if(empty(g, rel % ST), lane == 0);
+  };
+  auto wait_full = [&](int i) { mbar_wait(full(g, i % ST), (i / ST) & 1); };
+  if (C::RES) mbar_wait(bar_res, 0);
 
-constexpr int COLS_MAX = 128;  // head-dim columns of dK, dV or dQ per CTA
-
-__device__ __forceinline__ void p_ds(float (&s)[4][4], float (&dp)[4][4], const float* __restrict__ lse_bh,
-                                     const float* __restrict__ dd_bh, int q0, int Sq, int k0, int kv_end,
-                                     float scale_log2, int tx, int ty) {
+  // three k8 products of one 32-column chunk: lo·hi, hi·lo, hi·hi
+  auto chunk3 = [&](float (&d)[32], uint32_t ta, uint32_t tb, bool first) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    const float lse2 = row < Sq ? lse_bh[row] * LOG2E_F : 0.f, ddr = row < Sq ? dd_bh[row] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool live = row < Sq && k0 + 4 * tx + j < kv_end;
-      const float p = live ? exp2f(fmaf(s[i][j], scale_log2, -lse2)) : 0.f;
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - ddr);
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_tf32_ss_m64n64(d, desc_k(ta + PLANE + 32 * kk), desc_k(tb + 32 * kk), !(first && kk == 0));
+      wgmma_tf32_ss_m64n64(d, desc_k(ta + 32 * kk), desc_k(tb + PLANE + 32 * kk), 1);
+      wgmma_tf32_ss_m64n64(d, desc_k(ta + 32 * kk), desc_k(tb + 32 * kk), 1);
     }
-  }
-}
+  };
 
-// S and dP of query tile q0 and key tile k0 over the D / 64 d-chunks
-template <int D>
-__device__ __forceinline__ void scores_bwd(float (&s)[4][4], float (&dp)[4][4], float* sQt, float* sOt, float* sKt,
-                                           float* sVt, const float* qb, const float* dob, const float* kb,
-                                           const float* vb, const BwdStrides& st, int q0, int Sq, int k0,
-                                           int kv_end, int tx, int ty) {
-  zero(s);
-  zero(dp);
+  // one second product over 32 columns of the tile (k8 slices 4kc..4kc+3):
+  // e's accumulator registers as the tf32 A fragments, NB ring tiles as B;
+  // into `tacc` (FRESH: the tile's first wgmma overwrites it) or `acc`
+  auto second = [&](float (&e)[32], float (&o)[NB][32], int kc) {
+    wgmma_wait<0>();
+    fence_acc();
+    release_upto(it);
+    uint32_t fh[16], fl[16];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      const int i = 4 * kc + ii;
+      tf32_split(e[4 * i + 0], fh[4 * ii + 0], fl[4 * ii + 0]);
+      tf32_split(e[4 * i + 2], fh[4 * ii + 1], fl[4 * ii + 1]);
+      tf32_split(e[4 * i + 1], fh[4 * ii + 2], fl[4 * ii + 2]);
+      tf32_split(e[4 * i + 3], fh[4 * ii + 3], fl[4 * ii + 3]);
+    }
+#pragma unroll
+    for (int vb = 0; vb < NB; ++vb) wait_full(it + vb);
+    fence_regs(fh);
+    fence_regs(fl);
+    fence_acc();
+    wgmma_fence();
+#pragma unroll
+    for (int vb = 0; vb < NB; ++vb) {
+      const uint32_t tb = stage(g, (it + vb) % ST);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const int f = 4 * ii;
+        wgmma_tf32_rs_m64n64(o[vb], fl[f], fl[f + 1], fl[f + 2], fl[f + 3], desc_k(tb + 32 * ii),
+                             !(C::FRESH && kc == 0 && ii == 0));
+        wgmma_tf32_rs_m64n64(o[vb], fh[f], fh[f + 1], fh[f + 2], fh[f + 3], desc_k(tb + PLANE + 32 * ii), 1);
+        wgmma_tf32_rs_m64n64(o[vb], fh[f], fh[f + 1], fh[f + 2], fh[f + 3], desc_k(tb + 32 * ii), 1);
+      }
+    }
+    wgmma_commit();
+    it += NB;
+  };
+
+  for (int j = 0; j < a.n_tiles; ++j) {
+    const int col0 = 64 * j;
+    // first products over this consumer's head-dim chunks. The first wgmma
+    // overwrites them; zeroing them first ends the previous tile's values
+    // here, so their registers are free during the second products.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
+    fence_regs(sacc);
+    if (C::NA == 2) fence_regs(pacc);
+    // the dK/dV pass: lane l loads the log2-domain lse and D of columns
+    // col0 + 2l, + 1 now, under the first products; the elementwise step
+    // takes each column's from its lane by shuffle (16 loads a thread, held
+    // in registers, would spill at D = 512)
+    float lc2[2] = {0.f, 0.f}, dc2[2] = {0.f, 0.f};
+    if (MODE == DKV || MODE == DV || MODE == DK) {
+      const long long o = static_cast<long long>(bh) * a.Sq;
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int col = col0 + 2 * lane + e2;
+        if (col < a.col_live) {
+          lc2[e2] = a.lse[o + col] * LOG2E_F;
+          if (MODE != DV) dc2[e2] = a.dd[o + col];
+        }
+      }
+    }
 #pragma unroll 1
-  for (int dc = 0; dc < D / T; ++dc) {
-    __syncthreads();
-    load_t(sQt, qb, st.q_s, q0, Sq, dc * T);
-    load_t(sOt, dob, st.do_s, q0, Sq, dc * T);
-    load_t(sKt, kb, st.k_s, k0, kv_end, dc * T);
-    load_t(sVt, vb, st.v_s, k0, kv_end, dc * T);
-    __syncthreads();
-    mm(s, sQt, T, 4 * ty, sKt, T, 4 * tx);
-    mm(dp, sOt, T, 4 * ty, sVt, T, 4 * tx);
+    for (int c = 0; c < C::NCH; ++c) {
+#pragma unroll
+      for (int q = 0; q < C::IPC; ++q) wait_full(it + q);
+      uint32_t a1, b1, a2 = 0, b2 = 0;
+      if (C::RES) {
+        a1 = sRes + ((0 * 2 + c) * C::R + r) * ITEM;
+        b1 = stage(g, it % ST);
+        if (C::NA == 2) a2 = sRes + ((1 * 2 + c) * C::R + r) * ITEM, b2 = stage(g, (it + 1) % ST);
+      } else {
+        a1 = stage(g, it % ST);
+        b1 = stage(g, (it + 1) % ST);
+        if (C::NA == 2) a2 = stage(g, (it + 2) % ST), b2 = stage(g, (it + 3) % ST);
+      }
+      wgmma_fence();
+      chunk3(sacc, a1, b1, c == 0);
+      if (C::NA == 2) chunk3(pacc, a2, b2, c == 0);
+      wgmma_commit();
+      it += C::IPC;
+      if (C::LAG) {
+        wgmma_wait<1>();
+        release_upto(it - C::IPC);
+      } else {
+        wgmma_wait<0>();
+        release_upto(it);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    if (C::NA == 2) fence_regs(pacc);
+    release_upto(it);
+
+    if (C::G == 2) {  // swap the partial sums with the other half's consumer
+      const int og = 1 - g;
+      if (j > 0) named_bar_sync(2 + g, 256);  // the other has read my previous partials
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        xbuf[((0 * 2 + g) * 32 + i) * 128 + tid] = sacc[i];
+        if (C::NA == 2) xbuf[((1 * 2 + g) * 32 + i) * 128 + tid] = pacc[i];
+      }
+      named_bar_sync(1, 256);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sacc[i] += xbuf[((0 * 2 + og) * 32 + i) * 128 + tid];
+        if (C::NA == 2) pacc[i] += xbuf[((1 * 2 + og) * 32 + i) * 128 + tid];
+      }
+      if (j + 1 < a.n_tiles) named_bar_arrive(2 + og, 256);
+    }
+
+    // elementwise: register 4i + e holds row (e < 2 ? rowA : rowB), column
+    // col0 + 8i + 2·t4 + (e & 1)
+    if (MODE == FWD) {
+      if (col0 + 64 > a.col_live) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col0 + 8 * i + 2 * t4 + (e & 1) >= a.col_live) sacc[4 * i + e] = neg_inf_f();
+      }
+      float mx0 = neg_inf_f(), mx1 = neg_inf_f();
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(sacc[4 * i], sacc[4 * i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sacc[4 * i + 2], sacc[4 * i + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float base0 = (mn0 == neg_inf_f() ? 0.f : mn0) * sl2, base1 = (mn1 == neg_inf_f() ? 0.f : mn1) * sl2;
+      // 1 exactly while the max holds
+      al0 = m0 == neg_inf_f() ? 0.f : exp2f(mb0 - base0);
+      al1 = m1 == neg_inf_f() ? 0.f : exp2f(mb1 - base1);
+      m0 = mn0, m1 = mn1, mb0 = base0, mb1 = base1;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        sacc[4 * i + 0] = exp2f(fmaf(sacc[4 * i + 0], sl2, -base0));
+        sacc[4 * i + 1] = exp2f(fmaf(sacc[4 * i + 1], sl2, -base0));
+        sacc[4 * i + 2] = exp2f(fmaf(sacc[4 * i + 2], sl2, -base1));
+        sacc[4 * i + 3] = exp2f(fmaf(sacc[4 * i + 3], sl2, -base1));
+        rs0 += sacc[4 * i + 0] + sacc[4 * i + 1];
+        rs1 += sacc[4 * i + 2] + sacc[4 * i + 3];
+      }
+      l0 = l0 * al0 + rs0;  // per-thread partial row sums; summed over the quad at the end
+      l1 = l1 * al1 + rs1;
+#pragma unroll
+      for (int vb = 0; vb < (C::FRESH ? 0 : NB); ++vb)  // FRESH: rescaled as the tile is added
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[0][vb][4 * i + 0] *= al0;
+          acc[0][vb][4 * i + 1] *= al0;
+          acc[0][vb][4 * i + 2] *= al1;
+          acc[0][vb][4 * i + 3] *= al1;
+        }
+    } else if (MODE == DQ) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool live = (e < 2 ? liveA : liveB) && col0 + 8 * i + 2 * t4 + (e & 1) < a.col_live;
+          const float p = live ? exp2f(fmaf(sacc[4 * i + e], sl2, -(e < 2 ? lr0 : lr1))) : 0.f;
+          pacc[4 * i + e] = p * (pacc[4 * i + e] - (e < 2 ? dr0 : dr1));
+        }
+    } else {  // the dK/dV pass: rows are keys, columns queries
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int col = col0 + 8 * i + 2 * t4 + e2;  // loaded by lane 4i + t4
+          const bool cl = col < a.col_live;
+          const float lc = __shfl_sync(0xffffffffu, lc2[e2], 4 * i + t4);
+          const float dc = MODE != DV ? __shfl_sync(0xffffffffu, dc2[e2], 4 * i + t4) : 0.f;
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int k = 4 * i + 2 * h2 + e2;
+            const bool live = cl && (h2 ? liveB : liveA);
+            const float p = live ? exp2f(fmaf(sacc[k], sl2, -lc)) : 0.f;
+            if (MODE != DK) sacc[k] = p;
+            if (MODE != DV) pacc[k] = p * (pacc[k] - dc);
+          }
+        }
+    }
+
+    // second products: O += P·V, dQ += dS·K, dV += Pᵀ·dO, dK += dSᵀ·Q
+#pragma unroll
+    for (int kc = 0; kc < 2; ++kc) {
+      if (MODE == FWD || MODE == DV || MODE == DKV) second(sacc, C::FRESH ? tacc : acc[0], kc);
+      if (MODE == DQ || MODE == DK) second(pacc, C::FRESH ? tacc : acc[0], kc);
+      if (MODE == DKV) second(pacc, acc[C::NS - 1], kc);
+    }
+    wgmma_wait<0>();
+    fence_acc();
+    release_upto(it);
+    if (C::FRESH) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        acc[0][0][i] = MODE == FWD ? fmaf(acc[0][0][i], (i & 2) ? al1 : al0, tacc[0][i]) : acc[0][0][i] + tacc[0][i];
+    }
+  }
+
+  // epilogue: this thread's rows rowA, rowB; columns g·DG + 64vb + 8i + 2t4 (+1)
+  const int b = bh / a.H, h = bh % a.H;
+  float mulA = a.mult0, mulB = a.mult0;
+  if (MODE == FWD) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    mulA = 1.f / l0;
+    mulB = 1.f / l1;
+  }
+#pragma unroll
+  for (int s = 0; s < C::NS; ++s) {
+    float* out = s ? a.out1 : a.out0;
+    const long long ob = s ? a.o1_b : a.o0_b, os = s ? a.o1_s : a.o0_s, oh = s ? a.o1_h : a.o0_h;
+    const float mA = s ? a.mult1 : mulA, mB = s ? a.mult1 : mulB;
+    float* base_bh = out + b * ob + h * oh + g * C::DG + 2 * t4;
+#pragma unroll
+    for (int vb = 0; vb < NB; ++vb)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 64 * vb + 8 * i;
+        if (rowA < a.rows)
+          *reinterpret_cast<float2*>(base_bh + rowA * os + col) =
+              make_float2(acc[s][vb][4 * i] * mA, acc[s][vb][4 * i + 1] * mA);
+        if (rowB < a.rows)
+          *reinterpret_cast<float2*>(base_bh + rowB * os + col) =
+              make_float2(acc[s][vb][4 * i + 2] * mB, acc[s][vb][4 * i + 3] * mB);
+      }
+  }
+  // natural-log LSE of the scaled logits: l sums 2^(s · scale · log2 e − b)
+  if (MODE == FWD && a.lse != nullptr && g == 0 && t4 == 0) {
+    float* lb = a.lse + static_cast<long long>(bh) * a.Sq;
+    if (rowA < a.rows) lb[rowA] = fmaf(mb0, LN2_F, logf(l0));
+    if (rowB < a.rows) lb[rowB] = fmaf(mb1, LN2_F, logf(l1));
   }
 }
 
+// The three entry kernels: one body, named apart so ptxas reports each.
 template <int D>
-struct Bwd {
-  static constexpr int COLS = D < COLS_MAX ? D : COLS_MAX, NJ = COLS / T;
-  // four transposed d-chunks, two 64 × 64 score tiles, two 64 × COLS row tiles
-  static constexpr int SMEM = (4 * TT + 2 * TT + 2 * T * COLS) * 4;
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tvt, const Args a) {
+  flash_f32_body<D, FWD>(&tq, &tk, &tq, &tk, &tvt, &tvt, a);
+}
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_f32_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tdo, const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tkt, const Args a) {
+  flash_f32_body<D, DQ>(&tq, &tk, &tdo, &tv, &tkt, &tkt, a);
+}
+
+template <int D, int MODE>
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_f32_dkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ CUtensorMap tdot, const __grid_constant__ CUtensorMap tqt,
+                             const Args a) {
+  // dV's B operand is dOᵀ, dK's is Qᵀ
+  flash_f32_body<D, MODE>(&tk, &tq, &tv, &tdo, MODE == DK ? &tqt : &tdot, &tqt, a);
+}
+
+// ---------------------------------------------------------------------------
+// the split pre-pass
+// ---------------------------------------------------------------------------
+
+struct SplitJob {
+  const float* src;  // (B, S, H, D) with element strides (sb, ss, sh), head dim contiguous
+  float* dst;        // (2, B·H, S, D), or (2, B·H, D, S_pad) transposed
+  long long sb, ss, sh;
+  int S, S_pad, transposed;
 };
 
-// one CTA per (64 keys, b·h, column chunk); thread (ty, tx) accumulates keys
-// 4ty.. and columns 4tx.. of each 64-wide part of the chunk
-template <int D>
-__global__ void __launch_bounds__(NT, 1)
-    flash_bwd_f32_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                             const float* __restrict__ dout, const float* __restrict__ lse,
-                             const float* __restrict__ dd, float* __restrict__ dk, float* __restrict__ dv, int H,
-                             int Sq, int Skv, int kv_end, BwdStrides st, float scale, float scale_log2) {
-  using C = Bwd<D>;
-  constexpr int COLS = C::COLS, NJ = C::NJ;
-  extern __shared__ float4 smem_f4[];
-  float* sQt = reinterpret_cast<float*>(smem_f4);
-  float* sOt = sQt + TT;
-  float* sKt = sOt + TT;
-  float* sVt = sKt + TT;
-  float* sP = sVt + TT;   // [64 q][64 k]
-  float* sdS = sP + TT;   // [64 q][64 k]
-  float* sQr = sdS + TT;  // [64 q][COLS]
-  float* sOr = sQr + T * COLS;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, k0 = blockIdx.x * T, c0 = blockIdx.z * COLS;
-  const float* qb = q + b * st.q_b + h * st.q_h;
-  const float* kb = k + b * st.k_b + h * st.k_h;
-  const float* vb = v + b * st.v_b + h * st.v_h;
-  const float* dob = dout + b * st.do_b + h * st.do_h;
-  const float* lse_bh = lse + static_cast<long long>(blockIdx.y) * Sq;
-  const float* dd_bh = dd + static_cast<long long>(blockIdx.y) * Sq;
+constexpr int MAX_JOBS = 7;
 
-  float acc_k[NJ][4][4], acc_v[NJ][4][4];
+struct SplitArgs {
+  SplitJob job[MAX_JOBS];
+  int H, D;
+};
+
+// One CTA per (32 rows, b·h, job), 256 threads; it walks the head dim in
+// 32-column steps. Natural: each warp reads and writes 128-byte rows.
+// Transposed: through a 32 × 33 tile, keys permuted within groups of 8.
+__global__ void __launch_bounds__(256) flash_f32_split_kernel(const __grid_constant__ SplitArgs a) {
+  __shared__ float tile[32][33];
+  const SplitJob& jb = a.job[blockIdx.z];
+  const int s0 = blockIdx.x * 32;
+  if (s0 >= (jb.transposed ? jb.S_pad : jb.S)) return;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H, tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const float* src = jb.src + b * jb.sb + h * jb.sh;
+  const long long per_bh = static_cast<long long>(jb.transposed ? jb.S_pad : jb.S) * a.D;
+  const long long plane = per_bh * gridDim.y;
+  float* dst = jb.dst + bh * per_bh;
+  for (int d0 = 0; d0 < a.D; d0 += 32) {
+    if (!jb.transposed) {
 #pragma unroll
-  for (int jj = 0; jj < NJ; ++jj) {
-    zero(acc_k[jj]);
-    zero(acc_v[jj]);
-  }
-  for (int q0 = 0; q0 < Sq; q0 += T) {
-    float s[4][4], dp[4][4];
-    scores_bwd<D>(s, dp, sQt, sOt, sKt, sVt, qb, dob, kb, vb, st, q0, Sq, k0, kv_end, tx, ty);
-    p_ds(s, dp, lse_bh, dd_bh, q0, Sq, k0, kv_end, scale_log2, tx, ty);
+      for (int i = 0; i < 4; ++i) {
+        const int s = s0 + ty + 8 * i;
+        if (s < jb.S) {
+          uint32_t hi, lo;
+          tf32_split(src[s * jb.ss + d0 + tx], hi, lo);
+          const long long at = static_cast<long long>(s) * a.D + d0 + tx;
+          dst[at] = __uint_as_float(hi);
+          dst[plane + at] = __uint_as_float(lo);
+        }
+      }
+    } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      *reinterpret_cast<float4*>(sP + (4 * ty + i) * T + 4 * tx) = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-      *reinterpret_cast<float4*>(sdS + (4 * ty + i) * T + 4 * tx) =
-          make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
-    }
-    load_rows<COLS>(sQr, qb, st.q_s, q0, Sq, c0);
-    load_rows<COLS>(sOr, dob, st.do_s, q0, Sq, c0);
-    __syncthreads();
+      for (int i = 0; i < 4; ++i) {
+        const int s = s0 + ty + 8 * i;
+        tile[ty + 8 * i][tx] = s < jb.S ? src[s * jb.ss + d0 + tx] : 0.f;
+      }
+      __syncthreads();
+      const int c = tx & 7, key = (tx & ~7) + (c < 4 ? 2 * c : 2 * c - 7);  // position c holds key 2c or 2c − 7
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      mm(acc_v[jj], sP, T, 4 * ty, sOr + jj * T, COLS, 4 * tx);
-      mm(acc_k[jj], sdS, T, 4 * ty, sQr + jj * T, COLS, 4 * tx);
-    }
-  }
-  float* dkb = dk + b * st.dk_b + h * st.dk_h;
-  float* dvb = dv + b * st.dv_b + h * st.dv_h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * ty + i;
-    if (key >= Skv) continue;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const int col = c0 + jj * T + 4 * tx;
-      *reinterpret_cast<float4*>(dkb + key * st.dk_s + col) = make_float4(
-          acc_k[jj][i][0] * scale, acc_k[jj][i][1] * scale, acc_k[jj][i][2] * scale, acc_k[jj][i][3] * scale);
-      *reinterpret_cast<float4*>(dvb + key * st.dv_s + col) =
-          make_float4(acc_v[jj][i][0], acc_v[jj][i][1], acc_v[jj][i][2], acc_v[jj][i][3]);
+      for (int i = 0; i < 4; ++i) {
+        const int d = ty + 8 * i;
+        uint32_t hi, lo;
+        tf32_split(tile[key][d], hi, lo);
+        const long long at = static_cast<long long>(d0 + d) * jb.S_pad + s0 + tx;
+        dst[at] = __uint_as_float(hi);
+        dst[plane + at] = __uint_as_float(lo);
+      }
+      __syncthreads();
     }
   }
 }
 
-// one CTA per (64 query rows, b·h, column chunk); dS goes to shared memory
-// key-major, since dQ reduces over keys
-template <int D>
-__global__ void __launch_bounds__(NT, 1)
-    flash_bwd_f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                            const float* __restrict__ dout, const float* __restrict__ lse,
-                            const float* __restrict__ dd, float* __restrict__ dq, int H, int Sq, int kv_end,
-                            BwdStrides st, float scale, float scale_log2) {
-  using C = Bwd<D>;
-  constexpr int COLS = C::COLS, NJ = C::NJ;
-  extern __shared__ float4 smem_f4[];
-  float* sQt = reinterpret_cast<float*>(smem_f4);
-  float* sOt = sQt + TT;
-  float* sKt = sOt + TT;
-  float* sVt = sKt + TT;
-  float* sdSt = sVt + TT;       // [64 k][64 q]
-  float* sKr = sdSt + 2 * TT;   // [64 k][COLS]
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, q0 = blockIdx.x * T, c0 = blockIdx.z * COLS;
-  const float* qb = q + b * st.q_b + h * st.q_h;
-  const float* kb = k + b * st.k_b + h * st.k_h;
-  const float* vb = v + b * st.v_b + h * st.v_h;
-  const float* dob = dout + b * st.do_b + h * st.do_h;
-  const float* lse_bh = lse + static_cast<long long>(blockIdx.y) * Sq;
-  const float* dd_bh = dd + static_cast<long long>(blockIdx.y) * Sq;
+// ---------------------------------------------------------------------------
+// host
+// ---------------------------------------------------------------------------
 
-  float acc[NJ][4][4];
-#pragma unroll
-  for (int jj = 0; jj < NJ; ++jj) zero(acc[jj]);
-  for (int k0 = 0; k0 < kv_end; k0 += T) {
-    float s[4][4], dp[4][4];
-    scores_bwd<D>(s, dp, sQt, sOt, sKt, sVt, qb, dob, kb, vb, st, q0, Sq, k0, kv_end, tx, ty);
-    p_ds(s, dp, lse_bh, dd_bh, q0, Sq, k0, kv_end, scale_log2, tx, ty);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(sdSt + (4 * tx + j) * T + 4 * ty) =
-          make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]);
-    load_rows<COLS>(sKr, kb, st.k_s, k0, kv_end, c0);
-    __syncthreads();
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) mm(acc[jj], sdSt, T, 4 * ty, sKr + jj * T, COLS, 4 * tx);
-  }
-  float* dqb = dq + b * st.dq_b + h * st.dq_h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= Sq) continue;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj)
-      *reinterpret_cast<float4*>(dqb + row * st.dq_s + c0 + jj * T + 4 * tx) = make_float4(
-          acc[jj][i][0] * scale, acc[jj][i][1] * scale, acc[jj][i][2] * scale, acc[jj][i][3] * scale);
-  }
+// The 4-D fp32 map (32-column boxes of 64 rows, both planes) of a split
+// buffer: natural (2, BH, rows, D) with inner = D, or transposed
+// (2, BH, D, S_pad) with inner = S_pad and rows = D.
+int map_split(CUtensorMap* map, const void* buf, int inner, int rows, int BH) {
+  const long long dims[4] = {inner, rows, BH, 2};
+  const long long strides[3] = {4LL * inner, 4LL * inner * rows, 4LL * inner * rows * BH};
+  const int box[4] = {32, 64, 1, 2};
+  return make_map(map, buf, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
+
+int pad64(int s) { return (s + 63) / 64 * 64; }
 
 template <typename K>
 cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D>
-int launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int B, int H, int Sq,
-               int kv_end, const Strides& st, float scale, cudaStream_t stream) {
-  cudaError_t err = set_smem(flash_fwd_f32_kernel<D>, Fwd<D>::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + T - 1) / T, B * H);
-  flash_fwd_f32_kernel<D><<<grid, NT, Fwd<D>::SMEM, stream>>>(q, k, v, o, lse, H, Sq, kv_end, st, scale * LOG2E_F);
-  return static_cast<int>(cudaGetLastError());
-}
-
-BwdStrides make_bwd_strides(const long long* s) {
-  BwdStrides st;
-  long long* dst = &st.q_b;
-  for (int i = 0; i < 21; ++i) dst[i] = s[i];
-  return st;
+Args make_args(float* out0, float* out1, float* lse, const float* dd, const long long* os, int H, int Sq, int rows,
+               int n_tiles, int row_live, int col_live, float mult0, float mult1, float scale) {
+  Args a;
+  a.out0 = out0, a.out1 = out1, a.lse = lse, a.dd = dd;
+  a.o0_b = os[0], a.o0_s = os[1], a.o0_h = os[2], a.o1_b = os[3], a.o1_s = os[4], a.o1_h = os[5];
+  a.H = H, a.Sq = Sq, a.rows = rows, a.n_tiles = n_tiles, a.row_live = row_live, a.col_live = col_live;
+  a.mult0 = mult0, a.mult1 = mult1, a.scale_log2 = scale * LOG2E_F;
+  return a;
 }
 
 template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* dd,
-               void* dk, void* dv, int B, int H, int Sq, int Skv, int kv_end, const BwdStrides& st, float scale,
-               cudaStream_t stream) {
-  cudaError_t err = set_smem(flash_bwd_f32_dkv_kernel<D>, Bwd<D>::SMEM);
+int launch_fwd(const void* qs, const void* ks, const void* vt, float* o, float* lse, int B, int H, int Sq, int Skv,
+               int kv_end, const long long* os, float scale, cudaStream_t stream) {
+  using C = Cfg<D, FWD>;
+  CUtensorMap tq, tk, tvt;
+  int e = map_split(&tq, qs, D, Sq, B * H);
+  if (e == 0) e = map_split(&tk, ks, D, Skv, B * H);
+  if (e == 0) e = map_split(&tvt, vt, pad64(Skv), D, B * H);
+  if (e != 0) return e;
+  cudaError_t err = set_smem(flash_fwd_f32_kernel<D>, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Skv + T - 1) / T, B * H, D / Bwd<D>::COLS);
-  flash_bwd_f32_dkv_kernel<D><<<grid, NT, Bwd<D>::SMEM, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse), static_cast<const float*>(dd),
-      static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Skv, kv_end, st, scale, scale * LOG2E_F);
+  const Args a = make_args(o, nullptr, lse, nullptr, os, H, Sq, Sq, (kv_end + 63) / 64, Sq, kv_end, 1.f, 1.f, scale);
+  const dim3 grid((Sq + 64 * C::R - 1) / (64 * C::R), B * H);
+  flash_fwd_f32_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tvt, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* dd,
-              void* dq, int B, int H, int Sq, int kv_end, const BwdStrides& st, float scale, cudaStream_t stream) {
-  cudaError_t err = set_smem(flash_bwd_f32_dq_kernel<D>, Bwd<D>::SMEM);
+int launch_dq(const void* qs, const void* ks, const void* vs, const void* dos, const void* kt, const float* lse,
+              const float* dd, float* dq, int B, int H, int Sq, int Skv, int kv_end, const long long* os, float scale,
+              cudaStream_t stream) {
+  using C = Cfg<D, DQ>;
+  CUtensorMap tq, tk, tdo, tv, tkt;
+  int e = map_split(&tq, qs, D, Sq, B * H);
+  if (e == 0) e = map_split(&tk, ks, D, Skv, B * H);
+  if (e == 0) e = map_split(&tdo, dos, D, Sq, B * H);
+  if (e == 0) e = map_split(&tv, vs, D, Skv, B * H);
+  if (e == 0) e = map_split(&tkt, kt, pad64(Skv), D, B * H);
+  if (e != 0) return e;
+  cudaError_t err = set_smem(flash_bwd_f32_dq_kernel<D>, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + T - 1) / T, B * H, D / Bwd<D>::COLS);
-  flash_bwd_f32_dq_kernel<D><<<grid, NT, Bwd<D>::SMEM, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse), static_cast<const float*>(dd),
-      static_cast<float*>(dq), H, Sq, kv_end, st, scale, scale * LOG2E_F);
+  const long long o6[6] = {os[0], os[1], os[2], 0, 0, 0};
+  const Args a = make_args(dq, nullptr, const_cast<float*>(lse), dd, o6, H, Sq, Sq, (kv_end + 63) / 64, Sq, kv_end,
+                           scale, 1.f, scale);
+  const dim3 grid((Sq + 64 * C::R - 1) / (64 * C::R), B * H);
+  flash_bwd_f32_dq_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tdo, tv, tkt, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int MODE>
+int launch_dkv_mode(const CUtensorMap& tk, const CUtensorMap& tq, const CUtensorMap& tv, const CUtensorMap& tdo,
+                    const CUtensorMap& tdot, const CUtensorMap& tqt, const Args& a, int BH, int Skv,
+                    cudaStream_t stream) {
+  using C = Cfg<D, MODE>;
+  cudaError_t err = set_smem(flash_bwd_f32_dkv_kernel<D, MODE>, C::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Skv + 64 * C::R - 1) / (64 * C::R), BH);
+  flash_bwd_f32_dkv_kernel<D, MODE><<<grid, C::THREADS, C::SMEM, stream>>>(tk, tq, tv, tdo, tdot, tqt, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv(const void* qs, const void* ks, const void* vs, const void* dos, const void* qt, const void* dot,
+               const float* lse, const float* dd, float* dk, float* dv, int B, int H, int Sq, int Skv, int kv_end,
+               const long long* os, float scale, cudaStream_t stream) {
+  CUtensorMap tk, tq, tv, tdo, tdot, tqt;
+  int e = map_split(&tk, ks, D, Skv, B * H);
+  if (e == 0) e = map_split(&tq, qs, D, Sq, B * H);
+  if (e == 0) e = map_split(&tv, vs, D, Skv, B * H);
+  if (e == 0) e = map_split(&tdo, dos, D, Sq, B * H);
+  if (e == 0) e = map_split(&tdot, dot, pad64(Sq), D, B * H);
+  if (e == 0) e = map_split(&tqt, qt, pad64(Sq), D, B * H);
+  if (e != 0) return e;
+  const int n_tiles = (Sq + 63) / 64;
+  float* l = const_cast<float*>(lse);
+  if constexpr (D == 64) {  // dV and dK in one pass; os: dk (b, s, h), dv (b, s, h)
+    const long long o6[6] = {os[3], os[4], os[5], os[0], os[1], os[2]};
+    const Args a = make_args(dv, dk, l, dd, o6, H, Sq, Skv, n_tiles, kv_end, Sq, 1.f, scale, scale);
+    return launch_dkv_mode<D, DKV>(tk, tq, tv, tdo, tdot, tqt, a, B * H, Skv, stream);
+  } else {  // dV, then dK: one 64 × D/2 accumulator per consumer each
+    const long long ov[6] = {os[3], os[4], os[5], 0, 0, 0}, ok[6] = {os[0], os[1], os[2], 0, 0, 0};
+    e = launch_dkv_mode<D, DV>(tk, tq, tv, tdo, tdot, tqt,
+                               make_args(dv, nullptr, l, dd, ov, H, Sq, Skv, n_tiles, kv_end, Sq, 1.f, 1.f, scale),
+                               B * H, Skv, stream);
+    if (e != 0) return e;
+    return launch_dkv_mode<D, DK>(tk, tq, tv, tdo, tdot, tqt,
+                                  make_args(dk, nullptr, l, dd, ok, H, Sq, Skv, n_tiles, kv_end, Sq, scale, 1.f, scale),
+                                  B * H, Skv, stream);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// q: (B, Sq, H, D), k/v: (B, Skv, H, D), o: (B, Sq, H, D), fp32, D in {64,
-// 128, 256, 384, 512}; strides in elements, head dim contiguous, rows 16-byte
-// aligned; keys [kv_end, Skv) are excluded. lse: null, or (B, H, Sq) fp32
-// contiguous, which receives each row's natural-log log-sum-exp.
-int flash_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Sq, int kv_end,
-                  int D, int q_b, int q_s, int q_h, int k_b, int k_s, int k_h, int v_b, int v_s, int v_h, int o_b,
-                  int o_s, int o_h, float scale, void* stream) {
-  const Strides st = {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h};
-  const float* qq = static_cast<const float*>(q);
-  const float* kk = static_cast<const float*>(k);
-  const float* vv = static_cast<const float*>(v);
+// jobs: njobs (<= 7) × 7 values: src, dst (pointers), the (b, s, h) element
+// strides of src, its S, and 1 for the transposed layout. src is (B, S, H, D)
+// fp32 with a contiguous head dim; dst is (2, B·H, S, D) natural or
+// (2, B·H, D, S_pad) transposed, S_pad = S rounded up to 64, fp32
+// contiguous: tf32 hi in plane 0, lo in plane 1.
+int flash_f32_split(const long long* jobs, int njobs, int B, int H, int D, void* stream) {
+  if (njobs < 1 || njobs > MAX_JOBS || D % 32) return static_cast<int>(cudaErrorInvalidValue);
+  SplitArgs a = {};
+  a.H = H, a.D = D;
+  int blocks = 0;
+  for (int i = 0; i < njobs; ++i) {
+    const long long* v = jobs + 7 * i;
+    SplitJob& jb = a.job[i];
+    jb.src = reinterpret_cast<const float*>(v[0]);
+    jb.dst = reinterpret_cast<float*>(v[1]);
+    jb.sb = v[2], jb.ss = v[3], jb.sh = v[4];
+    jb.S = static_cast<int>(v[5]), jb.S_pad = pad64(jb.S), jb.transposed = static_cast<int>(v[6]);
+    const int n = ((jb.transposed ? jb.S_pad : jb.S) + 31) / 32;
+    blocks = n > blocks ? n : blocks;
+  }
+  flash_f32_split_kernel<<<dim3(blocks, B * H, njobs), 256, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// qs, ks: natural splits of q (B, Sq, H, D) and k (B, Skv, H, D); vt: the
+// transposed split of v; o: (B, Sq, H, D) fp32 with element strides
+// (o_b, o_s, o_h); D in {64, 128, 256, 384, 512}; keys [kv_end, Skv) are
+// excluded. lse: null, or (B, H, Sq) fp32 contiguous, which receives each
+// row's natural-log log-sum-exp.
+int flash_fwd_f32(const void* qs, const void* ks, const void* vt, void* o, void* lse, int B, int H, int Sq, int Skv,
+                  int kv_end, int D, int o_b, int o_s, int o_h, float scale, void* stream) {
+  const long long os[6] = {o_b, o_s, o_h, 0, 0, 0};
   float* oo = static_cast<float*>(o);
   float* ll = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_fwd<64>(qq, kk, vv, oo, ll, B, H, Sq, kv_end, st, scale, s);
-    case 128: return launch_fwd<128>(qq, kk, vv, oo, ll, B, H, Sq, kv_end, st, scale, s);
-    case 256: return launch_fwd<256>(qq, kk, vv, oo, ll, B, H, Sq, kv_end, st, scale, s);
-    case 384: return launch_fwd<384>(qq, kk, vv, oo, ll, B, H, Sq, kv_end, st, scale, s);
-    case 512: return launch_fwd<512>(qq, kk, vv, oo, ll, B, H, Sq, kv_end, st, scale, s);
+    case 64: return launch_fwd<64>(qs, ks, vt, oo, ll, B, H, Sq, Skv, kv_end, os, scale, s);
+    case 128: return launch_fwd<128>(qs, ks, vt, oo, ll, B, H, Sq, Skv, kv_end, os, scale, s);
+    case 256: return launch_fwd<256>(qs, ks, vt, oo, ll, B, H, Sq, Skv, kv_end, os, scale, s);
+    case 384: return launch_fwd<384>(qs, ks, vt, oo, ll, B, H, Sq, Skv, kv_end, os, scale, s);
+    case 512: return launch_fwd<512>(qs, ks, vt, oo, ll, B, H, Sq, Skv, kv_end, os, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // The backward passes on the forward's lse and dd = rowsum(dO ∘ O), both
-// (B, H, Sq) fp32 contiguous; dout, dq: (B, Sq, H, D), dk/dv: (B, Skv, H, D)
-// fp32. strides: 21 values in elements, (b, s, h) of q, k, v, dout, dq, dk,
-// dv in that order. Keys [kv_end, Skv) get zero dk and dv.
-int flash_bwd_f32_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* dd,
-                      void* dk, void* dv, int B, int H, int Sq, int Skv, int kv_end, int D, const long long* strides,
-                      float scale, void* stream) {
-  const BwdStrides st = make_bwd_strides(strides);
+// (B, H, Sq) fp32 contiguous. qs, ks, vs, dos: natural splits of q, k, v,
+// dO; qt, dot: transposed splits of q and dO; kt: of k. dk, dv: (B, Skv, H,
+// D) and dq: (B, Sq, H, D) fp32; out_strides: (b, s, h) in elements of dk
+// then dv, or of dq. Keys [kv_end, Skv) get zero dk and dv.
+int flash_bwd_f32_dkv(const void* qs, const void* ks, const void* vs, const void* dos, const void* qt,
+                      const void* dot, const void* lse, const void* dd, void* dk, void* dv, int B, int H, int Sq,
+                      int Skv, int kv_end, int D, const long long* out_strides, float scale, void* stream) {
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(dd);
+  float* k = static_cast<float*>(dk);
+  float* v = static_cast<float*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_dkv<64>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Skv, kv_end, st, scale, s);
-    case 128: return launch_dkv<128>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Skv, kv_end, st, scale, s);
-    case 256: return launch_dkv<256>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Skv, kv_end, st, scale, s);
-    case 384: return launch_dkv<384>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Skv, kv_end, st, scale, s);
-    case 512: return launch_dkv<512>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Skv, kv_end, st, scale, s);
+    case 64: return launch_dkv<64>(qs, ks, vs, dos, qt, dot, l, d, k, v, B, H, Sq, Skv, kv_end, out_strides, scale, s);
+    case 128:
+      return launch_dkv<128>(qs, ks, vs, dos, qt, dot, l, d, k, v, B, H, Sq, Skv, kv_end, out_strides, scale, s);
+    case 256:
+      return launch_dkv<256>(qs, ks, vs, dos, qt, dot, l, d, k, v, B, H, Sq, Skv, kv_end, out_strides, scale, s);
+    case 384:
+      return launch_dkv<384>(qs, ks, vs, dos, qt, dot, l, d, k, v, B, H, Sq, Skv, kv_end, out_strides, scale, s);
+    case 512:
+      return launch_dkv<512>(qs, ks, vs, dos, qt, dot, l, d, k, v, B, H, Sq, Skv, kv_end, out_strides, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-int flash_bwd_f32_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* dd,
-                     void* dq, int B, int H, int Sq, int kv_end, int D, const long long* strides, float scale,
-                     void* stream) {
-  const BwdStrides st = make_bwd_strides(strides);
+int flash_bwd_f32_dq(const void* qs, const void* ks, const void* vs, const void* dos, const void* kt, const void* lse,
+                     const void* dd, void* dq, int B, int H, int Sq, int Skv, int kv_end, int D,
+                     const long long* out_strides, float scale, void* stream) {
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(dd);
+  float* q = static_cast<float*>(dq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_dq<64>(q, k, v, dout, lse, dd, dq, B, H, Sq, kv_end, st, scale, s);
-    case 128: return launch_dq<128>(q, k, v, dout, lse, dd, dq, B, H, Sq, kv_end, st, scale, s);
-    case 256: return launch_dq<256>(q, k, v, dout, lse, dd, dq, B, H, Sq, kv_end, st, scale, s);
-    case 384: return launch_dq<384>(q, k, v, dout, lse, dd, dq, B, H, Sq, kv_end, st, scale, s);
-    case 512: return launch_dq<512>(q, k, v, dout, lse, dd, dq, B, H, Sq, kv_end, st, scale, s);
+    case 64: return launch_dq<64>(qs, ks, vs, dos, kt, l, d, q, B, H, Sq, Skv, kv_end, out_strides, scale, s);
+    case 128: return launch_dq<128>(qs, ks, vs, dos, kt, l, d, q, B, H, Sq, Skv, kv_end, out_strides, scale, s);
+    case 256: return launch_dq<256>(qs, ks, vs, dos, kt, l, d, q, B, H, Sq, Skv, kv_end, out_strides, scale, s);
+    case 384: return launch_dq<384>(qs, ks, vs, dos, kt, l, d, q, B, H, Sq, Skv, kv_end, out_strides, scale, s);
+    case 512: return launch_dq<512>(qs, ks, vs, dos, kt, l, d, q, B, H, Sq, Skv, kv_end, out_strides, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -2,13 +2,17 @@
 // K1, flash_bwd.cu: K5, gn_conv.cu: K4), in raw PTX:
 //
 //   * mbarriers: init, arrive, arrive + expect-tx, parity wait;
-//   * TMA: 3-D and 4-D tiled loads (cp.async.bulk.tensor) of bf16 tensors
-//     into shared memory, with or without the 128-byte swizzle, completing on
-//     an mbarrier; the tensor map is encoded on the host through the driver
-//     entry point that the CUDA runtime hands out (no -lcuda);
+//   * TMA: 3-D and 4-D tiled loads (cp.async.bulk.tensor) of bf16 or fp32
+//     tensors into shared memory, with or without the 128-byte swizzle,
+//     completing on an mbarrier; the tensor map is encoded on the host
+//     through the driver entry point that the CUDA runtime hands out (no
+//     -lcuda);
 //   * wgmma: shared-memory descriptors for 128-byte-swizzled tiles, the
 //     m64nNk16 bf16 → fp32 products with A from shared memory or from
-//     registers (B K-major or MN-major), wgmma.fence / commit_group / wait_group;
+//     registers (B K-major or MN-major), the m64n64k8 tf32 → fp32 products
+//     (K-major only: the transpose flags exist for 16-bit types alone) and
+//     the round-to-nearest-away fp32 → tf32 conversion with its hi/lo split,
+//     wgmma.fence / commit_group / wait_group;
 //   * warp specialisation: setmaxnreg and named barriers.
 //
 // Tile layout. A 64-wide bf16 row is 128 bytes, exactly one swizzle atom:
@@ -21,6 +25,9 @@
 //   MN-major (the reduction runs along the rows: P·V, pᵀ·dO, dS·K): the 64
 //     columns are the N extent (one atom), 8-row groups 1024 bytes apart;
 //     the k-th 16-row slice starts 2048·k bytes into the tile.
+// A 32-wide fp32 row is 128 bytes too, so an fp32 tile of 64 rows × 32
+// columns has the same geometry: its k-th k8 slice (tf32 products reduce 8
+// deep) starts 32·k bytes in, and desc_k serves it unchanged.
 // The wgmma accumulator of a 64-row tile gives warp w of the warpgroup rows
 // 16w + lane/4 (+8) and, in its 8-column chunk i, the values 4i..4i+3 at
 // columns 8i + 2(lane%4) (+1), first row then row + 8: the mma.sync m16n8
@@ -62,12 +69,14 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first), the byte strides
-// of dimensions 1.. (a dimension of size 1 gets a valid dummy: its stride is
-// never used), a box, and the swizzle of the box in shared memory. Elements
-// outside the dimensions read as zeros. Returns a cudaError_t.
+// A tensor map (bf16 unless `dtype` says otherwise) of `rank` dimensions
+// (innermost first), the byte strides of dimensions 1.. (a dimension of size
+// 1 gets a valid dummy: its stride is never used), a box, and the swizzle of
+// the box in shared memory. Elements outside the dimensions read as zeros.
+// Returns a cudaError_t.
 int make_map(CUtensorMap* map, const void* base, int rank, const long long* dims, const long long* strides,
-             const int* box, CUtensorMapSwizzle swizzle) {
+             const int* box, CUtensorMapSwizzle swizzle,
+             CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint64_t d[5], s[4];
@@ -78,7 +87,7 @@ int make_map(CUtensorMap* map, const void* base, int rank, const long long* dims
     elem[i] = 1;
     if (i > 0) s[i - 1] = static_cast<cuuint64_t>(dims[i] > 1 ? strides[i - 1] : 128);
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d, s, b, elem,
+  const CUresult r = fn(map, dtype, rank, const_cast<void*>(base), d, s, b, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
@@ -319,6 +328,63 @@ __device__ __forceinline__ void wgmma_rs_m64n160_k(float (&d)[80], uint32_t a0, 
         "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// device: tf32
+// ---------------------------------------------------------------------------
+
+// x rounded to tf32 (10 explicit mantissa bits), to nearest with ties away
+// from zero; the 13 low bits of the result are 0
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 |x|) with hi and lo exact tf32 values (the 3xTF32
+// split: a·b ≈ a_hi·b_hi + a_hi·b_lo + a_lo·b_hi, the a_lo·b_lo term ~2^-22
+// relative left out)
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// D(64×64, fp32) (+)= A(64×8) · B(8×64), tf32: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_tf32_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D(64×64, fp32) (+)= A(64×8, tf32 registers) · B(8×64): B K-major in shared
+// memory. A thread's a0..a3 are A's (row, column) (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4), g = lane / 4 + 16·warp, t = lane % 4.
+__device__ __forceinline__ void wgmma_tf32_rs_m64n64(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                                     uint32_t a3, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 
 }  // namespace

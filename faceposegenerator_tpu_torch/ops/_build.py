@@ -29,7 +29,7 @@ NVCC_FLAGS = [
 KERNELS = {
     "flash_fwd": ("flash_fwd_d64", "flash_fwd_wide"),
     "flash_bwd": ("flash_bwd_d64_dkv", "flash_bwd_d64_dq", "flash_bwd_wide_dkv", "flash_bwd_wide_dq"),
-    "flash_f32": ("flash_fwd_f32", "flash_bwd_f32_dkv", "flash_bwd_f32_dq"),
+    "flash_f32": ("flash_fwd_f32", "flash_bwd_f32_dkv", "flash_bwd_f32_dq", "flash_f32_split"),
     "flash_int8": ("flash_int8", "flash_int8_f32"),
     "qdense": ("qdense", "qdense_f32"),
     "fused_gn": ("fused_group_norm",),
@@ -132,6 +132,22 @@ def ptxas_report(name: str) -> list[dict]:
         if m:
             cur["registers"] = int(m.group(1))
     return rows
+
+
+def sass_hgmma(name: str) -> dict[str, list[int]]:
+    """Per kernel function of a built source, [HGMMA instructions, those
+    with TF32 operands] in its SASS (`cuobjdump -sass` of the library)."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", str(_target(name))], capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(_innermost(m.group(1)), [0, 0])
+        elif cur is not None and "HGMMA" in line:
+            cur[0] += 1
+            cur[1] += "TF32" in line
+    return counts
 
 
 def kernel(name: str):

@@ -20,7 +20,11 @@ paths:
   `flash_fwd_f32`,      the fp32 instance of K1/K2 and of K5/K6: JAX sends
   `flash_bwd_f32_dkv`,  fp32 as well as bf16 to its kernels
   `flash_bwd_f32_dq`    (`flash_supported`, :87-101), any head dim in
-                        {64, 128, 256, 384, 512} (csrc/flash_f32.cu);
+                        {64, 128, 256, 384, 512}, 3xTF32 on the tensor
+                        cores (csrc/flash_f32.cu);
+  `flash_f32_split`     their pre-pass: each fp32 operand split into tf32 hi
+                        and lo planes, natural or transposed (one launch per
+                        fp32 forward or backward call);
   `flash_int8_f32`      K8 writing fp32 for fp32 q, k, v.
 
 `kernel_for(dtype, head_dim, backward)` names the entry points a dtype and
@@ -50,6 +54,7 @@ LAUNCHES = {
     "flash_bwd_d64_dkv": 0, "flash_bwd_d64_dq": 0,
     "flash_bwd_wide_dkv": 0, "flash_bwd_wide_dq": 0, "flash_int8": 0,
     "flash_fwd_f32": 0, "flash_bwd_f32_dkv": 0, "flash_bwd_f32_dq": 0, "flash_int8_f32": 0,
+    "flash_f32_split": 0,
 }
 _WIDE_DIMS = (128, 256, 384, 512)
 _F32_DIMS = (64, *_WIDE_DIMS)
@@ -123,6 +128,62 @@ def attention_bwd_plain(q, k, v, o, lse, do, scale: float, kv_len: Optional[int]
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 `x` rounded to tf32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as `cvt.rna.tf32.f32` does: half a tf32 ulp (bit
+    12) added to the magnitude bits, the 13 low bits cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split of csrc/sm90_common.cuh `tf32_split`:
+    hi = rna_tf32(x), lo = rna_tf32(x − hi)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+# Position c of each group of 8 in the transposed layout holds key
+# _KEY_PERM[c], so that a thread's accumulator registers are the tf32 A
+# fragment of the next product as they are (csrc/flash_f32.cu).
+_KEY_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def f32_split_plain(x: torch.Tensor, transposed: bool) -> torch.Tensor:
+    """`flash_f32_split`'s output for one (B, S, H, D) operand in plain
+    PyTorch: (2, B·H, S, D) hi/lo planes, or transposed (2, B·H, D, S_pad),
+    S_pad = S rounded up to 64, keys permuted within groups of 8 and zero
+    past S."""
+    b, s, h, d = x.shape
+    planes = torch.stack(tf32_split_plain(x.float())).permute(0, 1, 3, 2, 4).reshape(2, b * h, s, d)
+    if not transposed:
+        return planes
+    pad = -(-s // 64) * 64
+    out = torch.zeros((2, b * h, pad, d), dtype=torch.float32, device=x.device)
+    out[:, :, :s] = planes
+    perm = (torch.arange(pad).view(-1, 8)[:, list(_KEY_PERM)]).reshape(-1).to(x.device)
+    return out.index_select(2, perm).transpose(2, 3).contiguous()
+
+
+def f32_split(specs) -> list[torch.Tensor]:
+    """Split each (tensor, transposed) of `specs` (fp32 (B, S, H, D) tensors
+    of one B, H and D) into the layout of `f32_split_plain`: on the card in
+    one `flash_f32_split` launch, for CPU tensors by the plain version."""
+    if not specs[0][0].is_cuda:
+        return [f32_split_plain(t, tr) for t, tr in specs]
+    b, _, h, d = specs[0][0].shape
+    outs, vals = [], []
+    for t, tr in specs:
+        s = t.shape[1]
+        shape = (2, b * h, d, -(-s // 64) * 64) if tr else (2, b * h, s, d)
+        out = torch.empty(shape, dtype=torch.float32, device=t.device)
+        outs.append(out)
+        vals += [t.data_ptr(), out.data_ptr(), *t.stride()[:3], s, int(tr)]
+    _call("flash_f32_split", (ctypes.c_longlong * len(vals))(*vals), len(specs), b, h, d,
+          torch.cuda.current_stream(specs[0][0].device).cuda_stream)
+    return outs
+
+
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {  # the C signatures in csrc/flash_fwd.cu, flash_bwd.cu, flash_f32.cu and flash_int8.cu
     "flash_fwd_d64": [_PTR] * 5 + [_INT] * 16 + [_FLOAT, _PTR],
@@ -132,9 +193,10 @@ _ARGTYPES = {  # the C signatures in csrc/flash_fwd.cu, flash_bwd.cu, flash_f32.
     "flash_bwd_wide_dkv": [_PTR] * 8 + [_INT] * 6 + [_PTR, _FLOAT, _PTR],
     "flash_bwd_wide_dq": [_PTR] * 7 + [_INT] * 5 + [_PTR, _FLOAT, _PTR],
     "flash_int8": [_PTR] * 5 + [_INT] * 5 + [_PTR],
-    "flash_fwd_f32": [_PTR] * 5 + [_INT] * 17 + [_FLOAT, _PTR],
-    "flash_bwd_f32_dkv": [_PTR] * 8 + [_INT] * 6 + [_PTR, _FLOAT, _PTR],
-    "flash_bwd_f32_dq": [_PTR] * 7 + [_INT] * 5 + [_PTR, _FLOAT, _PTR],
+    "flash_fwd_f32": [_PTR] * 5 + [_INT] * 9 + [_FLOAT, _PTR],
+    "flash_bwd_f32_dkv": [_PTR] * 10 + [_INT] * 6 + [_PTR, _FLOAT, _PTR],
+    "flash_bwd_f32_dq": [_PTR] * 8 + [_INT] * 6 + [_PTR, _FLOAT, _PTR],
+    "flash_f32_split": [_PTR] + [_INT] * 4 + [_PTR],
     "flash_int8_f32": [_PTR] * 5 + [_INT] * 5 + [_PTR],
 }
 
@@ -206,11 +268,17 @@ def _launch_fwd(name: str, q, k, v, scale: float, kv_len, with_lse: bool):
     _check(name, q, k, v)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
+    lse_ptr = None if lse is None else lse.data_ptr()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if name == "flash_fwd_f32":
+        qs, ks, vt = f32_split([(q, False), (k, False), (v, True)])
+        _call(name, qs.data_ptr(), ks.data_ptr(), vt.data_ptr(), o.data_ptr(), lse_ptr, b, h, sq, skv, kv_end, d,
+              *o.stride()[:3], float(scale), stream)
+        return (o, lse) if with_lse else o
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]]
     head = [b, h, sq, kv_end] + ([d] if name != "flash_fwd_d64" else [])
-    _call(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-          None if lse is None else lse.data_ptr(), *head, *strides,
-          float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _call(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr, *head, *strides,
+          float(scale), stream)
     return (o, lse) if with_lse else o
 
 
@@ -269,10 +337,13 @@ def _bwd(kind: str, q, k, v, o, lse, do, scale: float, kv_len, passes=("dkv", "d
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device) if "dq" in passes else None
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device) if "dkv" in passes else None
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device) if "dkv" in passes else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if kind == "f32":
+        _launch_bwd_f32(q, k, v, do, lse, dd, dq, dk, dv, kv_end, scale, stream)
+        return dq, dk, dv
     outs = [t if t is not None else q for t in (dq, dk, dv)]  # strides only
     strides = (ctypes.c_longlong * 21)(*(s for t in (q, k, v, do, *outs) for s in t.stride()[:3]))
     wide = [d] if kind != "d64" else []
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr())
     if dk is not None:
         _call(dkv, *ptrs, dk.data_ptr(), dv.data_ptr(), b, h, sq, skv, kv_end, *wide, strides,
@@ -280,6 +351,30 @@ def _bwd(kind: str, q, k, v, o, lse, do, scale: float, kv_len, passes=("dkv", "d
     if dq is not None:
         _call(dqn, *ptrs, dq.data_ptr(), b, h, sq, kv_end, *wide, strides, float(scale), stream)
     return dq, dk, dv
+
+
+def _launch_bwd_f32(q, k, v, do, lse, dd, dq, dk, dv, kv_end, scale, stream) -> None:
+    """The fp32 passes asked for (dk/dv and/or dq not None) after one split
+    launch of the operands they read: natural q, k, v, dO and transposed q,
+    dO for the dK/dV pass, transposed k for the dQ pass."""
+    b, sq, h, d = q.shape
+    specs = [(q, False), (k, False), (v, False), (do, False)]
+    if dk is not None:
+        specs += [(q, True), (do, True)]
+    if dq is not None:
+        specs += [(k, True)]
+    bufs = f32_split(specs)
+    qs, ks, vs, dos = (t.data_ptr() for t in bufs[:4])
+    head = (b, h, sq, k.shape[1], kv_end, d)
+    if dk is not None:
+        qt, dot = bufs[4].data_ptr(), bufs[5].data_ptr()
+        strides = (ctypes.c_longlong * 6)(*dk.stride()[:3], *dv.stride()[:3])
+        _call("flash_bwd_f32_dkv", qs, ks, vs, dos, qt, dot, lse.data_ptr(), dd.data_ptr(), dk.data_ptr(),
+              dv.data_ptr(), *head, strides, float(scale), stream)
+    if dq is not None:
+        strides = (ctypes.c_longlong * 3)(*dq.stride()[:3])
+        _call("flash_bwd_f32_dq", qs, ks, vs, dos, bufs[-1].data_ptr(), lse.data_ptr(), dd.data_ptr(),
+              dq.data_ptr(), *head, strides, float(scale), stream)
 
 
 def flash_bwd_d64(q, k, v, o, lse, do, scale: float, kv_len: Optional[int] = None,

@@ -1,7 +1,8 @@
 """K1 and K5 (the d = 64 flash-attention kernels) of two copies of the port,
-timed in one call on one card, in turns.
+timed in one call on one card, in turns; with `--fp32`, their fp32 instances
+(flash_fwd_f32, flash_bwd_f32_dkv/_dq) instead.
 
-    python3 perf/torch_flash_compare.py --other build/parent [--tag parent]
+    python3 perf/torch_flash_compare.py --other build/parent [--tag parent] [--fp32]
 
 `--other` is the root of another checkout (for example the parent commit,
 unpacked with `git archive` into a directory that .gitignore lists). Each
@@ -16,6 +17,13 @@ path (the small shapes) they time the host; each copy therefore also traces
 20 calls a shape with torch.profiler and keeps the kernels' own device time
 a call. Prints both tables with both copies' best times and writes every
 row to chiprun_out/torch_flash_compare[_TAG].json. Needs a CUDA card.
+
+With `--fp32` each copy runs chip_smoke.py's phase 11 checks instead
+(`check_f32_forward` at every sampling shape and, with the log-sum-exp,
+every train shape; `check_f32_backward` at the train shapes), each gated
+against the plain version in fp32 with TF32 off and timed beside it and
+SDPA on fp32 tensors; these kernels take milliseconds, so CUDA events time
+them and there is no profiler table.
 """
 
 from __future__ import annotations
@@ -75,9 +83,23 @@ for label, b, h, sq, skv, d, _ in d64(cs.TRAIN_SHAPES):
 print("RESULT " + json.dumps({"rows": rows, "ptxas": ptxas, "device": device}))
 """
 
+# runs inside the copy's root: chip_smoke's phase 11 attention rows
+CHILD_F32 = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from faceposegenerator_tpu_torch.ops import _build, flash_attention as fa
+_build.build_all()
+card = torch.cuda.get_device_name(0)
+rows = cs.check_f32_forward(torch, fa, card, cs.SHAPES)
+rows += cs.check_f32_forward(torch, fa, card, cs.TRAIN_SHAPES, with_lse=True, per="step")
+rows += cs.check_f32_backward(torch, fa, card, [s for s in cs.TRAIN_SHAPES if s[0] != "vae encode mid"])
+print("RESULT " + json.dumps({"rows": rows, "ptxas": _build.ptxas_report("flash_f32"), "device": {}}))
+"""
 
-def run(root: Path) -> dict:
-    proc = subprocess.run([sys.executable, "-c", CHILD], cwd=root, capture_output=True, text=True, timeout=900)
+
+def run(root: Path, child: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", child], cwd=root, capture_output=True, text=True, timeout=1500)
     if proc.returncode != 0:
         raise SystemExit(f"FAIL in {root}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     line = next(l for l in proc.stdout.splitlines() if l.startswith("RESULT "))
@@ -93,6 +115,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True, help="root of the other checkout (e.g. the parent commit)")
     ap.add_argument("--tag", default="", help="suffix of the output file's name")
+    ap.add_argument("--fp32", action="store_true", help="compare the fp32 instances instead of K1 and K5")
     args = ap.parse_args()
     other = Path(args.other).resolve()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -101,7 +124,7 @@ def main() -> int:
     print(card_line, flush=True)
     runs = []
     for label, root in (("other", other), ("this", REPO), ("this", REPO), ("other", other)):
-        runs.append(dict(copy=label, root=str(root), **run(root)))
+        runs.append(dict(copy=label, root=str(root), **run(root, CHILD_F32 if args.fp32 else CHILD)))
         print(f"done: {label} ({root})", flush=True)
     best: dict = {}
     for r in runs:
@@ -117,8 +140,9 @@ def main() -> int:
         tfl = row.get("tflops")
         print(f"{k:44s} {to:9.4f} {tt:9.4f} {tt / to:10.3f} {row['library_ms']:8.4f} "
               f"{row.get('bound_ms', row.get('pair_bound_ms')):8.4f} {tfl if tfl is None else round(tfl, 1)!s:>8s}")
-    print("device time a call, by torch.profiler (ms):")
-    print(f"{'kernel, shape':44s} {'other ms':>9s} {'this ms':>9s} {'this/other':>10s}  kernels")
+    if runs[0]["device"]:
+        print("device time a call, by torch.profiler (ms):")
+        print(f"{'kernel, shape':44s} {'other ms':>9s} {'this ms':>9s} {'this/other':>10s}  kernels")
     for k in runs[0]["device"]:
         t = {c: min(sum(r["device"][k].values()) for r in runs if r["copy"] == c) for c in ("other", "this")}
         parts = min((r["device"][k] for r in runs if r["copy"] == "this"), key=lambda p: sum(p.values()))

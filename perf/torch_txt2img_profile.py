@@ -1,6 +1,6 @@
 """Where one txt2img request of the PyTorch port spends its device time.
 
-    python3 perf/torch_txt2img_profile.py [--preset turbo] [--attn flash_int8]
+    python3 perf/torch_txt2img_profile.py [--preset turbo] [--attn flash_int8] [--dtype fp32]
     GN_IMPL=pallas GN_CONV_IMPL=pallas python3 perf/torch_txt2img_profile.py
 
 Builds the pipeline as chip_smoke.py does (SD2.1-base widths, bf16, random
@@ -11,9 +11,13 @@ w8a8+vae, 8 calibration steps at 8×512²) and the requests run its 12 steps
 and sampling kwargs; `--attn flash_int8` serves them with the int8
 attention. With GN_IMPL and GN_CONV_IMPL at pallas (read when the port is
 imported) the requests run the fused GroupNorm configuration: K3 and K4.
+With `--dtype fp32` the pipeline is `from_random()` at its default dtype
+(fp32 weights and compute, TF32 off) with an fp32 LoRA, and the requests
+run 10 steps, as chip_smoke.py's fp32 request does: the fp32 attention
+(flash_f32_split, flash_fwd_f32).
 Prints the request's wall time, the device's busy and idle share, device
 time by category of kernel and the top kernels, and writes the full table
-as torch_txt2img_profile[_turbo][_flash_int8][_fused_gn].txt to the output
+as torch_txt2img_profile[_turbo][_flash_int8][_fused_gn][_fp32].txt to the output
 directory (`out` below).
 Needs a CUDA card.
 """
@@ -37,6 +41,7 @@ CATEGORIES = [  # first match wins; matched against the kernel's name
     ("attention K1 (flash_fwd_d64)", r"flash_fwd_d64"),
     ("attention K2 (flash_fwd_wide)", r"flash_fwd_wide"),
     ("attention fp32 (flash_fwd_f32)", r"flash_fwd_f32"),
+    ("attention fp32 split (flash_f32_split)", r"flash_f32_split"),
     ("GroupNorm+SiLU K3 (fused_group_norm)", r"gn_k3_"),
     ("GN+SiLU→conv3x3 K4 (gn_silu_conv3x3)", r"gn_k4_"),
     ("convolution", r"conv|fprop|implicit|winograd|nchw|nhwc"),
@@ -66,21 +71,23 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", choices=["turbo"], default=None)
     ap.add_argument("--attn", choices=["auto", "flash_int8"], default="auto")
+    ap.add_argument("--dtype", choices=["bf16", "fp32"], default="bf16")
     args = ap.parse_args()
+    fp32 = args.dtype == "fp32"
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(card, flush=True)
     pipe = StableDiffusionPipeline.from_random(seed=0, models=SamplerModels(attn_impl=args.attn),
-                                               dtype=torch.bfloat16)
-    pipe.set_lora(chip_smoke.make_lora(pipe.nets["unet"], 10, torch))
+                                               **({} if fp32 else {"dtype": torch.bfloat16}))
+    pipe.set_lora(chip_smoke.make_lora(pipe.nets["unet"], 10, torch, torch.float32 if fp32 else None))
     ids = torch.randint(0, 49408, (8, 77), generator=torch.Generator().manual_seed(1))
-    steps, kw = 30, {}
+    steps, kw = (10 if fp32 else 30), {}
     if args.preset:
         preset = get_preset(args.preset)
         calib = torch.randint(0, 49408, (8, 77), generator=torch.Generator().manual_seed(2))
         steps, kw = preset.steps, preset.apply(pipe, input_ids=calib)
     gn = f"GN_IMPL={gn_impl()} GN_CONV_IMPL={gn_conv_impl()}"
-    print(f"preset {args.preset}, attention {args.attn}, {gn}: {steps} steps, kwargs {kw}", flush=True)
+    print(f"preset {args.preset}, attention {args.attn}, {args.dtype}, {gn}: {steps} steps, kwargs {kw}", flush=True)
 
     def request(seed):
         torch.cuda.synchronize()
@@ -117,10 +124,12 @@ def main() -> int:
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     fused = "fused_gn" if gn_impl() == gn_conv_impl() == "pallas" else None
-    suffix = "".join(f"_{x}" for x in (args.preset, None if args.attn == "auto" else args.attn, fused) if x)
+    suffix = "".join(f"_{x}" for x in (args.preset, None if args.attn == "auto" else args.attn, fused,
+                                        "fp32" if fp32 else None) if x)
     (out / f"torch_txt2img_profile{suffix}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    print(json.dumps({"card": card, "preset": args.preset, "attn": args.attn, "gn": gn, "wall_ms": wall_ms,
+    print(json.dumps({"card": card, "preset": args.preset, "attn": args.attn, "dtype": args.dtype, "gn": gn,
+                      "wall_ms": wall_ms,
                       "device_busy_ms": busy,
                       "idle_share": 1 - busy / wall_ms, "by_category_ms": dict(by_cat)}))
     return 0

@@ -10,11 +10,13 @@ their max abs (a key's dk and dv sum over every query, so they grow with
 Sq/Skv); the log-sum-exp within 1e-3. K7 (qdense) makes the same codes as
 its plain version, so each output is within 1 bf16 ulp plus 1e-3 relative of
 it; K8 (flash_int8) within 2e-2 max and 2e-3 mean of its plain version.
-The fp32 instances (flash_*_f32, gn_silu_conv3x3_f32) compute in fp32
-(FFMA): outputs within 1e-4 of the output's max abs and a mean abs error
-within 1e-5 of it, the log-sum-exp within 1e-5, gradients the same relative
-to their max abs; qdense_f32 and flash_int8_f32 make their plain versions'
-codes, so each output is within 1 fp32 ulp + 1e-3 relative of the plain one.
+The fp32 instances (flash_*_f32 in 3xTF32 on the tensor cores,
+gn_silu_conv3x3_f32 in FFMA) are held to fp32: outputs within 1e-4 of the
+output's max abs and a mean abs error within 1e-5 of it, the log-sum-exp
+within 1e-5, gradients the same relative to their max abs; their split
+pre-pass (flash_f32_split) is bit-exact against its plain version;
+qdense_f32 and flash_int8_f32 make their plain versions' codes, so each
+output is within 1 fp32 ulp + 1e-3 relative of the plain one.
 K3 (fused_group_norm) makes the same fp32 statistics as its plain version in
 another order: each output within 1 ulp of its dtype + 1e-3 relative + 1e-5
 of the output's max abs (the order moves outputs near 0 by ~1e-6 of the
@@ -122,7 +124,7 @@ def test_cuda_f32_forward_matches_plain(b, sq, skv, h, d, kv_len):
     out = dot_product_attention(q, k, v, kv_len=kv_len)
     o, lse = fa.flash_fwd_f32(q, k, v, d**-0.5, kv_len, with_lse=True)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_fwd_f32"] == 2 and sum(fa.LAUNCHES.values()) == 2
+    assert fa.LAUNCHES["flash_fwd_f32"] == fa.LAUNCHES["flash_f32_split"] == 2 and sum(fa.LAUNCHES.values()) == 4
     ref, ref_lse = fa.attention_plain_lse(q, k, v, d**-0.5, kv_len)
     _close32(out, ref)
     _close32(o, ref)
@@ -145,7 +147,7 @@ def test_cuda_f32_backward_matches_plain(b, sq, skv, h, d, kv_len):
     grads = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
     assert {n: c for n, c in fa.LAUNCHES.items() if c} == {
-        "flash_fwd_f32": 1, "flash_bwd_f32_dkv": 1, "flash_bwd_f32_dq": 1}
+        "flash_fwd_f32": 1, "flash_bwd_f32_dkv": 1, "flash_bwd_f32_dq": 1, "flash_f32_split": 2}
     q, k, v = (t.detach() for t in (q, k, v))
     o, lse = fa.attention_plain_lse(q, k, v, d**-0.5, kv_len)
     refs = fa.attention_bwd_plain(q, k, v, o, lse, do, d**-0.5, kv_len)
@@ -156,6 +158,23 @@ def test_cuda_f32_backward_matches_plain(b, sq, skv, h, d, kv_len):
         _close32(g, r)
     if kv_len is not None:
         assert grads[1][:, kv_len:].abs().max().item() == 0.0 and grads[2][:, kv_len:].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", [(2, 200, 5, 64), (1, 77, 3, 512), (3, 64, 2, 128)])
+def test_cuda_f32_split_matches_plain(b, s, h, d):
+    """flash_f32_split writes the tf32 hi/lo planes of `f32_split_plain`
+    bit for bit, natural and transposed, from strided views of a fused
+    projection."""
+    _card()
+    qkv = torch.from_numpy(np.random.default_rng(9).standard_normal((b, s, 3, h, d)).astype(np.float32)).cuda()
+    q, k, _ = qkv.unbind(2)
+    fa.reset_launch_counts()
+    got = fa.f32_split([(q, False), (k, True), (q, True)])
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_f32_split"] == 1
+    for out, (t, tr) in zip(got, [(q, False), (k, True), (q, True)]):
+        assert torch.equal(out, fa.f32_split_plain(t, tr))
 
 
 BWD_CASES = [  # (b, sq, skv, h, d, kv_len): small and ragged, then a train shape of each kernel
