@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero without the final result line:
      bytes, any "Performance Loss" line; the wgmma kernels' registers and
      spills also go into their entries of the kernels line), and the count
      of HGMMA instructions, and of those with TF32 operands, in each fp32
-     attention kernel (`cuobjdump -sass`; into their entries too);
+     attention kernel and K4's fp32 instance (`cuobjdump -sass`; into their
+     entries too; a fp32 kernel with an HGMMA that is not TF32 fails);
   3. kernels against plain: each kernel at every shape the main paths give
      it, bf16 unit-normal inputs from a seed, against its plain PyTorch
      version in fp32 on the same inputs (max abs err <= 2e-2, mean <= 2e-3;
@@ -87,13 +88,15 @@ Phases, in order; any failure exits non-zero without the final result line:
      miss that gate; flash_bwd_f32_dkv/_dq at the train shapes (each
      gradient relative to its max abs); their split pre-pass
      flash_f32_split at the main path's shapes (bit-exact against
-     f32_split_plain); gn_silu_conv3x3_f32 at the fused request's conv
-     shapes; qdense_f32 and flash_int8_f32 (the same codes: 1 fp32 ulp +
-     1e-3 relative) at the turbo shapes; each timed beside its plain
-     version, its bound (fp32 attention and K4 fp32: 3 × operations / the
-     TF32 peak, "bound_basis": "3xTF32"; the split: bytes; K7/K8 fp32:
-     int8) and a yardstick the port never calls (SDPA on fp32 tensors,
-     cuDNN's fp32 conv, torch._int_mm and fp32 F.linear).
+     f32_split_plain); gn_silu_conv3x3_f32 (3xTF32 on the tensor cores) at
+     the fused request's conv shapes and its weight pre-pass
+     gn_conv_f32_split (bit-exact against weight_split_plain); qdense_f32
+     and flash_int8_f32 (the same codes: 1 fp32 ulp + 1e-3 relative) at the
+     turbo shapes; each timed beside its plain version, its bound (fp32
+     attention and K4 fp32: 3 × operations / the TF32 peak, "bound_basis":
+     "3xTF32"; the splits: bytes; K7/K8 fp32: int8) and a yardstick the port
+     never calls (SDPA on fp32 tensors, cuDNN's fp32 conv, torch._int_mm and
+     fp32 F.linear).
      Then StableDiffusionPipeline.from_random() with no dtype (fp32 weights
      and compute) at SD2.1-base widths with a rank-4 LoRA: its kernel path
      against its plain-attention path on 2×128² (image diff max 1e-3, mean
@@ -102,7 +105,12 @@ Phases, in order; any failure exits non-zero without the final result line:
      against their plain versions (qdense_f32, flash_int8_f32; 1e-1, 1e-2);
      2 requests at batch 8, 512², 10 DDPM steps, CFG 5.0, each launching
      flash_fwd_f32 and flash_f32_split exactly 321 times each and no bf16
-     kernel; and the train op point with fp32 frozen weights and policy:
+     kernel; then 2 fused fp32 requests (GN_IMPL and GN_CONV_IMPL at pallas,
+     as phase 9 sets them) on the same pipeline, each launching exactly
+     gn_silu_conv3x3_f32 and gn_conv_f32_split 160, fused_group_norm 131 and
+     the attention's 321 + 321 times, its images within 1e-3 / 1e-4 of the
+     default request's at the same seed, its s/request beside the default
+     fp32 request's; and the train op point with fp32 frozen weights and policy:
      one loss and LoRA gradient at 2(+2)×128² against the plain-attention
      path (loss within 1e-4 relative, cosine >= 0.9999) launching
      flash_fwd_f32 34, each fp32 backward pass 33 and flash_f32_split 67
@@ -195,6 +203,8 @@ REPLACES = {
     "flash_int8_f32": "faceposegenerator_tpu/ops/flash_attention.py:1108",
     "qdense_f32": "faceposegenerator_tpu/ops/quant_pallas.py:47",
     "gn_silu_conv3x3_f32": "faceposegenerator_tpu/ops/fused_gn_conv.py:92",
+    # the weight pre-pass of K4's fp32 instance (its tf32 hi/lo planes)
+    "gn_conv_f32_split": "faceposegenerator_tpu/ops/fused_gn_conv.py:92",
     # the fp32 attention's tf32 hi/lo pre-pass, part of the fp32 instance of K1/K2 and K5/K6
     "flash_f32_split": "faceposegenerator_tpu/ops/flash_attention.py:258",
 }
@@ -241,6 +251,8 @@ CONV_SHAPES = [
     ("L0 up 640→320", 16, 64, 64, 640, 320, 60),
 ]
 CONV_TRAIN_SHAPES = [(label, 8, h, w, cin, cout, per // 30) for label, _, h, w, cin, cout, per in CONV_SHAPES]
+# K4's fp32 instance on the fused fp32 request: 10 steps, not 30
+CONV_F32_SHAPES = [(label, n, h, w, cin, cout, per // 3) for label, n, h, w, cin, cout, per in CONV_SHAPES]
 BORDER = "L0 320→320, beta + 3"
 # The fp32 instances (attention in 3xTF32 on the tensor cores, the rest in
 # fp32 FFMA or exact int8) are held to their plain versions in fp32 with
@@ -258,6 +270,10 @@ F32_IMG_MAX, F32_IMG_MEAN = 1e-3, 1e-4
 # fp32 attention forward and backward call splits its operands in one
 # flash_f32_split launch
 F32_REQUEST_LAUNCHES = {"flash_fwd_f32": 321, "flash_f32_split": 321}
+# per fused fp32 request: K4's fp32 instance 16 times a UNet pass (FUSED_LAUNCHES'
+# 480 over 30 steps) and its weight pre-pass as often; K3 12 times a UNet
+# pass and 11 in the VAE decode (FUSED_LAUNCHES' 371 = 30 · 12 + 11)
+F32_FUSED_LAUNCHES = dict(F32_REQUEST_LAUNCHES, gn_silu_conv3x3_f32=160, gn_conv_f32_split=160, fused_group_norm=131)
 F32_TRAIN_LAUNCHES = {"flash_fwd_f32": 34, "flash_bwd_f32_dkv": 33, "flash_bwd_f32_dq": 33, "flash_f32_split": 67}
 # (name, B, H, S, D, jobs) of flash_f32_split at the fp32 main-path shapes:
 # the forward's q, k (natural) and v (transposed); the backward's q, k, v,
@@ -1342,8 +1358,8 @@ def check_f32_split(torch, fa, card, shapes=SPLIT_SHAPES):
 def check_conv_f32(torch, card, shapes, per):
     """gn_silu_conv3x3_f32 at `shapes` on fp32 x and weights
     (_conv_inputs cast to fp32) against gn_silu_conv3x3_plain in fp32 with
-    TF32 off, timed beside it, plain GroupNorm+SiLU with cuDNN's fp32 conv
-    (TF32 off) and the fp32 bound."""
+    TF32 off, timed (its weight pre-pass included) beside it, plain
+    GroupNorm+SiLU with cuDNN's fp32 conv (TF32 off) and the 3xTF32 bound."""
     from faceposegenerator_tpu_torch.models.layers import conv2d
     from faceposegenerator_tpu_torch.ops import fused_gn_conv as fgc
     from faceposegenerator_tpu_torch.ops.norms import group_norm_plain
@@ -1379,6 +1395,37 @@ def check_conv_f32(torch, card, shapes, per):
                 fail(f"gn_silu_conv3x3_f32 at {label}: max abs err {max_err} mean {mean_err} of max abs {nmax}")
             del x, conv
             torch.cuda.empty_cache()
+    return rows
+
+
+def check_conv_split_f32(torch, card, shapes, per):
+    """gn_conv_f32_split, the weight pre-pass of K4's fp32 instance, on the
+    fp32 channels_last weights of `shapes` against weight_split_plain, which
+    it must match bit for bit; timed beside it, with its bound: the weight
+    read once, its hi and lo planes written once."""
+    from faceposegenerator_tpu_torch.ops import fused_gn_conv as fgc
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    rows = []
+    for label, _, _, _, cin, cout, per_run in shapes:
+        w = (torch.randn(cout, cin, 3, 3, generator=g, device="cuda") * (9 * cin) ** -0.5).contiguous(
+            memory_format=torch.channels_last)
+        out = fgc.weight_split(w)
+        torch.cuda.synchronize()
+        err = (out - fgc.weight_split_plain(w)).abs().max().item()
+        del out
+        ms = time_ms(lambda: fgc.weight_split(w), torch)
+        plain_ms = time_ms(lambda: fgc.weight_split_plain(w), torch)
+        nbytes = 12.0 * w.numel()
+        bound_ms, bound_by = _bound(card, 0.0, nbytes)
+        row = dict(kernel="gn_conv_f32_split", shape=f"{label} weight", Cin=cin, Cout=cout, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   gb_per_s=nbytes / ms * 1e-6, max_abs_err=err, **{f"launches_per_{per}": per_run})
+        print("kernel " + json.dumps(row), flush=True)
+        rows.append(row)
+        if err != 0.0:
+            fail(f"gn_conv_f32_split at {label}: differs from weight_split_plain by {err}")
+        del w
     return rows
 
 
@@ -1468,8 +1515,10 @@ def run_fp32_pipeline(torch, card_line):
     the kernel path against the plain-attention path on a small input, the
     fused-GroupNorm and w8a8 + flash_int8 routes of the same pipeline on it
     (the fp32 instances of K4, K7 and K8), and 2 requests at batch 8, 512²,
-    10 DDPM steps, CFG 5.0 with exact launch counts. Returns (the launch
-    counts of the requests, of the small-input routes, the best s/request)."""
+    10 DDPM steps, CFG 5.0 with exact launch counts, then 2 such requests in
+    the fused configuration (K3's and K4's fp32 instances). Returns the
+    launch counts of the default requests, of the fused requests and of the
+    small-input routes."""
     import numpy as np
 
     from faceposegenerator_tpu_torch.diffusion.sampler import SamplerModels
@@ -1529,6 +1578,35 @@ def run_fp32_pipeline(torch, card_line):
           f"best {min(secs):.3f} s = {8 / min(secs):.3f} img/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card_line})", flush=True)
 
+    # the fused fp32 request: K3's and K4's fp32 instances on the same pipeline
+    fused_images, fused_secs = [], []
+    with gn_route("pallas"):
+        _reset_launch_counts()
+        for r, seed in enumerate((0, 1)):
+            before = _launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            img = pipe(input_ids=ids, num_inference_steps=10, guidance_scale=5.0, height=512, width=512, seed=seed)
+            fused_secs.append(time.time() - t0)
+            per = {n: c - before[n] for n, c in _launch_counts().items() if c != before[n]}
+            print(f"fp32 fused request {r}: seed {seed}, {fused_secs[-1]:.3f} s, {8 / fused_secs[-1]:.3f} img/s, "
+                  f"launches {json.dumps(per)} ({card_line})", flush=True)
+            _check_images(img, 8, 512, f"fp32 fused request {r}")
+            if per != F32_FUSED_LAUNCHES:
+                fail(f"fp32 fused request {r} launched {per}, expected {F32_FUSED_LAUNCHES}")
+            fused_images.append(img)
+        fused_launches = _launch_counts()
+    if float(np.abs(fused_images[0] - fused_images[1]).max()) < 1e-3:
+        fail("fp32 fused: images do not differ between seeds")
+    diff = np.abs(fused_images[0] - images[0])
+    print(f"fp32 fused pipeline: bs8 512² 10-step DDPM CFG 5.0 with GN_IMPL and GN_CONV_IMPL at pallas: "
+          f"{fused_secs} s per request; best {min(fused_secs):.3f} s = {8 / min(fused_secs):.3f} img/s against the "
+          f"default fp32 request's {min(secs):.3f} s = {8 / min(secs):.3f} img/s in this process; images at seed 0 "
+          f"against the default request's: diff max {diff.max():.3e} mean {diff.mean():.3e} (limits {F32_IMG_MAX}, "
+          f"{F32_IMG_MEAN}) ({card_line})", flush=True)
+    if not (diff.max() <= F32_IMG_MAX and diff.mean() <= F32_IMG_MEAN):
+        fail("fp32 fused: the fused request's images disagree with the default request's")
+
     # the fp32 instances of K7 and K8: the same pipeline quantized (w8a8,
     # dynamic scales) with the int8 attention, against their plain versions
     pipe.quantize("w8a8")
@@ -1552,7 +1630,7 @@ def run_fp32_pipeline(torch, card_line):
     for counts in routes.values():
         for n, c in counts.items():
             small_launches[n] = small_launches.get(n, 0) + c
-    return launches, small_launches, min(secs)
+    return launches, fused_launches, small_launches
 
 
 def run_fp32_train(torch, card_line):
@@ -1607,13 +1685,15 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
         tflops=top["tflops"], tf32_err=f32["tf32"], bound_basis="3xTF32", ptxas=ptxas.get("flash_fwd_f32_kernel"),
         sass_hgmma=sass.get("flash_fwd_f32_kernel"),
     ))
-    top = max(f32["split"], key=lambda r: r["bound_ms"])
-    kernels.append(dict(
-        name="flash_f32_split", route="cuda", source=sources["flash_f32_split"], replaces=REPLACES["flash_f32_split"],
-        launches=launches["flash_f32_split"], max_abs_err=max(r["max_abs_err"] for r in f32["split"]), ms=top["ms"],
-        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None,
-        shape=f"{top['shape']} B{top['B']}", ptxas=ptxas.get("flash_f32_split_kernel"),
-    ))
+    for name, key, fn in (("flash_f32_split", "split", "flash_f32_split_kernel"),
+                          ("gn_conv_f32_split", "conv_split", "gn_conv_f32_split_kernel")):
+        top = max(f32[key], key=lambda r: r["bound_ms"])
+        kernels.append(dict(
+            name=name, route="cuda", source=sources[name], replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in f32[key]), ms=top["ms"], plain_ms=top["plain_ms"],
+            bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None,
+            shape=f"{top['shape']} B{top['B']}" if "B" in top else top["shape"], ptxas=ptxas.get(fn),
+        ))
     for kind in ("d64", "wide", "f32"):
         mine = [r for r in (f32["bwd"] if kind == "f32" else bwd_rows) if r["kernel"] == f"flash_bwd_{kind}"]
         top = max(mine, key=lambda r: r["pair_bound_ms"])
@@ -1658,7 +1738,7 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
             bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
             shape=f"{top['shape']} N{top['N']}",
             **({"tflops": top["tflops"], "ptxas": ptxas.get(fn)} if fn else {}),
-            **({"bound_basis": "3xTF32"} if name == "gn_silu_conv3x3_f32" else {}),
+            **({"bound_basis": "3xTF32", "sass_hgmma": sass.get(fn)} if name == "gn_silu_conv3x3_f32" else {}),
         ))
     return kernels
 
@@ -1697,13 +1777,20 @@ def main() -> int:
             print(f"ptxas {name} {rep['function']}: {rep.get('registers')} registers, "
                   f"{rep.get('spill_stores')} bytes spill stores, {rep.get('spill_loads')} bytes spill loads",
                   flush=True)
-            if rep["function"].startswith(("flash_fwd_d64", "flash_bwd_d64", "flash_fwd_f32", "flash_bwd_f32",
-                                           "flash_f32_split", "gn_k4_conv")):
+            if rep["function"].startswith(("flash_fwd_d64", "flash_fwd_wide", "flash_bwd_d64", "flash_fwd_f32",
+                                           "flash_bwd_f32", "flash_f32_split", "gn_k4_conv", "gn_conv_f32_split")):
                 ptxas.setdefault(rep["function"], []).append(
                     {k: rep.get(k) for k in ("registers", "spill_stores", "spill_loads")})
-    # the fp32 attention kernels must issue their products as TF32 HGMMA
+    # the fp32 attention kernels and K4's fp32 instance must issue their
+    # products as TF32 HGMMA
     sass = {f: n for f, n in _build.sass_hgmma("flash_f32").items() if f.startswith(("flash_fwd", "flash_bwd"))}
     print(f"sass flash_f32: HGMMA instructions, with TF32 operands: {json.dumps(sass)}", flush=True)
+    sass_conv = _build.sass_hgmma("gn_conv")
+    print(f"sass gn_conv: HGMMA instructions, with TF32 operands: {json.dumps(sass_conv)}", flush=True)
+    sass["gn_k4_conv_f32"] = sass_conv.get("gn_k4_conv_f32", [0, 0])
+    for f, (n, tf32_n) in sass.items():
+        if n == 0 or tf32_n != n:
+            fail(f"{f} issues {n} HGMMA instructions, {tf32_n} of them TF32: an fp32 kernel's must all be TF32")
 
     from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
 
@@ -1734,14 +1821,15 @@ def main() -> int:
     f32["tf32"] = check_tf32_refused(torch, fa)
     f32["bwd"] = check_f32_backward(torch, fa, card, [s for s in TRAIN_SHAPES if s[0] != "vae encode mid"])
     f32["split"] = check_f32_split(torch, fa, card)
-    f32["conv"] = check_conv_f32(torch, card, CONV_SHAPES, "request")
+    f32["conv"] = check_conv_f32(torch, card, CONV_F32_SHAPES, "request")
+    f32["conv_split"] = check_conv_split_f32(torch, card, CONV_F32_SHAPES, "request")
     f32["qdense"] = check_qdense_f32(torch, card)
     f32["int8"] = check_int8_f32(torch, fa, card)
-    fp32_txt2img, fp32_routes, _ = run_fp32_pipeline(torch, card_line)
+    fp32_txt2img, fp32_fused, fp32_routes = run_fp32_pipeline(torch, card_line)
     fp32_train = run_fp32_train(torch, card_line)
     paths = {"txt2img": txt2img, "turbo": turbo, "train": train, "fused txt2img": fused_txt2img,
-             "fused train": fused_train, "fp32 txt2img": fp32_txt2img, "fp32 routes at 2×128²": fp32_routes,
-             "fp32 train check": fp32_train}
+             "fused train": fused_train, "fp32 txt2img": fp32_txt2img, "fp32 fused txt2img": fp32_fused,
+             "fp32 routes at 2×128²": fp32_routes, "fp32 train check": fp32_train}
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in REPLACES}
     print("launches on the main paths: " + ", ".join(f"{k} {json.dumps(v)}" for k, v in paths.items()), flush=True)
     for name, count in launches.items():

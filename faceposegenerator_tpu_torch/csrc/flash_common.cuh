@@ -1,6 +1,6 @@
 // Device helpers shared by the flash-attention kernels of flash_fwd.cu and
-// flash_bwd.cu: the wide kernels K2 and K6, built on mma.sync, and the
-// d = 64 wgmma kernels K1 and K5 (with sm90_common.cuh): bf16 tensor-core
+// flash_bwd.cu: the wide backward kernel K6, built on mma.sync, and the
+// wgmma kernels K1, K2 and K5 (with sm90_common.cuh): bf16 tensor-core
 // MMA (mma.sync m16n8k16, fp32 accumulate), ldmatrix operand loads from
 // shared memory, bf16 packing and the special-function exp2.
 //
@@ -59,17 +59,6 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4 * KS], const float (&c)[8
     a[4 * kc + 2] = pack_bf16(c[8 * kc + 4], c[8 * kc + 5]);
     a[4 * kc + 3] = pack_bf16(c[8 * kc + 6], c[8 * kc + 7]);
   }
-}
-
-// two consecutive bf16 (lower index in the low half)
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 `stride` elements apart (lower index in the low half)
-__device__ __forceinline__ uint32_t ld_strided_pair(const bf16* p, int stride) {
-  const uint16_t* u = reinterpret_cast<const uint16_t*>(p);
-  return static_cast<uint32_t>(u[0]) | (static_cast<uint32_t>(u[stride]) << 16);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -44,11 +44,8 @@
 //   * The TPU kernel's head-pair lane packing and ones-column MXU row sum are
 //     not carried over: a wgmma takes 16-deep slices, so D = 64 is native
 //     and an odd head count needs no zero head.
-// The D % 128 design (flash_fwd_wide) keeps mma.sync: a 64×512 fp32 O tile
-// does not fit in registers, so it uses 32-row Q and K/V tiles in shared
-// memory (~105 KB of dynamic shared memory), splits the O accumulator by
-// D-columns over 8 warps (64 fp32 registers per thread) and passes scores
-// through a 32×32 tile in shared memory.
+// The D % 128 design (flash_fwd_wide) is the same pipeline in the head-dim
+// split of flash_f32.cu: see its section below.
 // For training both kernels also write each row's log-sum-exp (natural log,
 // scaled logits; `save_lse` in the JAX package) when given a buffer for it:
 // one fp32 per query row, from the statistics they keep anyway. flash_bwd.cu
@@ -61,10 +58,6 @@
 #include "sm90_common.cuh"
 
 namespace {
-
-struct Strides {
-  long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
-};
 
 // ---------------------------------------------------------------------------
 // D = 64 (K1): one CTA per (b·h, 64·NC query rows), NC + 1 warpgroups.
@@ -304,199 +297,310 @@ __global__ void __launch_bounds__(D64<NC>::THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// D % 128 == 0 (D <= 512): one CTA per (b·h, 32-row Q tile), 8 warps.
-//   scores: warp w computes the 16×8 score tile (w & 1, w >> 1) over all D;
-//   softmax: 8 threads per row over the 32×32 score tile in shared memory;
-//   P·V: warp w owns output columns [w·D/8, (w+1)·D/8) for all 32 rows.
+// D % 128 == 0 (K2, D <= 512; on the main path the VAE's one 512-wide head).
+//
+// What bounds it. A 64 × 512 fp32 O tile is 256 registers a thread of one
+// warpgroup: it does not fit. So, as flash_f32.cu does at D >= 128, a CTA
+// of 384 threads takes one 64-row Q tile, and its two consumer warpgroups
+// each own one half of the head dim:
+//   * each computes its partial S = Q_half·K_halfᵀ (wgmma m64n64k16, A and B
+//     from shared memory), the two swap partial sums through shared memory
+//     (2 × 16 KB) and add them (mine + other's: the same bits in both), and
+//     both run the same online softmax;
+//   * each computes O_half += P·V_half with P from registers (the S
+//     accumulator packed to bf16) and V read MN-major (bf16 has the
+//     transpose flag: no pre-pass), m64n64k16 per 64 output columns, and
+//     keeps its 64 × D/2 fp32 O half in registers (128 a thread at D = 512;
+//     setmaxnreg 232 for the consumers, 40 for the producer warpgroup).
+// TMA boxes are 64 rows × 64 columns, 128-byte swizzled (a 512-wide row is
+// 8 boxes). Shared memory at D = 512: the Q tile, resident (64 KB), one K
+// tile (64 KB), one V tile (64 KB) and the exchange (32 KB): 224 KB, one
+// stage each. K and V have barriers and producer threads of their own, and
+// iteration j issues P_j·V_j before S_{j+1} = Q·K_{j+1}ᵀ: V_j is released
+// when its product is done and V_{j+1} loads under S_{j+1}, the exchange
+// and the softmax; K_{j+1} is released when S_{j+1} is done and K_{j+2}
+// loads under the softmax and P_{j+1}·V_{j+1}. (Streaming Q with K in
+// 64-column chunks, as flash_f32.cu does, would deepen the ring but read Q
+// from L2 once per key tile: 1.5× the L2 traffic of this layout, which at 64
+// query rows a CTA already reads K and V 64 times a head, ~4.3 GB at 8 ×
+// 4096² × 512.)
+// Shared-memory bandwidth: S alone asks ~136 B/clk at the tensor-core rate
+// (A and B from shared memory, m64n64k16), over the SM's 128; P·V, with A
+// in registers, ~68. The two are issued back to back by both warpgroups, so
+// the tensor cores interleave them and the average is ~102 B/clk.
+// Kept from the mma.sync kernel this replaces, and from flash_f32.cu: the
+// online softmax keeps the rounded base (sums relative to b = fl(m · scale ·
+// log2 e), rescaled by exactly 2^(b_old − b_new)), P is rounded to bf16
+// before P·V (as attention_plain rounds the weights), the LSE is in
+// natural-log units.
 // ---------------------------------------------------------------------------
 
 template <int D>
-struct WideSmem {
-  static constexpr int BM = 32, BN = 32, SST = D + 8, SFS = BN + 1, PST = BN + 8;
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + BM * SST * sizeof(bf16);
-  static constexpr size_t v_off = k_off + BN * SST * sizeof(bf16);
-  static constexpr size_t s_off = v_off + BN * SST * sizeof(bf16);
-  static constexpr size_t p_off = s_off + BM * SFS * sizeof(float);
-  static constexpr size_t stat_off = p_off + BM * PST * sizeof(bf16);
-  static constexpr size_t bytes = stat_off + 3 * BM * sizeof(float);
+struct Wide {
+  static constexpr int NBOX = D / 64;           // 64-column boxes of a row tile
+  static constexpr int HB = NBOX / 2;           // the boxes of one consumer's head-dim half
+  static constexpr int TILE = 64 * D * 2;       // one 64-row bf16 tile of Q, K or V
+  static constexpr int X_OFF = 3 * TILE;        // the partial-S exchange: 2 × 64 × 64 fp32
+  static constexpr int BAR_OFF = X_OFF + 2 * 16384;
+  static constexpr int SMEM = BAR_OFF + 8 * 5 + 1024;  // Q full; K full, empty; V full, empty; alignment
+  static constexpr int THREADS = 384, PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  // the launch allocates 168 registers a thread (65536 / 384, rounded down
+  // to 8); the consumers' setmaxnreg.inc takes what the producers' dec frees
+  static_assert(128 * (PRODUCER_REGS + 2 * CONSUMER_REGS) <= THREADS * 168, "register file");
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
 template <int D>
-__global__ void __launch_bounds__(256)
-    flash_fwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                          float* __restrict__ lse, int H, int Sq, int kv_end, Strides st,
-                          float scale_log2) {
-  using L = WideSmem<D>;
-  constexpr int BM = L::BM, BN = L::BN, SST = L::SST, SFS = L::SFS, PST = L::PST, NT = 256;
-  constexpr int DW = D / 8;    // output columns per warp
-  constexpr int NDT = DW / 8;  // 8-column MMA tiles per warp
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q_off);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k_off);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v_off);
-  float* sS = reinterpret_cast<float*>(smem + L::s_off);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p_off);
-  float* sM = reinterpret_cast<float*>(smem + L::stat_off);
-  float* sL = sM + BM;
-  float* sAlpha = sL + BM;
+__global__ void __launch_bounds__(Wide<D>::THREADS, 1)
+    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+                          float* __restrict__ lse, int H, int Sq, int kv_end, long long o_b, long long o_s,
+                          long long o_h, float scale_log2) {
+  using C = Wide<D>;
+  constexpr int NCB = D / 128;  // a consumer's 64-column blocks of O
+  constexpr int KS = D / 32;    // its k16 slices of S
+  extern __shared__ __align__(1024) unsigned char smem_wide[];
+  const uint32_t raw = smem_u32(smem_wide), base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK = base + C::TILE, sV = base + 2 * C::TILE;
+  const uint32_t full_q = base + C::BAR_OFF, full_k = full_q + 8, empty_k = full_q + 16, full_v = full_q + 24,
+                 empty_v = full_q + 32;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BM;
-  const bf16* qb = q + b * st.q_b + h * st.q_h;
-  const bf16* kb = k + b * st.k_b + h * st.k_h;
-  const bf16* vb = v + b * st.v_b + h * st.v_h;
-  bf16* ob = o + b * st.o_b + h * st.o_h;
+  const int q0 = blockIdx.x * 64;
+  const int n_tiles = (kv_end + 63) / 64;
+  const int wg = threadIdx.x >> 7;
 
-  if (tid < BM) {
-    sM[tid] = neg_inf();
-    sL[tid] = 0.f;
-  }
-  load_tile<BM, D, SST, NT>(sQ, qb, st.q_s, q0, Sq);
-
-  float acc[2][NDT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int i = 0; i < NDT; ++i) acc[mt][i][0] = acc[mt][i][1] = acc[mt][i][2] = acc[mt][i][3] = 0.f;
-
-  const int smt = warp & 1, snt = warp >> 1;  // this warp's score tile
-  const int srow = smt * 16 + g;
-  const int srow_ = threadIdx.x >> 3, spart = threadIdx.x & 7;  // softmax: row, 4-col part
-
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BN) {
-    __syncthreads();  // previous tile's K/V/P fully consumed
-    load_tile<BN, D, SST, NT>(sK, kb, st.k_s, kv0, kv_end);
-    load_tile<BN, D, SST, NT>(sV, vb, st.v_s, kv0, kv_end);
-    __syncthreads();
-
-    // scores: two accumulators over alternating k-chunks for ILP
-    float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int kc = 0; kc < D / 16; kc += 2) {
-      uint32_t a[4];
-      const bf16* pa = sQ + srow * SST + kc * 16 + t4 * 2;
-      const bf16* pb = sK + (snt * 8 + g) * SST + kc * 16 + t4 * 2;
-      a[0] = ld_pair(pa);
-      a[1] = ld_pair(pa + 8 * SST);
-      a[2] = ld_pair(pa + 8);
-      a[3] = ld_pair(pa + 8 * SST + 8);
-      mma_16816(s0, a, ld_pair(pb), ld_pair(pb + 8));
-      a[0] = ld_pair(pa + 16);
-      a[1] = ld_pair(pa + 8 * SST + 16);
-      a[2] = ld_pair(pa + 24);
-      a[3] = ld_pair(pa + 8 * SST + 24);
-      mma_16816(s1, a, ld_pair(pb + 16), ld_pair(pb + 24));
-    }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = snt * 8 + t4 * 2 + e;
-      const bool live = kv0 + col < kv_end;
-      sS[srow * SFS + col] = live ? (s0[e] + s1[e]) * scale_log2 : neg_inf();
-      sS[(srow + 8) * SFS + col] = live ? (s0[2 + e] + s1[2 + e]) * scale_log2 : neg_inf();
-    }
-    __syncthreads();
-
-    // online softmax over the 32×32 tile: 8 threads per row, 4 columns each
-    {
-      const float m_old = sM[srow_];
-      float x[4];
-      float mx = neg_inf();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        x[i] = sS[srow_ * SFS + spart * 4 + i];
-        mx = fmaxf(mx, x[i]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float mn = fmaxf(m_old, mx);
-      const float base = mn == neg_inf() ? 0.f : mn;
-      float rs = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = exp2f(x[i] - base);
-        rs += p;
-        sP[srow_ * PST + spart * 4 + i] = __float2bfloat16_rn(p);
-      }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
-      __syncwarp();
-      if (spart == 0) {
-        const float alpha = exp2f(m_old - base);
-        sM[srow_] = mn;
-        sL[srow_] = sL[srow_] * alpha + rs;
-        sAlpha[srow_] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // O[:, warp's columns] = alpha·O + P·V
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const float al0 = sAlpha[mt * 16 + g], al1 = sAlpha[mt * 16 + g + 8];
-#pragma unroll
-      for (int dt = 0; dt < NDT; ++dt) {
-        acc[mt][dt][0] *= al0;
-        acc[mt][dt][1] *= al0;
-        acc[mt][dt][2] *= al1;
-        acc[mt][dt][3] *= al1;
-      }
-#pragma unroll
-      for (int kc = 0; kc < BN / 16; ++kc) {
-        uint32_t a[4];
-        const bf16* pa = sP + (mt * 16 + g) * PST + kc * 16 + t4 * 2;
-        a[0] = ld_pair(pa);
-        a[1] = ld_pair(pa + 8 * PST);
-        a[2] = ld_pair(pa + 8);
-        a[3] = ld_pair(pa + 8 * PST + 8);
-#pragma unroll
-        for (int dt = 0; dt < NDT; ++dt) {
-          const bf16* pv = sV + (kc * 16 + t4 * 2) * SST + warp * DW + dt * 8 + g;
-          mma_16816(acc[mt][dt], a, ld_strided_pair(pv, SST), ld_strided_pair(pv + 8 * SST, SST));
-        }
-      }
-    }
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(full_k, 1);
+    mbar_init(full_v, 1);
+    mbar_init(empty_k, 8);  // one arrival per consumer warp
+    mbar_init(empty_v, 8);
+    mbar_fence_init();
   }
   __syncthreads();
 
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int lr0 = mt * 16 + g, lr1 = lr0 + 8;
-    const float inv0 = 1.f / sL[lr0], inv1 = 1.f / sL[lr1];
-#pragma unroll
-    for (int dt = 0; dt < NDT; ++dt) {
-      const int col = warp * DW + dt * 8 + t4 * 2;
-      if (q0 + lr0 < Sq)
-        *reinterpret_cast<uint32_t*>(ob + (q0 + lr0) * st.o_s + col) =
-            pack_bf16(acc[mt][dt][0] * inv0, acc[mt][dt][1] * inv0);
-      if (q0 + lr1 < Sq)
-        *reinterpret_cast<uint32_t*>(ob + (q0 + lr1) * st.o_s + col) =
-            pack_bf16(acc[mt][dt][2] * inv1, acc[mt][dt][3] * inv1);
+  if (wg == 2) {  // producers: thread 256 loads Q and the K tiles, thread 288 the V tiles
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(full_q, C::TILE);
+      for (int c = 0; c < C::NBOX; ++c) tma_load_4d(sQ + c * 8192, &tm_q, full_q, 64 * c, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        mbar_wait(empty_k, (j & 1) ^ 1);
+        mbar_arrive_expect_tx(full_k, C::TILE);
+        for (int c = 0; c < C::NBOX; ++c) tma_load_4d(sK + c * 8192, &tm_k, full_k, 64 * c, 64 * j, h, b);
+      }
+    } else if (threadIdx.x == 288) {
+      for (int j = 0; j < n_tiles; ++j) {
+        mbar_wait(empty_v, (j & 1) ^ 1);
+        mbar_arrive_expect_tx(full_v, C::TILE);
+        for (int c = 0; c < C::NBOX; ++c) tma_load_4d(sV + c * 8192, &tm_v, full_v, 64 * c, 64 * j, h, b);
+      }
     }
+    return;
   }
-  // statistics are in the log2 domain of the scaled logits
-  if (lse != nullptr && tid < BM && q0 + tid < Sq)
-    lse[static_cast<long long>(blockIdx.y) * Sq + q0 + tid] = (sM[tid] + log2f(sL[tid])) * LN2;
+
+  // consumers: warpgroup wg owns head-dim columns [wg·D/2, (wg + 1)·D/2)
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, t4 = lane & 3, tid = threadIdx.x & 127;
+  float* xbuf = reinterpret_cast<float*>(smem_wide + (base - raw) + C::X_OFF);
+  float s_acc[32], o_acc[NCB][32];
+  uint32_t pa[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s_acc[i] = 0.f;
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o_acc[cb][i] = 0.f;
+    fence_regs(o_acc[cb]);  // zeroed here, not later next to a wgmma in flight
+  }
+  // row statistics of rows 16w + lane/4 and + 8: the running max (raw score
+  // units), its rounded base b = fl(m · scale · log2 e) and the sum relative
+  // to it, and this tile's rescale 2^(b_old − b_new)
+  float m0 = neg_inf(), m1 = neg_inf(), mb0 = 0.f, mb1 = 0.f, l0 = 0.f, l1 = 0.f, al0 = 1.f, al1 = 1.f;
+
+  // S_j (this warpgroup's partial) = Q_half·K_halfᵀ
+  auto issue_s = [&]() {
+    fence_regs(s_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t off = (wg * C::HB + kk / 4) * 8192 + 32 * (kk % 4);
+      wgmma_ss_m64n64(s_acc, desc_k(opaque(sQ) + off), desc_k(opaque(sK) + off), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O_half += P_j·V_j[:, half]
+  auto issue_pv = [&]() {
+    fence_regs(pa);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) fence_regs(o_acc[cb]);
+    wgmma_fence();
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        wgmma_rs_m64n64_mn(o_acc[cb], pa[4 * kc], pa[4 * kc + 1], pa[4 * kc + 2], pa[4 * kc + 3],
+                           desc_mn(opaque(sV) + (wg * C::HB + cb) * 8192 + 2048 * kc));
+    wgmma_commit();
+  };
+  // the full S_j: mine + the other half's, swapped through shared memory
+  // (barrier 2 + wg: the other warpgroup has read my previous partials)
+  auto exchange = [&](int j) {
+    if (j > 0) named_bar_sync(2 + wg, 256);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) xbuf[(wg * 32 + i) * 128 + tid] = s_acc[i];
+    named_bar_sync(1, 256);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s_acc[i] += xbuf[((1 - wg) * 32 + i) * 128 + tid];
+    if (j + 1 < n_tiles) named_bar_arrive(2 + (1 - wg), 256);
+  };
+  // online softmax of S_j in place; only the tile that holds kv_end needs masking
+  auto softmax = [&](int j) {
+    const int kv0 = 64 * j;
+    if (kv0 + 64 > kv_end) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (kv0 + i * 8 + t4 * 2 + e >= kv_end) s_acc[4 * i + e] = s_acc[4 * i + 2 + e] = neg_inf();
+    }
+    float mx0 = neg_inf(), mx1 = neg_inf();
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(s_acc[4 * i], s_acc[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s_acc[4 * i + 2], s_acc[4 * i + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float base0 = (mn0 == neg_inf() ? 0.f : mn0) * scale_log2;
+    const float base1 = (mn1 == neg_inf() ? 0.f : mn1) * scale_log2;
+    al0 = m0 == neg_inf() ? 0.f : ex2(mb0 - base0);  // 1 exactly while the max holds
+    al1 = m1 == neg_inf() ? 0.f : ex2(mb1 - base1);
+    m0 = mn0, m1 = mn1, mb0 = base0, mb1 = base1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s_acc[4 * i + 0] = ex2(fmaf(s_acc[4 * i + 0], scale_log2, -base0));
+      s_acc[4 * i + 1] = ex2(fmaf(s_acc[4 * i + 1], scale_log2, -base0));
+      s_acc[4 * i + 2] = ex2(fmaf(s_acc[4 * i + 2], scale_log2, -base1));
+      s_acc[4 * i + 3] = ex2(fmaf(s_acc[4 * i + 3], scale_log2, -base1));
+      rs0 += s_acc[4 * i + 0] + s_acc[4 * i + 1];
+      rs1 += s_acc[4 * i + 2] + s_acc[4 * i + 3];
+    }
+    l0 = l0 * al0 + rs0;  // per-thread partial row sums; summed over the quad at the end
+    l1 = l1 * al1 + rs1;
+  };
+  // O rescaled to the new base, P_j packed to bf16 A fragments, S's
+  // registers zeroed (their values end here, not at the next wgmma)
+  auto rescale_pack = [&]() {
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        o_acc[cb][4 * i + 0] *= al0;
+        o_acc[cb][4 * i + 1] *= al0;
+        o_acc[cb][4 * i + 2] *= al1;
+        o_acc[cb][4 * i + 3] *= al1;
+      }
+    pack_a<4>(pa, s_acc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s_acc[i] = 0.f;
+  };
+
+  mbar_wait(full_q, 0);
+  mbar_wait(full_k, 0);
+  issue_s();
+  wgmma_wait<0>();
+  fence_regs(s_acc);
+  mbar_arrive_if(empty_k, lane == 0);
+  exchange(0);
+  softmax(0);
+  rescale_pack();
+  // iteration j: P_j·V_j, then S_{j+1}, on the tensor cores; V_j released
+  // when its product is done, K_{j+1} when S_{j+1} is; then the exchange and
+  // softmax of S_{j+1}
+  for (int j = 0; j + 1 < n_tiles; ++j) {
+    mbar_wait(full_v, j & 1);
+    issue_pv();
+    mbar_wait(full_k, (j + 1) & 1);
+    issue_s();
+    wgmma_wait<1>();
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) fence_regs(o_acc[cb]);
+    fence_regs(pa);
+    mbar_arrive_if(empty_v, lane == 0);
+    wgmma_wait<0>();
+    fence_regs(s_acc);
+    mbar_arrive_if(empty_k, lane == 0);
+    exchange(j + 1);
+    softmax(j + 1);
+    rescale_pack();
+  }
+  mbar_wait(full_v, (n_tiles - 1) & 1);
+  issue_pv();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb) fence_regs(o_acc[cb]);
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int row0 = q0 + w * 16 + (lane >> 2), row1 = row0 + 8;
+  bf16* ob = o + b * o_b + h * o_h + wg * (D / 2) + 2 * t4;
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = 64 * cb + 8 * i;
+      if (row0 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + row0 * o_s + col) =
+            pack_bf16(o_acc[cb][4 * i] * inv0, o_acc[cb][4 * i + 1] * inv0);
+      if (row1 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + row1 * o_s + col) =
+            pack_bf16(o_acc[cb][4 * i + 2] * inv1, o_acc[cb][4 * i + 3] * inv1);
+    }
+  // natural-log LSE of the scaled logits: l sums 2^(s · scale · log2 e − b)
+  if (lse != nullptr && wg == 0 && t4 == 0) {
+    float* lb = lse + static_cast<long long>(blockIdx.y) * Sq;
+    if (row0 < Sq) lb[row0] = (mb0 + log2f(l0)) * LN2;
+    if (row1 < Sq) lb[row1] = (mb1 + log2f(l1)) * LN2;
+  }
 }
 
 template <int D>
-cudaError_t launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B, int H,
-                        int Sq, int kv_end, const Strides& st, float scale_log2,
-                        cudaStream_t stream) {
-  const size_t bytes = WideSmem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wide_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + WideSmem<D>::BM - 1) / WideSmem<D>::BM, B * H);
-  flash_fwd_wide_kernel<D><<<grid, 256, bytes, stream>>>(q, k, v, o, lse, H, Sq, kv_end, st,
-                                                          scale_log2);
-  return cudaGetLastError();
+int launch_wide(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Sq, int kv_end,
+                int q_b, int q_s, int q_h, int k_b, int k_s, int k_h, int v_b, int v_s, int v_h, int o_b, int o_s,
+                int o_h, float scale, cudaStream_t stream) {
+  using C = Wide<D>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_wide_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  // 4-D maps (D, S, H, B) with 64 × 64 boxes; rows past Sq, and keys at or
+  // past kv_end, read as zeros
+  CUtensorMap tq, tk, tv;
+  const int box[4] = {64, 64, 1, 1};
+  auto map = [&](CUtensorMap* m, const void* base, int S, int s_s, int s_h, int s_b) {
+    const long long dims[4] = {D, S, H, B}, strides[3] = {2LL * s_s, 2LL * s_h, 2LL * s_b};
+    return make_map(m, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  };
+  int err = map(&tq, q, Sq, q_s, q_h, q_b);
+  if (err == 0) err = map(&tk, k, kv_end, k_s, k_h, k_b);
+  if (err == 0) err = map(&tv, v, kv_end, v_s, v_h, v_b);
+  if (err != 0) return err;
+  dim3 grid((Sq + 63) / 64, B * H);
+  flash_fwd_wide_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), H, Sq, kv_end, o_b, o_s, o_h, scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int NC>
@@ -523,16 +627,6 @@ int launch_d64(const void* q, const void* k, const void* v, void* o, void* lse, 
   return static_cast<int>(cudaGetLastError());
 }
 
-Strides make_strides(int q_b, int q_s, int q_h, int k_b, int k_s, int k_h, int v_b, int v_s,
-                     int v_h, int o_b, int o_s, int o_h) {
-  Strides st;
-  st.q_b = q_b; st.q_s = q_s; st.q_h = q_h;
-  st.k_b = k_b; st.k_s = k_s; st.k_h = k_h;
-  st.v_b = v_b; st.v_s = v_s; st.v_h = v_h;
-  st.o_b = o_b; st.o_s = o_s; st.o_h = o_h;
-  return st;
-}
-
 }  // namespace
 
 extern "C" {
@@ -557,19 +651,16 @@ int flash_fwd_wide(const void* q, const void* k, const void* v, void* o, void* l
                    int kv_end, int D, int q_b, int q_s, int q_h, int k_b, int k_s, int k_h,
                    int v_b, int v_s, int v_h, int o_b, int o_s, int o_h, float scale,
                    void* stream) {
-  const Strides st = make_strides(q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h);
-  const float sl2 = scale * LOG2E;
-  float* ll = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* qq = static_cast<const bf16*>(q);
-  const bf16* kk = static_cast<const bf16*>(k);
-  const bf16* vv = static_cast<const bf16*>(v);
-  bf16* oo = static_cast<bf16*>(o);
   switch (D) {
-    case 128: return static_cast<int>(launch_wide<128>(qq, kk, vv, oo, ll, B, H, Sq, kv_end, st, sl2, s));
-    case 256: return static_cast<int>(launch_wide<256>(qq, kk, vv, oo, ll, B, H, Sq, kv_end, st, sl2, s));
-    case 384: return static_cast<int>(launch_wide<384>(qq, kk, vv, oo, ll, B, H, Sq, kv_end, st, sl2, s));
-    case 512: return static_cast<int>(launch_wide<512>(qq, kk, vv, oo, ll, B, H, Sq, kv_end, st, sl2, s));
+    case 128: return launch_wide<128>(q, k, v, o, lse, B, H, Sq, kv_end, q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h,
+                                      o_b, o_s, o_h, scale, s);
+    case 256: return launch_wide<256>(q, k, v, o, lse, B, H, Sq, kv_end, q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h,
+                                      o_b, o_s, o_h, scale, s);
+    case 384: return launch_wide<384>(q, k, v, o, lse, B, H, Sq, kv_end, q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h,
+                                      o_b, o_s, o_h, scale, s);
+    case 512: return launch_wide<512>(q, k, v, o, lse, B, H, Sq, kv_end, q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h,
+                                      o_b, o_s, o_h, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -103,6 +103,18 @@ __device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
                : "r"(addr));
 }
 
+// 16 bytes of shared memory at a 32-bit shared address
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n" : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
 __device__ __forceinline__ uint32_t act2(uint32_t raw, float sc0, float sh0, float sc1, float sh1) {
   const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&raw);
   const float a = fmaf(__low2float(h), sc0, sh0), b = fmaf(__high2float(h), sc1, sh1);
@@ -272,115 +284,254 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// fp32 (gn_silu_conv3x3_f32): x, w and y fp32, for the fp32 compute policy
-// (JAX's K4 keeps its slab in x's dtype). fp32 arithmetic is FFMA on the CUDA
-// cores, so this is a simple SIMT implicit GEMM, right first: a CTA computes
-// 64 output pixels (a power-of-two width TW <= 64 of 64 / TW rows) by 64
-// output channels, 256 threads of 4 pixels × 4 channels. For each 16-channel
-// chunk of Cin it writes the halo's activations SiLU(x·scale + shift)
-// channel-major into shared memory (0 outside the image: the padding comes
-// after the activation), and the chunk's weights tap- and channel-major; the
-// 9 taps are offsets into the halo.
+// fp32 (gn_silu_conv3x3_f32): x, w and y fp32, for the fp32 compute policy.
+// JAX's K4 keeps its slab in x's dtype, so the activation is not rounded.
+//
+// What bounds it: the same GEMM, in fp32. FFMA on the CUDA cores peaks at
+// 67 TFLOP/s; tf32 wgmma at 495, but one tf32 product rounds each operand to
+// 11 significant bits, which misses the fp32 gate (tests/test_torch_tf32_conv.py
+// shows it). So the kernel runs 3xTF32, as flash_f32.cu does: each operand
+// split as hi = rna_tf32(v), lo = rna_tf32(v − hi), each product
+// a_lo·w_hi + a_hi·w_lo + a_hi·w_hi (the bound: 3 × operations / 495 TFLOP/s).
+//
+// The design is the bf16 kernel's above, carried over to tf32:
+//   * a CTA computes the same 128 pixels × 160 output channels; a chunk is
+//     32 fp32 input channels, 128 bytes a pixel, the swizzle atom of the bf16
+//     kernel's 64 channels, so the halo, its XOR swizzle and the consumers'
+//     per-lane ldmatrix addresses are the bf16 kernel's: a b16 8×8 matrix is
+//     8 pixels × 4 fp32 channels, and ldmatrix.x4 of one k8 slice delivers
+//     the tf32 A fragment (rows g, g + 8; k = t, t + 4) as it is (the test
+//     emulates the addresses);
+//   * the A operand is split in registers: the normalisers write one fp32
+//     plane SiLU(x·scale + shift) (0 outside the image); each consumer splits
+//     the 16 values it loads for a tap (~50 ALU operations a thread against
+//     12 wgmma of ~80 clocks each), so shared memory holds one A plane, not two;
+//   * the B operand is split before the kernel: wgmma reads B only from
+//     shared memory, and tf32 only K-major, which the (Cout, 3, 3, Cin)
+//     weight already is. `gn_conv_f32_split` (one launch a call, no cache
+//     across calls) writes its tf32 hi and lo planes; a tap's TMA box holds
+//     both, 160 × 32 × 4 B each = 40,960 B;
+//   * per tap and k8 slice, three wgmma m64n160k8 tf32 RS, small terms first;
+//   * accuracy: the tensor cores add each product into the fp32 accumulator
+//     with truncation, and one chain of 9·Cin/8 × 3 adds (2160 at Cin = 640)
+//     drifts to the fp32 gate's mean limit (the CPU emulation). So each
+//     32-channel chunk (108 products) goes into a fresh accumulator that an
+//     FADD adds to the running one: 80 more registers a consumer thread;
+//   * roles, 384 threads: warpgroups 0-1 consume (setmaxnreg 232: the two
+//     80-value accumulators and 32 hi/lo fragment registers fit), warpgroup
+//     2 holds the TMA producer thread and 3 normaliser warps (setmaxnreg 40:
+//     they address shared memory by 32-bit address, through ld/st.shared).
+//     Three normaliser warps suffice where the bf16 kernel needed 7: an fp32
+//     chunk has half the channels of a bf16 one and six times its
+//     tensor-core time (9 taps × 12 tf32 wgmma against 9 × 4 bf16);
+//   * shared memory (232,448 B): a weight ring of 3 taps (3 × 40,960 B), one
+//     raw-x halo (33,792) and two A halos: 224,256 B. One raw stage is
+//     enough, since the normalisers wait for a free A halo anyway: chunk
+//     c + 1's raw halo loads while the consumers run chunk c − 1, and is
+//     normalised while they run chunk c. Of the layouts that fit (a raw ring
+//     of 2 leaves a weight ring of 2), this one keeps three taps of weights
+//     in flight, so a tap's 40 KB from L2 has two taps' products to arrive in.
 // ---------------------------------------------------------------------------
 
-constexpr int F_BM = 64, F_BN = 64, F_KC = 16;
-constexpr int F_HALO = 200;  // max over TW of (64 / TW + 2) · (TW + 2) = 198, rounded up
-constexpr int F_SMEM = (F_KC * F_HALO + 9 * F_KC * F_BN) * 4;
+constexpr int F_KC = 32;                             // fp32 input channels a chunk: 128 bytes a pixel
+constexpr int F_W_STAGES = 3;
+constexpr int F_W_PLANE = BN * PIX_BYTES;            // 20,480: one tap's hi (or lo) weight tile
+constexpr int F_W_BYTES = 2 * F_W_PLANE;             // hi and lo
+constexpr int F_X_OFF = F_W_STAGES * F_W_BYTES, F_A_OFF = F_X_OFF + HALO_BYTES;
+constexpr int F_BAR_OFF = F_A_OFF + 2 * HALO_BYTES;
+constexpr int F_NBAR = 2 * F_W_STAGES + 2 + 4;       // weights full/empty; x full, empty; A full/empty
+constexpr int F_SMEM = F_BAR_OFF + 8 * F_NBAR + 1024;
+constexpr int F_THREADS = 384, F_NORM_THREADS = 96;
+constexpr int F_AUX_REGS = 40, F_CONSUMER_REGS = 232;
+// the launch allocates 168 registers a thread (65536 / 384, rounded down to
+// 8); setmaxnreg.inc waits until the other warpgroups' decs have freed what
+// it takes, so the counts must fit in that allocation, not in 65536
+static_assert(128 * (F_AUX_REGS + 2 * F_CONSUMER_REGS) <= F_THREADS * 168, "register file");
+static_assert(F_SMEM <= 232448, "shared memory");
 
 __global__ void __launch_bounds__(GN_THREADS) gn_k4_partial_f32(const float* __restrict__ x, float* __restrict__ part,
                                                                  int S, int C, int rows, int chunks) {
   gn_partial_body<float>(x, part, S, C, rows, chunks);
 }
 
-__global__ void __launch_bounds__(256)
-    gn_k4_conv_f32(const float* __restrict__ x, const float* __restrict__ affine, const float* __restrict__ w,
-                   const void* bias, int bias_bf16, float* __restrict__ y, int N, int H, int W, int Cin, int Cout,
-                   int tw_log2, int tiles_h, int tiles_w) {
-  extern __shared__ float4 smem_f32[];
-  float* sA = reinterpret_cast<float*>(smem_f32);  // [F_KC][halo pixel]
-  float* sW = sA + F_KC * F_HALO;                  // [tap][F_KC][F_BN]
-  const int TW = 1 << tw_log2, TR = F_BM >> tw_log2, HW2 = TW + 2, HP = (TR + 2) * HW2;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * F_BN;
+// The weight pre-pass: n4 float4 of w to their tf32 hi (out[0, n4)) and lo
+// (out[n4, 2·n4)) parts.
+__global__ void __launch_bounds__(256) gn_conv_f32_split_kernel(const float4* __restrict__ w, float4* __restrict__ out,
+                                                                 int n4) {
+  for (int i = blockIdx.x * 256 + threadIdx.x; i < n4; i += gridDim.x * 256) {
+    const float4 v = w[i];
+    uint32_t h[4], l[4];
+    tf32_split(v.x, h[0], l[0]);
+    tf32_split(v.y, h[1], l[1]);
+    tf32_split(v.z, h[2], l[2]);
+    tf32_split(v.w, h[3], l[3]);
+    out[i] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]), __uint_as_float(h[3]));
+    out[n4 + i] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
+  }
+}
+
+// grid (ceil(Cout / 160), N · tiles_h · tiles_w), as gn_k4_conv.
+__global__ void __launch_bounds__(F_THREADS, 1)
+    gn_k4_conv_f32(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+                   const float* __restrict__ affine, const void* bias, int bias_bf16, float* __restrict__ y, int N,
+                   int H, int W, int Cin, int Cout, int tw_log2, int tiles_h, int tiles_w) {
+  extern __shared__ __align__(1024) unsigned char smem_k4f[];
+  const uint32_t base = (smem_u32(smem_k4f) + 1023u) & ~1023u;
+  const uint32_t sW = base, sX = base + F_X_OFF, sA = base + F_A_OFF, bars = base + F_BAR_OFF;
+  // mbarriers: weights full [0, 3), weights empty [3, 6), x full, x empty, A full (2), A empty (2)
+  auto w_full = [&](int s) { return bars + 8 * s; };
+  auto w_empty = [&](int s) { return bars + 8 * (F_W_STAGES + s); };
+  const uint32_t x_full = bars + 8 * (2 * F_W_STAGES), x_empty = x_full + 8;
+  auto a_full = [&](int s) { return x_full + 16 + 8 * s; };
+  auto a_empty = [&](int s) { return x_full + 32 + 8 * s; };
+
+  const int TW = 1 << tw_log2, TR = BM >> tw_log2, HW2 = TW + 2, HP = (TR + 2) * HW2;
+  const int n0 = blockIdx.x * BN;
   int tile = blockIdx.y;
   const int tile_x = tile % tiles_w;
   tile /= tiles_w;
   const int tile_y = tile % tiles_h, img = tile / tiles_h;
   const int y0 = tile_y * TR, x0 = tile_x * TW;
-  const float* xi = x + static_cast<long long>(img) * H * W * Cin;
-  const float* scale = affine + static_cast<long long>(img) * Cin;
-  const float* shift = affine + static_cast<long long>(N + img) * Cin;
+  const int n_chunks = (Cin + F_KC - 1) / F_KC;
+  const int wg = threadIdx.x >> 7;
 
-  int hbase[4];  // this thread's 4 output pixels 4ty..4ty+3 at tap (0, 0) of the halo
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = 4 * ty + i;
-    hbase[i] = (m >> tw_log2) * HW2 + (m & (TW - 1));
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F_W_STAGES; ++s) {
+      mbar_init(w_full(s), 1);
+      mbar_init(w_empty(s), 8);  // one arrival per consumer warp
+    }
+    mbar_init(x_full, 1);
+    mbar_init(x_empty, F_NORM_THREADS);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(a_full(s), F_NORM_THREADS);
+      mbar_init(a_empty(s), 8);
+    }
+    mbar_fence_init();
   }
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  __syncthreads();
 
-  for (int kc = 0; kc < Cin; kc += F_KC) {
-    __syncthreads();  // the previous chunk's operands are read
-    for (int i = tid; i < HP * (F_KC / 4); i += 256) {  // halo: 4 channels a thread
-      const int p = i % HP, c = (i / HP) * 4, ci = kc + c;
-      const int hr = p / HW2, hc = p - hr * HW2, gy = y0 - 1 + hr, gx = x0 - 1 + hc;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (ci < Cin && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const float4 e = *reinterpret_cast<const float4*>(xi + (static_cast<long long>(gy) * W + gx) * Cin + ci);
-        a.x = silu(fmaf(e.x, scale[ci], shift[ci]));
-        a.y = silu(fmaf(e.y, scale[ci + 1], shift[ci + 1]));
-        a.z = silu(fmaf(e.z, scale[ci + 2], shift[ci + 2]));
-        a.w = silu(fmaf(e.w, scale[ci + 3], shift[ci + 3]));
-      }
-      sA[(c + 0) * F_HALO + p] = a.x;
-      sA[(c + 1) * F_HALO + p] = a.y;
-      sA[(c + 2) * F_HALO + p] = a.z;
-      sA[(c + 3) * F_HALO + p] = a.w;
-    }
-    for (int i = tid; i < F_BN * 9 * (F_KC / 4); i += 256) {  // weights: 4 channels a thread
-      const int nl = i / (9 * F_KC / 4), rem = i % (9 * F_KC / 4), tap = rem / (F_KC / 4), c = (rem % (F_KC / 4)) * 4;
-      const int co = n0 + nl, ci = kc + c;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (co < Cout && ci < Cin) v = *reinterpret_cast<const float4*>(w + (static_cast<long long>(co) * 9 + tap) * Cin + ci);
-      float* dst = sW + (tap * F_KC + c) * F_BN + nl;
-      dst[0] = v.x;
-      dst[F_BN] = v.y;
-      dst[2 * F_BN] = v.z;
-      dst[3 * F_BN] = v.w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = (tap / 3) * HW2 + tap % 3;
-#pragma unroll 4
-      for (int c = 0; c < F_KC; ++c) {
-        const float4 wv = *reinterpret_cast<const float4*>(sW + (tap * F_KC + c) * F_BN + 4 * tx);
-        const float* ac = sA + c * F_HALO + toff;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float av = ac[hbase[i]];
-          acc[i][0] = fmaf(av, wv.x, acc[i][0]);
-          acc[i][1] = fmaf(av, wv.y, acc[i][1]);
-          acc[i][2] = fmaf(av, wv.z, acc[i][2]);
-          acc[i][3] = fmaf(av, wv.w, acc[i][3]);
+  if (wg == 2) {
+    setmaxnreg_dec<F_AUX_REGS>();
+    const int t = threadIdx.x - 256;
+    if (t == 0) {  // producer
+      const uint32_t x_bytes = HP * PIX_BYTES;
+      auto load_x = [&](int c) {
+        mbar_wait(x_empty, (c & 1) ^ 1);
+        mbar_arrive_expect_tx(x_full, x_bytes);
+        tma_load_4d(sX, &tm_x, x_full, c * F_KC, x0 - 1, y0 - 1, img);
+      };
+      load_x(0);
+      for (int c = 0; c < n_chunks; ++c) {
+        if (c + 1 < n_chunks) load_x(c + 1);
+        for (int tap = 0; tap < 9; ++tap) {
+          const int u = c * 9 + tap, s = u % F_W_STAGES;
+          mbar_wait(w_empty(s), ((u / F_W_STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(w_full(s), F_W_BYTES);
+          tma_load_4d(sW + s * F_W_BYTES, &tm_w, w_full(s), c * F_KC, tap, n0, 0);
         }
       }
+    } else if (t >= 32) {  // normaliser: thread t - 32 takes channel group g (4 channels) of every 12th pixel
+      const int nt = t - 32, g = nt & 7, p0 = nt >> 3;
+      for (int c = 0; c < n_chunks; ++c) {
+        const int s = c & 1, ci = c * F_KC + g * 4;
+        // Cin % 4 == 0: a group is whole or past Cin, where 0 gives SiLU(0) = 0
+        float4 sc = make_float4(0.f, 0.f, 0.f, 0.f), sh = sc;
+        if (ci < Cin) {
+          sc = *reinterpret_cast<const float4*>(affine + static_cast<long long>(img) * Cin + ci);
+          sh = *reinterpret_cast<const float4*>(affine + static_cast<long long>(N + img) * Cin + ci);
+        }
+        const uint32_t xs = sX + g * 16, as = sA + s * HALO_BYTES;
+        mbar_wait(x_full, c & 1);
+        mbar_wait(a_empty(s), ((c >> 1) & 1) ^ 1);
+        int hr = p0 / HW2, hc = p0 - hr * HW2;
+        for (int p = p0; p < HP; p += F_NORM_THREADS / 8) {
+          const int gy = y0 - 1 + hr, gx = x0 - 1 + hc;
+          float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+            const float4 r = lds128(xs + p * PIX_BYTES);
+            out = make_float4(silu(fmaf(r.x, sc.x, sh.x)), silu(fmaf(r.y, sc.y, sh.y)), silu(fmaf(r.z, sc.z, sh.z)),
+                              silu(fmaf(r.w, sc.w, sh.w)));
+          }
+          sts128(as + p * PIX_BYTES + ((g ^ (p & 7)) << 4), out);
+          for (hc += F_NORM_THREADS / 8; hc >= HW2; hc -= HW2) ++hr;
+        }
+        mbar_arrive(x_empty);
+        mbar_arrive(a_full(s));
+      }
     }
-  }
+  } else {  // consumers: warpgroup wg computes pixels 64·wg .. 64·wg + 63
+    setmaxnreg_inc<F_CONSUMER_REGS>();
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+    // ldmatrix: lane l gives the address of A row l % 16 (its pixel), 16-byte group 2·kk + l / 16
+    const int m = 64 * wg + 16 * w + (lane & 15), half = lane >> 4;
+    const int hbase = (m >> tw_log2) * HW2 + (m & (TW - 1));
+    float acc[80], part[80];  // the running sum; this chunk's products
+#pragma unroll
+    for (int i = 0; i < 80; ++i) acc[i] = 0.f;
+    fence_regs(acc);  // zeroed here, not later next to a wgmma in flight
+    uint32_t ah[16], al[16];
+    for (int c = 0; c < n_chunks; ++c) {
+      mbar_wait(a_full(c & 1), (c >> 1) & 1);
+      const uint32_t abuf = sA + (c & 1) * HALO_BYTES;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int hp = static_cast<int>(opaque(hbase)) + (tap / 3) * HW2 + tap % 3;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) ldsm_x4(ah + 4 * kk, abuf + hp * PIX_BYTES + (((2 * kk + half) ^ (hp & 7)) << 4));
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {  // the 3xTF32 split of the activation, in registers
+          const float a = __uint_as_float(ah[i]);
+          ah[i] = tf32_rna(a);
+          al[i] = tf32_rna(a - __uint_as_float(ah[i]));
+        }
+        const int u = c * 9 + tap, s = u % F_W_STAGES;
+        mbar_wait(w_full(s), (u / F_W_STAGES) & 1);
+        const uint32_t wb = sW + s * F_W_BYTES;
+        fence_regs(ah);
+        fence_regs(al);
+        fence_regs(part);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {  // small terms first; the chunk's first product starts `part`
+          const int f = 4 * kk;
+          wgmma_tf32_rs_m64n160(part, al[f], al[f + 1], al[f + 2], al[f + 3], desc_k(opaque(wb) + 32 * kk),
+                                tap > 0 || kk > 0);
+          wgmma_tf32_rs_m64n160(part, ah[f], ah[f + 1], ah[f + 2], ah[f + 3],
+                                desc_k(opaque(wb) + F_W_PLANE + 32 * kk), 1);
+          wgmma_tf32_rs_m64n160(part, ah[f], ah[f + 1], ah[f + 2], ah[f + 3], desc_k(opaque(wb) + 32 * kk), 1);
+        }
+        wgmma_commit();
+        // as in the bf16 kernel: the next tap's fragments load after this
+        // tap's products are done (C7513); the other warpgroup's products
+        // fill the tensor cores meanwhile
+        wgmma_wait<0>();
+        fence_regs(ah);
+        fence_regs(al);
+        fence_regs(part);
+        mbar_arrive_if(w_empty(s), lane == 0);
+      }
+      mbar_arrive_if(a_empty(c & 1), lane == 0);
+#pragma unroll
+      for (int i = 0; i < 80; ++i) acc[i] += part[i];
+      fence_regs(acc);
+    }
 
-  const int co = n0 + 4 * tx;  // Cout % 8 == 0: four channels are whole or out
-  if (co >= Cout) return;
-  float b[4];
+    // epilogue: + fp32 bias; Cout % 8 == 0, so a column pair is whole or out
+    const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) b[j] = load_param(bias, co + j, bias_bf16);
+    for (int h = 0; h < 2; ++h) {
+      const int mm = 64 * wg + 16 * w + g + 8 * h;
+      const int gy = y0 + (mm >> tw_log2), gx = x0 + (mm & (TW - 1));
+      if (gy >= H || gx >= W) continue;
+      float* yp = y + ((static_cast<long long>(img) * H + gy) * W + gx) * Cout;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = 4 * ty + i, gy = y0 + (m >> tw_log2), gx = x0 + (m & (TW - 1));
-    if (gy < H && gx < W)
-      *reinterpret_cast<float4*>(y + ((static_cast<long long>(img) * H + gy) * W + gx) * Cout + co) =
-          make_float4(acc[i][0] + b[0], acc[i][1] + b[1], acc[i][2] + b[2], acc[i][3] + b[3]);
+      for (int i = 0; i < BN / 8; ++i) {
+        const int co = n0 + 8 * i + 2 * t4;
+        if (co < Cout)
+          *reinterpret_cast<float2*>(yp + co) = make_float2(acc[4 * i + 2 * h] + load_param(bias, co, bias_bf16),
+                                                            acc[4 * i + 2 * h + 1] + load_param(bias, co + 1, bias_bf16));
+      }
+    }
   }
 }
 
@@ -431,7 +582,9 @@ int gn_silu_conv3x3(const void* x, const void* gamma, const void* beta, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same contract with x, w and y fp32; the tile width is 2^tw_log2 <= 64.
+// The same contract with x, w and y fp32, where w is the weight's tf32
+// split, (2, Cout, 3, 3, Cin) fp32 contiguous (gn_conv_f32_split), and Cin % 4
+// == 0.
 int gn_silu_conv3x3_f32(const void* x, const void* gamma, const void* beta, const void* w, const void* bias, void* y,
                         void* part, void* affine, int N, int H, int W, int Cin, int Cout, int G, float eps, int rows,
                         int chunks, int param_bf16, int bias_bf16, int tw_log2, void* stream) {
@@ -451,11 +604,33 @@ int gn_silu_conv3x3_f32(const void* x, const void* gamma, const void* beta, cons
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
-  const int TW = 1 << tw_log2, TR = F_BM / TW;
+  const int TW = 1 << tw_log2, TR = BM / TW;
+  // x as (Cin, W, H, N), a box the (TR + 2) × (TW + 2) halo of 32 channels;
+  // the split weight as (Cin, 9, Cout, 2), a box one tap of 32 channels ×
+  // 160 output channels × both planes
+  CUtensorMap tm_x, tm_w;
+  const long long x_dims[4] = {Cin, W, H, N}, x_strides[3] = {4LL * Cin, 4LL * W * Cin, 4LL * H * W * Cin};
+  const int x_box[4] = {F_KC, TW + 2, TR + 2, 1};
+  const long long w_dims[4] = {Cin, 9, Cout, 2}, w_strides[3] = {4LL * Cin, 36LL * Cin, 36LL * Cin * Cout};
+  const int w_box[4] = {F_KC, 1, BN, 2};
+  int e = make_map(&tm_x, x, 4, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (e == 0)
+    e = make_map(&tm_w, w, 4, w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  if (e != 0) return e;
   const int tiles_h = (H + TR - 1) / TR, tiles_w = (W + TW - 1) / TW;
-  const dim3 grid((Cout + F_BN - 1) / F_BN, N * tiles_h * tiles_w);
-  gn_k4_conv_f32<<<grid, 256, F_SMEM, st>>>(xx, a, static_cast<const float*>(w), bias, bias_bf16,
-                                            static_cast<float*>(y), N, H, W, Cin, Cout, tw_log2, tiles_h, tiles_w);
+  const dim3 grid((Cout + BN - 1) / BN, N * tiles_h * tiles_w);
+  gn_k4_conv_f32<<<grid, F_THREADS, F_SMEM, st>>>(tm_x, tm_w, a, bias, bias_bf16, static_cast<float*>(y), N, H, W,
+                                                  Cin, Cout, tw_log2, tiles_h, tiles_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// w: n fp32 (n % 4 == 0, 16-byte aligned); out: 2·n fp32, the tf32 hi parts
+// of w in [0, n) and the lo parts in [n, 2·n), in w's order.
+int gn_conv_f32_split(const void* w, void* out, int n, void* stream) {
+  if (n % 4) return static_cast<int>(cudaErrorInvalidValue);
+  const int n4 = n / 4, blocks = (n4 + 255) / 256 < 1056 ? (n4 + 255) / 256 : 1056;
+  gn_conv_f32_split_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(w), static_cast<float4*>(out), n4);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels (flash_fwd.cu:
-// K1, flash_bwd.cu: K5, gn_conv.cu: K4), in raw PTX:
+// K1, K2; flash_bwd.cu: K5; flash_f32.cu; gn_conv.cu: K4), in raw PTX:
 //
 //   * mbarriers: init, arrive, arrive + expect-tx, parity wait;
 //   * TMA: 3-D and 4-D tiled loads (cp.async.bulk.tensor) of bf16 or fp32
@@ -9,10 +9,10 @@
 //     -lcuda);
 //   * wgmma: shared-memory descriptors for 128-byte-swizzled tiles, the
 //     m64nNk16 bf16 → fp32 products with A from shared memory or from
-//     registers (B K-major or MN-major), the m64n64k8 tf32 → fp32 products
-//     (K-major only: the transpose flags exist for 16-bit types alone) and
-//     the round-to-nearest-away fp32 → tf32 conversion with its hi/lo split,
-//     wgmma.fence / commit_group / wait_group;
+//     registers (B K-major or MN-major), the m64n64k8 and m64n160k8 tf32 →
+//     fp32 products (K-major only: the transpose flags exist for 16-bit
+//     types alone) and the round-to-nearest-away fp32 → tf32 conversion
+//     with its hi/lo split, wgmma.fence / commit_group / wait_group;
 //   * warp specialisation: setmaxnreg and named barriers.
 //
 // Tile layout. A 64-wide bf16 row is 128 bytes, exactly one swizzle atom:
@@ -232,6 +232,16 @@ __device__ __forceinline__ void wgmma_wait() {
 // wgmma.fence and the wgmma (a copy there serialises the wgmma). Used right
 // before wgmma_fence, right after wgmma_wait, and right after an
 // accumulator is zeroed.
+// v through an empty asm: what is derived from it cannot be hoisted out of
+// a loop or computed early, so an address or descriptor used once is made
+// (a few integer operations) right where it is used, instead of many being
+// held in registers at once (at D = 512 or two 80-value accumulators that
+// spills)
+__device__ __forceinline__ uint32_t opaque(uint32_t v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
@@ -384,6 +394,35 @@ __device__ __forceinline__ void wgmma_tf32_rs_m64n64(float (&d)[32], uint32_t a0
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+// D(64×160, fp32) (+)= A(64×8, tf32 registers) · B(8×160): B K-major in
+// shared memory (desc_k), A's fragment as in wgmma_tf32_rs_m64n64. K4's fp32
+// tile (160 = 320 / 2 = 640 / 4 output channels).
+__device__ __forceinline__ void wgmma_tf32_rs_m64n160(float (&d)[80], uint32_t a0, uint32_t a1, uint32_t a2,
+                                                      uint32_t a3, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 

@@ -33,7 +33,7 @@ KERNELS = {
     "flash_int8": ("flash_int8", "flash_int8_f32"),
     "qdense": ("qdense", "qdense_f32"),
     "fused_gn": ("fused_group_norm",),
-    "gn_conv": ("gn_silu_conv3x3", "gn_silu_conv3x3_f32"),
+    "gn_conv": ("gn_silu_conv3x3", "gn_silu_conv3x3_f32", "gn_conv_f32_split"),
 }
 SOURCE_OF = {kernel: src for src, kernels in KERNELS.items() for kernel in kernels}
 

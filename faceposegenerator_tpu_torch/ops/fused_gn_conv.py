@@ -13,9 +13,11 @@ the UNet's resblocks send each `conv(silu(gn(x)))` that `supported` accepts
 here (`models.unet2d._gn_silu_conv`). A CPU tensor goes to
 `gn_silu_conv3x3_plain`; a CUDA tensor goes to the kernel (csrc/gn_conv.cu:
 `gn_silu_conv3x3` for bf16 x and weight, `gn_silu_conv3x3_f32` for fp32
-ones, as JAX's kernel keeps its slab in x's dtype) or raises. The wrapper
-adds one to `LAUNCHES[name]` where it launches kernel `name`, and nowhere
-else.
+ones, as JAX's kernel keeps its slab in x's dtype) or raises. The fp32
+kernel runs in 3xTF32 on the tensor cores and reads the weight as tf32 hi
+and lo planes, which `gn_conv_f32_split` writes first (one more launch per
+fp32 call; `weight_split_plain` is its plain version). The wrappers add one
+to `LAUNCHES[name]` where they launch kernel `name`, and nowhere else.
 
 When a gradient is taken through any operand, `GNSiLUConv3x3` runs the
 kernel forward and recomputes the backward with autograd through the plain
@@ -33,15 +35,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from . import _build
+from .flash_attention import tf32_split_plain
 from .fused_gn import check_stats_operands, group_scale_shift, recompute_grads, stats_split
 
 _IMPL = os.environ.get("GN_CONV_IMPL", "xla")  # xla | pallas
 _MAX_C = 640
 _ROWS_PER_CHUNK = int(os.environ.get("GN_CONV_ROWS", "8"))  # image rows / chunk
-# the kernels' tiles of output pixels: a power-of-two width TW of
-# pixels / TW image rows
-_TILE_PIXELS = {"gn_silu_conv3x3": 128, "gn_silu_conv3x3_f32": 64}
-LAUNCHES = {"gn_silu_conv3x3": 0, "gn_silu_conv3x3_f32": 0}
+# the kernels' tile of output pixels: a power-of-two width TW of
+# _TILE_PIXELS / TW image rows
+_TILE_PIXELS = 128
+LAUNCHES = {"gn_silu_conv3x3": 0, "gn_silu_conv3x3_f32": 0, "gn_conv_f32_split": 0}
 _fns: dict = {}
 
 
@@ -103,21 +106,55 @@ def _reference(x, gamma, beta, weight, bias, num_groups, eps):
     return y.permute(0, 2, 3, 1)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_CONV_ARGS = [_P] * 8 + [_I] * 6 + [ctypes.c_float] + [_I] * 5 + [_P]
+_ARGTYPES = {  # the C signatures in csrc/gn_conv.cu
+    "gn_silu_conv3x3": _CONV_ARGS, "gn_silu_conv3x3_f32": _CONV_ARGS, "gn_conv_f32_split": [_P, _P, _I, _P],
+}
+
+
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
         fn = _build.kernel(name)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, i, i, i, p]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
 def tile_width(w: int) -> int:
-    """The kernels' tile width: the power of two ≥ W, in [2, 64] (the bf16
-    kernel's shared memory holds the halo of 128 pixels at these widths)."""
+    """The kernels' tile width: the power of two ≥ W, in [2, 64] (their
+    shared memory holds the halo of 128 pixels at these widths)."""
     return min(64, max(2, 1 << max(0, (w - 1).bit_length())))
+
+
+def weight_split_plain(weight: torch.Tensor) -> torch.Tensor:
+    """`gn_conv_f32_split`'s output in plain PyTorch: the tf32 hi and lo
+    planes (`tf32_split_plain`) of a (Cout, Cin, 3, 3) fp32 weight in its
+    channels_last memory order, (2, Cout, 3, 3, Cin) contiguous: the
+    (Cin, 9, Cout, 2) tensor map of the fp32 kernel, innermost first."""
+    return torch.stack(tf32_split_plain(weight.float().permute(0, 2, 3, 1)))
+
+
+def weight_split(weight: torch.Tensor) -> torch.Tensor:
+    """`weight_split_plain` on the card in one `gn_conv_f32_split` launch
+    (a channels_last fp32 weight); for a CPU tensor, the plain version."""
+    if not weight.is_cuda:
+        return weight_split_plain(weight)
+    if weight.dtype != torch.float32 or not weight.is_contiguous(memory_format=torch.channels_last) \
+            or weight.data_ptr() % 16 or weight.numel() % 4:
+        raise ValueError(f"gn_conv_f32_split takes a 16-byte aligned fp32 channels_last weight of 4·k values, "
+                         f"got {weight.dtype} {tuple(weight.shape)} strides {weight.stride()}")
+    cout, cin = weight.shape[:2]
+    out = torch.empty((2, cout, 3, 3, cin), dtype=torch.float32, device=weight.device)
+    if weight.numel():
+        err = _kernel("gn_conv_f32_split")(weight.data_ptr(), out.data_ptr(), weight.numel(),
+                                           torch.cuda.current_stream(weight.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"gn_conv_f32_split launch failed: CUDA error {err}")
+        LAUNCHES["gn_conv_f32_split"] += 1
+    return out
 
 
 def _forward(x, gamma, beta, weight, bias, num_groups, eps):
@@ -137,9 +174,8 @@ def _forward(x, gamma, beta, weight, bias, num_groups, eps):
         raise ValueError("gn_silu_conv3x3: every tensor must lie on one CUDA device")
     if cout % 8:
         raise ValueError(f"gn_silu_conv3x3 takes Cout % 8 == 0, got {cout}")
-    pixels = _TILE_PIXELS[name]
     tw = tile_width(w)
-    tiles = n * -(-h // (pixels // tw)) * -(-w // tw)
+    tiles = n * -(-h // (_TILE_PIXELS // tw)) * -(-w // tw)
     if tiles > 65535 or n * h * w * max(cin, cout) > 2**31 - 1:
         raise ValueError(f"gn_silu_conv3x3: {tuple(x.shape)} exceeds the kernel's grid or int32 indexing")
     x = x.contiguous()
@@ -148,7 +184,9 @@ def _forward(x, gamma, beta, weight, bias, num_groups, eps):
     part = torch.empty(2 * n * chunks * cin, dtype=torch.float32, device=x.device)
     affine = torch.empty(2 * n * cin, dtype=torch.float32, device=x.device)
     if y.numel():
-        err = _kernel(name)(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        # the fp32 kernel reads the weight's tf32 hi/lo planes
+        wt = weight_split(weight) if name == "gn_silu_conv3x3_f32" else weight
+        err = _kernel(name)(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.data_ptr(), bias.data_ptr(),
                         y.data_ptr(), part.data_ptr(), affine.data_ptr(), n, h, w, cin, cout, num_groups,
                         float(eps), rows, chunks, int(gamma.dtype == torch.bfloat16),
                         int(bias.dtype == torch.bfloat16), tw.bit_length() - 1,

@@ -1,8 +1,9 @@
 """K1 and K5 (the d = 64 flash-attention kernels) of two copies of the port,
 timed in one call on one card, in turns; with `--fp32`, their fp32 instances
-(flash_fwd_f32, flash_bwd_f32_dkv/_dq) instead.
+(flash_fwd_f32, flash_bwd_f32_dkv/_dq) instead; with `--wide`, K2
+(flash_fwd_wide) at its VAE shapes.
 
-    python3 perf/torch_flash_compare.py --other build/parent [--tag parent] [--fp32]
+    python3 perf/torch_flash_compare.py --other build/parent [--tag parent] [--fp32 | --wide]
 
 `--other` is the root of another checkout (for example the parent commit,
 unpacked with `git archive` into a directory that .gitignore lists). Each
@@ -24,6 +25,10 @@ every train shape; `check_f32_backward` at the train shapes), each gated
 against the plain version in fp32 with TF32 off and timed beside it and
 SDPA on fp32 tensors; these kernels take milliseconds, so CUDA events time
 them and there is no profiler table.
+
+With `--wide` each copy runs `check_kernels` at K2's shapes: the txt2img
+request's VAE mid-block attention (8 × 4096² × 512) and the train step's
+encode and decode with the log-sum-exp, and traces 20 calls a shape.
 """
 
 from __future__ import annotations
@@ -83,6 +88,41 @@ for label, b, h, sq, skv, d, _ in d64(cs.TRAIN_SHAPES):
 print("RESULT " + json.dumps({"rows": rows, "ptxas": ptxas, "device": device}))
 """
 
+# runs inside the copy's root: chip_smoke's phase 3 rows of K2
+CHILD_WIDE = r"""
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from faceposegenerator_tpu_torch.ops import _build, flash_attention as fa
+_build.build_all()
+card = torch.cuda.get_device_name(0)
+wide = lambda shapes: [s for s in shapes if s[5] != 64]
+rows = cs.check_kernels(torch, fa, card, wide(cs.SHAPES))
+rows += cs.check_kernels(torch, fa, card, wide(cs.TRAIN_SHAPES), with_lse=True, per="step")
+
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+def device_ms(fn, n=20):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {"flash_fwd_wide": sum(e.time_range.elapsed_us() for e in prof.events()
+                                  if e.device_type == DeviceType.CUDA and "flash_fwd_wide" in e.name) / 1e3 / n}
+
+g = torch.Generator(device="cuda").manual_seed(0)
+device = {}
+for shapes, lse in ((wide(cs.SHAPES), False), (wide(cs.TRAIN_SHAPES), True)):
+    for label, b, h, sq, skv, d, _ in shapes:
+        q, k, v = cs._inputs(torch, g, b, h, sq, skv, d)
+        device[f"flash_fwd_wide{' +lse' if lse else ''} {label} B{b}"] = device_ms(
+            lambda: fa.flash_fwd_wide(q, k, v, d**-0.5, with_lse=lse))
+print("RESULT " + json.dumps({"rows": rows, "ptxas": _build.ptxas_report("flash_fwd"), "device": device}))
+"""
+
 # runs inside the copy's root: chip_smoke's phase 11 attention rows
 CHILD_F32 = r"""
 import json, sys, torch
@@ -116,7 +156,9 @@ def main() -> int:
     ap.add_argument("--other", required=True, help="root of the other checkout (e.g. the parent commit)")
     ap.add_argument("--tag", default="", help="suffix of the output file's name")
     ap.add_argument("--fp32", action="store_true", help="compare the fp32 instances instead of K1 and K5")
+    ap.add_argument("--wide", action="store_true", help="compare K2 instead of K1 and K5")
     args = ap.parse_args()
+    child = CHILD_F32 if args.fp32 else CHILD_WIDE if args.wide else CHILD
     other = Path(args.other).resolve()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
@@ -124,7 +166,7 @@ def main() -> int:
     print(card_line, flush=True)
     runs = []
     for label, root in (("other", other), ("this", REPO), ("this", REPO), ("other", other)):
-        runs.append(dict(copy=label, root=str(root), **run(root, CHILD_F32 if args.fp32 else CHILD)))
+        runs.append(dict(copy=label, root=str(root), **run(root, child)))
         print(f"done: {label} ({root})", flush=True)
     best: dict = {}
     for r in runs:

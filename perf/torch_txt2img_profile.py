@@ -1,7 +1,7 @@
 """Where one txt2img request of the PyTorch port spends its device time.
 
     python3 perf/torch_txt2img_profile.py [--preset turbo] [--attn flash_int8] [--dtype fp32]
-    GN_IMPL=pallas GN_CONV_IMPL=pallas python3 perf/torch_txt2img_profile.py
+    GN_IMPL=pallas GN_CONV_IMPL=pallas python3 perf/torch_txt2img_profile.py [--dtype fp32]
 
 Builds the pipeline as chip_smoke.py does (SD2.1-base widths, bf16, random
 weights, rank-4 UNet LoRA), serves one warm-up request at batch 8, 512², 30
@@ -14,7 +14,9 @@ imported) the requests run the fused GroupNorm configuration: K3 and K4.
 With `--dtype fp32` the pipeline is `from_random()` at its default dtype
 (fp32 weights and compute, TF32 off) with an fp32 LoRA, and the requests
 run 10 steps, as chip_smoke.py's fp32 request does: the fp32 attention
-(flash_f32_split, flash_fwd_f32).
+(flash_f32_split, flash_fwd_f32); with the two GroupNorm variables at pallas
+as well, chip_smoke.py's fused fp32 request (K3's and K4's fp32 instances,
+K4's weight pre-pass gn_conv_f32_split).
 Prints the request's wall time, the device's busy and idle share, device
 time by category of kernel and the top kernels, and writes the full table
 as torch_txt2img_profile[_turbo][_flash_int8][_fused_gn][_fp32].txt to the output
@@ -44,6 +46,7 @@ CATEGORIES = [  # first match wins; matched against the kernel's name
     ("attention fp32 split (flash_f32_split)", r"flash_f32_split"),
     ("GroupNorm+SiLU K3 (fused_group_norm)", r"gn_k3_"),
     ("GN+SiLU→conv3x3 K4 (gn_silu_conv3x3)", r"gn_k4_"),
+    ("K4 fp32 weight split (gn_conv_f32_split)", r"gn_conv_f32_split"),
     ("convolution", r"conv|fprop|implicit|winograd|nchw|nhwc"),
     ("matmul", r"gemm|cutlass|xmma|sm90_|matmul|cublas|nvjet"),
     ("normalisation and softmax", r"norm|welford|softmax|reduce"),

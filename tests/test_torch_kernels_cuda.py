@@ -10,11 +10,12 @@ their max abs (a key's dk and dv sum over every query, so they grow with
 Sq/Skv); the log-sum-exp within 1e-3. K7 (qdense) makes the same codes as
 its plain version, so each output is within 1 bf16 ulp plus 1e-3 relative of
 it; K8 (flash_int8) within 2e-2 max and 2e-3 mean of its plain version.
-The fp32 instances (flash_*_f32 in 3xTF32 on the tensor cores,
-gn_silu_conv3x3_f32 in FFMA) are held to fp32: outputs within 1e-4 of the
-output's max abs and a mean abs error within 1e-5 of it, the log-sum-exp
-within 1e-5, gradients the same relative to their max abs; their split
-pre-pass (flash_f32_split) is bit-exact against its plain version;
+The fp32 instances (flash_*_f32 and gn_silu_conv3x3_f32 in 3xTF32 on the
+tensor cores) are held to fp32: outputs within 1e-4 of the output's max abs
+and a mean abs error within 1e-5 of it, the log-sum-exp within 1e-5,
+gradients the same relative to their max abs; their split pre-passes
+(flash_f32_split, gn_conv_f32_split) are bit-exact against their plain
+versions;
 qdense_f32 and flash_int8_f32 make their plain versions' codes, so each
 output is within 1 fp32 ulp + 1e-3 relative of the plain one.
 K3 (fused_group_norm) makes the same fp32 statistics as its plain version in
@@ -214,6 +215,41 @@ def test_cuda_lse_and_backward_match_plain(b, sq, skv, h, d, kv_len):
     if kv_len is not None:
         assert grads[1][:, kv_len:].abs().max().item() == 0.0
         assert grads[2][:, kv_len:].abs().max().item() == 0.0
+
+
+WIDE_CASES = [  # (b, sq, skv, h, d, kv_len): every head dim, ragged Sq and Skv, kv_len mid-tile, the VAE shape
+    (1, 200, 200, 2, 128, None), (2, 70, 130, 1, 256, 77), (1, 130, 64, 3, 384, None), (1, 64, 100, 2, 384, 33),
+    (2, 100, 333, 1, 512, 300), (1, 4096, 4096, 1, 512, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "fused qkv views"])
+@pytest.mark.parametrize("with_lse", [False, True], ids=["o", "o+lse"])
+@pytest.mark.parametrize("b,sq,skv,h,d,kv_len", WIDE_CASES)
+def test_cuda_flash_fwd_wide_matches_plain(b, sq, skv, h, d, kv_len, with_lse, strided):
+    """K2 at every head dim it takes, with and without kv_len and the
+    log-sum-exp, on contiguous tensors and on strided q/k/v views of one
+    fused projection (q's rows padded to Skv's count there)."""
+    _card()
+    rng = np.random.default_rng(sq + skv + d)
+    if strided:
+        s = max(sq, skv)
+        qkv = torch.from_numpy(rng.standard_normal((b, s, 3, h, d)).astype(np.float32)).cuda().to(torch.bfloat16)
+        q, k, v = qkv[:, :sq, 0], qkv[:, :skv, 1], qkv[:, :skv, 2]
+    else:
+        q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in _qkv(sq, b, sq, skv, h, d))
+    scale = d**-0.5
+    fa.reset_launch_counts()
+    out = fa.flash_fwd_wide(q, k, v, scale, kv_len, with_lse=with_lse)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in fa.LAUNCHES.items() if c} == {"flash_fwd_wide": 1}
+    ref, ref_lse = fa.attention_plain_lse(q.float(), k.float(), v.float(), scale, kv_len)
+    if with_lse:
+        out, lse = out
+        assert lse.shape == (b, h, sq) and (lse - ref_lse).abs().max().item() <= 1e-3
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    _close(out, ref)
 
 
 @pytest.mark.cuda
@@ -472,9 +508,15 @@ def test_cuda_gn_silu_conv3x3_matches_plain(shape, cout, groups):
     assert _within_ulp(out, ref, 0.0, 1e-3) == 0
 
 
+# K4's fp32 instance at ragged shapes: one image, W not a power of two, Cout
+# not a multiple of 160, Cin a multiple of 8 but not of 32
+CONV_F32_CASES = CONV_CASES + [((1, 10, 24, 40), 72, 8), ((1, 7, 37, 200), 168, 8), ((1, 33, 20, 72), 24, 8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,cout,groups", CONV_CASES)
+@pytest.mark.parametrize("shape,cout,groups", CONV_F32_CASES)
 def test_cuda_gn_silu_conv3x3_f32_matches_plain(shape, cout, groups):
+    """One weight pre-pass launch and one conv launch a call."""
     _card()
     x, gamma, beta, conv = _conv_case(sum(shape) + cout + 1, shape, cout)
     x, conv = x.float(), conv.float()
@@ -482,8 +524,24 @@ def test_cuda_gn_silu_conv3x3_f32_matches_plain(shape, cout, groups):
     fgc.reset_launch_counts()
     out = fgc.gn_silu_conv3x3(x, gamma, beta, conv, groups)
     torch.cuda.synchronize()
-    assert fgc.LAUNCHES == {"gn_silu_conv3x3": 0, "gn_silu_conv3x3_f32": 1} and out.shape == (*shape[:3], cout)
+    assert fgc.LAUNCHES == {"gn_silu_conv3x3": 0, "gn_silu_conv3x3_f32": 1, "gn_conv_f32_split": 1}
+    assert out.shape == (*shape[:3], cout)
     _close32(out, fgc.gn_silu_conv3x3_plain(x, gamma, beta, conv.weight, conv.bias, groups))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout,cin", [(320, 320), (640, 640), (24, 40)])
+def test_cuda_gn_conv_f32_split_matches_plain(cout, cin):
+    """The weight pre-pass writes weight_split_plain's bits."""
+    _card()
+    rng = np.random.default_rng(cin + cout)
+    w = torch.from_numpy(rng.standard_normal((cout, cin, 3, 3)).astype(np.float32)).cuda().contiguous(
+        memory_format=torch.channels_last)
+    fgc.reset_launch_counts()
+    out = fgc.weight_split(w)
+    torch.cuda.synchronize()
+    assert fgc.LAUNCHES["gn_conv_f32_split"] == 1
+    assert torch.equal(out, fgc.weight_split_plain(w))
 
 
 @pytest.mark.cuda

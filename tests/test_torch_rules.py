@@ -115,12 +115,13 @@ def test_cpu_tensors_never_count_launches():
     qd.qdense_kernel(torch.randn(3, 64), torch.ones(8, 64, dtype=torch.int8), torch.ones(8), 0.1)
     fgc.gn_silu_conv3x3(torch.randn(1, 4, 4, 32), torch.ones(32), torch.zeros(32),
                         torch.nn.Conv2d(32, 16, 3, padding=1), 8)
+    fgc.weight_split(torch.randn(16, 32, 3, 3))
     assert set(fa.LAUNCHES) == {"flash_fwd_d64", "flash_fwd_wide", "flash_bwd_d64_dkv", "flash_bwd_d64_dq",
                                 "flash_bwd_wide_dkv", "flash_bwd_wide_dq", "flash_int8", "flash_fwd_f32",
                                 "flash_bwd_f32_dkv", "flash_bwd_f32_dq", "flash_int8_f32", "flash_f32_split"}
     assert all(n == 0 for n in fa.LAUNCHES.values()) and qd.LAUNCHES == {"qdense": 0, "qdense_f32": 0}
     assert fg.LAUNCHES == {"fused_group_norm": 0}
-    assert fgc.LAUNCHES == {"gn_silu_conv3x3": 0, "gn_silu_conv3x3_f32": 0}
+    assert fgc.LAUNCHES == {"gn_silu_conv3x3": 0, "gn_silu_conv3x3_f32": 0, "gn_conv_f32_split": 0}
 
 
 def test_every_cuda_source_has_a_counted_kernel_in_chip_smoke():
@@ -159,7 +160,7 @@ def test_chip_smoke_kernels_line_names_every_counted_kernel():
                     dq_err=[1.0, 0.1], dk_err=[1.0, 0.1], dv_err=[1.0, 0.1], **kw)
 
     f32 = {"fwd": [row("flash_fwd_f32")], "tf32": [1.0, 0.1, 1.0], "bwd": [row("flash_bwd_f32")],
-           "split": [row("flash_f32_split")],
+           "split": [row("flash_f32_split")], "conv_split": [row("gn_conv_f32_split")],
            "conv": [row("gn_silu_conv3x3_f32")], "qdense": [row("qdense_f32")], "int8": [row("flash_int8_f32")]}
     launches = {name: i + 1 for i, name in enumerate(chip_smoke.REPLACES)}
     entries = chip_smoke._kernel_entries(
