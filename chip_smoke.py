@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero without the final result line:
      spills also go into their entries of the kernels line), and the count
      of HGMMA instructions, and of those with TF32 operands, in each fp32
      attention kernel and K4's fp32 instance (`cuobjdump -sass`; into their
-     entries too; a fp32 kernel with an HGMMA that is not TF32 fails);
+     entries too; a fp32 kernel with an HGMMA that is not TF32 fails); per
+     instance of K7's and K8's kernels, the IGMMA, IMMA, conversion and MUFU
+     counts (a GEMM or attention instance without IGMMA, or any IMMA, fails);
   3. kernels against plain: each kernel at every shape the main paths give
      it, bf16 unit-normal inputs from a seed, against its plain PyTorch
      version in fp32 on the same inputs (max abs err <= 2e-2, mean <= 2e-3;
@@ -31,7 +33,8 @@ Phases, in order; any failure exits non-zero without the final result line:
      on the same bf16 inputs (the same codes, so within 1 bf16 ulp of the
      output plus 1e-3 relative), timed beside its plain version, the card's
      bound, torch._int_mm on the pre-quantized x (the int8 GEMM alone) and
-     bf16 F.linear (yardsticks the port never calls); flash_int8
+     bf16 F.linear (yardsticks the port never calls); in the wide instance
+     its qdense_quant pass bit-exact against quantize() and timed alone; flash_int8
      (csrc/flash_int8.cu) at the UNet's attention shapes of the CFG batch
      against attention_int8_plain (it makes the same codes: within 1 bf16
      ulp + 1e-3 relative, mean abs err <= 1e-4) and, with q and k at half
@@ -39,15 +42,21 @@ Phases, in order; any failure exits non-zero without the final result line:
      attention, timed beside its plain version, its bound, K1 on the same
      tensors and SDPA; one more row puts every row's maximum in the last
      64 keys and shows that the gate refuses both exact attention and a
-     softmax that quantizes p against a running max over 64-key tiles;
+     softmax that quantizes p against a running max over 64-key tiles, and
+     one more is the 640² self-attention (2 × 5 × 6400², two 4096-key
+     blocks); at every row its flash_int8_amax and flash_int8_codes
+     launches bit-exact against int8_codes_plain, each of the three
+     launches timed alone (the attention on ready codes: `attend_ms`);
   6. turbo: the turbo preset at SD2.1-base widths in bf16 with a rank-4
      LoRA: first the kernel routes against the plain routes of qdense,
      flash_int8 and attention on 2×128² (image diff max 1e-1, mean 1e-2),
      then get_preset("turbo").apply (dpm, w8a8+vae, 8 calibration steps: 1280
-     dynamic qdense launches), 3 requests at batch 8, 512², 12 DPM-Solver++
+     dynamic qdense launches, 400 of them in the wide instance after a
+     qdense_quant launch), 3 requests at batch 8, 512², 12 DPM-Solver++
      steps (4 full UNet passes and 8 DeepCache partial ones: 1040 static
-     qdense and 208 K1 launches and 1 K2 launch each), then 2 requests of
-     the flash_int8 configuration (208 flash_int8 launches instead of K1);
+     qdense, 280 qdense_quant, 208 K1 launches and 1 K2 launch each), then 2 requests of
+     the flash_int8 configuration (208 flash_int8, flash_int8_amax and
+     flash_int8_codes launches each instead of K1);
   7. train: the ID-Booth train step at its op point (SD2.1-base widths,
      ArcFace r100, random bf16 frozen weights, fp32 rank-4 LoRA, batch 4
      with prior preservation = 8 images of 512², triplet_prior, AdamW +
@@ -96,7 +105,10 @@ Phases, in order; any failure exits non-zero without the final result line:
      attention and K4 fp32: 3 × operations / the TF32 peak, "bound_basis":
      "3xTF32"; the splits: bytes; K7/K8 fp32: int8) and a yardstick the port
      never calls (SDPA on fp32 tensors, cuDNN's fp32 conv, torch._int_mm and
-     fp32 F.linear).
+     fp32 F.linear); then fused_group_norm (K3) on fp32 inputs at the fused
+     fp32 request's GroupNorm shapes, K3's bf16 gate in fp32 units (1 fp32
+     ulp + 1e-3 relative + 1e-5 of the max abs), timed beside its plain
+     version, fp32 F.group_norm (+ F.silu) and the bound.
      Then StableDiffusionPipeline.from_random() with no dtype (fp32 weights
      and compute) at SD2.1-base widths with a rank-4 LoRA: its kernel path
      against its plain-attention path on 2×128² (image diff max 1e-3, mean
@@ -173,6 +185,9 @@ QDENSE_SHAPES = [
 ]
 # (name, B, H, Sq, Skv, D) of the UNet's attention on the CFG batch
 INT8_SHAPES = [s[:6] for s in SHAPES if s[5] == 64]
+# K8 past one 4096-key block: the self-attention of a 640² request (80²
+# latent tokens), at a batch of 2 (the plain version's fp32 scores ~3 GB)
+INT8_LONG = ("self 640², 2 key blocks", 2, 5, 6400, 6400, 64)
 LAST_TILE_MAX = "self L0, max in the last tile"
 # dense bf16 tensor-core FLOP/s, int8 tensor-core OP/s, memory bytes/s, fp32
 # FLOP/s outside the tensor cores and dense TF32 tensor-core FLOP/s, from
@@ -180,9 +195,16 @@ LAST_TILE_MAX = "self L0, max in the last tile"
 PEAKS = {"H100 PCIe": (756e12, 1513e12, 2.0e12, 51e12, 378e12),
          "H100 NVL": (835e12, 1671e12, 3.9e12, 60e12, 417.5e12),
          "H100": (989e12, 1979e12, 3.35e12, 67e12, 495e12)}
-TURBO_CALIB_LAUNCHES = {"qdense": 1280}
-TURBO_LAUNCHES = {"auto": {"qdense": 1040, "flash_fwd_d64": 208, "flash_fwd_wide": 1},
-                  "flash_int8": {"qdense": 1040, "flash_int8": 208, "flash_fwd_wide": 1}}
+# K7's wide instance runs the qdense_quant pass first: per full UNet pass
+# the GEGLU outputs at 640 and 1280 channels (K > 1280), every cross k/v
+# projection and the mid block's ten calls (fewer than 2048 rows): 50 of
+# 160; per DeepCache partial pass (level 0 only) its 10 k/v projections.
+# 8 full passes in calibration; 4 full and 8 partial a request. Each
+# flash_int8 call launches its amax and codes passes before K8.
+TURBO_CALIB_LAUNCHES = {"qdense": 1280, "qdense_quant": 400}
+TURBO_LAUNCHES = {"auto": {"qdense": 1040, "qdense_quant": 280, "flash_fwd_d64": 208, "flash_fwd_wide": 1},
+                  "flash_int8": {"qdense": 1040, "qdense_quant": 280, "flash_int8": 208, "flash_int8_amax": 208,
+                                 "flash_int8_codes": 208, "flash_fwd_wide": 1}}
 STEP_LAUNCHES = {"flash_fwd_d64": 32, "flash_fwd_wide": 2, "flash_bwd_d64_dkv": 32, "flash_bwd_d64_dq": 32,
                  "flash_bwd_wide_dkv": 1, "flash_bwd_wide_dq": 1}
 REPLACES = {
@@ -207,6 +229,11 @@ REPLACES = {
     "gn_conv_f32_split": "faceposegenerator_tpu/ops/fused_gn_conv.py:92",
     # the fp32 attention's tf32 hi/lo pre-pass, part of the fp32 instance of K1/K2 and K5/K6
     "flash_f32_split": "faceposegenerator_tpu/ops/flash_attention.py:258",
+    # K8's quantize of q, k and v (XLA ops in front of the Pallas kernel in JAX)
+    "flash_int8_amax": "faceposegenerator_tpu/ops/flash_attention.py:1108",
+    "flash_int8_codes": "faceposegenerator_tpu/ops/flash_attention.py:1108",
+    # K7's quantize pass at K > 1280 (the TPU kernel quantizes in VMEM)
+    "qdense_quant": "faceposegenerator_tpu/ops/quant_pallas.py:47",
 }
 # K3 and K4 round where their plain versions round. K3 sums its statistics
 # in another order, which moves an output near 0 by ~1e-6 of the largest:
@@ -228,6 +255,9 @@ GN_SHAPES = [
     ("vae decode resblocks", 8, 64, 64, 512, 1e-6, "silu", 10),
     ("vae decode attention", 8, 64, 64, 512, 1e-6, None, 1),
 ]
+# K3's fp32 instance on the fused fp32 request: 10 steps, not 30 (131 = 10 · 12 + 11)
+GN_F32_SHAPES = [(label, *rest, per // 3 if label.startswith("unet") else per)
+                 for label, *rest, per in GN_SHAPES]
 # per train step: one UNet pass on 8 rows, the VAE encoding 8 images (its
 # last down block 4, mid 4 + 1, norm_out 1) and decoding 4 (11)
 GN_TRAIN_SHAPES = [
@@ -475,6 +505,26 @@ def _bf16_ulp(t, bits=8):
     return torch.ldexp(torch.ones_like(t), torch.frexp(t.abs().clamp_min(2.0**-126))[1] - bits)
 
 
+def _quant_pass(torch, qd, card, x, a):
+    """Where K7 takes its wide instance (K > 1280, or fewer than 2048 rows):
+    qdense_quant's codes and row scales against quantize()
+    (bit-exact, or fail), its time, its plain version's (quantize()) and its
+    bound (x read, the codes and row scales written)."""
+    m, k = x.shape
+    if not qd.is_wide(m, k):
+        return {}
+    codes, sx = qd.quantize_rows(x, a)
+    want, want_sx = qd.quantize(x, -1, a)
+    exact = torch.equal(codes, want.to(torch.int8)) and (a is not None or torch.equal(sx, want_sx.reshape(m)))
+    if not exact:
+        fail(f"qdense_quant at M {m} K {k}: its codes or row scales differ from quantize()")
+    del codes, sx, want, want_sx
+    bound_ms, _ = _bound(card, 0.0, x.element_size() * m * k + m * k + 4.0 * m)
+    return dict(quant_ms=time_ms(lambda: qd.quantize_rows(x, a), torch),
+                quant_plain_ms=time_ms(lambda: qd.quantize(x, -1, a), torch), quant_bound_ms=bound_ms,
+                quant_exact=exact)
+
+
 def check_qdense(torch, card):
     """K7 in both modes at the turbo dense shapes against qdense_plain on the
     same inputs: x unit-normal bf16, a random weight quantized per channel,
@@ -506,7 +556,8 @@ def check_qdense(torch, card):
             bound_ms, bound_by = _bound(card, 2.0 * m * n * k, 2.0 * m * k + n * k + 4.0 * n + 2.0 * m * n, int8=True)
             row = dict(kernel="qdense", shape=label, mode=mode, M=m, K=k, N=n, ms=ms, plain_ms=plain_ms,
                        int_mm_ms=int_mm_ms, bf16_linear_ms=linear_ms, bound_ms=bound_ms, bound_by=bound_by,
-                       max_abs_err=max_err, mean_abs_err=mean_err, over_limit=over)
+                       max_abs_err=max_err, mean_abs_err=mean_err, over_limit=over,
+                       **_quant_pass(torch, qd, card, x, a))
             print("kernel " + json.dumps(row), flush=True)
             rows.append(row)
             if over:
@@ -545,15 +596,45 @@ def _int8_gate_refuses(torch, fa, q, k, v, scale, want):
     return {name: [mx, mean] for name, (mx, mean, _) in errs.items()}
 
 
+def _int8_launches(torch, fa, card, q, k, v, scale):
+    """K8's three launches one by one: the amax and codes passes against
+    int8_codes_plain (bit-exact, or fail), each launch's time (the
+    attention on ready codes: `attend_ms`) with its bound, and the plain
+    amax's and codes' times."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    q8, k8, vt, ws = fa.int8_codes(q, k, v, scale)
+    want = fa.int8_codes_plain(q, k, v, scale)
+    exact = all(torch.equal(x, y) for x, y in zip((q8, k8, vt), want[:3])) and torch.equal(ws[4:6], want[3])
+    if not exact:
+        fail(f"flash_int8_codes at B{b} H{h} Sq{sq} Skv{skv}: the codes or constants differ from int8_codes_plain")
+    del want
+    elems = b * h * d * (sq + 2 * skv)
+    attend_bound, attend_by = _bound(card, 4.0 * b * h * sq * skv * d, elems + q.element_size() * b * h * d * sq,
+                                     int8=True)
+    return dict(
+        codes_exact=exact,
+        amax_ms=time_ms(lambda: fa.int8_amax(q, k, v, ws), torch),
+        amax_plain_ms=time_ms(lambda: [t.abs().amax() for t in (q, k, v)], torch),
+        amax_bound_ms=_bound(card, 0.0, q.element_size() * elems)[0],
+        codes_ms=time_ms(lambda: fa.int8_quantize(q, k, v, ws, scale), torch),
+        codes_plain_ms=time_ms(lambda: fa.int8_codes_plain(q, k, v, scale), torch),
+        codes_bound_ms=_bound(card, 0.0, (q.element_size() + 1) * elems)[0],
+        attend_ms=time_ms(lambda: fa.int8_attend(q8, k8, vt, ws, q.shape, q.dtype, skv), torch),
+        attend_bound_ms=attend_bound, attend_bound_by=attend_by,
+    )
+
+
 def check_int8(torch, fa, card, shapes=INT8_SHAPES):
     """K8 at the UNet's attention shapes against attention_int8_plain and
     exact attention on the same bf16 inputs, then at the 4096-token
-    self-attention with every row's maximum in the last key tile."""
+    self-attention with every row's maximum in the last key tile, then past
+    one 4096-key block (INT8_LONG)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(3)
     rows = []
-    for label, b, h, sq, skv, d in [*shapes, (LAST_TILE_MAX, *shapes[0][1:])]:
+    for label, b, h, sq, skv, d in [*shapes, (LAST_TILE_MAX, *shapes[0][1:]), INT8_LONG]:
         last_tile = label == LAST_TILE_MAX
         q, k, v = _last_tile_max_inputs(torch, g, b, h, sq, d) if last_tile else _inputs(torch, g, b, h, sq, skv, d)
         scale = d**-0.5
@@ -587,7 +668,8 @@ def check_int8(torch, fa, card, shapes=INT8_SHAPES):
         bound_ms, bound_by = _bound(card, 4.0 * b * h * sq * skv * d, 2.0 * b * h * d * (2 * sq + 2 * skv), int8=True)
         row = dict(kernel="flash_int8", shape=label, B=b, H=h, Sq=sq, Skv=skv, D=d, ms=ms, plain_ms=plain_ms,
                    k1_ms=k1_ms, sdpa_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
-                   mean_abs_err=mean_err, over_limit=over, rel_err_vs_exact=rel, **extra)
+                   mean_abs_err=mean_err, over_limit=over, rel_err_vs_exact=rel, **extra,
+                   **_int8_launches(torch, fa, card, q, k, v, scale))
         print("kernel " + json.dumps(row), flush=True)
         rows.append(row)
         if over or mean_err > INT8_MEAN_ERR or not (last_tile or rel <= 3e-2):
@@ -619,20 +701,23 @@ class gn_route:
         fused_gn._GN_IMPL, fused_gn_conv._IMPL = self.saved
 
 
-def check_gn(torch, card, shapes, per):
-    """K3 at `shapes` against fused_group_norm_plain on the same bf16
-    inputs (x = 3·N(0, 1) + 1, γ and β unit normal, 32 groups), timed beside
-    its plain version, F.group_norm (+ F.silu) on the channels_last NCHW view
-    (a yardstick the port never calls) and the card's bound."""
+def check_gn(torch, card, shapes, per, dtype=None):
+    """K3 at `shapes` against fused_group_norm_plain on the same inputs in
+    `dtype` (bf16 by default; x = 3·N(0, 1) + 1, γ and β unit normal, 32
+    groups), within 1 ulp of the dtype + 1e-3 relative + 1e-5 of the max abs,
+    timed beside its plain version, F.group_norm (+ F.silu) on the
+    channels_last NCHW view (a yardstick the port never calls) and the
+    card's bound."""
     import torch.nn.functional as F
 
     from faceposegenerator_tpu_torch.ops import fused_gn as fg
 
-    g = torch.Generator(device="cuda").manual_seed(6)
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(6 if dtype == torch.bfloat16 else 16)
     rows = []
     for label, n, h, w, c, eps, act, per_run in shapes:
-        x = (torch.randn(n, h, w, c, generator=g, device="cuda") * 3 + 1).to(torch.bfloat16)
-        gamma, beta = (torch.randn(c, generator=g, device="cuda").to(torch.bfloat16) for _ in "gb")
+        x = (torch.randn(n, h, w, c, generator=g, device="cuda") * 3 + 1).to(dtype)
+        gamma, beta = (torch.randn(c, generator=g, device="cuda").to(dtype) for _ in "gb")
         out = fg.fused_group_norm(x, gamma, beta, 32, eps, act)
         torch.cuda.synchronize()
         want = fg.fused_group_norm_plain(x, gamma, beta, 32, eps, act)
@@ -646,18 +731,20 @@ def check_gn(torch, card, shapes, per):
         library = (lambda: F.silu(F.group_norm(xv, 32, gamma, beta, eps))) if act else \
             (lambda: F.group_norm(xv, 32, gamma, beta, eps))
         library_ms = time_ms(library, torch)
-        # x read once and y written once in bf16; per element a sum, a square
-        # and its sum, the affine FMA and, with SiLU, ~4 more, in fp32
+        # x read once and y written once; per element a sum, a square and its
+        # sum, the affine FMA and, with SiLU, ~4 more, in fp32
         elems = n * h * w * c
-        bound_ms, bound_by = _bound(card, (5.0 + 4.0 * (act == "silu")) * elems, 4.0 * elems + 4.0 * c, fp32=True)
-        row = dict(kernel="fused_group_norm", shape=label, N=n, H=h, W=w, C=c, act=act, ms=ms, plain_ms=plain_ms,
+        bound_ms, bound_by = _bound(card, (5.0 + 4.0 * (act == "silu")) * elems,
+                                    2.0 * x.element_size() * (elems + c), fp32=True)
+        row = dict(kernel="fused_group_norm", shape=label, dtype=str(dtype).split(".")[-1], N=n, H=h, W=w, C=c,
+                   act=act, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
                    mean_abs_err=mean_err, over_limit=over, beyond_relative_gate=beyond_relative,
                    **{f"launches_per_{per}": per_run})
         print("kernel " + json.dumps(row), flush=True)
         rows.append(row)
         if over:
-            fail(f"fused_group_norm at {label}: {over} outputs beyond 1 bf16 ulp + {GN_REL_ERR} relative + "
+            fail(f"fused_group_norm ({dtype}) at {label}: {over} outputs beyond 1 ulp + {GN_REL_ERR} relative + "
                  f"{GN_MAX_FLOOR} of the max abs of the plain version (max abs err {max_err})")
         del x
         torch.cuda.empty_cache()
@@ -1462,7 +1549,8 @@ def check_qdense_f32(torch, card):
                                             int8=True)
                 row = dict(kernel="qdense_f32", shape=label, mode=mode, M=m, K=k, N=n, ms=ms, plain_ms=plain_ms,
                            int_mm_ms=int_mm_ms, f32_linear_ms=linear_ms, bound_ms=bound_ms, bound_by=bound_by,
-                           max_abs_err=max_err, mean_abs_err=mean_err, over_limit=over)
+                           max_abs_err=max_err, mean_abs_err=mean_err, over_limit=over,
+                           **_quant_pass(torch, qd, card, x, a))
                 print("kernel " + json.dumps(row), flush=True)
                 rows.append(row)
                 if over:
@@ -1499,7 +1587,7 @@ def check_int8_f32(torch, fa, card, shapes=INT8_SHAPES):
                                         int8=True)
             row = dict(kernel="flash_int8_f32", shape=label, B=b, H=h, Sq=sq, Skv=skv, D=d, ms=ms, plain_ms=plain_ms,
                        f32_ms=f32_ms, sdpa_ms=sdpa_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
-                       mean_abs_err=mean_err, over_limit=over)
+                       mean_abs_err=mean_err, over_limit=over, **_int8_launches(torch, fa, card, q, k, v, scale))
             print("kernel " + json.dumps(row), flush=True)
             rows.append(row)
             if over or mean_err > INT8_MEAN_ERR:
@@ -1710,21 +1798,45 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
                 **({"bound_basis": "3xTF32", "sass_hgmma": sass.get(f"{name}_kernel")} if kind == "f32" else {}),
             ))
     # K7 and K8: no single library call computes their function (the int8
-    # GEMM alone, bf16 F.linear and exact SDPA are yardsticks, in extra keys)
+    # GEMM alone, bf16 F.linear and exact SDPA are yardsticks, in extra keys).
+    # K8's ms is its attention launch on ready codes against that launch's
+    # bound; `wrapper_ms` is the whole call (its three launches) against the
+    # function's bound from bf16 (or fp32) q, k, v, `fn_bound_ms`.
     for name, rows in (("qdense", q_rows), ("flash_int8", i8_rows), ("qdense_f32", f32["qdense"]),
                        ("flash_int8_f32", f32["int8"])):
         top = max(rows, key=lambda r: r["bound_ms"] + (r.get("mode") == "static") * 1e-9)
+        fn = "flash_int8_kernel" if name.startswith("flash") else "qdense_kernel"
         if name.startswith("qdense"):
             linear = "bf16_linear_ms" if name == "qdense" else "f32_linear_ms"
             extra = dict(int_mm_ms=top["int_mm_ms"], mode=top["mode"], **{linear: top[linear]},
-                         shape=f"{top['shape']} M{top['M']} K{top['K']} N{top['N']}")
+                         shape=f"{top['shape']} M{top['M']} K{top['K']} N{top['N']}", ms=top["ms"],
+                         bound_ms=top["bound_ms"], bound_by=top["bound_by"])
         else:
             other = "k1_ms" if name == "flash_int8" else "f32_ms"
-            extra = dict(sdpa_ms=top["sdpa_ms"], shape=f"{top['shape']} B{top['B']}", **{other: top[other]})
+            extra = dict(sdpa_ms=top["sdpa_ms"], shape=f"{top['shape']} B{top['B']}", **{other: top[other]},
+                         ms=top["attend_ms"], bound_ms=top["attend_bound_ms"], bound_by=top["attend_bound_by"],
+                         wrapper_ms=top["ms"], fn_bound_ms=top["bound_ms"])
         kernels.append(dict(
             name=name, route="cuda", source=sources[name], replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in rows), ms=top["ms"], plain_ms=top["plain_ms"],
-            bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None, **extra,
+            max_abs_err=max(r["max_abs_err"] for r in rows), plain_ms=top["plain_ms"], library_ms=None,
+            ptxas=ptxas.get(fn), sass=sass.get(fn), **extra,
+        ))
+    # their quantize launches: bit-exact against their plain versions, bound by bytes
+    wide = [r for r in q_rows if "quant_ms" in r]
+    top = max(wide, key=lambda r: r["quant_bound_ms"] + (r.get("mode") == "dynamic") * 1e-9)
+    kernels.append(dict(
+        name="qdense_quant", route="cuda", source=sources["qdense_quant"], replaces=REPLACES["qdense_quant"],
+        launches=launches["qdense_quant"], max_abs_err=0.0, ms=top["quant_ms"], plain_ms=top["quant_plain_ms"],
+        bound_ms=top["quant_bound_ms"], bound_by="bytes", library_ms=None, mode=top["mode"],
+        shape=f"{top['shape']} M{top['M']} K{top['K']}", ptxas=ptxas.get("qdense_quant_kernel"),
+    ))
+    top = max(i8_rows, key=lambda r: r["bound_ms"])
+    for name, key, fn in (("flash_int8_amax", "amax", "flash_int8_amax_kernel"),
+                          ("flash_int8_codes", "codes", "flash_int8_codes_kernel")):
+        kernels.append(dict(
+            name=name, route="cuda", source=sources[name], replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=0.0, ms=top[f"{key}_ms"], plain_ms=top[f"{key}_plain_ms"], bound_ms=top[f"{key}_bound_ms"],
+            bound_by="bytes", library_ms=None, shape=f"{top['shape']} B{top['B']}", ptxas=ptxas.get(fn),
         ))
     # K3 and K4: the library time is F.group_norm (+ F.silu), and the default
     # route's plain GroupNorm+SiLU with cuDNN's conv
@@ -1739,6 +1851,9 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
             shape=f"{top['shape']} N{top['N']}",
             **({"tflops": top["tflops"], "ptxas": ptxas.get(fn)} if fn else {}),
             **({"bound_basis": "3xTF32", "sass_hgmma": sass.get(fn)} if name == "gn_silu_conv3x3_f32" else {}),
+            **({"f32": {k: max(f32["gn"], key=lambda r: r["bound_ms"])[k] for k in ("shape", "ms", "plain_ms",
+                                                                                     "library_ms", "bound_ms")}}
+               if name == "fused_group_norm" else {}),
         ))
     return kernels
 
@@ -1778,7 +1893,8 @@ def main() -> int:
                   f"{rep.get('spill_stores')} bytes spill stores, {rep.get('spill_loads')} bytes spill loads",
                   flush=True)
             if rep["function"].startswith(("flash_fwd_d64", "flash_fwd_wide", "flash_bwd_d64", "flash_fwd_f32",
-                                           "flash_bwd_f32", "flash_f32_split", "gn_k4_conv", "gn_conv_f32_split")):
+                                           "flash_bwd_f32", "flash_f32_split", "gn_k4_conv", "gn_conv_f32_split",
+                                           "qdense_kernel", "qdense_quant_kernel", "flash_int8")):
                 ptxas.setdefault(rep["function"], []).append(
                     {k: rep.get(k) for k in ("registers", "spill_stores", "spill_loads")})
     # the fp32 attention kernels and K4's fp32 instance must issue their
@@ -1791,6 +1907,16 @@ def main() -> int:
     for f, (n, tf32_n) in sass.items():
         if n == 0 or tf32_n != n:
             fail(f"{f} issues {n} HGMMA instructions, {tf32_n} of them TF32: an fp32 kernel's must all be TF32")
+    # K7 and K8 (both instances each) run on int8 wgmma: IGMMA in every GEMM
+    # instance, no mma.sync (IMMA) anywhere; their conversion and MUFU counts
+    sass_int8 = {name: _build.sass_ops(name) for name in ("qdense", "flash_int8")}
+    print(f"sass int8 (per kernel instance): {json.dumps(sass_int8)}", flush=True)
+    for name, funcs in sass_int8.items():
+        for f in funcs:
+            if f["IMMA"] or (f["function"] in ("qdense_kernel", "flash_int8_kernel") and not f["IGMMA"]):
+                fail(f"{name}.cu {f['function']}: {f['IGMMA']} IGMMA, {f['IMMA']} IMMA; K7 and K8 must run on wgmma")
+    for f in sass_int8["qdense"] + sass_int8["flash_int8"]:
+        sass.setdefault(f["function"], []).append({k: v for k, v in f.items() if k != "function"})
 
     from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
 
@@ -1825,6 +1951,8 @@ def main() -> int:
     f32["conv_split"] = check_conv_split_f32(torch, card, CONV_F32_SHAPES, "request")
     f32["qdense"] = check_qdense_f32(torch, card)
     f32["int8"] = check_int8_f32(torch, fa, card)
+    with tf32(False):
+        f32["gn"] = check_gn(torch, card, GN_F32_SHAPES, "fp32_request", torch.float32)
     fp32_txt2img, fp32_fused, fp32_routes = run_fp32_pipeline(torch, card_line)
     fp32_train = run_fp32_train(torch, card_line)
     paths = {"txt2img": txt2img, "turbo": turbo, "train": train, "fused txt2img": fused_txt2img,

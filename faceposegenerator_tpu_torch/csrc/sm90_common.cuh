@@ -1,17 +1,20 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels (flash_fwd.cu:
-// K1, K2; flash_bwd.cu: K5; flash_f32.cu; gn_conv.cu: K4), in raw PTX:
+// K1, K2; flash_bwd.cu: K5; flash_f32.cu; gn_conv.cu: K4; qdense.cu: K7;
+// flash_int8.cu: K8), in raw PTX:
 //
 //   * mbarriers: init, arrive, arrive + expect-tx, parity wait;
-//   * TMA: 3-D and 4-D tiled loads (cp.async.bulk.tensor) of bf16 or fp32
-//     tensors into shared memory, with or without the 128-byte swizzle,
-//     completing on an mbarrier; the tensor map is encoded on the host
-//     through the driver entry point that the CUDA runtime hands out (no
-//     -lcuda);
-//   * wgmma: shared-memory descriptors for 128-byte-swizzled tiles, the
-//     m64nNk16 bf16 → fp32 products with A from shared memory or from
+//   * TMA: 2-D, 3-D and 4-D tiled loads (cp.async.bulk.tensor) of bf16, fp32
+//     or int8 tensors into shared memory, with or without the 128- or
+//     64-byte swizzle, completing on an mbarrier, and the 2-D tiled store
+//     from shared memory (bulk groups); the tensor map is encoded on the
+//     host through the driver entry point that the CUDA runtime hands out
+//     (no -lcuda);
+//   * wgmma: shared-memory descriptors for 128- and 64-byte-swizzled tiles,
+//     the m64nNk16 bf16 → fp32 products with A from shared memory or from
 //     registers (B K-major or MN-major), the m64n64k8 and m64n160k8 tf32 →
 //     fp32 products (K-major only: the transpose flags exist for 16-bit
-//     types alone) and the round-to-nearest-away fp32 → tf32 conversion
+//     types alone), the m64nNk32 s8 → s32 products (SS and RS, K-major
+//     only, likewise) and the round-to-nearest-away fp32 → tf32 conversion
 //     with its hi/lo split, wgmma.fence / commit_group / wait_group;
 //   * warp specialisation: setmaxnreg and named barriers.
 //
@@ -27,12 +30,24 @@
 //     the k-th 16-row slice starts 2048·k bytes into the tile.
 // A 32-wide fp32 row is 128 bytes too, so an fp32 tile of 64 rows × 32
 // columns has the same geometry: its k-th k8 slice (tf32 products reduce 8
-// deep) starts 32·k bytes in, and desc_k serves it unchanged.
+// deep) starts 32·k bytes in, and desc_k serves it unchanged. So does a
+// 128-wide int8 row (K8's transposed V tile): its k-th k32 slice starts
+// 32·k bytes in.
+// A 64-wide int8 row is 64 bytes: such tiles (K7's 64-deep chunks of x codes
+// and weights, K8's q and k codes at head dim 64) take the 64-byte swizzle:
+// row r at byte 64·r with its 16-byte chunk c at chunk c ^ ((r >> 1) % 4),
+// the pattern repeating every 8 rows (512 bytes, the SBO of desc_k64); the
+// k-th k32 slice starts 32·k bytes in. `swz64` is that address map, for the
+// kernels that write such a tile with their own stores.
 // The wgmma accumulator of a 64-row tile gives warp w of the warpgroup rows
 // 16w + lane/4 (+8) and, in its 8-column chunk i, the values 4i..4i+3 at
 // columns 8i + 2(lane%4) (+1), first row then row + 8: the mma.sync m16n8
 // layout of flash_common.cuh, so two adjacent chunks packed to bf16 are the
-// register A operand of a k16 slice of the next product.
+// register A operand of a k16 slice of the next product. The same holds for
+// s32 accumulators; the s8 register A operand of a k32 slice gives a thread
+// columns 4(lane%4)..+3 (registers 0, 1: rows r, r + 8) and 16 + 4(lane%4)..+3
+// (registers 2, 3), four codes to a register, lowest column in the lowest
+// byte (flash_int8.cu permutes V's keys to match).
 
 #pragma once
 
@@ -170,6 +185,42 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// one box from shared memory at `src` to a 2-D tensor: elements outside the
+// tensor are not written. Committed with bulk_commit; the source may be
+// written again after bulk_wait_read.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// until at most N bulk groups of this thread are still reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until at most N bulk groups of this thread are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory writes of this thread made visible to the async proxy (a
+// TMA store or a wgmma that reads them)
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
                                             int c2) {
   asm volatile(
@@ -206,9 +257,10 @@ __device__ __forceinline__ void named_bar_arrive(int id, int n) {
 // device: wgmma
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// layout 1: 128-byte swizzle; 2: 64-byte swizzle
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t layout = 1) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);  // layout 1: 128-byte swizzle
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
 }
 
 // K-major operand (see the header): k-th k16 slice at addr + 32·k
@@ -216,6 +268,15 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t addr) { return smem_desc(add
 
 // MN-major operand, N = 64 (one atom): k-th k16 slice at addr + 2048·k
 __device__ __forceinline__ uint64_t desc_mn(uint32_t addr) { return smem_desc(addr, 1024, 1024); }
+
+// K-major operand of 64-byte rows, 64-byte swizzle (see the header): k-th
+// k32 slice at addr + 32·k, 8-row groups 512 bytes apart
+__device__ __forceinline__ uint64_t desc_k64(uint32_t addr) { return smem_desc(addr, 16, 512, 2); }
+
+// byte offset of (row, col) in a tile of 64-byte rows under the 64-byte swizzle
+__device__ __forceinline__ uint32_t swz64(uint32_t row, uint32_t col) {
+  return 64 * row + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15);
+}
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 
@@ -338,6 +399,52 @@ __device__ __forceinline__ void wgmma_rs_m64n160_k(float (&d)[80], uint32_t a0, 
         "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// device: int8 wgmma (s8 · s8 → s32; K-major operands only)
+// ---------------------------------------------------------------------------
+
+// D(64×128, s32) (+)= A(64×32) · B(32×128): A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8_ss_m64n128(uint32_t (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D(64×64, s32) (+)= A(64×32, s8 registers, see the header) · B(32×64): B
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8_rs_m64n64(uint32_t (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                                   uint32_t a3, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 
 // ---------------------------------------------------------------------------

@@ -30,8 +30,8 @@ KERNELS = {
     "flash_fwd": ("flash_fwd_d64", "flash_fwd_wide"),
     "flash_bwd": ("flash_bwd_d64_dkv", "flash_bwd_d64_dq", "flash_bwd_wide_dkv", "flash_bwd_wide_dq"),
     "flash_f32": ("flash_fwd_f32", "flash_bwd_f32_dkv", "flash_bwd_f32_dq", "flash_f32_split"),
-    "flash_int8": ("flash_int8", "flash_int8_f32"),
-    "qdense": ("qdense", "qdense_f32"),
+    "flash_int8": ("flash_int8", "flash_int8_f32", "flash_int8_amax", "flash_int8_codes"),
+    "qdense": ("qdense", "qdense_f32", "qdense_quant"),
     "fused_gn": ("fused_group_norm",),
     "gn_conv": ("gn_silu_conv3x3", "gn_silu_conv3x3_f32", "gn_conv_f32_split"),
 }
@@ -148,6 +148,26 @@ def sass_hgmma(name: str) -> dict[str, list[int]]:
             cur[0] += 1
             cur[1] += "TF32" in line
     return counts
+
+
+def sass_ops(name: str, ops=("IGMMA", "HGMMA", "IMMA", "I2F", "I2FP", "F2I", "F2IP", "MUFU")) -> list[dict]:
+    """Per kernel function (each template instance) of a built source, its
+    own name and how many SASS instructions of each opcode in `ops` it has
+    (the opcode before its first dot: IGMMA.64x128x32.S8.S8 counts as
+    IGMMA), from `cuobjdump -sass`."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", str(_target(name))], capture_output=True, text=True, check=True).stdout
+    rows, cur = [], None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = dict(function=_innermost(m.group(1)), **dict.fromkeys(ops, 0))
+            rows.append(cur)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if cur is not None and m and m.group(1) in ops:
+            cur[m.group(1)] += 1
+    return rows
 
 
 def kernel(name: str):

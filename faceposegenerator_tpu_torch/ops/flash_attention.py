@@ -16,7 +16,11 @@ paths:
   `flash_bwd_wide_dq`   `_bwd_kernel_plain_dq` (:585) (csrc/flash_bwd.cu);
   `flash_int8`          K8, `_fwd_kernel_packed_int8` (:1108): the int8
                         attention of `flash_attention_int8` (:1261), head
-                        dim 64, inference only (csrc/flash_int8.cu);
+                        dim 64, inference only, any key length
+                        (csrc/flash_int8.cu);
+  `flash_int8_amax`,    its two quantize launches: the per-tensor amax of
+  `flash_int8_codes`    q, k and v, then their codes in the attention's
+                        layouts and its two scale constants, on the device;
   `flash_fwd_f32`,      the fp32 instance of K1/K2 and of K5/K6: JAX sends
   `flash_bwd_f32_dkv`,  fp32 as well as bf16 to its kernels
   `flash_bwd_f32_dq`    (`flash_supported`, :87-101), any head dim in
@@ -54,7 +58,7 @@ LAUNCHES = {
     "flash_bwd_d64_dkv": 0, "flash_bwd_d64_dq": 0,
     "flash_bwd_wide_dkv": 0, "flash_bwd_wide_dq": 0, "flash_int8": 0,
     "flash_fwd_f32": 0, "flash_bwd_f32_dkv": 0, "flash_bwd_f32_dq": 0, "flash_int8_f32": 0,
-    "flash_f32_split": 0,
+    "flash_f32_split": 0, "flash_int8_amax": 0, "flash_int8_codes": 0,
 }
 _WIDE_DIMS = (128, 256, 384, 512)
 _F32_DIMS = (64, *_WIDE_DIMS)
@@ -198,6 +202,8 @@ _ARGTYPES = {  # the C signatures in csrc/flash_fwd.cu, flash_bwd.cu, flash_f32.
     "flash_bwd_f32_dq": [_PTR] * 8 + [_INT] * 6 + [_PTR, _FLOAT, _PTR],
     "flash_f32_split": [_PTR] + [_INT] * 4 + [_PTR],
     "flash_int8_f32": [_PTR] * 5 + [_INT] * 5 + [_PTR],
+    "flash_int8_amax": [_PTR] * 5 + [_INT] * 5 + [_PTR],
+    "flash_int8_codes": [_PTR] * 9 + [_INT] * 4 + [_FLOAT, _INT, _PTR],
 }
 
 
@@ -435,8 +441,9 @@ def attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
     """`flash_attention_int8`'s function in plain PyTorch: per-tensor int8
     codes of q, k and v; logits (q8·k8ᵀ)·(sq·sk·scale) with keys >= kv_len
     masked (per-tensor scales over every batch row, head and key,
-    flash_attention.py:1202-1210); in blocks of 4096 keys (one block on every path here) the online
-    softmax of the JAX kernel: p = exp(s − m) against the running row max,
+    flash_attention.py:1202-1210); in blocks of 4096 keys (one at 512², whose
+    latent has 64² tokens; two at 640², whose latent has 80² = 6400) the
+    online softmax of the JAX kernel: p = exp(s − m) against the running row max,
     p8 = trunc(p·127 + 0.5), o = Σ(p8·v8)·(sv/127) / Σp. The integer products
     run in fp32, exact while |Σ| < 2²⁴: always for q8·k8ᵀ at head dim 64
     (≤ 127²·64), and for p8·v8 unless nearly all of a row's weight sits on
@@ -464,15 +471,40 @@ def attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scal
     return (acc / l).transpose(1, 2).to(q.dtype)
 
 
-# V codes are handed to the kernel transposed, (B, H, D, Skv padded to 64),
-# and within each block of 32 keys in the order in which the kernel's score
-# fragments hold them, so that those fragments are the A operand of the
-# int8 P·V product as they are (see csrc/flash_int8.cu).
+# The attention reads V's codes transposed, (B·H, 64, Skv rounded up to
+# _INT8_TILE), and within each block of 32 keys in the order in which its
+# score fragments hold them, so that those fragments are the s8 A operand of
+# the P·V product as they are (see csrc/flash_int8.cu): position
+# 16·half + 4·t + e holds key 16·half + 2·t + e (e < 2) or 16·half + 8 + 2·t + e − 2.
 _V_PERM = torch.tensor([half * 16 + (2 * t + e if e < 2 else 8 + 2 * t + e - 2)
                         for half in range(2) for t in range(4) for e in range(4)])
+_INT8_TILE = 128  # the kernel's key tile
 
 
-def _launch_int8(q, k, v, scale: float, kv_len):
+def v_keys(n: int) -> torch.Tensor:
+    """The key at each of n positions (n % 32 == 0) of the transposed V codes."""
+    return torch.arange(0, n, 32).repeat_interleave(32) + _V_PERM.repeat(n // 32)
+
+
+def int8_codes_plain(q, k, v, scale: float):
+    """What `flash_int8_amax` and `flash_int8_codes` write, in plain PyTorch:
+    q8 (B·H, Sq, 64) and k8 (B·H, Skv, 64) int8, V's codes transposed and
+    permuted (B·H, 64, Skv_p) int8, zero past Skv, and the constants
+    (c_qk, c_v) fp32, the codes and constants of `attention_int8_plain`."""
+    (q8, sq), (k8, sk), (v8, sv) = (quantize(t) for t in (q, k, v))
+    b, _, h, d = q.shape
+    skv = k.shape[1]
+    pad = -(-skv // _INT8_TILE) * _INT8_TILE
+    heads = [t.permute(0, 2, 1, 3).reshape(b * h, -1, d).to(torch.int8) for t in (q8, k8)]
+    vt = torch.zeros((b * h, d, pad), dtype=torch.int8, device=q.device)
+    vt[..., :skv] = v8.permute(0, 2, 3, 1).reshape(b * h, d, skv).to(torch.int8)
+    vt = vt.index_select(-1, v_keys(pad).to(q.device))
+    return heads[0], heads[1], vt, torch.stack([sq * sk * scale, sv * INV127])
+
+
+def _int8_args(q, k, v, kv_len=None):
+    """The checked launch arguments of K8's three launches: (B, Sq, Skv, H,
+    kv_end, the 9 (b, s, h) strides of q, k, v, fp32 flag, stream)."""
     b, sq, skv, h, d, kv_end = _shapes("flash_int8", q, k, v, kv_len)
     if d != 64:
         raise ValueError(f"flash_int8 takes head dim 64, got {d}")
@@ -480,30 +512,73 @@ def _launch_int8(q, k, v, scale: float, kv_len):
         raise ValueError(f"flash_int8 takes bf16 or fp32 tensors of one dtype, got {q.dtype}")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_int8: every tensor must lie on one CUDA device")
-    if skv > _INT8_BLOCK_K:
-        raise ValueError(f"flash_int8 takes at most {_INT8_BLOCK_K} keys on the card, got {skv}")
-    (q8, sq_s), (k8, sk_s), (v8, sv_s) = (quantize(t) for t in (q, k, v))
-    q8, k8 = q8.to(torch.int8), k8.to(torch.int8)
-    skv_p = -(-skv // 64) * 64
-    vt = torch.zeros((b, h, d, skv_p), dtype=torch.int8, device=q.device)
-    vt[..., :skv] = v8.permute(0, 2, 3, 1)
-    perm = (torch.arange(0, skv_p, 32).repeat_interleave(32) + _V_PERM.repeat(skv_p // 32)).to(q.device)
-    vt = vt.index_select(-1, perm)
-    scalars = torch.stack([sq_s * sk_s * scale, sv_s * INV127])
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    name = "flash_int8_f32" if q.dtype == torch.float32 else "flash_int8"
-    _call(name, q8.data_ptr(), k8.data_ptr(), vt.data_ptr(), o.data_ptr(), scalars.data_ptr(),
-          b, h, sq, skv, kv_end, torch.cuda.current_stream(q.device).cuda_stream)
+    if max(b * h * max(sq, skv) * d, b * h * d * (skv + _INT8_TILE)) > _INT32_MAX:
+        raise ValueError("flash_int8: the codes exceed int32 indexing")
+    if not all(_aligned(t) for t in (q, k, v)):
+        raise ValueError("flash_int8 needs a contiguous head dim and 16-byte aligned rows")
+    strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v) for s in t.stride()[:3]))
+    return (b, sq, skv, h, kv_end, strides, int(q.dtype == torch.float32),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def int8_amax(q, k, v, ws, args=None) -> None:
+    """`flash_int8_amax`: max |x| of CUDA q, k and v (aligned as `_aligned`
+    says) into ws[0:3] (fp32)."""
+    b, sq, skv, h, _, strides, f32, stream = args or _int8_args(q, k, v)
+    _call("flash_int8_amax", q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, ws.data_ptr(), b, h, sq, skv, f32,
+          stream)
+
+
+def int8_quantize(q, k, v, ws, scale: float, args=None):
+    """`flash_int8_codes`: the codes of q, k and v against the amax in
+    ws[0:3], as `int8_codes_plain` lays them out, and (c_qk, c_v) into
+    ws[4:6]; returns (q8, k8, vt)."""
+    b, sq, skv, h, _, strides, f32, stream = args or _int8_args(q, k, v)
+    dev = q.device
+    q8 = torch.empty((b * h, sq, 64), dtype=torch.int8, device=dev)
+    k8 = torch.empty((b * h, skv, 64), dtype=torch.int8, device=dev)
+    vt = torch.empty((b * h, 64, -(-skv // _INT8_TILE) * _INT8_TILE), dtype=torch.int8, device=dev)
+    _call("flash_int8_codes", q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, ws.data_ptr(), q8.data_ptr(),
+          k8.data_ptr(), vt.data_ptr(), ws.data_ptr() + 16, b, h, sq, skv, float(scale), f32, stream)
+    return q8, k8, vt
+
+
+def int8_codes(q, k, v, scale: float, args=None):
+    """`int8_codes_plain`'s outputs for CUDA q, k, v in two launches: returns
+    (q8, k8, vt, ws), ws fp32 with q's, k's and v's amax in [0:3] and
+    (c_qk, c_v) in [4:6]."""
+    args = args or _int8_args(q, k, v)
+    ws = torch.empty(8, dtype=torch.float32, device=q.device)
+    int8_amax(q, k, v, ws, args)
+    return (*int8_quantize(q, k, v, ws, scale, args), ws)
+
+
+def int8_attend(q8, k8, vt, ws, shape, dtype, kv_end: int) -> torch.Tensor:
+    """The attention launch on `int8_codes`' outputs: o (B, Sq, H, 64) in
+    `dtype` (bf16: `flash_int8`, fp32: `flash_int8_f32`)."""
+    b, sq, h, _ = shape
+    o = torch.empty(shape, dtype=dtype, device=q8.device)
+    name = "flash_int8_f32" if dtype == torch.float32 else "flash_int8"
+    _call(name, q8.data_ptr(), k8.data_ptr(), vt.data_ptr(), o.data_ptr(), ws.data_ptr() + 16, b, h, sq,
+          k8.shape[1], kv_end, torch.cuda.current_stream(q8.device).cuda_stream)
     return o
+
+
+def _launch_int8(q, k, v, scale: float, kv_len):
+    q, k, v = (t if _aligned(t) else t.contiguous() for t in (q, k, v))
+    args = _int8_args(q, k, v, kv_len)
+    q8, k8, vt, ws = int8_codes(q, k, v, scale, args)
+    return int8_attend(q8, k8, vt, ws, q.shape, q.dtype, args[4])
 
 
 def flash_attention_int8(q, k, v, scale: float, kv_len: Optional[int] = None) -> torch.Tensor:
     """K8: int8 attention over (B, S, H, 64) (`flash_attention_int8`,
     flash_attention.py:1261), writing q's dtype: bf16 q, k, v go to
     `flash_int8`, fp32 ones to `flash_int8_f32` (the same codes: the
-    quantizer takes any float dtype, as JAX's does). A CPU tensor takes
-    `attention_int8_plain`; a CUDA tensor takes the kernel or raises. Other head dims are the caller's
-    to send to the exact kernels (`ops.attention`)."""
+    quantizer takes any float dtype, as JAX's does), after the two quantize
+    launches. Any key length, as JAX's. A CPU tensor takes
+    `attention_int8_plain`; a CUDA tensor takes the kernels or raises. Other
+    head dims are the caller's to send to the exact kernels (`ops.attention`)."""
     if not q.is_cuda:
         return attention_int8_plain(q, k, v, scale, kv_len)
     return _launch_int8(q, k, v, scale, kv_len)

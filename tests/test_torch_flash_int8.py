@@ -5,7 +5,11 @@
 assert. JAX quantizes p against the row max of one 4096-key block; a case
 puts each row's max in the last 64 keys, where a running-max softmax over
 64-key tiles gives other codes (shown by running the plain version with
-64-key blocks). The CUDA kernel itself is held to this plain version in
+64-key blocks). Past 4096 keys (4096 + 128 here, as the 640² request's 6400
+do) JAX's grid takes a second block with its own row max, and the plain
+version follows it: with every row's max in the second block and with
+kv_len ending inside it; quantizing p against one max over all the keys
+misses JAX's output. The CUDA kernel itself is held to this plain version in
 tests/test_torch_kernels_cuda.py; it uses expf, as JAX's exp.
 """
 
@@ -71,3 +75,32 @@ def test_other_head_dims_take_the_exact_kernels():
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 64, 64, 1, 512))
     got = dot_product_attention(q, k, v, impl="flash_int8")
     torch.testing.assert_close(got, fa.attention_plain(q, k, v, 512**-0.5), atol=0, rtol=0)
+
+
+def _max_in_second_block(seed=7):
+    """1 × 128 queries × 4224 keys × 2 heads; keys 4096.. are 0.5·q, the
+    others 0.3·N(0, 1), so every row's max lies in the second 4096-key block,
+    a few logits above the first block's."""
+    q, k, v = _qkv(seed, 1, 128, 4096 + 128, 2)
+    k[:, :4096] *= 0.3
+    k[:, 4096:] = 0.5 * q
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", ["max in the second block", "kv_len 4160 of 4224"])
+def test_int8_plain_matches_jax_past_one_key_block(case):
+    if case == "max in the second block":
+        (q, k, v), kv_len = _max_in_second_block(), None
+    else:
+        (q, k, v), kv_len = _qkv(8, 1, 128, 4096 + 128, 2), 4160
+    want = np.asarray(_jint8(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_len))
+    got = fa.attention_int8_plain(*(torch.from_numpy(a) for a in (q, k, v)), 0.125, kv_len)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+
+
+def test_one_max_over_both_key_blocks_computes_another_function(monkeypatch):
+    q, k, v = _max_in_second_block()
+    want = np.asarray(_jint8(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None))
+    monkeypatch.setattr(fa, "_INT8_BLOCK_K", 4096 + 128)
+    one_block = fa.attention_int8_plain(*(torch.from_numpy(a) for a in (q, k, v)), 0.125)
+    assert np.abs(one_block.numpy() - want).max() > 1e-4

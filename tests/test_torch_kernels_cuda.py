@@ -338,9 +338,13 @@ def test_cuda_d64_kernels_take_strided_fused_qkv_views():
         _close(g, ref, relative=True)
 
 
-QDENSE_CASES = [  # (lead, K, N, static): ragged M and N, the widest K, the cross k/v rows
+QDENSE_CASES = [  # (lead, K, N, static): ragged M and N, the widest K, the cross k/v rows, the widest
+    # fused K (1280) and the narrowest wide one (2560), K not a multiple of 64; from 2048 rows the
+    # fused instance (quantize in the GEMM), below it the wide one (qdense_quant first)
     ((130,), 64, 72, False), ((2, 77), 1024, 320, True), ((257,), 320, 960, False),
     ((3, 100), 5120, 1280, False), ((4, 333), 640, 2568, True), ((1232,), 1024, 320, False),
+    ((300,), 1280, 392, False), ((2, 150), 2560, 640, True), ((3, 200), 2560, 640, False), ((70,), 96, 40, True),
+    ((2100,), 1280, 392, False), ((2, 1030), 320, 968, True), ((4097,), 96, 136, False), ((2048,), 1024, 320, True),
 ]
 
 
@@ -356,7 +360,8 @@ def test_cuda_qdense_matches_plain(lead, k, n, static):
     qd.reset_launch_counts()
     out = qd.qdense_kernel(x, qw.q, qw.s, a)
     torch.cuda.synchronize()
-    assert qd.LAUNCHES["qdense"] == 1 and out.shape == (*lead, n) and out.dtype == torch.bfloat16
+    assert qd.LAUNCHES == {"qdense": 1, "qdense_f32": 0, "qdense_quant": int(qd.is_wide(int(np.prod(lead)), k))}
+    assert out.shape == (*lead, n) and out.dtype == torch.bfloat16
     _same_codes(out, qd.qdense_plain(x, qw.q, qw.s, a))
 
 
@@ -383,13 +388,32 @@ def test_cuda_qdense_f32_matches_plain(lead, k, n, static):
     qd.reset_launch_counts()
     out = qd.qdense_kernel(x, qw.q, qw.s, a)
     torch.cuda.synchronize()
-    assert qd.LAUNCHES == {"qdense": 0, "qdense_f32": 1} and out.shape == (*lead, n)
+    assert qd.LAUNCHES == {"qdense": 0, "qdense_f32": 1, "qdense_quant": int(qd.is_wide(int(np.prod(lead)), k))}
+    assert out.shape == (*lead, n)
     _same_codes(out, qd.qdense_plain(x, qw.q, qw.s, a))
 
 
-INT8_CASES = [  # (b, sq, skv, h, kv_len): odd heads, ragged tiles, masked keys, the UNet's largest
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("static", [False, True])
+def test_cuda_qdense_quant_matches_quantize(dtype, static):
+    """The wide instance's quantize pass writes quantize()'s codes and row
+    scales, bit for bit."""
+    _card()
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((333, 2560)).astype(np.float32) * 3).cuda().to(dtype)
+    a = float(x.float().abs().amax()) / 127.0 if static else None
+    codes, sx = qd.quantize_rows(x, a)
+    want, want_sx = qd.quantize(x, -1, a)
+    assert torch.equal(codes, want.to(torch.int8))
+    assert sx is None if static else torch.equal(sx, want_sx.reshape(-1))
+
+
+INT8_CASES = [  # (b, sq, skv, h, kv_len): odd heads, ragged tiles, masked keys, the UNet's largest,
+    # and past one 4096-key block: kv_len in the second block, a third block, the 640² self-attention
     (2, 256, 256, 5, None), (2, 130, 77, 3, None), (1, 64, 128, 2, 77), (2, 200, 333, 4, 300),
     (16, 4096, 4096, 5, None), (16, 4096, 77, 5, None),
+    (1, 128, 4224, 2, 4160), (1, 300, 9000, 3, None), (2, 6400, 6400, 5, None), (1, 96, 8300, 2, 4100),
 ]
 
 
@@ -401,7 +425,8 @@ def test_cuda_flash_int8_matches_plain(b, sq, skv, h, kv_len):
     fa.reset_launch_counts()
     out = dot_product_attention(q, k, v, kv_len=kv_len, impl="flash_int8")
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_int8"] == 1 and fa.LAUNCHES["flash_fwd_d64"] == 0
+    assert fa.LAUNCHES["flash_int8"] == fa.LAUNCHES["flash_int8_amax"] == fa.LAUNCHES["flash_int8_codes"] == 1
+    assert fa.LAUNCHES["flash_fwd_d64"] == 0
     _same_codes(out, fa.attention_int8_plain(q, k, v, 0.125, kv_len))
     # close to exact attention as the JAX test holds it, q and k at half
     # scale: at unit scale over 4096 keys most p sit on the lowest codes of
@@ -420,8 +445,29 @@ def test_cuda_flash_int8_f32_matches_plain(b, sq, skv, h, kv_len):
     fa.reset_launch_counts()
     out = dot_product_attention(q, k, v, kv_len=kv_len, impl="flash_int8")
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_int8_f32"] == 1 and sum(fa.LAUNCHES.values()) == 1 and out.dtype == torch.float32
+    assert fa.LAUNCHES["flash_int8_f32"] == fa.LAUNCHES["flash_int8_amax"] == fa.LAUNCHES["flash_int8_codes"] == 1
+    assert sum(fa.LAUNCHES.values()) == 3 and out.dtype == torch.float32
     _same_codes(out, fa.attention_int8_plain(q, k, v, 0.125, kv_len))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("strided", [False, True])
+def test_cuda_flash_int8_codes_match_plain(dtype, strided):
+    """The amax and codes launches write int8_codes_plain's codes, layouts
+    and constants bit for bit, from contiguous tensors or from the strided
+    views of a fused q/k/v projection."""
+    _card()
+    rng = np.random.default_rng(17)
+    if strided:
+        qkv = torch.from_numpy(rng.standard_normal((2, 333, 3, 3, 64)).astype(np.float32)).cuda().to(dtype)
+        q, k, v = qkv.unbind(2)
+    else:
+        q, k, v = (torch.from_numpy(a).cuda().to(dtype) for a in _qkv(17, 2, 130, 300, 3, 64))
+    q8, k8, vt, ws = fa.int8_codes(q, k, v, 0.125)
+    want = fa.int8_codes_plain(q, k, v, 0.125)
+    for got, ref in zip((q8, k8, vt, ws[4:6]), want):
+        assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda

@@ -112,14 +112,20 @@ def test_cpu_tensors_never_count_launches():
     fa.flash_fwd_f32(q, q, q, 0.125, with_lse=True)
     fa.flash_bwd_f32(q, q, q, o, lse, o, 0.125)
     fa.flash_attention_int8(q, q, q, 0.125)
+    fa.int8_codes_plain(q, q, q, 0.125)
     qd.qdense_kernel(torch.randn(3, 64), torch.ones(8, 64, dtype=torch.int8), torch.ones(8), 0.1)
+    # K7's wide instance and its quantize pass
+    qd.qdense_kernel(torch.randn(3, 2560), torch.ones(8, 2560, dtype=torch.int8), torch.ones(8))
+    qd.quantize_rows(torch.randn(3, 2560))
     fgc.gn_silu_conv3x3(torch.randn(1, 4, 4, 32), torch.ones(32), torch.zeros(32),
                         torch.nn.Conv2d(32, 16, 3, padding=1), 8)
     fgc.weight_split(torch.randn(16, 32, 3, 3))
     assert set(fa.LAUNCHES) == {"flash_fwd_d64", "flash_fwd_wide", "flash_bwd_d64_dkv", "flash_bwd_d64_dq",
                                 "flash_bwd_wide_dkv", "flash_bwd_wide_dq", "flash_int8", "flash_fwd_f32",
-                                "flash_bwd_f32_dkv", "flash_bwd_f32_dq", "flash_int8_f32", "flash_f32_split"}
-    assert all(n == 0 for n in fa.LAUNCHES.values()) and qd.LAUNCHES == {"qdense": 0, "qdense_f32": 0}
+                                "flash_bwd_f32_dkv", "flash_bwd_f32_dq", "flash_int8_f32", "flash_f32_split",
+                                "flash_int8_amax", "flash_int8_codes"}
+    assert all(n == 0 for n in fa.LAUNCHES.values())
+    assert qd.LAUNCHES == {"qdense": 0, "qdense_f32": 0, "qdense_quant": 0}
     assert fg.LAUNCHES == {"fused_group_norm": 0}
     assert fgc.LAUNCHES == {"gn_silu_conv3x3": 0, "gn_silu_conv3x3_f32": 0, "gn_conv_f32_split": 0}
 
@@ -152,16 +158,20 @@ def test_chip_smoke_kernels_line_names_every_counted_kernel():
         sys.path.remove(str(REPO))
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "tflops", "max_abs_err", "lse_max_err", "dkv_ms", "dq_ms",
             "pair_ms", "pair_bound_ms", "dkv_bound_ms", "dq_bound_ms", "dkv_tflops", "dq_tflops", "int_mm_ms",
-            "bf16_linear_ms", "f32_linear_ms", "k1_ms", "f32_ms", "sdpa_ms")
+            "bf16_linear_ms", "f32_linear_ms", "k1_ms", "f32_ms", "sdpa_ms", "attend_ms", "attend_bound_ms",
+            "amax_ms", "amax_plain_ms", "amax_bound_ms", "codes_ms", "codes_plain_ms", "codes_bound_ms", "quant_ms",
+            "quant_plain_ms", "quant_bound_ms")
 
     def row(kernel, **kw):
         return dict({k: 1.0 for k in keys}, kernel=kernel, shape="s", B=1, N=1, M=1, K=1, mode="static",
                     bound_by="operations", dkv_bound_by="operations", dq_bound_by="operations",
+                    attend_bound_by="operations",
                     dq_err=[1.0, 0.1], dk_err=[1.0, 0.1], dv_err=[1.0, 0.1], **kw)
 
     f32 = {"fwd": [row("flash_fwd_f32")], "tf32": [1.0, 0.1, 1.0], "bwd": [row("flash_bwd_f32")],
            "split": [row("flash_f32_split")], "conv_split": [row("gn_conv_f32_split")],
-           "conv": [row("gn_silu_conv3x3_f32")], "qdense": [row("qdense_f32")], "int8": [row("flash_int8_f32")]}
+           "conv": [row("gn_silu_conv3x3_f32")], "qdense": [row("qdense_f32")], "int8": [row("flash_int8_f32")],
+           "gn": [row("fused_group_norm")]}
     launches = {name: i + 1 for i, name in enumerate(chip_smoke.REPLACES)}
     entries = chip_smoke._kernel_entries(
         [row("flash_fwd_d64"), row("flash_fwd_wide")], [row("flash_bwd_d64"), row("flash_bwd_wide")],
