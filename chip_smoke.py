@@ -13,6 +13,8 @@ Phases, in order; any failure exits non-zero without the final result line:
      entries too; a fp32 kernel with an HGMMA that is not TF32 fails); per
      instance of K7's and K8's kernels, the IGMMA, IMMA, conversion and MUFU
      counts (a GEMM or attention instance without IGMMA, or any IMMA, fails);
+     per instance of the backward attention kernels (K5, K6), the HGMMA and
+     HMMA counts (an instance without HGMMA, or with any HMMA, fails);
   3. kernels against plain: each kernel at every shape the main paths give
      it, bf16 unit-normal inputs from a seed, against its plain PyTorch
      version in fp32 on the same inputs (max abs err <= 2e-2, mean <= 2e-3;
@@ -69,8 +71,10 @@ Phases, in order; any failure exits non-zero without the final result line:
      GroupNorm shape K3 takes on the fused txt2img request and train step,
      against fused_group_norm_plain on the same bf16 inputs (each output
      within 1 bf16 ulp + 1e-3 relative + 1e-5 of the output's max abs),
-     timed beside its plain version, the card's bound and F.group_norm (+
-     F.silu) on the channels_last NCHW view; gn_silu_conv3x3
+     timed as a call (the wrapper: `ms`) and as a launch (its one C call on
+     ready buffers: `launch_ms`), with the wrapper's host time a call
+     (`host_us`), beside its plain version, the card's bound and
+     F.group_norm (+ F.silu) on the channels_last NCHW view; gn_silu_conv3x3
      (csrc/gn_conv.cu) at every conv shape K4 takes there, against
      gn_silu_conv3x3_plain (within 1 bf16 ulp + 1e-3 of the output's max
      abs), timed beside its plain version, the bound and the default
@@ -82,7 +86,11 @@ Phases, in order; any failure exits non-zero without the final result line:
      in phase 4, first against the default routes on 2×128² (image diff max
      1e-1, mean 1e-2), then 2 requests at batch 8, 512², 30 DDPM steps, CFG
      5.0, each launching exactly K4 480, K3 371, K1 960 and K2 1 times,
-     their s/request beside phase 4's;
+     their s/request beside phase 4's; then GN_IMPL alone at pallas (K4 left
+     at xla: K3 is the only GroupNorm kernel, and takes K4's 480 norms too)
+     on the same pipeline: against the default routes on 2×128² (the same
+     limits), then 1 request launching exactly K3 851, K1 960 and K2 1
+     times, its s/request beside the default's;
  10. fused train: the train step of phase 7's op point in that
      configuration, first against the default routes at 2(+2)×128² (loss
      within 1e-2 relative, LoRA gradient cosine >= 0.99), then 2 steps, each
@@ -258,6 +266,15 @@ GN_SHAPES = [
 # K3's fp32 instance on the fused fp32 request: 10 steps, not 30 (131 = 10 · 12 + 11)
 GN_F32_SHAPES = [(label, *rest, per // 3 if label.startswith("unet") else per)
                  for label, *rest, per in GN_SHAPES]
+# K4's GroupNorm+SiLU sites (eps 1e-5), which go to K3 when GN_IMPL alone is
+# pallas (GN_ALONE_LAUNCHES; the 210 at 64²·320 are "unet conv_norm_out"'s
+# shape): per request, L1's first resblock norm2 at 32²·320 (30), L1's
+# 640-wide norms (180) and up L0's 640-wide norm1 at 64² (60)
+GN_ALONE_SHAPES = [
+    ("gn alone L1 norm 32²·320", 16, 32, 32, 320, 1e-5, "silu", 30),
+    ("gn alone L1 norm 32²·640", 16, 32, 32, 640, 1e-5, "silu", 180),
+    ("gn alone up L0 norm1 64²·640", 16, 64, 64, 640, 1e-5, "silu", 60),
+]
 # per train step: one UNet pass on 8 rows, the VAE encoding 8 images (its
 # last down block 4, mid 4 + 1, norm_out 1) and decoding 4 (11)
 GN_TRAIN_SHAPES = [
@@ -317,6 +334,9 @@ SPLIT_SHAPES = [
     ("bwd vae decode mid", 4, 1, 4096, 512, F32_BWD_SPLIT),
 ]
 FUSED_LAUNCHES = {"gn_silu_conv3x3": 480, "fused_group_norm": 371, "flash_fwd_d64": 960, "flash_fwd_wide": 1}
+# GN_IMPL alone at pallas: K4's 480 GroupNorm+SiLU sites (every one a shape
+# K3 takes: 64²·320, 32²·320, 32²·640, 64²·640) go to K3 with the 371
+GN_ALONE_LAUNCHES = {"fused_group_norm": 371 + 480, "flash_fwd_d64": 960, "flash_fwd_wide": 1}
 FUSED_STEP_LAUNCHES = dict(STEP_LAUNCHES, gn_silu_conv3x3=16, fused_group_norm=33)
 
 
@@ -681,18 +701,19 @@ def check_int8(torch, fa, card, shapes=INT8_SHAPES):
 
 
 class gn_route:
-    """Within the block, GN_IMPL and GN_CONV_IMPL are `impl`, as the two
-    environment variables set them at import (perf/r3_gnconv_bs.py:39 sets
-    the JAX modules' attributes the same way); the previous values after."""
+    """Within the block, GN_IMPL is `impl` and GN_CONV_IMPL `conv` (by
+    default `impl` too), as the two environment variables set them at import
+    (perf/r3_gnconv_bs.py:39 sets the JAX modules' attributes the same way);
+    the previous values after."""
 
-    def __init__(self, impl):
-        self.impl = impl
+    def __init__(self, impl, conv=None):
+        self.impl, self.conv = impl, conv or impl
 
     def __enter__(self):
         from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
 
         self.saved = (fused_gn._GN_IMPL, fused_gn_conv._IMPL)
-        fused_gn._GN_IMPL = fused_gn_conv._IMPL = self.impl
+        fused_gn._GN_IMPL, fused_gn_conv._IMPL = self.impl, self.conv
         return self
 
     def __exit__(self, *exc):
@@ -701,13 +722,58 @@ class gn_route:
         fused_gn._GN_IMPL, fused_gn_conv._IMPL = self.saved
 
 
+def host_us(fn, torch, n=1000):
+    """The host time of one fn() in µs: time.perf_counter over n calls with
+    no synchronisation (then one, outside the clock). Where the device is
+    slower than the host, the launch queue fills and this is device time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / n
+
+
+def _gn_launch(fg, x, gamma, beta, eps, act):
+    """K3's one C call as the wrapper makes it for these inputs, to replay on
+    ready buffers (the output it writes is kept alive with it); a replay
+    counts no launch."""
+    calls, get = [], fg._kernel
+    fg._kernel = lambda: (lambda *args: calls.append(args) or get()(*args))
+    try:
+        y = fg.fused_group_norm(x, gamma, beta, 32, eps, act)
+    finally:
+        fg._kernel = get
+    fn, (args,) = get(), calls
+    return lambda: (fn(*args), y)
+
+
+def gn_clusters(n, c, plan, itemsize):
+    """How many clusters of K3's launch for `plan` (cluster, rows, stages)
+    the card holds at once (cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+
+    from faceposegenerator_tpu_torch.ops import _build
+
+    fn = _build.load("fused_gn").fused_group_norm_clusters
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    active = ctypes.c_int(0)
+    cluster, _, stages = plan
+    if fn(n, c, cluster, stages, int(itemsize == 2), ctypes.byref(active)) != 0:
+        fail(f"cudaOccupancyMaxActiveClusters failed for K3's plan {plan}")
+    return active.value
+
+
 def check_gn(torch, card, shapes, per, dtype=None):
     """K3 at `shapes` against fused_group_norm_plain on the same inputs in
     `dtype` (bf16 by default; x = 3·N(0, 1) + 1, γ and β unit normal, 32
     groups), within 1 ulp of the dtype + 1e-3 relative + 1e-5 of the max abs,
-    timed beside its plain version, F.group_norm (+ F.silu) on the
-    channels_last NCHW view (a yardstick the port never calls) and the
-    card's bound."""
+    timed as a call (`ms`), as its launch alone on ready buffers
+    (`launch_ms`) and by the wrapper's host time (`host_us`), beside its
+    plain version, F.group_norm (+ F.silu) on the channels_last NCHW view (a
+    yardstick the port never calls) and the card's bound."""
     import torch.nn.functional as F
 
     from faceposegenerator_tpu_torch.ops import fused_gn as fg
@@ -725,7 +791,10 @@ def check_gn(torch, card, shapes, per, dtype=None):
         # reported, not gated: how many outputs a gate without the floor would refuse
         beyond_relative = _ulp_err(out, want, GN_REL_ERR)[2]
         del out, want
-        ms = time_ms(lambda: fg.fused_group_norm(x, gamma, beta, 32, eps, act), torch)
+        call = lambda: fg.fused_group_norm(x, gamma, beta, 32, eps, act)
+        ms = time_ms(call, torch)
+        launch_ms = time_ms(_gn_launch(fg, x, gamma, beta, eps, act), torch)
+        call_host_us = host_us(call, torch)
         plain_ms = time_ms(lambda: fg.fused_group_norm_plain(x, gamma, beta, 32, eps, act), torch)
         xv = x.permute(0, 3, 1, 2)
         library = (lambda: F.silu(F.group_norm(xv, 32, gamma, beta, eps))) if act else \
@@ -736,8 +805,10 @@ def check_gn(torch, card, shapes, per, dtype=None):
         elems = n * h * w * c
         bound_ms, bound_by = _bound(card, (5.0 + 4.0 * (act == "silu")) * elems,
                                     2.0 * x.element_size() * (elems + c), fp32=True)
+        plan = fg.cluster_plan(n, h * w, c, x.element_size())
         row = dict(kernel="fused_group_norm", shape=label, dtype=str(dtype).split(".")[-1], N=n, H=h, W=w, C=c,
-                   act=act, ms=ms, plain_ms=plain_ms,
+                   act=act, plan=plan, active_clusters=gn_clusters(n, c, plan, x.element_size()),
+                   ms=ms, launch_ms=launch_ms, host_us=call_host_us, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=max_err,
                    mean_abs_err=mean_err, over_limit=over, beyond_relative_gate=beyond_relative,
                    **{f"launches_per_{per}": per_run})
@@ -1199,7 +1270,8 @@ def run_train(torch, card_line):
 def run_fused_txt2img(torch, card_line, default_secs):
     """The txt2img request in the fused configuration (GN_IMPL and
     GN_CONV_IMPL at pallas): the kernel routes against the default routes on
-    a small input, then 2 requests with exact launch counts. Returns the
+    a small input, then 2 requests with exact launch counts; then the same
+    with GN_IMPL alone at pallas (K3 without K4), 1 request. Returns the
     phase's launch counts."""
     import numpy as np
 
@@ -1242,7 +1314,30 @@ def run_fused_txt2img(torch, card_line, default_secs):
     print(f"fused txt2img: bs8 512² 30-step DDPM CFG 5.0: {secs} s per request; best {best:.3f} s = "
           f"{8 / best:.3f} img/s against the default configuration's {default_secs:.3f} s = "
           f"{8 / default_secs:.3f} img/s in this process ({card_line})", flush=True)
-    return launches
+
+    # GN_IMPL alone at pallas (GN_CONV_IMPL at xla): K3 is the only GroupNorm kernel
+    with gn_route("pallas", conv="xla"):
+        got = pipe(**small)
+    diff = np.abs(got - want)
+    print(f"GN_IMPL alone: K3 route vs the default routes at 2×128², 2 steps, bf16: image diff max "
+          f"{diff.max():.3e} mean {diff.mean():.3e} (limits 1e-1, 1e-2)", flush=True)
+    if not (diff.max() <= 1e-1 and diff.mean() <= 1e-2):
+        fail("GN_IMPL alone: the K3 route and the default routes disagree")
+    with gn_route("pallas", conv="xla"):
+        _reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = pipe(input_ids=ids, num_inference_steps=30, guidance_scale=5.0, height=512, width=512, seed=0)
+        alone_secs = time.time() - t0
+        alone = _launch_counts()
+    per = {n: c for n, c in alone.items() if c}
+    print(f"GN_IMPL alone request: seed 0, {alone_secs:.3f} s = {8 / alone_secs:.3f} img/s against the default "
+          f"configuration's {default_secs:.3f} s and the fused one's {best:.3f} s in this process, launches "
+          f"{json.dumps(per)} ({card_line})", flush=True)
+    _check_images(img, 8, 512, "GN_IMPL alone request")
+    if per != GN_ALONE_LAUNCHES:
+        fail(f"GN_IMPL alone request launched {per}, expected {GN_ALONE_LAUNCHES}")
+    return {n: c + alone[n] for n, c in launches.items()}
 
 
 def run_fused_train(torch, card_line, op, default_steady):
@@ -1796,6 +1891,9 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
                 tflops=top[f"{p}_tflops"], pair_tflops=top["tflops"],
                 **({"ptxas": ptxas[f"{name}_kernel"]} if f"{name}_kernel" in ptxas else {}),
                 **({"bound_basis": "3xTF32", "sass_hgmma": sass.get(f"{name}_kernel")} if kind == "f32" else {}),
+                # K6's three passes are instances of one template (dV and dK for the dK/dV entry)
+                **({"ptxas": ptxas.get("flash_bwd_wide_kernel"), "sass": sass.get("flash_bwd_wide_kernel")}
+                   if kind == "wide" else {}),
             ))
     # K7 and K8: no single library call computes their function (the int8
     # GEMM alone, bf16 F.linear and exact SDPA are yardsticks, in extra keys).
@@ -1839,21 +1937,25 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
             bound_by="bytes", library_ms=None, shape=f"{top['shape']} B{top['B']}", ptxas=ptxas.get(fn),
         ))
     # K3 and K4: the library time is F.group_norm (+ F.silu), and the default
-    # route's plain GroupNorm+SiLU with cuDNN's conv
+    # route's plain GroupNorm+SiLU with cuDNN's conv. K3's ms is its launch
+    # on ready buffers, `wrapper_ms` the call, `host_us` the wrapper's host
+    # time a call.
     for name, rows in (("fused_group_norm", gn_rows), ("gn_silu_conv3x3", conv_rows),
                        ("gn_silu_conv3x3_f32", f32["conv"])):
         top = max(rows, key=lambda r: r["bound_ms"])
         fn = {"gn_silu_conv3x3": "gn_k4_conv", "gn_silu_conv3x3_f32": "gn_k4_conv_f32"}.get(name)
+        k3 = name == "fused_group_norm"
         kernels.append(dict(
             name=name, route="cuda", source=sources[name], replaces=REPLACES[name], launches=launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in rows), ms=top["ms"], plain_ms=top["plain_ms"],
-            bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
-            shape=f"{top['shape']} N{top['N']}",
+            max_abs_err=max(r["max_abs_err"] for r in rows), ms=top["launch_ms" if k3 else "ms"],
+            plain_ms=top["plain_ms"], bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+            library_ms=top["library_ms"], shape=f"{top['shape']} N{top['N']}",
             **({"tflops": top["tflops"], "ptxas": ptxas.get(fn)} if fn else {}),
             **({"bound_basis": "3xTF32", "sass_hgmma": sass.get(fn)} if name == "gn_silu_conv3x3_f32" else {}),
-            **({"f32": {k: max(f32["gn"], key=lambda r: r["bound_ms"])[k] for k in ("shape", "ms", "plain_ms",
-                                                                                     "library_ms", "bound_ms")}}
-               if name == "fused_group_norm" else {}),
+            **({"wrapper_ms": top["ms"], "host_us": top["host_us"], "ptxas": ptxas.get("gn_k3_cluster"),
+                "f32": {k: max(f32["gn"], key=lambda r: r["bound_ms"])[k]
+                        for k in ("shape", "ms", "launch_ms", "host_us", "plain_ms", "library_ms", "bound_ms")}}
+               if k3 else {}),
         ))
     return kernels
 
@@ -1892,9 +1994,10 @@ def main() -> int:
             print(f"ptxas {name} {rep['function']}: {rep.get('registers')} registers, "
                   f"{rep.get('spill_stores')} bytes spill stores, {rep.get('spill_loads')} bytes spill loads",
                   flush=True)
-            if rep["function"].startswith(("flash_fwd_d64", "flash_fwd_wide", "flash_bwd_d64", "flash_fwd_f32",
-                                           "flash_bwd_f32", "flash_f32_split", "gn_k4_conv", "gn_conv_f32_split",
-                                           "qdense_kernel", "qdense_quant_kernel", "flash_int8")):
+            if rep["function"].startswith(("flash_fwd_d64", "flash_fwd_wide", "flash_bwd_d64", "flash_bwd_wide",
+                                           "flash_fwd_f32", "flash_bwd_f32", "flash_f32_split", "gn_k4_conv",
+                                           "gn_conv_f32_split", "gn_k3_cluster", "qdense_kernel",
+                                           "qdense_quant_kernel", "flash_int8")):
                 ptxas.setdefault(rep["function"], []).append(
                     {k: rep.get(k) for k in ("registers", "spill_stores", "spill_loads")})
     # the fp32 attention kernels and K4's fp32 instance must issue their
@@ -1917,6 +2020,14 @@ def main() -> int:
                 fail(f"{name}.cu {f['function']}: {f['IGMMA']} IGMMA, {f['IMMA']} IMMA; K7 and K8 must run on wgmma")
     for f in sass_int8["qdense"] + sass_int8["flash_int8"]:
         sass.setdefault(f["function"], []).append({k: v for k, v in f.items() if k != "function"})
+    # the bf16 backward (K5, K6: every head-dim and pass instance) runs on
+    # wgmma: HGMMA in every instance, no mma.sync (HMMA) anywhere
+    sass_bwd = _build.sass_ops("flash_bwd", ops=("HGMMA", "HMMA"))
+    print(f"sass flash_bwd (per kernel instance): {json.dumps(sass_bwd)}", flush=True)
+    for f in sass_bwd:
+        if f["HMMA"] or not f["HGMMA"]:
+            fail(f"flash_bwd.cu {f['function']}: {f['HGMMA']} HGMMA, {f['HMMA']} HMMA; K5 and K6 must run on wgmma")
+        sass.setdefault(f["function"], []).append({k: v for k, v in f.items() if k != "function"})
 
     from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
 
@@ -1935,6 +2046,14 @@ def main() -> int:
     train, train_op, train_secs = run_train(torch, card_line)
     torch.cuda.empty_cache()
     gn_rows = check_gn(torch, card, GN_SHAPES, "request") + check_gn(torch, card, GN_TRAIN_SHAPES, "step")
+    gn_rows += check_gn(torch, card, GN_ALONE_SHAPES, "gn_alone_request")
+    # K3's cluster sizes: how many the card holds at once, one 227 KB CTA an
+    # SM, beside what cluster_plan assumes (a shortfall costs a wave, not
+    # correctness)
+    stages = max(st for st in range(1, 32) if fused_gn.cluster_smem(320, 2, st) <= fused_gn.SMEM_MAX)
+    full = {k: gn_clusters(16, 320, (k, 4096 // k, stages), 2) for k in (1, 2, 4, 8, 16)}
+    print(f"k3 clusters at once (bf16, C 320, a full SM each): {json.dumps(full)}; cluster_plan assumes "
+          f"{json.dumps(fused_gn._WAVE_CLUSTERS)}", flush=True)
     conv_rows = check_conv(torch, card, CONV_SHAPES, "request", border=True)
     conv_rows += check_conv(torch, card, CONV_TRAIN_SHAPES, "step")
     fused_txt2img = run_fused_txt2img(torch, card_line, txt2img_secs)

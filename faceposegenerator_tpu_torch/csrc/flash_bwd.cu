@@ -2,8 +2,8 @@
 // o = softmax(q·kᵀ·scale)·v with respect to q, k and v, over bf16 tensors in
 // (B, S, H, D) layout, from the forward's per-row log-sum-exp (flash_fwd.cu).
 //
-// Four kernels, two passes for each of the two TPU kernel pairs they replace
-// (faceposegenerator_tpu/ops/flash_attention.py):
+// Four entry points, two passes for each of the two TPU kernel pairs they
+// replace (faceposegenerator_tpu/ops/flash_attention.py):
 //
 //   flash_bwd_d64_dkv   `_bwd_kernel_packed_dkv` (:711)  D = 64, every UNet
 //   flash_bwd_d64_dq    `_bwd_kernel_packed_dq`  (:777)  attention's backward
@@ -18,43 +18,38 @@
 //   dK = scale·dSᵀ·q,  dQ = scale·dS·k   fp32 accumulation, bf16 outputs
 // Keys at positions >= kv_end get p = 0, so their dk and dv are 0.
 //
-// Structure: two passes, as on the TPU, so that every output tile is owned by
-// one CTA and nothing needs atomics (the result is deterministic). The dK/dV
-// pass gives each CTA a tile of key rows and walks the query tiles; the dQ
-// pass gives each CTA a tile of query rows and walks the key tiles. Each pass
-// recomputes the scores, so the five products S, dP, dV, dK, dQ cost
-// 10·Sq·Skv·D FLOPs per head in all (S and dP are computed twice).
+// Structure: as on the TPU, separate passes own separate outputs, so every
+// output tile is owned by one CTA and nothing needs atomics (the result is
+// deterministic). The dK/dV pass gives each CTA a tile of key rows and walks
+// the query tiles; the dQ pass gives each CTA a tile of query rows and walks
+// the key tiles. Each pass recomputes the scores, so at D = 64 the five
+// products S, dP, dV, dK, dQ cost 14·Sq·Skv·D FLOPs per head in all (S and
+// dP are computed twice); at D % 128 == 0 the dK/dV pass is two launches (dV,
+// then dK: see that section), 16·Sq·Skv·D.
 //
 // What bounds them on the card: at the 4096-token self-attention the work
 // is ~10·Sq·Skv·D tensor-core FLOPs per head against ~(4·Sq + 4·Skv)·D·2
 // bytes, far above the ~295 FLOP/byte ridge: tensor cores first, then the
-// exp of every score on the special-function units (recomputed in both
-// passes) and the chain that turns each score into the operand of the next
+// exp of every score on the special-function units (recomputed in each
+// pass) and the chain that turns each score into the operand of the next
 // product. The 77-key cross-attention backward moves q, dO and dq once for
 // few FLOPs: bytes and launches bound.
 //
-// What the design does about it:
-//   * D = 64 (sm90_common.cuh): wgmma on 64-row warpgroup tiles. In the
-//     dK/dV pass a CTA keeps 128 key rows of K and V resident in shared
-//     memory as the A operands of Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, so no K or V
-//     fragments sit in registers (the mma.sync version held 254 registers a
-//     thread); the dQ pass keeps 128 query rows of Q and dO resident the
-//     same way. The streamed tiles (Q and dO with their lse and D slices, or
-//     K and V) arrive by TMA from a producer warpgroup into a three-stage
-//     mbarrier ring, read straight by the tensor cores (once per warpgroup,
-//     not four times per warp as with ldmatrix). pᵀ, dSᵀ (or dS) are
-//     re-packed in registers as the A operand of dV += pᵀ·dO and dK += dSᵀ·Q
-//     (or dQ += dS·K), with B read MN-major. Each consumer issues the score
-//     products of the next streamed tile before it waits for the gradient
-//     products of the last, so p and dS are computed while the tensor cores
-//     run, and the two consumer warpgroups interleave.
-//   * D = 512: a 64-row fp32 dK+dV accumulator would be 256 KB, so the
-//     dK/dV pass takes 16 key rows per CTA and splits their 512 columns over
-//     the 8 warps (64 fp32 registers a thread for dK and dV together), and
-//     the dQ pass takes 32 query rows split the same way. The 16×32 (or
-//     32×32) score and dP tiles are computed one 16×8 MMA tile per warp over
-//     all of D, go through shared memory in fp32, and come back as bf16 p and
-//     dS for the column-split products.
+// What the design does about it (sm90_common.cuh; both head-dim families):
+// wgmma on 64-row warpgroup tiles, the tiles a CTA keeps for the whole pass
+// resident in shared memory as the A operands of the score products, the
+// streamed tiles arriving by TMA from a producer warpgroup behind mbarriers
+// and read straight by the tensor cores (once per warpgroup, not four times
+// per warp as with ldmatrix), p and dS re-packed in registers as the A
+// operand of the gradient products with B read MN-major.
+//   * D = 64: a CTA owns 128 rows (64 a consumer warpgroup), K and V (or Q
+//     and dO) resident, a three-stage ring of streamed tiles; each consumer
+//     issues the score products of the next streamed tile before it waits
+//     for the gradient products of the last, so p and dS are computed while
+//     the tensor cores run, and the two consumer warpgroups interleave.
+//   * D % 128 == 0: a 64-row fp32 accumulator over all of D = 512 is 256
+//     registers a thread of one warpgroup, so the two consumer warpgroups of
+//     a CTA split the head dim, as K2 does (see the section below).
 //
 // Plain C interface, loaded with ctypes. Every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
@@ -68,10 +63,6 @@ struct BwdStrides {  // in elements; head dim contiguous
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, do_b, do_s, do_h;
   long long dq_b, dq_s, dq_h, dk_b, dk_s, dk_h, dv_b, dv_s, dv_h;
 };
-
-// ldmatrix lane → row/column offsets within a 16×16 operand block
-__device__ __forceinline__ int lm_row(int lane) { return (lane & 7) + ((lane >> 3) & 1) * 8; }
-__device__ __forceinline__ int lm_col(int lane) { return (lane >> 4) * 8; }
 
 // Zero rows [row0, min(row0 + ROWS, nrows)) of a (rows, D) bf16 slice.
 template <int ROWS, int D, int NTHREADS>
@@ -386,305 +377,384 @@ __global__ void __launch_bounds__(B64_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// D % 128 == 0 (D <= 512), dK/dV pass: one CTA per (b·h, 16 key rows), 8
-// warps. Per 32-row query tile: warps 0-3 compute the four 16×8 tiles of Sᵀ,
-// warps 4-7 those of dPᵀ, each over all of D; then p and dS in shared memory;
-// then warp w accumulates dK and dV for columns [w·D/8, (w+1)·D/8).
+// D % 128 == 0 (K6, D <= 512; on the main path the train step's VAE decode
+// mid-block attention, one 512-wide head), in the head-dim split of K2
+// (flash_fwd.cu) and of flash_f32.cu's backward.
+//
+// The register arithmetic that sets the design. A 64-row fp32 accumulator
+// over one half of D = 512 (64 × 256) is 128 registers a thread of one
+// warpgroup, and a consumer warpgroup gets at most 232 (setmaxnreg; 384
+// threads a CTA). So a CTA's two consumer warpgroups hold one 64 × D output
+// tile between them, one half each, and never dK and dV together (256
+// registers a thread). Three passes, each one launch writing one output,
+// all on one pipeline:
+//   dV  a CTA owns 64 key rows (K resident) and walks 64-row query tiles:
+//       Sᵀ = K·Qⱼᵀ, pᵀ = exp2(Sᵀ·scale·log2e − lse·log2e), dV += pᵀ·dOⱼ;
+//   dK  64 key rows (K and V resident), 32-row query tiles: Sᵀ, dPᵀ =
+//       V·dOⱼᵀ, dSᵀ = pᵀ∘(dPᵀ − D), dK += dSᵀ·Qⱼ;
+//   dQ  64 query rows (Q and dO resident), 32-row key tiles up to kv_end:
+//       S = Q·Kⱼᵀ, dP = dO·Vⱼᵀ, dS = p∘(dP − D), dQ += dS·Kⱼ.
+// flash_bwd_wide_dkv launches dV, then dK; flash_bwd_wide_dq launches dQ.
+// Tensor work: 8 products of 2·Sq·Skv·D a head (S three times, dP twice,
+// dV, dK, dQ), 16·B·H·Sq·Skv·D in all, against the 10·B·H·Sq·Skv·D the bound
+// counts (each product once): at 4 × 4096² × 512, 0.555 ms of bf16 tensor
+// time on an H100 SXM against the 0.347 ms bound.
+// Shared memory at D = 512: dV holds K (64 KB), Qⱼ (64 KB), dOⱼ (64 KB) and
+// the exchange (32 KB); dK and dQ two resident tiles (128 KB), two 32-row
+// streamed tiles (2 × 32 KB) and the exchange: 224 KB each. The 32-row tiles
+// are what fits beside two resident ones; their first products are
+// m64n32k16.
+//
+// In a CTA, consumer warpgroup wg owns head-dim columns [wg·D/2, (wg + 1)·D/2):
+// it computes its partial first products over its half (wgmma SS: A the
+// resident tile, B the streamed one, both K-major), the two swap partials
+// through shared memory and add them (mine + other's: the same bits in
+// both), each computes p (and dS) for the whole tile, packs it to bf16 A
+// fragments in registers and accumulates its half of the output (wgmma RS,
+// B the streamed tile read MN-major: bf16 has the transpose flag, so no
+// transposed copy and no pre-pass). The producer warpgroup (setmaxnreg 40;
+// the consumers 232): warp 8 loads the resident tiles once, then the first
+// streamed tensor (Qⱼ; in dQ Kⱼ), its 32 lanes writing the tile's
+// lse·log2e and D into a two-slot buffer in the dV and dK passes; warp 9's
+// lane 0 loads the second (dOⱼ; in dQ Vⱼ). One stage each, behind a
+// full/empty mbarrier pair each. Order per tile in dK and dQ: tile j's
+// second product and tile j+1's dP are issued together; the first streamed
+// tile is released when the second product is done, and the next one loads
+// under dP; then S. In dV, K2's order: pⱼ·dOⱼ, then Sⱼ₊₁ (Qⱼ₊₁ loads under
+// pⱼ·dOⱼ, dOⱼ₊₁ under Sⱼ₊₁ and the exchange).
+// TMA boxes: 64 columns × 64 rows (resident tiles, dV's streamed tiles) or
+// × 32 rows, 128-byte swizzled; 4-D maps (D, S, H, B) take the strided
+// q/k/v views of a fused projection; rows past Sq (or kv_end) read as zeros.
+// Kept from the mma.sync kernels this replaces: p rounded to bf16 before dV,
+// dS rounded to bf16, fp32 accumulation, keys >= kv_end get zero dK and dV
+// (CTAs past kv_end write zeros; in the tile that holds kv_end p is masked),
+// queries past Sq are masked, and no atomics (deterministic).
 // ---------------------------------------------------------------------------
 
-template <int D>
-struct WideDkvSmem {
-  static constexpr int BN = 16, BM = 32, SST = D + 8, SFS = BM + 1, PST = BM + 8;
-  static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = k_off + BN * SST * sizeof(bf16);
-  static constexpr size_t q_off = v_off + BN * SST * sizeof(bf16);
-  static constexpr size_t do_off = q_off + BM * SST * sizeof(bf16);
-  static constexpr size_t s_off = do_off + BM * SST * sizeof(bf16);
-  static constexpr size_t dp_off = s_off + BN * SFS * sizeof(float);
-  static constexpr size_t p_off = dp_off + BN * SFS * sizeof(float);
-  static constexpr size_t ds_off = p_off + BN * PST * sizeof(bf16);
-  static constexpr size_t stat_off = ds_off + BN * PST * sizeof(bf16);
-  static constexpr size_t bytes = stat_off + 2 * BM * sizeof(float);
+enum WideMode { WIDE_DV, WIDE_DK, WIDE_DQ };
+
+template <int D, int MODE>
+struct WideBwd {
+  static constexpr int BN = MODE == WIDE_DV ? 64 : 32;  // rows of a streamed tile
+  static constexpr int NR = MODE == WIDE_DV ? 1 : 2;    // resident tiles
+  static constexpr int NBOX = D / 64;                    // 64-column boxes of a row tile
+  static constexpr int HB = NBOX / 2;                    // the boxes of one consumer's half
+  static constexpr int RBOX = 64 * 128, SBOX = BN * 128;  // bytes of a resident, a streamed box
+  static constexpr int RTILE = NBOX * RBOX, STILE = NBOX * SBOX;
+  static constexpr int S1_OFF = NR * RTILE, S2_OFF = S1_OFF + STILE;
+  static constexpr int X_OFF = S2_OFF + STILE;        // the exchange: 2 × 32 registers × 128 threads, fp32
+  static constexpr int STAT_OFF = X_OFF + 2 * 16384;  // 2 slots × (lse·log2e, D) × BN, fp32
+  static constexpr int BAR_OFF = STAT_OFF + 2 * 2 * BN * 4;
+  // resident full; first streamed full, empty; second streamed full, empty; alignment
+  static constexpr int SMEM = BAR_OFF + 8 * 5 + 1024;
+  static constexpr int THREADS = 384, PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  // the launch allocates 168 registers a thread (65536 / 384, rounded down
+  // to 8); the consumers' setmaxnreg.inc takes what the producers' dec frees
+  static_assert(128 * (PRODUCER_REGS + 2 * CONSUMER_REGS) <= THREADS * 168, "register file");
+  static_assert(SMEM <= 232448, "shared memory");
 };
 
-template <int D>
-__global__ void __launch_bounds__(256)
-    flash_bwd_wide_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                              const float* __restrict__ lse, const float* __restrict__ dd,
-                              bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Skv,
-                              int kv_end, BwdStrides st, float scale, float scale_log2) {
-  using L = WideDkvSmem<D>;
-  constexpr int BM = L::BM, BN = L::BN, SST = L::SST, SFS = L::SFS, PST = L::PST, NT = 256;
-  constexpr int DW = D / 8;    // dK/dV columns per warp
-  constexpr int NDT = DW / 8;  // 8-column MMA tiles per warp
-  extern __shared__ __align__(16) unsigned char smem_wdkv[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_wdkv + L::k_off);
-  bf16* sV = reinterpret_cast<bf16*>(smem_wdkv + L::v_off);
-  bf16* sQ = reinterpret_cast<bf16*>(smem_wdkv + L::q_off);
-  bf16* sdO = reinterpret_cast<bf16*>(smem_wdkv + L::do_off);
-  float* sS = reinterpret_cast<float*>(smem_wdkv + L::s_off);
-  float* sDP = reinterpret_cast<float*>(smem_wdkv + L::dp_off);
-  bf16* sP = reinterpret_cast<bf16*>(smem_wdkv + L::p_off);
-  bf16* sDS = reinterpret_cast<bf16*>(smem_wdkv + L::ds_off);
-  float* sL2 = reinterpret_cast<float*>(smem_wdkv + L::stat_off);
-  float* sDd = sL2 + BM;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int kv0 = blockIdx.x * BN;
-  const bf16* qb = q + b * st.q_b + h * st.q_h;
-  const bf16* kb = k + b * st.k_b + h * st.k_h;
-  const bf16* vb = v + b * st.v_b + h * st.v_h;
-  const bf16* dob = dout + b * st.do_b + h * st.do_h;
-  bf16* dkb = dk + b * st.dk_b + h * st.dk_h;
-  bf16* dvb = dv + b * st.dv_b + h * st.dv_h;
-  const long long stat0 = static_cast<long long>(blockIdx.y) * Sq;
-
-  if (kv0 >= kv_end) {  // masked keys: zero gradients
-    zero_rows<BN, D, NT>(dkb, st.dk_s, kv0, Skv);
-    zero_rows<BN, D, NT>(dvb, st.dv_s, kv0, Skv);
-    return;
-  }
-  load_tile<BN, D, SST, NT>(sK, kb, st.k_s, kv0, kv_end);
-  load_tile<BN, D, SST, NT>(sV, vb, st.v_s, kv0, kv_end);
-
-  const int lr = lm_row(lane), lc = lm_col(lane);
-  float dka[NDT][4], dva[NDT][4];
-#pragma unroll
-  for (int i = 0; i < NDT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
-
-  // this warp's 16×8 tile of Sᵀ (warps 0-3) or dPᵀ (warps 4-7)
-  const bf16* sA = warp < 4 ? sK : sV;
-  const bf16* sB = warp < 4 ? sQ : sdO;
-  float* sOut = warp < 4 ? sS : sDP;
-  const int nt = warp & 3;
-
-  for (int q0 = 0; q0 < Sq; q0 += BM) {
-    __syncthreads();  // the previous tile's Q, dO, p and dS are consumed
-    load_tile<BM, D, SST, NT>(sQ, qb, st.q_s, q0, Sq);
-    load_tile<BM, D, SST, NT>(sdO, dob, st.do_s, q0, Sq);
-    if (tid < BM) {
-      const bool live = q0 + tid < Sq;
-      sL2[tid] = live ? lse[stat0 + q0 + tid] * LOG2E : 0.f;
-      sDd[tid] = live ? dd[stat0 + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    {
-      float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-      for (int p = 0; p < D / 32; ++p) {
-        uint32_t a0[4], a1[4], bb[4];
-        ldsm_x4(a0, sA + lr * SST + p * 32 + lc);
-        ldsm_x4(a1, sA + lr * SST + p * 32 + 16 + lc);
-        ldsm_x4(bb, sB + (nt * 8 + (lane & 7)) * SST + p * 32 + (lane >> 3) * 8);
-        mma_16816(c0, a0, bb[0], bb[1]);
-        mma_16816(c1, a1, bb[2], bb[3]);
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        sOut[g * SFS + nt * 8 + t4 * 2 + e] = c0[e] + c1[e];
-        sOut[(g + 8) * SFS + nt * 8 + t4 * 2 + e] = c0[2 + e] + c1[2 + e];
-      }
-    }
-    __syncthreads();
-
-    // pᵀ and dSᵀ over the 16×32 tile, two elements a thread
-#pragma unroll
-    for (int i = 0; i < (BN * BM) / NT; ++i) {
-      const int idx = tid + i * NT, r = idx / BM, c = idx % BM;
-      float p = 0.f;
-      if (kv0 + r < kv_end && q0 + c < Sq) p = ex2(fmaf(sS[r * SFS + c], scale_log2, -sL2[c]));
-      sP[r * PST + c] = __float2bfloat16_rn(p);
-      sDS[r * PST + c] = __float2bfloat16_rn(p * (sDP[r * SFS + c] - sDd[c]));
-    }
-    __syncthreads();
-
-    // dV[:, warp's columns] += pᵀ·dO; dK[:, warp's columns] += dSᵀ·Q
-#pragma unroll
-    for (int kc = 0; kc < BM / 16; ++kc) {
-      uint32_t pa[4], da[4];
-      ldsm_x4(pa, sP + lr * PST + kc * 16 + lc);
-      ldsm_x4(da, sDS + lr * PST + kc * 16 + lc);
-#pragma unroll
-      for (int jj = 0; jj < DW / 16; ++jj) {
-        uint32_t of[4], qt[4];
-        ldsm_x4_trans(of, sdO + (kc * 16 + lr) * SST + warp * DW + jj * 16 + lc);
-        mma_16816(dva[2 * jj], pa, of[0], of[1]);
-        mma_16816(dva[2 * jj + 1], pa, of[2], of[3]);
-        ldsm_x4_trans(qt, sQ + (kc * 16 + lr) * SST + warp * DW + jj * 16 + lc);
-        mma_16816(dka[2 * jj], da, qt[0], qt[1]);
-        mma_16816(dka[2 * jj + 1], da, qt[2], qt[3]);
-      }
-    }
-  }
-
-  const int r0 = kv0 + g, r1 = r0 + 8;
-#pragma unroll
-  for (int dt = 0; dt < NDT; ++dt) {
-    const int col = warp * DW + dt * 8 + t4 * 2;
-    if (r0 < Skv) {
-      *reinterpret_cast<uint32_t*>(dkb + r0 * st.dk_s + col) = pack_bf16(dka[dt][0] * scale, dka[dt][1] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + r0 * st.dv_s + col) = pack_bf16(dva[dt][0], dva[dt][1]);
-    }
-    if (r1 < Skv) {
-      *reinterpret_cast<uint32_t*>(dkb + r1 * st.dk_s + col) = pack_bf16(dka[dt][2] * scale, dka[dt][3] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + r1 * st.dv_s + col) = pack_bf16(dva[dt][2], dva[dt][3]);
-    }
-  }
+// the first products: m64n64k16 for 64-row streamed tiles, m64n32k16 for 32
+__device__ __forceinline__ void wgmma_ss_rows(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  wgmma_ss_m64n64(d, da, db, accumulate);
+}
+__device__ __forceinline__ void wgmma_ss_rows(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  wgmma_ss_m64n32(d, da, db, accumulate);
 }
 
-// ---------------------------------------------------------------------------
-// D % 128 == 0 (D <= 512), dQ pass: one CTA per (b·h, 32 query rows), 8
-// warps. Per 32-row key tile: warp w computes the 16×8 tile (w & 1, w >> 1)
-// of both S and dP over all of D; then dS in shared memory; then warp w
-// accumulates dQ for columns [w·D/8, (w+1)·D/8).
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct WideDqSmem {
-  static constexpr int BM = 32, BN = 32, SST = D + 8, SFS = BN + 1, PST = BN + 8;
-  static constexpr size_t q_off = 0;
-  static constexpr size_t do_off = q_off + BM * SST * sizeof(bf16);
-  static constexpr size_t k_off = do_off + BM * SST * sizeof(bf16);
-  static constexpr size_t v_off = k_off + BN * SST * sizeof(bf16);
-  static constexpr size_t s_off = v_off + BN * SST * sizeof(bf16);
-  static constexpr size_t dp_off = s_off + BM * SFS * sizeof(float);
-  static constexpr size_t ds_off = dp_off + BM * SFS * sizeof(float);
-  static constexpr size_t stat_off = ds_off + BM * PST * sizeof(bf16);
-  static constexpr size_t bytes = stat_off + 2 * BM * sizeof(float);
-};
-
-template <int D>
-__global__ void __launch_bounds__(256)
-    flash_bwd_wide_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ dd,
-                             bf16* __restrict__ dq, int H, int Sq, int kv_end, BwdStrides st,
-                             float scale, float scale_log2) {
-  using L = WideDqSmem<D>;
-  constexpr int BM = L::BM, BN = L::BN, SST = L::SST, SFS = L::SFS, PST = L::PST, NT = 256;
-  constexpr int DW = D / 8;
-  constexpr int NDT = DW / 8;
-  extern __shared__ __align__(16) unsigned char smem_wdq[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_wdq + L::q_off);
-  bf16* sdO = reinterpret_cast<bf16*>(smem_wdq + L::do_off);
-  bf16* sK = reinterpret_cast<bf16*>(smem_wdq + L::k_off);
-  bf16* sV = reinterpret_cast<bf16*>(smem_wdq + L::v_off);
-  float* sS = reinterpret_cast<float*>(smem_wdq + L::s_off);
-  float* sDP = reinterpret_cast<float*>(smem_wdq + L::dp_off);
-  bf16* sDS = reinterpret_cast<bf16*>(smem_wdq + L::ds_off);
-  float* sL2 = reinterpret_cast<float*>(smem_wdq + L::stat_off);
-  float* sDd = sL2 + BM;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+// One pass (MODE) for the CTA of 64 rows blockIdx.x · 64 of (b·h) blockIdx.y.
+// tm_r1, tm_r2: the resident tensors (dV: K; dK: K, V; dQ: Q, dO); tm_s1,
+// tm_s2: the streamed ones (dV, dK: Q, dO; dQ: K, V). out: dV, dK or dQ with
+// element strides (b, s, h) and rows_out rows (Skv, or Sq); `mul` scales it.
+template <int D, int MODE>
+__global__ void __launch_bounds__(WideBwd<D, MODE>::THREADS, 1)
+    flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_r1, const __grid_constant__ CUtensorMap tm_r2,
+                          const __grid_constant__ CUtensorMap tm_s1, const __grid_constant__ CUtensorMap tm_s2,
+                          const float* __restrict__ lse, const float* __restrict__ dd, bf16* __restrict__ out,
+                          long long o_b, long long o_s, long long o_h, int H, int Sq, int rows_out, int kv_end,
+                          float mul, float scale_log2) {
+  using C = WideBwd<D, MODE>;
+  constexpr int BN = C::BN, NCB = D / 128, KS = D / 32;  // a consumer's 64-column output blocks, k16 slices
+  constexpr int NS = BN / 2;                              // registers of a first product's accumulator
+  constexpr bool DQ = MODE == WIDE_DQ, DV = MODE == WIDE_DV;
+  extern __shared__ __align__(1024) unsigned char smem_wbwd[];
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BM;
-  const bf16* qb = q + b * st.q_b + h * st.q_h;
-  const bf16* kb = k + b * st.k_b + h * st.k_h;
-  const bf16* vb = v + b * st.v_b + h * st.v_h;
-  const bf16* dob = dout + b * st.do_b + h * st.do_h;
-  bf16* dqb = dq + b * st.dq_b + h * st.dq_h;
-  const long long stat0 = static_cast<long long>(blockIdx.y) * Sq;
+  const int row0 = blockIdx.x * 64;
+  bf16* ob = out + b * o_b + h * o_h;
+  if (!DQ && row0 >= kv_end) {  // masked keys: zero gradients
+    zero_rows<64, D, C::THREADS>(ob, o_s, row0, rows_out);
+    return;
+  }
+  const uint32_t raw = smem_u32(smem_wbwd), base = (raw + 1023u) & ~1023u;
+  const uint32_t sR = base, sS1 = base + C::S1_OFF, sS2 = base + C::S2_OFF;
+  float* stat = reinterpret_cast<float*>(smem_wbwd + (base - raw) + C::STAT_OFF);
+  const uint32_t full_r = base + C::BAR_OFF, full1 = full_r + 8, empty1 = full_r + 16, full2 = full_r + 24,
+                 empty2 = full_r + 32;
+  const int n_tiles = ((DQ ? kv_end : Sq) + BN - 1) / BN;
+  const long long srow = static_cast<long long>(blockIdx.y) * Sq;  // lse and D rows of this (b, h)
+  const int wg = threadIdx.x >> 7;
 
-  load_tile<BM, D, SST, NT>(sQ, qb, st.q_s, q0, Sq);
-  load_tile<BM, D, SST, NT>(sdO, dob, st.do_s, q0, Sq);
-  if (tid < BM) {
-    const bool live = q0 + tid < Sq;
-    sL2[tid] = live ? lse[stat0 + q0 + tid] * LOG2E : 0.f;
-    sDd[tid] = live ? dd[stat0 + q0 + tid] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(full_r, 1);
+    mbar_init(full1, 32);  // warp 8's lanes: the statistics are plain stores
+    mbar_init(full2, 1);
+    mbar_init(empty1, 8);  // one arrival per consumer warp
+    mbar_init(empty2, 8);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producers: warp 8 the resident tiles and the first streamed tensor, warp 9 the second
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp == 8) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full_r, C::NR * C::RTILE);
+        for (int c = 0; c < C::NBOX; ++c) tma_load_4d(sR + c * C::RBOX, &tm_r1, full_r, 64 * c, row0, h, b);
+        if (C::NR == 2)
+          for (int c = 0; c < C::NBOX; ++c)
+            tma_load_4d(sR + C::RTILE + c * C::RBOX, &tm_r2, full_r, 64 * c, row0, h, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        mbar_wait(empty1, (j & 1) ^ 1);
+        if (!DQ) {
+          float* st = stat + (j & 1) * 2 * BN;
+          for (int i = lane; i < BN; i += 32) {
+            const int row = j * BN + i;
+            st[i] = row < Sq ? lse[srow + row] * LOG2E : 0.f;
+            st[BN + i] = row < Sq ? dd[srow + row] : 0.f;
+          }
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full1, C::STILE);
+          for (int c = 0; c < C::NBOX; ++c) tma_load_4d(sS1 + c * C::SBOX, &tm_s1, full1, 64 * c, j * BN, h, b);
+        } else {
+          mbar_arrive(full1);
+        }
+      }
+    } else if (warp == 9 && lane == 0) {
+      for (int j = 0; j < n_tiles; ++j) {
+        mbar_wait(empty2, (j & 1) ^ 1);
+        mbar_arrive_expect_tx(full2, C::STILE);
+        for (int c = 0; c < C::NBOX; ++c) tma_load_4d(sS2 + c * C::SBOX, &tm_s2, full2, 64 * c, j * BN, h, b);
+      }
+    }
+    return;
   }
 
-  const int lr = lm_row(lane), lc = lm_col(lane);
-  float acc[2][NDT][4];
+  // consumers: warpgroup wg owns head-dim columns [wg·D/2, (wg + 1)·D/2)
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3, t4 = lane & 3, tid = threadIdx.x & 127;
+  float* xbuf = reinterpret_cast<float*>(smem_wbwd + (base - raw) + C::X_OFF);
+  const int r0 = row0 + w * 16 + (lane >> 2), r1 = r0 + 8;  // this thread's rows (keys; queries in dQ)
+  float l2_0 = 0.f, l2_1 = 0.f, dd0 = 0.f, dd1 = 0.f;       // dQ: its rows' lse·log2e and D
+  if (DQ) {
+    if (r0 < Sq) l2_0 = lse[srow + r0] * LOG2E, dd0 = dd[srow + r0];
+    if (r1 < Sq) l2_1 = lse[srow + r1] * LOG2E, dd1 = dd[srow + r1];
+  }
+  float acc[NCB][32], s_acc[NS], dp_acc[NS];
+  uint32_t pa[NS / 2];  // p (dV) or dS as bf16 A fragments: BN/16 k16 slices
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < NS; ++i) s_acc[i] = dp_acc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < NDT; ++i) acc[mt][i][0] = acc[mt][i][1] = acc[mt][i][2] = acc[mt][i][3] = 0.f;
-
-  const int smt = warp & 1, snt = warp >> 1;  // this warp's S and dP tile
-
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BN) {
-    __syncthreads();  // the previous tile's K, V and dS are consumed
-    load_tile<BN, D, SST, NT>(sK, kb, st.k_s, kv0, kv_end);
-    load_tile<BN, D, SST, NT>(sV, vb, st.v_s, kv0, kv_end);
-    __syncthreads();
-
-    {
-      float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
-      float p0[4] = {0.f, 0.f, 0.f, 0.f}, p1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 2
-      for (int p = 0; p < D / 32; ++p) {
-        uint32_t a0[4], a1[4], bb[4];
-        ldsm_x4(a0, sQ + (smt * 16 + lr) * SST + p * 32 + lc);
-        ldsm_x4(a1, sQ + (smt * 16 + lr) * SST + p * 32 + 16 + lc);
-        ldsm_x4(bb, sK + (snt * 8 + (lane & 7)) * SST + p * 32 + (lane >> 3) * 8);
-        mma_16816(s0, a0, bb[0], bb[1]);
-        mma_16816(s1, a1, bb[2], bb[3]);
-        ldsm_x4(a0, sdO + (smt * 16 + lr) * SST + p * 32 + lc);
-        ldsm_x4(a1, sdO + (smt * 16 + lr) * SST + p * 32 + 16 + lc);
-        ldsm_x4(bb, sV + (snt * 8 + (lane & 7)) * SST + p * 32 + (lane >> 3) * 8);
-        mma_16816(p0, a0, bb[0], bb[1]);
-        mma_16816(p1, a1, bb[2], bb[3]);
-      }
+  for (int cb = 0; cb < NCB; ++cb) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = snt * 8 + t4 * 2 + e, r = smt * 16 + g;
-        sS[r * SFS + c] = s0[e] + s1[e];
-        sS[(r + 8) * SFS + c] = s0[2 + e] + s1[2 + e];
-        sDP[r * SFS + c] = p0[e] + p1[e];
-        sDP[(r + 8) * SFS + c] = p0[2 + e] + p1[2 + e];
-      }
+    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+    fence_regs(acc[cb]);  // zeroed here, not later next to a wgmma in flight
+  }
+
+  // S (or Sᵀ), this warpgroup's partial: the resident tile times the first streamed one
+  auto issue_s = [&]() {
+    fence_regs(s_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t box = wg * C::HB + kk / 4;
+      wgmma_ss_rows(s_acc, desc_k(opaque(sR) + box * C::RBOX + 32 * (kk % 4)),
+                    desc_k(opaque(sS1) + box * C::SBOX + 32 * (kk % 4)), kk > 0);
     }
-    __syncthreads();
-
-    // dS over the 32×32 tile, four elements a thread
+    wgmma_commit();
+  };
+  // dP (or dPᵀ), its partial: the second resident tile times the second streamed one
+  auto issue_dp = [&]() {
+    fence_regs(dp_acc);
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < (BM * BN) / NT; ++i) {
-      const int idx = tid + i * NT, r = idx / BN, c = idx % BN;
-      float p = 0.f;
-      if (kv0 + c < kv_end) p = ex2(fmaf(sS[r * SFS + c], scale_log2, -sL2[r]));
-      sDS[r * PST + c] = __float2bfloat16_rn(p * (sDP[r * SFS + c] - sDd[r]));
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t box = wg * C::HB + kk / 4;
+      wgmma_ss_rows(dp_acc, desc_k(opaque(sR) + C::RTILE + box * C::RBOX + 32 * (kk % 4)),
+                    desc_k(opaque(sS2) + box * C::SBOX + 32 * (kk % 4)), kk > 0);
     }
-    __syncthreads();
-
-    // dQ[:, warp's columns] += dS·K
+    wgmma_commit();
+  };
+  // the output half += pa · (dV: dOⱼ; dK: Qⱼ; dQ: Kⱼ)[:, half], B MN-major
+  auto issue_out = [&]() {
+    fence_regs(pa);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
+    for (int cb = 0; cb < NCB; ++cb) fence_regs(acc[cb]);
+    wgmma_fence();
+    const uint32_t sB = DV ? sS2 : sS1;
 #pragma unroll
-      for (int kc = 0; kc < BN / 16; ++kc) {
-        uint32_t a[4];
-        ldsm_x4(a, sDS + (mt * 16 + lr) * PST + kc * 16 + lc);
+    for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
-        for (int jj = 0; jj < DW / 16; ++jj) {
-          uint32_t kt[4];
-          ldsm_x4_trans(kt, sK + (kc * 16 + lr) * SST + warp * DW + jj * 16 + lc);
-          mma_16816(acc[mt][2 * jj], a, kt[0], kt[1]);
-          mma_16816(acc[mt][2 * jj + 1], a, kt[2], kt[3]);
+      for (int kc = 0; kc < BN / 16; ++kc)
+        wgmma_rs_m64n64_mn(acc[cb], pa[4 * kc], pa[4 * kc + 1], pa[4 * kc + 2], pa[4 * kc + 3],
+                           desc_mn(opaque(sB) + (wg * C::HB + cb) * C::SBOX + 2048 * kc));
+    wgmma_commit();
+  };
+  // the full S (and dP): mine + the other half's, swapped through shared
+  // memory (barrier 2 + wg: the other warpgroup has read my previous partials)
+  auto exchange = [&](int j) {
+    if (j > 0) named_bar_sync(2 + wg, 256);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) xbuf[(wg * 32 + i) * 128 + tid] = s_acc[i];
+    if (!DV) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) xbuf[(wg * 32 + NS + i) * 128 + tid] = dp_acc[i];
+    }
+    named_bar_sync(1, 256);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s_acc[i] += xbuf[((1 - wg) * 32 + i) * 128 + tid];
+    if (!DV) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) dp_acc[i] += xbuf[((1 - wg) * 32 + NS + i) * 128 + tid];
+    }
+    if (j + 1 < n_tiles) named_bar_arrive(2 + (1 - wg), 256);
+  };
+  // p = exp2(s·scale·log2e − lse·log2e) and dS = p∘(dP − D) of tile j,
+  // packed to bf16; S's and dP's registers zeroed (their values end here,
+  // not at the next wgmma)
+  auto grads = [&](int j) {
+    const int c0 = j * BN;  // the tile's first column: a query (dV, dK) or a key (dQ)
+    if (DQ) {
+      const bool ragged = c0 + BN > kv_end;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p0 = ex2(fmaf(s_acc[4 * i + e], scale_log2, -l2_0));
+          float p1 = ex2(fmaf(s_acc[4 * i + 2 + e], scale_log2, -l2_1));
+          if (ragged && c0 + i * 8 + t4 * 2 + e >= kv_end) p0 = p1 = 0.f;
+          dp_acc[4 * i + e] = p0 * (dp_acc[4 * i + e] - dd0);
+          dp_acc[4 * i + 2 + e] = p1 * (dp_acc[4 * i + 2 + e] - dd1);
+        }
+    } else {
+      const float* sl = stat + (j & 1) * 2 * BN;
+      const bool ragged = c0 + BN > Sq || row0 + 64 > kv_end;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const float2 l2s = *reinterpret_cast<const float2*>(sl + i * 8 + t4 * 2);
+        const float2 dsums = *reinterpret_cast<const float2*>(sl + BN + i * 8 + t4 * 2);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float l2 = e ? l2s.y : l2s.x, dsum = e ? dsums.y : dsums.x;
+          float p0 = ex2(fmaf(s_acc[4 * i + e], scale_log2, -l2));
+          float p1 = ex2(fmaf(s_acc[4 * i + 2 + e], scale_log2, -l2));
+          if (ragged) {
+            const bool qlive = c0 + i * 8 + t4 * 2 + e < Sq;
+            if (!(qlive && r0 < kv_end)) p0 = 0.f;
+            if (!(qlive && r1 < kv_end)) p1 = 0.f;
+          }
+          if (DV) {
+            s_acc[4 * i + e] = p0;
+            s_acc[4 * i + 2 + e] = p1;
+          } else {
+            dp_acc[4 * i + e] = p0 * (dp_acc[4 * i + e] - dsum);
+            dp_acc[4 * i + 2 + e] = p1 * (dp_acc[4 * i + 2 + e] - dsum);
+          }
         }
       }
     }
-  }
+    pack_a<BN / 16>(pa, DV ? s_acc : dp_acc);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s_acc[i] = dp_acc[i] = 0.f;
+  };
 
+  mbar_wait(full_r, 0);
+  if (DV) {
+    mbar_wait(full1, 0);
+    issue_s();
+    wgmma_wait<0>();
+    fence_regs(s_acc);
+    mbar_arrive_if(empty1, lane == 0);
+    exchange(0);
+    grads(0);
+    // iteration j: pⱼ·dOⱼ, then Sⱼ₊₁, on the tensor cores; dOⱼ released when
+    // its product is done, Qⱼ₊₁ when Sⱼ₊₁ is; then the exchange and pⱼ₊₁
+    for (int j = 0; j < n_tiles; ++j) {
+      mbar_wait(full2, j & 1);
+      issue_out();
+      if (j + 1 < n_tiles) {
+        mbar_wait(full1, (j + 1) & 1);
+        issue_s();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int r0 = q0 + mt * 16 + g, r1 = r0 + 8;
+      for (int cb = 0; cb < NCB; ++cb) fence_regs(acc[cb]);
+      fence_regs(pa);
+      mbar_arrive_if(empty2, lane == 0);
+      if (j + 1 < n_tiles) {
+        wgmma_wait<0>();
+        fence_regs(s_acc);
+        mbar_arrive_if(empty1, lane == 0);
+        exchange(j + 1);
+        grads(j + 1);
+      }
+    }
+  } else {
+    mbar_wait(full1, 0);
+    issue_s();
+    mbar_wait(full2, 0);
+    issue_dp();
+    wgmma_wait<0>();
+    fence_regs(s_acc);
+    fence_regs(dp_acc);
+    mbar_arrive_if(empty2, lane == 0);
+    exchange(0);
+    grads(0);
+    // iteration j: dSⱼ·(Qⱼ or Kⱼ), then dPⱼ₊₁, on the tensor cores; the
+    // first streamed tile j released when its second product is done (tile
+    // j+1 loads under dPⱼ₊₁); then Sⱼ₊₁, the exchange and dSⱼ₊₁
+    for (int j = 0; j < n_tiles; ++j) {
+      issue_out();
+      if (j + 1 < n_tiles) {
+        mbar_wait(full2, (j + 1) & 1);
+        issue_dp();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
 #pragma unroll
-    for (int dt = 0; dt < NDT; ++dt) {
-      const int col = warp * DW + dt * 8 + t4 * 2;
-      if (r0 < Sq)
-        *reinterpret_cast<uint32_t*>(dqb + r0 * st.dq_s + col) =
-            pack_bf16(acc[mt][dt][0] * scale, acc[mt][dt][1] * scale);
-      if (r1 < Sq)
-        *reinterpret_cast<uint32_t*>(dqb + r1 * st.dq_s + col) =
-            pack_bf16(acc[mt][dt][2] * scale, acc[mt][dt][3] * scale);
+      for (int cb = 0; cb < NCB; ++cb) fence_regs(acc[cb]);
+      fence_regs(pa);
+      mbar_arrive_if(empty1, lane == 0);
+      if (j + 1 < n_tiles) {
+        mbar_wait(full1, (j + 1) & 1);
+        issue_s();
+        wgmma_wait<0>();
+        fence_regs(s_acc);
+        fence_regs(dp_acc);
+        mbar_arrive_if(empty2, lane == 0);
+        exchange(j + 1);
+        grads(j + 1);
+      }
     }
   }
+
+  bf16* obh = ob + wg * (D / 2) + 2 * t4;
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = 64 * cb + 8 * i;
+      if (r0 < rows_out)
+        *reinterpret_cast<uint32_t*>(obh + r0 * o_s + col) = pack_bf16(acc[cb][4 * i] * mul, acc[cb][4 * i + 1] * mul);
+      if (r1 < rows_out)
+        *reinterpret_cast<uint32_t*>(obh + r1 * o_s + col) =
+            pack_bf16(acc[cb][4 * i + 2] * mul, acc[cb][4 * i + 3] * mul);
+    }
 }
 
 BwdStrides make_strides(const long long* s) {
@@ -694,35 +764,68 @@ BwdStrides make_strides(const long long* s) {
   return st;
 }
 
+// The 4-D map (D, S, H, B) of a (B, S, H, D) bf16 view with element strides
+// (b, s, h), boxes of 64 columns × `box_rows` rows, 128-byte swizzled; rows
+// at or past S read as zeros. Returns a cudaError_t.
+int wide_map(CUtensorMap* map, const void* base, int D, int S, int H, int B, long long s_s, long long s_h,
+             long long s_b, int box_rows) {
+  const long long dims[4] = {D, S, H, B}, strides[3] = {2 * s_s, 2 * s_h, 2 * s_b};
+  const int box[4] = {64, box_rows, 1, 1};
+  return make_map(map, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int D, int MODE>
+int launch_wide(const CUtensorMap& r1, const CUtensorMap& r2, const CUtensorMap& s1, const CUtensorMap& s2,
+                const void* lse, const void* dd, void* out, long long o_b, long long o_s, long long o_h, int B,
+                int H, int Sq, int rows_out, int kv_end, float mul, float scale, cudaStream_t stream) {
+  using C = WideBwd<D, MODE>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_wide_kernel<D, MODE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  dim3 grid((rows_out + 63) / 64, B * H);
+  flash_bwd_wide_kernel<D, MODE><<<grid, C::THREADS, C::SMEM, stream>>>(
+      r1, r2, s1, s2, static_cast<const float*>(lse), static_cast<const float*>(dd), static_cast<bf16*>(out), o_b,
+      o_s, o_h, H, Sq, rows_out, kv_end, mul, scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dV, then dK; keys at or past kv_end lie outside the K and V maps and read as zeros
 template <int D>
-cudaError_t launch_wide_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                            const float* lse, const float* dd, bf16* dk, bf16* dv, int B, int H,
-                            int Sq, int Skv, int kv_end, const BwdStrides& st, float scale,
-                            cudaStream_t stream) {
-  using L = WideDkvSmem<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_wide_dkv_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L::bytes));
-  if (err != cudaSuccess) return err;
-  dim3 grid((Skv + L::BN - 1) / L::BN, B * H);
-  flash_bwd_wide_dkv_kernel<D><<<grid, 256, L::bytes, stream>>>(
-      q, k, v, dout, lse, dd, dk, dv, H, Sq, Skv, kv_end, st, scale, scale * LOG2E);
-  return cudaGetLastError();
+int wide_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* dd,
+             void* dk, void* dv, int B, int H, int Sq, int Skv, int kv_end, const BwdStrides& st, float scale,
+             cudaStream_t stream) {
+  CUtensorMap tk, tv, tq64, tdo64, tq32, tdo32;
+  int err = wide_map(&tk, k, D, kv_end, H, B, st.k_s, st.k_h, st.k_b, 64);
+  if (err == 0) err = wide_map(&tv, v, D, kv_end, H, B, st.v_s, st.v_h, st.v_b, 64);
+  if (err == 0) err = wide_map(&tq64, q, D, Sq, H, B, st.q_s, st.q_h, st.q_b, 64);
+  if (err == 0) err = wide_map(&tdo64, dout, D, Sq, H, B, st.do_s, st.do_h, st.do_b, 64);
+  if (err == 0) err = wide_map(&tq32, q, D, Sq, H, B, st.q_s, st.q_h, st.q_b, 32);
+  if (err == 0) err = wide_map(&tdo32, dout, D, Sq, H, B, st.do_s, st.do_h, st.do_b, 32);
+  if (err == 0)
+    err = launch_wide<D, WIDE_DV>(tk, tk, tq64, tdo64, lse, dd, dv, st.dv_b, st.dv_s, st.dv_h, B, H, Sq, Skv,
+                                  kv_end, 1.f, scale, stream);
+  if (err == 0)
+    err = launch_wide<D, WIDE_DK>(tk, tv, tq32, tdo32, lse, dd, dk, st.dk_b, st.dk_s, st.dk_h, B, H, Sq, Skv,
+                                  kv_end, scale, scale, stream);
+  return err;
 }
 
 template <int D>
-cudaError_t launch_wide_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                           const float* lse, const float* dd, bf16* dq, int B, int H, int Sq,
-                           int kv_end, const BwdStrides& st, float scale, cudaStream_t stream) {
-  using L = WideDqSmem<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_wide_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L::bytes));
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + L::BM - 1) / L::BM, B * H);
-  flash_bwd_wide_dq_kernel<D><<<grid, 256, L::bytes, stream>>>(q, k, v, dout, lse, dd, dq, H, Sq,
-                                                               kv_end, st, scale, scale * LOG2E);
-  return cudaGetLastError();
+int wide_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* dd,
+            void* dq, int B, int H, int Sq, int kv_end, const BwdStrides& st, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tdo, tk, tv;
+  int err = wide_map(&tq, q, D, Sq, H, B, st.q_s, st.q_h, st.q_b, 64);
+  if (err == 0) err = wide_map(&tdo, dout, D, Sq, H, B, st.do_s, st.do_h, st.do_b, 64);
+  if (err == 0) err = wide_map(&tk, k, D, kv_end, H, B, st.k_s, st.k_h, st.k_b, 32);
+  if (err == 0) err = wide_map(&tv, v, D, kv_end, H, B, st.v_s, st.v_h, st.v_b, 32);
+  if (err == 0)
+    err = launch_wide<D, WIDE_DQ>(tq, tdo, tk, tv, lse, dd, dq, st.dq_b, st.dq_s, st.dq_h, B, H, Sq, Sq, kv_end,
+                                  scale, scale, stream);
+  return err;
 }
 
 }  // namespace
@@ -783,22 +886,19 @@ int flash_bwd_d64_dq(const void* q, const void* k, const void* v, const void* do
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same contracts for D in {128, 256, 384, 512}.
+// The same contracts for D in {128, 256, 384, 512}; flash_bwd_wide_dkv
+// makes two launches (dV, then dK), flash_bwd_wide_dq one.
 int flash_bwd_wide_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* dd, void* dk, void* dv, int B, int H, int Sq,
                        int Skv, int kv_end, int D, const long long* strides, float scale,
                        void* stream) {
   const BwdStrides st = make_strides(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16 *qq = static_cast<const bf16*>(q), *kk = static_cast<const bf16*>(k);
-  const bf16 *vv = static_cast<const bf16*>(v), *oo = static_cast<const bf16*>(dout);
-  const float *ll = static_cast<const float*>(lse), *de = static_cast<const float*>(dd);
-  bf16 *gk = static_cast<bf16*>(dk), *gv = static_cast<bf16*>(dv);
   switch (D) {
-    case 128: return static_cast<int>(launch_wide_dkv<128>(qq, kk, vv, oo, ll, de, gk, gv, B, H, Sq, Skv, kv_end, st, scale, s));
-    case 256: return static_cast<int>(launch_wide_dkv<256>(qq, kk, vv, oo, ll, de, gk, gv, B, H, Sq, Skv, kv_end, st, scale, s));
-    case 384: return static_cast<int>(launch_wide_dkv<384>(qq, kk, vv, oo, ll, de, gk, gv, B, H, Sq, Skv, kv_end, st, scale, s));
-    case 512: return static_cast<int>(launch_wide_dkv<512>(qq, kk, vv, oo, ll, de, gk, gv, B, H, Sq, Skv, kv_end, st, scale, s));
+    case 128: return wide_dkv<128>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Skv, kv_end, st, scale, s);
+    case 256: return wide_dkv<256>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Skv, kv_end, st, scale, s);
+    case 384: return wide_dkv<384>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Skv, kv_end, st, scale, s);
+    case 512: return wide_dkv<512>(q, k, v, dout, lse, dd, dk, dv, B, H, Sq, Skv, kv_end, st, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -808,15 +908,11 @@ int flash_bwd_wide_dq(const void* q, const void* k, const void* v, const void* d
                       int D, const long long* strides, float scale, void* stream) {
   const BwdStrides st = make_strides(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16 *qq = static_cast<const bf16*>(q), *kk = static_cast<const bf16*>(k);
-  const bf16 *vv = static_cast<const bf16*>(v), *oo = static_cast<const bf16*>(dout);
-  const float *ll = static_cast<const float*>(lse), *de = static_cast<const float*>(dd);
-  bf16* gq = static_cast<bf16*>(dq);
   switch (D) {
-    case 128: return static_cast<int>(launch_wide_dq<128>(qq, kk, vv, oo, ll, de, gq, B, H, Sq, kv_end, st, scale, s));
-    case 256: return static_cast<int>(launch_wide_dq<256>(qq, kk, vv, oo, ll, de, gq, B, H, Sq, kv_end, st, scale, s));
-    case 384: return static_cast<int>(launch_wide_dq<384>(qq, kk, vv, oo, ll, de, gq, B, H, Sq, kv_end, st, scale, s));
-    case 512: return static_cast<int>(launch_wide_dq<512>(qq, kk, vv, oo, ll, de, gq, B, H, Sq, kv_end, st, scale, s));
+    case 128: return wide_dq<128>(q, k, v, dout, lse, dd, dq, B, H, Sq, kv_end, st, scale, s);
+    case 256: return wide_dq<256>(q, k, v, dout, lse, dd, dq, B, H, Sq, kv_end, st, scale, s);
+    case 384: return wide_dq<384>(q, k, v, dout, lse, dd, dq, B, H, Sq, kv_end, st, scale, s);
+    case 512: return wide_dq<512>(q, k, v, dout, lse, dd, dq, B, H, Sq, kv_end, st, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -21,13 +21,19 @@
 //
 // The partial buffer holds the sums (N, chunks, C) followed by the sums of
 // squares (N, chunks, C); the affine buffer the scales (N, C) followed by the
-// shifts (N, C).
+// shifts (N, C). K4 runs stages 1 and 2 as launches of their own.
+//
+// K3 runs one thread-block cluster per image instead (fused_gn.cu): its CTAs
+// make stage 1's per-CTA partials in their own shared memory, and
+// `gn_cluster_affine` below is stage 2 over distributed shared memory.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -167,6 +173,61 @@ __device__ __forceinline__ void gn_fold_body(const float* __restrict__ part, con
     scale[c] = sc;
     shift[c] = load_param(beta, c, param_bf16) - gmean[g] * sc;
   }
+}
+
+// Stage 2 on a thread-block cluster (K3), by threads 0 .. threads-1 of the
+// CTA (the others may not take part: its barriers are named barrier 1 over
+// `threads`). Every CTA of the cluster holds its rows' (C,) sums, then (C,)
+// sums of squares, at `part` in its own shared memory, and has arrived at
+// and waited on the cluster barrier since writing them. Each CTA adds the
+// `ranks` partials per channel in rank order (the same order, so the same
+// bits, in every CTA; no atomics), folds each group's channels in order as
+// gn_fold_body does, and writes the scales (C) and then the shifts (C) to
+// `aff` in its own shared memory. `gst` is room for 2·C floats. Arrives at
+// the cluster barrier once it has read the other CTAs' partials: the caller
+// waits on it before the CTA exits.
+__device__ __forceinline__ void gn_cluster_affine(const float* part, int ranks, const void* gamma, const void* beta,
+                                                  int param_bf16, float* aff, float* gst, int S, int C, int G,
+                                                  float eps, int threads) {
+  const uint32_t p = smem_u32(part);
+  // one thread a (sums or squares, 4 channels): 8 ranks' loads in flight at once
+  for (int i = threadIdx.x; i < C / 2; i += threads) {
+    const uint32_t at = p + 16u * i;  // sums: i < C/4; squares: the next C/4
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k0 = 0; k0 < ranks; k0 += 8) {
+      float4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (k0 + u < ranks) v[u] = ld_cluster_v4(cluster_map(at, k0 + u));
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (k0 + u < ranks) a.x += v[u].x, a.y += v[u].y, a.z += v[u].z, a.w += v[u].w;
+    }
+    reinterpret_cast<float4*>(aff)[i] = a;
+  }
+  cluster_arrive();
+  named_bar_sync(1, threads);
+  const int cg = C / G;
+  const float inv_count = 1.f / static_cast<float>(cg * S);
+  for (int g = threadIdx.x; g < G; g += threads) {
+    float a = 0.f, b = 0.f;
+    for (int j = 0; j < cg; ++j) {
+      a += aff[g * cg + j];
+      b += aff[C + g * cg + j];
+    }
+    const float mean = a * inv_count;
+    const float var = b * inv_count - mean * mean;
+    gst[g] = mean;
+    gst[C + g] = rsqrtf(var + eps);
+  }
+  named_bar_sync(1, threads);
+  for (int c = threadIdx.x; c < C; c += threads) {
+    const int g = c / cg;
+    const float sc = gst[C + g] * load_param(gamma, c, param_bf16);
+    aff[c] = sc;
+    aff[C + c] = load_param(beta, c, param_bf16) - gst[g] * sc;
+  }
+  named_bar_sync(1, threads);
 }
 
 }  // namespace

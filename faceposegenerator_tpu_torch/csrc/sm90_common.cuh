@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels (flash_fwd.cu:
-// K1, K2; flash_bwd.cu: K5; flash_f32.cu; gn_conv.cu: K4; qdense.cu: K7;
-// flash_int8.cu: K8), in raw PTX:
+// K1, K2; flash_bwd.cu: K5, K6; flash_f32.cu; gn_conv.cu: K4; qdense.cu: K7;
+// flash_int8.cu: K8) and the cluster kernel of fused_gn.cu (K3), in raw PTX:
 //
 //   * mbarriers: init, arrive, arrive + expect-tx, parity wait;
 //   * TMA: 2-D, 3-D and 4-D tiled loads (cp.async.bulk.tensor) of bf16, fp32
@@ -16,6 +16,10 @@
 //     types alone), the m64nNk32 s8 → s32 products (SS and RS, K-major
 //     only, likewise) and the round-to-nearest-away fp32 → tf32 conversion
 //     with its hi/lo split, wgmma.fence / commit_group / wait_group;
+//   * 1-D bulk loads (cp.async.bulk without a tensor map) from global into
+//     shared memory;
+//   * thread-block clusters: the CTA's rank, the cluster barrier, and loads
+//     from another CTA's shared memory (distributed shared memory);
 //   * warp specialisation: setmaxnreg and named barriers.
 //
 // Tile layout. A 64-wide bf16 row is 128 bytes, exactly one swizzle atom:
@@ -230,6 +234,50 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) contiguous bytes
+// from global memory into this CTA's shared memory at `dst`, counted against
+// `bar`'s expected transactions (a 1-D bulk copy: no tensor map)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// device: thread-block clusters and distributed shared memory
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster arrives (release: its earlier
+// writes, shared memory included, become visible to the cluster) ...
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release;\n" ::: "memory"); }
+
+// ... and waits for all the others' arrivals (acquire)
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory"); }
+
+// the address of this CTA's shared-memory location `addr` in CTA `rank` of
+// the cluster, for ld_cluster_v4
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes at `addr` (from cluster_map) of another CTA's shared memory; the
+// cluster barrier before it orders it after the other CTA's writes
+__device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
 // ---------------------------------------------------------------------------
 // device: warp specialisation
 // ---------------------------------------------------------------------------
@@ -335,6 +383,17 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, ui
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D(64×32, fp32) (+)= A(64×16) · B(16×32): A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_m64n32(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

@@ -10,9 +10,12 @@ sums and sums of squares folded over each group's channels; act is None or
 SiLU; y is rounded once to x's dtype. `GN_IMPL=pallas` (read at import, as
 in JAX; `gn_impl()`) makes `ops.norms.group_norm` send every shape that
 `slab_supported` accepts here. A CPU tensor goes to `fused_group_norm_plain`;
-a CUDA tensor goes to the kernel (csrc/fused_gn.cu) or raises. The wrapper
-adds one to `LAUNCHES["fused_group_norm"]` where it launches the kernel, and
-nowhere else.
+a CUDA tensor goes to the kernel (csrc/fused_gn.cu) or raises. The kernel is
+one launch of one thread-block cluster per image; `cluster_plan` sizes it
+(the cluster, each CTA's rows and the depth of its ring of chunks).
+The wrapper checks the operands, allocates y (nothing else) and makes the
+one C call; it adds one to `LAUNCHES["fused_group_norm"]` where it launches
+the kernel, and nowhere else.
 
 When a gradient is taken through x, gamma or beta, `FusedGroupNorm` runs the
 kernel forward and recomputes the backward with autograd through
@@ -25,6 +28,7 @@ eligible shape back into `fused_group_norm`).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 from typing import Optional
@@ -39,6 +43,19 @@ _MAX_SLAB_ELEMS = int(os.environ.get("GN_MAX_SLAB_ELEMS", str(64 * 64 * 640)))
 _CHUNK_ROWS = 512
 # the statistics kernels give each of their 256 threads 16 bytes of a row
 _THREADS = 256
+# K3's cluster (csrc/fused_gn.cu): shared memory a CTA may use on the card
+# (227 KB) and an SM's (228 KB, less 1 KB the hardware keeps per CTA), the
+# largest (non-portable) cluster, the bytes of a bulk-copied chunk, and the
+# CTAs that keep the card's 132 SMs busy
+SMEM_MAX, SM_SMEM, MAX_CLUSTER, CHUNK_BYTES, _FILL_CTAS = 232448, 233472, 16, 16384, 128
+# K3's consumer threads (8 warps, as the statistics kernels'), 16 bytes of a row each; one more warp produces
+CONSUMERS = _THREADS
+# clusters of each size that an H100 SXM runs at once for each CTA an SM it
+# holds (its GPCs hold 16-18 SMs); the card's own count
+# (`fused_group_norm_clusters`, cudaOccupancyMaxActiveClusters) is held to
+# this table by tests/test_torch_kernels_cuda.py and printed by chip_smoke.py
+_WAVE_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+_DTYPES = (torch.bfloat16, torch.float32)
 LAUNCHES = {"fused_group_norm": 0}
 _fn = None
 
@@ -102,14 +119,60 @@ def _kernel():
     if _fn is None:
         fn = _build.kernel("fused_group_norm")
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
+def chunk_rows(c: int, itemsize: int) -> int:
+    """Rows of one K3 chunk: as many whole rows as CHUNK_BYTES holds."""
+    return max(1, CHUNK_BYTES // (c * itemsize))
+
+
+def cluster_smem(c: int, itemsize: int, stages: int) -> int:
+    """Bytes of shared memory of one K3 CTA over C channels with a ring of
+    `stages` chunk slots (csrc/fused_gn.cu `k3_smem`): the slots, then in
+    fp32 its partials (2·C), its threads' sums (2 · lanes · C), the scales
+    and shifts (2·C), room for the group statistics (2·C), and four 8-byte
+    mbarriers a slot."""
+    lanes = CONSUMERS // (c * itemsize // 16)
+    return stages * chunk_rows(c, itemsize) * c * itemsize + 4 * (6 * c + 2 * lanes * c) + 32 * stages
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(n: int, s: int, c: int, itemsize: int) -> tuple[int, int, int]:
+    """(cluster, rows, stages) of K3 over N images of S rows of C channels
+    of `itemsize` bytes: one cluster of `cluster` CTAs per image, CTA k
+    takes rows [k·rows, min(S, (k + 1)·rows)) in chunks of `chunk_rows`,
+    through a ring of `stages` slots (the chunks the ring no longer holds
+    after the statistics are read again, from L2 as far as it holds them).
+      * The cluster doubles from 1 while the card's SMs idle (fewer than 128
+        CTAs in all), never past S, to 8 CTAs, and to 16 only where each
+        CTA still takes 256 rows: on an H100, 16-CTA clusters were slower
+        than 8-CTA ones at 32²·640 and 16²·640 and faster at 64²
+        (perf/torch_k3_plan_sweep.py; PERF.md §6).
+      * All N clusters run in one wave: one CTA an SM if the card holds N
+        such clusters at once, else two (a cluster left to a second wave
+        costs the whole launch its time again).
+      * The ring holds all of a CTA's chunks where they fit its share of the
+        SM's shared memory (x read once), else as many as fit."""
+    cluster = 1
+    while cluster < MAX_CLUSTER and cluster < s and n * cluster < _FILL_CTAS:
+        if 2 * cluster == MAX_CLUSTER and s < MAX_CLUSTER * 256:
+            break
+        cluster *= 2
+    rows = math.ceil(s / cluster)
+    per_sm = 1 if n <= _WAVE_CLUSTERS[cluster] else 2
+    cap = min(SMEM_MAX, SM_SMEM // per_sm - 1024)
+    stages = math.ceil(rows / chunk_rows(c, itemsize))
+    while stages > 1 and cluster_smem(c, itemsize, stages) > cap:
+        stages -= 1
+    return cluster, rows, stages
+
+
 def stats_split(n: int, s: int, c: int, itemsize: int) -> tuple[int, int]:
-    """(rows per CTA, CTAs per image) of the statistics pass: a row of C
+    """(rows per CTA, CTAs per image) of K4's statistics pass: a row of C
     channels is C·itemsize/16 threads wide, so 256 threads cover `lanes`
     rows at once; each CTA takes at least 8 rows per lane, and the grid
     stays near 512 CTAs."""
@@ -129,10 +192,11 @@ def check_stats_operands(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     if c % vec or c // vec > _THREADS or c % num_groups:
         raise ValueError(f"{name} takes C % {vec} == 0, C <= {_THREADS * vec} and C % groups == 0, "
                          f"got C={c}, groups={num_groups}")
+    dev = x.get_device()
     for t in (gamma, beta):
-        if t.shape != (c,) or t.dtype not in (torch.float32, torch.bfloat16) or not t.is_contiguous():
+        if t.shape != (c,) or t.dtype not in _DTYPES or not t.is_contiguous():
             raise ValueError(f"{name} takes contiguous fp32 or bf16 (C,) gamma and beta")
-        if t.device != x.device:
+        if t.get_device() != dev:
             raise ValueError(f"{name}: every tensor must lie on one CUDA device")
     if gamma.dtype != beta.dtype:
         raise ValueError(f"{name}: gamma and beta must share a dtype")
@@ -145,19 +209,16 @@ def _forward(x, gamma, beta, num_groups, eps, act):
         return fused_group_norm_plain(x, gamma, beta, num_groups, eps, act)
     if act not in (None, "silu"):
         raise ValueError(act)
-    check_stats_operands(x, gamma, beta, num_groups, (torch.bfloat16, torch.float32), "fused_group_norm")
+    check_stats_operands(x, gamma, beta, num_groups, _DTYPES, "fused_group_norm")
     x = x.contiguous()
-    n, c = x.shape[0], x.shape[-1]
-    s = x.numel() // (n * c)
-    rows, chunks = stats_split(n, s, c, x.element_size())
     y = torch.empty_like(x)
-    part = torch.empty(2 * n * chunks * c, dtype=torch.float32, device=x.device)
-    affine = torch.empty(2 * n * c, dtype=torch.float32, device=x.device)
     if x.numel():
-        err = _kernel()(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), part.data_ptr(),
-                        affine.data_ptr(), n, s, c, num_groups, float(eps), int(act == "silu"), rows, chunks,
-                        int(x.dtype == torch.bfloat16), int(gamma.dtype == torch.bfloat16),
-                        torch.cuda.current_stream(x.device).cuda_stream)
+        n, c = x.shape[0], x.shape[-1]
+        s = x.numel() // (n * c)
+        cluster, rows, stages = cluster_plan(n, s, c, x.element_size())
+        err = _kernel()(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), n, s, c, num_groups, eps,
+                        act == "silu", cluster, rows, stages, x.dtype == torch.bfloat16,
+                        gamma.dtype == torch.bfloat16, torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"fused_group_norm launch failed: CUDA error {err}")
         LAUNCHES["fused_group_norm"] += 1

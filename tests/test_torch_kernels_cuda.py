@@ -113,6 +113,27 @@ def test_cuda_rejects_what_no_kernel_takes():
         out = dot_product_attention(q, q, q)
         assert not any(fa.LAUNCHES.values())
         assert torch.equal(out, fa.attention_plain(q, q, q, q.shape[-1] ** -0.5))
+    # K6 and K3 raise on a CUDA tensor they do not take, before any launch:
+    # no plain fallback on the card
+    fa.reset_launch_counts()
+    fg.reset_launch_counts()
+    for d, dtype in ((96, torch.bfloat16), (640, torch.bfloat16), (512, torch.float16)):
+        q = torch.randn(1, 64, 1, d, device="cuda").to(dtype)
+        lse = torch.zeros(1, 1, 64, device="cuda")
+        with pytest.raises(ValueError):
+            fa.flash_bwd_wide(q, q, q, q, lse, q, d**-0.5)
+    q = torch.randn(1, 64, 1, 512, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # an fp16 log-sum-exp
+        fa.flash_bwd_wide(q, q, q, q, torch.zeros(1, 1, 64, device="cuda").half(), q, 512**-0.5)
+    x = torch.randn(2, 8, 8, 64, device="cuda")
+    gamma, beta = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    for bad in (dict(x=x.half()), dict(x=x[..., :60], gamma=gamma[:60], beta=beta[:60]),
+                dict(x=torch.randn(1, 4, 4096, device="cuda")), dict(gamma=gamma.double()),
+                dict(beta=beta.half()), dict(gamma=torch.ones(64, 2, device="cuda")[:, 0])):
+        args = {**dict(x=x, gamma=gamma, beta=beta), **bad}
+        with pytest.raises(ValueError):
+            fg.fused_group_norm(args["x"], args["gamma"], args["beta"], 8)
+    assert not any(fa.LAUNCHES.values()) and not any(fg.LAUNCHES.values())
 
 
 @pytest.mark.cuda
@@ -220,6 +241,8 @@ def test_cuda_lse_and_backward_match_plain(b, sq, skv, h, d, kv_len):
 WIDE_CASES = [  # (b, sq, skv, h, d, kv_len): every head dim, ragged Sq and Skv, kv_len mid-tile, the VAE shape
     (1, 200, 200, 2, 128, None), (2, 70, 130, 1, 256, 77), (1, 130, 64, 3, 384, None), (1, 64, 100, 2, 384, 33),
     (2, 100, 333, 1, 512, 300), (1, 4096, 4096, 1, 512, None),
+    # at D = 512: kv_len mid-way through a 32- and a 64-key tile, and fewer keys than one tile
+    (1, 160, 256, 2, 512, 150), (2, 96, 20, 1, 512, None),
 ]
 
 
@@ -250,6 +273,40 @@ def test_cuda_flash_fwd_wide_matches_plain(b, sq, skv, h, d, kv_len, with_lse, s
         assert lse.shape == (b, h, sq) and (lse - ref_lse).abs().max().item() <= 1e-3
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     _close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "fused qkv views"])
+@pytest.mark.parametrize("b,sq,skv,h,d,kv_len", WIDE_CASES)
+def test_cuda_flash_bwd_wide_matches_plain(b, sq, skv, h, d, kv_len, strided):
+    """K6 (two launches for dK/dV, one for dQ) at every head dim it takes,
+    on the forward's own o and lse, on contiguous tensors and on strided
+    q/k/v views of one fused projection: each gradient against the plain
+    version relative to its max abs, zero dk and dv past kv_len, and two
+    runs bitwise equal (no atomics)."""
+    _card()
+    rng = np.random.default_rng(sq + skv + d + 1)
+    if strided:
+        s = max(sq, skv)
+        qkv = torch.from_numpy(rng.standard_normal((b, s, 3, h, d)).astype(np.float32)).cuda().to(torch.bfloat16)
+        q, k, v = qkv[:, :sq, 0], qkv[:, :skv, 1], qkv[:, :skv, 2]
+    else:
+        q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in _qkv(sq + 1, b, sq, skv, h, d))
+    do = torch.from_numpy(rng.standard_normal((b, sq, h, d)).astype(np.float32)).cuda().to(torch.bfloat16)
+    scale = d**-0.5
+    o, lse = fa.flash_fwd_wide(q, k, v, scale, kv_len, with_lse=True)
+    fa.reset_launch_counts()
+    grads = fa.flash_bwd_wide(q, k, v, o, lse, do, scale, kv_len)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in fa.LAUNCHES.items() if c} == {"flash_bwd_wide_dkv": 1, "flash_bwd_wide_dq": 1}
+    refs = fa.attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse, do.float(), scale, kv_len)
+    for g, r, x in zip(grads, refs, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == torch.bfloat16
+        _close(g, r, relative=True)
+    if kv_len is not None:
+        assert grads[1][:, kv_len:].abs().max().item() == 0.0 and grads[2][:, kv_len:].abs().max().item() == 0.0
+    for a, again in zip(grads, fa.flash_bwd_wide(q, k, v, o, lse, do, scale, kv_len)):
+        assert torch.equal(a, again)
 
 
 @pytest.mark.cuda
@@ -504,22 +561,77 @@ GN_CASES = [  # (shape, groups, act, dtype): the JAX test's shapes, then main-pa
     ((1, 24, 8, 96), 16, "silu", torch.bfloat16), ((2, 8, 8, 64), 8, "silu", torch.float32),
     ((16, 64, 64, 320), 32, None, torch.bfloat16), ((16, 32, 32, 640), 32, None, torch.bfloat16),
     ((16, 16, 16, 640), 32, "silu", torch.bfloat16), ((8, 64, 64, 512), 32, "silu", torch.bfloat16),
+    # K4's GroupNorm+SiLU sites that go to K3 when GN_IMPL alone is pallas
+    ((16, 64, 64, 640), 32, "silu", torch.bfloat16), ((16, 32, 32, 320), 32, "silu", torch.bfloat16),
+    # K3's cluster plan: images whose chunks the ring holds only in part (the
+    # rest read again) in fp32, a tiny one, and S not a multiple of a CTA's rows
+    ((16, 64, 64, 320), 32, "silu", torch.float32), ((4, 64, 64, 512), 32, None, torch.float32),
+    ((1, 16, 16, 640), 32, "silu", torch.bfloat16), ((3, 37, 29, 320), 32, None, torch.bfloat16),
+    ((2, 61, 67, 512), 16, "silu", torch.float32), ((1, 3, 5, 64), 8, None, torch.bfloat16),
 ]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16], ids=["fp32 gamma", "bf16 gamma"])
 @pytest.mark.parametrize("shape,groups,act,dtype", GN_CASES)
-def test_cuda_fused_group_norm_matches_plain(shape, groups, act, dtype):
+def test_cuda_fused_group_norm_matches_plain(shape, groups, act, dtype, param_dtype):
+    """K3 in one launch at every cluster plan: against its plain version
+    within 1 ulp + 1e-3 relative + 1e-5 of the max abs, with gamma and beta
+    in either dtype, and bitwise equal on a second run."""
     _card()
     rng = np.random.default_rng(sum(shape))
     c = shape[-1]
     x = torch.from_numpy((rng.standard_normal(shape) * 3 + 1).astype(np.float32)).cuda().to(dtype)
-    gamma, beta = (torch.from_numpy(rng.standard_normal(c).astype(np.float32)).cuda() for _ in "gb")
+    gamma, beta = (torch.from_numpy(rng.standard_normal(c).astype(np.float32)).cuda().to(param_dtype) for _ in "gb")
     fg.reset_launch_counts()
     out = fg.fused_group_norm(x, gamma, beta, groups, 1e-6, act)
     torch.cuda.synchronize()
     assert fg.LAUNCHES["fused_group_norm"] == 1 and out.dtype == dtype and out.shape == x.shape
     assert _within_ulp(out, fg.fused_group_norm_plain(x, gamma, beta, groups, 1e-6, act), 1e-3, 1e-5) == 0
+    assert torch.equal(out, fg.fused_group_norm(x, gamma, beta, groups, 1e-6, act))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_group_norm_clusters_fit_the_card():
+    """At the main paths' GroupNorm shapes the card holds every image's
+    cluster of `cluster_plan` at once (cudaOccupancyMaxActiveClusters >= N):
+    one wave."""
+    import ctypes
+
+    from faceposegenerator_tpu_torch.ops import _build
+
+    _card()
+    fn = _build.load("fused_gn").fused_group_norm_clusters
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    for n, s, c in ((16, 4096, 320), (16, 1024, 640), (16, 256, 640), (16, 4096, 640), (16, 1024, 320),
+                    (8, 4096, 512), (4, 4096, 512), (1, 256, 640)):
+        for item in (2, 4):
+            cluster, rows, stages = fg.cluster_plan(n, s, c, item)
+            active = ctypes.c_int(0)
+            assert fn(n, c, cluster, stages, int(item == 2), ctypes.byref(active)) == 0
+            assert active.value >= n, (n, s, c, item, cluster, active.value)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_sm", [1, 2])
+def test_cuda_wave_clusters_are_the_cards(per_sm):
+    """`cluster_plan`'s table of the clusters the card runs at once with
+    one CTA an SM (`_WAVE_CLUSTERS`) is what the card reports for K3's
+    launch (cudaOccupancyMaxActiveClusters), and with two CTAs an SM the
+    card runs at least twice as many, as the plan assumes."""
+    import ctypes
+
+    from faceposegenerator_tpu_torch.ops import _build
+
+    _card()
+    fn = _build.load("fused_gn").fused_group_norm_clusters
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    cap = min(fg.SMEM_MAX, fg.SM_SMEM // per_sm - 1024)
+    stages = max(st for st in range(1, 32) if fg.cluster_smem(320, 2, st) <= cap)
+    for cluster, want in fg._WAVE_CLUSTERS.items():
+        active = ctypes.c_int(0)
+        assert fn(16, 320, cluster, stages, 1, ctypes.byref(active)) == 0
+        assert active.value == want if per_sm == 1 else active.value >= 2 * want, (cluster, per_sm, active.value)
 
 
 def _conv_case(seed, shape, cout, beta_shift=0.0):

@@ -160,7 +160,7 @@ def test_chip_smoke_kernels_line_names_every_counted_kernel():
             "pair_ms", "pair_bound_ms", "dkv_bound_ms", "dq_bound_ms", "dkv_tflops", "dq_tflops", "int_mm_ms",
             "bf16_linear_ms", "f32_linear_ms", "k1_ms", "f32_ms", "sdpa_ms", "attend_ms", "attend_bound_ms",
             "amax_ms", "amax_plain_ms", "amax_bound_ms", "codes_ms", "codes_plain_ms", "codes_bound_ms", "quant_ms",
-            "quant_plain_ms", "quant_bound_ms")
+            "quant_plain_ms", "quant_bound_ms", "launch_ms", "host_us")
 
     def row(kernel, **kw):
         return dict({k: 1.0 for k in keys}, kernel=kernel, shape="s", B=1, N=1, M=1, K=1, mode="static",
