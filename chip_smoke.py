@@ -134,7 +134,31 @@ Phases, in order; any failure exits non-zero without the final result line:
      one loss and LoRA gradient at 2(+2)×128² against the plain-attention
      path (loss within 1e-4 relative, cosine >= 0.9999) launching
      flash_fwd_f32 34, each fp32 backward pass 33 and flash_f32_split 67
-     times.
+     times;
+ 12. checkpoints and prompts: a synthetic SD2.1-base diffusers directory
+     under build/ (from_random's bf16 weights at SD2.1-base widths written
+     as fp32 safetensors by the port's writer under diffusers' keys, SD2.1's
+     config.json values, a byte-level CLIP tokenizer with "!" padding),
+     loaded by StableDiffusionPipeline.from_pretrained (configs, every
+     parameter bit-equal to the source, a tokenizer); then, at batch 8,
+     512², CFG 5.0 with a rank-4 LoRA written by save_lora_safetensors and
+     read by load_lora_weights: 8 prompts of the reference's grid with its
+     negative prompt (30 DDPM steps, K1 960 and K2 1, images bit-equal to the
+     source pipeline on the tokenized ids), num_images_per_prompt=4 on 2
+     prompts (bit-equal to the repeated ids), 8 per-sample adapters with a
+     (8,) scale (K1 960, K2 1; each slot within 1e-1 / 1e-2 of a
+     shared-adapter call at 10 steps, the zero-scale slot of the no-LoRA
+     image; also under cfg_interval (2, 8) with DeepCache-4 at 2×128²), ToMe
+     at ratio 0.5 (K1 960 of which 150 at 80 × 2048², K2 1; with tome_ops
+     attn,xattn also 150 at 80 × 2048 × 77; its 2×128² kernel path against
+     the plain path with every tome op), decode_chunk=2
+     (K2 4 at 2 × 4096² × 512, images within 1e-1 / 1e-2 of the unchunked
+     ones), the latency preset at batch 1 (3 requests, K1 376, K2 1) and its
+     accel report (PSNR against exact and the seed floor), and last the
+     turbo preset calibrating through the tokenizer (qdense 1280) and one
+     turbo request with phase 6's counts. Phase 3 holds K1 at the ToMe
+     shapes and K2 at B·H 2 beside the other rows; their launches a request
+     in the kernels line are the ones phase 12 counted.
 Phases 3-7 run the default configuration (GN_IMPL and GN_CONV_IMPL at xla)
 whatever the environment says. The line before the last is a JSON object
 with one entry per kernel; the last is {"ok": true, "device": {...}}.
@@ -165,6 +189,14 @@ SHAPES = [
     ("cross L2", 16, 20, 256, 77, 64, 150),
     ("cross mid", 16, 20, 64, 77, 64, 30),
     ("vae mid", 8, 1, 4096, 4096, 512, 1),
+]
+# phase 12's new shapes, per request: ToMe at ratio 0.5 merges L0's 4096
+# tokens to 2048 (5 self-attentions × 30 steps; the cross-attention too under
+# tome_ops "xattn"), and decode_chunk=2 decodes 8 images 2 at a time
+CKPT_SHAPES = [
+    ("tome self L0", 16, 5, 2048, 2048, 64, 150),
+    ("tome cross L0 (xattn)", 16, 5, 2048, 77, 64, 150),
+    ("vae mid, decode_chunk 2", 2, 1, 4096, 4096, 512, 4),
 ]
 # (name, B, H, Sq, Skv, D, launches per train step) at the train op point: 8
 # UNet rows (4 instance + 4 class images); per step 5 transformers at each
@@ -338,6 +370,37 @@ FUSED_LAUNCHES = {"gn_silu_conv3x3": 480, "fused_group_norm": 371, "flash_fwd_d6
 # K3 takes: 64²·320, 32²·320, 32²·640, 64²·640) go to K3 with the 371
 GN_ALONE_LAUNCHES = {"fused_group_norm": 371 + 480, "flash_fwd_d64": 960, "flash_fwd_wide": 1}
 FUSED_STEP_LAUNCHES = dict(STEP_LAUNCHES, gn_silu_conv3x3=16, fused_group_norm=33)
+# the txt2img request's exact launches, and the latency preset's at batch 1:
+# DPM++ 20 steps, DeepCache-3, guidance (3, 13) make 8 full UNet passes (32
+# attentions) and 12 partial ones (10: level 0's five transformers)
+REQUEST_LAUNCHES = {"flash_fwd_d64": 960, "flash_fwd_wide": 1}
+LATENCY_LAUNCHES = {"flash_fwd_d64": 8 * 32 + 12 * 10, "flash_fwd_wide": 1}
+# the reference's negative prompt and prompt grid (inference_ID-Booth.py:33-45,138)
+NEGATIVE_PROMPT = ("cartoon, cgi, render, illustration, painting, drawing, black and white, "
+                   "bad body proportions, landscape")
+GRID = [("", "woman", "forest", False), ("young", "man", "city street", True), ("old", "woman", "", True),
+        ("middle-aged", "man", "beach", False), ("", "man", "office", True), ("young", "woman", "laboratory", False),
+        ("old", "man", "night club", False), ("middle-aged", "woman", "hospital", True)]
+PROMPTS = [("face side-portrait photo of " if side else "face portrait photo of ")
+           + " ".join(x for x in (age, gender, "sks person") if x) + (f", {bg} background" if bg else "")
+           for age, gender, bg, side in GRID]
+# SD2.1-base's diffusers config.json values (stabilityai/stable-diffusion-2-1-base)
+SD21_CONFIGS = {
+    "unet": {"_class_name": "UNet2DConditionModel", "act_fn": "silu", "attention_head_dim": [5, 10, 20, 20],
+             "block_out_channels": [320, 640, 1280, 1280], "center_input_sample": False,
+             "cross_attention_dim": 1024, "down_block_types": ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"],
+             "downsample_padding": 1, "dual_cross_attention": False, "flip_sin_to_cos": True, "freq_shift": 0,
+             "in_channels": 4, "layers_per_block": 2, "mid_block_scale_factor": 1, "norm_eps": 1e-05,
+             "norm_num_groups": 32, "out_channels": 4, "sample_size": 64,
+             "up_block_types": ["UpBlock2D"] + ["CrossAttnUpBlock2D"] * 3, "use_linear_projection": True},
+    "vae": {"_class_name": "AutoencoderKL", "act_fn": "silu", "block_out_channels": [128, 256, 512, 512],
+            "down_block_types": ["DownEncoderBlock2D"] * 4, "in_channels": 3, "latent_channels": 4,
+            "layers_per_block": 2, "norm_num_groups": 32, "out_channels": 3, "sample_size": 512,
+            "scaling_factor": 0.18215, "up_block_types": ["UpDecoderBlock2D"] * 4},
+    "text_encoder": {"architectures": ["CLIPTextModel"], "hidden_act": "gelu", "hidden_size": 1024,
+                     "intermediate_size": 4096, "max_position_embeddings": 77, "num_attention_heads": 16,
+                     "num_hidden_layers": 23, "projection_dim": 512, "vocab_size": 49408},
+}
 
 
 def fail(msg: str):
@@ -1837,6 +1900,378 @@ def run_fp32_train(torch, card_line):
     return launches
 
 
+# port module names → diffusers keys (the renames chip_smoke's emitter makes)
+_DIFFUSERS_KEYS = [
+    (r"\.blocks\.(\d+)\.", r".transformer_blocks.\1."), (r"\.ln([123])\.", r".norm\1."),
+    (r"\.attn([12])\.(q|k|v)\.", r".attn\1.to_\2."), (r"\.attn([12])\.out\.", r".attn\1.to_out.0."),
+    (r"\.ff_in\.", ".ff.net.0.proj."), (r"\.ff_out\.", ".ff.net.2."),
+    (r"\.downsample\.", ".downsamplers.0.conv."), (r"\.upsample\.", ".upsamplers.0.conv."),
+    (r"\.mid\.res([12])\.", lambda m: f".mid_block.resnets.{int(m.group(1)) - 1}."),
+    (r"\.mid\.attn\.norm\.", ".mid_block.attentions.0.group_norm."),
+    (r"\.mid\.attn\.(q|k|v)\.", r".mid_block.attentions.0.to_\1."), (r"\.mid\.attn\.out\.", ".mid_block.attentions.0.to_out.0."),
+    (r"^\.(encoder|decoder)\.norm_out\.", r".\1.conv_norm_out."),
+]
+_CLIP_KEYS = [
+    (r"^token_embedding$", "text_model.embeddings.token_embedding.weight"),
+    (r"^position_embedding$", "text_model.embeddings.position_embedding.weight"),
+    (r"^final_ln\.", "text_model.final_layer_norm."), (r"^layers\.(\d+)\.ln([12])\.", r"text_model.encoder.layers.\1.layer_norm\2."),
+    (r"^layers\.(\d+)\.(q|k|v|out)\.", r"text_model.encoder.layers.\1.self_attn.\2_proj."),
+    (r"^layers\.(\d+)\.(fc[12])\.", r"text_model.encoder.layers.\1.mlp.\2."),
+]
+
+
+def emit_diffusers(nets, torch):
+    """{"unet" | "vae" | "text_encoder": {diffusers key: fp32 tensor}} of the
+    port's networks (the JAX package has no writer of its own)."""
+    import re
+
+    out = {}
+    for name, net in nets.items():
+        rules = _CLIP_KEYS if name == "text_encoder" else _DIFFUSERS_KEYS
+        sd = {}
+        for key, p in net.named_parameters():
+            key = "." + key if name != "text_encoder" else key
+            for pat, rep in rules:
+                key = re.sub(pat, rep, key)
+            sd[key.lstrip(".")] = p.detach().float()
+        out[name] = sd
+    return out
+
+
+def synthetic_vocab(words):
+    """A byte-level vocab in CLIP's layout: the 256 byte tokens (0-255, "!"
+    0), the same with "</w>" (256-511), merges that make each of `words` one
+    token (512 on), bos 49406, eos 49407."""
+    from faceposegenerator_tpu_torch.data.tokenizer import CLIPTokenizer, bytes_to_unicode
+
+    chars = list(bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(chars)}
+    vocab.update({c + "</w>": 256 + i for i, c in enumerate(chars)})
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = 49406, 49407
+    merges = []
+    for _ in range(20):
+        tok = CLIPTokenizer(vocab, merges)
+        split = [tok.bpe("".join(tok.byte_encoder[b] for b in w.encode("utf-8"))).split(" ") for w in words]
+        if all(len(pieces) == 1 for pieces in split):
+            return vocab, merges
+        for pieces in split:
+            cur = pieces[0]
+            for t in pieces[1:]:
+                if (cur, t) not in merges:
+                    merges.append((cur, t))
+                    vocab.setdefault(cur + t, len(vocab) - 2)
+                cur += t
+    fail("the synthetic vocab's merges did not converge")
+
+
+def write_sd21_dir(root, pipe, torch, configs=None):
+    """A diffusers SD2.1-base directory of `pipe`'s weights, as fp32
+    safetensors under the file names SD2.1 ships, with its config.json
+    files (`configs`, SD2.1-base's by default) and a tokenizer/. Returns the
+    seconds spent writing."""
+    import os
+
+    from faceposegenerator_tpu_torch.bridge.safetensors_io import save_file
+
+    t0 = time.time()
+    files = {"unet": "diffusion_pytorch_model.safetensors", "vae": "diffusion_pytorch_model.safetensors",
+             "text_encoder": "model.safetensors"}
+    for sub, sd in emit_diffusers(pipe.nets, torch).items():
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        save_file(sd, os.path.join(root, sub, files[sub]), metadata={"format": "pt"})
+        with open(os.path.join(root, sub, "config.json"), "w") as f:
+            json.dump((configs or SD21_CONFIGS)[sub], f)
+        del sd
+    words = sorted({w for p in PROMPTS + [NEGATIVE_PROMPT] for w in p.replace(",", " ").replace("-", " ").split()})
+    vocab, merges = synthetic_vocab(words)
+    tok = os.path.join(root, "tokenizer")
+    os.makedirs(tok, exist_ok=True)
+    with open(os.path.join(tok, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(tok, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    with open(os.path.join(tok, "tokenizer_config.json"), "w") as f:
+        json.dump({"pad_token": "!", "model_max_length": 77, "do_lower_case": True}, f)
+    return time.time() - t0
+
+
+class shape_tally:
+    """Within the block, counts the attention forwards on the card by (B, H,
+    Sq, Skv, D) as `ops.attention` hands them to the kernel wrapper, one
+    launch each (the wrapper itself counts the launches)."""
+
+    def __enter__(self):
+        from faceposegenerator_tpu_torch.ops import attention
+
+        self.saved = attention.flash_fwd
+        self.shapes = {}
+
+        def tally(q, k, v, *a, **kw):
+            if q.is_cuda:
+                key = (q.shape[0], q.shape[2], q.shape[1], k.shape[1], q.shape[-1])
+                self.shapes[key] = self.shapes.get(key, 0) + 1
+            return self.saved(q, k, v, *a, **kw)
+
+        attention.flash_fwd = tally
+        return self
+
+    def __exit__(self, *exc):
+        from faceposegenerator_tpu_torch.ops import attention
+
+        attention.flash_fwd = self.saved
+
+
+def _stack_loras(trees, torch):
+    """Per-sample adapters: the leaves of `trees` stacked on a new axis 0."""
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        if isinstance(nodes[0], list):
+            return [stack(list(x)) for x in zip(*nodes)]
+        return None if nodes[0] is None else torch.stack(nodes)
+
+    return stack(trees)
+
+
+def _route_diff(got, want, label, limits=(1e-1, 1e-2)):
+    import numpy as np
+
+    diff = np.abs(got.astype(np.float32) - want.astype(np.float32))
+    print(f"{label}: image diff max {diff.max():.3e} mean {diff.mean():.3e} (limits {limits[0]:g}, {limits[1]:g})",
+          flush=True)
+    if not (diff.max() <= limits[0] and diff.mean() <= limits[1]):
+        fail(f"{label}: beyond the limits")
+    return float(diff.max()), float(diff.mean())
+
+
+def run_checkpoints(torch, card_line, default_secs):
+    """Phase 12: the synthetic SD2.1-base directory, from_pretrained, a
+    LoRA file, prompts, num_images_per_prompt, per-sample adapters, ToMe,
+    decode_chunk, the latency preset and its accel report, and the turbo
+    preset calibrating by prompt, each request with exact launch counts.
+    The synthetic directory lies under the checkout's `build/` and goes at
+    the end, also when a check fails. Returns the phase's launch counts and
+    the launches a request measured at each of CKPT_SHAPES."""
+    import shutil
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent / "build" / "sd21_base_synthetic")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        return _checkpoints_phase(torch, card_line, default_secs, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _checkpoints_phase(torch, card_line, default_secs, root):
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from faceposegenerator_tpu_torch.diffusion.lora_io import save_lora_safetensors
+    from faceposegenerator_tpu_torch.evaluation.accel_report import compare_modes
+    from faceposegenerator_tpu_torch.models import clip_text, unet2d, vae
+    from faceposegenerator_tpu_torch.pipelines.presets import get_preset
+    from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+
+    t_phase = time.time()
+    src = StableDiffusionPipeline.from_random(seed=0, dtype=torch.bfloat16)
+    write_s = write_sd21_dir(root, src, torch)
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pipe = StableDiffusionPipeline.from_pretrained(root, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    print(f"checkpoints: wrote {size / 1e9:.2f} GB (fp32 safetensors, configs, tokenizer) in {write_s:.1f} s; "
+          f"from_pretrained in {load_s:.1f} s ({card_line})", flush=True)
+    m = pipe.models
+    if (m.text_cfg, m.unet_cfg, m.vae_cfg) != (clip_text.SD21_TEXT_CONFIG, unet2d.SD21_UNET_CONFIG,
+                                               vae.SD_VAE_CONFIG):
+        fail(f"from_pretrained read configs {m} instead of SD2.1-base's")
+    if pipe.tokenizer is None or pipe.tokenizer.pad_token_id != 0:
+        fail("from_pretrained loaded no tokenizer, or not SD2's '!' padding")
+    for name, net in pipe.nets.items():
+        theirs = dict(src.nets[name].named_parameters())
+        for key, p in net.named_parameters():
+            if p.dtype != torch.bfloat16 or not torch.equal(p, theirs[key]):
+                fail(f"{name}.{key} differs from the source pipeline's")
+    long = [w for w in PROMPTS[0].replace(",", " ").split() if len(pipe.tokenizer.encode(w)) != 1]
+    if long:
+        fail(f"the synthetic vocab splits {long}")
+
+    # a LoRA file in peft keys, loaded back
+    tree = make_lora(src.nets["unet"], 13, torch)
+    lora_dir = os.path.join(root, "lora")
+    save_lora_safetensors(tree, os.path.join(lora_dir, "pytorch_lora_weights.safetensors"))
+    pipe.load_lora_weights(lora_dir)
+    src.set_lora(tree)
+    _reset_launch_counts()
+
+    def request(label, fn, expect, b=8, res=512):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        img = fn()
+        secs = time.time() - t0
+        per = {n: c - before[n] for n, c in _launch_counts().items() if c != before[n]}
+        print(f"{label}: {secs:.3f} s, launches {json.dumps(per)} ({card_line})", flush=True)
+        _check_images(img, b, res, label)
+        if expect is not None and per != expect:
+            fail(f"{label} launched {per}, expected {expect}")
+        return img, secs
+
+    req = dict(num_inference_steps=30, guidance_scale=5.0, height=512, width=512)
+    img, secs = request("prompted request (8 prompts, negative prompt, LoRA file)",
+                        lambda: pipe(PROMPTS, negative_prompt=NEGATIVE_PROMPT, seed=0, **req), REQUEST_LAUNCHES)
+    img2, secs2 = request("prompted request again", lambda: pipe(PROMPTS, negative_prompt=NEGATIVE_PROMPT, seed=0,
+                                                                 **req), REQUEST_LAUNCHES)
+    ids, neg = pipe.tokenize(PROMPTS), pipe.tokenize([NEGATIVE_PROMPT])
+    want, _ = request("source pipeline on the tokenized ids", lambda: src(input_ids=ids, negative_input_ids=neg,
+                                                                          seed=0, **req), REQUEST_LAUNCHES)
+    if not (np.array_equal(img, want) and np.array_equal(img2, img)):
+        fail(f"the prompted images are not bit-equal to the source pipeline's on the same ids "
+             f"(max diff {np.abs(img - want).max():.3e})")
+    print(f"checkpoints: prompted request bit-equal to the source pipeline; {min(secs, secs2):.3f} s/request "
+          f"against phase 4's {default_secs:.3f} ({card_line})", flush=True)
+    del src
+    torch.cuda.empty_cache()
+
+    # num_images_per_prompt
+    rep, _ = request("num_images_per_prompt=4 on 2 prompts",
+                     lambda: pipe(PROMPTS[:2], negative_prompt=NEGATIVE_PROMPT, num_images_per_prompt=4, seed=1, **req),
+                     REQUEST_LAUNCHES)
+    rep_ids = pipe.tokenize(PROMPTS[:2]).repeat_interleave(4, 0)
+    want, _ = request("the same on repeated ids", lambda: pipe(input_ids=rep_ids, negative_input_ids=neg, seed=1, **req),
+                      REQUEST_LAUNCHES)
+    if not np.array_equal(rep, want):
+        fail("num_images_per_prompt is not bit-equal to the repeated ids")
+
+    # per-sample adapters: one prompt and one noise for every slot, so the slots differ by adapter alone
+    trees = [make_lora(pipe.nets["unet"], 20 + b, torch)["unet"] for b in range(8)]
+    stacked = {"unet": _stack_loras(trees, torch), "text_encoder": None}
+    scale = torch.tensor([1.0, 0.5, 1.0, 0.0, 0.8, 1.0, 0.3, 1.0], device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def same_noise(steps, b, res):
+        return torch.randn(steps + 1, 1, res // 8, res // 8, 4, generator=g, device="cuda").expand(-1, b, -1, -1, -1)
+
+    one = [PROMPTS[0]] * 8
+    noise30 = same_noise(30, 8, 512)
+    request("per-sample adapters (8, (8,) scale)", lambda: pipe(one, negative_prompt=NEGATIVE_PROMPT, lora=stacked,
+                                                                lora_scale=scale, noise_override=noise30, **req),
+            REQUEST_LAUNCHES)
+    cmp = dict(req, num_inference_steps=10)
+    noise10 = same_noise(10, 8, 512)
+    per_sample = pipe(one, negative_prompt=NEGATIVE_PROMPT, lora=stacked, lora_scale=scale, noise_override=noise10, **cmp)
+    for b in range(8):
+        shared = pipe(one, negative_prompt=NEGATIVE_PROMPT, lora={"unet": trees[b], "text_encoder": None},
+                      lora_scale=float(scale[b]), noise_override=noise10, **cmp)
+        _route_diff(per_sample[b], shared[b], f"per-sample slot {b} (scale {float(scale[b]):g}) vs its shared adapter, "
+                    "8×512², 10 steps")
+    bare = pipe(one, negative_prompt=NEGATIVE_PROMPT, lora={"unet": None, "text_encoder": None},
+                noise_override=noise10, **cmp)
+    _route_diff(per_sample[3], bare[3], "per-sample zero-scale slot vs no LoRA")
+    gaps = [float(np.abs(per_sample[a] - per_sample[b]).max()) for a in range(8) for b in range(a + 1, 8)
+            if float(scale[a]) + float(scale[b]) > 0]
+    print(f"per-sample slots: smallest max diff between two slots {min(gaps):.3e}", flush=True)
+    if min(gaps) < 1e-3:
+        fail("per-sample slots do not differ")
+    # the turbo-shaped guidance interval: the cond-only steps take the adapters untiled
+    small = dict(num_inference_steps=12, height=128, width=128, cfg_interval=(2, 8), deepcache_interval=4)
+    noise_s = same_noise(12, 2, 128)
+    two = {"unet": _stack_loras(trees[:2], torch), "text_encoder": None}
+    got = pipe(one[:2], lora=two, lora_scale=scale[:2], noise_override=noise_s, **small)
+    for b in range(2):
+        shared = pipe(one[:2], lora={"unet": trees[b], "text_encoder": None}, lora_scale=float(scale[b]),
+                      noise_override=noise_s, **small)
+        _route_diff(got[b], shared[b], f"per-sample slot {b} under cfg_interval (2, 8), DeepCache-4, 2×128²")
+
+    # ToMe at ratio 0.5: L0's self-attention at 2048 tokens
+    with shape_tally() as tally:
+        request("ToMe 0.5 request", lambda: pipe(PROMPTS, negative_prompt=NEGATIVE_PROMPT, seed=0, tome_ratio=0.5, **req),
+                REQUEST_LAUNCHES)
+    _, tome_s = request("ToMe 0.5 request again", lambda: pipe(PROMPTS, negative_prompt=NEGATIVE_PROMPT, seed=0,
+                                                                tome_ratio=0.5, **req), REQUEST_LAUNCHES)
+    with shape_tally() as xtally:
+        _, xattn_s = request("ToMe 0.5 request, tome_ops attn,xattn",
+                             lambda: pipe(PROMPTS, negative_prompt=NEGATIVE_PROMPT, seed=0, tome_ratio=0.5,
+                                          tome_ops="attn,xattn", **req), REQUEST_LAUNCHES)
+    for label, t in (("attn", tally), ("attn,xattn", xtally)):
+        print(f"ToMe 0.5 ({label}): launches by (B, H, Sq, Skv, D): "
+              f"{json.dumps({str(k): v for k, v in t.shapes.items()})}", flush=True)
+    print(f"ToMe 0.5: {tome_s:.3f} s/request (attn), {xattn_s:.3f} (attn,xattn), against {min(secs, secs2):.3f} "
+          f"exact ({card_line})", flush=True)
+    if tally.shapes.get((16, 5, 2048, 2048, 64), 0) != 150:
+        fail(f"ToMe request ran K1 {tally.shapes.get((16, 5, 2048, 2048, 64), 0)} times at 80 × 2048², expected 150")
+    tkw = dict(num_inference_steps=4, height=128, width=128, seed=3, tome_ratio=0.5, tome_min_tokens=256,
+               tome_ops="attn,xattn,mlp")
+    got = pipe(PROMPTS[:2], negative_prompt=NEGATIVE_PROMPT, **tkw)
+    plain = StableDiffusionPipeline(pipe.nets, dataclasses.replace(pipe.models, attn_impl="reference"), pipe.policy,
+                                    tokenizer=pipe.tokenizer)
+    plain.set_lora(pipe.lora)
+    _route_diff(got, plain(PROMPTS[:2], negative_prompt=NEGATIVE_PROMPT, **tkw),
+                "ToMe (attn, xattn, mlp) kernels vs plain attention at 2×128², 4 steps")
+
+    # decode_chunk=2: K2 four times at 2 × 4096² × 512
+    for r in range(2):
+        with shape_tally() as ctally:
+            chunked, chunk_s = request(f"decode_chunk=2 request {r}",
+                                       lambda: pipe(PROMPTS, negative_prompt=NEGATIVE_PROMPT, seed=0, decode_chunk=2,
+                                                    **req), dict(REQUEST_LAUNCHES, flash_fwd_wide=4))
+    # the launches a request at each of phase 3's phase-12 shapes, as measured here
+    measured = {}
+    for (name, b, h, sq, skv, d, want), t in zip(CKPT_SHAPES, (tally, xtally, ctally)):
+        measured[name] = t.shapes.get((b, h, sq, skv, d), 0)
+        if measured[name] != want:
+            fail(f"{name}: {measured[name]} launches a request at {b} × {h} × {sq} × {skv} × {d}, expected {want}")
+    print(f"checkpoints: launches a request at the new shapes {json.dumps(measured)} ({card_line})", flush=True)
+    print(f"decode_chunk=2: {chunk_s:.3f} s/request against {min(secs, secs2):.3f} whole ({card_line})", flush=True)
+    # cuDNN picks its conv algorithms per batch size, so batch 2 may round otherwise than batch 8
+    _route_diff(chunked, img, "decode_chunk=2 vs the whole batch (same request)")
+
+    # the latency preset at batch 1, then its accel report
+    kw = get_preset("latency").apply(pipe)
+    lat = [request(f"latency preset request {r} (batch 1)", lambda r=r: pipe(PROMPTS[r], negative_prompt=NEGATIVE_PROMPT,
+                                                                              seed=r, num_inference_steps=20, **kw,
+                                                                              height=512, width=512),
+                   LATENCY_LAUNCHES, b=1)[1] for r in range(3)]
+    print(f"latency preset: batch 1, 512², DPM++ 20, DeepCache-3, cfg_interval (3, 13): {lat} s per request; "
+          f"best {min(lat):.3f} s ({card_line})", flush=True)
+    pipe.set_scheduler("ddpm")
+    spec = get_preset("latency").mode_spec()
+    report = compare_modes(pipe, [spec], prompts=PROMPTS[:2], seed_floor=True)
+    entry, floor = report["modes"][spec], report["seed_floor"]
+    print(f"accel report ({spec} vs exact, 2 prompts, 512²): psnr {[float(v) for v in entry['psnr_db']]} "
+          f"(mean {entry['psnr_mean']}); "
+          f"seed floor mean {floor['psnr_mean']} min {floor['psnr_min']}; batch s exact "
+          f"{report['exact']['batch_s']} mode {entry['batch_s']}", flush=True)
+    if not all(v is not None and math.isfinite(v) for v in entry["psnr_db"]) or floor["psnr_mean"] is None:
+        fail("the accel report's PSNRs are not finite")
+    if not entry["psnr_mean"] > floor["psnr_mean"]:
+        fail(f"the latency mode's PSNR {entry['psnr_mean']} is not above the seed floor {floor['psnr_mean']}")
+
+    # last, as quantize is for good: the turbo preset calibrating through the tokenizer
+    before = _launch_counts()
+    t0 = time.time()
+    kw = get_preset("turbo").apply(pipe)
+    torch.cuda.synchronize()
+    calib = {n: c - before[n] for n, c in _launch_counts().items() if c != before[n]}
+    print(f"turbo by prompt: calibrated on CALIBRATION_PROMPT in {time.time() - t0:.1f} s, launches "
+          f"{json.dumps(calib)} ({card_line})", flush=True)
+    if calib.get("qdense") != TURBO_CALIB_LAUNCHES["qdense"]:
+        fail(f"turbo calibration by prompt launched {calib}, expected qdense {TURBO_CALIB_LAUNCHES['qdense']}")
+    request("turbo request by prompt", lambda: pipe(PROMPTS, negative_prompt=NEGATIVE_PROMPT, seed=0,
+                                                    num_inference_steps=12, height=512, width=512, **kw),
+            TURBO_LAUNCHES["auto"])
+    launches = _launch_counts()
+    del pipe, plain
+    torch.cuda.empty_cache()
+    print(f"checkpoints: phase 12 in {time.time() - t_phase:.1f} s ({card_line})", flush=True)
+    return launches, measured
+
+
 def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32, launches, ptxas, sass=None):
     """The kernels line: one entry per counted kernel. `ptxas` holds each
     wgmma or fp32 kernel function's registers and spills by instance;
@@ -1858,6 +2293,13 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
             bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
             shape=f"{top['shape']} B{top['B']}", lse_max_err=max(r["lse_max_err"] or 0.0 for r in mine),
             tflops=top["tflops"], **({"ptxas": ptxas[f"{name}_kernel"]} if f"{name}_kernel" in ptxas else {}),
+            # phase 12's shapes (ToMe, decode_chunk), each with the contract's numbers and the
+            # launches a request that phase 12 counted
+            shapes=[dict(shape=f"{r['shape']} B{r['B']}", B=r["B"], H=r["H"], Sq=r["Sq"], Skv=r["Skv"], D=r["D"],
+                         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                         library_ms=r["library_ms"], max_abs_err=r["max_abs_err"], tflops=r["tflops"],
+                         launches_per_request=r["launches_per_request"])
+                    for r in mine if r.get("phase") == 12],
         ))
     top = max(f32["fwd"], key=lambda r: r["bound_ms"])
     kernels.append(dict(
@@ -1981,7 +2423,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {card}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
 
-    t0 = time.time()
+    t_start = t0 = time.time()
     libs = _build.build_all()
     print(f"build: {sorted(libs)} in {time.time() - t0:.1f} s", flush=True)
     ptxas = {}  # registers and spills (each instance) of the wgmma and fp32 kernels, for their entries
@@ -2036,6 +2478,7 @@ def main() -> int:
     fused_gn._GN_IMPL = fused_gn_conv._IMPL = "xla"
     fwd_rows = check_kernels(torch, fa, card)
     fwd_rows += check_kernels(torch, fa, card, TRAIN_SHAPES, with_lse=True, per="step")
+    fwd_rows += [dict(r, phase=12) for r in check_kernels(torch, fa, card, CKPT_SHAPES)]
     bwd_rows = check_backward(torch, fa, card, [s for s in TRAIN_SHAPES if s[0] != "vae encode mid"])
     q_rows = check_qdense(torch, card)
     i8_rows = check_int8(torch, fa, card)
@@ -2074,15 +2517,21 @@ def main() -> int:
         f32["gn"] = check_gn(torch, card, GN_F32_SHAPES, "fp32_request", torch.float32)
     fp32_txt2img, fp32_fused, fp32_routes = run_fp32_pipeline(torch, card_line)
     fp32_train = run_fp32_train(torch, card_line)
+    torch.cuda.empty_cache()
+    checkpoints, ckpt_counts = run_checkpoints(torch, card_line, txt2img_secs)
+    for r in fwd_rows:  # phase 12's shapes: the launches its requests measured
+        if r.get("phase") == 12:
+            r["launches_per_request"] = ckpt_counts[r["shape"]]
     paths = {"txt2img": txt2img, "turbo": turbo, "train": train, "fused txt2img": fused_txt2img,
              "fused train": fused_train, "fp32 txt2img": fp32_txt2img, "fp32 fused txt2img": fp32_fused,
-             "fp32 routes at 2×128²": fp32_routes, "fp32 train check": fp32_train}
+             "fp32 routes at 2×128²": fp32_routes, "fp32 train check": fp32_train, "checkpoints": checkpoints}
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in REPLACES}
     print("launches on the main paths: " + ", ".join(f"{k} {json.dumps(v)}" for k, v in paths.items()), flush=True)
     for name, count in launches.items():
         if count == 0:
             fail(f"{name} was not launched on the main paths")
 
+    print(f"chip_smoke: all phases in {time.time() - t_start:.1f} s ({card_line})", flush=True)
     print(json.dumps({"kernels": _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32,
                                                  launches, ptxas, sass)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -1,0 +1,353 @@
+"""Diffusers SD2.1 checkpoints → param trees in the JAX layout (port of the
+SD2.1 part of `faceposegenerator_tpu/bridge/torch_weights.py:58-578`).
+
+The converters return nested dicts/lists of numpy arrays keyed as the JAX
+package's trees are, which `bridge.jax_params.load_jax_params` then writes
+into the port's modules: one path into the modules, and a tree the tests
+can hold leaf for leaf against the JAX converter's. Conventions:
+
+  - conv weights: torch OIHW → HWIO (transpose 2, 3, 1, 0)
+  - linear weights: kept in torch (out, in) orientation
+  - GroupNorm/LayerNorm weight/bias → g/b
+
+Safetensors files are read by `bridge.safetensors_io` (no `safetensors`
+package), `.bin` files by `torch.load(..., weights_only=True)`. The
+IResNet and evaluation-encoder converters are not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..models import clip_text, unet2d, vae
+from .safetensors_io import load_numpy
+
+
+def load_torch_pth(path: str) -> Dict[str, np.ndarray]:
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    # unwrap common checkpoint containers (MAE nests under "model", FR
+    # trainers under "state_dict")
+    for container in ("state_dict", "model"):
+        if container in sd and isinstance(sd[container], dict):
+            sd = sd[container]
+            break
+    return {k: v.float().numpy() for k, v in sd.items() if hasattr(v, "numpy")}
+
+
+def _arr(x, dtype):
+    return np.asarray(x, dtype)
+
+
+def _conv(sd, prefix, dtype):
+    w = np.asarray(sd[f"{prefix}.weight"])
+    if w.ndim == 2:  # some checkpoints store 1x1 convs as linear
+        w = w[:, :, None, None]
+    return {"w": _arr(w.transpose(2, 3, 1, 0), dtype), "b": _arr(sd[f"{prefix}.bias"], dtype)}
+
+
+def _dense(sd, prefix, dtype, bias=True):
+    w = np.asarray(sd[f"{prefix}.weight"])
+    if w.ndim == 4:  # conv1x1 stored where we want a linear
+        w = w[:, :, 0, 0]
+    p = {"w": _arr(w, dtype)}
+    if bias and f"{prefix}.bias" in sd:
+        p["b"] = _arr(sd[f"{prefix}.bias"], dtype)
+    return p
+
+
+def _norm(sd, prefix, dtype):
+    return {"g": _arr(sd[f"{prefix}.weight"], dtype), "b": _arr(sd[f"{prefix}.bias"], dtype)}
+
+
+# ---------------------------------------------------------------------------
+# UNet
+# ---------------------------------------------------------------------------
+
+
+def _resblock(sd, p, dtype, temb=True):
+    out = {
+        "norm1": _norm(sd, f"{p}.norm1", dtype),
+        "conv1": _conv(sd, f"{p}.conv1", dtype),
+        "norm2": _norm(sd, f"{p}.norm2", dtype),
+        "conv2": _conv(sd, f"{p}.conv2", dtype),
+    }
+    if temb:
+        out["time_emb_proj"] = _dense(sd, f"{p}.time_emb_proj", dtype)
+    if f"{p}.conv_shortcut.weight" in sd:
+        out["conv_shortcut"] = _conv(sd, f"{p}.conv_shortcut", dtype)
+    return out
+
+
+def _attn(sd, p, dtype):
+    return {
+        "q": _dense(sd, f"{p}.to_q", dtype, bias=False),
+        "k": _dense(sd, f"{p}.to_k", dtype, bias=False),
+        "v": _dense(sd, f"{p}.to_v", dtype, bias=False),
+        "out": _dense(sd, f"{p}.to_out.0", dtype),
+    }
+
+
+def _transformer(sd, p, dtype, n_blocks=1):
+    blocks = []
+    for i in range(n_blocks):
+        b = f"{p}.transformer_blocks.{i}"
+        blocks.append({
+            "ln1": _norm(sd, f"{b}.norm1", dtype),
+            "attn1": _attn(sd, f"{b}.attn1", dtype),
+            "ln2": _norm(sd, f"{b}.norm2", dtype),
+            "attn2": _attn(sd, f"{b}.attn2", dtype),
+            "ln3": _norm(sd, f"{b}.norm3", dtype),
+            "ff_in": _dense(sd, f"{b}.ff.net.0.proj", dtype),
+            "ff_out": _dense(sd, f"{b}.ff.net.2", dtype),
+        })
+    return {
+        "norm": _norm(sd, f"{p}.norm", dtype),
+        "proj_in": _dense(sd, f"{p}.proj_in", dtype),
+        "proj_out": _dense(sd, f"{p}.proj_out", dtype),
+        "blocks": blocks,
+    }
+
+
+def convert_unet_state_dict(sd: Dict[str, np.ndarray], cfg: unet2d.UNetConfig = unet2d.SD21_UNET_CONFIG,
+                            dtype=np.float32):
+    params = {
+        "conv_in": _conv(sd, "conv_in", dtype),
+        "time_embedding": {
+            "linear_1": _dense(sd, "time_embedding.linear_1", dtype),
+            "linear_2": _dense(sd, "time_embedding.linear_2", dtype),
+        },
+        "down_blocks": [],
+        "up_blocks": [],
+        "conv_norm_out": _norm(sd, "conv_norm_out", dtype),
+        "conv_out": _conv(sd, "conv_out", dtype),
+    }
+    n_levels = len(cfg.block_out_channels)
+    for i in range(n_levels):
+        p = f"down_blocks.{i}"
+        params["down_blocks"].append({
+            "resnets": [_resblock(sd, f"{p}.resnets.{j}", dtype) for j in range(cfg.layers_per_block)],
+            "attentions": (
+                [_transformer(sd, f"{p}.attentions.{j}", dtype, cfg.transformer_layers)
+                 for j in range(cfg.layers_per_block)]
+                if cfg.down_block_has_attn[i] else None
+            ),
+            "downsample": (_conv(sd, f"{p}.downsamplers.0.conv", dtype)
+                           if f"{p}.downsamplers.0.conv.weight" in sd else None),
+        })
+    params["mid_block"] = {
+        "resnets": [_resblock(sd, "mid_block.resnets.0", dtype), _resblock(sd, "mid_block.resnets.1", dtype)],
+        "attentions": [_transformer(sd, "mid_block.attentions.0", dtype, cfg.transformer_layers)],
+    }
+    has_attn_rev = list(reversed(cfg.down_block_has_attn))
+    for i in range(n_levels):
+        p = f"up_blocks.{i}"
+        params["up_blocks"].append({
+            "resnets": [_resblock(sd, f"{p}.resnets.{j}", dtype) for j in range(cfg.layers_per_block + 1)],
+            "attentions": (
+                [_transformer(sd, f"{p}.attentions.{j}", dtype, cfg.transformer_layers)
+                 for j in range(cfg.layers_per_block + 1)]
+                if has_attn_rev[i] else None
+            ),
+            "upsample": (_conv(sd, f"{p}.upsamplers.0.conv", dtype)
+                         if f"{p}.upsamplers.0.conv.weight" in sd else None),
+        })
+    return params
+
+
+# ---------------------------------------------------------------------------
+# VAE
+# ---------------------------------------------------------------------------
+
+
+def _vae_attn(sd, p, dtype):
+    """Both diffusers VAE attention key layouts: to_q/to_out.0 and the
+    legacy query/key/value/proj_attn."""
+    if f"{p}.to_q.weight" in sd:
+        names = {"q": "to_q", "k": "to_k", "v": "to_v", "out": "to_out.0"}
+    else:
+        names = {"q": "query", "k": "key", "v": "value", "out": "proj_attn"}
+    return {
+        "norm": _norm(sd, f"{p}.group_norm", dtype),
+        **{k: _dense(sd, f"{p}.{names[k]}", dtype) for k in ("q", "k", "v", "out")},
+    }
+
+
+def _vae_mid(sd, p, dtype):
+    return {
+        "res1": _resblock(sd, f"{p}.resnets.0", dtype, temb=False),
+        "attn": _vae_attn(sd, f"{p}.attentions.0", dtype),
+        "res2": _resblock(sd, f"{p}.resnets.1", dtype, temb=False),
+    }
+
+
+def convert_vae_state_dict(sd: Dict[str, np.ndarray], cfg: vae.VAEConfig = vae.SD_VAE_CONFIG, dtype=np.float32):
+    n = len(cfg.block_out_channels)
+    enc = {
+        "conv_in": _conv(sd, "encoder.conv_in", dtype),
+        "down_blocks": [],
+        "mid": _vae_mid(sd, "encoder.mid_block", dtype),
+        "norm_out": _norm(sd, "encoder.conv_norm_out", dtype),
+        "conv_out": _conv(sd, "encoder.conv_out", dtype),
+    }
+    for i in range(n):
+        p = f"encoder.down_blocks.{i}"
+        enc["down_blocks"].append({
+            "resnets": [_resblock(sd, f"{p}.resnets.{j}", dtype, temb=False) for j in range(cfg.layers_per_block)],
+            "downsample": (_conv(sd, f"{p}.downsamplers.0.conv", dtype)
+                           if f"{p}.downsamplers.0.conv.weight" in sd else None),
+        })
+    dec = {
+        "conv_in": _conv(sd, "decoder.conv_in", dtype),
+        "mid": _vae_mid(sd, "decoder.mid_block", dtype),
+        "up_blocks": [],
+        "norm_out": _norm(sd, "decoder.conv_norm_out", dtype),
+        "conv_out": _conv(sd, "decoder.conv_out", dtype),
+    }
+    for i in range(n):
+        p = f"decoder.up_blocks.{i}"
+        dec["up_blocks"].append({
+            "resnets": [_resblock(sd, f"{p}.resnets.{j}", dtype, temb=False)
+                        for j in range(cfg.layers_per_block + 1)],
+            "upsample": (_conv(sd, f"{p}.upsamplers.0.conv", dtype)
+                         if f"{p}.upsamplers.0.conv.weight" in sd else None),
+        })
+    return {
+        "encoder": enc,
+        "decoder": dec,
+        "quant_conv": _conv(sd, "quant_conv", dtype),
+        "post_quant_conv": _conv(sd, "post_quant_conv", dtype),
+    }
+
+
+# ---------------------------------------------------------------------------
+# CLIP text encoder
+# ---------------------------------------------------------------------------
+
+
+def convert_clip_text_state_dict(sd: Dict[str, np.ndarray],
+                                 cfg: clip_text.CLIPTextConfig = clip_text.SD21_TEXT_CONFIG, dtype=np.float32):
+    """Keys with the `text_model.` prefix (transformers' CLIPTextModel) or without it."""
+    pre = "text_model." if "text_model.embeddings.token_embedding.weight" in sd else ""
+    params = {
+        "token_embedding": _arr(sd[f"{pre}embeddings.token_embedding.weight"], dtype),
+        "position_embedding": _arr(sd[f"{pre}embeddings.position_embedding.weight"], dtype),
+        "final_ln": _norm(sd, f"{pre}final_layer_norm", dtype),
+        "layers": [],
+    }
+    for i in range(cfg.num_layers):
+        p = f"{pre}encoder.layers.{i}"
+        params["layers"].append({
+            "ln1": _norm(sd, f"{p}.layer_norm1", dtype),
+            "q": _dense(sd, f"{p}.self_attn.q_proj", dtype),
+            "k": _dense(sd, f"{p}.self_attn.k_proj", dtype),
+            "v": _dense(sd, f"{p}.self_attn.v_proj", dtype),
+            "out": _dense(sd, f"{p}.self_attn.out_proj", dtype),
+            "ln2": _norm(sd, f"{p}.layer_norm2", dtype),
+            "fc1": _dense(sd, f"{p}.mlp.fc1", dtype),
+            "fc2": _dense(sd, f"{p}.mlp.fc2", dtype),
+        })
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Top-level SD2.1 loader
+# ---------------------------------------------------------------------------
+
+
+def configs_from_model_dir(model_dir: str):
+    """The port's (text, unet, vae) configs from the diffusers config.json
+    files of a local SD model directory, falling back to the SD2.1 defaults
+    for missing files or keys. diffusers' `attention_head_dim` for SD2.x is
+    the per-level head COUNT list ([5, 10, 20, 20]): the head dim is
+    channels / heads = 64."""
+
+    def read(sub):
+        p = os.path.join(model_dir, sub, "config.json")
+        if os.path.exists(p):
+            with open(p) as f:
+                return json.load(f)
+        return {}
+
+    u = read("unet")
+    C = tuple(u.get("block_out_channels", unet2d.SD21_UNET_CONFIG.block_out_channels))
+    ahd = u.get("attention_head_dim", None)
+    if ahd is None:
+        head_dim = unet2d.SD21_UNET_CONFIG.head_dim
+    else:
+        heads0 = ahd[0] if isinstance(ahd, (list, tuple)) else ahd
+        head_dim = C[0] // heads0
+    down_types = u.get("down_block_types")
+    has_attn = (tuple("CrossAttn" in t for t in down_types) if down_types
+                else unet2d.SD21_UNET_CONFIG.down_block_has_attn)
+    unet_cfg = unet2d.UNetConfig(
+        in_channels=u.get("in_channels", 4),
+        out_channels=u.get("out_channels", 4),
+        block_out_channels=C,
+        layers_per_block=u.get("layers_per_block", 2),
+        cross_attention_dim=u.get("cross_attention_dim", 1024),
+        head_dim=head_dim,
+        norm_groups=u.get("norm_num_groups", 32),
+        down_block_has_attn=has_attn,
+        freq_shift=u.get("freq_shift", 0),
+        flip_sin_to_cos=u.get("flip_sin_to_cos", True),
+    )
+
+    v = read("vae")
+    vae_cfg = vae.VAEConfig(
+        in_channels=v.get("in_channels", 3),
+        latent_channels=v.get("latent_channels", 4),
+        block_out_channels=tuple(v.get("block_out_channels", vae.SD_VAE_CONFIG.block_out_channels)),
+        layers_per_block=v.get("layers_per_block", 2),
+        scaling_factor=v.get("scaling_factor", 0.18215),
+    )
+
+    t = read("text_encoder")
+    d = clip_text.SD21_TEXT_CONFIG
+    text_cfg = clip_text.CLIPTextConfig(
+        vocab_size=t.get("vocab_size", d.vocab_size),
+        hidden_size=t.get("hidden_size", d.hidden_size),
+        num_layers=t.get("num_hidden_layers", d.num_layers),
+        num_heads=t.get("num_attention_heads", d.num_heads),
+        intermediate_size=t.get("intermediate_size", d.intermediate_size),
+        max_positions=t.get("max_position_embeddings", 77),
+        hidden_act=t.get("hidden_act", d.hidden_act),
+    )
+    return text_cfg, unet_cfg, vae_cfg
+
+
+WEIGHT_NAMES = ("diffusion_pytorch_model.safetensors", "model.safetensors",
+                "diffusion_pytorch_model.bin", "pytorch_model.bin")
+
+
+def find_weights(model_dir: str, sub: str) -> str:
+    """The first of `WEIGHT_NAMES` under `model_dir/sub`."""
+    d = os.path.join(model_dir, sub)
+    for name in WEIGHT_NAMES:
+        p = os.path.join(d, name)
+        if os.path.exists(p):
+            return p
+    raise FileNotFoundError(f"no weights found under {d}")
+
+
+def load_state_dict(path: str) -> Dict[str, np.ndarray]:
+    return load_numpy(path) if path.endswith(".safetensors") else load_torch_pth(path)
+
+
+def load_sd21_params(model_dir: str, dtype=np.float32) -> dict:
+    """A local diffusers-format SD2.1 directory → {"text_encoder", "unet",
+    "vae"} trees in the JAX layout (`StableDiffusionPipeline.from_pretrained`,
+    `inference_ID-Booth.py:103`)."""
+    text_cfg, unet_cfg, vae_cfg = configs_from_model_dir(model_dir)
+    return {
+        "text_encoder": convert_clip_text_state_dict(load_state_dict(find_weights(model_dir, "text_encoder")),
+                                                     text_cfg, dtype=dtype),
+        "unet": convert_unet_state_dict(load_state_dict(find_weights(model_dir, "unet")), unet_cfg, dtype=dtype),
+        "vae": convert_vae_state_dict(load_state_dict(find_weights(model_dir, "vae")), vae_cfg, dtype=dtype),
+    }

@@ -2,7 +2,9 @@
 CLIP on [uncond; cond] → S × (UNet on [x; x] → guidance → scheduler step) →
 VAE decode → [0, 1], with DDPM or DPM-Solver++ 2M, and the opt-in
 approximations of the turbo preset: a guidance interval (`cfg_interval`) and
-DeepCache (`deepcache_interval`, `deepcache_depth`).
+DeepCache (`deepcache_interval`, `deepcache_depth`), and ToMe (`tome_*`).
+Adapters may be per-request (`(B, r, in)` / `(B, out, r)` leaves and a
+`(B,)` scale); `decode_chunk` decodes the batch in pieces.
 
 The JAX package compiles this into one program; here it is an eager Python
 loop whose step indices are host ints, so the loop never waits on the card.
@@ -36,6 +38,22 @@ class SamplerModels:
     attn_impl: str = "auto"
 
 
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return None if tree is None else fn(tree)
+
+
 @torch.inference_mode()
 def sample(
     nets: dict,
@@ -51,10 +69,14 @@ def sample(
     scheduler: str = "ddpm",
     attn_impl: str = "auto",
     lora: Optional[dict] = None,
-    lora_scale: float = 1.0,
+    lora_scale=1.0,
     noise_override=None,
+    decode_chunk: Optional[int] = None,
     deepcache_interval: int = 1,
     deepcache_depth: int = 1,
+    tome_ratio: float = 0.0,
+    tome_min_tokens: int = 4096,
+    tome_ops: str = "attn",
     cfg_interval: Optional[tuple] = None,
     return_trajectory: bool = False,
 ):
@@ -63,13 +85,22 @@ def sample(
     nets: {"text_encoder": CLIPTextModel, "unet": UNet2DCondition,
     "vae": AutoencoderKL}. schedule: a DDPMSchedule (scheduler "ddpm") or a
     DPMSolverSchedule ("dpm"). input_ids / negative_input_ids: (B, 77) token
-    ids. lora: {"unet": tree or None, "text_encoder": tree or None}.
+    ids. lora: {"unet": tree or None, "text_encoder": tree or None}; its
+    leaves may carry a leading request axis, (B, r, in) / (B, out, r), with
+    `lora_scale` a number or a (B,) tensor: slot b rides adapter b. On the
+    CFG batch [uncond; cond] they tile ×2 so that slot b lines up with rows
+    b and B + b; the cond-only steps of `cfg_interval` take them untiled
+    (sampler.py:131-175).
     noise_override: (S+1, B, h, w, 4), the initial latent at index 0 and
     step i's noise at index i+1 (sampler.py:93-95), replacing `generator`;
     DPM-Solver++ draws no step noise and reads index 0 only.
     deepcache_interval=k > 1: full UNet on a segment's first step and on
     steps i % k == 0, the cached partial UNet otherwise (`forward_cached`).
     cfg_interval=(i0, i1): guidance only on steps i0 <= i < i1.
+    tome_ratio > 0: ToMe in every UNet transformer of at least
+    `tome_min_tokens` tokens, on every pass (`UNet2DCondition.forward`).
+    decode_chunk: decode `decode_chunk` latents at a time when it divides
+    B and is smaller than B (sampler.py:398-406); the whole batch otherwise.
     return_trajectory: also return the latents after each step, (S, B, h, w,
     4); exact paths only.
     """
@@ -89,10 +120,10 @@ def sample(
         i0, i1 = int(cfg_interval[0]), int(cfg_interval[1])
         if not (0 <= i0 <= i1 <= S):
             raise ValueError(f"cfg_interval {cfg_interval} not within [0, {S}]")
-    if return_trajectory and (deepcache_interval > 1 or cfg_interval is not None):
+    if return_trajectory and (deepcache_interval > 1 or tome_ratio > 0.0 or cfg_interval is not None):
         raise ValueError(
             "return_trajectory is a parity probe for the EXACT chain; "
-            "it does not compose with deepcache/cfg_interval"
+            "it does not compose with deepcache/tome/cfg_interval"
         )
     if noise_override is not None:
         if not isinstance(noise_override, torch.Tensor):
@@ -106,20 +137,29 @@ def sample(
             return noise_override[i]
         return torch.randn((B, h, w, 4), generator=generator, device=device, dtype=torch.float32)
 
+    # per-request adapters: the cond-only passes take them as given, the
+    # CFG batch tiled ×2
+    tome = dict(tome_ratio=tome_ratio, tome_min_tokens=tome_min_tokens, tome_ops=tome_ops)
+    kw_cond = dict(policy=policy, lora=lora.get("unet"), lora_scale=lora_scale, attn_impl=attn_impl, **tome)
+    leaves = _leaves(lora)
+    if leaves and leaves[0].dim() == 3:
+        lora = _tree_map(lambda t: torch.cat([t, t]), lora)
+        if isinstance(lora_scale, torch.Tensor) and lora_scale.dim() == 1:
+            lora_scale = torch.cat([lora_scale, lora_scale])
     ids = torch.cat([torch.as_tensor(negative_input_ids), torch.as_tensor(input_ids)]).to(device)
     ctx = nets["text_encoder"](ids, policy, lora=lora.get("text_encoder"), lora_scale=lora_scale)
-    kw = dict(policy=policy, lora=lora.get("unet"), lora_scale=lora_scale, attn_impl=attn_impl)
+    kw = dict(policy=policy, lora=lora.get("unet"), lora_scale=lora_scale, attn_impl=attn_impl, **tome)
 
     def guided_eps(x, t, cond_only, cache, full):
         """ε̂ at step timestep t: CFG on [x; x] or cond-only on x; with
         DeepCache, the full pass (which refreshes the cache) or the partial
         one over `cache`."""
-        lat, c = (x, ctx[B:]) if cond_only else (torch.cat([x, x]), ctx)
+        lat, c, k = (x, ctx[B:], kw_cond) if cond_only else (torch.cat([x, x]), ctx, kw)
         if deepcache_interval > 1:
             eps, cache = unet.forward_cached(lat, t, c, depth=deepcache_depth,
-                                             cached=None if full else cache, **kw)
+                                             cached=None if full else cache, **k)
         else:
-            eps = unet(lat, t, c, **kw)
+            eps = unet(lat, t, c, **k)
         if not cond_only:
             eps_u, eps_c = eps.chunk(2)
             eps = eps_u + guidance_scale * (eps_c - eps_u)
@@ -143,7 +183,10 @@ def sample(
             if return_trajectory:
                 traj.append(x)
 
-    images = nets["vae"].decode(x, policy, attn_impl=attn_impl)
+    if decode_chunk is not None and B > decode_chunk and B % decode_chunk == 0:
+        images = torch.cat([nets["vae"].decode(z, policy, attn_impl=attn_impl) for z in x.split(decode_chunk)])
+    else:
+        images = nets["vae"].decode(x, policy, attn_impl=attn_impl)
     images = (images * 0.5 + 0.5).clamp(0.0, 1.0)
     if return_trajectory:
         return images, torch.stack(traj)

@@ -9,7 +9,8 @@ loads a JAX tree by walking it, and `init_lora` returns the layout of JAX
 `attn_impl="flash_int8"`), and K5 for its backward when a gradient is taken
 through the LoRA. After `ops.quant.quantize_unet` every dense layer but the
 time path runs kernel K7 and every conv but conv_in/conv_out runs
-`qconv2d`. `forward_cached` is the DeepCache forward. Under
+`qconv2d`. `forward_cached` is the DeepCache forward; `tome_ratio` turns on ToMe
+(`ops/tome.py`) in both. Under
 GN_CONV_IMPL=pallas each resblock's `conv(silu(gn(x)))` that K4 takes runs
 kernel K4, and under GN_IMPL=pallas every GroupNorm that K3 takes runs
 kernel K3 (`ops.norms`).
@@ -28,9 +29,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from ..core.precision import DEFAULT_POLICY, Policy
-from ..ops import fused_gn_conv
+from ..ops import fused_gn_conv, tome
 from ..ops.attention import dot_product_attention
-from ..ops.lora import lora_delta, lora_dense
+from ..ops.lora import add_delta, lora_delta, lora_dense
 from ..ops.norms import group_norm, layer_norm
 from ..ops.quant import is_quantized, qdense_fused
 from .layers import Affine, conv2d, materialize
@@ -145,11 +146,10 @@ class Attention(nn.Module):
                 la = None if lora is None else lora.get(name)
                 if la is None:
                     continue
-                delta = lora_delta(x, la["a"], la["b"])
-                if torch.is_grad_enabled():  # autograd refuses in-place ops on split views
-                    qkv[i] = torch.add(qkv[i], delta, alpha=lora_scale)
-                else:  # in place: the views stay views of one buffer
-                    qkv[i].add_(delta, alpha=lora_scale)
+                # autograd refuses in-place ops on split views; without grad
+                # the add is in place and the views stay views of one buffer
+                qkv[i] = add_delta(qkv[i], lora_delta(x, la["a"], la["b"]), lora_scale,
+                                   inplace=not torch.is_grad_enabled())
             q, k, v = qkv
             skv = s
         else:
@@ -184,23 +184,39 @@ class Transformer2D(nn.Module):
             BasicTransformerBlock(dim, cfg.cross_attention_dim) for _ in range(cfg.transformer_layers)
         )
 
-    def forward(self, x, ctx, cfg: UNetConfig, lora=None, lora_scale=1.0, attn_impl="auto", ctx_len=None):
+    def forward(self, x, ctx, cfg: UNetConfig, lora=None, lora_scale=1.0, attn_impl="auto", ctx_len=None,
+                tome_ratio: float = 0.0, tome_min_tokens: int = 4096, tome_ops: str = "attn"):
+        """With `tome_ratio > 0` and at least `tome_min_tokens` tokens, ToMe
+        (ops/tome.py) merges tokens before the self-attention and, as
+        `tome_ops` names them, the cross-attention ("xattn") and the MLP
+        ("mlp"), one match a block from its input (unet2d.py:364-435)."""
         b, hh, ww, c = x.shape
         res = x
+        tome_r = tome.merge_count(hh * ww, tome_ratio) if tome_ratio > 0.0 and hh * ww >= tome_min_tokens else 0
         # GN eps 1e-6 in transformers (unet2d.py:381)
         h = group_norm(x, self.norm.weight, self.norm.bias, cfg.norm_groups, 1e-6).reshape(b, hh * ww, c)
         h = lora_dense(h, self.proj_in.weight, self.proj_in.bias)
         for i, blk in enumerate(self.blocks):
             blora = None if lora is None else lora["blocks"][i]
+            m = tome.build_match(h, hh, ww, tome_r) if tome_r > 0 else None
             hn = layer_norm(h, blk.ln1.weight, blk.ln1.bias)
-            h = h + blk.attn1(hn, hn, cfg.head_dim, None if blora is None else blora["attn1"],
-                              lora_scale, attn_impl)
+            if m is not None:
+                hm = tome.merge(hn, m)  # one object: the fused-qkv path
+                h = h + tome.unmerge(blk.attn1(hm, hm, cfg.head_dim, None if blora is None else blora["attn1"],
+                                               lora_scale, attn_impl), m)
+            else:
+                h = h + blk.attn1(hn, hn, cfg.head_dim, None if blora is None else blora["attn1"],
+                                  lora_scale, attn_impl)
             hn = layer_norm(h, blk.ln2.weight, blk.ln2.bias)
-            h = h + blk.attn2(hn, ctx, cfg.head_dim, None if blora is None else blora["attn2"],
-                              lora_scale, attn_impl, kv_len=ctx_len)
+            xm = m is not None and "xattn" in tome_ops
+            a2 = blk.attn2(tome.merge(hn, m) if xm else hn, ctx, cfg.head_dim,
+                           None if blora is None else blora["attn2"], lora_scale, attn_impl, kv_len=ctx_len)
+            h = h + (tome.unmerge(a2, m) if xm else a2)
             hn = layer_norm(h, blk.ln3.weight, blk.ln3.bias)
-            val, gate = lora_dense(hn, blk.ff_in.weight, blk.ff_in.bias).chunk(2, dim=-1)
-            h = h + lora_dense(val * F.gelu(gate), blk.ff_out.weight, blk.ff_out.bias)
+            mm = m is not None and "mlp" in tome_ops
+            val, gate = lora_dense(tome.merge(hn, m) if mm else hn, blk.ff_in.weight, blk.ff_in.bias).chunk(2, dim=-1)
+            ff = lora_dense(val * F.gelu(gate), blk.ff_out.weight, blk.ff_out.bias)
+            h = h + (tome.unmerge(ff, m) if mm else ff)
         h = lora_dense(h, self.proj_out.weight, self.proj_out.bias)
         return res + h.reshape(b, hh, ww, c)
 
@@ -272,19 +288,23 @@ class UNet2DCondition(nn.Module):
 
     def forward(self, latents, timesteps, encoder_hidden_states, policy: Policy = DEFAULT_POLICY,
                 lora: Optional[dict] = None, lora_scale: float = 1.0, attn_impl: str = "auto",
-                ctx_len: Optional[int] = None, remat: bool = False) -> torch.Tensor:
+                ctx_len: Optional[int] = None, remat: bool = False, tome_ratio: float = 0.0,
+                tome_min_tokens: int = 4096, tome_ops: str = "attn") -> torch.Tensor:
         """latents (B, H, W, 4) NHWC, timesteps (B,) or a scalar,
         encoder_hidden_states (B, 77, Cctx) → ε̂ (B, H, W, 4) in fp32.
         `remat` (gradient checkpointing) recomputes each down, mid and up
         unit in the backward instead of keeping its activations, the units
-        `jax.checkpoint` wraps in the JAX twin (unet2d.py:482-533)."""
+        `jax.checkpoint` wraps in the JAX twin (unet2d.py:482-533).
+        `tome_ratio > 0` merges tokens in every transformer of at least
+        `tome_min_tokens` tokens (`Transformer2D.forward`); 0.0 is exact."""
         return self._run(latents, timesteps, encoder_hidden_states, policy, lora, lora_scale, attn_impl,
-                         ctx_len, remat)[0]
+                         ctx_len, remat, tome=(tome_ratio, tome_min_tokens, tome_ops))[0]
 
     def forward_cached(self, latents, timesteps, encoder_hidden_states, policy: Policy = DEFAULT_POLICY,
                        lora: Optional[dict] = None, lora_scale: float = 1.0, attn_impl: str = "auto",
                        ctx_len: Optional[int] = None, depth: int = 1,
-                       cached: Optional[torch.Tensor] = None):
+                       cached: Optional[torch.Tensor] = None, tome_ratio: float = 0.0,
+                       tome_min_tokens: int = 4096, tome_ops: str = "attn"):
         """ε̂ with a DeepCache deep-feature cache (`apply_cached`,
         unet2d.py:559-681); returns (eps, cache). With `cached=None` the full
         network runs and the cache is the feature entering
@@ -297,10 +317,10 @@ class UNet2DCondition(nn.Module):
         if not 1 <= depth < L:
             raise ValueError(f"depth must be in [1, {L - 1}], got {depth}")
         return self._run(latents, timesteps, encoder_hidden_states, policy, lora, lora_scale, attn_impl,
-                         ctx_len, False, L - depth, cached)
+                         ctx_len, False, L - depth, cached, tome=(tome_ratio, tome_min_tokens, tome_ops))
 
     def _run(self, latents, timesteps, encoder_hidden_states, policy, lora, lora_scale, attn_impl, ctx_len,
-             remat, splice=None, cached=None):
+             remat, splice=None, cached=None, tome=(0.0, 4096, "attn")):
         """The one down/mid/up loop: (ε̂, the feature entering
         up_blocks[splice]). With `cached`, the down blocks below the splice
         and the mid block are skipped and `cached` enters there instead."""
@@ -327,7 +347,7 @@ class UNet2DCondition(nn.Module):
         def level_unit(x, rb, tr, tlora):
             h = rb(x, temb, G)
             if tr is not None:
-                h = tr(h, ctx, cfg, tlora, lora_scale, attn_impl, ctx_len)
+                h = tr(h, ctx, cfg, tlora, lora_scale, attn_impl, ctx_len, *tome)
             return h
 
         x = conv2d(x, self.conv_in)

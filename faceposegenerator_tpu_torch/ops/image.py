@@ -1,5 +1,6 @@
-"""Differentiable image ops of the ID-Booth identity branch (port of
-`faceposegenerator_tpu/ops/image.py:19-96`).
+"""Image ops (port of `faceposegenerator_tpu/ops/image.py:19-96`): the
+differentiable crop of the ID-Booth identity branch, the resize and
+normalisation before ArcFace, and the pipeline's uint8 quantize.
 
 `crop_and_resize` samples a bilinear grid over each box, so its output shape
 is fixed and its gradient flows back into the image (and from there through
@@ -43,3 +44,19 @@ def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_size: int = 1
 def normalize_to_arcface(face: torch.Tensor) -> torch.Tensor:
     """[0, 255] face crop → [-1, 1] ArcFace input (image.py:92-96)."""
     return (face / 255.0 - 0.5) / 0.5
+
+
+def resize_bilinear(images: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear resize of square NHWC images through the crop path
+    (image.py:72-80): a box over the whole image."""
+    b, h, w, _ = images.shape
+    if out_hw[0] != out_hw[1]:
+        raise ValueError(f"resize_bilinear takes square outputs only, got {tuple(out_hw)}")
+    boxes = torch.tensor([[0.0, 0.0, float(w - 1), float(h - 1)]], device=images.device).expand(b, 4)
+    return crop_and_resize(images, boxes, out_hw[0])
+
+
+def quantize_u8(images: torch.Tensor) -> torch.Tensor:
+    """[0, 1] float → uint8 on the images' device (image.py:83-89):
+    round(x·255) (half to even, as jnp.round), clipped to [0, 255]."""
+    return torch.round(images.float() * 255.0).clamp_(0, 255).to(torch.uint8)

@@ -51,8 +51,9 @@ class Preset:
 
     def apply(self, pipe, calibrate: bool = True, **calib_kw) -> dict:
         """Swap the scheduler, quantize and calibrate `pipe`; returns
-        `sample_kwargs()`. `calib_kw` goes to `pipe.calibrate_quant` (the
-        port has no tokenizer yet: pass `input_ids=`)."""
+        `sample_kwargs()`. `calib_kw` goes to `pipe.calibrate_quant`; without
+        `input_ids` or a prompt there, it calibrates on `CALIBRATION_PROMPT`
+        through the pipeline's tokenizer."""
         pipe.set_scheduler(self.scheduler)
         if self.quantize:
             pipe.quantize(self.quantize)

@@ -1,47 +1,53 @@
 """StableDiffusionPipeline-style txt2img API (port of
-`faceposegenerator_tpu/pipelines/txt2img.py:35-439`, the random-weight,
-token-id surface):
+`faceposegenerator_tpu/pipelines/txt2img.py:35-439`):
 
-    pipe = StableDiffusionPipeline.from_random(seed=0, dtype=torch.bfloat16)
-    pipe.set_lora(lora)                      # factored adapters, swapped in place
-    images = pipe(input_ids=ids, num_inference_steps=30, guidance_scale=5.0,
-                  height=512, width=512, seed=identity_index)
+    pipe = StableDiffusionPipeline.from_pretrained(model_dir)   # diffusers SD2.1 directory
+    pipe.load_lora_weights(ckpt_dir)                          # pytorch_lora_weights.safetensors
+    images = pipe(prompt, negative_prompt=..., num_inference_steps=30,
+                  guidance_scale=5.0, height=512, width=512, seed=identity_index)
 
-and the turbo preset (`pipelines.presets`):
+`from_random(seed=0, dtype=...)` builds random weights instead; `input_ids=`
+takes token ids in place of prompts; a per-call `lora=`/`lora_scale=`
+overrides the pipeline's adapter and may be per-sample. The turbo preset
+(`pipelines.presets`):
 
-    kw = get_preset("turbo").apply(pipe, input_ids=calib_ids)  # dpm, w8a8+vae, calibration
-    images = pipe(input_ids=ids, num_inference_steps=12, seed=s, **kw)
-
-`from_pretrained`, real-checkpoint loading and the BPE tokenizer wait until
-the weight and vocab files are in the repository; `input_ids` are token ids.
+    kw = get_preset("turbo").apply(pipe)   # dpm, w8a8+vae, calibration by prompt
+    images = pipe(prompts, num_inference_steps=12, seed=s, **kw)
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Union
 
 import torch
 
+from ..bridge.jax_params import load_jax_params
+from ..bridge.torch_weights import configs_from_model_dir, load_sd21_params
 from ..core.device import resolve_device
 from ..core.precision import Policy
 from ..core.rng import sampler_generator
+from ..data.tokenizer import CLIPTokenizer
+from ..diffusion.lora_io import load_lora_safetensors
 from ..diffusion.sampler import SamplerModels, sample
 from ..diffusion.schedulers import SchedulerConfig, make_ddpm, make_dpm_solver
 from ..models.clip_text import CLIPTextModel
 from ..models.unet2d import UNet2DCondition
 from ..models.vae import AutoencoderKL
 from ..ops import quant
+from ..ops.image import quantize_u8
 
 
 class StableDiffusionPipeline:
     def __init__(self, nets: dict, models: SamplerModels = SamplerModels(),
                  policy: Optional[Policy] = None,
-                 scheduler_config: SchedulerConfig = SchedulerConfig()):
+                 scheduler_config: SchedulerConfig = SchedulerConfig(), tokenizer=None):
         self.nets = nets
         self.models = models
         dtype = nets["unet"].conv_in.weight.dtype
         self.policy = policy if policy is not None else Policy(param_dtype=dtype, compute_dtype=dtype)
         self.scheduler_config = scheduler_config
+        self.tokenizer = tokenizer
         self.scheduler_kind = "ddpm"
         self.lora = None
         self.lora_scale = 1.0
@@ -63,6 +69,32 @@ class StableDiffusionPipeline:
         }
         return cls(nets, models, **kw)
 
+    @classmethod
+    def from_pretrained(cls, model_dir: str, dtype: torch.dtype = torch.bfloat16,
+                        models: Optional[SamplerModels] = None, policy: Optional[Policy] = None, device=None):
+        """A local diffusers-format SD2.1 directory (txt2img.py:75-98): the
+        configs from its own config.json files unless `models` is given, the
+        weights of unet/, vae/ and text_encoder/ (safetensors or .bin) in
+        `dtype` on the card unless `device` says otherwise, and the CLIP
+        tokenizer when tokenizer/ exists."""
+        device = resolve_device(device)
+        if models is None:
+            text_cfg, unet_cfg, vae_cfg = configs_from_model_dir(model_dir)
+            models = SamplerModels(text_cfg=text_cfg, unet_cfg=unet_cfg, vae_cfg=vae_cfg)
+        trees = load_sd21_params(model_dir)
+        nets = {
+            "text_encoder": CLIPTextModel(models.text_cfg, device=device, dtype=dtype),
+            "unet": UNet2DCondition(models.unet_cfg, device=device, dtype=dtype),
+            "vae": AutoencoderKL(models.vae_cfg, device=device, dtype=dtype),
+        }
+        for name, net in nets.items():
+            load_jax_params(net, trees.pop(name))
+        tok_dir = os.path.join(model_dir, "tokenizer")
+        tokenizer = CLIPTokenizer.from_pretrained(tok_dir) if os.path.isdir(tok_dir) else None
+        if policy is None:
+            policy = Policy(param_dtype=dtype, compute_dtype=dtype)
+        return cls(nets, models, policy, tokenizer=tokenizer)
+
     def set_scheduler(self, kind: str):
         """Swap DDPM and DPM-Solver++ ("ddpm" / "dpm")."""
         if kind not in ("ddpm", "dpm"):
@@ -74,6 +106,13 @@ class StableDiffusionPipeline:
         of `models.unet2d.init_lora`; tensors on the pipeline's device."""
         self.lora = lora
         self.lora_scale = scale
+
+    def load_lora_weights(self, path_or_dir: str, scale: float = 1.0):
+        """A diffusers/peft LoRA checkpoint (`pytorch_lora_weights.safetensors`
+        or its directory), UNet and text-encoder keys, on the pipeline's
+        device in `policy.param_dtype`; modules the file lacks get zero pairs."""
+        self.set_lora(load_lora_safetensors(path_or_dir, self.nets["unet"], self.nets["text_encoder"],
+                                            dtype=self.policy.param_dtype), scale)
 
     def unload_lora_weights(self):
         self.lora = None
@@ -90,8 +129,11 @@ class StableDiffusionPipeline:
         if mode.endswith("+vae"):
             quant.quantize_vae(self.nets["vae"], act_scale=act_scale)
 
-    def tokenize(self, prompts: Union[str, List[str]]):
-        raise ValueError("no tokenizer loaded; pass input_ids directly")
+    def tokenize(self, prompts: Union[str, List[str]]) -> torch.Tensor:
+        """(B, 77) token ids, a long tensor on the host."""
+        if self.tokenizer is None:
+            raise ValueError("no tokenizer loaded; pass input_ids directly")
+        return torch.from_numpy(self.tokenizer(prompts)).long()
 
     @torch.inference_mode()
     def calibrate_quant(self, prompt: Union[str, List[str], None] = None, *, negative_prompt=None,
@@ -103,9 +145,7 @@ class StableDiffusionPipeline:
         denoise without LoRA and one decode run under
         `quant.observe_act_scales`, with the generator of `seed`. Call after
         `quantize()`. Returns the observations."""
-        if input_ids is None:
-            input_ids = self.tokenize(prompt)
-        input_ids, negative_input_ids = self._ids(input_ids, negative_input_ids)
+        input_ids, negative_input_ids = self._ids(prompt, negative_prompt, input_ids, negative_input_ids)
         self.policy.configure_backends()
         nets, device = self.nets, self.device
         B, h, w = input_ids.shape[0], height // 8, width // 8
@@ -137,24 +177,61 @@ class StableDiffusionPipeline:
         layout drift."""
         quant.load_act_scales({"unet": self.nets["unet"], "vae": self.nets["vae"]}, path)
 
-    @staticmethod
-    def _ids(input_ids, negative_input_ids):
+    def _ids(self, prompt, negative_prompt, input_ids, negative_input_ids):
+        """Prompt and negative ids as long tensors (txt2img.py:320-337): the
+        prompts tokenized unless ids are given; without a negative, zeros
+        when no tokenizer is loaded and "" tokenized for each row otherwise
+        (SD2's "!" padding makes those ids nonzero); a one-row negative tiled
+        to the batch."""
+        if input_ids is None:
+            input_ids = self.tokenize(prompt)
         input_ids = torch.as_tensor(input_ids).long()
         if negative_input_ids is None:
-            negative_input_ids = torch.zeros_like(input_ids)  # txt2img.py:330-331
+            if negative_prompt is None and self.tokenizer is None:
+                negative_input_ids = torch.zeros_like(input_ids)
+            else:
+                if negative_prompt is None:
+                    negative_prompt = [""] * input_ids.shape[0]
+                negative_input_ids = self.tokenize(negative_prompt)
         negative_input_ids = torch.as_tensor(negative_input_ids).long()
         if negative_input_ids.shape[0] == 1 and input_ids.shape[0] > 1:
             negative_input_ids = negative_input_ids.expand(input_ids.shape[0], -1)
         return input_ids, negative_input_ids
 
-    def __call__(self, *, input_ids, negative_input_ids=None, num_inference_steps: int = 30,
+    def __call__(self, prompt: Union[str, List[str], None] = None,
+                 negative_prompt: Union[str, List[str], None] = None, *, num_inference_steps: int = 30,
                  guidance_scale: float = 5.0, height: int = 512, width: int = 512,
-                 seed: Optional[int] = None, noise_override=None, output_type: str = "np",
-                 deepcache_interval: int = 1, deepcache_depth: int = 1,
-                 cfg_interval: Optional[tuple] = None):
-        """Images (B, height, width, 3) in [0, 1]: a float32 numpy array for
-        output_type "np", a tensor on the device for "pt"."""
-        input_ids, negative_input_ids = self._ids(input_ids, negative_input_ids)
+                 seed: Optional[int] = None, num_images_per_prompt: int = 1, input_ids=None,
+                 negative_input_ids=None, output_type: str = "np", lora: Optional[dict] = None,
+                 lora_scale=None, noise_override=None, decode_chunk: Optional[int] = None,
+                 deepcache_interval: int = 1, deepcache_depth: int = 1, tome_ratio: float = 0.0,
+                 tome_min_tokens: int = 4096, tome_ops: str = "attn", cfg_interval: Optional[tuple] = None):
+        """Images (B, height, width, 3): in [0, 1] as a float32 numpy array
+        for output_type "np" or a tensor on the device for "pt"; uint8 as a
+        numpy array for "u8" or a tensor on the device for "pt_u8".
+
+        `num_images_per_prompt` repeats each prompt's row (and its
+        negative's) as `jnp.repeat` does. `lora`/`lora_scale` override the
+        pipeline's adapter for this call; its leaves may carry a leading
+        request axis (B, r, in)/(B, out, r) with a (B,) scale, slot b riding
+        adapter b. `noise_override`: (S+1, B, h/8, w/8, 4) noise in place of
+        the seed's. `decode_chunk`, `deepcache_*`, `tome_*` and
+        `cfg_interval` go to `sampler.sample`."""
+        input_ids, negative_input_ids = self._ids(prompt, negative_prompt, input_ids, negative_input_ids)
+        if num_images_per_prompt > 1:
+            input_ids = input_ids.repeat_interleave(num_images_per_prompt, dim=0)
+            negative_input_ids = negative_input_ids.repeat_interleave(num_images_per_prompt, dim=0)
+        if lora is None:
+            scale = self.lora_scale
+            lora = self.lora
+        else:
+            scale = 1.0 if lora_scale is None else lora_scale
+        if lora is not None:
+            lora = {"unet": lora.get("unet"), "text_encoder": lora.get("text_encoder")}
+        if not isinstance(scale, (int, float)):
+            scale = torch.as_tensor(scale, dtype=torch.float32, device=self.device)
+            if scale.dim() == 0:
+                scale = float(scale)
         if self.scheduler_kind == "ddpm":
             sched = make_ddpm(self.scheduler_config, num_inference_steps)
         else:
@@ -164,12 +241,16 @@ class StableDiffusionPipeline:
             generator=sampler_generator(seed if seed is not None else 0, self.device),
             guidance_scale=float(guidance_scale), height=height, width=width,
             policy=self.policy, scheduler=self.scheduler_kind, attn_impl=self.models.attn_impl,
-            lora=self.lora, lora_scale=self.lora_scale, noise_override=noise_override,
+            lora=lora, lora_scale=scale, noise_override=noise_override, decode_chunk=decode_chunk,
             deepcache_interval=deepcache_interval, deepcache_depth=deepcache_depth,
+            tome_ratio=tome_ratio, tome_min_tokens=tome_min_tokens, tome_ops=tome_ops,
             cfg_interval=None if cfg_interval is None else tuple(cfg_interval),
         )
         if output_type == "np":
             return images.cpu().numpy()
         if output_type == "pt":
             return images
+        if output_type in ("u8", "pt_u8"):
+            u8 = quantize_u8(images)
+            return u8.cpu().numpy() if output_type == "u8" else u8
         raise ValueError(f"unknown output_type {output_type!r}")

@@ -1,6 +1,7 @@
 """Where one txt2img request of the PyTorch port spends its device time.
 
-    python3 perf/torch_txt2img_profile.py [--preset turbo] [--attn flash_int8] [--dtype fp32]
+    python3 perf/torch_txt2img_profile.py [--preset turbo|latency] [--attn flash_int8] [--dtype fp32]
+                                          [--tome RATIO] [--decode-chunk N]
     GN_IMPL=pallas GN_CONV_IMPL=pallas python3 perf/torch_txt2img_profile.py [--dtype fp32]
 
 Builds the pipeline as chip_smoke.py does (SD2.1-base widths, bf16, random
@@ -16,10 +17,13 @@ With `--dtype fp32` the pipeline is `from_random()` at its default dtype
 run 10 steps, as chip_smoke.py's fp32 request does: the fp32 attention
 (flash_f32_split, flash_fwd_f32); with the two GroupNorm variables at pallas
 as well, chip_smoke.py's fused fp32 request (K3's and K4's fp32 instances,
-K4's weight pre-pass gn_conv_f32_split).
+K4's weight pre-pass gn_conv_f32_split). `--preset latency` serves its op
+point, batch 1 (DPM++ 20, DeepCache-3, guidance (3, 13)); `--tome 0.5`
+merges L0's tokens with ToMe (`tome_ratio`), `--decode-chunk 2` decodes 2
+images at a time, as chip_smoke.py's phase 12 requests do.
 Prints the request's wall time, the device's busy and idle share, device
 time by category of kernel and the top kernels, and writes the full table
-as torch_txt2img_profile[_turbo][_flash_int8][_fused_gn][_fp32].txt to the output
+as torch_txt2img_profile[_turbo|_latency][_flash_int8][_fused_gn][_fp32][_tome][_chunk].txt to the output
 directory (`out` below).
 Needs a CUDA card.
 """
@@ -41,6 +45,7 @@ CATEGORIES = [  # first match wins; matched against the kernel's name
     ("int8 dense K7 (qdense)", r"qdense|row_scale"),
     ("int8 attention K8 (flash_int8)", r"flash_int8"),
     ("attention K1 (flash_fwd_d64)", r"flash_fwd_d64"),
+    ("gather, scatter, sort (ToMe)", r"gather|scatter|sort"),
     ("attention K2 (flash_fwd_wide)", r"flash_fwd_wide"),
     ("attention fp32 (flash_fwd_f32)", r"flash_fwd_f32"),
     ("attention fp32 split (flash_f32_split)", r"flash_f32_split"),
@@ -72,9 +77,11 @@ def main() -> int:
     from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--preset", choices=["turbo"], default=None)
+    ap.add_argument("--preset", choices=["turbo", "latency"], default=None)
     ap.add_argument("--attn", choices=["auto", "flash_int8"], default="auto")
     ap.add_argument("--dtype", choices=["bf16", "fp32"], default="bf16")
+    ap.add_argument("--tome", type=float, default=0.0)
+    ap.add_argument("--decode-chunk", type=int, default=None)
     args = ap.parse_args()
     fp32 = args.dtype == "fp32"
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -83,14 +90,20 @@ def main() -> int:
     pipe = StableDiffusionPipeline.from_random(seed=0, models=SamplerModels(attn_impl=args.attn),
                                                **({} if fp32 else {"dtype": torch.bfloat16}))
     pipe.set_lora(chip_smoke.make_lora(pipe.nets["unet"], 10, torch, torch.float32 if fp32 else None))
-    ids = torch.randint(0, 49408, (8, 77), generator=torch.Generator().manual_seed(1))
+    batch = 1 if args.preset == "latency" else 8
+    ids = torch.randint(0, 49408, (batch, 77), generator=torch.Generator().manual_seed(1))
     steps, kw = (10 if fp32 else 30), {}
     if args.preset:
         preset = get_preset(args.preset)
         calib = torch.randint(0, 49408, (8, 77), generator=torch.Generator().manual_seed(2))
         steps, kw = preset.steps, preset.apply(pipe, input_ids=calib)
+    if args.tome:
+        kw["tome_ratio"] = args.tome
+    if args.decode_chunk:
+        kw["decode_chunk"] = args.decode_chunk
     gn = f"GN_IMPL={gn_impl()} GN_CONV_IMPL={gn_conv_impl()}"
-    print(f"preset {args.preset}, attention {args.attn}, {args.dtype}, {gn}: {steps} steps, kwargs {kw}", flush=True)
+    print(f"preset {args.preset}, attention {args.attn}, {args.dtype}, {gn}: batch {batch}, {steps} steps, "
+          f"kwargs {kw}", flush=True)
 
     def request(seed):
         torch.cuda.synchronize()
@@ -128,11 +141,12 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     fused = "fused_gn" if gn_impl() == gn_conv_impl() == "pallas" else None
     suffix = "".join(f"_{x}" for x in (args.preset, None if args.attn == "auto" else args.attn, fused,
-                                        "fp32" if fp32 else None) if x)
+                                        "fp32" if fp32 else None, "tome" if args.tome else None,
+                                        "chunk" if args.decode_chunk else None) if x)
     (out / f"torch_txt2img_profile{suffix}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
     print(json.dumps({"card": card, "preset": args.preset, "attn": args.attn, "dtype": args.dtype, "gn": gn,
-                      "wall_ms": wall_ms,
+                      "batch": batch, "tome": args.tome, "decode_chunk": args.decode_chunk, "wall_ms": wall_ms,
                       "device_busy_ms": busy,
                       "idle_share": 1 - busy / wall_ms, "by_category_ms": dict(by_cat)}))
     return 0

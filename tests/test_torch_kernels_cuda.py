@@ -76,6 +76,9 @@ FWD_CASES = [  # (b, sq, skv, h, d, kv_len)
     (2, 100, 100, 1, 512, None), (1, 64, 96, 2, 128, 50),
     # K1: kv_len inside the first 128-key tile; Sq = 64 (half a CTA idle) and a ragged Sq = 200
     (1, 64, 128, 2, 64, 50), (2, 64, 64, 4, 64, None), (2, 200, 333, 3, 64, 300),
+    # ToMe at ratio 0.5 on the CFG batch of 8: L0's self-attention merged to 2048 tokens, and
+    # its cross-attention from 2048 queries (tome_ops "xattn") over the 77 text keys
+    (16, 2048, 2048, 5, 64, None), (16, 2048, 77, 5, 64, 77),
 ]
 
 
@@ -243,6 +246,8 @@ WIDE_CASES = [  # (b, sq, skv, h, d, kv_len): every head dim, ragged Sq and Skv,
     (2, 100, 333, 1, 512, 300), (1, 4096, 4096, 1, 512, None),
     # at D = 512: kv_len mid-way through a 32- and a 64-key tile, and fewer keys than one tile
     (1, 160, 256, 2, 512, 150), (2, 96, 20, 1, 512, None),
+    # the VAE's mid attention under decode_chunk=2
+    (2, 4096, 4096, 1, 512, None),
 ]
 
 

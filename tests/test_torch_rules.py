@@ -72,14 +72,37 @@ def test_port_sources_use_no_library_attention_or_compile():
                             and node.value.id == "torch"), where
 
 
-def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+def test_port_never_imports_safetensors():
+    """The card's machine has no `safetensors` package: the port reads and
+    writes the format itself (`bridge/safetensors_io.py`). No module of the
+    port, nor chip_smoke.py, imports it, in its source or at run time."""
+    for path in list(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert "safetensors" not in roots, f"{path.relative_to(REPO)}:{node.lineno}"
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules() + ['chip_smoke']!r}: importlib.import_module(m)\n"
+        "sys.exit(1 if any(m.split('.')[0] == 'safetensors' for m in sys.modules) else 0)\n"
+    )
+    r = _run(code)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_need_a_card_unless_told_cpu(monkeypatch, tmp_path):
     from faceposegenerator_tpu_torch.models.iresnet import IResNet
     from faceposegenerator_tpu_torch.models.unet2d import UNet2DCondition
     from faceposegenerator_tpu_torch.models.vae import AutoencoderKL
     from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for entry in (StableDiffusionPipeline.from_random, UNet2DCondition, AutoencoderKL, IResNet):
+    from_dir = lambda: StableDiffusionPipeline.from_pretrained(str(tmp_path))  # noqa: E731
+    for entry in (StableDiffusionPipeline.from_random, from_dir, UNet2DCondition, AutoencoderKL, IResNet):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
 
