@@ -96,7 +96,10 @@ Phases, in order; any failure exits non-zero without the final result line:
      within 1e-2 relative, LoRA gradient cosine >= 0.99), then 2 steps, each
      launching exactly K4 16 and K3 33 times besides phase 7's counts (the
      backward recomputes K3 and K4's functions in plain torch), moving the
-     LoRA and leaving the frozen weights untouched;
+     LoRA and leaving the frozen weights untouched; then GN_IMPL alone at
+     pallas (K4 at xla): the same gate, then 1 step launching exactly K3 49
+     times (its 33 and the GroupNorm+SiLU of K4's 16 sites) besides phase
+     7's counts;
  11. fp32: with TF32 off, each fp32 instance against its plain version in
      fp32: flash_fwd_f32 (csrc/flash_f32.cu, 3xTF32 on the tensor cores) at
      every sampling shape and, with the log-sum-exp, every train shape (max
@@ -159,6 +162,30 @@ Phases, in order; any failure exits non-zero without the final result line:
      turbo request with phase 6's counts. Phase 3 holds K1 at the ToMe
      shapes and K2 at B·H 2 beside the other rows; their launches a request
      in the kernels line are the ones phase 12 counted.
+ 13. training driver: phase 12's directory loaded again by from_pretrained
+     (phase 12 quantized its pipeline), its nets bf16 and frozen with the
+     ArcFace r100 of phase 7, an fp32 rank-4 LoRA, triplet_prior, files
+     under build/: generate_class_images writes 8 class images (2 requests
+     at batch 4, 512², 30 DDPM steps: K1 1920, K2 2); 2 × 4 instance images
+     from a seed with their ArcFace embeddings; run_identity at phase 7's
+     op point (batch 4 + prior, 2 epochs of 2 steps, a checkpoint a
+     epoch, 1 kept, validation after epoch 2: 4 images, 25 DPM-Solver++
+     steps, K1 800, K2 1), every step launching exactly phase 7's counts,
+     the LoRA moving, the frozen weights untouched, one checkpoint left and
+     the validation grid written; the checkpoint read back with its
+     trainable, AdamW moments and count bit-equal to what was saved; resume
+     to 3 epochs running exactly one; the final LoRA file through
+     load_lora_weights in a request (batch 4, 30 steps) bit-equal to
+     set_lora with the trainable cast to bf16; two identities stacked, a
+     2(+2)×128² gate per identity against its serial loss and gradient
+     (loss within 1e-2 relative, cosine >= 0.99), then an epoch of 4
+     stacked steps (2 × (2 + 2) rows) each launching exactly phase 7's
+     counts, the two LoRAs differing, each with its checkpoint and export;
+     gradient accumulation over 2 micro-steps, 2 without and 4 with the
+     text-encoder LoRA, each launching phase 7's counts, the LoRAs
+     bit-unchanged after odd micro-steps and moved after even ones, CLIP's
+     weights untouched. It prints s/step (driver, stacked, accumulation)
+     and peak memory beside phase 7's, and checkpoint write and read times.
 Phases 3-7 run the default configuration (GN_IMPL and GN_CONV_IMPL at xla)
 whatever the environment says. The line before the last is a JSON object
 with one entry per kernel; the last is {"ok": true, "device": {...}}.
@@ -370,6 +397,10 @@ FUSED_LAUNCHES = {"gn_silu_conv3x3": 480, "fused_group_norm": 371, "flash_fwd_d6
 # K3 takes: 64²·320, 32²·320, 32²·640, 64²·640) go to K3 with the 371
 GN_ALONE_LAUNCHES = {"fused_group_norm": 371 + 480, "flash_fwd_d64": 960, "flash_fwd_wide": 1}
 FUSED_STEP_LAUNCHES = dict(STEP_LAUNCHES, gn_silu_conv3x3=16, fused_group_norm=33)
+# GN_IMPL alone at pallas in the train step: K3 takes its 33 norms and the
+# GroupNorm+SiLU of K4's 16 sites a step (CONV_TRAIN_SHAPES: 64²·320 7,
+# 32²·320 1, 32²·640 6, 64²·640 2, every one a shape K3 takes), forward only
+GN_ALONE_STEP_LAUNCHES = dict(STEP_LAUNCHES, fused_group_norm=33 + 16)
 # the txt2img request's exact launches, and the latency preset's at batch 1:
 # DPM++ 20 steps, DeepCache-3, guidance (3, 13) make 8 full UNet passes (32
 # attentions) and 12 partial ones (10: level 0's five transformers)
@@ -1226,7 +1257,8 @@ def _frozen_checksum(torch, frozen):
 def _small_train_check(torch, op, label, variants, loss_tol=1e-2, cos_min=0.99, expect=None):
     """One loss and LoRA gradient on 2(+2) images of 128² with the same draws
     and a LoRA with nonzero B for each of the two `variants`, {name: (model
-    bundle, GN route)}: the losses within `loss_tol` relative, the
+    bundle, GN route: GN_IMPL for both variables or (GN_IMPL, GN_CONV_IMPL))}:
+    the losses within `loss_tol` relative, the
     gradients' cosine >= `cos_min`; the first variant's kernel launches
     exactly `expect` where given. Returns those launches."""
     from faceposegenerator_tpu_torch.diffusion.schedulers import make_ddpm
@@ -1245,7 +1277,7 @@ def _small_train_check(torch, op, label, variants, loss_tol=1e-2, cos_min=0.99, 
     got, launches = [], []
     for bundle, route in variants.values():
         _reset_launch_counts()
-        with gn_route(route):
+        with gn_route(*((route,) if isinstance(route, str) else route)):
             loss, _ = idbooth.make_loss_fn(small, bundle, make_ddpm(), policy)(lora, frozen, batch, draws=draws)
             grads = torch.autograd.grad(loss, leaves)
         got.append((float(loss.detach()), torch.cat([x.float().flatten() for x in grads])))
@@ -1267,7 +1299,8 @@ def _train_steps(torch, op, steps, expect, label, card_line):
     """`steps` train steps at the op point, each launching exactly `expect`,
     moving the LoRA and leaving the frozen weights untouched; the launch
     counts are set to 0 just before the first and read just after the last.
-    Returns (launches, the fastest step after the first)."""
+    Returns (launches, the fastest step after the first (the only one
+    when there is one), the peak device memory in GiB)."""
     from faceposegenerator_tpu_torch.core.rng import train_step_generator
     from faceposegenerator_tpu_torch.training import idbooth
 
@@ -1305,17 +1338,18 @@ def _train_steps(torch, op, steps, expect, label, card_line):
         fail(f"{label}: no LoRA B factor moved off zero")
     if _frozen_checksum(torch, frozen) != checksum:
         fail(f"{label}: the frozen weights changed")
-    steady = min(secs[1:])
+    steady = min(secs[1:] or secs)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label}: bs4(+prior) 512² triplet_prior r100: {secs} s per step; steady {steady:.3f} s/step = "
-          f"{4 / steady:.3f} train img/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+          f"{4 / steady:.3f} train img/s; peak memory {peak:.1f} GiB; "
           f"LoRA B max {moved:.3e}; frozen weights unchanged ({card_line})", flush=True)
-    return launches, steady
+    return launches, steady, peak
 
 
 def run_train(torch, card_line):
     """The train op point: the kernel path against the plain-attention path
     on a small input, then 3 steps. Returns (launches, the op point, the
-    steady s/step)."""
+    steady s/step, the peak memory in GiB)."""
     import dataclasses
 
     t0 = time.time()
@@ -1326,8 +1360,8 @@ def run_train(torch, card_line):
     _small_train_check(torch, op, "train: kernels vs plain attention", {
         impl: (dataclasses.replace(models, attn_impl=impl), "xla") for impl in ("auto", "reference")})
     expect = dict(STEP_LAUNCHES, flash_fwd_wide=3 if cfg.remat_identity else 2)
-    launches, steady = _train_steps(torch, op, 3, expect, "train", card_line)
-    return launches, op, steady
+    launches, steady, peak = _train_steps(torch, op, 3, expect, "train", card_line)
+    return launches, op, steady, peak
 
 
 def run_fused_txt2img(torch, card_line, default_secs):
@@ -1406,16 +1440,24 @@ def run_fused_txt2img(torch, card_line, default_secs):
 def run_fused_train(torch, card_line, op, default_steady):
     """The train step at the op point `op` in the fused configuration: the
     kernel routes against the default routes at 2(+2)×128², then 2 steps
-    with exact launch counts. Returns the phase's launch counts."""
+    with exact launch counts; then GN_IMPL alone at pallas (K4 at xla), the
+    same gate and 1 step. Returns the phase's launch counts."""
     models, cfg = op[1], op[3]
     _small_train_check(torch, op, "fused train: K3/K4 routes vs the default routes",
                        {route: (models, route) for route in ("pallas", "xla")})
     expect = dict(FUSED_STEP_LAUNCHES, flash_fwd_wide=3 if cfg.remat_identity else 2)
     with gn_route("pallas"):
-        launches, steady = _train_steps(torch, op, 2, expect, "fused train", card_line)
+        launches, steady, _ = _train_steps(torch, op, 2, expect, "fused train", card_line)
     print(f"fused train: {steady:.3f} s/step against the default configuration's {default_steady:.3f} s/step "
           f"in this process ({card_line})", flush=True)
-    return launches
+    _small_train_check(torch, op, "GN_IMPL alone train: K3 route vs the default routes",
+                       {"alone": (models, ("pallas", "xla")), "xla": (models, "xla")})
+    expect = dict(GN_ALONE_STEP_LAUNCHES, flash_fwd_wide=3 if cfg.remat_identity else 2)
+    with gn_route("pallas", conv="xla"):
+        alone, alone_s, _ = _train_steps(torch, op, 1, expect, "GN_IMPL alone train", card_line)
+    print(f"GN_IMPL alone train: {alone_s:.3f} s/step (one step) against the default configuration's "
+          f"{default_steady:.3f} and the fused one's {steady:.3f} in this process ({card_line})", flush=True)
+    return {n: c + alone[n] for n, c in launches.items()}
 
 
 class tf32:
@@ -2044,26 +2086,34 @@ def _route_diff(got, want, label, limits=(1e-1, 1e-2)):
     return float(diff.max()), float(diff.mean())
 
 
-def run_checkpoints(torch, card_line, default_secs):
-    """Phase 12: the synthetic SD2.1-base directory, from_pretrained, a
-    LoRA file, prompts, num_images_per_prompt, per-sample adapters, ToMe,
-    decode_chunk, the latency preset and its accel report, and the turbo
-    preset calibrating by prompt, each request with exact launch counts.
-    The synthetic directory lies under the checkout's `build/` and goes at
-    the end, also when a check fails. Returns the phase's launch counts and
-    the launches a request measured at each of CKPT_SHAPES."""
-    import shutil
-    from pathlib import Path
+class build_dir:
+    """A fresh directory `build/<name>` of the checkout within the block,
+    removed after it, also when a check fails."""
 
-    root = str(Path(__file__).resolve().parent / "build" / "sd21_base_synthetic")
-    shutil.rmtree(root, ignore_errors=True)
-    try:
-        return _checkpoints_phase(torch, card_line, default_secs, root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    def __init__(self, name):
+        from pathlib import Path
+
+        self.path = str(Path(__file__).resolve().parent / "build" / name)
+
+    def __enter__(self):
+        import shutil
+
+        shutil.rmtree(self.path, ignore_errors=True)
+        return self.path
+
+    def __exit__(self, *exc):
+        import shutil
+
+        shutil.rmtree(self.path, ignore_errors=True)
 
 
-def _checkpoints_phase(torch, card_line, default_secs, root):
+def run_checkpoints(torch, card_line, default_secs, root):
+    """Phase 12: the synthetic SD2.1-base directory at `root`,
+    from_pretrained, a LoRA file, prompts, num_images_per_prompt, per-sample
+    adapters, ToMe, decode_chunk, the latency preset and its accel report,
+    and the turbo preset calibrating by prompt, each request with exact
+    launch counts. Returns the phase's launch counts and the launches a
+    request measured at each of CKPT_SHAPES."""
     import dataclasses
     import os
 
@@ -2270,6 +2320,377 @@ def _checkpoints_phase(torch, card_line, default_secs, root):
     torch.cuda.empty_cache()
     print(f"checkpoints: phase 12 in {time.time() - t_phase:.1f} s ({card_line})", flush=True)
     return launches, measured
+
+
+# Phase 13: validation samples 4 images with CFG, 25 DPM-Solver++ steps,
+# every step one UNet pass on 8 rows (32 K1), then one VAE decode of the 4
+# (1 K2); CLIP's attention is plain. A class-image request at batch 4 and
+# 30 DDPM steps: 30 × 32 K1 and 1 K2.
+VALIDATION_LAUNCHES = {"flash_fwd_d64": 25 * 32, "flash_fwd_wide": 1}
+CLASS_LAUNCHES = {"flash_fwd_d64": 30 * 32, "flash_fwd_wide": 1}
+
+
+class step_probe:
+    """Within the block, every step that the factory `module.<name>` makes
+    (`make_train_step`, `make_multi_train_step`), or every call of the
+    function `module.<name>` with `factory=False`, is timed between two
+    synchronisations and its kernel launches counted: `records` holds one
+    {"s", "start", "end", "launches"} a call, in order."""
+
+    def __init__(self, module, name, factory=True):
+        self.module, self.name, self.factory = module, name, factory
+        self.records = []
+
+    def _timed(self, fn):
+        import torch
+
+        def call(*args, **kw):
+            before = _launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            launches = {n: c - before[n] for n, c in _launch_counts().items() if c != before[n]}
+            self.records.append({"s": t1 - t0, "start": t0, "end": t1, "launches": launches})
+            return out
+
+        return call
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+        if self.factory:
+            setattr(self.module, self.name, lambda *a, **kw: self._timed(self.saved(*a, **kw)))
+        else:
+            setattr(self.module, self.name, self._timed(self.saved))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+class save_probe:
+    """Within the block, CheckpointManager.save is timed and what it saves
+    (trainable, opt_state) is kept as copies on the card, in `saves`."""
+
+    def __enter__(self):
+        import torch
+
+        from faceposegenerator_tpu_torch.core.checkpointing import CheckpointManager
+        from faceposegenerator_tpu_torch.core.tree import tree_map
+
+        self.saved, self.saves = CheckpointManager.save, []
+
+        def save(mgr, epoch, step, trainable, opt_state, *a, **kw):
+            keep = lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t  # noqa: E731
+            copy = {"trainable": tree_map(keep, trainable), "opt_state": tree_map(keep, opt_state)}
+            torch.cuda.synchronize()
+            t0 = time.time()
+            path = self.saved(mgr, epoch, step, trainable, opt_state, *a, **kw)
+            self.saves.append({"path": path, "s": time.time() - t0, **copy})
+            return path
+
+        CheckpointManager.save = save
+        return self
+
+    def __exit__(self, *exc):
+        from faceposegenerator_tpu_torch.core.checkpointing import CheckpointManager
+
+        CheckpointManager.save = self.saved
+
+
+def _tree_equal(torch, a, b):
+    from faceposegenerator_tpu_torch.core.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x.detach(), y.detach()) for x, y in zip(la, lb))
+
+
+def _write_faces(torch, folder, n, res, seed):
+    """n smooth random RGB images of res² as JPEG files (a 16² field upsampled)."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    g = torch.Generator().manual_seed(seed)
+    field = torch.nn.functional.interpolate(torch.rand(n, 3, 16, 16, generator=g), size=(res, res), mode="bicubic")
+    arr = (field.clamp(0, 1) * 255).round().to(torch.uint8).permute(0, 2, 3, 1).numpy()
+    for i in range(n):
+        Image.fromarray(np.ascontiguousarray(arr[i])).save(os.path.join(folder, f"{i}.jpg"))
+
+
+def _embed_folder(torch, arcface, policy, folder, out_dir=None):
+    """ArcFace r100 embeddings of a folder's images on the full-image crop:
+    one `<stem>.npy` each into `out_dir`; returns them (n, 512)."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from faceposegenerator_tpu_torch.data.dreambooth import list_images
+    from faceposegenerator_tpu_torch.ops.image import crop_and_resize, normalize_to_arcface
+    from faceposegenerator_tpu_torch.training.idbooth import full_image_boxes
+
+    names = list_images(folder)
+    img = torch.from_numpy(np.stack([np.asarray(Image.open(os.path.join(folder, f)).convert("RGB"), np.float32)
+                                     for f in names])).cuda()
+    with torch.no_grad():
+        boxes, _ = full_image_boxes(img)
+        emb = arcface(normalize_to_arcface(crop_and_resize(img, boxes, 112)), policy).float().cpu().numpy()
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        for f, e in zip(names, emb):
+            np.save(os.path.join(out_dir, os.path.splitext(f)[0] + ".npy"), e)
+    return emb
+
+
+def _probe_summary(records, label, expect, card_line):
+    """Each call's launches must be `expect`; returns the seconds a call."""
+    for i, r in enumerate(records):
+        if r["launches"] != expect:
+            fail(f"{label} {i} launched {r['launches']}, expected {expect}")
+    secs = [round(r["s"], 4) for r in records]
+    print(f"{label}: {len(records)} calls, {secs} s, each launching {json.dumps(expect)} ({card_line})", flush=True)
+    return secs
+
+
+def run_driver(torch, card_line, model_dir, work, train_secs, train_peak):
+    """Phase 13: the ID-Booth driver on phase 12's synthetic SD2.1-base
+    directory (loaded again by from_pretrained: phase 12 quantized its
+    pipeline for good) with the ArcFace r100 of the train op point, bf16
+    frozen nets, fp32 LoRA, triplet_prior; its files under `work`. Class
+    images, run_identity, resume, the exported LoRA in the pipeline, the
+    stacked K = 2 run and accumulation with the text-encoder LoRA, each
+    with exact launch counts. Returns the phase's launch counts."""
+    import os
+
+    import numpy as np
+
+    from faceposegenerator_tpu_torch.core.checkpointing import CheckpointManager
+    from faceposegenerator_tpu_torch.core.rng import train_step_generator
+    from faceposegenerator_tpu_torch.diffusion.lora_io import zero_lora
+    from faceposegenerator_tpu_torch.diffusion.schedulers import make_ddpm
+    from faceposegenerator_tpu_torch.models import iresnet
+    from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+    from faceposegenerator_tpu_torch.training import idbooth, idbooth_driver, multi_identity
+
+    t_phase = time.time()
+    pipe = StableDiffusionPipeline.from_pretrained(model_dir, dtype=torch.bfloat16)
+    policy, m = pipe.policy, pipe.models
+    models = idbooth.ModelBundle(text_cfg=m.text_cfg, unet_cfg=m.unet_cfg, vae_cfg=m.vae_cfg,
+                                 arcface_cfg=iresnet.config_for("r100"))
+    frozen = dict(pipe.nets, arcface=iresnet.IResNet(models.arcface_cfg, dtype=torch.bfloat16, seed=3))
+    checksum = _frozen_checksum(torch, frozen)
+    total = {n: 0 for n in _launch_counts()}
+
+    def add(counts):
+        for n, c in counts.items():
+            total[n] += c
+
+    # 1. class images through the pipeline, instance images from a seed, their embeddings
+    class_dir, src, embeds = (os.path.join(work, d) for d in ("class", "src", "embeds"))
+    _reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    n_made = idbooth_driver.generate_class_images(pipe, class_dir, "photo of a person", 8, batch_size=4,
+                                                  num_inference_steps=30)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t0
+    launches = {n: c for n, c in _launch_counts().items() if c}
+    want = {n: 2 * c for n, c in CLASS_LAUNCHES.items()}
+    print(f"driver: generate_class_images: {n_made} class images at 512² (2 requests at batch 4, 30 DDPM steps) "
+          f"in {gen_s:.3f} s, launches {json.dumps(launches)} ({card_line})", flush=True)
+    if n_made != 8 or len(os.listdir(class_dir)) != 8 or launches != want:
+        fail(f"generate_class_images made {n_made} images, launched {launches}, expected 8 and {want}")
+    add(_launch_counts())
+    for ident, seed in (("id_a", 30), ("id_b", 31)):
+        _write_faces(torch, os.path.join(src, ident), 4, 512, seed)
+        _embed_folder(torch, frozen["arcface"], policy, os.path.join(src, ident), os.path.join(embeds, ident))
+    np.save(os.path.join(work, "class_embed.npy"), _embed_folder(torch, frozen["arcface"], policy, class_dir).mean(0))
+
+    # 2. run_identity: 2 epochs of 2 steps (8 rows: 4 instance + 4 class images), validation after the second
+    cfg = idbooth.IDBoothConfig(which_loss="triplet_prior", train_batch_size=4, num_train_epochs=2,
+                                checkpointing_epochs=1, checkpoints_total_limit=1, validation_epochs=2,
+                                num_validation_images=4)
+    out = os.path.join(work, "out", "id_a")
+    kw = dict(tokenizer=pipe.tokenizer, embeds_dir=os.path.join(embeds, "id_a"), class_dir=class_dir, policy=policy)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    with step_probe(idbooth, "make_train_step") as steps, \
+            step_probe(idbooth_driver, "validation_images", factory=False) as val, save_probe() as saves:
+        t0 = time.time()
+        trainable, history = idbooth_driver.run_identity(cfg, models, frozen, os.path.join(src, "id_a"), out, **kw)
+        run_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    add(_launch_counts())
+    step_s = _probe_summary(steps.records, "driver: run_identity step", STEP_LAUNCHES, card_line)
+    val_s = _probe_summary(val.records, "driver: validation (4 images, 25 DPM-Solver++ steps, CFG)",
+                           VALIDATION_LAUNCHES, card_line)
+    # the host's time between two steps of an epoch: the next batch's JPEG decodes, resizes and copy
+    gaps = [b["start"] - a["end"] for a, b in zip(steps.records, steps.records[1:])][::2]
+    write_s = [round(sv["s"], 4) for sv in saves.saves]
+    names = sorted(os.listdir(out))
+    print(f"driver: run_identity 2 epochs in {run_s:.2f} s, history {json.dumps(history)}; files {names}; "
+          f"checkpoint writes {write_s} s; peak memory {peak:.1f} GiB ({card_line})", flush=True)
+    if len(steps.records) != 4 or len(val.records) != 1 or len(history) != 2:
+        fail(f"run_identity ran {len(steps.records)} steps and {len(val.records)} validations, expected 4 and 1")
+    if [n for n in names if n.startswith("checkpoint-")] != ["checkpoint-1-4"]:
+        fail(f"run_identity left {names}: only the newest checkpoint should remain")
+    if not os.path.exists(os.path.join(out, "validation", "epoch_1.png")):
+        fail("run_identity wrote no validation grid")
+    moved = max(float(leaf.detach().abs().max()) for leaf in idbooth.tree_leaves(trainable)[1::2])
+    if not moved > 0 or _frozen_checksum(torch, frozen) != checksum:
+        fail(f"run_identity: LoRA B max {moved}, or the frozen weights changed")
+
+    # 3. the latest checkpoint read back bit-equal, then resumed to 3 epochs: one more epoch
+    mgr = CheckpointManager(out, cfg.checkpoints_total_limit)
+    template = idbooth.init_trainable(0, cfg, models, frozen["unet"])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    t_back, o_back, epoch, step = mgr.restore(mgr.latest(), template, idbooth.make_optimizer(cfg, 1).init(template))
+    torch.cuda.synchronize()
+    read_s = time.time() - t0
+    last = saves.saves[-1]
+    same = (_tree_equal(torch, t_back, last["trainable"]) and o_back["count"] == last["opt_state"]["count"] == 4
+            and all(_tree_equal(torch, o_back[k], last["opt_state"][k]) for k in ("exp_avg", "exp_avg_sq")))
+    print(f"driver: checkpoint {os.path.basename(mgr.latest())} read in {read_s:.3f} s: trainable, AdamW's "
+          f"exp_avg and exp_avg_sq and the update count bit-equal to what was saved: {same} ({card_line})",
+          flush=True)
+    if not same or (epoch, step) != (1, 4):
+        fail("the checkpoint read back differs from what was saved")
+    _reset_launch_counts()
+    with step_probe(idbooth, "make_train_step") as steps2, \
+            step_probe(idbooth_driver, "validation_images", factory=False) as val2:
+        trainable, history2 = idbooth_driver.run_identity(cfg.replace(num_train_epochs=3), models, frozen,
+                                                          os.path.join(src, "id_a"), out, resume=True, **kw)
+    add(_launch_counts())
+    step_s += _probe_summary(steps2.records, "driver: resumed step", STEP_LAUNCHES, card_line)
+    val_s += _probe_summary(val2.records, "driver: resumed validation", VALIDATION_LAUNCHES, card_line)
+    gaps += [b["start"] - a["end"] for a, b in zip(steps2.records, steps2.records[1:])][::2]
+    print(f"driver: resumed with num_train_epochs=3: history {json.dumps(history2)} ({card_line})", flush=True)
+    if len(steps2.records) != 2 or len(history2) != 1 or history2[0]["epoch"] != 2:
+        fail(f"the resumed run ran {len(steps2.records)} steps, {len(history2)} epochs: expected one epoch")
+
+    # 4. the exported LoRA in the pipeline, bit-equal to the trainable cast as load_lora_weights casts it
+    req = dict(prompt=[cfg.validation_prompt] * 4, num_inference_steps=30, height=512, width=512, seed=0)
+    _reset_launch_counts()
+    pipe.load_lora_weights(out)
+    loaded = pipe(**req)
+    cast = idbooth.tree_map(lambda t: t.detach().to(torch.bfloat16), trainable["unet_lora"])
+    pipe.set_lora({"unet": cast, "text_encoder": zero_lora(frozen["unet"], frozen["text_encoder"], 4,
+                                                           torch.bfloat16)["text_encoder"]})
+    direct = pipe(**req)
+    pipe.unload_lora_weights()
+    counts = {n: c for n, c in _launch_counts().items() if c}
+    add(_launch_counts())
+    _check_images(loaded, 4, 512, "exported LoRA request")
+    print(f"driver: load_lora_weights request (4 × 512², 30 steps) bit-equal to set_lora of the cast trainable: "
+          f"{np.array_equal(loaded, direct)}; launches of both {json.dumps(counts)} ({card_line})", flush=True)
+    if not np.array_equal(loaded, direct) or counts != {n: 2 * c for n, c in CLASS_LAUNCHES.items()}:
+        fail("the exported LoRA request is not bit-equal to set_lora, or launched otherwise")
+
+    # 5. two identities stacked: a 128² gate against serial steps, then an epoch at 512²
+    small = cfg.replace(train_batch_size=2, resolution=128)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    loras, batches, draws = [], [], []
+    for k in range(2):
+        lora = idbooth.init_trainable(4, small, models, frozen["unet"])
+        with torch.no_grad():
+            for leaf in idbooth.tree_leaves(lora)[1::2]:
+                leaf.copy_(0.01 * torch.randn(leaf.shape, generator=g, device="cuda"))
+        loras.append(lora)
+        batches.append(make_train_batch(torch, 4, 128, seed=40 + k))
+        draws.append(idbooth.draw((4, 16, 16, 4), 4, 1000, g, "cuda"))
+    stacked = multi_identity.stack_pytrees(loras)
+    loss, metrics = idbooth.make_loss_fn(small, models, make_ddpm(), policy, identities=2)(
+        stacked, frozen, {k: torch.stack([b[k] for b in batches]) for k in batches[0]}, draws=draws)
+    grads = torch.autograd.grad(loss, idbooth.tree_leaves(stacked))
+    serial_fn = idbooth.make_loss_fn(small, models, make_ddpm(), policy)
+    for k in range(2):
+        loss_k, _ = serial_fn(loras[k], frozen, batches[k], draws=draws[k])
+        grads_k = torch.autograd.grad(loss_k, idbooth.tree_leaves(loras[k]))
+        loss_k = float(loss_k.detach())
+        rel = abs(float(metrics["loss"][k]) - loss_k) / abs(loss_k)
+        cos = float(torch.nn.functional.cosine_similarity(torch.cat([x[k].flatten() for x in grads]),
+                                                          torch.cat([x.flatten() for x in grads_k]), dim=0))
+        print(f"driver: stacked identity {k} vs its serial step at 2(+2)×128²: loss {float(metrics['loss'][k]):.8f} "
+              f"vs {loss_k:.8f} (rel diff {rel:.3e}, limit 1e-2); LoRA gradient cosine {cos:.8f} "
+              f"(limit 0.99)", flush=True)
+        if not (rel <= 1e-2 and cos >= 0.99):
+            fail(f"stacked identity {k} disagrees with its serial step")
+    del stacked, grads, loss
+    mcfg = cfg.replace(train_batch_size=2, num_train_epochs=1)
+    outs = [os.path.join(work, "out", "stacked", ident) for ident in ("id_a", "id_b")]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    with step_probe(multi_identity, "make_multi_train_step") as msteps:
+        t_list, hists = multi_identity.run_identities_vmapped(
+            mcfg, models, frozen, [os.path.join(src, i) for i in ("id_a", "id_b")], outs, tokenizer=pipe.tokenizer,
+            embeds_dirs=[os.path.join(embeds, i) for i in ("id_a", "id_b")], class_dir=class_dir, policy=policy)
+    mpeak = torch.cuda.max_memory_allocated() / 2**30
+    add(_launch_counts())
+    mstep_s = _probe_summary(msteps.records, "driver: stacked step (2 identities × (2 + 2) rows)", STEP_LAUNCHES,
+                             card_line)
+    diff = max(float((a - b).abs().max()) for a, b in zip(idbooth.tree_leaves(t_list[0]),
+                                                           idbooth.tree_leaves(t_list[1])))
+    files = [sorted(os.listdir(o)) for o in outs]
+    print(f"driver: run_identities_vmapped 1 epoch: histories {json.dumps(hists)}; LoRAs differ by {diff:.3e}; "
+          f"files {files}; peak memory {mpeak:.1f} GiB ({card_line})", flush=True)
+    if len(msteps.records) != 4 or not diff > 0:
+        fail(f"the stacked run took {len(msteps.records)} steps (expected 4), LoRA difference {diff}")
+    for f in files:
+        if "checkpoint-0-4" not in f or "pytorch_lora_weights.safetensors" not in f:
+            fail(f"a stacked identity lacks its checkpoint or export: {f}")
+
+    # 6. gradient accumulation over 2 micro-steps at the op point: 2 micro-steps of the UNet LoRA
+    # alone, then 4 with the text-encoder LoRA (CLIP with its gradient)
+    batch = make_train_batch(torch, 8, 512, seed=5)
+    clip_sum = _frozen_checksum(torch, {"t": frozen["text_encoder"]})
+    acc = {}
+    for label, text, micro in (("accumulation", False, 2), ("accumulation with the text LoRA", True, 4)):
+        acfg = cfg.replace(gradient_accumulation_steps=2, train_text_encoder=text)
+        trainable = idbooth.init_trainable(0, acfg, models, frozen["unet"], frozen["text_encoder"])
+        optimizer = idbooth.make_optimizer(acfg, total_steps=1000)
+        opt_state = optimizer.init(trainable)
+        trees = ("unet_lora", "text_lora") if text else ("unet_lora",)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        with step_probe(idbooth, "make_train_step") as asteps:
+            step = idbooth.make_train_step(acfg, models, optimizer, policy=policy)
+            for i in range(micro):
+                before = idbooth.tree_map(lambda t: t.detach().clone(), trainable)
+                trainable, opt_state, metrics = step(trainable, opt_state, frozen, batch,
+                                                     train_step_generator(acfg.seed, i, "cuda"))
+                same = {tree: _tree_equal(torch, trainable[tree], before[tree]) for tree in trees}
+                print(f"driver: {label} micro-step {i + 1}: loss {float(metrics['loss']):.6f}, LoRA unchanged "
+                      f"{json.dumps(same)}, update count {opt_state['count']}", flush=True)
+                if any(same.values()) != (i % 2 == 0) or all(same.values()) != (i % 2 == 0):
+                    fail(f"{label} micro-step {i + 1}: LoRA unchanged {same}, expected {i % 2 == 0} for each")
+        acc[label] = (_probe_summary(asteps.records, f"driver: {label} micro-step", STEP_LAUNCHES, card_line),
+                      torch.cuda.max_memory_allocated() / 2**30)
+        add(_launch_counts())
+    if _frozen_checksum(torch, {"t": frozen["text_encoder"]}) != clip_sum or _frozen_checksum(torch, frozen) != checksum:
+        fail("CLIP's frozen weights (or another frozen net's) changed")
+    (acc_s, apeak), (acc0_s, apeak0) = acc["accumulation with the text LoRA"], acc["accumulation"]
+
+    # the driver's step: the probed step plus the host's load of the next batch
+    drv = [s + gap for s, gap in zip(step_s[1::2], gaps)]
+    print(f"driver: s/step at the op point (bs4 + prior, 512², triplet_prior, r100) against phase 7's bare step "
+          f"{train_secs:.3f} s (peak {train_peak:.1f} GiB): driver {min(drv):.3f} s (step {min(step_s[1:]):.3f} + "
+          f"batch load {min(gaps):.3f}), peak {peak:.1f} GiB; stacked K = 2 {min(mstep_s[1:]):.3f} s, peak "
+          f"{mpeak:.1f} GiB; accumulation micro-step {min(acc0_s[1:]):.3f} s, peak {apeak0:.1f} GiB, with the text "
+          f"LoRA {min(acc_s[1:]):.3f} s, peak {apeak:.1f} GiB; "
+          f"validation {min(val_s):.3f} s; checkpoint write {min(write_s):.3f} s, read {read_s:.3f} s; class images "
+          f"{gen_s:.3f} s for 8 ({card_line})", flush=True)
+    del pipe, frozen
+    torch.cuda.empty_cache()
+    print(f"driver: phase 13 in {time.time() - t_phase:.1f} s ({card_line})", flush=True)
+    return total
 
 
 def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32, launches, ptxas, sass=None):
@@ -2486,7 +2907,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     turbo = run_turbo(torch, card_line)
     torch.cuda.empty_cache()
-    train, train_op, train_secs = run_train(torch, card_line)
+    train, train_op, train_secs, train_peak = run_train(torch, card_line)
     torch.cuda.empty_cache()
     gn_rows = check_gn(torch, card, GN_SHAPES, "request") + check_gn(torch, card, GN_TRAIN_SHAPES, "step")
     gn_rows += check_gn(torch, card, GN_ALONE_SHAPES, "gn_alone_request")
@@ -2518,13 +2939,17 @@ def main() -> int:
     fp32_txt2img, fp32_fused, fp32_routes = run_fp32_pipeline(torch, card_line)
     fp32_train = run_fp32_train(torch, card_line)
     torch.cuda.empty_cache()
-    checkpoints, ckpt_counts = run_checkpoints(torch, card_line, txt2img_secs)
+    with build_dir("sd21_base_synthetic") as model_dir:
+        checkpoints, ckpt_counts = run_checkpoints(torch, card_line, txt2img_secs, model_dir)
+        with build_dir("idbooth_driver") as work:
+            driver = run_driver(torch, card_line, model_dir, work, train_secs, train_peak)
     for r in fwd_rows:  # phase 12's shapes: the launches its requests measured
         if r.get("phase") == 12:
             r["launches_per_request"] = ckpt_counts[r["shape"]]
     paths = {"txt2img": txt2img, "turbo": turbo, "train": train, "fused txt2img": fused_txt2img,
              "fused train": fused_train, "fp32 txt2img": fp32_txt2img, "fp32 fused txt2img": fp32_fused,
-             "fp32 routes at 2×128²": fp32_routes, "fp32 train check": fp32_train, "checkpoints": checkpoints}
+             "fp32 routes at 2×128²": fp32_routes, "fp32 train check": fp32_train, "checkpoints": checkpoints,
+             "training driver": driver}
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in REPLACES}
     print("launches on the main paths: " + ", ".join(f"{k} {json.dumps(v)}" for k, v in paths.items()), flush=True)
     for name, count in launches.items():

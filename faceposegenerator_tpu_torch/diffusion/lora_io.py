@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..bridge.safetensors_io import load_file, save_file
+from ..core.tree import tree_map
 from ..models.unet2d import init_lora
 
 _PROJ = {"to_q": "q", "to_k": "k", "to_v": "v", "to_out.0": "out"}
@@ -40,18 +41,11 @@ def _tensor(v) -> torch.Tensor:
     return v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
 
 
-def _zeros(tree):
-    if isinstance(tree, dict):
-        return {k: _zeros(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_zeros(v) for v in tree]
-    return None if tree is None else torch.zeros_like(tree)
-
-
 def _zeros_like_lora(unet, text_encoder, rank: int, dtype=torch.float32):
     device = unet.conv_in.weight.device
     # zero A and B: a loaded checkpoint overwrites what it has
-    unet_lora = _zeros(init_lora(unet, rank=rank, generator=torch.Generator(device=device), dtype=dtype))
+    unet_lora = tree_map(torch.zeros_like,
+                         init_lora(unet, rank=rank, generator=torch.Generator(device=device), dtype=dtype))
     text_lora = None
     if text_encoder is not None:
         text_lora = {}

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core.precision import DEFAULT_POLICY, Policy
+from ..core.tree import tree_leaves, tree_map
 from ..models import clip_text, unet2d, vae
 from .schedulers import DDPMSchedule, DPMSolverSchedule
 
@@ -36,22 +37,6 @@ class SamplerModels:
     unet_cfg: unet2d.UNetConfig = unet2d.SD21_UNET_CONFIG
     vae_cfg: vae.VAEConfig = vae.SD_VAE_CONFIG
     attn_impl: str = "auto"
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [] if tree is None else [tree]
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, v) for v in tree]
-    return None if tree is None else fn(tree)
 
 
 @torch.inference_mode()
@@ -141,9 +126,9 @@ def sample(
     # CFG batch tiled ×2
     tome = dict(tome_ratio=tome_ratio, tome_min_tokens=tome_min_tokens, tome_ops=tome_ops)
     kw_cond = dict(policy=policy, lora=lora.get("unet"), lora_scale=lora_scale, attn_impl=attn_impl, **tome)
-    leaves = _leaves(lora)
+    leaves = tree_leaves(lora)
     if leaves and leaves[0].dim() == 3:
-        lora = _tree_map(lambda t: torch.cat([t, t]), lora)
+        lora = tree_map(lambda t: torch.cat([t, t]), lora)
         if isinstance(lora_scale, torch.Tensor) and lora_scale.dim() == 1:
             lora_scale = torch.cat([lora_scale, lora_scale])
     ids = torch.cat([torch.as_tensor(negative_input_ids), torch.as_tensor(input_ids)]).to(device)

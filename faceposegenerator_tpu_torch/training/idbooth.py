@@ -6,7 +6,7 @@ prior MSE → x̂0 → VAE decode → crop → ArcFace → identity or triplet l
 backward → global-norm clip → AdamW on the LoRA only. The entry points
 mirror the JAX package's, so a training loop builds a step the same way:
 
-    trainable = init_trainable(seed, cfg, models, frozen["unet"])
+    trainable = init_trainable(seed, cfg, models, frozen["unet"], frozen["text_encoder"])
     optimizer = make_optimizer(cfg, total_steps)
     opt_state = optimizer.init(trainable)
     step = make_train_step(cfg, models, optimizer, policy=policy)
@@ -14,14 +14,20 @@ mirror the JAX package's, so a training loop builds a step the same way:
                                          train_step_generator(cfg.seed, i, device))
 
 `frozen` holds the modules {"text_encoder", "unet", "vae", "arcface"}; their
-parameters never receive gradients, and CLIP and the VAE encoder run under
-`no_grad`. Every attention of the UNet and of the VAE decode runs
-FlashAttention on the card: the K1/K2 forward with the log-sum-exp and the
-K5/K6 backward. Where the JAX step is functional, this one updates the LoRA
-tensors in place (AdamW's own update) and returns the same tree.
+parameters never receive gradients, and the VAE encoder runs under
+`no_grad`. CLIP runs under `no_grad` too, unless `train_text_encoder` is set
+and the batch carries no precomputed `encoder_hidden_states`: then it runs
+with its LoRA (`trainable["text_lora"]`, q, k, v and out of every layer) and
+with gradients, and the optimizer updates both trees. Every attention of
+the UNet and of the VAE decode runs FlashAttention on the card: the K1/K2
+forward with the log-sum-exp and the K5/K6 backward; CLIP's causal
+attention is plain torch, as in JAX. Where the JAX step is functional, this
+one updates the LoRA tensors in place and returns the same tree.
 
-Gradient accumulation and text-encoder LoRA are not yet ported: those
-options raise.
+`gradient_accumulation_steps=k > 1` has `optax.MultiSteps` semantics: the
+gradients of k micro-steps are averaged, the clip and the AdamW update run
+on the k-th, the parameters do not move in between, and the schedule
+counts real updates only.
 """
 
 from __future__ import annotations
@@ -33,14 +39,16 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core.config import ConfigBase
 from ..core.precision import DEFAULT_POLICY, Policy
+from ..core.tree import tree_leaves, tree_map
 from ..diffusion.schedulers import DDPMSchedule, make_ddpm
 from ..models import clip_text, iresnet, unet2d, vae
 from ..ops.image import crop_and_resize, normalize_to_arcface
 
 
 @dataclasses.dataclass
-class IDBoothConfig:
+class IDBoothConfig(ConfigBase):
     """Parameter surface of `configs/config_train_SD21.py`, as in the JAX
     package (idbooth.py:47-97)."""
 
@@ -83,9 +91,6 @@ class IDBoothConfig:
     num_validation_images: int = 4
     validation_prompt: str = "photo of sks person with blue hair"
 
-    def replace(self, **kw) -> "IDBoothConfig":
-        return dataclasses.replace(self, **kw)
-
 
 # the reference's experiment-sweep folder naming (`train_ID-Booth.py:1299-1307`)
 LOSS_TO_FOLDER = {"": "DreamBooth", "identity": "PortraitBooth", "triplet_prior": "ID-Booth"}
@@ -109,54 +114,99 @@ def full_image_boxes(images: torch.Tensor):
     return boxes, torch.ones(b, dtype=torch.bool, device=images.device)
 
 
-def tree_leaves(tree) -> list:
-    """The tensors of a nested dict/list tree, in insertion order (None skipped)."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in tree_leaves(v)]
-    return [tree]
-
-
 class LoRAOptimizer:
     """`optax.chain(clip_by_global_norm(max_norm), adamw(schedule, ...))`
-    over the LoRA tensors, on `torch.optim.AdamW` (whose decoupled weight
-    decay and bias-corrected update are optax's `adamw`). The clip scales
-    by max_norm/‖g‖ with no epsilon, and the learning rate of the k-th
-    update is schedule(k - 1), as optax counts."""
+    over the LoRA tensors, wrapped in `optax.MultiSteps(k)` when
+    `accumulate=k > 1`. The AdamW update is PyTorch's (decoupled weight
+    decay, bias-corrected moments), on `torch._foreach_*` ops. The clip
+    computes t / ‖g‖ · max_norm where ‖g‖ ≥ max_norm, as optax does, and the
+    learning rate of the n-th update is schedule(n - 1).
+
+    The state is a tree of tensors and numbers, so a checkpoint holds it
+    whole: {"count": the updates applied (AdamW's step), "exp_avg" and
+    "exp_avg_sq": AdamW's moments in the layout of the trainable tree}, and
+    under accumulation {"mini_step": micro-steps since the last update,
+    "acc_grads": their running mean}.
+
+    Stacked mode (`update(..., per_identity=True)`): every leaf carries a
+    leading identity axis of K independent fine-tunes that share one
+    schedule; the global norm and the clip are per identity, AdamW is
+    elementwise, and the returned norm has shape (K,)."""
 
     def __init__(self, schedule: Callable[[int], float], max_grad_norm: float,
-                 betas: Tuple[float, float], eps: float, weight_decay: float):
+                 betas: Tuple[float, float], eps: float, weight_decay: float, accumulate: int = 1):
+        if accumulate < 1:
+            raise ValueError(f"gradient accumulation over {accumulate} micro-steps")
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
         self.betas, self.eps, self.weight_decay = betas, eps, weight_decay
+        self.accumulate = accumulate
 
     def init(self, trainable) -> dict:
-        params = tree_leaves(trainable)
-        adamw = torch.optim.AdamW(params, lr=self.schedule(0), betas=self.betas, eps=self.eps,
-                                  weight_decay=self.weight_decay)
-        return {"count": 0, "adamw": adamw}
+        zeros = lambda: tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), trainable)  # noqa: E731
+        state = {"count": 0, "exp_avg": zeros(), "exp_avg_sq": zeros()}
+        if self.accumulate > 1:
+            state.update(mini_step=0, acc_grads=zeros())
+        return state
 
-    def update(self, grads: list, opt_state: dict, trainable) -> torch.Tensor:
-        """Clip `grads` (one per leaf of `trainable`, in `tree_leaves`
-        order) by their global norm and apply one AdamW update in place.
-        Returns the global norm before clipping."""
+    @staticmethod
+    def global_norm(grads: list, per_identity: bool = False) -> torch.Tensor:
+        """sqrt(Σ g²) over every leaf; per slice of the leading axis in stacked mode."""
+        if per_identity:
+            return torch.sqrt(sum(g.float().square().flatten(1).sum(1) for g in grads))
+        return torch.sqrt(sum(g.float().square().sum() for g in grads))
+
+    @torch.no_grad()
+    def update(self, grads: list, opt_state: dict, trainable, per_identity: bool = False) -> torch.Tensor:
+        """Take `grads` (one per leaf of `trainable`, in `tree_leaves` order);
+        on an update, clip by the global norm and apply AdamW in place.
+        Returns the global norm of `grads`."""
         params = tree_leaves(trainable)
         if len(grads) != len(params):
             raise ValueError(f"{len(grads)} gradients for {len(params)} parameters")
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        grads = [g.float() for g in grads]
+        norm = self.global_norm(grads, per_identity)
+        if self.accumulate > 1:
+            n = opt_state["mini_step"]
+            acc = tree_leaves(opt_state["acc_grads"])
+            for a, g in zip(acc, grads):  # MultiSteps' running mean (Welford)
+                a.add_((g - a) / (n + 1))
+            if n < self.accumulate - 1:
+                opt_state["mini_step"] = n + 1
+                return norm
+            opt_state["mini_step"] = 0
+            grads = [a.clone() for a in acc]
+            for a in acc:
+                a.zero_()
+            clip_norm = self.global_norm(grads, per_identity)
+        else:
+            grads = [g.clone() for g in grads]
+            clip_norm = norm
         # optax: t if ‖g‖ < max else (t / ‖g‖)·max, decided on the device
-        factor = torch.where(norm < self.max_grad_norm, torch.ones_like(norm), self.max_grad_norm / norm)
-        for p, g in zip(params, grads):
-            p.grad = (g * factor).to(p.dtype)
-        adamw = opt_state["adamw"]
-        for group in adamw.param_groups:
-            group["lr"] = self.schedule(opt_state["count"])
-        adamw.step()
-        adamw.zero_grad(set_to_none=True)
+        below = clip_norm < self.max_grad_norm
+        denom = torch.where(below, torch.ones_like(clip_norm), clip_norm)
+        scale = torch.where(below, torch.ones_like(clip_norm), torch.full_like(clip_norm, self.max_grad_norm))
+        if per_identity:
+            for g in grads:
+                shape = (-1,) + (1,) * (g.dim() - 1)
+                g.div_(denom.view(shape)).mul_(scale.view(shape))
+        else:
+            torch._foreach_div_(grads, denom)
+            torch._foreach_mul_(grads, scale)
+
+        lr = self.schedule(opt_state["count"])
         opt_state["count"] += 1
+        t = opt_state["count"]
+        (b1, b2), eps, wd = self.betas, self.eps, self.weight_decay
+        exp_avg, exp_avg_sq = tree_leaves(opt_state["exp_avg"]), tree_leaves(opt_state["exp_avg_sq"])
+        torch._foreach_mul_(params, 1 - lr * wd)
+        torch._foreach_lerp_(exp_avg, grads, 1 - b1)
+        torch._foreach_mul_(exp_avg_sq, b2)
+        torch._foreach_addcmul_(exp_avg_sq, grads, grads, 1 - b2)
+        denom = torch._foreach_sqrt(exp_avg_sq)
+        torch._foreach_div_(denom, math.sqrt(1 - b2 ** t))
+        torch._foreach_add_(denom, eps)
+        torch._foreach_addcdiv_(params, exp_avg, denom, -lr / (1 - b1 ** t))
         return norm
 
 
@@ -179,10 +229,9 @@ def _cosine_schedule(lr: float, warmup_steps: int, decay_steps: int, end_value: 
 
 
 def make_optimizer(cfg: IDBoothConfig, total_steps: int, num_replicas: int = 1) -> LoRAOptimizer:
-    """AdamW over the LoRA with cosine decay and global-norm clipping
-    (idbooth.py:128-164; LR scaled like Accelerate's scale_lr)."""
-    if cfg.gradient_accumulation_steps > 1:
-        raise NotImplementedError("gradient_accumulation_steps > 1 is not yet ported")
+    """AdamW over the LoRA with cosine decay and global-norm clipping, every
+    `gradient_accumulation_steps` micro-steps (idbooth.py:128-164; LR scaled
+    like Accelerate's scale_lr; the schedule counts updates)."""
     lr = cfg.learning_rate
     if cfg.scale_lr:
         lr = lr * cfg.gradient_accumulation_steps * cfg.train_batch_size * num_replicas
@@ -193,7 +242,7 @@ def make_optimizer(cfg: IDBoothConfig, total_steps: int, num_replicas: int = 1) 
     else:
         raise ValueError(cfg.lr_scheduler)
     return LoRAOptimizer(schedule, cfg.max_grad_norm, (cfg.adam_beta1, cfg.adam_beta2),
-                         cfg.adam_epsilon, cfg.adam_weight_decay)
+                         cfg.adam_epsilon, cfg.adam_weight_decay, accumulate=cfg.gradient_accumulation_steps)
 
 
 def _cosine_sim(a, b, eps=1e-6):
@@ -213,28 +262,53 @@ def draw(latent_shape, n: int, num_train_timesteps: int, generator: torch.Genera
 
 
 def make_loss_fn(cfg: IDBoothConfig, models: ModelBundle, schedule: DDPMSchedule,
-                 policy: Policy = DEFAULT_POLICY, detect_fn: Callable = full_image_boxes):
+                 policy: Policy = DEFAULT_POLICY, detect_fn: Callable = full_image_boxes,
+                 identities: Optional[int] = None):
     """loss_fn(trainable, frozen, batch, generator=None, draws=None) →
     (loss, metrics), a scalar tensor with its graph and detached scalars.
 
     batch: {"pixel_values": (n, H, W, 3) in [-1, 1], the [instance; class]
     concat under prior preservation; "input_ids": (n, 77) (or
     "encoder_hidden_states"); "gt_embeds": (n, F)}. `draws` ({"latent_noise",
-    "noise", "timesteps"}) overrides the draws from `generator`."""
+    "noise", "timesteps"}) overrides the draws from `generator`.
+
+    `identities=K`: K independent fine-tunes in one pass. Every leaf of
+    `trainable` and of `batch` carries a leading identity axis K, and
+    `generator` / `draws` are lists of K, one per identity. The K batches
+    run as one batch of K·n rows, [every instance half; every class half],
+    each row with its identity's LoRA (per-row adapters: the stacked leaves
+    gathered by row, so autograd sums each identity's gradient into its own
+    slice). Each identity's loss is computed on its own rows as above, the
+    loss returned is their sum, and the metrics have shape (K,)."""
     T = schedule.num_train_timesteps
-    if cfg.train_text_encoder:
-        raise NotImplementedError("train_text_encoder=True is not yet ported")
+    stacked = identities is not None
+    K = identities if stacked else 1
 
     def loss_fn(trainable, frozen, batch, generator=None, draws=None):
         for net in frozen.values():
             net.requires_grad_(False)
+        lora = trainable
+        n = batch["pixel_values"].shape[1 if stacked else 0]
+        b = n // 2 if cfg.with_prior_preservation else n
+        if stacked:
+            def rows(x):  # (K, n, ...) → (K·n, ...): [instance rows of 0..K-1; class rows of 0..K-1]
+                if not cfg.with_prior_preservation:
+                    return x.flatten(0, 1)
+                return torch.cat([x[:, :b].flatten(0, 1), x[:, b:].flatten(0, 1)])
+
+            batch = {k: rows(v) for k, v in batch.items()}
+            owner = rows(torch.arange(K, device=batch["pixel_values"].device)[:, None].expand(K, n))
+            lora = tree_map(lambda leaf: leaf.index_select(0, owner), trainable)
         pix = batch["pixel_values"]
-        n = pix.shape[0]
-        b_inst = n // 2 if cfg.with_prior_preservation else n
+        b_inst = K * b  # the instance rows, identity by identity
         with torch.no_grad():  # the latent encode (train_ID-Booth.py:1001)
             moments = frozen["vae"].encode_moments(pix, policy)
+        shape = (n,) + tuple(moments[0].shape[1:])
         if draws is None:
-            draws = draw(moments[0].shape, n, T, generator, pix.device)
+            draws = ([draw(shape, n, T, g, pix.device) for g in generator] if stacked
+                     else draw(shape, n, T, generator, pix.device))
+        if stacked:
+            draws = {k: rows(torch.stack([d[k].to(pix.device) for d in draws])) for k in draws[0]}
         with torch.no_grad():
             latents = frozen["vae"].sample_latents(moments, draws["latent_noise"].to(pix.device))
             noise = draws["noise"].to(pix.device, torch.float32)
@@ -242,24 +316,29 @@ def make_loss_fn(cfg: IDBoothConfig, models: ModelBundle, schedule: DDPMSchedule
             noisy = schedule.add_noise(latents, noise, timesteps)
             if "encoder_hidden_states" in batch:
                 ctx = batch["encoder_hidden_states"].to(policy.compute_dtype)
-            else:
+            elif not cfg.train_text_encoder:
                 ctx = frozen["text_encoder"](batch["input_ids"], policy)
+        if "encoder_hidden_states" not in batch and cfg.train_text_encoder:
+            # with grad: the text LoRA trains (train_ID-Booth.py:1024)
+            ctx = frozen["text_encoder"](batch["input_ids"], policy, lora=lora.get("text_lora"))
 
-        pred = frozen["unet"](noisy, timesteps, ctx, policy, lora=trainable["unet_lora"],
+        pred = frozen["unet"](noisy, timesteps, ctx, policy, lora=lora["unet_lora"],
                               attn_impl=models.attn_impl, remat=cfg.gradient_checkpointing)
         if pred.shape[-1] == 2 * latents.shape[-1]:  # variance-predicting UNets: the mean half
             pred = pred[..., : latents.shape[-1]]
         target = noise  # epsilon prediction (SD2.1-base)
 
+        def mean(x):  # per identity
+            return x.reshape(K, -1).mean(1)
+
+        sq = torch.square(pred - target)
         metrics = {}
         if cfg.with_prior_preservation:
-            instance_loss = torch.mean(torch.square(pred[:b_inst] - target[:b_inst]))
-            prior_loss = torch.mean(torch.square(pred[b_inst:] - target[b_inst:]))
+            instance_loss, prior_loss = mean(sq[:b_inst]), mean(sq[b_inst:])
             loss = instance_loss + cfg.prior_loss_weight * prior_loss
             metrics["prior_loss"] = prior_loss
         else:
-            instance_loss = torch.mean(torch.square(pred - target))
-            loss = instance_loss
+            instance_loss = loss = mean(sq)
         metrics["instance_loss"] = instance_loss
 
         if cfg.which_loss in ("identity", "triplet_prior"):
@@ -269,8 +348,8 @@ def make_loss_fn(cfg: IDBoothConfig, models: ModelBundle, schedule: DDPMSchedule
             gt_inst = gt[:b_inst]
             gt_neg = gt[b_inst:] if cfg.with_prior_preservation else gt_inst
 
-            def identity_sums(x0, gt_inst, gt_neg, t_inst):
-                """(Σ mask·w·term, Σ mask) over these samples."""
+            def identity_terms(x0, gt_inst, gt_neg, t_inst):
+                """(mask·w·term, mask) of each of these samples."""
                 img = frozen["vae"].decode(x0, policy, attn_impl=models.attn_impl)
                 img255 = torch.clamp(img * 0.5 + 0.5, 0.0, 1.0) * 255.0
                 boxes, found = detect_fn(img255)
@@ -286,65 +365,80 @@ def make_loss_fn(cfg: IDBoothConfig, models: ModelBundle, schedule: DDPMSchedule
                     d_ap = 1.0 - _cosine_sim(emb, gt_inst)
                     d_an = 1.0 - _cosine_sim(emb, gt_neg)
                     term = torch.clamp(d_ap - d_an + cfg.triplet_margin, min=0.0)
-                return torch.sum(mask * w * term), torch.sum(mask)
+                return mask * w * term, mask
 
             def branch(*args):
                 if cfg.remat_identity:
-                    return checkpoint(identity_sums, *args, use_reentrant=False)
-                return identity_sums(*args)
+                    return checkpoint(identity_terms, *args, use_reentrant=False)
+                return identity_terms(*args)
 
             ck = cfg.identity_chunk
-            if ck is not None and (ck <= 0 or ck > b_inst or b_inst % ck != 0):
+            if ck is not None and (ck <= 0 or ck > b or b % ck != 0):
                 raise ValueError(
-                    f"identity_chunk={ck} does not evenly divide the instance batch {b_inst}; "
+                    f"identity_chunk={ck} does not evenly divide the instance batch {b}; "
                     "choose a divisor of the (instance) batch size or unset it"
                 )
             ck = ck or b_inst
-            num = den = 0.0
-            for i in range(0, b_inst, ck):
-                nu, de = branch(x0[i:i + ck], gt_inst[i:i + ck], gt_neg[i:i + ck], t_inst[i:i + ck])
-                num, den = num + nu, den + de
+            parts = [branch(x0[i:i + ck], gt_inst[i:i + ck], gt_neg[i:i + ck], t_inst[i:i + ck])
+                     for i in range(0, b_inst, ck)]
+            num = torch.cat([p[0] for p in parts]).reshape(K, b).sum(1)
+            den = torch.cat([p[1] for p in parts]).reshape(K, b).sum(1)
             id_loss = num / torch.clamp(den, min=1.0)
             loss = loss + id_loss
             metrics["id_loss"] = id_loss
 
         metrics["loss"] = loss
-        return loss, {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: v.detach() if stacked else v.detach()[0] for k, v in metrics.items()}
+        return (loss.sum() if stacked else loss[0]), metrics
 
     return loss_fn
 
 
 def make_train_step(cfg: IDBoothConfig, models: ModelBundle, optimizer: LoRAOptimizer,
                     schedule: Optional[DDPMSchedule] = None, policy: Policy = DEFAULT_POLICY,
-                    detect_fn: Callable = full_image_boxes):
+                    detect_fn: Callable = full_image_boxes, identities: Optional[int] = None):
     """Returns `train_step(trainable, opt_state, frozen, batch, generator=None,
     draws=None) -> (trainable, opt_state, metrics)`; metrics carry the loss
-    terms and `grad_norm`, the global norm of the gradients before the clip."""
+    terms and `grad_norm`, the global norm of the gradients before the clip.
+    With `identities=K`, the step of K stacked fine-tunes: the loss of
+    `make_loss_fn(identities=K)` and the optimizer's per-identity update."""
     if schedule is None:
         schedule = make_ddpm()
-    loss_fn = make_loss_fn(cfg, models, schedule, policy, detect_fn)
+    loss_fn = make_loss_fn(cfg, models, schedule, policy, detect_fn, identities=identities)
 
     def train_step(trainable, opt_state, frozen, batch, generator=None, draws=None):
         loss, metrics = loss_fn(trainable, frozen, batch, generator, draws)
         params = tree_leaves(trainable)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        metrics["grad_norm"] = optimizer.update(grads, opt_state, trainable)
+        metrics["grad_norm"] = optimizer.update(grads, opt_state, trainable, per_identity=identities is not None)
         return trainable, opt_state, metrics
 
     return train_step
 
 
 def init_trainable(generator, cfg: IDBoothConfig, models: ModelBundle,
-                   unet: unet2d.UNet2DCondition, text_params=None) -> dict:
-    """Fresh fp32 LoRA tensors that require grad: Gaussian A, zero B
-    (`train_ID-Booth.py:676`), in the layout of `unet2d.init_lora`.
-    `generator` is a torch.Generator on the UNet's device, or a seed."""
-    if cfg.train_text_encoder:
-        raise NotImplementedError("train_text_encoder=True is not yet ported")
+                   unet: unet2d.UNet2DCondition, text_params: Optional[clip_text.CLIPTextModel] = None) -> dict:
+    """Fresh fp32 LoRA tensors that require grad: Gaussian A / rank, zero B
+    (`train_ID-Booth.py:676`), in the layout of JAX `init_trainable`: the
+    UNet's in `unet2d.init_lora`'s, and with `train_text_encoder` and a text
+    encoder, {"layer_i": {"q"|"k"|"v"|"out": {"a": (r, in), "b": (out, r)}}}
+    for every CLIP layer (idbooth.py:342-356), drawn after the UNet's from
+    the same generator. `generator` is a torch.Generator on the UNet's
+    device, or a seed."""
     if isinstance(generator, int):
         generator = torch.Generator(device=unet.conv_in.weight.device).manual_seed(generator)
-    lora = unet2d.init_lora(unet, rank=cfg.lora_rank, generator=generator, dtype=torch.float32)
-    for leaf in tree_leaves(lora):
+    trainable = {"unet_lora": unet2d.init_lora(unet, rank=cfg.lora_rank, generator=generator, dtype=torch.float32)}
+    if cfg.train_text_encoder and text_params is not None:
+        r = cfg.lora_rank
+        text_lora = {}
+        for i, layer in enumerate(text_params.layers):
+            text_lora[f"layer_{i}"] = {}
+            for name in ("q", "k", "v", "out"):
+                w = getattr(layer, name).weight
+                a = torch.randn(r, w.shape[1], generator=generator, device=w.device, dtype=torch.float32) / r
+                text_lora[f"layer_{i}"][name] = {"a": a, "b": torch.zeros(w.shape[0], r, device=w.device)}
+        trainable["text_lora"] = text_lora
+    for leaf in tree_leaves(trainable):
         leaf.requires_grad_(True)
-    return {"unet_lora": lora}
+    return trainable

@@ -2,6 +2,7 @@
 
     python3 perf/torch_train_profile.py
     GN_IMPL=pallas GN_CONV_IMPL=pallas python3 perf/torch_train_profile.py
+    python3 perf/torch_train_profile.py --text-lora
 
 Builds the train op point as chip_smoke.py does (SD2.1-base widths, ArcFace
 r100, random bf16 frozen weights, fp32 rank-4 LoRA, batch 4 with prior
@@ -13,12 +14,15 @@ idle share, device time by category of kernel and the top kernels, and
 writes the full table as torch_train_profile[_fused_gn].txt to the output
 directory (`out` below).
 With GN_IMPL and GN_CONV_IMPL at pallas (read when the port is imported) the
-steps run the fused GroupNorm configuration: K3 and K4 forward. Needs a CUDA
-card.
+steps run the fused GroupNorm configuration: K3 and K4 forward. With
+`--text-lora` the step also trains the text encoder's LoRA
+(`train_text_encoder=True`: CLIP runs with its gradient), written as
+torch_train_profile_text_lora.txt. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import subprocess
@@ -46,6 +50,9 @@ CATEGORIES = [  # first match wins; matched against the kernel's name
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--text-lora", action="store_true", help="train the text encoder's LoRA too")
+    args = ap.parse_args()
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -61,10 +68,11 @@ def main() -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    gn = f"GN_IMPL={gn_impl()} GN_CONV_IMPL={gn_conv_impl()}"
+    gn = f"GN_IMPL={gn_impl()} GN_CONV_IMPL={gn_conv_impl()}" + (" text LoRA" if args.text_lora else "")
     print(card, gn, flush=True)
     policy, models, frozen, cfg = chip_smoke.build_train_op_point(torch)
-    trainable = idbooth.init_trainable(4, cfg, models, frozen["unet"])
+    cfg = cfg.replace(train_text_encoder=args.text_lora)
+    trainable = idbooth.init_trainable(4, cfg, models, frozen["unet"], frozen["text_encoder"])
     optimizer = idbooth.make_optimizer(cfg, total_steps=1000)
     opt_state = optimizer.init(trainable)
     step = idbooth.make_train_step(cfg, models, optimizer, policy=policy)
@@ -112,7 +120,7 @@ def main() -> int:
         print(f"  {ms:9.1f} ms  {name[:110]}")
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    suffix = "_fused_gn" if gn_impl() == gn_conv_impl() == "pallas" else ""
+    suffix = ("_fused_gn" if gn_impl() == gn_conv_impl() == "pallas" else "") + ("_text_lora" if args.text_lora else "")
     (out / f"torch_train_profile{suffix}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=80))
     print(json.dumps({"card": card, "gn": gn, "untraced_step_ms": [1e3 * t for t in timed],

@@ -797,3 +797,93 @@ def test_cuda_gn_autograd_runs_the_kernels_forward_only():
     (gr,) = torch.autograd.grad(yr.float().square().sum(), xr)
     cos = torch.nn.functional.cosine_similarity(gx.float().flatten(), gr.float().flatten(), dim=0)
     assert cos.item() >= 0.99
+
+
+# per train step at any resolution: 16 UNet transformers × (self + cross)
+# attention, the VAE's mid attention in the encode (forward only) and in the
+# x̂0 decode, each backward pass once per forward with a gradient
+STEP_LAUNCHES = {"flash_fwd_d64": 32, "flash_fwd_wide": 2, "flash_bwd_d64_dkv": 32, "flash_bwd_d64_dq": 32,
+                 "flash_bwd_wide_dkv": 1, "flash_bwd_wide_dq": 1}
+
+
+@pytest.fixture(scope="module")
+def sd_train():
+    """bf16 SD2.1-base-width nets from seeds with an ArcFace r18, and the bf16 policy."""
+    _card()
+    from faceposegenerator_tpu_torch.core.precision import Policy
+    from faceposegenerator_tpu_torch.models import clip_text, iresnet, unet2d, vae
+    from faceposegenerator_tpu_torch.training import idbooth
+
+    models = idbooth.ModelBundle(arcface_cfg=iresnet.config_for("r18"))
+    bf16 = torch.bfloat16
+    frozen = {"text_encoder": clip_text.CLIPTextModel(models.text_cfg, dtype=bf16, seed=0),
+              "unet": unet2d.UNet2DCondition(models.unet_cfg, dtype=bf16, seed=1),
+              "vae": vae.AutoencoderKL(models.vae_cfg, dtype=bf16, seed=2),
+              "arcface": iresnet.IResNet(models.arcface_cfg, dtype=bf16, seed=3)}
+    return models, frozen, Policy(param_dtype=bf16, compute_dtype=bf16)
+
+
+def _launched():
+    return {n: c for n, c in fa.LAUNCHES.items() if c}
+
+
+@pytest.mark.cuda
+def test_cuda_run_identity_one_epoch(sd_train, tmp_path):
+    """The driver for one epoch at 128² (2 instance + 2 class images, batch
+    1 + prior): every step's launches, a checkpoint and the export."""
+    from PIL import Image
+
+    from faceposegenerator_tpu_torch.training import idbooth, idbooth_driver
+
+    models, frozen, policy = sd_train
+    rng = np.random.default_rng(0)
+    for d in ("inst", "cls"):
+        (tmp_path / d).mkdir()
+        for i in range(2):
+            Image.fromarray(rng.integers(0, 255, (128, 128, 3), np.uint8)).save(tmp_path / d / f"{i}.jpg")
+    cfg = idbooth.IDBoothConfig(which_loss="triplet_prior", resolution=128, train_batch_size=1, num_train_epochs=1,
+                                checkpointing_epochs=1)
+    ids = np.arange(77, dtype=np.int32)
+    fa.reset_launch_counts()
+    trainable, history = idbooth_driver.run_identity(cfg, models, frozen, str(tmp_path / "inst"), str(tmp_path / "out"),
+                                                     class_dir=str(tmp_path / "cls"), policy=policy,
+                                                     instance_ids=ids, class_ids=ids)
+    torch.cuda.synchronize()
+    assert len(history) == 1 and np.isfinite(history[0]["loss"])
+    assert _launched() == {n: 2 * c for n, c in STEP_LAUNCHES.items()}
+    names = set((tmp_path / "out").iterdir())
+    assert {tmp_path / "out" / "checkpoint-0-2", tmp_path / "out" / "pytorch_lora_weights.safetensors"} <= names
+    assert max(float(b.detach().abs().max()) for b in idbooth.tree_leaves(trainable)[1::2]) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_stacked_step_launches_like_one_step(sd_train):
+    """Two identities of 2 + 2 rows at 128² in one stacked step launch a
+    step's kernels once (8 rows), and each identity's loss is within 1e-2 of
+    its serial loss on the same draws (bf16)."""
+    from faceposegenerator_tpu_torch.diffusion.schedulers import make_ddpm
+    from faceposegenerator_tpu_torch.training import idbooth, multi_identity
+
+    models, frozen, policy = sd_train
+    cfg = idbooth.IDBoothConfig(which_loss="triplet_prior", resolution=128, train_batch_size=2)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batches = [{"pixel_values": torch.rand(4, 128, 128, 3, generator=g, device="cuda") * 2 - 1,
+                "input_ids": torch.randint(0, 49408, (4, 77), generator=g, device="cuda"),
+                "gt_embeds": torch.randn(4, 512, generator=g, device="cuda")} for _ in range(2)]
+    draws = [idbooth.draw((4, 16, 16, 4), 4, 1000, g, "cuda") for _ in range(2)]
+    loras = [idbooth.init_trainable(4, cfg, models, frozen["unet"]) for _ in range(2)]
+    serial = [float(idbooth.make_loss_fn(cfg, models, make_ddpm(), policy)(loras[k], frozen, batches[k],
+                                                                           draws=draws[k])[0].detach())
+              for k in range(2)]
+    opt = idbooth.make_optimizer(cfg, 10)
+    trainables = multi_identity.stack_pytrees(loras)
+    states = opt.init(trainables)
+    step = multi_identity.make_multi_train_step(cfg, models, opt, 2, policy=policy)
+    fa.reset_launch_counts()
+    trainables, states, metrics = step(trainables, states, frozen,
+                                       {k: torch.stack([b[k] for b in batches]) for k in batches[0]}, draws=draws)
+    torch.cuda.synchronize()
+    assert _launched() == STEP_LAUNCHES
+    assert metrics["loss"].shape == (2,) and states["count"] == 1
+    for k in range(2):
+        assert abs(float(metrics["loss"][k]) - serial[k]) <= 1e-2 * abs(serial[k])

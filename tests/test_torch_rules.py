@@ -40,6 +40,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     mods = _port_modules() + ["chip_smoke"]
     assert "faceposegenerator_tpu_torch.pipelines.txt2img" in mods
     assert "faceposegenerator_tpu_torch.training.idbooth" in mods
+    for new in ("core.config", "core.logging_utils", "core.trackers", "core.checkpointing", "data.dreambooth",
+                "pipelines.sweep", "training.idbooth_driver", "training.multi_identity"):
+        assert f"faceposegenerator_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

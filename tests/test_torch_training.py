@@ -11,9 +11,15 @@ disagree with a finite difference). With 8 groups the two agree to ~1e-5.
 Weights are JAX `init` trees carried into the port by
 `bridge.jax_params.load_jax_params`; inputs are numpy arrays from a seed.
 The loss takes JAX's own draws (latent noise, noise, timesteps), replayed
-from the same key, so the two random streams never need to match. One JAX
-reference per loss mode is computed once per module (jit of
-`value_and_grad`).
+from the same key, so the two random streams never need to match. JAX's
+`value_and_grad` is jitted once per loss mode and module, and its result
+cached per batch.
+
+The stacked step (K = 2 identities in one batch, `identities=2`) is held
+per identity to JAX's single step on that identity's batch and draws (JAX's
+multi-identity step is that step under `vmap`) with the tolerances below,
+and its update to two serial port updates within 1e-6 (where the gradient
+is at least 1e-6; see the test).
 
 Tolerances: IResNet and the VAE encoder 2e-4 (the repo's parity tolerance
 for full tiny networks); crop_and_resize 1e-5; the scheduler ops 1e-6; the
@@ -42,7 +48,7 @@ from faceposegenerator_tpu_torch.core.rng import train_step_generator
 from faceposegenerator_tpu_torch.diffusion.schedulers import make_ddpm
 from faceposegenerator_tpu_torch.models import clip_text, iresnet, unet2d, vae
 from faceposegenerator_tpu_torch.ops import image
-from faceposegenerator_tpu_torch.training import idbooth
+from faceposegenerator_tpu_torch.training import idbooth, multi_identity
 
 JTINY = jidbooth.ModelBundle(
     text_cfg=jclip.CLIPTextConfig(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64),
@@ -102,47 +108,68 @@ def setup():
     }
     # JAX's draws for key 0, replayed as its loss_fn makes them (idbooth.py:194-201)
     key = jax.random.key(0)
+    draws = _jax_draws(key)
+    jtrainable = jidbooth.init_trainable(jax.random.key(4), jidbooth.IDBoothConfig(), JTINY, jfrozen["unet"])
+    # a second identity: its own batch, draws (key 1) and a LoRA with nonzero B
+    rng = np.random.default_rng(1)
+    batch2 = {
+        "pixel_values": rng.uniform(-1, 1, (N, RES, RES, 3)).astype(np.float32),
+        "input_ids": rng.integers(0, 64, (N, 77)),
+        "gt_embeds": rng.standard_normal((N, 64)).astype(np.float32),
+    }
+    jtrainable2 = jax.tree_util.tree_map_with_path(
+        lambda p, x: x + 0.01 * jax.random.normal(jax.random.key(len(str(p))), x.shape) if p[-1].key == "b" else x,
+        jtrainable)
+    return dict(jfrozen=jfrozen, frozen=frozen, batch=batch, key=key, draws=draws, jtrainable=jtrainable,
+                batch2=batch2, key2=jax.random.key(1), draws2=_jax_draws(jax.random.key(1)), jtrainable2=jtrainable2)
+
+
+def _jax_draws(key):
+    """JAX's draws for `key`, replayed as its loss_fn makes them (idbooth.py:194-201)."""
     k_lat, k_noise, k_t = jax.random.split(key, 3)
     shape = (N, RES // 8, RES // 8, 4)
-    draws = {
+    return {
         "latent_noise": np.array(jax.random.normal(k_lat, shape, jnp.float32)),
         "noise": np.array(jax.random.normal(k_noise, shape, jnp.float32)),
         "timesteps": np.array(jax.random.randint(k_t, (N,), 0, 1000)),
     }
-    jtrainable = jidbooth.init_trainable(jax.random.key(4), jidbooth.IDBoothConfig(), JTINY, jfrozen["unet"])
-    return dict(jfrozen=jfrozen, frozen=frozen, batch=batch, key=key, draws=draws, jtrainable=jtrainable)
 
 
+_JAX_FNS: dict = {}
 _JAX_REFS: dict = {}
 
 
-def _jax_ref(setup, which_loss):
-    """JAX (loss, metrics, grads) for this loss mode, computed once."""
-    if which_loss not in _JAX_REFS:
+def _jax_ref(setup, which_loss, second=False):
+    """JAX (loss, metrics, grads) for this loss mode on the first identity's
+    batch and LoRA (or the second's), each computed once, one compile a mode."""
+    if which_loss not in _JAX_FNS:
         cfg = jidbooth.IDBoothConfig(which_loss=which_loss, resolution=RES, train_batch_size=N // 2)
         loss_fn = jidbooth.make_loss_fn(cfg, JTINY, jmake_ddpm(), policy=JPOLICY)
-        batch = {k: jnp.asarray(v) for k, v in setup["batch"].items()}
-        (loss, metrics), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-            setup["jtrainable"], setup["jfrozen"], batch, setup["key"])
-        _JAX_REFS[which_loss] = (float(loss), {k: float(v) for k, v in metrics.items()}, _np(grads))
-    return _JAX_REFS[which_loss]
+        _JAX_FNS[which_loss] = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    if (which_loss, second) not in _JAX_REFS:
+        suffix = "2" if second else ""
+        batch = {k: jnp.asarray(v) for k, v in setup["batch" + suffix].items()}
+        (loss, metrics), grads = _JAX_FNS[which_loss](setup["jtrainable" + suffix], setup["jfrozen"], batch,
+                                                      setup["key" + suffix])
+        _JAX_REFS[which_loss, second] = (float(loss), {k: float(v) for k, v in metrics.items()}, _np(grads))
+    return _JAX_REFS[which_loss, second]
 
 
-def _port_trainable(setup):
-    lora = jax_tree_to_torch(_np(setup["jtrainable"]["unet_lora"]), "cpu", torch.float32)
+def _port_trainable(setup, suffix=""):
+    lora = jax_tree_to_torch(_np(setup["jtrainable" + suffix]["unet_lora"]), "cpu", torch.float32)
     for leaf in idbooth.tree_leaves(lora):
         leaf.requires_grad_(True)
     return {"unet_lora": lora}
 
 
-def _port_batch(setup):
-    b = setup["batch"]
+def _port_batch(setup, suffix=""):
+    b = setup["batch" + suffix]
     return {"pixel_values": torch.from_numpy(b["pixel_values"]), "input_ids": torch.from_numpy(b["input_ids"]),
             "gt_embeds": torch.from_numpy(b["gt_embeds"])}
 
 
-def _port_draws(setup):
-    return {k: torch.from_numpy(v) for k, v in setup["draws"].items()}
+def _port_draws(setup, suffix=""):
+    return {k: torch.from_numpy(v) for k, v in setup["draws" + suffix].items()}
 
 
 def test_iresnet_r18_eval_matches_jax():
@@ -394,10 +421,81 @@ def test_init_trainable_and_generator(setup):
     assert boxes.tolist() == [[0.0, 0.0, 40.0, 30.0]] * 2 and bool(found.all())
 
 
-def test_not_yet_ported_options_raise(setup):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        idbooth.make_optimizer(idbooth.IDBoothConfig(gradient_accumulation_steps=2), total_steps=10)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        idbooth.make_loss_fn(idbooth.IDBoothConfig(train_text_encoder=True), TINY, make_ddpm())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        idbooth.init_trainable(0, idbooth.IDBoothConfig(train_text_encoder=True), TINY, setup["frozen"]["unet"])
+@pytest.fixture
+def one_thread():
+    """Torch on one thread within the test: the test workers share the
+    machine's cores, and a thread pool per worker oversubscribes them."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
+def test_stacked_step_matches_jax_per_identity(setup, one_thread):
+    """Two identities in one stacked loss (triplet_prior): each one's loss,
+    metrics and LoRA gradients against JAX's single step on its own batch,
+    draws and LoRA, with the tolerances above."""
+    cfg = idbooth.IDBoothConfig(which_loss="triplet_prior", resolution=RES, train_batch_size=N // 2)
+    loss_fn = idbooth.make_loss_fn(cfg, TINY, make_ddpm(), policy=PARITY_POLICY, identities=2)
+    trainables = multi_identity.stack_pytrees([_port_trainable(setup), _port_trainable(setup, "2")])
+    batches = {k: torch.stack([a, b]) for (k, a), b in zip(_port_batch(setup).items(), _port_batch(setup, "2").values())}
+    loss, metrics = loss_fn(trainables, setup["frozen"], batches, draws=[_port_draws(setup), _port_draws(setup, "2")])
+    grads = torch.autograd.grad(loss, idbooth.tree_leaves(trainables))
+    paths = list(_paths(trainables["unet_lora"]))
+    for i, second in enumerate((False, True)):
+        ref_loss, ref_metrics, ref_grads = _jax_ref(setup, "triplet_prior", second)
+        assert set(metrics) == set(ref_metrics) and metrics["loss"].shape == (2,)
+        for k, v in ref_metrics.items():
+            np.testing.assert_allclose(float(metrics[k][i]), v, rtol=2e-4, atol=1e-7)
+        ref = _paths(ref_grads["unet_lora"])
+        for path, g in zip(paths, grads):
+            r = ref[path]
+            scale = max(float(np.abs(r).max()), 1e-12)
+            assert float(np.abs(g[i].numpy() - r).max()) / scale <= 1e-3, (i, path)
+    np.testing.assert_allclose(float(loss.detach()), sum(_jax_ref(setup, "triplet_prior", s)[0] for s in (False, True)),
+                               rtol=2e-4)
+
+
+def test_stacked_update_matches_serial_updates(setup, one_thread):
+    """One stacked step of two identities (per-identity clip, AdamW over the
+    stacked leaves) against one port step of each identity alone: the
+    parameters within 1e-6 wherever the gradient is at least 100·eps (1e-6;
+    Adam's first step is g / (|g| + eps), so below that the two batch
+    shapes' fp32 rounding noise becomes up to a whole step: there within
+    2·lr), the moments within 1e-6 + 1e-4 relative; the metrics come back
+    per identity. The diffusion loss alone: the identity branch's stacking
+    is held to JAX above."""
+    cfg = idbooth.IDBoothConfig(which_loss="", resolution=RES, train_batch_size=N // 2)
+    serial = []
+    for suffix in ("", "2"):
+        opt = idbooth.make_optimizer(cfg, total_steps=10)
+        trainable = _port_trainable(setup, suffix)
+        state = opt.init(trainable)
+        step = idbooth.make_train_step(cfg, TINY, opt, policy=PARITY_POLICY)
+        serial.append(step(trainable, state, setup["frozen"], _port_batch(setup, suffix),
+                           draws=_port_draws(setup, suffix)))
+    opt = idbooth.make_optimizer(cfg, total_steps=10)
+    trainables = multi_identity.stack_pytrees([_port_trainable(setup), _port_trainable(setup, "2")])
+    states = opt.init(trainables)
+    batches = {k: torch.stack([a, b]) for (k, a), b in zip(_port_batch(setup).items(), _port_batch(setup, "2").values())}
+    step = multi_identity.make_multi_train_step(cfg, TINY, opt, 2, policy=PARITY_POLICY)
+    trainables, states, metrics = step(trainables, states, setup["frozen"], batches,
+                                       draws=[_port_draws(setup), _port_draws(setup, "2")])
+    assert states["count"] == 1 and metrics["grad_norm"].shape == (2,)
+    per_id = multi_identity.unstack_pytree(trainables, 2)
+    per_state = multi_identity.unstack_pytree(states, 2)
+    for i, (t, s, m) in enumerate(serial):
+        np.testing.assert_allclose(float(metrics["grad_norm"][i]), float(m["grad_norm"]), rtol=1e-4)
+        np.testing.assert_allclose(float(metrics["loss"][i]), float(m["loss"]), rtol=1e-5)
+        kept = total = 0
+        for a, b, m1 in zip(idbooth.tree_leaves(per_id[i]), idbooth.tree_leaves(t), idbooth.tree_leaves(s["exp_avg"])):
+            keep = (m1.abs() / (1 - cfg.adam_beta1) >= 1e-6).numpy()  # exp_avg = (1 - β1)·g after one step
+            diff = np.abs(a.detach().numpy() - b.detach().numpy())
+            assert diff[keep].max(initial=0.0) <= 1e-6 and diff.max() <= 2 * cfg.learning_rate
+            kept, total = kept + int(keep.sum()), total + keep.size
+        assert kept >= 0.5 * total, (kept, total)
+        for key in ("exp_avg", "exp_avg_sq"):
+            for a, b in zip(idbooth.tree_leaves(per_state[i][key]), idbooth.tree_leaves(s[key])):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=1e-4)
+    moved = [float((a - b).abs().max()) for a, b in zip(idbooth.tree_leaves(per_id[0]), idbooth.tree_leaves(per_id[1]))]
+    assert max(moved) > 1e-4  # the two identities' LoRAs differ
