@@ -186,6 +186,31 @@ Phases, in order; any failure exits non-zero without the final result line:
      bit-unchanged after odd micro-steps and moved after even ones, CLIP's
      weights untouched. It prints s/step (driver, stacked, accumulation)
      and peak memory beside phase 7's, and checkpoint write and read times.
+ 14. serving and sweep: phase 12's directory loaded again (bf16, 512², CFG
+     5.0, 30 DDPM steps), three rank-4 LoRAs (two registered from files,
+     one as a tree). The batch engine at batch 8: 12 requests at once over
+     two adapters and none (3 padded batches), then one of them alone (its
+     image equal to the one from its mixed batch, or within the per-sample
+     gate 1e-1 / 1e-2; the uint8 max difference and the share of differing
+     pixels printed), images differing across seeds and adapters, K1 960
+     and K2 1 a batch; `multi_lora`: one batch of 8 over 3 adapters, each
+     slot within the gate of its uniform batch; the rolling engine with 4
+     slots: 6 requests staggered (one admitted a third of the way, two
+     queued until slots free), K1 32 a tick and K2 1 a finished request at
+     1 × 4096² × 512, each image within the gate of the batch engine's,
+     then DPM-Solver++ at 12 steps against the batch engine at "dpm";
+     `parallel_window=8` at batch 1: tolerance 0 (30 Picard iterations,
+     within the gate of the sequential server) and 0.1 (its iterations and
+     s/request beside the sequential request's), K1 32 an iteration; one
+     HTTP /generate round trip (its PNG against the engine's image) and
+     /stats on 127.0.0.1; the packed sweep of 3 variants × 21 prompts at
+     batch 8 (8 batches, 1 pad slot; K1 7680, K2 8) with CR-FIQA (random
+     r100 and quality head) and 6DRepNet (random RepVGG-B1g2) scoring every
+     batch on the card through `on_images`: 63 PNGs and the comparison
+     grid under build/, the variants' initial latents equal for each
+     prompt, the scores finite; s/identity, img/s and the FIQA and pose
+     rates printed. Phase 3 holds K1 at the rolling tick's L0 shapes and K2
+     at 1 × 4096² × 512 beside the other rows.
 Phases 3-7 run the default configuration (GN_IMPL and GN_CONV_IMPL at xla)
 whatever the environment says. The line before the last is a JSON object
 with one entry per kernel; the last is {"ok": true, "device": {...}}.
@@ -225,6 +250,14 @@ CKPT_SHAPES = [
     ("tome cross L0 (xattn)", 16, 5, 2048, 77, 64, 150),
     ("vae mid, decode_chunk 2", 2, 1, 4096, 4096, 512, 4),
 ]
+# phase 14's new shapes: the rolling engine's tick at 4 slots (8 UNet rows:
+# L0's 5 self- and 5 cross-attentions a tick; the other levels' shapes at 8
+# rows as well), and its batch-1 decode of a finished slot
+SERVE_TICK_SHAPES = [
+    ("rolling self L0", 8, 5, 4096, 4096, 64, 5),
+    ("rolling cross L0", 8, 5, 4096, 77, 64, 5),
+]
+SERVE_DECODE_SHAPES = [("vae mid, rolling decode", 1, 1, 4096, 4096, 512, 1)]
 # (name, B, H, Sq, Skv, D, launches per train step) at the train op point: 8
 # UNet rows (4 instance + 4 class images); per step 5 transformers at each
 # of the three outer levels and 1 in the mid block, each with one self- and
@@ -2693,6 +2726,354 @@ def run_driver(torch, card_line, model_dir, work, train_secs, train_peak):
     return total
 
 
+# Phase 14: the batch engine's requests (30 DDPM steps, batch 8) launch
+# phase 4's counts a batch; the rolling engine's tick is one UNet pass on
+# 2 × 4 slots (32 K1) and each finished slot one batch-1 decode (1 K2); the
+# packed sweep runs 3 × 21 prompts in 8 batches of 8.
+SERVE_BATCH_LAUNCHES = REQUEST_LAUNCHES
+TICK_LAUNCHES = {"flash_fwd_d64": 32}
+DECODE1_LAUNCHES = {"flash_fwd_wide": 1}
+SWEEP_LAUNCHES = {"flash_fwd_d64": 8 * 960, "flash_fwd_wide": 8}
+SERVED = dict(num_inference_steps=30, guidance_scale=5.0, height=512, width=512)
+
+
+def _u8_diff(got, want, label, limits=(1e-1, 1e-2)):
+    """Two uint8 images: the largest code difference and the share of
+    pixels that differ, printed; equal, or within `limits` on [0, 1]."""
+    import numpy as np
+
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    share = float((d.max(axis=-1) > 0).mean())
+    print(f"{label}: uint8 max diff {int(d.max())}, {100 * share:.3f}% of pixels differ", flush=True)
+    if d.max() > 0:
+        _route_diff(got.astype(np.float32) / 255.0, want.astype(np.float32) / 255.0, label)
+    return int(d.max()), share
+
+
+def _wait_ticks(records, n, futs, timeout=300.0):
+    """Until the rolling engine has ticked n times, or has served `futs`; a
+    request that failed meanwhile raises its error here."""
+    deadline = time.time() + timeout
+    while len(records) < n:
+        if all(f.done() for f in futs):
+            return [f.result() for f in futs]
+        if time.time() > deadline:
+            fail(f"the rolling engine ticked {len(records)} times in {timeout} s, expected {n}")
+        time.sleep(0.005)
+
+
+def _expect_each(records, expect, label):
+    for i, r in enumerate(records):
+        if r["launches"] != expect:
+            fail(f"{label} {i} launched {r['launches']}, expected {expect}")
+
+
+def run_serving(torch, card_line, model_dir, work, default_secs):
+    """Phase 14: serving and the packed sweep on phase 12's synthetic
+    SD2.1-base directory (bf16, 512², CFG 5.0, rank-4 LoRAs: two registered
+    from files, one as a tree): the batch engine (grouping, padding,
+    per-request determinism, exact launches a batch), `multi_lora`, the
+    rolling engine (DDPM and DPM-Solver++, against the batch engine, exact
+    launches a tick and a decode), `parallel_window=8` at batch 1, the HTTP
+    API, and the packed sweep of 3 variants × 21 prompts with FIQA and pose
+    scored on the card. Returns the phase's launch counts."""
+    import base64
+    import io
+    import os
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+
+    from faceposegenerator_tpu_torch.diffusion import parallel_sampler, sampler
+    from faceposegenerator_tpu_torch.diffusion.lora_io import save_lora_safetensors, zero_lora
+    from faceposegenerator_tpu_torch.evaluation import fiqa, pose
+    from faceposegenerator_tpu_torch.models import iresnet
+    from faceposegenerator_tpu_torch.pipelines import sweep
+    from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+    from faceposegenerator_tpu_torch.serving import GenerationRequest, RollingServer, SamplerServer
+    from faceposegenerator_tpu_torch.serving.http_api import start_http_background
+
+    t_phase = time.time()
+    pipe = StableDiffusionPipeline.from_pretrained(model_dir, dtype=torch.bfloat16)
+    total = {n: 0 for n in _launch_counts()}
+
+    def add(records):
+        for r in records:
+            for n, c in r["launches"].items():
+                total[n] += c
+
+    # three rank-4 adapters: l1 and l2 from files, l3 as a tree
+    trees = []
+    for seed in (41, 42, 43):
+        tree = zero_lora(pipe.nets["unet"], pipe.nets["text_encoder"], dtype=torch.bfloat16)
+        tree["unet"] = make_lora(pipe.nets["unet"], seed, torch)["unet"]
+        trees.append(tree)
+    files = {}
+    for name, tree in zip(("l1", "l2"), trees):
+        files[name] = os.path.join(work, "loras", name)
+        save_lora_safetensors(tree, os.path.join(files[name], "pytorch_lora_weights.safetensors"))
+
+    def register(srv):
+        for name, path in files.items():
+            srv.register_lora(name, path)
+        srv.register_lora("l3", trees[2])
+        return srv
+
+    def req(prompt, seed, lora):
+        return GenerationRequest(prompt=PROMPTS[prompt], negative_prompt=NEGATIVE_PROMPT, seed=seed, lora_id=lora)
+
+    served, res, steps = SERVED, SERVED["height"], SERVED["num_inference_steps"]
+    # 12 requests over l1, l2 and none: 5, 4 and 3 of them, so 3 batches, each padded; request 2 differs from
+    # request 0 by its seed alone, request 3 by its adapter alone
+    reqs = [req(0, 100, "l1"), req(1, 101, None), req(0, 102, "l1"), req(0, 100, "l2")]
+    reqs += [req(i % 8, 100 + i, lora)
+             for i, lora in zip(range(4, 12), (None, "l1", "l2", "l1", None, "l2", "l1", "l2"))]
+    servers = []
+    try:
+        # --- the batch engine -----------------------------------------------
+        engine = register(SamplerServer(pipe, batch_size=8, max_wait_s=0.05, **served))
+        servers.append(engine)
+        with step_probe(sampler, "sample", factory=False) as batches:
+            mixed = [f.result() for f in [engine.submit(r) for r in reqs]]
+            alone = engine.generate([reqs[0]])[0]
+        add(batches.records)
+        _expect_each(batches.records, SERVE_BATCH_LAUNCHES, "batch engine batch")
+        stats = engine.stats()
+        print(f"batch engine: 12 requests in {len(batches.records) - 1} batches + 1 alone, "
+              f"s/batch {[round(r['s'], 3) for r in batches.records]} (phase 4's request {default_secs:.3f}); "
+              f"stats {json.dumps(stats)} ({card_line})", flush=True)
+        if stats["batches"] != 4 or stats["padded_slots"] != 3 + 5 + 4 + 7:
+            fail(f"the batch engine grouped 12 requests into {stats}, expected 3 padded batches and 1 alone")
+        for r in mixed:
+            _check_images(r.image[None].astype(np.float32) / 255.0, 1, res, "batch engine image")
+        _u8_diff(alone.image, mixed[0].image, "request 0 alone vs in its mixed batch")
+        for a, b, what in ((0, 2, "seeds"), (0, 3, "adapters")):
+            if np.abs(mixed[a].image.astype(int) - mixed[b].image.astype(int)).max() < 8:
+                fail(f"requests {a} and {b} differ by their {what} but their images do not")
+
+        # --- multi_lora: one mixed batch of 8 over l1, l2, l3 -----------------
+        l3 = [req(i, 200 + i, "l3") for i in range(4)]
+        uniform = engine.generate(l3)
+        multi = register(SamplerServer(pipe, batch_size=8, max_wait_s=0.5, multi_lora=True, **served))
+        servers.append(multi)
+        group = [reqs[0], reqs[3], reqs[2], reqs[6]] + l3
+        with step_probe(sampler, "sample", factory=False) as mbatch:
+            got = multi.generate(group)
+        add(mbatch.records)
+        _expect_each(mbatch.records, SERVE_BATCH_LAUNCHES, "multi_lora batch")
+        if len(mbatch.records) != 1:
+            fail(f"multi_lora ran {len(mbatch.records)} batches for 8 requests")
+        want = [mixed[0], mixed[3], mixed[2], mixed[6]] + uniform
+        for i, (g, w) in enumerate(zip(got, want)):
+            _u8_diff(g.image, w.image, f"multi_lora slot {i} ({group[i].lora_id}) vs its uniform batch")
+        print(f"multi_lora: 1 batch of 8 over 3 adapters in {mbatch.records[0]['s']:.3f} s ({card_line})", flush=True)
+        multi.shutdown()
+
+        # --- the rolling engine: 4 slots, 6 requests staggered ----------------
+        roll = register(RollingServer(pipe, batch_size=4, max_wait_s=0.0, **served))
+        servers.append(roll)
+        picks = [0, 1, 3, 4, 5, 6]
+        with step_probe(roll, "_tick", factory=False) as ticks, \
+                step_probe(roll, "_decode1", factory=False) as decodes, shape_tally() as tally:
+            t0 = time.time()
+            futs = [roll.submit(reqs[i]) for i in picks[:3]]
+            _wait_ticks(ticks.records, steps // 3, futs)
+            futs.append(roll.submit(reqs[picks[3]]))  # into the free slot, the others a third of the way
+            _wait_ticks(ticks.records, 2 * steps // 3, futs)
+            futs += [roll.submit(reqs[i]) for i in picks[4:]]  # queued until the first three finish
+            rolled = [f.result() for f in futs]
+            roll_s = time.time() - t0
+        add(ticks.records + decodes.records)
+        _expect_each(ticks.records, TICK_LAUNCHES, "rolling tick")
+        _expect_each(decodes.records, DECODE1_LAUNCHES, "rolling decode")
+        if len(decodes.records) != 6:
+            fail(f"the rolling engine decoded {len(decodes.records)} images for 6 requests")
+        tick_s = [r["s"] for r in ticks.records]
+        lat = [r.queue_s + r.batch_s for r in rolled]
+        rstats = roll.stats()
+        print(f"rolling: 6 requests through 4 slots in {len(tick_s)} ticks, {roll_s:.3f} s; s/tick median "
+              f"{sorted(tick_s)[len(tick_s) // 2]:.4f} min {min(tick_s):.4f}; decode "
+              f"{[round(r['s'], 4) for r in decodes.records]} s; latency per request {[round(x, 3) for x in lat]} s; "
+              f"{6 / roll_s:.3f} img/s; stats {json.dumps(rstats)} ({card_line})", flush=True)
+        measured = {name: tally.shapes.get((b, h, sq, skv, d), 0) for name, b, h, sq, skv, d, _ in SERVE_DECODE_SHAPES}
+        measured.update({name: tally.shapes.get((b, h, sq, skv, d), 0) / max(len(tick_s), 1)
+                         for name, b, h, sq, skv, d, _ in SERVE_TICK_SHAPES})
+        measured["vae mid, rolling decode"] /= len(decodes.records)
+        for name, b, h, sq, skv, d, want_n in SERVE_TICK_SHAPES + SERVE_DECODE_SHAPES:
+            if measured[name] != want_n:
+                fail(f"{name}: {measured[name]} launches at {b} × {h} × {sq} × {skv} × {d}, expected {want_n}")
+        for i, r in zip(picks, rolled):
+            _u8_diff(r.image, mixed[i].image, f"rolling request {i} vs the batch engine")
+        roll.shutdown()
+
+        # --- rolling DPM-Solver++ at 12 steps against the batch engine ---------
+        dpm = dict(served, num_inference_steps=12, scheduler="dpm")
+        droll = register(RollingServer(pipe, batch_size=4, max_wait_s=0.0, **dpm))
+        dbatch = register(SamplerServer(pipe, batch_size=8, max_wait_s=0.5, multi_lora=True, **dpm))
+        servers += [droll, dbatch]
+        four = [reqs[i] for i in (0, 1, 3, 4)]
+        with step_probe(droll, "_tick_dpm", factory=False) as dticks, \
+                step_probe(droll, "_decode1", factory=False) as dd:
+            t0 = time.time()
+            drolled = droll.generate(four)
+            droll_s = time.time() - t0
+        with step_probe(sampler, "sample", factory=False) as db:
+            dwant = dbatch.generate(four)
+        add(dticks.records + dd.records + db.records)
+        _expect_each(dticks.records, TICK_LAUNCHES, "rolling DPM tick")
+        _expect_each(dd.records, DECODE1_LAUNCHES, "rolling DPM decode")
+        _expect_each(db.records, {"flash_fwd_d64": 12 * 32, "flash_fwd_wide": 1}, "DPM batch")
+        for i, (g, w) in enumerate(zip(drolled, dwant)):
+            _u8_diff(g.image, w.image, f"rolling DPM++ 12 request {i} vs the batch engine")
+        print(f"rolling DPM++ 12: 4 requests in {len(dticks.records)} ticks, {droll_s:.3f} s; batch engine "
+              f"{db.records[0]['s']:.3f} s ({card_line})", flush=True)
+        droll.shutdown()
+        dbatch.shutdown()
+
+        # --- parallel_window=8 at batch 1 ------------------------------------
+        iters = []
+        plain_parallel = parallel_sampler.sample_parallel
+
+        def counted(*a, **kw):
+            images, n = plain_parallel(*a, **dict(kw, return_stats=True))
+            iters.append(n)
+            return images
+
+        one = req(2, 300, None)
+        seq = SamplerServer(pipe, batch_size=1, max_wait_s=0.0, **served)
+        servers.append(seq)
+        with step_probe(sampler, "sample", factory=False) as sq:
+            seq_img = [seq.generate([one])[0] for _ in range(2)][-1]
+        add(sq.records)
+        _expect_each(sq.records, SERVE_BATCH_LAUNCHES, "sequential batch-1 request")
+        seq.shutdown()
+        parallel_sampler.sample_parallel = counted
+        try:
+            for tol in (0.0, 0.1):
+                par = SamplerServer(pipe, batch_size=1, max_wait_s=0.0, parallel_window=8, parallel_tolerance=tol,
+                                    **served)
+                servers.append(par)
+                with step_probe(parallel_sampler, "sample_parallel", factory=False) as pr:
+                    par_img = [par.generate([one])[0] for _ in range(2)][-1]
+                add(pr.records)
+                for r, n in zip(pr.records, iters[-2:]):
+                    if r["launches"] != {"flash_fwd_d64": 32 * n, "flash_fwd_wide": 1}:
+                        fail(f"parallel_window=8 at tolerance {tol}: {r['launches']} for {n} Picard iterations")
+                print(f"parallel_window=8, tolerance {tol}: n_iters {iters[-2:]}, s/request "
+                      f"{[round(r['s'], 3) for r in pr.records]} against the sequential batch-1 request "
+                      f"{[round(r['s'], 3) for r in sq.records]} ({card_line})", flush=True)
+                if tol == 0.0:
+                    if iters[-1] != steps:
+                        fail(f"tolerance 0 took {iters[-1]} Picard iterations, expected {steps}")
+                    _u8_diff(par_img.image, seq_img.image, "parallel_window=8 tolerance 0 vs the sequential server")
+                else:
+                    d = np.abs(par_img.image.astype(int) - seq_img.image.astype(int))
+                    print(f"parallel_window=8 tolerance 0.1 vs sequential: uint8 max diff {int(d.max())}, "
+                          f"mean {d.mean():.3f}", flush=True)
+                par.shutdown()
+        finally:
+            parallel_sampler.sample_parallel = plain_parallel
+
+        # --- the HTTP API on the batch engine ----------------------------------
+        httpd, port = start_http_background(engine, host="127.0.0.1", port=0)
+        try:
+            body = json.dumps({"prompt": reqs[0].prompt, "negative_prompt": NEGATIVE_PROMPT, "seed": 100,
+                               "lora_id": "l1"}).encode()
+            t0 = time.time()
+            with urllib.request.urlopen(urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=body,
+                                                               method="POST"), timeout=300) as r:
+                status, out = r.status, json.load(r)
+            http_s = time.time() - t0
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=60) as r:
+                http_stats = json.load(r)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        img = np.asarray(Image.open(io.BytesIO(base64.b64decode(out["image"]))))
+        print(f"http: POST /generate {status} in {http_s:.3f} s, /stats {json.dumps(http_stats)}", flush=True)
+        if status != 200 or img.shape != (res, res, 3):
+            fail(f"POST /generate answered {status} with an image of {img.shape}")
+        _u8_diff(img, mixed[0].image, "the HTTP request's PNG vs request 0 in its mixed batch")
+        engine.shutdown()
+
+        # --- the packed sweep: 3 variants × 21 prompts, FIQA and pose on the card --
+        lora_root, out_root = os.path.join(work, "sweep_loras"), os.path.join(work, "sweep")
+        for variant, tree in zip(sweep.MODEL_VARIANTS, trees):
+            save_lora_safetensors(tree, os.path.join(lora_root, variant, "id_7", "checkpoint-31-6400",
+                                                     "pytorch_lora_weights.safetensors"))
+        arcface = iresnet.IResNet(iresnet.config_for("r100"), seed=5)
+        quality_u8 = fiqa.make_quality_fn_u8(arcface, fiqa.init_qs_head(seed=6))
+        pose_u8 = pose.make_pose_fn_u8(pose.init_sixdrepnet(seed=7))
+        scored, latents = [], {}
+        plain_noise = sampler.per_prompt_noise
+
+        def recorded_noise(identity, prompt_idx, *a, **kw):
+            noise = plain_noise(identity, prompt_idx, *a, **kw)
+            for b, p in enumerate(prompt_idx):
+                latents.setdefault(int(p), []).append(noise[0, b].clone())
+            return noise
+
+        def hook(model, identity, names, images):
+            scored.append((names, quality_u8(images)[1], pose_u8(images)))
+
+        sampler.per_prompt_noise = recorded_noise
+        try:
+            before = _launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            sweep.run_sweep(pipe, lora_root, out_root, identities=["id_7"], pack_variants=True, batch_size=8,
+                            on_images=hook, **served)
+            torch.cuda.synchronize()
+            sweep_s = time.time() - t0
+        finally:
+            sampler.per_prompt_noise = plain_noise
+        launches = {n: c - before[n] for n, c in _launch_counts().items() if c != before[n]}
+        add([{"launches": launches}])
+        if launches != SWEEP_LAUNCHES:
+            fail(f"the packed sweep launched {launches}, expected {SWEEP_LAUNCHES}")
+        pngs = [f for v in sweep.MODEL_VARIANTS for f in os.listdir(os.path.join(out_root, v, "id_7"))]
+        grid = os.path.join(out_root, "comparison_grids", "id_7.png")
+        if len(pngs) != 63 or not os.path.exists(grid):
+            fail(f"the packed sweep wrote {len(pngs)} images (expected 63), grid {os.path.exists(grid)}")
+        if len(scored) != 8 or [n is None for n in scored[-1][0]] != [False] * 7 + [True]:
+            fail(f"the sweep's hook saw {len(scored)} batches, the last one's names "
+                 f"{scored[-1][0] if scored else None}")
+        for p, views in latents.items():
+            if not all(torch.equal(v, views[0]) for v in views[1:]):
+                fail(f"prompt {p}: the variants' initial latents differ")
+        if sorted(latents) != list(range(21)) or min(len(v) for v in latents.values()) < 3:
+            fail(f"initial latents recorded for prompts {sorted(latents)}")
+        q = torch.cat([s[1] for s in scored]).float().cpu().numpy()
+        angles = torch.cat([s[2] for s in scored]).float().cpu().numpy()
+        if not (np.isfinite(q).all() and np.isfinite(angles).all() and q.shape == (64,) and angles.shape == (64, 3)):
+            fail("FIQA or pose scores are not finite")
+        batch = torch.from_numpy(np.stack([np.asarray(Image.open(os.path.join(out_root, sweep.MODEL_VARIANTS[0], "id_7",
+                                                                              f"id_7_{i:03d}.png")))
+                                           for i in range(8)])).to(pipe.device)
+        rates = {}
+        for name, fn in (("fiqa", quality_u8), ("pose", pose_u8)):
+            fn(batch)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(5):
+                fn(batch)
+            torch.cuda.synchronize()
+            rates[name] = 40 / (time.time() - t0)
+        print(f"packed sweep: 3 variants × 21 prompts, 8 batches of 8 (1 pad slot), 512², 30 steps: {sweep_s:.3f} "
+              f"s/identity, {63 / sweep_s:.3f} img/s; launches {json.dumps(launches)}; FIQA r100 "
+              f"{rates['fiqa']:.1f} img/s, pose RepVGG-B1g2 {rates['pose']:.1f} img/s (8 × 512² uint8 a call); "
+              f"quality {q.min():.4f}..{q.max():.4f}, yaw {angles[:, 1].min():.2f}..{angles[:, 1].max():.2f} "
+              f"({card_line})", flush=True)
+    finally:
+        for srv in servers:
+            srv.shutdown()
+    del pipe
+    torch.cuda.empty_cache()
+    print(f"serving: phase 14 in {time.time() - t_phase:.1f} s ({card_line})", flush=True)
+    return {n: c for n, c in total.items() if c}, measured
+
+
 def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32, launches, ptxas, sass=None):
     """The kernels line: one entry per counted kernel. `ptxas` holds each
     wgmma or fp32 kernel function's registers and spills by instance;
@@ -2714,13 +3095,13 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
             bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
             shape=f"{top['shape']} B{top['B']}", lse_max_err=max(r["lse_max_err"] or 0.0 for r in mine),
             tflops=top["tflops"], **({"ptxas": ptxas[f"{name}_kernel"]} if f"{name}_kernel" in ptxas else {}),
-            # phase 12's shapes (ToMe, decode_chunk), each with the contract's numbers and the
-            # launches a request that phase 12 counted
+            # phase 12's shapes (ToMe, decode_chunk) and phase 14's (the rolling tick and decode),
+            # each with the contract's numbers and the launches a request (or tick) its phase counted
             shapes=[dict(shape=f"{r['shape']} B{r['B']}", B=r["B"], H=r["H"], Sq=r["Sq"], Skv=r["Skv"], D=r["D"],
                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                          library_ms=r["library_ms"], max_abs_err=r["max_abs_err"], tflops=r["tflops"],
-                         launches_per_request=r["launches_per_request"])
-                    for r in mine if r.get("phase") == 12],
+                         **{k: v for k, v in r.items() if k.startswith("launches_per_")})
+                    for r in mine if r.get("phase") in (12, 14)],
         ))
     top = max(f32["fwd"], key=lambda r: r["bound_ms"])
     kernels.append(dict(
@@ -2900,6 +3281,8 @@ def main() -> int:
     fwd_rows = check_kernels(torch, fa, card)
     fwd_rows += check_kernels(torch, fa, card, TRAIN_SHAPES, with_lse=True, per="step")
     fwd_rows += [dict(r, phase=12) for r in check_kernels(torch, fa, card, CKPT_SHAPES)]
+    fwd_rows += [dict(r, phase=14) for r in check_kernels(torch, fa, card, SERVE_TICK_SHAPES, per="tick")]
+    fwd_rows += [dict(r, phase=14) for r in check_kernels(torch, fa, card, SERVE_DECODE_SHAPES)]
     bwd_rows = check_backward(torch, fa, card, [s for s in TRAIN_SHAPES if s[0] != "vae encode mid"])
     q_rows = check_qdense(torch, card)
     i8_rows = check_int8(torch, fa, card)
@@ -2943,13 +3326,18 @@ def main() -> int:
         checkpoints, ckpt_counts = run_checkpoints(torch, card_line, txt2img_secs, model_dir)
         with build_dir("idbooth_driver") as work:
             driver = run_driver(torch, card_line, model_dir, work, train_secs, train_peak)
-    for r in fwd_rows:  # phase 12's shapes: the launches its requests measured
+        torch.cuda.empty_cache()
+        with build_dir("serving") as work:
+            serving, serve_counts = run_serving(torch, card_line, model_dir, work, txt2img_secs)
+    for r in fwd_rows:  # phases 12's and 14's shapes: the launches their runs measured
         if r.get("phase") == 12:
             r["launches_per_request"] = ckpt_counts[r["shape"]]
+        elif r.get("phase") == 14:
+            r["launches_per_" + ("tick" if "launches_per_tick" in r else "request")] = serve_counts[r["shape"]]
     paths = {"txt2img": txt2img, "turbo": turbo, "train": train, "fused txt2img": fused_txt2img,
              "fused train": fused_train, "fp32 txt2img": fp32_txt2img, "fp32 fused txt2img": fp32_fused,
              "fp32 routes at 2×128²": fp32_routes, "fp32 train check": fp32_train, "checkpoints": checkpoints,
-             "training driver": driver}
+             "training driver": driver, "serving and sweep": serving}
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in REPLACES}
     print("launches on the main paths: " + ", ".join(f"{k} {json.dumps(v)}" for k, v in paths.items()), flush=True)
     for name, count in launches.items():

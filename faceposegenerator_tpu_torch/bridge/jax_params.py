@@ -9,6 +9,11 @@ gives) and fills the port module whose attributes follow the same keys:
   any other key of a dict of arrays (BatchNorm's "mean", "var") → the
   parameter of that name.
 
+An integer scalar (a Python int, or its 0-d numpy form) in a dict of the
+tree is static structure, not a weight (a RepVGG layer's "stride" and
+"groups"): it must equal the module's attribute of that name (a conv's
+(s, s) tuple counts as s), and loads nothing.
+
 A quantized leaf of `ops/quant.py` in JAX, {"q": int8, "s": fp32 (out,)[,
 "a": scalar]} in place of "w", replaces the layer's weight with a
 `QuantizedWeight` holding the same codes and scales (a conv's q from HWIO to
@@ -78,6 +83,23 @@ def _is_leaf(node: dict) -> bool:
     return bool(node) and all(hasattr(v, "__array__") for v in node.values())
 
 
+def _static(mod, node: dict, path: str) -> dict:
+    """`node` without its Python-int entries, each checked against `mod`."""
+    rest = {}
+    for key, value in node.items():
+        if isinstance(value, bool) or not (isinstance(value, int) or (
+                np.ndim(value) == 0 and np.issubdtype(np.asarray(value).dtype, np.integer))):
+            rest[key] = value
+            continue
+        value = int(value)
+        have = getattr(mod, key, None)
+        if isinstance(have, tuple) and len(set(have)) == 1:
+            have = have[0]
+        if have != value:
+            raise ValueError(f"{path}.{key}: tree has {value}, module has {have}")
+    return rest
+
+
 def _walk(mod, node, path: str, filled: set) -> None:
     if node is None or mod is None:
         if node is not None or mod is not None:
@@ -89,6 +111,8 @@ def _walk(mod, node, path: str, filled: set) -> None:
         for i, sub in enumerate(node):
             _walk(mod[i], sub, f"{path}.{i}", filled)
         return
+    if isinstance(node, dict):
+        node = _static(mod, node, path)
     if isinstance(node, dict) and _is_quantized_leaf(node.get("w")):
         _quantized(mod, node["w"], f"{path}.w", filled)
         node = {k: v for k, v in node.items() if k != "w"}

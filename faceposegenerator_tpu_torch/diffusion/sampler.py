@@ -13,6 +13,11 @@ the steps [0, i0) and [i1, S) run cond-only at batch B on the cond half of
 the text context, each segment carries its own DeepCache cache, and a
 segment's first step and every step whose index is a multiple of the
 interval run the full UNet. Capturing the loop in a CUDA graph is later work.
+
+`per_prompt_noise` draws a `noise_override` table whose slot streams depend
+only on (identity, prompt) (sampler.py:413): the bits are the port's own,
+from `core/rng.prompt_generator` (a `SeedSequence([identity, prompt])`), as
+`core/rng.py` makes every stream.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.precision import DEFAULT_POLICY, Policy
+from ..core.rng import prompt_generator
 from ..core.tree import tree_leaves, tree_map
 from ..models import clip_text, unet2d, vae
 from .schedulers import DDPMSchedule, DPMSolverSchedule
@@ -176,3 +182,14 @@ def sample(
     if return_trajectory:
         return images, torch.stack(traj)
     return images
+
+
+def per_prompt_noise(identity_index: int, prompt_idx, S: int, h: int, w: int, device) -> torch.Tensor:
+    """(S+1, B, h, w, 4) fp32 `noise_override` on `device` whose slot b is
+    the stream of (identity_index, prompt_idx[b]) (sampler.py:413-431): the
+    model variants see the same latents for a prompt and different prompts
+    different ones, whichever batch and slot a (variant, prompt) pair lands
+    in (the packed sweep)."""
+    streams = [torch.randn((S + 1, h, w, 4), generator=prompt_generator(identity_index, int(p), device),
+                           device=device, dtype=torch.float32) for p in prompt_idx]
+    return torch.stack(streams, dim=1)

@@ -8,6 +8,13 @@ the card a few elementwise ops and never a host sync. Training draws one
 timestep per sample, so `add_noise` and `pred_original` also take a (B,)
 timestep tensor and gather from the tables on the device.
 
+Each schedule also holds its per-step coefficients as an fp32 table of
+length S, made once with the schedule, from which `step` reads its
+scalars. `step_per_slot` gathers the same values on the device by a (B,)
+tensor of step indices (the rolling engine's slots and the parallel
+sampler's window, which JAX writes as `jax.vmap(schedule.step)`), so row b
+of its result is bit for bit `step` at `step_idx[b]` on that row.
+
 SD2.1-base `scheduler_config.json` semantics: scaled_linear betas
 0.00085 → 0.012 over 1000 steps, epsilon prediction, "leading" spacing with
 steps_offset 1, fixed_small variance, no sample clipping.
@@ -90,6 +97,27 @@ def dpm_inference_timesteps(cfg: SchedulerConfig, num_inference_steps: int, spac
     return ts
 
 
+# the rows of DDPMSchedule.coefs: x̂0's sqrt(ᾱ_t) and sqrt(1 − ᾱ_t), the
+# posterior mean's coefficients of x̂0 and x_t, the noise std, the variance
+# (the parallel sampler's acceptance scale) and t > 0
+DDPM_COEFS = ("sqrt_acp", "sqrt_1m", "x0_coef", "xt_coef", "std", "variance", "nonzero_t")
+# the rows of DPMSolverSchedule.coefs: x̂0's sqrt(ᾱ) and sqrt(1 − ᾱ), σ_{i+1}/σ_i,
+# the first- and second-order coefficients α_{i+1}·φ and 0.5·α_{i+1}·φ, the
+# divisor r0 of the 2M difference, and whether step i is the final
+# lower-order one
+DPM_COEFS = ("sqrt_a", "sqrt_s", "ratio", "c1", "c2", "r0", "last")
+
+
+def _on_device(schedule, name: str, device) -> torch.Tensor:
+    """The schedule's table `name` on `device`, copied there on first use
+    (timesteps as int64)."""
+    key = (name, torch.device(device))
+    if key not in schedule._device_tables:
+        table = torch.from_numpy(getattr(schedule, name))
+        schedule._device_tables[key] = (table.long() if name == "timesteps" else table).to(key[1])
+    return schedule._device_tables[key]
+
+
 @dataclasses.dataclass(frozen=True)
 class DDPMSchedule:
     """Constant DDPM tables; `timesteps` is the descending inference schedule."""
@@ -102,10 +130,40 @@ class DDPMSchedule:
     clip_sample: bool = False
     clip_sample_range: float = 1.0
     prediction_type: str = "epsilon"
+    # (len(DDPM_COEFS), S) fp32: the per-step scalars of `step`, and their
+    # device copies by device
+    coefs: np.ndarray = dataclasses.field(init=False, repr=False, compare=False)
+    _device_tables: dict = dataclasses.field(init=False, repr=False, compare=False, default_factory=dict)
+
+    def __post_init__(self):
+        object.__setattr__(self, "coefs", np.array([self._coefs(i) for i in range(len(self.timesteps))],
+                                                   np.float32).reshape(-1, len(DDPM_COEFS)).T.copy())
 
     @property
     def num_train_timesteps(self) -> int:
         return self.betas.shape[0]
+
+    def _coefs(self, i: int) -> tuple:
+        """The fp32 scalars of step position i, in DDPM_COEFS order."""
+        t, prev_t = int(self.timesteps[i]), int(self.prev_timesteps[i])
+        acp_t = self.alphas_cumprod[t]
+        acp_prev = self._acp_prev(prev_t)
+        beta_prod_t = np.float32(1.0) - acp_t
+        alpha_t = acp_t / acp_prev
+        beta_t = np.float32(1.0) - alpha_t
+        x0_coef = (np.sqrt(acp_prev) * beta_t) / beta_prod_t
+        xt_coef = np.sqrt(alpha_t) * (np.float32(1.0) - acp_prev) / beta_prod_t
+        var = self.variance(t, prev_t)
+        return (np.sqrt(acp_t), np.sqrt(np.float32(1.0) - acp_t), x0_coef, xt_coef, np.sqrt(var), var,
+                np.float32(t > 0))
+
+    def device_coefs(self, device) -> torch.Tensor:
+        """`coefs` on `device`, copied there once."""
+        return _on_device(self, "coefs", device)
+
+    def device_timesteps(self, device) -> torch.Tensor:
+        """`timesteps` as a long tensor on `device`, copied there once."""
+        return _on_device(self, "timesteps", device)
 
     def _acp_prev(self, prev_t: int) -> np.float32:
         return self.alphas_cumprod[prev_t] if prev_t >= 0 else np.float32(1.0)
@@ -125,13 +183,14 @@ class DDPMSchedule:
         """x̂0 from the model output in fp32, at an integer t (the sampler's
         form, coefficients on the host) or at per-sample timesteps, a (B,)
         tensor (the train step's form, schedulers.py:149-170)."""
-        x32, o32 = x_t.float(), model_out.float()
         if isinstance(t, torch.Tensor):
             acp = self._acp_per_sample(t, x_t.dim())
-            sqrt_acp, sqrt_1m = torch.sqrt(acp), torch.sqrt(1.0 - acp)
-        else:
-            acp = self.alphas_cumprod[t]
-            sqrt_acp, sqrt_1m = float(np.sqrt(acp)), float(np.sqrt(np.float32(1.0) - acp))
+            return self._x0(model_out, x_t, torch.sqrt(acp), torch.sqrt(1.0 - acp))
+        acp = self.alphas_cumprod[t]
+        return self._x0(model_out, x_t, float(np.sqrt(acp)), float(np.sqrt(np.float32(1.0) - acp)))
+
+    def _x0(self, model_out, x_t, sqrt_acp, sqrt_1m) -> torch.Tensor:
+        x32, o32 = x_t.float(), model_out.float()
         if self.prediction_type == "epsilon":
             x0 = (x32 - sqrt_1m * o32) / sqrt_acp
         elif self.prediction_type == "v_prediction":
@@ -157,19 +216,23 @@ class DDPMSchedule:
         """One reverse step x_t → x_{t-1} at `timesteps[step_index]`
         (schedulers.py:182-212); `noise` is pre-drawn N(0, 1) of x_t's shape.
         Returns (x_prev in x_t's dtype, x̂0 in fp32)."""
-        t = int(self.timesteps[step_index])
-        prev_t = int(self.prev_timesteps[step_index])
-        x0 = self.pred_original(model_out, t, x_t)
-        acp_t = self.alphas_cumprod[t]
-        acp_prev = self._acp_prev(prev_t)
-        beta_prod_t = np.float32(1.0) - acp_t
-        alpha_t = acp_t / acp_prev
-        beta_t = np.float32(1.0) - alpha_t
-        x0_coef = (np.sqrt(acp_prev) * beta_t) / beta_prod_t
-        xt_coef = np.sqrt(alpha_t) * (np.float32(1.0) - acp_prev) / beta_prod_t
-        mean = float(x0_coef) * x0 + float(xt_coef) * x_t.float()
-        if t > 0:
-            mean = mean + float(np.sqrt(self.variance(t, prev_t))) * noise.float()
+        sqrt_acp, sqrt_1m, x0_coef, xt_coef, std, _, nonzero_t = (float(c) for c in self.coefs[:, step_index])
+        x0 = self._x0(model_out, x_t, sqrt_acp, sqrt_1m)
+        mean = x0_coef * x0 + xt_coef * x_t.float()
+        if nonzero_t:
+            mean = mean + std * noise.float()
+        return mean.to(x_t.dtype), x0
+
+    def step_per_slot(self, model_out: torch.Tensor, step_idx: torch.Tensor, x_t: torch.Tensor,
+                      noise: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`step` with a step position per row: `step_idx` a (B,) tensor on
+        x_t's device, each in [0, S). Row b equals `step(…, int(step_idx[b]),
+        …)` on row b, bit for bit; the noise term is masked where t = 0."""
+        c = self.device_coefs(x_t.device)[:, step_idx.long()].reshape(len(DDPM_COEFS), -1, *([1] * (x_t.dim() - 1)))
+        sqrt_acp, sqrt_1m, x0_coef, xt_coef, std, _, nonzero_t = c
+        x0 = self._x0(model_out, x_t, sqrt_acp, sqrt_1m)
+        mean = x0_coef * x0 + xt_coef * x_t.float()
+        mean = torch.where(nonzero_t > 0, mean + std * noise.float(), mean)
         return mean.to(x_t.dtype), x0
 
 
@@ -213,21 +276,51 @@ class DPMSolverSchedule:
     prediction_type: str = "epsilon"
     solver_order: int = 2
     lower_order_final: bool = True
+    # (len(DPM_COEFS), S) fp32: the per-step scalars of `step`, and their
+    # device copies by device
+    coefs: np.ndarray = dataclasses.field(init=False, repr=False, compare=False)
+    _device_tables: dict = dataclasses.field(init=False, repr=False, compare=False, default_factory=dict)
+
+    def __post_init__(self):
+        object.__setattr__(self, "coefs", np.array([self._coefs(i) for i in range(len(self.timesteps))],
+                                                   np.float32).reshape(-1, len(DPM_COEFS)).T.copy())
+
+    def _coefs(self, i: int) -> tuple:
+        """The fp32 scalars of step position i, in DPM_COEFS order."""
+        acp = self.alphas_cumprod[int(self.timesteps[i])]
+        alpha_tt = self.alpha_t[i + 1]
+        h = self.lambda_t[i + 1] - self.lambda_t[i]
+        phi = np.expm1(-h)
+        h0 = self.lambda_t[i] - self.lambda_t[max(i - 1, 0)]
+        r0 = h0 / (h if h != 0 else np.float32(1.0))
+        S = self.num_inference_steps
+        return (np.sqrt(acp), np.sqrt(np.float32(1.0) - acp), self.sigma_t[i + 1] / self.sigma_t[i],
+                alpha_tt * phi, np.float32(0.5) * alpha_tt * phi, r0 if r0 != 0 else np.float32(1.0),
+                np.float32(self.lower_order_final and S > 1 and i == S - 1))
+
+    def device_coefs(self, device) -> torch.Tensor:
+        """`coefs` on `device`, copied there once."""
+        return _on_device(self, "coefs", device)
+
+    def device_timesteps(self, device) -> torch.Tensor:
+        """`timesteps` as a long tensor on `device`, copied there once."""
+        return _on_device(self, "timesteps", device)
 
     def init_state(self, x: torch.Tensor):
         x = x.float()
         return (x, torch.zeros_like(x), torch.zeros_like(x), 0)
 
-    def data_prediction(self, model_out: torch.Tensor, step_index: int, x_t: torch.Tensor) -> torch.Tensor:
-        """x̂0 from the model output at step position `step_index`, fp32."""
-        acp = self.alphas_cumprod[int(self.timesteps[step_index])]
-        sqrt_a, sqrt_s = float(np.sqrt(acp)), float(np.sqrt(np.float32(1.0) - acp))
+    def _x0(self, model_out, x_t, sqrt_a, sqrt_s) -> torch.Tensor:
         x32, o32 = x_t.float(), model_out.float()
         if self.prediction_type == "epsilon":
             return (x32 - sqrt_s * o32) / sqrt_a
         if self.prediction_type == "v_prediction":
             return sqrt_a * x32 - sqrt_s * o32
         return o32
+
+    def data_prediction(self, model_out: torch.Tensor, step_index: int, x_t: torch.Tensor) -> torch.Tensor:
+        """x̂0 from the model output at step position `step_index`, fp32."""
+        return self._x0(model_out, x_t, float(self.coefs[0, step_index]), float(self.coefs[1, step_index]))
 
     def step(self, model_out: torch.Tensor, step_index: int, state):
         """One 2M update; returns (new state, x̂0). The first step, and the
@@ -237,22 +330,31 @@ class DPMSolverSchedule:
         expression's order."""
         x, m0, _, count = state
         i = int(step_index)
-        S = self.num_inference_steps
-        x0 = self.data_prediction(model_out, i, x)
-        sigma_s, sigma_tt = self.sigma_t[i], self.sigma_t[i + 1]
-        alpha_tt = self.alpha_t[i + 1]
-        lam_s, lam_tt = self.lambda_t[i], self.lambda_t[i + 1]
-        h = lam_tt - lam_s
-        ratio = sigma_tt / sigma_s
-        phi = np.expm1(-h)
-        use_first = count < 1 or (self.lower_order_final and S > 1 and i == S - 1)
-        x_new = float(ratio) * x.float() - float(alpha_tt * phi) * x0
-        if not use_first:
-            h0 = lam_s - self.lambda_t[max(i - 1, 0)]
-            r0 = h0 / (h if h != 0 else np.float32(1.0))
-            d1 = (x0 - m0) / float(r0 if r0 != 0 else np.float32(1.0))
-            x_new = x_new - float(np.float32(0.5) * alpha_tt * phi) * d1
+        sqrt_a, sqrt_s, ratio, c1, c2, r0, last = (float(c) for c in self.coefs[:, i])
+        x0 = self._x0(model_out, x, sqrt_a, sqrt_s)
+        x_new = ratio * x.float() - c1 * x0
+        if not (count < 1 or last):
+            x_new = x_new - c2 * ((x0 - m0) / r0)
         return (x_new.to(x.dtype), x0, m0, count + 1), x0
+
+    def step_per_slot(self, model_out: torch.Tensor, step_idx: torch.Tensor, x: torch.Tensor,
+                      m0: torch.Tensor, m1: torch.Tensor):
+        """`step` with a step position per row (the rolling engine's slots,
+        JAX rolling.py:200-204): `step_idx` a (B,) tensor on x's device, each
+        in [0, S), and a row's step count is its step position, so its first
+        step and, under `lower_order_final`, its last take the first-order
+        update. Returns (x_new, m0_new, m1_new) = (x_new, x̂0, m0); m1 is
+        never read by the 2M update. Row b equals `step` at
+        `int(step_idx[b])` with count `int(step_idx[b])` on row b, bit for
+        bit."""
+        idx = step_idx.long()
+        c = self.device_coefs(x.device)[:, idx].reshape(len(DPM_COEFS), -1, *([1] * (x.dim() - 1)))
+        sqrt_a, sqrt_s, ratio, c1, c2, r0, last = c
+        x0 = self._x0(model_out, x, sqrt_a, sqrt_s)
+        x1 = ratio * x.float() - c1 * x0
+        x2 = x1 - c2 * ((x0 - m0) / r0)
+        first = (idx < 1).reshape(last.shape) | (last > 0)
+        return torch.where(first, x1, x2).to(x.dtype), x0, m0
 
 
 def make_dpm_solver(cfg: SchedulerConfig = SchedulerConfig(), num_inference_steps: int = 30,

@@ -131,8 +131,11 @@ class IResNet(nn.Module):
                 if name.endswith("prelu") or name == "prelu1":
                     p.fill_(0.25)
 
-    def forward(self, images: torch.Tensor, policy: Policy = DEFAULT_POLICY) -> torch.Tensor:
-        """(B, 112, 112, C) → (B, num_features) fp32 embedding."""
+    def forward(self, images: torch.Tensor, policy: Policy = DEFAULT_POLICY, return_features: bool = False):
+        """(B, 112, 112, C) → (B, num_features) fp32 embedding; with
+        `return_features`, (embedding, the flattened post-bn2 feature map
+        (B, 512·7·7) in fp32), the input of CR-FIQA's quality head too
+        (iresnet.py:160-162)."""
         eps = self.cfg.bn_eps
         x = conv2d(images.to(policy.compute_dtype), self.conv1)
         x = prelu(self.bn1(x, eps), self.prelu1)
@@ -140,6 +143,7 @@ class IResNet(nn.Module):
             for block in getattr(self, f"layer{s + 1}"):
                 x = block(x, eps)
         x = self.bn2(x, eps)
-        x = x.float().reshape(x.shape[0], -1)  # NHWC order, as the JAX head flattens
-        x = F.linear(x, self.fc.weight.float(), self.fc.bias.float())
-        return self.features_bn(x, eps, fixed_weight=True)
+        features = x.float().reshape(x.shape[0], -1)  # NHWC order, as the JAX head flattens
+        x = F.linear(features, self.fc.weight.float(), self.fc.bias.float())
+        out = self.features_bn(x, eps, fixed_weight=True)
+        return (out, features) if return_features else out

@@ -10,6 +10,7 @@ the VAE decode into the LoRA).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_size: int = 112) -> torch.Tensor:
@@ -47,13 +48,17 @@ def normalize_to_arcface(face: torch.Tensor) -> torch.Tensor:
 
 
 def resize_bilinear(images: torch.Tensor, out_hw) -> torch.Tensor:
-    """Bilinear resize of square NHWC images through the crop path
-    (image.py:72-80): a box over the whole image."""
+    """Bilinear resize of NHWC images (image.py:72-80): to a square through
+    the crop path, a box over the whole image; to any other shape as
+    `jax.image.resize(..., "bilinear")` does, half-pixel centres with a
+    triangle filter widened when shrinking (antialiased)."""
     b, h, w, _ = images.shape
-    if out_hw[0] != out_hw[1]:
-        raise ValueError(f"resize_bilinear takes square outputs only, got {tuple(out_hw)}")
-    boxes = torch.tensor([[0.0, 0.0, float(w - 1), float(h - 1)]], device=images.device).expand(b, 4)
-    return crop_and_resize(images, boxes, out_hw[0])
+    if out_hw[0] == out_hw[1]:
+        boxes = torch.tensor([[0.0, 0.0, float(w - 1), float(h - 1)]], device=images.device).expand(b, 4)
+        return crop_and_resize(images, boxes, out_hw[0])
+    x = F.interpolate(images.permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear", align_corners=False,
+                      antialias=True)
+    return x.permute(0, 2, 3, 1)
 
 
 def quantize_u8(images: torch.Tensor) -> torch.Tensor:

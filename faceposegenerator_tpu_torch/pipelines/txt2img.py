@@ -29,6 +29,7 @@ from ..core.precision import Policy
 from ..core.rng import sampler_generator
 from ..data.tokenizer import CLIPTokenizer
 from ..diffusion.lora_io import load_lora_safetensors
+from ..diffusion.parallel_sampler import sample_parallel
 from ..diffusion.sampler import SamplerModels, sample
 from ..diffusion.schedulers import SchedulerConfig, make_ddpm, make_dpm_solver
 from ..models.clip_text import CLIPTextModel
@@ -205,7 +206,8 @@ class StableDiffusionPipeline:
                  negative_input_ids=None, output_type: str = "np", lora: Optional[dict] = None,
                  lora_scale=None, noise_override=None, decode_chunk: Optional[int] = None,
                  deepcache_interval: int = 1, deepcache_depth: int = 1, tome_ratio: float = 0.0,
-                 tome_min_tokens: int = 4096, tome_ops: str = "attn", cfg_interval: Optional[tuple] = None):
+                 tome_min_tokens: int = 4096, tome_ops: str = "attn", cfg_interval: Optional[tuple] = None,
+                 parallel_window: int = 0, parallel_tolerance: float = 0.1):
         """Images (B, height, width, 3): in [0, 1] as a float32 numpy array
         for output_type "np" or a tensor on the device for "pt"; uint8 as a
         numpy array for "u8" or a tensor on the device for "pt_u8".
@@ -216,7 +218,14 @@ class StableDiffusionPipeline:
         request axis (B, r, in)/(B, out, r) with a (B,) scale, slot b riding
         adapter b. `noise_override`: (S+1, B, h/8, w/8, 4) noise in place of
         the seed's. `decode_chunk`, `deepcache_*`, `tome_*` and
-        `cfg_interval` go to `sampler.sample`."""
+        `cfg_interval` go to `sampler.sample`. `parallel_window=W > 0` (DDPM
+        only, no `cfg_interval`) samples parallel in time instead
+        (`diffusion/parallel_sampler.py`, tolerance `parallel_tolerance`):
+        the batch-1 latency lever (txt2img.py:309-317)."""
+        if parallel_window > 0 and self.scheduler_kind != "ddpm":
+            raise ValueError("parallel_window requires the ddpm scheduler")
+        if parallel_window > 0 and cfg_interval is not None:
+            raise ValueError("cfg_interval is not composable with parallel_window yet")
         input_ids, negative_input_ids = self._ids(prompt, negative_prompt, input_ids, negative_input_ids)
         if num_images_per_prompt > 1:
             input_ids = input_ids.repeat_interleave(num_images_per_prompt, dim=0)
@@ -236,16 +245,19 @@ class StableDiffusionPipeline:
             sched = make_ddpm(self.scheduler_config, num_inference_steps)
         else:
             sched = make_dpm_solver(self.scheduler_config, num_inference_steps)
-        images = sample(
-            self.nets, sched, input_ids, negative_input_ids,
-            generator=sampler_generator(seed if seed is not None else 0, self.device),
-            guidance_scale=float(guidance_scale), height=height, width=width,
-            policy=self.policy, scheduler=self.scheduler_kind, attn_impl=self.models.attn_impl,
-            lora=lora, lora_scale=scale, noise_override=noise_override, decode_chunk=decode_chunk,
-            deepcache_interval=deepcache_interval, deepcache_depth=deepcache_depth,
-            tome_ratio=tome_ratio, tome_min_tokens=tome_min_tokens, tome_ops=tome_ops,
-            cfg_interval=None if cfg_interval is None else tuple(cfg_interval),
-        )
+        common = dict(generator=sampler_generator(seed if seed is not None else 0, self.device),
+                      guidance_scale=float(guidance_scale), height=height, width=width, policy=self.policy,
+                      attn_impl=self.models.attn_impl, lora=lora, lora_scale=scale, noise_override=noise_override,
+                      tome_ratio=tome_ratio, tome_min_tokens=tome_min_tokens, tome_ops=tome_ops)
+        if parallel_window > 0:
+            images = sample_parallel(self.nets, sched, input_ids, negative_input_ids, window=parallel_window,
+                                     tolerance=parallel_tolerance, **common)
+        else:
+            images = sample(
+                self.nets, sched, input_ids, negative_input_ids, scheduler=self.scheduler_kind,
+                decode_chunk=decode_chunk, deepcache_interval=deepcache_interval, deepcache_depth=deepcache_depth,
+                cfg_interval=None if cfg_interval is None else tuple(cfg_interval), **common,
+            )
         if output_type == "np":
             return images.cpu().numpy()
         if output_type == "pt":

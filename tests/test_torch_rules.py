@@ -98,14 +98,18 @@ def test_port_never_imports_safetensors():
 
 
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch, tmp_path):
+    from faceposegenerator_tpu_torch.evaluation.fiqa import init_qs_head
+    from faceposegenerator_tpu_torch.evaluation.pose import init_sixdrepnet
     from faceposegenerator_tpu_torch.models.iresnet import IResNet
+    from faceposegenerator_tpu_torch.models.repvgg import RepVGG
     from faceposegenerator_tpu_torch.models.unet2d import UNet2DCondition
     from faceposegenerator_tpu_torch.models.vae import AutoencoderKL
     from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from_dir = lambda: StableDiffusionPipeline.from_pretrained(str(tmp_path))  # noqa: E731
-    for entry in (StableDiffusionPipeline.from_random, from_dir, UNet2DCondition, AutoencoderKL, IResNet):
+    for entry in (StableDiffusionPipeline.from_random, from_dir, UNet2DCondition, AutoencoderKL, IResNet, RepVGG,
+                  init_sixdrepnet, init_qs_head):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
 
