@@ -211,6 +211,45 @@ Phases, in order; any failure exits non-zero without the final result line:
      prompt, the scores finite; s/identity, img/s and the FIQA and pose
      rates printed. Phase 3 holds K1 at the rolling tick's L0 shapes and K2
      at 1 × 4096² × 512 beside the other rows.
+ 15. identity stack and FR training (`run_identity_stack`; alone:
+     `perf/torch_identity_stack.py`), a path with no TPU kernel: it must
+     launch none of K1-K8. The FR gate: IResNet (1, 1, 1, 1) at 112²,
+     batch 8, fp32 with TF32 off, 2 steps of AdaFace, ArcFace, CosFace and
+     ElasticCosFace (the same dropout masks and margins) on the card against
+     the port on the CPU from the same weights: loss within 1e-4 relative,
+     params within 1e-4 and BN statistics and AdaFace's EMA within 1e-5 of
+     their tree's max abs. The FR bench op point: iresnet50 + AdaFace,
+     batch 128, 112², 1000 classes, fp32 params, bf16 compute, 10 steps on
+     one batch (s/step median after the first, train img/s, peak memory),
+     one step each of ArcFace, CosFace, ElasticCosFace and the SE variant
+     (finite, BN statistics moved); train_fr_run on 1000 identities × 2
+     JPEGs of 112² under build/ (2 epochs of 4 steps, verification on a
+     600-pair .bin in the reference's pickle layout: best_backbone.npz,
+     history.json), test_fr_run reproducing the best epoch's accuracy
+     exactly; s/step with the batch load and the verification seconds.
+     Embedding extraction at the bench op point: 512 JPEGs of 250² in 16
+     folders (bright squares of random codes in [246, 255], so that P-Net's
+     cells score apart by more than rounding) + 8 black ones, the
+     bright-square MTCNN,
+     batch 64, r100 bf16: 512 .npy and exactly the 8 black images in
+     files_without_faces.json; s/batch, img/s, detect / crop+embed / the
+     rest. Gates: 8 images' detections card against CPU (fp32, TF32 off:
+     the same counts, boxes and landmarks within 0.5 px, probs 1e-4); r100
+     fp32 on 2 crops within 1e-3 of the max abs; extract_folder_embeddings
+     (host crops) on 4 images, card against CPU at fp32 within 1e-3 (its
+     cosine to the streaming path's box-sampled crops printed: the two
+     paths crop differently by design), and the w8a8 r100 (quantize_iresnet,
+     calibrate_embed_quant on 2 batches, a streaming run, its cosine to the
+     bf16 embeddings printed) card against CPU on 2 crops at fp32 compute
+     (at bf16 printed: a code rounding the other way moves the layers after
+     it) within 2e-2 max / 2e-3 mean of the max abs; align_images on 16
+     images (TF32 off): the card's files and report equal the CPU's, crops
+     within 1 uint8 code before the JPEG encode. The random r100 has each
+     block's last BN weight at 0.1 (`_damp_residuals`), as a trained one's
+     residual branches are small: at 1.0 it turns one code rounding the
+     other way into percents at the embedding. Backbones mbf, vit_t, vit_s at 112²:
+     batch 64 bf16 finite with img/s, batch 2 fp32 (TF32 off) within 1e-4
+     of the max abs of the CPU port.
 Phases 3-7 run the default configuration (GN_IMPL and GN_CONV_IMPL at xla)
 whatever the environment says. The line before the last is a JSON object
 with one entry per kernel; the last is {"ok": true, "device": {...}}.
@@ -3074,6 +3113,517 @@ def run_serving(torch, card_line, model_dir, work, default_secs):
     return {n: c for n, c in total.items() if c}, measured
 
 
+# Phase 15: the identity stack and FR training. No TPU kernel lies on this
+# path (the JAX package leaves BatchNorm, the IResNet/MobileFaceNet/MTCNN
+# convolutions, the margin heads and the face ViT's einsum attention to XLA),
+# so the phase launches none of K1-K8.
+FR_GATE = dict(batch=8, res=112, classes=16, depths=(1, 1, 1, 1), steps=2)
+FR_BENCH = dict(network="iresnet50", batch=128, res=112, classes=1000, steps=10)
+FR_DRIVER = dict(identities=1000, per_identity=2, pairs=600, epochs=2, max_steps=4)
+EMBED_BENCH = dict(folders=16, per_folder=32, black=8, res=250, batch=64)
+BF16_MAX, BF16_MEAN = 2e-2, 2e-3
+
+
+def _rel_err(got, want):
+    """(max abs err, mean abs err) over the max abs of `want`, in fp64."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    d = np.abs(got - want)
+    return float(d.max()) / scale, float(d.mean()) / scale
+
+
+def _textured_face(rng, res, size):
+    """A res² uint8 image as the JAX embed bench draws it (bench.py:431-435:
+    noise in [10, 60), a bright square of `size`), its square textured: 4×4
+    blocks of random codes in [246, 255]. The bright-square cascade finds
+    it, and its P-Net cells score apart by more than rounding; on a flat
+    square many cells score the same, NMS chooses among them by rounding,
+    and the card and the CPU keep different boxes of equal score."""
+    import numpy as np
+
+    img = rng.integers(10, 60, (res, res, 3)).astype(np.uint8)
+    y0, x0 = rng.integers(10, res - size - 10, 2)
+    blocks = rng.integers(246, 256, (-(-size // 4), -(-size // 4), 3)).astype(np.uint8)
+    img[y0 : y0 + size, x0 : x0 + size] = np.repeat(np.repeat(blocks, 4, 0), 4, 1)[:size, :size]
+    return img
+
+
+def _fr_pair(torch, fr, cfg, bcfg):
+    """The same initial FR state on the CPU and on the card (built on the CPU
+    from seed 0 and copied: the two devices' generators draw differently)."""
+    cpu = fr.init_train_state(cfg, 0, "cpu", bcfg)
+    card = fr.init_train_state(cfg, 0, "cuda", bcfg)
+    card[0]["backbone"].load_state_dict(cpu[0]["backbone"].state_dict())
+    with torch.no_grad():
+        card[0]["kernel"].copy_(cpu[0]["kernel"])
+    return cpu, card
+
+
+def _fr_gate(torch, fr, card_line):
+    """Each head, 2 steps of the tiny backbone at 112², fp32 with TF32 off,
+    the card against the port on the CPU from the same weights and draws."""
+    import numpy as np
+
+    from faceposegenerator_tpu_torch.core.precision import PARITY_POLICY
+    from faceposegenerator_tpu_torch.core.tree import tree_paths
+
+    n, res, classes = FR_GATE["batch"], FR_GATE["res"], FR_GATE["classes"]
+    g = torch.Generator().manual_seed(11)
+    batch = {"images": torch.rand(n, res, res, 3, generator=g) * 2 - 1,
+             "labels": torch.randint(0, classes, (n,), generator=g)}
+    out = {}
+    with tf32(False):
+        for head in ("AdaFace", "ArcFace", "CosFace", "ElasticCosFace"):
+            cfg = fr.FRConfig(loss=head, batch_size=n, num_classes=classes)
+            bcfg = fr.backbone_config(cfg, depths=FR_GATE["depths"])
+            (cp, cs), (gp, gs) = _fr_pair(torch, fr, cfg, bcfg)
+            runs = []
+            for params, state in ((cp, cs), (gp, gs)):
+                opt = fr.make_optimizer(cfg)
+                opt_state, step = opt.init(params), fr.make_train_step(cfg, opt, PARITY_POLICY)
+                losses = []
+                for i in range(FR_GATE["steps"]):
+                    gi = torch.Generator().manual_seed(100 + i)
+                    draws = {"dropout": torch.rand(n, 512 * 49, generator=gi) < 1 - cfg.dropout,
+                             "margin": torch.randn(n, generator=gi)}
+                    params, state, opt_state, m = step(params, state, opt_state, batch, draws=draws)
+                    losses.append(float(m["loss"]))
+                runs.append((losses, fr.fr_checkpoint_tree(params, state)))
+            (cpu_losses, cpu_tree), (card_losses, card_tree) = runs
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+            errs = {}
+            for part in ("params", "state"):
+                want = dict(tree_paths(cpu_tree[part]))
+                scale = max(float(np.abs(v).max()) for v in want.values())
+                errs[part] = max(float(np.abs(v - want[p]).max()) for p, v in tree_paths(card_tree[part])) / scale
+            print(f"fr gate {head}: loss {card_losses} (cpu {cpu_losses}), loss rel err {loss_err:.2e}, "
+                  f"params err {errs['params']:.2e}, state err {errs['state']:.2e} of the max abs", flush=True)
+            if not (loss_err <= 1e-4 and errs["params"] <= 1e-4 and errs["state"] <= 1e-5):
+                fail(f"FR gate {head}: loss {loss_err:.2e} (1e-4), params {errs['params']:.2e} (1e-4), "
+                     f"state {errs['state']:.2e} (1e-5)")
+            out[head] = {"loss_rel_err": loss_err, **errs}
+    return out
+
+
+def _fr_bench(torch, fr, card_line):
+    """iresnet50 + AdaFace at the bench op point (batch 128, 112², 1000
+    classes, fp32 params, bf16 compute): 10 steps on one batch; then one step
+    of each other head and of the SE variant."""
+    import statistics
+
+    from faceposegenerator_tpu_torch.core.precision import DEFAULT_POLICY
+    from faceposegenerator_tpu_torch.core.rng import train_step_generator
+
+    n, res = FR_BENCH["batch"], FR_BENCH["res"]
+    g = torch.Generator(device="cuda").manual_seed(12)
+    batch = {"images": torch.rand(n, res, res, 3, generator=g, device="cuda") * 2 - 1,
+             "labels": torch.randint(0, FR_BENCH["classes"], (n,), generator=g, device="cuda")}
+
+    def one_run(head, steps, **bkw):
+        cfg = fr.FRConfig(network=FR_BENCH["network"], loss=head, batch_size=n, num_classes=FR_BENCH["classes"])
+        params, state = fr.init_train_state(cfg, 0, "cuda", fr.backbone_config(cfg, **bkw))
+        before = {k: v.clone() for k, v in params["backbone"].bn1.state_dict().items() if k in ("mean", "var")}
+        opt = fr.make_optimizer(cfg, steps_per_epoch=1)
+        opt_state, step = opt.init(params), fr.make_train_step(cfg, opt, DEFAULT_POLICY)
+        secs, losses = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            params, state, opt_state, m = step(params, state, opt_state, batch, train_step_generator(0, i, "cuda"))
+            losses.append(float(m["loss"]))
+            secs.append(time.time() - t0)
+        moved = all(not torch.equal(before[k], getattr(params["backbone"].bn1, k)) for k in before)
+        if not (all(math.isfinite(v) for v in losses) and moved):
+            fail(f"FR bench {head} {bkw}: losses {losses}, BN statistics moved {moved}")
+        return secs, losses
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses = one_run("AdaFace", FR_BENCH["steps"])
+    steady = statistics.median(secs[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"fr bench: iresnet50 AdaFace, batch {n}, {res}², {FR_BENCH['classes']} classes, fp32 params, bf16 "
+          f"compute: {steady:.4f} s/step (median of steps 2-{len(secs)}; first {secs[0]:.2f} s), "
+          f"{n / steady:.1f} train img/s, peak memory {peak:.2f} GiB, losses {losses[0]:.3f} → {losses[-1]:.3f} "
+          f"({card_line})", flush=True)
+    others = {}
+    for head, kw in (("ArcFace", {}), ("CosFace", {}), ("ElasticCosFace", {}), ("AdaFace", {"use_se": True})):
+        s, l_ = one_run(head, 1, **kw)
+        others[head + (" SE" if kw else "")] = l_[0]
+    print(f"fr bench: one step each, loss {json.dumps(others)}", flush=True)
+    return {"s_per_step": steady, "img_per_s": n / steady, "peak_gib": peak}
+
+
+def _write_fr_data(root, torch):
+    """1000 identities × 2 JPEGs of 112² (flat `<label>_<i>.jpg`) and a
+    600-pair verification .bin in the reference's pickle layout."""
+    import io
+    import os
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    flat = os.path.join(root, "flat")
+    os.makedirs(flat, exist_ok=True)
+    rng = np.random.default_rng(13)
+    base = rng.integers(30, 225, (FR_DRIVER["identities"], 1, 1, 3))
+    for i in range(FR_DRIVER["identities"]):
+        for j in range(FR_DRIVER["per_identity"]):
+            img = np.clip(base[i] + rng.normal(0, 25, (112, 112, 3)), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(flat, f"{i}_{j}.jpg"), quality=90)
+    bins, issame = [], []
+    for p in range(FR_DRIVER["pairs"]):
+        same = p % 2 == 0
+        a = np.clip(rng.integers(30, 225, (1, 1, 3)) + rng.normal(0, 25, (112, 112, 3)), 0, 255).astype(np.uint8)
+        b = np.clip(a + rng.normal(0, 10, a.shape), 0, 255).astype(np.uint8) if same else \
+            np.clip(rng.integers(30, 225, (1, 1, 3)) + rng.normal(0, 25, (112, 112, 3)), 0, 255).astype(np.uint8)
+        for img in (a, b):
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format="JPEG", quality=90)
+            bins.append(buf.getvalue())
+        issame.append(same)
+    path = os.path.join(root, "lfw.bin")
+    with open(path, "wb") as f:
+        pickle.dump((bins, issame), f)
+    return flat, path
+
+
+def _fr_driver(torch, fr, card_line, root):
+    """train_fr_run at the bench op point on 2000 JPEGs (2 epochs of at most 4
+    steps, verification each epoch), then test_fr_run on its best file."""
+    import os
+
+    from faceposegenerator_tpu_torch.core.precision import DEFAULT_POLICY
+    from faceposegenerator_tpu_torch.data.fr_dataset import FlatDirDataset
+    from faceposegenerator_tpu_torch.evaluation import verification
+    from faceposegenerator_tpu_torch.training import fr_driver
+
+    t0 = time.time()
+    flat, bin_path = _write_fr_data(root, torch)
+    bins = {"lfw": verification.load_bin(bin_path)}
+    t_data = time.time() - t0
+    cfg = fr.FRConfig(network=FR_BENCH["network"], loss="AdaFace", batch_size=FR_BENCH["batch"],
+                      num_epochs=FR_DRIVER["epochs"])
+    out = os.path.join(root, "run")
+    ver_secs = []
+    with step_probe(fr, "make_train_step") as steps, step_probe(fr_driver.verification, "test", factory=False) as ver:
+        res = fr_driver.train_fr_run(cfg, FlatDirDataset(flat), out, val_bins=bins, policy=DEFAULT_POLICY,
+                                     max_steps_per_epoch=FR_DRIVER["max_steps"])
+    ver_secs = [r["s"] for r in ver.records]
+    ends = [r["end"] for r in steps.records]
+    per = FR_DRIVER["max_steps"]
+    # s/step with the batch load: from one step's end to the next's, within an epoch
+    gaps = [b - a for e in range(FR_DRIVER["epochs"]) for a, b in zip(ends[e * per : (e + 1) * per - 1],
+                                                                   ends[e * per + 1 : (e + 1) * per])]
+    for name in ("best_backbone.npz", "history.json", "fr_config.json"):
+        if not os.path.exists(os.path.join(out, name)):
+            fail(f"train_fr_run left no {name}")
+    if len(steps.records) != FR_DRIVER["epochs"] * per or len(res["history"]) != FR_DRIVER["epochs"]:
+        fail(f"train_fr_run ran {len(steps.records)} steps and {len(res['history'])} epochs")
+    test = fr_driver.test_fr_run(cfg.replace(num_classes=FR_DRIVER["identities"]), os.path.join(out, "best_backbone.npz"),
+                                 bins, os.path.join(out, "test.json"), policy=DEFAULT_POLICY)
+    if test["lfw"]["accuracy"] != res["best_acc"]:
+        fail(f"test_fr_run gives accuracy {test['lfw']['accuracy']} where the run's best epoch had {res['best_acc']}")
+    import statistics
+
+    print(f"fr driver: {len(steps.records)} steps of batch {cfg.batch_size}, {statistics.median(gaps):.4f} s/step "
+          f"with the batch load (median), verification {', '.join(f'{s:.2f}' for s in ver_secs)} s an epoch "
+          f"({2 * FR_DRIVER['pairs']} images and their flips), history {json.dumps(res['history'])}, "
+          f"test_fr_run accuracy {test['lfw']['accuracy']:.4f} = best epoch's; data written in {t_data:.1f} s "
+          f"({card_line})", flush=True)
+    return {"s_per_step_with_load": statistics.median(gaps), "verification_s": ver_secs}
+
+
+def _write_embed_tree(root):
+    """16 identity folders of 32 JPEGs of 250², each a textured bright square
+    of 60-119 px, and 8 black JPEGs (one in each of the first 8 folders)."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(14)
+    res = EMBED_BENCH["res"]
+    black = []
+    for f in range(EMBED_BENCH["folders"]):
+        d = os.path.join(root, f"{f:02d}")
+        os.makedirs(d, exist_ok=True)
+        for i in range(EMBED_BENCH["per_folder"]):
+            img = _textured_face(rng, res, int(rng.integers(60, 120)))
+            Image.fromarray(img).save(os.path.join(d, f"{i:02d}.jpg"), quality=95)
+        if f < EMBED_BENCH["black"]:
+            Image.fromarray(np.zeros((res, res, 3), np.uint8)).save(os.path.join(d, "zz_black.jpg"), quality=95)
+            black.append(os.path.join(f"{f:02d}", "zz_black.jpg"))
+    return black
+
+
+def _damp_residuals(torch, model, gain=0.1):
+    """Each block's last BatchNorm weight at `gain`: a trained ResNet's
+    residual branches are small beside the identity path, a random one's are
+    not, and a random r100 at gain 1 turns a one-code difference in an early
+    layer (bf16 rounding, an int8 code rounding the other way) into percents
+    at the embedding."""
+    from faceposegenerator_tpu_torch.models.iresnet import IBasicBlock
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, IBasicBlock):
+                m.bn3.weight.fill_(gain)
+
+
+def _embed_stack(torch, card_line, root):
+    """Embedding extraction at the bench op point, the detection and
+    embedding gates, the quantized embedder and the alignment sweep."""
+    import copy
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from faceposegenerator_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
+    from faceposegenerator_tpu_torch.data import align, align_driver
+    from faceposegenerator_tpu_torch.models import iresnet, mtcnn
+    from faceposegenerator_tpu_torch.ops import quant
+    from faceposegenerator_tpu_torch.pipelines import embed_extract as ee
+
+    images = os.path.join(root, "images")
+    black = _write_embed_tree(images)
+    params = mtcnn.brightness_cascade_params()
+    det, det_cpu = mtcnn.MTCNN(params), mtcnn.MTCNN(params, device="cpu")
+    r100 = iresnet.IResNet(iresnet.config_for("r100"), dtype=torch.bfloat16, seed=5)
+    _damp_residuals(torch, r100)
+    crop_embed = ee.make_crop_embed_fn(r100, DEFAULT_POLICY)
+
+    # the streaming run, its stages timed
+    timers = {"detect": 0.0, "embed": 0.0}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timers[name] += time.time() - t0
+            return out
+        return call
+
+    class Detector:
+        detect_batch = staticmethod(timed("detect", det.detect_batch))
+
+    out_bf16 = os.path.join(root, "embeds_bf16")
+    n_files = EMBED_BENCH["folders"] * EMBED_BENCH["per_folder"] + EMBED_BENCH["black"]
+    t0 = time.time()
+    res = ee.extract_embeddings_streaming(images, out_bf16, timed("embed", crop_embed), Detector,
+                                          batch_size=EMBED_BENCH["batch"])
+    total = time.time() - t0
+    batches = -(-n_files // EMBED_BENCH["batch"])
+    written = sorted(os.path.join(d, f) for d in os.listdir(out_bf16) if os.path.isdir(os.path.join(out_bf16, d))
+                     for f in os.listdir(os.path.join(out_bf16, d)))
+    if sorted(res["files_without_faces"]) != sorted(black) or len(written) != n_files - len(black):
+        fail(f"streaming extraction: {len(written)} embeddings, files without faces {res['files_without_faces']}")
+    rest = total - timers["detect"] - timers["embed"]
+    print(f"embed bench: {n_files} JPEGs of {EMBED_BENCH['res']}² at batch {EMBED_BENCH['batch']}, r100 bf16: "
+          f"{total / batches:.3f} s/batch, {n_files / total:.1f} img/s; detect {timers['detect']:.2f} s, "
+          f"crop+embed {timers['embed']:.2f} s, decode and the rest (not hidden under the card) {rest:.2f} s "
+          f"of {total:.2f} s (the first batch included); files without faces: the {len(black)} black images "
+          f"({card_line})", flush=True)
+
+    # detection: 8 images, the card against the CPU, fp32 with TF32 off
+    files = sorted(os.listdir(os.path.join(images, "00")))[:8]
+    batch8 = np.stack([np.asarray(Image.open(os.path.join(images, "00", f)).convert("RGB"), np.float32)
+                       for f in files])
+    with tf32(False):
+        got, want = det.detect_batch(batch8, landmarks=True), det_cpu.detect_batch(batch8, landmarks=True)
+    worst = [0.0, 0.0, 0.0]
+    for b in range(len(files)):
+        if (got[0][b] is None) != (want[0][b] is None) or (want[0][b] is not None and
+                                                           got[0][b].shape != want[0][b].shape):
+            fail(f"detection of {files[b]}: the card finds {None if got[0][b] is None else len(got[0][b])} faces, "
+                 f"the CPU {None if want[0][b] is None else len(want[0][b])}")
+        if want[0][b] is not None:
+            for k in range(3):
+                worst[k] = max(worst[k], float(np.abs(got[k][b] - want[k][b]).max()))
+    print(f"detection gate: 8 images, the same counts, boxes {worst[0]:.2e} px, probs {worst[1]:.2e}, landmarks "
+          f"{worst[2]:.2e} px from the CPU's", flush=True)
+    if worst[0] > 0.5 or worst[2] > 0.5 or worst[1] > 1e-4:
+        fail(f"detection gate: boxes {worst[0]} px, landmarks {worst[2]} px (0.5), probs {worst[1]} (1e-4)")
+    boxes2 = np.stack([want[0][b][0] for b in range(2)]).astype(np.float32)
+
+    # r100 at fp32 on 2 crops, the card against the CPU
+    r100_cpu = iresnet.IResNet(iresnet.config_for("r100"), device="cpu", seed=6)
+    _damp_residuals(torch, r100_cpu)
+    r100_f32 = iresnet.IResNet(iresnet.config_for("r100"), seed=6)
+    r100_f32.load_state_dict(r100_cpu.state_dict())
+    with tf32(False):
+        e_card = ee.make_crop_embed_fn(r100_f32, PARITY_POLICY)(batch8[:2], boxes2).cpu().numpy()
+    e_cpu = ee.make_crop_embed_fn(r100_cpu, PARITY_POLICY, device="cpu")(batch8[:2], boxes2).numpy()
+    err = _rel_err(e_card, e_cpu)
+    print(f"r100 fp32 gate: 2 crops, max err {err[0]:.2e} of the max abs against the CPU", flush=True)
+    if err[0] > 1e-3:
+        fail(f"r100 fp32 embeddings: card against CPU {err[0]:.2e} of the max abs (1e-3)")
+    del r100_f32, r100_cpu
+
+    # the per-folder path (host crops) on 4 images: the card against the CPU
+    # at fp32 (TF32 off); beside the streaming path (box sampling on the
+    # card) by cosine only: the two crop differently by design (JAX's own
+    # test allows cosine ~0.97)
+    r100_cpu = copy.deepcopy(r100).to("cpu")
+    folder = {}
+    for name, d, model, dev in (("card", det, r100, None), ("cpu", det_cpu, r100_cpu, "cpu")):
+        src = os.path.join(root, f"one_folder_{name}", "00")
+        os.makedirs(src)
+        for f in files[:4]:
+            os.symlink(os.path.join(images, "00", f), os.path.join(src, f))
+        out = os.path.join(root, f"embeds_folder_{name}")
+        with tf32(False):
+            folder[name] = (ee.extract_folder_embeddings(
+                os.path.dirname(src), out, ee.make_arcface_embed_fn(model, PARITY_POLICY, device=dev), detector=d,
+                batch_size=32), out)
+    errs, cos_stream = [], []
+    for f in files[:4]:
+        npy = os.path.splitext(f)[0] + ".npy"
+        a, b = (np.load(os.path.join(folder[k][1], "00", npy)) for k in ("card", "cpu"))
+        c = np.load(os.path.join(out_bf16, "00", npy))
+        errs.append(_rel_err(a, b)[0])
+        cos_stream.append(float(a @ c / (np.linalg.norm(a) * np.linalg.norm(c))))
+    print(f"per-folder path: 4 embeddings (r100 at fp32), the card against the CPU: max err {max(errs):.2e} of the "
+          f"max abs; cosine to the streaming path's bf16 ones {min(cos_stream):.4f}-{max(cos_stream):.4f}", flush=True)
+    if folder["card"][0] != folder["cpu"][0] or max(errs) > 1e-3:
+        fail(f"extract_folder_embeddings, card against CPU: {max(errs):.2e} of the max abs (1e-3), "
+             f"missing {folder['card'][0]} / {folder['cpu'][0]}")
+    del r100_cpu
+
+    # w8a8: quantize, calibrate over two batches, stream again
+    calib = [np.stack([align.to_arcface_input(align.bbox_crop_resize(im.astype(np.uint8), bx))
+                       for im, bx in zip(batch8[4 * k : 4 * k + 4], [w[0] for w in want[0][4 * k : 4 * k + 4]])])
+             for k in range(2)]
+    r100_q = copy.deepcopy(r100)
+    sites = quant.quantize_iresnet(r100_q)
+    ee.calibrate_embed_quant(r100_q, calib, DEFAULT_POLICY)
+    out_q = os.path.join(root, "embeds_w8a8")
+    t0 = time.time()
+    ee.extract_embeddings_streaming(images, out_q, ee.make_crop_embed_fn(r100_q, DEFAULT_POLICY), det,
+                                    batch_size=EMBED_BENCH["batch"])
+    q_secs = time.time() - t0
+    cos = []
+    for f in written:
+        a, b = np.load(os.path.join(out_q, f)), np.load(os.path.join(out_bf16, f))
+        cos.append(float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))))
+    # the quantized embedder, card against CPU on 2 crops: at fp32 compute
+    # (TF32 off) the two round alike and make the same int8 codes; at bf16 a
+    # code that rounds the other way in one of 100 layers moves the ones after
+    # it, so that one is printed, not gated
+    q_cpu = copy.deepcopy(r100_q).to("cpu")
+    qerr = {}
+    for label, policy in (("fp32", PARITY_POLICY), ("bf16", DEFAULT_POLICY)):
+        with tf32(False):
+            e_q = ee.make_crop_embed_fn(r100_q, policy)(batch8[:2], boxes2).cpu().numpy()
+        e_q_cpu = ee.make_crop_embed_fn(q_cpu, policy, device="cpu")(batch8[:2], boxes2).numpy()
+        qerr[label] = _rel_err(e_q, e_q_cpu)
+    print(f"w8a8 embedder: {len(sites)} quantized convs, static scales from 2 batches; streaming {n_files / q_secs:.1f} "
+          f"img/s; cosine to the bf16 embeddings min {min(cos):.4f}, mean {np.mean(cos):.4f}; 2 crops against "
+          f"the CPU at fp32 compute: max err {qerr['fp32'][0]:.2e}, mean {qerr['fp32'][1]:.2e} of the max abs "
+          f"(at bf16: {qerr['bf16'][0]:.2e}, {qerr['bf16'][1]:.2e})", flush=True)
+    if qerr["fp32"][0] > BF16_MAX or qerr["fp32"][1] > BF16_MEAN:
+        fail(f"w8a8 r100 at fp32 compute: card against CPU {qerr['fp32'][0]:.2e} / {qerr['fp32'][1]:.2e} "
+             f"({BF16_MAX} / {BF16_MEAN})")
+    del r100_q, q_cpu
+
+    # alignment: 16 images, the card's sweep against the CPU's
+    sub = os.path.join(root, "align_in", "id0")
+    os.makedirs(sub)
+    for f in sorted(os.listdir(os.path.join(images, "01")))[:16]:
+        os.symlink(os.path.join(images, "01", f), os.path.join(sub, f))
+    class Recorder:  # keeps each detection's padded image and landmarks
+        def __init__(self, d):
+            self.d, self.seen = d, []
+
+        def detect(self, img, landmarks=False):
+            out = self.d.detect(img, landmarks=landmarks)
+            self.seen.append((img, out[2]))
+            return out
+
+    recs = [Recorder(det), Recorder(det_cpu)]
+    with tf32(False):
+        rep = align_driver.align_images(os.path.dirname(sub), os.path.join(root, "aligned"), recs[0])
+    rep_cpu = align_driver.align_images(os.path.dirname(sub), os.path.join(root, "aligned_cpu"), recs[1])
+    names = sorted(os.listdir(os.path.join(root, "aligned")))
+    names_cpu = sorted(os.listdir(os.path.join(root, "aligned_cpu")))
+    if names != names_cpu or rep != rep_cpu or len(names) != 17:
+        fail(f"align_images: {len(names)} files on the card, {len(names_cpu)} on the CPU, reports {rep} / {rep_cpu}")
+    worst = 0
+    for (padded, pts), (_, pts_cpu) in zip(*(r.seen for r in recs)):
+        crops = [align.norm_crop(padded, np.asarray(p[0], np.float32)) for p in (pts, pts_cpu)]
+        worst = max(worst, int(np.abs(crops[0].astype(int) - crops[1].astype(int)).max()))
+    print(f"alignment: 16 images, the same {len(names) - 1} files as the CPU's, crops within {worst} uint8 codes "
+          f"before the JPEG encode", flush=True)
+    if worst > 1:
+        fail(f"aligned crops: the card's and the CPU's differ by {worst} codes (1)")
+    return {"img_per_s": n_files / total, "s_per_batch": total / batches, "detect_s": timers["detect"],
+            "embed_s": timers["embed"], "rest_s": rest, "w8a8_img_per_s": n_files / q_secs}
+
+
+def _backbones(torch, card_line):
+    """mbf, vit_t and vit_s at 112²: batch 64 in bf16 (finite, img/s), batch 2
+    at fp32 with TF32 off against the port on the CPU."""
+    from faceposegenerator_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
+    from faceposegenerator_tpu_torch.models import registry
+
+    g = torch.Generator().manual_seed(15)
+    x = torch.rand(64, 112, 112, 3, generator=g) * 2 - 1
+    out = {}
+    for name in ("mbf", "vit_t", "vit_s"):
+        cpu = registry.get_model(name, device="cpu", seed=7)
+        card = registry.get_model(name, seed=7)
+        card.load_state_dict(cpu.state_dict())
+        with torch.no_grad(), tf32(False):
+            err = _rel_err(card(x[:2].cuda(), PARITY_POLICY).cpu(), cpu(x[:2], PARITY_POLICY))
+        bf16 = registry.get_model(name, dtype=torch.bfloat16, seed=7)
+        xb = x.cuda()
+        with torch.no_grad():
+            e = bf16(xb, DEFAULT_POLICY)
+            ms = time_ms(lambda: bf16(xb, DEFAULT_POLICY), torch)
+        finite = bool(torch.isfinite(e).all())
+        print(f"backbone {name}: batch 64 bf16 {64 / ms * 1e3:.1f} img/s ({ms:.2f} ms), finite {finite}; "
+              f"fp32 batch 2 against the CPU: {err[0]:.2e} of the max abs ({card_line})", flush=True)
+        if not finite or err[0] > 1e-4:
+            fail(f"backbone {name}: finite {finite}, fp32 err {err[0]:.2e} (1e-4)")
+        out[name] = 64 / ms * 1e3
+        del cpu, card, bf16
+    return out
+
+
+def run_identity_stack(torch, card_line):
+    """Phase 15: the FR gate, the FR bench and driver, embedding extraction
+    with its gates, alignment and the face backbones. Returns the kernel
+    launches it counted (none: the path runs no TPU kernel)."""
+    from faceposegenerator_tpu_torch.training import fr
+
+    t_phase = time.time()
+    _reset_launch_counts()
+    gate = _fr_gate(torch, fr, card_line)
+    torch.cuda.empty_cache()
+    bench = _fr_bench(torch, fr, card_line)
+    torch.cuda.empty_cache()
+    with build_dir("fr_driver") as root:
+        driver = _fr_driver(torch, fr, card_line, root)
+    torch.cuda.empty_cache()
+    with build_dir("embed_extract") as root:
+        embed = _embed_stack(torch, card_line, root)
+    torch.cuda.empty_cache()
+    backbones = _backbones(torch, card_line)
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    if launches:
+        fail(f"phase 15 launched {launches}: its path runs no TPU kernel")
+    print(f"identity stack: phase 15 in {time.time() - t_phase:.1f} s, no kernel launched "
+          f"({card_line}); summary {json.dumps({'fr_gate': gate, 'fr_bench': bench, 'fr_driver': driver, 'embed': embed, 'backbones_img_per_s': backbones})}",
+          flush=True)
+    return launches
+
+
 def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32, launches, ptxas, sass=None):
     """The kernels line: one entry per counted kernel. `ptxas` holds each
     wgmma or fp32 kernel function's registers and spills by instance;
@@ -3329,6 +3879,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         with build_dir("serving") as work:
             serving, serve_counts = run_serving(torch, card_line, model_dir, work, txt2img_secs)
+    torch.cuda.empty_cache()
+    identity = run_identity_stack(torch, card_line)
     for r in fwd_rows:  # phases 12's and 14's shapes: the launches their runs measured
         if r.get("phase") == 12:
             r["launches_per_request"] = ckpt_counts[r["shape"]]
@@ -3337,7 +3889,7 @@ def main() -> int:
     paths = {"txt2img": txt2img, "turbo": turbo, "train": train, "fused txt2img": fused_txt2img,
              "fused train": fused_train, "fp32 txt2img": fp32_txt2img, "fp32 fused txt2img": fp32_fused,
              "fp32 routes at 2×128²": fp32_routes, "fp32 train check": fp32_train, "checkpoints": checkpoints,
-             "training driver": driver, "serving and sweep": serving}
+             "training driver": driver, "serving and sweep": serving, "identity stack and FR (no TPU kernel)": identity}
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in REPLACES}
     print("launches on the main paths: " + ", ".join(f"{k} {json.dumps(v)}" for k, v in paths.items()), flush=True)
     for name, count in launches.items():

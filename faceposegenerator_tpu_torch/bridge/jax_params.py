@@ -20,11 +20,14 @@ A quantized leaf of `ops/quant.py` in JAX, {"q": int8, "s": fp32 (out,)[,
 OIHW, still int8), so a tree quantized and calibrated in JAX carries over
 as it is.
 
-`state` (IResNet's BatchNorm running statistics) is merged into the tree
-key by key first. It is strict: a shape that differs, a key the module
-lacks, or a parameter the tree leaves unfilled raises. `jax_tree_to_torch`
-carries a JAX `init_lora` tree into the port's LoRA tree. No JAX is
-imported: this walks dicts.
+`state` (the BatchNorm running statistics of IResNet, MobileFaceNet and the
+face ViT's head) is merged into the tree key by key first. It is strict: a
+shape that differs, a key the module lacks, or a parameter the tree leaves
+unfilled raises. `jax_tree_to_torch`
+carries a JAX `init_lora` tree into the port's LoRA tree, and
+`export_jax_params(module)` is the inverse of `load_jax_params`: the
+(params, state) trees of numpy arrays a JAX `init` would hold (what an FR
+checkpoint stores). No JAX is imported: this walks dicts.
 """
 
 from __future__ import annotations
@@ -87,7 +90,7 @@ def _static(mod, node: dict, path: str) -> dict:
     """`node` without its Python-int entries, each checked against `mod`."""
     rest = {}
     for key, value in node.items():
-        if isinstance(value, bool) or not (isinstance(value, int) or (
+        if isinstance(value, (bool, dict, list, tuple)) or not (isinstance(value, int) or (
                 np.ndim(value) == 0 and np.issubdtype(np.asarray(value).dtype, np.integer))):
             rest[key] = value
             continue
@@ -151,7 +154,11 @@ def _merge(tree, state, path: str):
 
 def load_jax_params(module: nn.Module, tree, state=None) -> nn.Module:
     """Fill every parameter of `module` from the JAX param tree `tree` (and
-    the state tree `state`, merged into it)."""
+    the state tree `state`, merged into it). A module with a
+    `jax_tree_layout(tree, state)` method first rewrites the trees into its
+    own attribute layout."""
+    if hasattr(module, "jax_tree_layout"):  # a model whose JAX tree carries structure (MobileFaceNet's stages)
+        tree, state = module.jax_tree_layout(tree, state)
     tree = _merge(tree, state, type(module).__name__)
     filled: set = set()
     _walk(module, tree, type(module).__name__, filled)
@@ -172,3 +179,41 @@ def jax_tree_to_torch(tree, device=None, dtype: torch.dtype = None):
     if isinstance(tree, (list, tuple)):
         return [jax_tree_to_torch(v, device, dtype) for v in tree]
     return _tensor(tree).to(device=device, dtype=dtype)
+
+
+_STATE_NAMES = ("mean", "var")  # BatchNorm's running statistics: JAX's state, not its params
+
+
+def export_jax_params(module: nn.Module):
+    """(params, state): `module`'s parameters as the JAX trees hold them,
+    numpy arrays in fp32 (a conv weight HWIO, a dense one (out, in), a norm
+    weight "g", biases "b", a ModuleList a list), the running statistics
+    ("mean", "var") in the state tree."""
+
+    def walk(mod):
+        params, state = {}, {}
+        for name, p in mod.named_parameters(recurse=False):
+            arr = p.detach().float().cpu().numpy()
+            if name in _STATE_NAMES:
+                state[name] = arr
+                continue
+            if name == "weight":
+                dense = isinstance(mod, (nn.Conv2d, nn.Linear))
+                params["w" if dense else "g"] = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr
+            else:
+                params["b" if name == "bias" else name] = arr
+        for name, child in mod.named_children():
+            if isinstance(child, nn.ModuleList):
+                pairs = [walk(c) for c in child]
+                params[name] = [p for p, _ in pairs]
+                if any(s for _, s in pairs):
+                    state[name] = [s for _, s in pairs]
+            else:
+                p, s = walk(child)
+                if p:
+                    params[name] = p
+                if s:
+                    state[name] = s
+        return params, state
+
+    return walk(module)

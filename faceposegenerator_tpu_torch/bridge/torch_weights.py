@@ -11,8 +11,10 @@ can hold leaf for leaf against the JAX converter's. Conventions:
   - GroupNorm/LayerNorm weight/bias → g/b
 
 Safetensors files are read by `bridge.safetensors_io` (no `safetensors`
-package), `.bin` files by `torch.load(..., weights_only=True)`. The
-IResNet and evaluation-encoder converters are not ported yet.
+package), `.bin` files by `torch.load(..., weights_only=True)`.
+`convert_iresnet_state_dict` takes the insightface/ArcFace `.pth` layout
+(`backbone.pth`, `ArcFace_r100_ms1mv3_backbone.pth`) to IResNet's (params,
+state). The evaluation-encoder converters are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..models import clip_text, unet2d, vae
+from ..models import clip_text, iresnet, unet2d, vae
 from .safetensors_io import load_numpy
 
 
@@ -64,6 +66,60 @@ def _dense(sd, prefix, dtype, bias=True):
 
 def _norm(sd, prefix, dtype):
     return {"g": _arr(sd[f"{prefix}.weight"], dtype), "b": _arr(sd[f"{prefix}.bias"], dtype)}
+
+
+def _bn(sd, prefix, dtype):
+    return _norm(sd, prefix, dtype), {"mean": _arr(sd[f"{prefix}.running_mean"], dtype),
+                                      "var": _arr(sd[f"{prefix}.running_var"], dtype)}
+
+
+# ---------------------------------------------------------------------------
+# IResNet (ArcFace backbone .pth)
+# ---------------------------------------------------------------------------
+
+
+def _bias_free_conv(sd, key, dtype):
+    w = np.asarray(sd[key])
+    return {"w": _arr(w.transpose(2, 3, 1, 0), dtype), "b": np.zeros((w.shape[0],), dtype)}
+
+
+def convert_iresnet_state_dict(sd: Dict[str, np.ndarray], cfg: iresnet.IResNetConfig = iresnet.IResNetConfig(),
+                               dtype=np.float32):
+    """insightface IResNet state dict → (params, state) in the JAX layout
+    (torch_weights.py:346-395): the reference's convs are bias-free (zero
+    "b"), BatchNorms give params {g, b} and state {mean, var}, and the fc
+    weight is permuted from torch's (c, h, w) flatten to the NHWC (h, w, c)
+    one. `load_jax_params(IResNet(cfg), params, state)` loads the result."""
+    params, state = {}, {}
+    params["conv1"] = _bias_free_conv(sd, "conv1.weight", dtype)
+    params["bn1"], state["bn1"] = _bn(sd, "bn1", dtype)
+    params["prelu1"] = _arr(sd["prelu.weight"], dtype)
+    for li, depth in enumerate(cfg.depths, start=1):
+        bp_list, bs_list = [], []
+        for bi in range(depth):
+            p = f"layer{li}.{bi}"
+            bp, bs = {}, {}
+            bp["bn1"], bs["bn1"] = _bn(sd, f"{p}.bn1", dtype)
+            bp["conv1"] = _bias_free_conv(sd, f"{p}.conv1.weight", dtype)
+            bp["bn2"], bs["bn2"] = _bn(sd, f"{p}.bn2", dtype)
+            bp["prelu"] = _arr(sd[f"{p}.prelu.weight"], dtype)
+            bp["conv2"] = _bias_free_conv(sd, f"{p}.conv2.weight", dtype)
+            bp["bn3"], bs["bn3"] = _bn(sd, f"{p}.bn3", dtype)
+            if f"{p}.downsample.0.weight" in sd:
+                bp["down_conv"] = _bias_free_conv(sd, f"{p}.downsample.0.weight", dtype)
+                bp["down_bn"], bs["down_bn"] = _bn(sd, f"{p}.downsample.1", dtype)
+            bp_list.append(bp)
+            bs_list.append(bs)
+        params[f"layer{li}"] = bp_list
+        state[f"layer{li}"] = bs_list
+    params["bn2"], state["bn2"] = _bn(sd, "bn2", dtype)
+    w = np.asarray(sd["fc.weight"])
+    nf = w.shape[0]
+    side = int(round((w.shape[1] // 512) ** 0.5))
+    w = w.reshape(nf, 512, side, side).transpose(0, 2, 3, 1).reshape(nf, -1)
+    params["fc"] = {"w": _arr(w, dtype), "b": _arr(sd["fc.bias"], dtype)}
+    params["features_bn"], state["features_bn"] = _bn(sd, "features", dtype)
+    return params, state
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Normalisation ops with fp32 statistics (port of
-`faceposegenerator_tpu/ops/norms.py:17,78,98`).
+`faceposegenerator_tpu/ops/norms.py:17,78,98,113`).
 
 Layout is channels-last (N, ..., C), as in the JAX package. These are plain
 torch, as the JAX package leaves them to XLA, except that `group_norm`
@@ -86,3 +86,34 @@ def batch_norm_inference(
     scale = gamma.float() * torch.rsqrt(var.float() + eps)
     shift = beta.float() - mean.float() * scale
     return torch.addcmul(shift, x, scale).to(x.dtype)
+
+
+def batch_norm_train(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    running_mean: torch.Tensor,
+    running_var: torch.Tensor,
+    momentum: float = 0.1,
+    eps: float = 1e-5,
+    axis_name: Optional[str] = None,
+):
+    """Training-mode BatchNorm over (N, ..., C): statistics over every axis
+    but the last, in fp32, with var = E[x²] − mean² (norms.py:113-145).
+    Returns (out in x's dtype, new running mean, new running var); the
+    running variance takes the unbiased n/(n−1) form, momentum weighting the
+    batch. `axis_name` (JAX's cross-replica sync of the statistics) needs
+    the mesh, which the port does not have yet."""
+    if axis_name is not None:
+        raise ValueError("batch_norm_train(axis_name=...) syncs statistics over a mesh, which the port does not "
+                         "have yet (ROADMAP.md queue 1, item 9: the data-parallel mesh)")
+    x32 = x.float()
+    axes = tuple(range(x.dim() - 1))
+    mean = x32.mean(dim=axes)
+    var = x32.square().mean(dim=axes) - mean.square()
+    n = x.numel() // x.shape[-1]
+    unbiased = var * (n / max(n - 1, 1))
+    new_mean = (1 - momentum) * running_mean + momentum * mean
+    new_var = (1 - momentum) * running_var + momentum * unbiased
+    out = (x32 - mean) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
+    return out.to(x.dtype), new_mean, new_var

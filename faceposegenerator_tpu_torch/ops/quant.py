@@ -47,6 +47,9 @@ _EPS = 1e-8
 # shallow, tiny or range-critical layers stay in the compute dtype (quant.py:256-271)
 UNET_SKIP = ("conv_in", "conv_out", "time_embedding", "time_emb_proj")
 VAE_SKIP = ("encoder", "quant_conv", "post_quant_conv", "attn", "conv_in", "conv_out")
+# IResNet: the stem, the fc head and the SE gates stay out of int8. ("conv1",)
+# is an exact path: it skips the top-level stem only, not the blocks' conv1.
+IRESNET_SKIP = (("conv1",), "fc", "se_fc1", "se_fc2")
 
 
 class QuantizedWeight(nn.Module):
@@ -183,6 +186,12 @@ def quantize_module(module: nn.Module, skip=(), act_scale: Optional[float] = Non
 def quantize_unet(unet: nn.Module, act_scale: Optional[float] = None) -> list:
     """w8a8 UNet: every resnet, attention, GEGLU and resample weight."""
     return quantize_module(unet, UNET_SKIP, act_scale)
+
+
+def quantize_iresnet(model: nn.Module, act_scale: Optional[float] = None) -> list:
+    """w8a8 IResNet body for the embed path (quant.py:319-321): every block
+    conv and shortcut; their convs run `qconv2d`."""
+    return quantize_module(model, IRESNET_SKIP, act_scale)
 
 
 def quantize_vae(vae: nn.Module, act_scale: Optional[float] = None) -> list:

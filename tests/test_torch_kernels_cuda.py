@@ -887,3 +887,82 @@ def test_cuda_stacked_step_launches_like_one_step(sd_train):
     assert metrics["loss"].shape == (2,) and states["count"] == 1
     for k in range(2):
         assert abs(float(metrics["loss"][k]) - serial[k]) <= 1e-2 * abs(serial[k])
+
+
+def _fr_tree_err(a, b):
+    from faceposegenerator_tpu_torch.core.tree import tree_paths
+
+    want = dict(tree_paths(b))
+    scale = max(float(np.abs(v).max()) for v in want.values())
+    return max(float(np.abs(v - want[p]).max()) for p, v in tree_paths(a)) / scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["AdaFace", "ElasticCosFace"])
+def test_cuda_fr_step_matches_the_cpu(head):
+    """Two FR steps of IResNet (1, 1, 1, 1) at 16² (fc_scale 1), fp32 with
+    TF32 off, on the card against the same steps on the CPU from the same
+    weights and draws: the loss within 1e-4 relative, the params within 1e-4
+    and the BN statistics (and AdaFace's EMA) within 1e-5 of their tree's max
+    abs; no kernel of the port launched."""
+    _card()
+    from faceposegenerator_tpu_torch.core.precision import PARITY_POLICY
+    from faceposegenerator_tpu_torch.training import fr
+
+    cfg = fr.FRConfig(loss=head, batch_size=8, num_classes=10)
+    bcfg = fr.backbone_config(cfg, depths=(1, 1, 1, 1), fc_scale=1)
+    g = torch.Generator().manual_seed(0)
+    batch = {"images": torch.rand(8, 16, 16, 3, generator=g) * 2 - 1, "labels": torch.randint(0, 10, (8,), generator=g)}
+    draws = [{"dropout": torch.rand(8, 512, generator=g) < 0.6, "margin": torch.randn(8, generator=g)} for _ in range(2)]
+    cpu = fr.init_train_state(cfg, 0, "cpu", bcfg)
+    card = fr.init_train_state(cfg, 0, "cuda", bcfg)
+    card[0]["backbone"].load_state_dict(cpu[0]["backbone"].state_dict())
+    with torch.no_grad():
+        card[0]["kernel"].copy_(cpu[0]["kernel"])
+    fa.reset_launch_counts()
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    results = []
+    for params, state in (cpu, card):
+        opt = fr.make_optimizer(cfg)
+        opt_state, step = opt.init(params), fr.make_train_step(cfg, opt, PARITY_POLICY)
+        losses = []
+        for d in draws:
+            params, state, opt_state, m = step(params, state, opt_state, batch, draws=d)
+            losses.append(float(m["loss"]))
+        results.append((losses, fr.fr_checkpoint_tree(params, state)))
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    (cpu_losses, cpu_tree), (card_losses, card_tree) = results
+    assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(card_losses, cpu_losses)), (card_losses, cpu_losses)
+    assert _fr_tree_err(card_tree["params"], cpu_tree["params"]) <= 1e-4
+    assert _fr_tree_err(card_tree["state"], cpu_tree["state"]) <= 1e-5
+    assert all(n == 0 for n in fa.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_cuda_mtcnn_detects_like_the_cpu():
+    """The bright-square cascade on graded squares: the card's detections
+    (fp32, TF32 off) equal the CPU's in count, boxes and landmarks within
+    0.5 px, probabilities within 1e-4."""
+    _card()
+    from faceposegenerator_tpu_torch.models import mtcnn
+
+    rng = np.random.default_rng(1)
+    imgs = np.zeros((4, 96, 96, 3), np.float32)
+    for b, (y0, x0, s) in enumerate(((24, 24, 48), (8, 40, 48), (30, 10, 56))):
+        yy, xx = np.mgrid[0:s, 0:s]
+        imgs[b, y0 : y0 + s, x0 : x0 + s] = (246 + 9 * (yy + 2 * xx) / (3 * (s - 1)))[..., None]
+    imgs[3] = rng.uniform(0, 60, (96, 96, 3))
+    params = mtcnn.brightness_cascade_params()
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = mtcnn.MTCNN(params, min_face_size=40).detect_batch(imgs, landmarks=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    want = mtcnn.MTCNN(params, min_face_size=40, device="cpu").detect_batch(imgs, landmarks=True)
+    for b in range(4):
+        assert (got[0][b] is None) == (want[0][b] is None), b
+        if want[0][b] is not None:
+            assert got[0][b].shape == want[0][b].shape
+            assert np.abs(got[0][b] - want[0][b]).max() <= 0.5 and np.abs(got[2][b] - want[2][b]).max() <= 0.5
+            assert np.abs(got[1][b] - want[1][b]).max() <= 1e-4

@@ -41,7 +41,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "faceposegenerator_tpu_torch.pipelines.txt2img" in mods
     assert "faceposegenerator_tpu_torch.training.idbooth" in mods
     for new in ("core.config", "core.logging_utils", "core.trackers", "core.checkpointing", "data.dreambooth",
-                "pipelines.sweep", "training.idbooth_driver", "training.multi_identity"):
+                "pipelines.sweep", "training.idbooth_driver", "training.multi_identity", "training.losses",
+                "training.fr", "training.fr_driver", "data.fr_dataset", "data.augment", "data.align",
+                "data.align_driver", "evaluation.verification", "models.mtcnn", "models.mobilefacenet",
+                "models.vit_face", "models.registry", "pipelines.embed_extract"):
         assert f"faceposegenerator_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -75,6 +78,28 @@ def test_port_sources_use_no_library_attention_or_compile():
                             and node.value.id == "torch"), where
 
 
+def test_port_never_imports_cv2():
+    """The card's machine is not known to have OpenCV: the port reproduces
+    the JAX package's cv2 resamplings in numpy (`data/align.py`). No module of
+    the port, nor chip_smoke.py, imports cv2, in its source or at run time."""
+    for path in list(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert "cv2" not in roots, f"{path.relative_to(REPO)}:{node.lineno}"
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules() + ['chip_smoke']!r}: importlib.import_module(m)\n"
+        "sys.exit(1 if 'cv2' in sys.modules else 0)\n"
+    )
+    r = _run(code)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_port_never_imports_safetensors():
     """The card's machine has no `safetensors` package: the port reads and
     writes the format itself (`bridge/safetensors_io.py`). No module of the
@@ -106,10 +131,21 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch, tmp_path):
     from faceposegenerator_tpu_torch.models.vae import AutoencoderKL
     from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
 
+    from faceposegenerator_tpu_torch.models import mobilefacenet, mtcnn, registry, vit_face
+    from faceposegenerator_tpu_torch.pipelines import embed_extract
+    from faceposegenerator_tpu_torch.training import fr, fr_driver
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from_dir = lambda: StableDiffusionPipeline.from_pretrained(str(tmp_path))  # noqa: E731
+    cfg = fr.FRConfig()
+    fr_entries = (lambda: fr.init_train_state(cfg), lambda: fr_driver.train_fr_run(cfg, None, str(tmp_path / "fr")),
+                  lambda: fr_driver.test_fr_run(cfg, str(tmp_path / "best_backbone.npz"), {}),
+                  lambda: embed_extract.make_crop_embed_fn(None), lambda: embed_extract.make_arcface_embed_fn(None),
+                  mtcnn.MTCNN, mtcnn.MTCNNNets, mobilefacenet.MobileFaceNet, vit_face.FaceViT,
+                  lambda: registry.get_model("mbf"), lambda: registry.get_model("vit_t"),
+                  lambda: registry.get_model("r18"))
     for entry in (StableDiffusionPipeline.from_random, from_dir, UNet2DCondition, AutoencoderKL, IResNet, RepVGG,
-                  init_sixdrepnet, init_qs_head):
+                  init_sixdrepnet, init_qs_head) + fr_entries:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
 
