@@ -250,6 +250,29 @@ Phases, in order; any failure exits non-zero without the final result line:
      other way into percents at the embedding. Backbones mbf, vit_t, vit_s at 112²:
      batch 64 bf16 finite with img/s, batch 2 fp32 (TF32 off) within 1e-4
      of the max abs of the CPU port.
+ 16. quality and identity evaluation (`run_quality_eval`; alone:
+     `perf/torch_quality_eval.py`): 512 real, 512 generated (integer file
+     names) and 256 held-out PNGs of 512² in 16 folders under build/ (smooth
+     random fields tinted per folder, from a seed). `dgm.main` with dinov2
+     (ViT-L/14 at 224², bf16, batch 64, seeded random weights), every metric
+     (fd fd_infinity kd prdc realism vendi authpct sw ct fls, with the
+     held-out set) and 4 GradCAM heatmaps: the scores JSON, the three .npz
+     caches (read back bit-equal, no launch) and the grid PNG; exactly 24 K1
+     launches a batch, and 24 K1 + 1 K5 pair a GradCAM probe; img/s, the
+     host's PIL resize and normalise against the device's forward per
+     batch, GradCAM s an image, seconds per metric. PRDC with its distances
+     on the card against the CPU within 2/N, FD and KD recomputed equal. The
+     other ten encoders on the generated set at batch 64 (arcface on the
+     real set too): finite (N, D) at JAX's D, img/s, exactly 24 K1 a batch
+     for mae, 12 for clip, no kernel for the rest; make_heatmap_fn at batch 4
+     (24 K1 with the log-sum-exp, 24 K5 pairs). Then each encoder's features
+     on 2 images at fp32 with TF32 off, card against a CPU copy within 1e-3
+     of the max abs (the default dtype's error printed), and PyEER on the
+     r100 embeddings grouped by folder (both configurations; the report
+     files equal to a run on the CPU; plots where matplotlib imports). Phase
+     3 holds K1 at 64 × 16 × 257², 64 × 16 × 197² and 64 × 12 × 50², with
+     the log-sum-exp at 1 × 16 × 257² and 4 × 16 × 257², and K5 at the last
+     two, beside the other rows.
 Phases 3-7 run the default configuration (GN_IMPL and GN_CONV_IMPL at xla)
 whatever the environment says. The line before the last is a JSON object
 with one entry per kernel; the last is {"ok": true, "device": {...}}.
@@ -623,7 +646,7 @@ def check_kernels(torch, fa, card, shapes=SHAPES, with_lse=False, per="request")
     return rows
 
 
-def check_backward(torch, fa, card, shapes):
+def check_backward(torch, fa, card, shapes, per="step"):
     """K5/K6 at the train shapes: the forward's own o and lse, a unit-normal
     dO, each gradient against attention_bwd_plain in fp32 on the same
     inputs; each pass timed alone, the pair beside the plain backward and
@@ -672,7 +695,7 @@ def check_backward(torch, fa, card, shapes):
                    dq_bound_ms=dq_bound, dq_bound_by=dq_by, tflops=10.0 * unit / pair_ms * 1e-9,
                    dkv_tflops=8.0 * unit / ms["dkv"] * 1e-9, dq_tflops=6.0 * unit / ms["dq"] * 1e-9,
                    dq_err=[dq_max, dq_mean], dk_err=[dk_max, dk_mean], dv_err=[dv_max, dv_mean],
-                   grad_max_abs=norms, launches_per_step=per_step)
+                   grad_max_abs=norms, **{f"launches_per_{per}": per_step})
         print("kernel " + json.dumps(row), flush=True)
         rows.append(row)
         for name, (mx, mean), n in zip(("dq", "dk", "dv"), errs, norms):
@@ -1533,17 +1556,18 @@ def run_fused_train(torch, card_line, op, default_steady):
 
 
 class tf32:
-    """Within the block, cuBLAS matmuls and cuDNN convolutions may (True) or
-    may not (False) round fp32 operands to TF32; the previous settings after."""
+    """Within the block, cuBLAS matmuls (`allow`) and cuDNN convolutions
+    (`cudnn`, as `allow` unless given) may (True) or may not (False) round
+    fp32 operands to TF32; the previous settings after."""
 
-    def __init__(self, allow):
-        self.allow = allow
+    def __init__(self, allow, cudnn=None):
+        self.allow, self.cudnn = allow, allow if cudnn is None else cudnn
 
     def __enter__(self):
         import torch
 
         self.saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = self.allow
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.allow, self.cudnn
 
     def __exit__(self, *exc):
         import torch
@@ -2111,28 +2135,36 @@ def write_sd21_dir(root, pipe, torch, configs=None):
 
 class shape_tally:
     """Within the block, counts the attention forwards on the card by (B, H,
-    Sq, Skv, D) as `ops.attention` hands them to the kernel wrapper, one
-    launch each (the wrapper itself counts the launches)."""
+    Sq, Skv, D) as `ops.attention` (under no grad) and `FlashAttention`
+    (under a gradient) hand them to the kernel wrapper, one launch each (the
+    wrapper itself counts the launches): `shapes` those without the
+    log-sum-exp, `lse` those with it."""
 
     def __enter__(self):
         from faceposegenerator_tpu_torch.ops import attention
+        from faceposegenerator_tpu_torch.ops import flash_attention as fa
 
-        self.saved = attention.flash_fwd
-        self.shapes = {}
+        self.saved = (attention.flash_fwd, fa.flash_fwd)
+        self.shapes, self.lse = {}, {}
 
-        def tally(q, k, v, *a, **kw):
-            if q.is_cuda:
-                key = (q.shape[0], q.shape[2], q.shape[1], k.shape[1], q.shape[-1])
-                self.shapes[key] = self.shapes.get(key, 0) + 1
-            return self.saved(q, k, v, *a, **kw)
+        def tally(fwd):
+            def call(q, k, v, *a, **kw):
+                if q.is_cuda:
+                    key = (q.shape[0], q.shape[2], q.shape[1], k.shape[1], q.shape[-1])
+                    counts = self.lse if kw.get("with_lse") else self.shapes
+                    counts[key] = counts.get(key, 0) + 1
+                return fwd(q, k, v, *a, **kw)
 
-        attention.flash_fwd = tally
+            return call
+
+        attention.flash_fwd, fa.flash_fwd = (tally(f) for f in self.saved)
         return self
 
     def __exit__(self, *exc):
         from faceposegenerator_tpu_torch.ops import attention
+        from faceposegenerator_tpu_torch.ops import flash_attention as fa
 
-        attention.flash_fwd = self.saved
+        attention.flash_fwd, fa.flash_fwd = self.saved
 
 
 def _stack_loras(trees, torch):
@@ -3624,6 +3656,552 @@ def run_identity_stack(torch, card_line):
     return launches
 
 
+# Phase 16: the dgm-eval op point (`main_DGM_EVAL.ipynb`'s DINOv2 ViT-L/14 at
+# 224², batch 64) on 512 real, 512 generated and 256 held-out 512² PNGs in 16
+# folders each, the other ten encoders on the generated set, and PyEER on the
+# r100 embeddings. K1 runs every ViT attention: one launch a layer a batch;
+# a GradCAM probe runs the 23 layers before its tap on K1 and the tapped one
+# on K1 with the log-sum-exp and one K5 pair; make_heatmap_fn takes every
+# layer through K1 with the log-sum-exp and K5.
+QUALITY = dict(folders=16, real=32, gen=32, test=16, res=512, batch=64, heatmaps=4, heat_batch=4)
+QUALITY_METRICS = ["fd", "fd_infinity", "kd", "prdc", "realism", "vendi", "authpct", "sw", "ct", "fls"]
+QUALITY_SHAPES = [("dinov2 L/14 224²", 64, 16, 257, 257, 64, 24), ("mae L/16 224²", 64, 16, 197, 197, 64, 24),
+                  ("clip B/32 224²", 64, 12, 50, 50, 64, 12)]
+GRADCAM_SHAPES = [("gradcam dinov2 L/14, before the tap", 1, 16, 257, 257, 64, 23)]
+GRADCAM_LSE_SHAPES = [("gradcam dinov2 L/14, the tapped layer", 1, 16, 257, 257, 64, 1)]
+HEATMAP_SHAPES = [("heatmap dinov2 L/14, batch 4", 4, 16, 257, 257, 64, 24)]
+# every registered encoder: (its feature width, the QUALITY_SHAPES row of its
+# attention, or None where it runs no K1-K8)
+ENCODERS = {"dinov2": (1024, "dinov2 L/14 224²"), "pixel": (3072, None), "arcface": (512, None),
+            "inception": (2048, None), "sinception": (2048, None), "clip": (768, "clip B/32 224²"),
+            "swav": (2048, None), "simclr": (2048, None), "mae": (1024, "mae L/16 224²"),
+            "convnext": (1536, None), "data2vec": (1024, None)}
+ENCODER_F32_MAX = 1e-3  # card fp32 (TF32 off) against the CPU port, of the features' max abs
+PYEER_GATE = dict(folders=8, per=4)  # r100 fp32 card vs CPU: 4 images of 8 folders of each set
+PYEER_FDR_REL = 1e-3
+FRESH_PROCESS_TF32 = (False, True)  # torch's defaults: cuBLAS matmuls fp32, cuDNN convolutions TF32
+
+
+def _shape_key(b, h, sq, skv, d, lse=False):
+    return f"{b}×{h}×{sq}×{skv}×{d}" + (" +lse" if lse else "")
+
+
+def _row_counts(shapes, lse=False):
+    """{shape key: launches} of rows (label, B, H, Sq, Skv, D, per run)."""
+    return {_shape_key(*s[1:6], lse=lse): s[6] for s in shapes}
+
+
+def _encoder_expect(name):
+    """The launches a batch of 64 makes through encoder `name`: its
+    attention's K1 launches and their shape, or nothing."""
+    label = ENCODERS[name][1]
+    if label is None:
+        return {}
+    row = next(s for s in QUALITY_SHAPES if s[0] == label)
+    return {"flash_fwd_d64": row[6], **_row_counts([row])}
+
+
+# a GradCAM probe and a make_heatmap_fn call: the kernels' counts, K1's
+# launches with the log-sum-exp (the wrapper's own count) and both by shape
+GRADCAM_LAUNCHES = {"flash_fwd_d64": 24, "flash_fwd_d64 +lse": 1, "flash_bwd_d64_dkv": 1, "flash_bwd_d64_dq": 1,
+                    **_row_counts(GRADCAM_SHAPES), **_row_counts(GRADCAM_LSE_SHAPES, lse=True)}
+HEATMAP_LAUNCHES = {"flash_fwd_d64": 24, "flash_fwd_d64 +lse": 24, "flash_bwd_d64_dkv": 24, "flash_bwd_d64_dq": 24,
+                    **_row_counts(HEATMAP_SHAPES, lse=True)}
+
+
+def check_quality_kernels(torch, fa, card):
+    """K1 and K5 at phase 16's shapes against their plain versions, timed
+    beside SDPA and the bound: (forward rows, backward rows)."""
+    fwd = check_kernels(torch, fa, card, QUALITY_SHAPES, per="batch")
+    fwd += check_kernels(torch, fa, card, GRADCAM_SHAPES, per="gradcam_probe")
+    fwd += check_kernels(torch, fa, card, GRADCAM_LSE_SHAPES, with_lse=True, per="gradcam_probe")
+    fwd += check_kernels(torch, fa, card, HEATMAP_SHAPES, with_lse=True, per="heatmap_call")
+    bwd = check_backward(torch, fa, card, GRADCAM_LSE_SHAPES, per="gradcam_probe")
+    bwd += check_backward(torch, fa, card, HEATMAP_SHAPES, per="heatmap_call")
+    return [dict(r, phase=16) for r in fwd], [dict(r, phase=16) for r in bwd]
+
+
+def _write_quality_sets(root):
+    """real, gen (integer file names, so the integer-aware order differs
+    from the lexical one) and test: smooth random fields (8×8 noise
+    bicubic-upsampled to 512²) tinted per folder, from a numpy seed; PNG
+    encodes on 8 threads."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    q = QUALITY
+    jobs = []
+    for s, (name, per) in enumerate((("real", q["real"]), ("gen", q["gen"]), ("test", q["test"]))):
+        rng = np.random.default_rng(160 + s)
+        for f in range(q["folders"]):
+            d = os.path.join(root, name, f"id{f:02d}")
+            os.makedirs(d, exist_ok=True)
+            tint = rng.uniform(40, 215, 3)
+            for i in range(per):
+                low = np.clip(tint + rng.normal(0, 40, (8, 8, 3)), 0, 255).astype(np.uint8)
+                fname = f"{(i * 7) % per + 1}.png" if name == "gen" else f"img{i:03d}.png"
+                jobs.append((low, os.path.join(d, fname)))
+
+    def write(job):
+        low, path = job
+        Image.fromarray(low).resize((q["res"], q["res"]), Image.BICUBIC).save(path, compress_level=1)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+    return {name: os.path.join(root, name) for name in ("real", "gen", "test")}
+
+
+def _quality_counts(tally):
+    """Every kernel's launches so far, K1's (and K2's, fp32's) with the
+    log-sum-exp, and the attention forwards `tally` saw by shape."""
+    from faceposegenerator_tpu_torch.ops import flash_attention as fa
+
+    counts = {**_launch_counts(), **{f"{n} +lse": c for n, c in fa.LSE_LAUNCHES.items()}}
+    counts.update({_shape_key(*k): c for k, c in tally.shapes.items()})
+    counts.update({_shape_key(*k, lse=True): c for k, c in tally.lse.items()})
+    return counts
+
+
+def _delta(before, after):
+    return {k: c - before.get(k, 0) for k, c in after.items() if c != before.get(k, 0)}
+
+
+class timed_encoder:
+    """Within the block, every encoder the registry builds for `names` has
+    its host preprocessing and its device features timed per batch, with
+    the launches of each batch (`_quality_counts`): `records[name]` holds
+    one {"host_s", "device_s", "end", "launches", "out"} a batch (`out` the
+    features it returned), `built[name]` the
+    time its build ended. Each `gradcam_preprocess` call (one a GradCAM
+    probe) and `mark(name)` append {"t", "counts"} to `marks[name]`."""
+
+    def __init__(self, names, tally):
+        self.names, self.tally, self.records, self.built, self.marks = names, tally, {}, {}, {}
+
+    def __enter__(self):
+        from faceposegenerator_tpu_torch.evaluation import dgm
+
+        self.saved = dict(dgm._ENCODERS)
+        for name in self.names:
+            dgm._ENCODERS[name] = self._factory(name, self.saved[name])
+        return self
+
+    def mark(self, name):
+        self.marks.setdefault(name, []).append({"t": time.time(), "counts": _quality_counts(self.tally)})
+
+    def _factory(self, name, factory):
+        import torch
+
+        def build(*a, **kw):
+            enc = factory(*a, **kw)
+            self.built[name] = time.time()
+            pre, feat, recs = enc.preprocess, enc.features, self.records.setdefault(name, [])
+
+            def preprocess(batch):
+                t0 = time.time()
+                out = pre(batch)
+                recs.append({"host_s": time.time() - t0})
+                return out
+
+            def features(x):
+                before = _quality_counts(self.tally)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                out = feat(x)  # ends in the copy to the host
+                end = time.time()
+                recs[-1].update(device_s=end - t0, end=end, launches=_delta(before, _quality_counts(self.tally)),
+                                out=out)
+                return out
+
+            enc.preprocess, enc.features = preprocess, features
+            if enc.gradcam_preprocess is not None:
+                gpre = enc.gradcam_preprocess
+
+                def gradcam_preprocess(batch):
+                    self.mark(name)
+                    return gpre(batch)
+
+                enc.gradcam_preprocess = gradcam_preprocess
+            return enc
+
+        return build
+
+    def __exit__(self, *exc):
+        from faceposegenerator_tpu_torch.evaluation import dgm
+
+        dgm._ENCODERS.clear()
+        dgm._ENCODERS.update(self.saved)
+
+
+def _batches_launch(records, expect, label):
+    for i, r in enumerate(records):
+        if r["launches"] != expect:
+            fail(f"{label}: batch {i} launched {r['launches']}, expected exactly {expect}")
+
+
+def _split(records):
+    """(host s, device s): their means a batch."""
+    return (sum(r["host_s"] for r in records) / len(records), sum(r["device_s"] for r in records) / len(records))
+
+
+def _dgm_run(torch, card_line, sets, out, tally):
+    """dgm.main with dinov2 on the card, unpatched but for the encoder's
+    timing: representations (per batch, 24 K1 each), all metrics, the
+    GradCAM grid (each probe's window runs from its preprocess to the next
+    one's, the overlay and the next PNG decode included). Then the cache
+    read back bit-equal, each metric timed alone on those representations
+    and equal to main's, and the PRDC, FD and KD gates. Returns (summary,
+    reps, the launches of a batch and of a probe)."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from faceposegenerator_tpu_torch.evaluation import dgm
+
+    q = QUALITY
+    argv = [sets["real"], sets["gen"], "--model", "dinov2", "--metrics", *QUALITY_METRICS, "--test_path", sets["test"],
+            "--heatmaps", "--heatmaps_count", str(q["heatmaps"]), "--batch_size", str(q["batch"]), "--output_dir", out]
+    with timed_encoder(["dinov2"], tally) as probe:
+        t0 = time.time()
+        all_scores = dgm.main(argv)
+        main_s = time.time() - t0
+        probe.mark("dinov2")  # closes the last probe's window
+    recs, marks = probe.records["dinov2"], probe.marks["dinov2"]
+    n_imgs = q["folders"] * (q["real"] + q["gen"] + q["test"])
+    if len(recs) != n_imgs // q["batch"]:
+        fail(f"dinov2: {len(recs)} batches for {n_imgs} images at batch {q['batch']}")
+    _batches_launch(recs, _encoder_expect("dinov2"), "dgm dinov2")
+    probes = [{"s": b["t"] - a["t"], "launches": _delta(a["counts"], b["counts"])} for a, b in zip(marks, marks[1:])]
+    if len(probes) != q["heatmaps"]:
+        fail(f"GradCAM: {len(probes)} probes, expected {q['heatmaps']}")
+    for i, p in enumerate(probes):
+        if p["launches"] != GRADCAM_LAUNCHES:
+            fail(f"GradCAM probe {i}: launched {p['launches']}, expected exactly {GRADCAM_LAUNCHES}")
+    s = all_scores["gen"]
+    bad = [k for k, v in s.items() if not np.all(np.isfinite(np.asarray(v, np.float64)))]
+    if bad or len(s["realism"]) != q["folders"] * q["gen"]:
+        fail(f"dgm scores: not finite {bad}, {len(s['realism'])} realism values")
+    files = sorted(os.listdir(out))
+    grid = os.path.join(out, "heatmaps_dinov2_gen_0.png")
+    per_row = max(1, round(q["heatmaps"] ** 0.5))  # _write_gradcam_grid's layout
+    tiles = (-(-q["heatmaps"] // per_row) * q["res"], per_row * q["res"], 3)
+    if not {"aggregate.json", "scores_gen.json"} <= set(files) or sum(f.endswith(".npz") for f in files) != 3 \
+            or np.asarray(Image.open(grid)).shape != tiles:
+        fail(f"dgm outputs: {files}")
+    # the cache read back: no encoder, no launch, bit-equal to the features
+    # the batches returned (main encodes real, then test, then gen)
+    before = _launch_counts()
+    reps = {k: dgm.compute_representations(p, None, "dinov2", cache_dir=out) for k, p in sets.items()}
+    if _launch_counts() != before:
+        fail("reading the representation cache launched kernels")
+    start = 0
+    for k in ("real", "test", "gen"):
+        n = q["folders"] * q[k] // q["batch"]
+        computed = np.concatenate([r["out"] for r in recs[start:start + n]])
+        labels = dgm.image_labels(dgm.list_dataset_images(sets[k]), sets[k])
+        if not (np.array_equal(reps[k][0], computed) and np.array_equal(reps[k][1], labels)):
+            fail(f"the .npz cache of the {k} set differs from what was computed")
+        start += n
+    (real, _), (gen, labels), (test, _) = reps["real"], reps["gen"], reps["test"]
+    if gen.shape != (q["folders"] * q["gen"], ENCODERS["dinov2"][0]) or not np.isfinite(gen).all():
+        fail(f"dinov2 features {gen.shape}")
+    # each metric alone on the cached representations: its seconds, and the
+    # same numbers as main's
+    metric_secs, alone = {}, {}
+    for m in QUALITY_METRICS:
+        if m == "realism":  # per sample, computed with prdc
+            continue
+        t0 = time.time()
+        alone.update(dgm.compute_scores([m, "realism"] if m == "prdc" else [m], real, gen, labels,
+                                        reps_test=test, device="cuda"))
+        metric_secs[m] = time.time() - t0
+    if alone != s:
+        fail("the metrics computed one at a time on the cached representations differ from dgm.main's")
+    # PRDC with its distances on the card against the same call on the CPU: a
+    # neighbour exactly at the k-th radius may flip by rounding, within 2/N
+    from faceposegenerator_tpu_torch.evaluation.metrics import frechet_distance, kernel_distance, prdc
+
+    card, cpu = prdc(real, gen, device="cuda"), prdc(real, gen, device="cpu")
+    prdc_err = max(abs(card[k] - cpu[k]) for k in card)
+    if prdc_err > 2.0 / len(gen) or any(card[k] != s[k] for k in card):
+        fail(f"PRDC card {card} against CPU {cpu} (2/N = {2.0 / len(gen):.4f}) and the run's {s}")
+    if frechet_distance(real, gen) != s["fd"] or kernel_distance(real, gen, seed=0)[0] != s["kd_value"]:
+        fail("FD or KD recomputed on the host differs from the run's")
+    host, device = _split(recs)
+    rep_s = recs[-1]["end"] - probe.built["dinov2"]  # from the built encoder to the last batch's features
+    summary = dict(img_per_s=n_imgs / rep_s, host_s_per_batch=host, device_s_per_batch=device,
+                   gradcam_s_per_image=sum(p["s"] for p in probes) / len(probes), metric_s=metric_secs,
+                   main_s=main_s, prdc_card_cpu_max_diff=prdc_err, scores={k: v for k, v in s.items() if k != "realism"})
+    print(f"quality: dgm dinov2 ViT-L/14 224² batch {q['batch']}: {n_imgs} images in {rep_s:.2f} s, "
+          f"{summary['img_per_s']:.1f} img/s (PNG decode + PIL resize + card); per batch host PIL resize and "
+          f"normalise {host * 1e3:.1f} ms, device (copy in, forward, copy out) {device * 1e3:.1f} ms; launches a "
+          f"batch {json.dumps(recs[0]['launches'])}; the GradCAM grid {summary['gradcam_s_per_image']:.3f} s an image "
+          f"(windows {[round(p['s'], 3) for p in probes]}: a probe, its overlay and the next PNG decode, the grid's "
+          f"PNG write in the last), "
+          f"launches a probe {json.dumps(probes[0]['launches'])}; seconds per metric alone "
+          f"{json.dumps({k: round(v, 3) for k, v in metric_secs.items()})}; PRDC card vs CPU max diff "
+          f"{prdc_err:.4f} (2/N {2.0 / len(gen):.4f}); main {main_s:.1f} s ({card_line})", flush=True)
+    print(f"quality: dgm scores {json.dumps(summary['scores'])}", flush=True)
+    return summary, {"real": real, "gen": gen, "gen_labels": labels, "test": test}, recs[0]["launches"], \
+        probes[0]["launches"]
+
+
+def _encoder_gate(torch, name, enc, batch_u8):
+    """The encoder's features on 2 images at fp32 with TF32 off, card
+    against a CPU copy of the same module (within ENCODER_F32_MAX of the
+    max abs); the default (bf16 for the ViTs and r100) card features against
+    that fp32 CPU reference, printed."""
+    import copy
+
+    from faceposegenerator_tpu_torch.core.precision import PARITY_POLICY
+
+    x = enc.preprocess(batch_u8)
+    if enc.model is None:  # pixel: the features are the host's resized pixels
+        return None, None
+    cpu = copy.deepcopy(enc.model).cpu()
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        want = enc.forward(cpu, xt, PARITY_POLICY)
+        with tf32(False):
+            got = enc.forward(enc.model, xt.cuda(), PARITY_POLICY).cpu()
+    default = enc.features(x)
+    del cpu
+    err = _rel_err(got.numpy(), want.numpy())[0]
+    default_err = _rel_err(default, want.numpy())[0]
+    if not err <= ENCODER_F32_MAX:
+        fail(f"encoder {name}: fp32 card against CPU {err:.2e} of the max abs ({ENCODER_F32_MAX:g})")
+    return err, default_err
+
+
+def _encoders(torch, card_line, sets, tally):
+    """The other ten encoders on the generated set at batch 64 (arcface on
+    the real set too): finite (N, D) at JAX's D, exact launches a batch,
+    img/s and the host/device split. Returns (summary, the arcface
+    embeddings, the encoders, each encoder's launches a batch)."""
+    import numpy as np
+
+    from faceposegenerator_tpu_torch.evaluation import dgm
+
+    q, out, emb, encs, per_batch = QUALITY, {}, {}, {}, {}
+    names = [n for n in ENCODERS if n != "dinov2"]
+    n = q["folders"] * q["gen"]
+    with timed_encoder(names, tally) as probe:
+        for name in names:
+            dim = ENCODERS[name][0]
+            t0 = time.time()
+            enc = encs[name] = dgm._ENCODERS[name]()
+            build_s = time.time() - t0
+            t0 = time.time()
+            reps, labels = dgm.compute_representations(sets["gen"], enc, name, batch_size=q["batch"])
+            secs = time.time() - t0
+            if reps.shape != (n, dim) or not np.isfinite(reps).all():
+                fail(f"encoder {name}: features {reps.shape}, expected ({n}, {dim}), finite {np.isfinite(reps).all()}")
+            recs = list(probe.records[name])
+            if name == "arcface":
+                emb["gen"] = (reps, labels)
+                emb["real"] = dgm.compute_representations(sets["real"], enc, name, batch_size=q["batch"])
+            _batches_launch(probe.records[name], _encoder_expect(name), f"encoder {name}")
+            per_batch[name] = recs[0]["launches"]
+            host, device = _split(recs)
+            out[name] = dict(img_per_s=n / secs, host_s_per_batch=host, device_s_per_batch=device, build_s=build_s)
+            print(f"quality: encoder {name}: ({n}, {dim}) in {secs:.2f} s, {n / secs:.1f} img/s, per batch host "
+                  f"{host * 1e3:.1f} ms, device {device * 1e3:.1f} ms, launches a batch {json.dumps(per_batch[name])}; "
+                  f"built in {build_s:.1f} s ({card_line})", flush=True)
+    return out, emb, encs, per_batch
+
+
+def _pyeer(torch, emb, enc, sets, root):
+    """PyEER on the r100 embeddings (the default, bf16) of the generated
+    and real sets grouped by folder, both configurations, its reports
+    written. Then the card checked through it: r100 at fp32 with TF32 off
+    on the card and on a CPU copy, over PYEER_GATE images of each set, PyEER
+    on each (every pair scored): EER and AUC within 1/n_genuine +
+    1/n_impostor of each other (one genuine and one impostor score trading
+    places), FDR within PYEER_FDR_REL of itself or of 1e-2, whichever is
+    larger (a smooth function of scores that differ by the embeddings' fp32
+    error; below 1e-2 the two distributions overlap all but entirely)."""
+    import copy
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from faceposegenerator_tpu_torch.core.precision import PARITY_POLICY
+    from faceposegenerator_tpu_torch.evaluation import dgm, pyeer_driver
+
+    def by_id(reps, labels):
+        return {f"id{int(k):02d}": reps[labels == k] for k in sorted(set(labels.tolist()))}
+
+    synth, real = by_id(*emb["gen"]), by_id(*emb["real"])
+    try:
+        import matplotlib  # noqa: F401
+
+        plots = "the histograms and DET/ROC curves as PNG (matplotlib imports)"
+    except ImportError:
+        plots = "no plots: matplotlib does not import (score arrays as .npz instead)"
+    print(f"quality: pyeer writes {plots}", flush=True)
+    t0 = time.time()
+    got = pyeer_driver.analyse(synth, real, output_dir=os.path.join(root, "pyeer"), name="arcface")
+    secs = time.time() - t0
+    written = sorted(os.listdir(os.path.join(root, "pyeer")))
+    if set(got) != {"AmongSynth", "SynthVsReal"} or \
+            not {f"arcface_pyeer.{ext}" for ext in ("json", "csv", "html", "tex")} <= set(written):
+        fail(f"pyeer: configurations {sorted(got)}, files {written}")
+
+    g = PYEER_GATE
+    side = {}
+    for name in ("gen", "real"):
+        paths = dgm.list_dataset_images(sets[name])
+        labels = dgm.image_labels(paths, sets[name])
+        pick = [i for f in range(g["folders"]) for i in np.flatnonzero(labels == f)[: g["per"]]]
+        x = torch.from_numpy(enc.preprocess(np.stack([np.asarray(Image.open(paths[i]).convert("RGB"), np.uint8)
+                                                      for i in pick])))
+        side[name] = (x, labels[pick])
+    cpu_model = copy.deepcopy(enc.model).cpu()
+    runs = {}
+    with torch.no_grad():
+        for where, model in (("card", enc.model), ("cpu", cpu_model)):
+            with tf32(False):
+                feats = {k: enc.forward(model, x.to(enc.device if where == "card" else "cpu"), PARITY_POLICY)
+                         .float().cpu().numpy() for k, (x, _) in side.items()}
+            runs[where] = pyeer_driver.analyse(by_id(feats["gen"], side["gen"][1]), by_id(feats["real"], side["real"][1]),
+                                               min_samples=g["per"], skip_among=0, skip_vs_real=0)
+    del cpu_model
+    f, k = g["folders"], g["per"]
+    pairs = {"AmongSynth": (f * k * (k - 1) // 2, f * (f - 1) // 2 * k * k), "SynthVsReal": (f * k * k, f * (f - 1) * k * k)}
+    diffs = {}
+    for conf, (n_gen, n_imp) in pairs.items():
+        a, b = runs["card"].get(conf), runs["cpu"].get(conf)
+        if a is None or b is None:
+            fail(f"pyeer gate: no {conf} result (card {sorted(runs['card'])}, CPU {sorted(runs['cpu'])})")
+        tol = 1.0 / n_gen + 1.0 / n_imp
+        diffs[conf] = {m: abs(a[m] - b[m]) for m in ("eer", "auc", "fdr")}
+        fdr_tol = PYEER_FDR_REL * max(abs(b["fdr"]), 1e-2)
+        if diffs[conf]["eer"] > tol or diffs[conf]["auc"] > tol or diffs[conf]["fdr"] > fdr_tol:
+            fail(f"pyeer {conf}: r100 fp32 card {a} against CPU {b} (EER, AUC within {tol:.4f}; FDR {fdr_tol:.2e})")
+    print(f"quality: pyeer on r100 embeddings ({len(synth)} identities): EER AmongSynth "
+          f"{got['AmongSynth']['eer']:.4f}, SynthVsReal {got['SynthVsReal']['eer']:.4f}, in {secs:.2f} s; files "
+          f"{written}; r100 fp32 on {2 * f * k} images, card vs CPU: "
+          f"{json.dumps({c: {m: [runs['card'][c][m], runs['cpu'][c][m]] for m in ('eer', 'auc', 'fdr')} for c in pairs})}",
+          flush=True)
+    return {c: {m: got[c][m] for m in ("eer", "fdr", "auc")} for c in got}, diffs
+
+
+def _heatmap_fn(torch, enc, dgm_reps, sets, tally):
+    """make_heatmap_fn at batch 4 on the card through DINOv2 (every layer's
+    K1 with the log-sum-exp and K5): exact launches, finite maps. Returns
+    (seconds, launches)."""
+    import numpy as np
+    from PIL import Image
+
+    from faceposegenerator_tpu_torch.evaluation import dgm, heatmaps
+
+    paths = dgm.list_dataset_images(sets["gen"])[: QUALITY["heat_batch"]]
+    x = enc.preprocess(np.stack([np.asarray(Image.open(p).convert("RGB"), np.uint8) for p in paths]))
+    mu, prec = heatmaps.fit_real_gaussian(dgm_reps["real"])
+    fn = heatmaps.make_heatmap_fn(enc.model.cls_feature, mu, prec)
+    before = _quality_counts(tally)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    scores, maps = fn(x)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = _delta(before, _quality_counts(tally))
+    if launches != HEATMAP_LAUNCHES or maps.shape != (len(paths), 224, 224) or not torch.isfinite(maps).all() \
+            or not torch.isfinite(scores).all():
+        fail(f"make_heatmap_fn: launches {launches} (expected {HEATMAP_LAUNCHES}), maps {tuple(maps.shape)}, "
+             f"finite {bool(torch.isfinite(maps).all())}")
+    print(f"quality: make_heatmap_fn at batch {len(paths)}: {secs:.3f} s, launches {json.dumps(launches)}", flush=True)
+    return secs, launches
+
+
+def _gradcam_map(torch, enc, dgm_reps, sets):
+    """One GradCAM probe on the card outside the counted run: a finite
+    16 × 16 map and a finite FD change (dgm.main writes only the overlay)."""
+    import numpy as np
+    from PIL import Image
+
+    from faceposegenerator_tpu_torch.evaluation import dgm, heatmaps
+
+    u8 = np.asarray(Image.open(dgm.list_dataset_images(sets["gen"])[0]).convert("RGB"), np.uint8)
+    cam = heatmaps.GradCAM(enc.gradcam_encode, dgm_reps["real"], dgm_reps["gen"], device="cuda")
+    heat, delta = cam.get_map(enc.gradcam_preprocess(u8[None]), 0)
+    if heat.shape != (16, 16) or not np.isfinite(heat).all() or not np.isfinite(delta):
+        fail(f"GradCAM: map {heat.shape}, finite {bool(np.isfinite(heat).all())}, FD change {delta}")
+
+
+def run_quality_eval(torch, card_line):
+    """Phase 16: dgm-eval with DINOv2 on the card (all metrics, GradCAM),
+    the other ten encoders, make_heatmap_fn; their launches counted; then
+    the gates (each encoder fp32 card vs CPU, a GradCAM map) and PyEER. The
+    main path runs at the TF32 settings a fresh process starts with,
+    whatever an earlier phase set. Returns the main path's launches and
+    the launches measured a run at each of check_quality_kernels' rows, by
+    (kernel, shape)."""
+    import numpy as np
+    from PIL import Image
+
+    from faceposegenerator_tpu_torch.evaluation import dgm
+
+    q = QUALITY
+    t_phase = time.time()
+    with build_dir("quality_eval") as root, tf32(*FRESH_PROCESS_TF32):
+        t0 = time.time()
+        sets = _write_quality_sets(root)
+        print(f"quality: wrote {q['folders'] * (q['real'] + q['gen'] + q['test'])} PNGs of {q['res']}² in "
+              f"{time.time() - t0:.1f} s; TF32 cuBLAS {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+              f"{torch.backends.cudnn.allow_tf32}", flush=True)
+        _reset_launch_counts()
+        with shape_tally() as tally:
+            summary, reps, dgm_batch, dgm_probe = _dgm_run(torch, card_line, sets, f"{root}/dgm_out", tally)
+            torch.cuda.empty_cache()
+            encoders, emb, encs, per_batch = _encoders(torch, card_line, sets, tally)
+            encs["dinov2"] = dgm._ENCODERS["dinov2"]()
+            summary["heatmap_fn_s"], heat_call = _heatmap_fn(torch, encs["dinov2"], reps, sets, tally)
+            counts = _quality_counts(tally)
+        launches = {k: v for k, v in _launch_counts().items() if v}
+        _gradcam_map(torch, encs["dinov2"], reps, sets)
+        gate_u8 = np.stack([np.asarray(Image.open(p).convert("RGB"), np.uint8)
+                            for p in dgm.list_dataset_images(sets["gen"])[:2]])
+        for name, enc in encs.items():
+            err, default_err = _encoder_gate(torch, name, enc, gate_u8)
+            (summary if name == "dinov2" else encoders[name]).update(f32_err=err, default_err=default_err)
+            print(f"quality: encoder {name} on 2 images: " + ("host features, no card" if err is None else
+                  f"fp32 card vs CPU {err:.2e}, default dtype on the card vs fp32 CPU {default_err:.2e} of the max "
+                  f"abs ({ENCODER_F32_MAX:g})"), flush=True)
+        arcface = encs.pop("arcface")
+        del encs
+        torch.cuda.empty_cache()
+        pyeer, pyeer_diffs = _pyeer(torch, emb, arcface, sets, root)
+    dgm_batches = q["folders"] * (q["real"] + q["gen"] + q["test"]) // q["batch"]
+    gen_batches = q["folders"] * q["gen"] // q["batch"]
+    expect = {"flash_fwd_d64": 24 * dgm_batches + 24 * q["heatmaps"] + (24 + 12) * gen_batches + 24,
+              "flash_bwd_d64_dkv": q["heatmaps"] + 24, "flash_bwd_d64_dq": q["heatmaps"] + 24}
+    if launches != expect or counts["flash_fwd_d64 +lse"] != q["heatmaps"] + 24:
+        fail(f"phase 16 launched {launches} ({counts['flash_fwd_d64 +lse']} K1 with the log-sum-exp), expected "
+             f"{expect} ({q['heatmaps'] + 24})")
+    measured = {}
+    for label, encoder in (("dinov2 L/14 224²", "dinov2"), ("mae L/16 224²", "mae"), ("clip B/32 224²", "clip")):
+        row = next(s for s in QUALITY_SHAPES if s[0] == label)
+        measured[("flash_fwd_d64", label)] = (dgm_batch if encoder == "dinov2" else per_batch[encoder]).get(
+            _shape_key(*row[1:6]), 0)
+    measured[("flash_fwd_d64", GRADCAM_SHAPES[0][0])] = dgm_probe.get(_shape_key(*GRADCAM_SHAPES[0][1:6]), 0)
+    lse_key = _shape_key(*GRADCAM_LSE_SHAPES[0][1:6], lse=True)
+    measured[("flash_fwd_d64", GRADCAM_LSE_SHAPES[0][0])] = dgm_probe.get(lse_key, 0)
+    measured[("flash_bwd_d64", GRADCAM_LSE_SHAPES[0][0])] = dgm_probe.get("flash_bwd_d64_dkv", 0)
+    measured[("flash_fwd_d64", HEATMAP_SHAPES[0][0])] = heat_call.get(_shape_key(*HEATMAP_SHAPES[0][1:6], lse=True), 0)
+    measured[("flash_bwd_d64", HEATMAP_SHAPES[0][0])] = heat_call.get("flash_bwd_d64_dkv", 0)
+    print(f"quality: phase 16 in {time.time() - t_phase:.1f} s, launches {json.dumps(launches)}, K1 with the "
+          f"log-sum-exp {counts['flash_fwd_d64 +lse']} ({card_line}); summary "
+          f"{json.dumps({'dgm': summary, 'encoders': encoders, 'pyeer': pyeer, 'pyeer_gate': pyeer_diffs}, default=float)}",
+          flush=True)
+    return launches, measured
+
+
 def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32, launches, ptxas, sass=None):
     """The kernels line: one entry per counted kernel. `ptxas` holds each
     wgmma or fp32 kernel function's registers and spills by instance;
@@ -3645,13 +4223,14 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
             bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
             shape=f"{top['shape']} B{top['B']}", lse_max_err=max(r["lse_max_err"] or 0.0 for r in mine),
             tflops=top["tflops"], **({"ptxas": ptxas[f"{name}_kernel"]} if f"{name}_kernel" in ptxas else {}),
-            # phase 12's shapes (ToMe, decode_chunk) and phase 14's (the rolling tick and decode),
-            # each with the contract's numbers and the launches a request (or tick) its phase counted
+            # phase 12's shapes (ToMe, decode_chunk), phase 14's (the rolling tick and decode) and
+            # phase 16's (the eval ViTs, GradCAM, make_heatmap_fn), each with the contract's numbers
+            # and the launches a request (tick, batch, probe, call) its phase makes
             shapes=[dict(shape=f"{r['shape']} B{r['B']}", B=r["B"], H=r["H"], Sq=r["Sq"], Skv=r["Skv"], D=r["D"],
                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                          library_ms=r["library_ms"], max_abs_err=r["max_abs_err"], tflops=r["tflops"],
-                         **{k: v for k, v in r.items() if k.startswith("launches_per_")})
-                    for r in mine if r.get("phase") in (12, 14)],
+                         lse_max_err=r["lse_max_err"], **{k: v for k, v in r.items() if k.startswith("launches_per_")})
+                    for r in mine if r.get("phase") in (12, 14, 16)],
         ))
     top = max(f32["fwd"], key=lambda r: r["bound_ms"])
     kernels.append(dict(
@@ -3688,6 +4267,13 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
                 # K6's three passes are instances of one template (dV and dK for the dK/dV entry)
                 **({"ptxas": ptxas.get("flash_bwd_wide_kernel"), "sass": sass.get("flash_bwd_wide_kernel")}
                    if kind == "wide" else {}),
+                # phase 16's gradient shapes (GradCAM, make_heatmap_fn)
+                shapes=[dict(shape=f"{r['shape']} B{r['B']}", B=r["B"], H=r["H"], Sq=r["Sq"], Skv=r["Skv"], D=r["D"],
+                             ms=r[f"{p}_ms"], pair_ms=r["pair_ms"], plain_ms=r["plain_ms"],
+                             bound_ms=r[f"{p}_bound_ms"], bound_by=r[f"{p}_bound_by"], library_ms=r["library_ms"],
+                             max_abs_err=max(r[e][0] for e in errs), grad_max_abs=r["grad_max_abs"],
+                             **{k: v for k, v in r.items() if k.startswith("launches_per_")})
+                        for r in mine if r.get("phase") == 16],
             ))
     # K7 and K8: no single library call computes their function (the int8
     # GEMM alone, bf16 F.linear and exact SDPA are yardsticks, in extra keys).
@@ -3834,6 +4420,9 @@ def main() -> int:
     fwd_rows += [dict(r, phase=14) for r in check_kernels(torch, fa, card, SERVE_TICK_SHAPES, per="tick")]
     fwd_rows += [dict(r, phase=14) for r in check_kernels(torch, fa, card, SERVE_DECODE_SHAPES)]
     bwd_rows = check_backward(torch, fa, card, [s for s in TRAIN_SHAPES if s[0] != "vae encode mid"])
+    quality_fwd, quality_bwd = check_quality_kernels(torch, fa, card)
+    fwd_rows += quality_fwd
+    bwd_rows += quality_bwd
     q_rows = check_qdense(torch, card)
     i8_rows = check_int8(torch, fa, card)
     txt2img, txt2img_secs = run_pipeline(torch, fa, card_line)
@@ -3881,15 +4470,20 @@ def main() -> int:
             serving, serve_counts = run_serving(torch, card_line, model_dir, work, txt2img_secs)
     torch.cuda.empty_cache()
     identity = run_identity_stack(torch, card_line)
-    for r in fwd_rows:  # phases 12's and 14's shapes: the launches their runs measured
+    torch.cuda.empty_cache()
+    quality, quality_counts = run_quality_eval(torch, card_line)
+    for r in fwd_rows + bwd_rows:  # phases 12's, 14's and 16's shapes: the launches their runs measured
         if r.get("phase") == 12:
             r["launches_per_request"] = ckpt_counts[r["shape"]]
         elif r.get("phase") == 14:
             r["launches_per_" + ("tick" if "launches_per_tick" in r else "request")] = serve_counts[r["shape"]]
+        elif r.get("phase") == 16:
+            r[next(k for k in r if k.startswith("launches_per_"))] = quality_counts[(r["kernel"], r["shape"])]
     paths = {"txt2img": txt2img, "turbo": turbo, "train": train, "fused txt2img": fused_txt2img,
              "fused train": fused_train, "fp32 txt2img": fp32_txt2img, "fp32 fused txt2img": fp32_fused,
              "fp32 routes at 2×128²": fp32_routes, "fp32 train check": fp32_train, "checkpoints": checkpoints,
-             "training driver": driver, "serving and sweep": serving, "identity stack and FR (no TPU kernel)": identity}
+             "training driver": driver, "serving and sweep": serving, "identity stack and FR (no TPU kernel)": identity,
+             "quality and identity evaluation": quality}
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in REPLACES}
     print("launches on the main paths: " + ", ".join(f"{k} {json.dumps(v)}" for k, v in paths.items()), flush=True)
     for name, count in launches.items():

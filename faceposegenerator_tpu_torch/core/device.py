@@ -6,12 +6,11 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """`None` means the card. Without one, raise: entry points never carry
-    on silently on the CPU; callers that want the CPU pass "cpu"."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+    """`None` means the card. A CUDA device without one raises: entry points
+    never carry on silently on the CPU; callers that want the CPU pass "cpu"."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return device

@@ -40,7 +40,8 @@ projection need no copy. The forward kernels also write the per-row
 log-sum-exp (B, H, Sq) fp32 when asked (`with_lse=True`); the backward
 kernels recompute the normalised p from it. A CPU tensor goes to the plain
 version; a CUDA tensor goes to its kernel or raises. Each wrapper adds one to
-`LAUNCHES[name]` where it launches its kernel, and nowhere else.
+`LAUNCHES[name]` where it launches its kernel, and nowhere else; a forward
+launch that writes the log-sum-exp also adds one to `LSE_LAUNCHES[name]`.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ LAUNCHES = {
     "flash_fwd_f32": 0, "flash_bwd_f32_dkv": 0, "flash_bwd_f32_dq": 0, "flash_int8_f32": 0,
     "flash_f32_split": 0, "flash_int8_amax": 0, "flash_int8_codes": 0,
 }
+LSE_LAUNCHES = {"flash_fwd_d64": 0, "flash_fwd_wide": 0, "flash_fwd_f32": 0}
 _WIDE_DIMS = (128, 256, 384, 512)
 _F32_DIMS = (64, *_WIDE_DIMS)
 _INT32_MAX = 2**31 - 1
@@ -67,8 +69,9 @@ _fns: dict = {}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, LSE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int, backward: bool = False):
@@ -280,12 +283,15 @@ def _launch_fwd(name: str, q, k, v, scale: float, kv_len, with_lse: bool):
         qs, ks, vt = f32_split([(q, False), (k, False), (v, True)])
         _call(name, qs.data_ptr(), ks.data_ptr(), vt.data_ptr(), o.data_ptr(), lse_ptr, b, h, sq, skv, kv_end, d,
               *o.stride()[:3], float(scale), stream)
-        return (o, lse) if with_lse else o
-    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]]
-    head = [b, h, sq, kv_end] + ([d] if name != "flash_fwd_d64" else [])
-    _call(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr, *head, *strides,
-          float(scale), stream)
-    return (o, lse) if with_lse else o
+    else:
+        strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]]
+        head = [b, h, sq, kv_end] + ([d] if name != "flash_fwd_d64" else [])
+        _call(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr, *head, *strides,
+              float(scale), stream)
+    if not with_lse:
+        return o
+    LSE_LAUNCHES[name] += 1
+    return o, lse
 
 
 def _fwd(name: str, q, k, v, scale: float, kv_len, with_lse: bool):

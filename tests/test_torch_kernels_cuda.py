@@ -79,6 +79,9 @@ FWD_CASES = [  # (b, sq, skv, h, d, kv_len)
     # ToMe at ratio 0.5 on the CFG batch of 8: L0's self-attention merged to 2048 tokens, and
     # its cross-attention from 2048 queries (tome_ops "xattn") over the 77 text keys
     (16, 2048, 2048, 5, 64, None), (16, 2048, 77, 5, 64, 77),
+    # the eval ViTs' self-attention at 224²: DINOv2 L/14 (257 tokens: a third query tile with one
+    # row, one key past two full tiles), MAE L/16 (197), CLIP B/32 (50, inside one tile)
+    (4, 257, 257, 16, 64, None), (4, 197, 197, 16, 64, None), (8, 50, 50, 12, 64, None),
 ]
 
 
@@ -208,6 +211,10 @@ BWD_CASES = [  # (b, sq, skv, h, d, kv_len): small and ragged, then a train shap
     (1, 100, 100, 1, 512, None), (1, 64, 96, 2, 128, 50), (4, 4096, 4096, 1, 512, None),
     # K5: kv_len inside the first 128-key tile; Sq = 64 and a ragged Sq = 200 over 77 keys
     (1, 64, 128, 2, 64, 50), (2, 64, 64, 4, 64, None), (2, 200, 77, 3, 64, None),
+    # the eval ViTs' gradients: GradCAM on DINOv2 (1 × 16 heads × 257², the dK/dV pass's last CTA
+    # owning one key row), make_heatmap_fn at batch 4, MAE's and CLIP's lengths
+    (1, 257, 257, 16, 64, None), (4, 257, 257, 16, 64, None), (2, 197, 197, 16, 64, None),
+    (2, 50, 50, 12, 64, None),
 ]
 
 
@@ -966,3 +973,47 @@ def test_cuda_mtcnn_detects_like_the_cpu():
             assert got[0][b].shape == want[0][b].shape
             assert np.abs(got[0][b] - want[0][b]).max() <= 0.5 and np.abs(got[2][b] - want[2][b]).max() <= 0.5
             assert np.abs(got[1][b] - want[1][b]).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_vit_encoder_runs_k1_and_gradcam_k5():
+    """A two-layer DINOv2 (head dim 64) at 224², 257 tokens: bf16 features
+    with exactly one K1 launch a layer; fp32 (TF32 off) within 1e-4 of the
+    CPU port's max abs; a GradCAM probe launching K1 twice (the last layer
+    with the log-sum-exp, counted apart) and K5 once, its map finite and in
+    [0, 1]."""
+    _card()
+    from faceposegenerator_tpu_torch.core.precision import PARITY_POLICY
+    from faceposegenerator_tpu_torch.evaluation.heatmaps import GradCAM, make_dinov2_gradcam_encoder
+    from faceposegenerator_tpu_torch.models import dinov2
+
+    cfg = dinov2.DINOv2Config(hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256)
+    cpu = dinov2.DINOv2(cfg, device="cpu", seed=3)
+    model = dinov2.DINOv2(cfg, seed=3)
+    model.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 224, 224, 3)).astype(np.float32))
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        feats = model.cls_feature(x.cuda())
+    torch.cuda.synchronize()
+    assert feats.shape == (2, 128) and torch.isfinite(feats).all()
+    assert {k: v for k, v in fa.LAUNCHES.items() if v} == {"flash_fwd_d64": 2}
+    assert not any(fa.LSE_LAUNCHES.values())
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got = model.cls_feature(x.cuda(), PARITY_POLICY).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    want = cpu.cls_feature(x, PARITY_POLICY)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    rng = np.random.default_rng(6)
+    cam = GradCAM(make_dinov2_gradcam_encoder(model), rng.standard_normal((300, 128)), rng.standard_normal((300, 128)))
+    fa.reset_launch_counts()
+    heat, delta = cam.get_map(x[:1].numpy(), 0)
+    assert {k: v for k, v in fa.LAUNCHES.items() if v} == {"flash_fwd_d64": 2, "flash_bwd_d64_dkv": 1,
+                                                           "flash_bwd_d64_dq": 1}
+    assert {k: v for k, v in fa.LSE_LAUNCHES.items() if v} == {"flash_fwd_d64": 1}  # the tapped layer
+    assert heat.shape == (16, 16) and np.isfinite(heat).all() and 0.0 <= heat.min() and heat.max() <= 1.0
+    assert np.isfinite(delta)

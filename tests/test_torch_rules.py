@@ -44,7 +44,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "pipelines.sweep", "training.idbooth_driver", "training.multi_identity", "training.losses",
                 "training.fr", "training.fr_driver", "data.fr_dataset", "data.augment", "data.align",
                 "data.align_driver", "evaluation.verification", "models.mtcnn", "models.mobilefacenet",
-                "models.vit_face", "models.registry", "pipelines.embed_extract"):
+                "models.vit_face", "models.registry", "pipelines.embed_extract", "evaluation.dgm",
+                "evaluation.heatmaps", "evaluation.metrics.prdc", "evaluation.eer", "evaluation.pairs",
+                "evaluation.pyeer_driver", "evaluation.analysis", "models.dinov2", "models.clip_vision",
+                "models.inception_v3", "models.resnet50", "models.simclr_resnet", "models.convnext",
+                "models.data2vec_vision"):
         assert f"faceposegenerator_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -145,9 +149,30 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch, tmp_path):
                   lambda: registry.get_model("mbf"), lambda: registry.get_model("vit_t"),
                   lambda: registry.get_model("r18"))
     for entry in (StableDiffusionPipeline.from_random, from_dir, UNet2DCondition, AutoencoderKL, IResNet, RepVGG,
-                  init_sixdrepnet, init_qs_head) + fr_entries:
+                  init_sixdrepnet, init_qs_head) + fr_entries + _eval_entries(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
+
+
+def _eval_entries(tmp_path):
+    """The quality-evaluation entry points: every registered encoder factory,
+    the seven encoder modules, `dgm.main` at its default `--device cuda`,
+    the distance matrix, GradCAM and the heatmap functions."""
+    import numpy as np
+
+    from faceposegenerator_tpu_torch.evaluation import dgm, heatmaps
+    from faceposegenerator_tpu_torch.evaluation.metrics import authpct, prdc
+    from faceposegenerator_tpu_torch.models import (clip_vision, convnext, data2vec_vision, dinov2, inception_v3,
+                                                    resnet50, simclr_resnet)
+
+    x = np.zeros((4, 2), np.float32)
+    assert len(dgm._ENCODERS) == 11
+    return tuple(dgm._ENCODERS.values()) + (
+        dinov2.DINOv2, clip_vision.CLIPVision, inception_v3.InceptionV3, resnet50.ResNet50,
+        simclr_resnet.SimCLRResNet, convnext.ConvNeXt, data2vec_vision.Data2VecVision,
+        lambda: dgm.main([str(tmp_path), str(tmp_path), "--output_dir", str(tmp_path / "out")]),
+        lambda: prdc(x, x), lambda: authpct(x, x), lambda: heatmaps.fit_real_gaussian(x),
+        lambda: heatmaps.GradCAM(None, x, x), lambda: heatmaps.make_heatmap_fn(None, None, None))
 
 
 def test_cpu_tensors_never_count_launches():
