@@ -273,6 +273,27 @@ Phases, in order; any failure exits non-zero without the final result line:
      3 holds K1 at 64 × 16 × 257², 64 × 16 × 197² and 64 × 12 × 50², with
      the log-sum-exp at 1 × 16 × 257² and 4 × 16 × 257², and K5 at the last
      two, beside the other rows.
+ 17. the command line (`run_cli`; alone: `perf/torch_cli.py`), in this
+     process through `cli.main` so the counters see it, on phase 12's
+     directory, phase 14's LoRA root and images and phases 15-16's files:
+     `generate --pack_variants --eval` at DDPM 30 (3 variants × 21 prompts,
+     8 batches of K1 960 and K2 1, each of the 63 PNGs equal to phase 14's
+     packed sweep or within the per-sample gate 1e-1 / 1e-2, 63 FIQA
+     scores and poses); `generate --preset turbo --pack_variants --eval` at
+     2 prompts (calibration: K7 1280 with 680 qdense_quant; one batch of 8
+     with phase 6's counts; each variant's slots within the gate of the
+     same prompts unpacked on the command's own pipeline, the variants'
+     images differing); `serve --multi_lora` as a child process (its
+     "serving on" line and /healthz under a timeout, POST /generate twice,
+     cold and warm, within the gate of phase 14's request 0, /stats, no
+     kernel built); `train-idbooth`
+     (1 identity of 2 images, 200 class images, triplet_prior, 1 epoch:
+     200 steps with phase 7's counts each, the validation's, the exported
+     LoRA loaded); `accel-report --mode deepcache=3 --mode attn=flash_int8`
+     (exact K1, K2 and K8 counts, finite fields); extract-embeds (folder,
+     --streaming), align-crop, train-fr and test-fr (the same accuracy),
+     fiqa, pose, dgm-eval (DINOv2, 24 K1 a batch), pyeer and analyze, the
+     identity and FR commands launching nothing; each command's seconds.
 Phases 3-7 run the default configuration (GN_IMPL and GN_CONV_IMPL at xla)
 whatever the environment says. The line before the last is a JSON object
 with one entry per kernel; the last is {"ok": true, "device": {...}}.
@@ -2192,12 +2213,15 @@ def _route_diff(got, want, label, limits=(1e-1, 1e-2)):
 
 class build_dir:
     """A fresh directory `build/<name>` of the checkout within the block,
-    removed after it, also when a check fails."""
+    removed after it, also when a check fails. With `parent`, the directory
+    `<parent>/<name>` instead, left for a later phase (the parent's block
+    removes it)."""
 
-    def __init__(self, name):
+    def __init__(self, name, parent=None):
         from pathlib import Path
 
-        self.path = str(Path(__file__).resolve().parent / "build" / name)
+        self.keep = parent is not None
+        self.path = str(Path(parent) / name if self.keep else Path(__file__).resolve().parent / "build" / name)
 
     def __enter__(self):
         import shutil
@@ -2208,7 +2232,8 @@ class build_dir:
     def __exit__(self, *exc):
         import shutil
 
-        shutil.rmtree(self.path, ignore_errors=True)
+        if not self.keep:
+            shutil.rmtree(self.path, ignore_errors=True)
 
 
 def run_checkpoints(torch, card_line, default_secs, root):
@@ -2567,7 +2592,8 @@ def run_driver(torch, card_line, model_dir, work, train_secs, train_peak):
     frozen nets, fp32 LoRA, triplet_prior; its files under `work`. Class
     images, run_identity, resume, the exported LoRA in the pipeline, the
     stacked K = 2 run and accumulation with the text-encoder LoRA, each
-    with exact launch counts. Returns the phase's launch counts."""
+    with exact launch counts. Returns the phase's launch counts and the
+    least s/step of run_identity after its first step."""
     import os
 
     import numpy as np
@@ -2794,7 +2820,7 @@ def run_driver(torch, card_line, model_dir, work, train_secs, train_peak):
     del pipe, frozen
     torch.cuda.empty_cache()
     print(f"driver: phase 13 in {time.time() - t_phase:.1f} s ({card_line})", flush=True)
-    return total
+    return total, min(step_s[1:])
 
 
 # Phase 14: the batch engine's requests (30 DDPM steps, batch 8) launch
@@ -2847,7 +2873,11 @@ def run_serving(torch, card_line, model_dir, work, default_secs):
     rolling engine (DDPM and DPM-Solver++, against the batch engine, exact
     launches a tick and a decode), `parallel_window=8` at batch 1, the HTTP
     API, and the packed sweep of 3 variants × 21 prompts with FIQA and pose
-    scored on the card. Returns the phase's launch counts."""
+    scored on the card. Returns the phase's launch counts, the launches
+    measured at SERVE_TICK_SHAPES and SERVE_DECODE_SHAPES, and what phase 17
+    holds the command line to: request 0 (its prompt, seed, adapter file and
+    the batch engine's image), the sweep's LoRA root and output, and the
+    sweep's img/s."""
     import base64
     import io
     import os
@@ -3142,7 +3172,9 @@ def run_serving(torch, card_line, model_dir, work, default_secs):
     del pipe
     torch.cuda.empty_cache()
     print(f"serving: phase 14 in {time.time() - t_phase:.1f} s ({card_line})", flush=True)
-    return {n: c for n, c in total.items() if c}, measured
+    refs = {"request": reqs[0], "lora_file": files["l1"], "image": mixed[0].image, "lora_root": lora_root,
+            "sweep": out_root, "sweep_img_s": 63 / sweep_s}
+    return {n: c for n, c in total.items() if c}, measured, refs
 
 
 # Phase 15: the identity stack and FR training. No TPU kernel lies on this
@@ -3628,10 +3660,11 @@ def _backbones(torch, card_line):
     return out
 
 
-def run_identity_stack(torch, card_line):
+def run_identity_stack(torch, card_line, keep=None):
     """Phase 15: the FR gate, the FR bench and driver, embedding extraction
     with its gates, alignment and the face backbones. Returns the kernel
-    launches it counted (none: the path runs no TPU kernel)."""
+    launches it counted (none: the path runs no TPU kernel). With `keep`, a
+    directory, its files stay under it (`cli_inputs`)."""
     from faceposegenerator_tpu_torch.training import fr
 
     t_phase = time.time()
@@ -3640,10 +3673,10 @@ def run_identity_stack(torch, card_line):
     torch.cuda.empty_cache()
     bench = _fr_bench(torch, fr, card_line)
     torch.cuda.empty_cache()
-    with build_dir("fr_driver") as root:
+    with build_dir("fr_driver", keep) as root:
         driver = _fr_driver(torch, fr, card_line, root)
     torch.cuda.empty_cache()
-    with build_dir("embed_extract") as root:
+    with build_dir("embed_extract", keep) as root:
         embed = _embed_stack(torch, card_line, root)
     torch.cuda.empty_cache()
     backbones = _backbones(torch, card_line)
@@ -4134,14 +4167,14 @@ def _gradcam_map(torch, enc, dgm_reps, sets):
         fail(f"GradCAM: map {heat.shape}, finite {bool(np.isfinite(heat).all())}, FD change {delta}")
 
 
-def run_quality_eval(torch, card_line):
+def run_quality_eval(torch, card_line, keep=None):
     """Phase 16: dgm-eval with DINOv2 on the card (all metrics, GradCAM),
     the other ten encoders, make_heatmap_fn; their launches counted; then
     the gates (each encoder fp32 card vs CPU, a GradCAM map) and PyEER. The
     main path runs at the TF32 settings a fresh process starts with,
     whatever an earlier phase set. Returns the main path's launches and
     the launches measured a run at each of check_quality_kernels' rows, by
-    (kernel, shape)."""
+    (kernel, shape). With `keep`, a directory, its files stay under it."""
     import numpy as np
     from PIL import Image
 
@@ -4149,7 +4182,7 @@ def run_quality_eval(torch, card_line):
 
     q = QUALITY
     t_phase = time.time()
-    with build_dir("quality_eval") as root, tf32(*FRESH_PROCESS_TF32):
+    with build_dir("quality_eval", keep) as root, tf32(*FRESH_PROCESS_TF32):
         t0 = time.time()
         sets = _write_quality_sets(root)
         print(f"quality: wrote {q['folders'] * (q['real'] + q['gen'] + q['test'])} PNGs of {q['res']}² in "
@@ -4200,6 +4233,510 @@ def run_quality_eval(torch, card_line):
           f"{json.dumps({'dgm': summary, 'encoders': encoders, 'pyeer': pyeer, 'pyeer_gate': pyeer_diffs}, default=float)}",
           flush=True)
     return launches, measured
+
+
+# Phase 17: the command line (`faceposegenerator_tpu_torch/cli.py`) run in
+# this process through `cli.main`, so the launch counters see it; `serve`
+# as a child process. generate's packed batches launch phase 4's counts
+# (DDPM 30) or phase 6's (the turbo preset); train-idbooth's steps phase
+# 7's; the identity and FR commands none of K1-K8; dgm-eval 24 K1 a batch.
+CLI_TURBO_PROMPTS = 2  # 3 variants × 2 prompts: one packed batch of 8 with 2 pad slots
+# the turbo preset calibrating on one prompt (8 steps of 2 CFG rows at 512²):
+# phase 6's 160 K7 calls a UNet pass, of which the wide instance takes 85
+# (K > 1280 or fewer than 2048 rows): every cross k/v projection (32), L1's
+# GEGLU output (5), the rest of L2's (40) and of the mid block's (8) calls
+CLI_CALIB_LAUNCHES = {"qdense": 8 * 160, "qdense_quant": 8 * 85}
+# the config's num_class_images, as a reference class folder holds them: the
+# epoch is as long as the folder (200 steps of 1 + 1 rows)
+CLI_CLASS_IMAGES = 200
+# dgm-eval on 2 of phase 16's 16 folders of each set (64 PNGs: one batch
+# each): the reference subsamples --nsample images only from a set larger
+# than nsample + 2000, so the folders, not the flag, keep the run small
+CLI_DGM = dict(folders=("id00", "id01"), nsample=128, batch=64)
+# accel-report at one prompt, 30 DDPM steps: the exact render (30 full UNet
+# passes), DeepCache-3 (10 full, 20 partial: level 0's ten attentions) and
+# the flash_int8 render (every attention on K8), a VAE decode each
+CLI_ACCEL_LAUNCHES = {"flash_fwd_d64": 30 * 32 + 10 * 32 + 20 * 10, "flash_fwd_wide": 3, "flash_int8": 30 * 32,
+                      "flash_int8_amax": 30 * 32, "flash_int8_codes": 30 * 32}
+
+
+def cli_inputs(data):
+    """Where phases 15 and 16 leave the files phase 17 runs on, under `data`."""
+    import os
+
+    q = os.path.join(data, "quality_eval")
+    return {"embed_images": os.path.join(data, "embed_extract", "images"),
+            "fr_flat": os.path.join(data, "fr_driver", "flat"), "fr_bin": os.path.join(data, "fr_driver", "lfw.bin"),
+            "quality": {n: os.path.join(q, n) for n in ("real", "gen", "test")}}
+
+
+class pipeline_probe:
+    """Within the block, every pipeline `StableDiffusionPipeline.from_pretrained`
+    makes is kept in `pipes`, in order."""
+
+    def __enter__(self):
+        from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+
+        self.saved, self.pipes = StableDiffusionPipeline.from_pretrained, []
+
+        def keep(*a, **kw):
+            self.pipes.append(self.saved(*a, **kw))
+            return self.pipes[-1]
+
+        StableDiffusionPipeline.from_pretrained = keep
+        return self
+
+    def __exit__(self, *exc):
+        from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+
+        StableDiffusionPipeline.from_pretrained = self.saved
+
+
+def _run_cli(torch, argv, card_line, expect=None):
+    """`cli.main(argv)` in this process, its standard output captured:
+    returns (what it printed, its launches, seconds). The printed output is
+    shown (cut to 400 characters); `expect`, when given, must be the
+    launches."""
+    import contextlib
+    import io
+
+    from faceposegenerator_tpu_torch import cli
+
+    before = _launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = {n: c - before[n] for n, c in _launch_counts().items() if c != before[n]}
+    text = out.getvalue().strip()
+    shown = " ".join(text.split())
+    print(f"cli {argv[0]}: {secs:.2f} s, launches {json.dumps(launches)}; printed "
+          f"{shown[:400]}{' …' if len(shown) > 400 else ''} ({card_line})", flush=True)
+    if rc != 0:
+        fail(f"cli {' '.join(argv)} returned {rc}")
+    if expect is not None and launches != expect:
+        fail(f"cli {argv[0]} launched {launches}, expected {expect}")
+    return text, launches, secs
+
+
+def _last_json(text):
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def _finite_numbers(tree, label):
+    import math
+
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _finite_numbers(v, f"{label}.{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            _finite_numbers(v, f"{label}[{i}]")
+    elif tree is None:
+        fail(f"{label} is null")
+    elif not isinstance(tree, (str, bool)) and not math.isfinite(float(tree)):
+        fail(f"{label} = {tree} is not finite")
+
+
+def _png(path):
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def _cli_generate(torch, card_line, model_dir, refs, root):
+    """generate at DDPM 30 with --pack_variants --eval: the reference's
+    operating point (3 variants × 21 prompts of one identity, batch 8, 8
+    batches, 1 pad slot), each PNG against phase 14's packed sweep, the eval
+    files; then --preset turbo --pack_variants --eval at 2 prompts (one
+    batch of 8, 2 pad slots), each variant's slots against the same prompts
+    rendered unpacked, one variant a batch, on the CLI's own pipeline."""
+    import os
+
+    import numpy as np
+
+    from faceposegenerator_tpu_torch.diffusion import sampler
+    from faceposegenerator_tpu_torch.diffusion.lora_io import load_lora_safetensors
+    from faceposegenerator_tpu_torch.pipelines import sweep, txt2img
+    from faceposegenerator_tpu_torch.pipelines.presets import get_preset
+    from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+
+    total = {}
+    out = os.path.join(root, "generate")
+    argv = ["generate", "--model_dir", model_dir, "--lora_root", refs["lora_root"], "--output", out,
+            "--pack_variants", "--eval"]
+    with step_probe(txt2img, "sample", factory=False) as batches:  # the pipeline's batches
+        printed, launches, secs = _run_cli(torch, argv, card_line)
+    _add_counts(total, launches)
+    _expect_each(batches.records, REQUEST_LAUNCHES, "cli generate batch")
+    if len(batches.records) != 8:
+        fail(f"cli generate ran {len(batches.records)} batches, expected 8")
+    worst = (0, 0.0)
+    for v in sweep.MODEL_VARIANTS:
+        for p in range(21):
+            name = os.path.join(v, "id_7", f"id_7_{p:03d}.png")
+            got, want = _png(os.path.join(out, name)), _png(os.path.join(refs["sweep"], name))
+            if not np.array_equal(got, want):
+                worst = max(worst, _u8_diff(got, want, f"cli generate {name} vs phase 14's sweep"))
+    rows = open(os.path.join(out, "eval", "fiqa_scores.txt")).read().splitlines()
+    poses = json.load(open(os.path.join(out, "eval", "pose_stats.json")))
+    scores = np.array([float(r.rsplit(" ", 1)[1]) for r in rows])
+    if len(rows) != 63 or poses["global"]["count"] != 63 or not np.isfinite(scores).all():
+        fail(f"cli generate --eval wrote {len(rows)} scores and {poses['global']['count']} poses, expected 63")
+    if _last_json(printed) != {"eval": os.path.join(out, "eval"), "images": 63}:
+        fail(f"cli generate --eval printed {printed[-200:]}")
+    sample_s = sum(r["s"] for r in batches.records)
+    print(f"cli generate (DDPM 30, --pack_variants --eval, 3 × 21 at batch 8): {secs:.2f} s, {63 / secs:.3f} img/s "
+          f"({63 / sample_s:.3f} img/s over its 8 batches); the 63 PNGs against phase 14's sweep: "
+          f"{'bit-equal' if worst == (0, 0.0) else f'uint8 max diff {worst[0]}'}; phase 14's sweep "
+          f"{refs['sweep_img_s']:.3f} img/s ({card_line})", flush=True)
+
+    # the turbo preset, packed, with the eval hooks
+    out_t = os.path.join(root, "generate_turbo")
+    argv = ["generate", "--model_dir", model_dir, "--lora_root", refs["lora_root"], "--output", out_t,
+            "--preset", "turbo", "--pack_variants", "--eval", "--num_prompts", str(CLI_TURBO_PROMPTS)]
+    with pipeline_probe() as made, step_probe(StableDiffusionPipeline, "calibrate_quant", factory=False) as calib, \
+            step_probe(txt2img, "sample", factory=False) as tb:
+        printed, launches, secs = _run_cli(torch, argv, card_line)
+    _add_counts(total, launches)
+    pipe = made.pipes[0]
+    if len(calib.records) != 1 or any(calib.records[0]["launches"].get(n) != c
+                                      for n, c in CLI_CALIB_LAUNCHES.items()):
+        fail(f"cli generate --preset turbo calibrated {len(calib.records)} times, launching "
+             f"{[r['launches'] for r in calib.records]}; expected once, with {CLI_CALIB_LAUNCHES} among them")
+    _expect_each(tb.records, TURBO_LAUNCHES["auto"], "cli generate --preset turbo batch")
+    if len(tb.records) != 1:
+        fail(f"cli generate --preset turbo --pack_variants ran {len(tb.records)} batches, expected 1")
+    n_img = len(sweep.MODEL_VARIANTS) * CLI_TURBO_PROMPTS
+    if _last_json(printed) != {"eval": os.path.join(out_t, "eval"), "images": n_img}:
+        fail(f"cli generate --preset turbo --eval printed {printed[-200:]}")
+    preset = get_preset("turbo")
+    prompts = sweep.build_prompts("id_7", {}, sweep.build_prompt_combinations(), CLI_TURBO_PROMPTS, seed=0)
+    tok, neg = pipe.tokenize(prompts), pipe.tokenize([sweep.DEFAULT_NEGATIVE])
+    pis = list(range(CLI_TURBO_PROMPTS))
+    noise = sampler.per_prompt_noise(7, pis, preset.steps, 64, 64, pipe.device)
+    packed, ref_s = {}, []
+    for v in sweep.MODEL_VARIANTS:
+        tree = load_lora_safetensors(os.path.join(refs["lora_root"], v, "id_7", "checkpoint-31-6400"),
+                                     pipe.nets["unet"], pipe.nets["text_encoder"], dtype=pipe.policy.param_dtype)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want = pipe(input_ids=tok, negative_input_ids=neg.expand(len(pis), -1), lora=tree, noise_override=noise,
+                    num_inference_steps=preset.steps, guidance_scale=5.0, height=512, width=512,
+                    **preset.sample_kwargs())
+        ref_s.append(time.time() - t0)
+        _check_images(want, len(pis), 512, f"turbo {v} unpacked")
+        for p in pis:
+            packed[v, p] = _png(os.path.join(out_t, v, "id_7", f"id_7_{p:03d}.png"))
+            _route_diff(packed[v, p].astype(np.float32) / 255.0, want[p],
+                        f"cli generate --preset turbo --pack_variants {v} prompt {p} vs unpacked")
+    for p in pis:
+        for a, b in zip(sweep.MODEL_VARIANTS, sweep.MODEL_VARIANTS[1:]):
+            if np.abs(packed[a, p].astype(int) - packed[b, p].astype(int)).max() < 8:
+                fail(f"turbo prompt {p}: variants {a} and {b} give the same image")
+    rows = open(os.path.join(out_t, "eval", "fiqa_scores.txt")).read().splitlines()
+    if len(rows) != n_img:
+        fail(f"cli generate --preset turbo --eval wrote {len(rows)} scores, expected {n_img}")
+    batch_s = tb.records[0]["s"]
+    print(f"cli generate --preset turbo --pack_variants --eval (w8a8+vae, DPM++ 12, DeepCache-4, cfg_interval "
+          f"(2, 8), 3 × {CLI_TURBO_PROMPTS} in one batch of 8): {secs:.2f} s with loading and calibration "
+          f"({calib.records[0]['s']:.2f} s); the batch {batch_s:.3f} s = {n_img / batch_s:.3f} img/s "
+          f"({8 / batch_s:.3f} slots/s) against phase 14's DDPM 30 packed sweep {refs['sweep_img_s']:.3f} img/s; "
+          f"unpacked references {[round(s, 3) for s in ref_s]} s a variant ({card_line})", flush=True)
+    del made, pipe
+    torch.cuda.empty_cache()
+    return total
+
+
+def _cli_serve(torch, card_line, model_dir, refs, root):
+    """`serve --multi_lora` with phase 14's adapter l1 as "a", started as a
+    child process: the "serving on" line, then /healthz (the startup's
+    end), POST /generate of request 0 twice (cold, then warm; its PNG
+    against the batch engine's image) and GET /stats; the child loads the
+    kernels phase 2 built and builds none."""
+    import base64
+    import io
+    import os
+    import queue
+    import socket
+    import threading
+    import urllib.request
+    from pathlib import Path
+
+    import numpy as np
+    from PIL import Image
+
+    from faceposegenerator_tpu_torch.ops import _build
+
+    repo = Path(__file__).resolve().parent
+    libs = lambda: {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.iterdir()}  # noqa: E731
+    before = libs()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.empty_cache()
+    err_path = os.path.join(root, "serve.stderr")
+    argv = [sys.executable, "-m", "faceposegenerator_tpu_torch.cli", "serve", "--model_dir", model_dir,
+            "--lora", f"a={refs['lora_file']}", "--multi_lora", "--port", str(port)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(repo)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    req = refs["request"]
+    with open(err_path, "w") as err:
+        t0 = time.time()
+        child = subprocess.Popen(argv, cwd=str(repo), env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(line) for line in child.stdout], daemon=True).start()
+    try:
+        line, deadline = "", time.time() + 300
+        while "serving on" not in line:
+            if child.poll() is not None:
+                fail(f"cli serve exited with {child.returncode} before serving: {open(err_path).read()[-2000:]}")
+            if time.time() > deadline:
+                fail("cli serve printed no 'serving on' line within 300 s")
+            try:
+                line = lines.get(timeout=0.5)
+            except queue.Empty:
+                continue
+        # the line comes just before the command binds its port: wait for /healthz
+        while True:
+            if child.poll() is not None:
+                fail(f"cli serve exited with {child.returncode} after its line: {open(err_path).read()[-2000:]}")
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                if time.time() > deadline:
+                    fail("cli serve did not answer /healthz within 300 s of its start")
+                time.sleep(0.05)
+        startup_s = time.time() - t0
+        body = json.dumps({"prompt": req.prompt, "negative_prompt": req.negative_prompt, "seed": req.seed,
+                           "lora_id": "a"}).encode()
+        request_s, images = [], []
+        for _ in range(2):  # the first request pays the child's first launches; the second is warm
+            t1 = time.time()
+            with urllib.request.urlopen(urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=body,
+                                                               method="POST"), timeout=300) as r:
+                status, out = r.status, json.load(r)
+            request_s.append(time.time() - t1)
+            if status != 200:
+                fail(f"cli serve answered {status}: {out}")
+            images.append(np.asarray(Image.open(io.BytesIO(base64.b64decode(out["image"])))))
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=60) as r:
+            stats = json.load(r)
+        if child.poll() is not None:
+            fail(f"cli serve exited with {child.returncode} while serving: {open(err_path).read()[-2000:]}")
+    finally:
+        child.kill()
+        child.wait(timeout=60)
+    print(f"cli serve (child process, --multi_lora, batch 8, 30 steps): '{line.strip()}', /healthz after "
+          f"{startup_s:.2f} s; POST /generate twice in {[round(x, 3) for x in request_s]} s; /stats "
+          f"{json.dumps(stats)} ({card_line})", flush=True)
+    if images[0].shape != refs["image"].shape or stats["requests"] != 2 or not np.array_equal(*images):
+        fail(f"cli serve answered images of {images[0].shape} (the two equal: {np.array_equal(*images)}), stats "
+             f"{stats}")
+    _u8_diff(images[0], refs["image"], "cli serve's PNG vs phase 14's batch engine (request 0)")
+    after = libs()
+    if after != before:
+        fail(f"cli serve changed build/kernels: {sorted(set(after.items()) ^ set(before.items()))}")
+    return {"startup_s": startup_s, "request_s": request_s[0], "warm_request_s": request_s[1]}
+
+
+def _cli_train(torch, card_line, model_dir, root, driver_step_s):
+    """train-idbooth on one identity of 2 JPEGs of 512², 200 class images
+    already in their folder, embeddings from `extract-embeds`, triplet_prior,
+    one epoch (200 steps of 1 + 1 rows: the dataset is as long as its class
+    folder), each step launching phase 7's counts, the validation its own;
+    the exported LoRA loaded into the CLI's pipeline."""
+    import os
+    import statistics
+
+    from faceposegenerator_tpu_torch.core.tree import tree_paths
+    from faceposegenerator_tpu_torch.training import idbooth, idbooth_driver
+
+    src, class_dir, emb, out = (os.path.join(root, "idbooth", d) for d in ("src", "class", "emb", "out"))
+    _write_faces(torch, os.path.join(src, "id_0"), 2, 512, 60)
+    _write_faces(torch, class_dir, CLI_CLASS_IMAGES, 128, 61)
+    _run_cli(torch, ["extract-embeds", "--images_root", src, "--output_root", emb], card_line, expect={})
+    argv = ["train-idbooth", "--model_dir", model_dir, "--source_folder", src, "--output_folder", out,
+            "--class_data_dir", class_dir, "--embeds_root", emb, "--losses", "triplet_prior",
+            "--num_train_epochs", "1"]
+    with pipeline_probe() as made, step_probe(idbooth, "make_train_step") as steps, \
+            step_probe(idbooth_driver, "validation_images", factory=False) as val:
+        _, launches, secs = _run_cli(torch, argv, card_line)
+    _expect_each(steps.records, STEP_LAUNCHES, "cli train-idbooth step")
+    _expect_each(val.records, VALIDATION_LAUNCHES, "cli train-idbooth validation")
+    if len(steps.records) != CLI_CLASS_IMAGES or len(val.records) != 1:
+        fail(f"cli train-idbooth ran {len(steps.records)} steps and {len(val.records)} validations, expected "
+             f"{CLI_CLASS_IMAGES} and 1")
+    run = os.path.join(out, "ID-Booth", "id_0")
+    names = sorted(os.listdir(run))
+    if "pytorch_lora_weights.safetensors" not in names or "checkpoint-0-200" not in names:
+        fail(f"cli train-idbooth left {names}")
+    pipe = made.pipes[0]
+    pipe.load_lora_weights(run)
+    moved = max(float(t.abs().max()) for path, t in tree_paths(pipe.lora["unet"]) if path.endswith("/b"))
+    if not moved > 0:
+        fail("the exported LoRA's B matrices load as zeros: training did not move them")
+    step_s = [r["s"] for r in steps.records[1:]]
+    print(f"cli train-idbooth (1 identity × 2 images + 200 class images, 512², triplet_prior, r100, 1 epoch): "
+          f"{secs:.2f} s; {len(steps.records)} steps, s/step median {statistics.median(step_s):.4f} min "
+          f"{min(step_s):.4f} (1 + 1 rows) beside phase 13's {driver_step_s:.4f} (4 + 4 rows); validation "
+          f"{val.records[0]['s']:.2f} s; the exported LoRA loads into the pipeline (B max {moved:.3e}); files "
+          f"{names} ({card_line})", flush=True)
+    del made, pipe
+    torch.cuda.empty_cache()
+    return launches, secs
+
+
+def _cli_identity(torch, card_line, inputs, root, generated):
+    """extract-embeds (folder and --streaming) and align-crop on phase 15's
+    JPEGs, train-fr and test-fr on its FR files, fiqa and pose on the
+    generate command's PNGs, dgm-eval (DINOv2) on 2 folders of each of
+    phase 16's real and generated sets, pyeer and
+    analyze on the extracted embeddings. Returns the seconds of each."""
+    import os
+
+    import numpy as np
+
+    secs = {}
+    emb_f, emb_s = os.path.join(root, "emb_folder"), os.path.join(root, "emb_stream")
+    for label, out, extra in (("extract-embeds", emb_f, []), ("extract-embeds --streaming", emb_s, ["--streaming"])):
+        printed, _, secs[label] = _run_cli(torch, ["extract-embeds", "--images_root", inputs["embed_images"],
+                                                   "--output_root", out] + extra, card_line, expect={})
+        if _last_json(printed) != {"missing": 0}:
+            fail(f"cli {label} printed {printed}")
+    files = sorted(os.path.join(d, f) for d in os.listdir(emb_f) if os.path.isdir(os.path.join(emb_f, d))
+                   for f in os.listdir(os.path.join(emb_f, d)))
+    a = np.stack([np.load(os.path.join(emb_f, f)) for f in files])
+    b = np.stack([np.load(os.path.join(emb_s, f)) for f in files])
+    n_img = sum(len(fs) for _, _, fs in os.walk(inputs["embed_images"]))
+    if len(files) != n_img or not (np.isfinite(a).all() and np.isfinite(b).all()):
+        fail(f"cli extract-embeds wrote {len(files)} embeddings for {n_img} images")
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    print(f"cli extract-embeds: {len(files)} embeddings each way; folder vs streaming cosine min {cos.min():.4f} "
+          f"(the host crop against the device crop, as in phase 15)", flush=True)
+
+    align_in = os.path.join(root, "align_in", "phase15")
+    os.makedirs(align_in)
+    for d in ("00", "01"):
+        os.symlink(os.path.join(inputs["embed_images"], d), os.path.join(align_in, d))
+    printed, _, secs["align-crop"] = _run_cli(torch, ["align-crop", "--input_root", os.path.dirname(align_in),
+                                                      "--output_root", os.path.join(root, "aligned")], card_line,
+                                              expect={})
+    if set(_last_json(printed)) != {"phase15"}:
+        fail(f"cli align-crop printed {printed}")
+
+    fr_out = os.path.join(root, "fr")
+    printed, _, secs["train-fr"] = _run_cli(torch, ["train-fr", "--dataset_root", inputs["fr_flat"], "--output",
+                                                    fr_out, "--num_epochs", "1", "--val_bin",
+                                                    f"lfw={inputs['fr_bin']}"], card_line, expect={})
+    best = _last_json(printed)["best_acc"]
+    printed, _, secs["test-fr"] = _run_cli(torch, ["test-fr", "--backbone", os.path.join(fr_out, "best_backbone.npz"),
+                                                   "--num_classes", "1000", "--val_bin", f"lfw={inputs['fr_bin']}",
+                                                   "--output_json", os.path.join(root, "test_fr.json")], card_line,
+                                           expect={})
+    if _last_json(printed)["lfw"]["accuracy"] != best:
+        fail(f"cli test-fr gives {printed} where train-fr's best epoch had {best}")
+
+    variant = os.path.join(generated, "ID-Booth")
+    fiqa_txt = os.path.join(root, "fiqa.txt")
+    printed, _, secs["fiqa"] = _run_cli(torch, ["fiqa", "--image_dir", variant, "--output", fiqa_txt], card_line,
+                                        expect={})
+    if _last_json(printed) != {"scored": 21}:
+        fail(f"cli fiqa printed {printed}")
+    # the same random CR-FIQA (seeds 0, 1) scored the same images in memory under generate --eval
+    from_files = {os.path.relpath(p, generated): float(s) for p, s in
+                  (r.rsplit(" ", 1) for r in open(fiqa_txt).read().splitlines())}
+    in_memory = {n: float(s) for n, s in (r.rsplit(" ", 1) for r in
+                                          open(os.path.join(generated, "eval", "fiqa_scores.txt")).read().splitlines())}
+    gap = max(abs(s - in_memory[n]) for n, s in from_files.items())
+    print(f"cli fiqa: the 21 scores from the PNGs (PIL resize) vs generate --eval's in memory (resize on the "
+          f"card): max abs diff {gap:.4e}", flush=True)
+    printed, _, secs["pose"] = _run_cli(torch, ["pose", "--image_root", variant, "--output_json",
+                                                os.path.join(root, "poses.json")], card_line, expect={})
+    if _last_json(printed)["count"] != 21:
+        fail(f"cli pose printed {printed}")
+
+    import shutil
+
+    sets = {}
+    for name in ("real", "gen"):
+        sets[name] = os.path.join(root, "dgm_sets", name)
+        for d in CLI_DGM["folders"]:
+            shutil.copytree(os.path.join(inputs["quality"][name], d), os.path.join(sets[name], d))
+    n_batches = sum(-(-sum(len(fs) for _, _, fs in os.walk(d)) // CLI_DGM["batch"]) for d in sets.values())
+    printed, launches, secs["dgm-eval"] = _run_cli(
+        torch, ["dgm-eval", sets["real"], sets["gen"], "--model", "dinov2", "--nsample", str(CLI_DGM["nsample"]),
+                "--batch_size", str(CLI_DGM["batch"]), "--metrics", "fd", "kd", "prdc", "--output_dir",
+                os.path.join(root, "dgm")], card_line, expect={"flash_fwd_d64": 24 * n_batches})
+    _finite_numbers(_last_json(printed), "cli dgm-eval")
+
+    flat = os.path.join(root, "emb_flat")
+    os.makedirs(flat)
+    for f in files:
+        d, name = os.path.split(f)
+        os.symlink(os.path.join(emb_f, f), os.path.join(flat, f"{d}_{name}"))
+    printed, _, secs["pyeer"] = _run_cli(torch, ["pyeer", "--synth_embeds_dir", flat, "--output",
+                                                 os.path.join(root, "pyeer")], card_line, expect={})
+    res = json.loads(printed)
+    if set(res) != {"AmongSynth"}:
+        fail(f"cli pyeer printed {sorted(res)}")
+    _finite_numbers(res["AmongSynth"]["eer"], "cli pyeer AmongSynth eer")
+    printed, _, secs["analyze"] = _run_cli(torch, ["analyze", "--embeds_dir", emb_f, "--output",
+                                                   os.path.join(root, "analyze")], card_line, expect={})
+    dist = json.loads(printed)["distribution"]
+    if dist["n_identities"] != EMBED_BENCH["folders"] or not os.path.exists(os.path.join(root, "analyze",
+                                                                                          "dataset_stats.json")):
+        fail(f"cli analyze found {dist['n_identities']} identities")
+    return launches, secs
+
+
+def _add_counts(total, launches):
+    for n, c in launches.items():
+        total[n] = total.get(n, 0) + c
+
+
+def run_cli(torch, card_line, model_dir, refs, inputs, driver_step_s):
+    """Phase 17: the command line in this process (`cli.main`): generate at
+    DDPM 30 and at the turbo preset, packed with --eval; serve as a child
+    process; train-idbooth; accel-report; the identity, FR and evaluation
+    commands; each with its launch counts and gates. `refs` are phase 14's
+    (`run_serving`), `inputs` phases 15 and 16's files (`cli_inputs`).
+    Returns the phase's launch counts."""
+    import os
+
+    t_phase = time.time()
+    total = {}
+    with build_dir("cli") as root:
+        _add_counts(total, _cli_generate(torch, card_line, model_dir, refs, root))
+        serve = _cli_serve(torch, card_line, model_dir, refs, root)
+        launches, train_s = _cli_train(torch, card_line, model_dir, root, driver_step_s)
+        _add_counts(total, launches)
+        printed, launches, accel_s = _run_cli(
+            torch, ["accel-report", "--model_dir", model_dir, "--mode", "deepcache=3", "--mode", "attn=flash_int8",
+                    "--prompt", PROMPTS[0], "--output", os.path.join(root, "accel.json")], card_line,
+            expect=CLI_ACCEL_LAUNCHES)
+        _add_counts(total, launches)
+        report = json.loads(printed)
+        if sorted(report["modes"]) != ["attn=flash_int8", "deepcache=3"]:
+            fail(f"cli accel-report reported {sorted(report['modes'])}")
+        _finite_numbers(report["modes"], "cli accel-report")
+        print(f"cli accel-report: PSNR deepcache=3 {report['modes']['deepcache=3']['psnr_mean']} dB, attn=flash_int8 "
+              f"{report['modes']['attn=flash_int8']['psnr_mean']} dB; s {report['exact']['batch_s']} exact, "
+              f"{report['modes']['deepcache=3']['batch_s']}, {report['modes']['attn=flash_int8']['batch_s']} "
+              f"({card_line})", flush=True)
+        launches, secs = _cli_identity(torch, card_line, inputs, root, os.path.join(root, "generate"))
+        _add_counts(total, launches)
+    secs.update({"serve startup": serve["startup_s"], "serve request": serve["request_s"],
+                 "serve warm request": serve["warm_request_s"], "train-idbooth": train_s,
+                 "accel-report": accel_s})
+    print(f"cli: phase 17 in {time.time() - t_phase:.1f} s; seconds a command {json.dumps(secs)}; launches "
+          f"{json.dumps(total)} ({card_line})", flush=True)
+    return total
 
 
 def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32, launches, ptxas, sass=None):
@@ -4461,17 +4998,21 @@ def main() -> int:
     fp32_txt2img, fp32_fused, fp32_routes = run_fp32_pipeline(torch, card_line)
     fp32_train = run_fp32_train(torch, card_line)
     torch.cuda.empty_cache()
-    with build_dir("sd21_base_synthetic") as model_dir:
+    # phase 17 runs the command line on what phases 12 and 14-16 leave
+    with build_dir("sd21_base_synthetic") as model_dir, build_dir("serving") as serve_work, \
+            build_dir("phase_data") as data:
         checkpoints, ckpt_counts = run_checkpoints(torch, card_line, txt2img_secs, model_dir)
         with build_dir("idbooth_driver") as work:
-            driver = run_driver(torch, card_line, model_dir, work, train_secs, train_peak)
+            driver, driver_step_s = run_driver(torch, card_line, model_dir, work, train_secs, train_peak)
         torch.cuda.empty_cache()
-        with build_dir("serving") as work:
-            serving, serve_counts = run_serving(torch, card_line, model_dir, work, txt2img_secs)
+        serving, serve_counts, serve_refs = run_serving(torch, card_line, model_dir, serve_work, txt2img_secs)
+        torch.cuda.empty_cache()
+        identity = run_identity_stack(torch, card_line, data)
+        torch.cuda.empty_cache()
+        quality, quality_counts = run_quality_eval(torch, card_line, data)
+        torch.cuda.empty_cache()
+        command_line = run_cli(torch, card_line, model_dir, serve_refs, cli_inputs(data), driver_step_s)
     torch.cuda.empty_cache()
-    identity = run_identity_stack(torch, card_line)
-    torch.cuda.empty_cache()
-    quality, quality_counts = run_quality_eval(torch, card_line)
     for r in fwd_rows + bwd_rows:  # phases 12's, 14's and 16's shapes: the launches their runs measured
         if r.get("phase") == 12:
             r["launches_per_request"] = ckpt_counts[r["shape"]]
@@ -4483,14 +5024,14 @@ def main() -> int:
              "fused train": fused_train, "fp32 txt2img": fp32_txt2img, "fp32 fused txt2img": fp32_fused,
              "fp32 routes at 2×128²": fp32_routes, "fp32 train check": fp32_train, "checkpoints": checkpoints,
              "training driver": driver, "serving and sweep": serving, "identity stack and FR (no TPU kernel)": identity,
-             "quality and identity evaluation": quality}
+             "quality and identity evaluation": quality, "command line": command_line}
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in REPLACES}
     print("launches on the main paths: " + ", ".join(f"{k} {json.dumps(v)}" for k, v in paths.items()), flush=True)
     for name, count in launches.items():
         if count == 0:
             fail(f"{name} was not launched on the main paths")
 
-    print(f"chip_smoke: all phases in {time.time() - t_start:.1f} s ({card_line})", flush=True)
+    print(f"chip_smoke: all 17 phases in {time.time() - t_start:.1f} s ({card_line})", flush=True)
     print(json.dumps({"kernels": _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32,
                                                  launches, ptxas, sass)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

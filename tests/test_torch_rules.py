@@ -48,7 +48,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "evaluation.heatmaps", "evaluation.metrics.prdc", "evaluation.eer", "evaluation.pairs",
                 "evaluation.pyeer_driver", "evaluation.analysis", "models.dinov2", "models.clip_vision",
                 "models.inception_v3", "models.resnet50", "models.simclr_resnet", "models.convnext",
-                "models.data2vec_vision"):
+                "models.data2vec_vision", "cli", "configs"):
         assert f"faceposegenerator_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -126,6 +126,22 @@ def test_port_never_imports_safetensors():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+# the least arguments that get each device-taking CLI command past argparse
+CLI_MINIMAL = {
+    "train-idbooth": ["--source_folder", "{d}/src", "--model_dir", "{d}/model"],
+    "generate": ["--lora_root", "{d}/loras", "--model_dir", "{d}/model"],
+    "extract-embeds": ["--images_root", "{d}/img", "--output_root", "{d}/out"],
+    "align-crop": ["--input_root", "{d}/img", "--output_root", "{d}/out"],
+    "train-fr": ["--dataset_root", "{d}/fr"],
+    "test-fr": ["--backbone", "{d}/best_backbone.npz", "--num_classes", "4"],
+    "fiqa": ["--image_dir", "{d}/img"],
+    "pose": ["--image_root", "{d}/img"],
+    "serve": ["--model_dir", "{d}/model"],
+    "accel-report": ["--model_dir", "{d}/model", "--mode", "deepcache=2"],
+    "dgm-eval": ["{d}/real", "{d}/gen", "--output_dir", "{d}/out"],
+}
+
+
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch, tmp_path):
     from faceposegenerator_tpu_torch.evaluation.fiqa import init_qs_head
     from faceposegenerator_tpu_torch.evaluation.pose import init_sixdrepnet
@@ -152,6 +168,18 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch, tmp_path):
                   init_sixdrepnet, init_qs_head) + fr_entries + _eval_entries(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
+    # every CLI command that puts a network on a device, without --device:
+    # the card, resolved before any file is read or written
+    from faceposegenerator_tpu_torch import cli
+
+    for k in cli._LAUNCH_ENV:
+        monkeypatch.delenv(k, raising=False)
+    cli_dir = tmp_path / "cli"
+    cli_dir.mkdir()
+    for command, argv in CLI_MINIMAL.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([command] + [a.format(d=cli_dir) for a in argv])
+    assert not any(cli_dir.iterdir())
 
 
 def _eval_entries(tmp_path):
