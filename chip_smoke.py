@@ -294,6 +294,32 @@ Phases, in order; any failure exits non-zero without the final result line:
      --streaming), align-crop, train-fr and test-fr (the same accuracy),
      fiqa, pose, dgm-eval (DINOv2, 24 K1 a batch), pyeer and analyze, the
      identity and FR commands launching nothing; each command's seconds.
+ 18. distribution (`run_distribution`; alone: `perf/torch_distribution.py`),
+     on phase 12's directory: `generate --data_parallel 1 --pack_variants`
+     (3 variants × 2 prompts: one batch of 8 at DDPM 30, CFG 5.0, under
+     three LoRAs the phase writes) as one NCCL rank through the normal
+     entry point (torch's launcher variables, world size 1; an NCCL barrier
+     after it), K1 960 and K2 1, its 6 PNGs bit-equal to the same command's
+     without the flag; K1 against its plain version at the tensor-parallel
+     request's per-rank shapes (model 2: levels 1, 2 and mid keep half their
+     heads; level 0's 5 stay whole), and K1, K5 and K6 against theirs at a
+     rank's 4 rows of the data-parallel train step; then the gloo rig, two
+     ranks sharing the card (`chip_smoke.py --dist-rank`), each loading the
+     directory in bf16: `sample_data_parallel` at batch 8 (4 rows a rank,
+     30 DDPM steps, CFG 5.0: K1 960 and K2 1 a rank) and
+     `sample_2d_parallel` at data 1 × model 2 under a per-sample rank-4
+     LoRA (two adapters, 4 rows each; 10 steps: K1 320 and K2 1 a rank),
+     each within 1e-1 / 1e-2 of the one-process images on the card; two
+     data-parallel ID-Booth steps at phase 7's op point on the global batch
+     4 + 4 (rank 0 holds the instance rows: phase 7's counts; rank 1 the
+     class rows: K1 32, K2 1, K5 32 + 32, no K6), the losses within 1e-2 of
+     one process's two steps on the whole batch from the same init (B
+     factors off zero) and draws, the LoRA update's cosine to that run's
+     >= 0.99, the LoRA bit-equal on the two ranks; and pod-rehearsal's worker at processes 2 × local_devices 1 at its tiny
+     size (JAX's verdict checks). Each rank reports its launches, seconds
+     and peak memory a leg; the per-rank s/request and s/step print beside
+     phases 4 and 7 (two ranks sharing one card: correctness, not a
+     speedup). A rank's failure or timeout fails the phase.
 Phases 3-7 run the default configuration (GN_IMPL and GN_CONV_IMPL at xla)
 whatever the environment says. The line before the last is a JSON object
 with one entry per kernel; the last is {"ok": true, "device": {...}}.
@@ -4739,6 +4765,340 @@ def run_cli(torch, card_line, model_dir, refs, inputs, driver_step_s):
     return total
 
 
+# Phase 18: distribution. The gloo rig's two ranks share the card; the TP
+# request runs fewer steps than the DP one (its two reductions a
+# transformer block cross the host through gloo)
+DIST_WORLD, DIST_TP_STEPS, DIST_TIMEOUT_S = 2, 10, 420.0
+DIST_RANK1_STEP = {"flash_fwd_d64": 32, "flash_fwd_wide": 1, "flash_bwd_d64_dkv": 32, "flash_bwd_d64_dq": 32}
+# K1 at the tensor-parallel request's per-rank shapes (model 2): level 0's 5
+# heads do not split and stay whole (the SHAPES rows); levels 1, 2 and the
+# mid block keep half their heads on each rank; launches per TP request
+TP_SHAPES = [
+    ("tp self L1, 5 of 10 heads", 16, 5, 1024, 1024, 64, 5 * DIST_TP_STEPS),
+    ("tp self L2, 10 of 20 heads", 16, 10, 256, 256, 64, 5 * DIST_TP_STEPS),
+    ("tp self mid, 10 of 20 heads", 16, 10, 64, 64, 64, DIST_TP_STEPS),
+    ("tp cross L1, 5 of 10 heads", 16, 5, 1024, 77, 64, 5 * DIST_TP_STEPS),
+    ("tp cross L2, 10 of 20 heads", 16, 10, 256, 77, 64, 5 * DIST_TP_STEPS),
+    ("tp cross mid, 10 of 20 heads", 16, 10, 64, 77, 64, DIST_TP_STEPS),
+]
+# K1, K5 and K6 at a rank's data-parallel train step: 4 of the 8 rows (the
+# VAE decode of rank 0's 4 instance rows is TRAIN_SHAPES' own); launches
+# per step on each rank
+DIST_TRAIN_SHAPES = [(f"dp rank {label}", 4, h, sq, skv, d, n)
+                     for label, _, h, sq, skv, d, n in TRAIN_SHAPES if label != "vae decode mid"]
+
+
+def _leg(torch, report, name, fn):
+    """Run fn() as one leg of a rank: its launches, seconds and peak memory
+    into report[name]; returns fn()'s value."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    report[name] = {"s": time.time() - t0, "launches": {n: c for n, c in _launch_counts().items() if c},
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return out
+
+
+def _lora_digest(torch, trainable):
+    import hashlib
+
+    from faceposegenerator_tpu_torch.core.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(trainable):
+        h.update(leaf.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_rank(rank: int, world: int, port: int, model_dir: str, work: str, train_seeds: int = 1) -> int:
+    """One rank of phase 18's gloo rig (`python3 chip_smoke.py --dist-rank
+    RANK WORLD PORT MODEL_DIR WORK [TRAIN_SEEDS]`): the ranks share cuda:0
+    over gloo. It writes its report to WORK/rank{RANK}.json; rank 0 also
+    runs the one-process references and the gates against them. The train
+    leg runs once for each of `train_seeds` LoRA inits and draws."""
+    import os
+
+    import torch
+
+    from faceposegenerator_tpu_torch.core import dist
+    from faceposegenerator_tpu_torch.core.mesh import make_mesh, rows_of
+    from faceposegenerator_tpu_torch.core.rng import sampler_generator, train_step_generator
+    from faceposegenerator_tpu_torch.core.tree import tree_map
+    from faceposegenerator_tpu_torch.diffusion.sampler import sample, sample_2d_parallel, sample_data_parallel
+    from faceposegenerator_tpu_torch.diffusion.schedulers import make_ddpm
+    from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
+    from faceposegenerator_tpu_torch.parallel.pod_rehearsal import run_worker
+    from faceposegenerator_tpu_torch.parallel.tp import shard_unet_params_tp
+    from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+    from faceposegenerator_tpu_torch.training import idbooth
+
+    fused_gn._GN_IMPL = fused_gn_conv._IMPL = "xla"
+    t_rank = time.time()
+    dist.init_distributed(f"127.0.0.1:{port}", world, rank, platform="cuda", backend="gloo",
+                          timeout_s=DIST_TIMEOUT_S)
+    dp, tp = make_mesh(data=world), make_mesh(data=1, model=world)
+    dev = dp.device
+    report = {"rank": rank, "device": str(dev)}
+    pipe = StableDiffusionPipeline.from_pretrained(model_dir, dtype=torch.bfloat16)
+    nets = pipe.nets
+    ids = torch.randint(0, 49408, (8, 77), generator=torch.Generator().manual_seed(1))
+    neg = torch.zeros_like(ids)
+    common = dict(guidance_scale=5.0, height=512, width=512, policy=pipe.policy, attn_impl=pipe.models.attn_impl)
+    dp_sched = make_ddpm(pipe.scheduler_config, 30)
+    tp_sched = make_ddpm(pipe.scheduler_config, DIST_TP_STEPS)
+    # the TP request's per-sample LoRA: rows 0-3 ride one rank-4 adapter,
+    # rows 4-7 another, sliced by head on every sharded attention
+    pair = [make_lora(nets["unet"], seed, torch)["unet"] for seed in (61, 62)]
+    tp_lora = {"unet": tree_map(lambda a, b: torch.stack([a] * 4 + [b] * 4), *pair), "text_encoder": None}
+    del pair
+    refs = {}
+    if rank == 0:  # the one-process images on the same card
+        refs = {30: sample(nets, dp_sched, ids, neg, generator=sampler_generator(0, dev), **common),
+                DIST_TP_STEPS: sample(nets, tp_sched, ids, neg, generator=sampler_generator(0, dev), lora=tp_lora,
+                                      **common)}
+    dist.coordination_barrier("refs", DIST_TIMEOUT_S)
+    dp_img = _leg(torch, report, "dp sample", lambda: sample_data_parallel(
+        dp, nets, dp_sched, ids, neg, generator=sampler_generator(0, dev), **common))
+    shard_unet_params_tp(nets["unet"], tp)
+    tp_img = _leg(torch, report, "tp sample", lambda: sample_2d_parallel(
+        tp, nets, tp_sched, ids, neg, generator=sampler_generator(0, dev), lora=tp_lora, **common))
+    for key, img, S in (("dp", dp_img, 30), ("tp", tp_img, DIST_TP_STEPS)):
+        report[f"{key} shape"] = list(img.shape)
+        if rank == 0:
+            d = (img.float() - refs[S].float()).abs()
+            report[f"{key} image diff"] = [float(d.max()), float(d.mean())]
+    del pipe, nets, dp_img, tp_img, refs, tp_lora
+    torch.cuda.empty_cache()
+
+    # two data-parallel ID-Booth steps at phase 7's op point: global batch 4 + 4
+    op = build_train_op_point(torch)
+    policy, models, frozen, cfg = op
+    batch = make_train_batch(torch, 8, 512, seed=5)
+    optimizer = idbooth.make_optimizer(cfg, total_steps=1000)
+
+    def fresh(seed):
+        """The LoRA with B factors off zero (as `_small_train_check` makes
+        it): from the first step every A has a gradient, so AdamW's
+        sign-like update is not taken of rounding noise."""
+        t = idbooth.init_trainable(4 + seed, cfg, models, frozen["unet"])
+        g = torch.Generator(device=dev).manual_seed(8 + seed)
+        with torch.no_grad():
+            for leaf in idbooth.tree_leaves(t)[1::2]:
+                leaf.copy_(0.01 * torch.randn(leaf.shape, generator=g, device=dev))
+        return t, optimizer.init(t)
+
+    step = idbooth.make_train_step(cfg, models, optimizer, policy=policy, mesh=dp)
+    ref_step = idbooth.make_train_step(cfg, models, optimizer, policy=policy)
+    rows = rows_of(dp, 8)
+    mine = {k: v[rows] for k, v in batch.items()}
+    report["rows"] = [rows.start, rows.stop]
+    report["train"] = []
+    for seed in range(train_seeds):
+        start = [leaf.detach().clone() for leaf in idbooth.tree_leaves(fresh(seed)[0])]
+        trainable, opt_state = fresh(seed)
+        losses = []
+        for i in range(2):
+            name = f"train step {i}" if seed == 0 else f"train seed {seed} step {i}"
+            _, _, m = _leg(torch, report, name, lambda: step(
+                trainable, opt_state, frozen, mine, train_step_generator(cfg.seed + seed, i, dev)))
+            losses.append(float(m["loss"]))
+        leg = {"seed": seed, "losses": losses, "lora sha256": _lora_digest(torch, trainable)}
+        dp_update = torch.cat([(a.detach() - b).float().flatten() for a, b in
+                               zip(idbooth.tree_leaves(trainable), start)])
+        del trainable, opt_state
+        torch.cuda.empty_cache()
+        if rank == 0:  # one process on the global batch, the same init and draws
+            ref_t, ref_o = fresh(seed)
+            ref_losses = []
+            for i in range(2):
+                ref_t, ref_o, m = ref_step(ref_t, ref_o, frozen, batch, train_step_generator(cfg.seed + seed, i, dev))
+                ref_losses.append(float(m["loss"]))
+            ref_update = torch.cat([(a.detach() - b).float().flatten() for a, b in
+                                    zip(idbooth.tree_leaves(ref_t), start)])
+            leg["ref losses"] = ref_losses
+            leg["update cosine"] = float(torch.nn.functional.cosine_similarity(dp_update, ref_update, dim=0))
+            del ref_t, ref_o
+        report["train"].append(leg)
+        del start, dp_update
+        torch.cuda.empty_cache()
+    del op, frozen, batch, mine
+    torch.cuda.empty_cache()
+    dist.coordination_barrier("train done", DIST_TIMEOUT_S)
+
+    # pod-rehearsal's worker at processes 2 × local_devices 1, at its tiny size
+    os.makedirs(os.path.join(work, "rehearsal"), exist_ok=True)
+    report["rehearsal"] = _leg(torch, report, "rehearsal leg", lambda: run_worker(
+        rank, world, 1, port, os.path.join(work, "rehearsal"), device="cuda", backend="gloo",
+        timeout_s=DIST_TIMEOUT_S))
+    report["s"] = time.time() - t_rank
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _dist_lora_root(torch, root):
+    """Three rank-4 UNet LoRAs of identity id_7 as generate reads them:
+    <root>/<variant>/id_7/checkpoint-31-6400/pytorch_lora_weights.safetensors."""
+    import os
+
+    from faceposegenerator_tpu_torch.diffusion.lora_io import save_lora_safetensors
+    from faceposegenerator_tpu_torch.models.unet2d import UNet2DCondition
+    from faceposegenerator_tpu_torch.pipelines import sweep
+
+    unet = UNet2DCondition(dtype=torch.bfloat16, seed=1)  # the shapes of SD2.1-base's
+    for seed, variant in enumerate(sweep.MODEL_VARIANTS, start=51):
+        folder = os.path.join(root, variant, "id_7", "checkpoint-31-6400")
+        os.makedirs(folder)
+        save_lora_safetensors(make_lora(unet, seed, torch), os.path.join(folder, "pytorch_lora_weights.safetensors"))
+    del unet
+    torch.cuda.empty_cache()
+    return root
+
+
+def _nccl_generate(torch, card_line, model_dir, lora_root, root):
+    """`generate --data_parallel 1` as one NCCL rank through the normal entry
+    point (torch's launcher variables, world size 1), beside the same
+    command without the flag: one packed batch of 8 (3 variants × 2
+    prompts, DDPM 30), K1 960 and K2 1, the PNGs equal."""
+    import os
+
+    import numpy as np
+
+    from faceposegenerator_tpu_torch.core import dist
+    from faceposegenerator_tpu_torch.core.dist import free_port
+    from faceposegenerator_tpu_torch.pipelines import sweep, txt2img
+
+    base = ["generate", "--model_dir", model_dir, "--lora_root", lora_root, "--pack_variants",
+            "--num_prompts", str(CLI_TURBO_PROMPTS)]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    total, out = {}, {}
+    for key, extra, probe in (("one process", [], "sample"), ("nccl", ["--data_parallel", "1"],
+                                                               "sample_data_parallel")):
+        out[key] = os.path.join(root, key.replace(" ", "_"))
+        if key == "nccl":
+            os.environ.update(env)
+        try:
+            with step_probe(txt2img, probe, factory=False) as batches:
+                _, launches, secs = _run_cli(torch, base + ["--output", out[key]] + extra, card_line)
+            if key == "nccl":
+                info = dist.proc_info()
+                backend = torch.distributed.get_backend()
+                dist.barrier("nccl leg")  # NCCL's first collective at world size 1
+                if (info.process_count, backend) != (1, "nccl"):
+                    fail(f"generate --data_parallel 1 ran in a job of {info.process_count} ranks on {backend}")
+        finally:
+            if key == "nccl":
+                dist.shutdown()
+                for k in env:
+                    os.environ.pop(k, None)
+        _add_counts(total, launches)
+        _expect_each(batches.records, REQUEST_LAUNCHES, f"generate ({key}) batch")
+        if len(batches.records) != 1:
+            fail(f"generate ({key}) ran {len(batches.records)} batches, expected 1")
+        print(f"distribution: generate ({key}) {secs:.2f} s, its batch of 8 {batches.records[0]['s']:.3f} s "
+              f"({card_line})", flush=True)
+    n = 0
+    for v in sweep.MODEL_VARIANTS:
+        for p in range(CLI_TURBO_PROMPTS):
+            name = os.path.join(v, "id_7", f"id_7_{p:03d}.png")
+            if not np.array_equal(_png(os.path.join(out["nccl"], name)), _png(os.path.join(out["one process"], name))):
+                fail(f"generate --data_parallel 1 {name} differs from the one-process run's")
+            n += 1
+    print(f"distribution: NCCL rank at world size 1: {n} PNGs bit-equal to the one-process run's ({card_line})",
+          flush=True)
+    return total
+
+
+def run_distribution(torch, fa, card, card_line, model_dir, default_secs, train_secs, train_seeds=1):
+    """Phase 18: the NCCL leg in this process, K1 at the tensor-parallel
+    shapes and K1, K5 and K6 at a rank's data-parallel train step, then the
+    gloo rig: DIST_WORLD ranks sharing the card, spawned as `chip_smoke.py
+    --dist-rank`, their reports gated here; the rig's train leg runs for
+    `train_seeds` LoRA inits and draws. Returns (the phase's launches, its
+    forward kernel rows, its backward kernel rows)."""
+    import os
+
+    from faceposegenerator_tpu_torch.core.dist import SpawnError, free_port, spawn
+
+    t_phase = time.time()
+    total = {}
+    with build_dir("distribution") as root:
+        os.makedirs(root)
+        lora_root = _dist_lora_root(torch, os.path.join(root, "loras"))
+        _add_counts(total, _nccl_generate(torch, card_line, model_dir, lora_root, root))
+        fwd_rows = check_kernels(torch, fa, card, TP_SHAPES)
+        fwd_rows += check_kernels(torch, fa, card, DIST_TRAIN_SHAPES, with_lse=True, per="step")
+        bwd_rows = check_backward(torch, fa, card, [s for s in DIST_TRAIN_SHAPES if "vae encode" not in s[0]])
+        torch.cuda.empty_cache()
+        port = free_port()
+        try:
+            spawn([[sys.executable, os.path.abspath(__file__), "--dist-rank", str(r), str(DIST_WORLD), str(port),
+                    model_dir, root, str(train_seeds)] for r in range(DIST_WORLD)], timeout=DIST_TIMEOUT_S,
+                  log_dir=root)
+        except SpawnError as e:
+            fail(f"distribution: {e}")
+        reports = [json.load(open(os.path.join(root, f"rank{r}.json"))) for r in range(DIST_WORLD)]
+    rig = time.time() - t_phase
+    for rep in reports:
+        r = rep["rank"]
+        step_expect = STEP_LAUNCHES if r == 0 else DIST_RANK1_STEP  # rank 1 holds only class rows
+        expect = {"dp sample": REQUEST_LAUNCHES, "tp sample": {"flash_fwd_d64": 32 * DIST_TP_STEPS,
+                                                               "flash_fwd_wide": 1},
+                  "train step 0": step_expect, "train step 1": step_expect}
+        for leg, want in expect.items():
+            if rep[leg]["launches"] != want:
+                fail(f"distribution rank {r} {leg} launched {rep[leg]['launches']}, expected {want}")
+            _add_counts(total, rep[leg]["launches"])
+        if rep["dp shape"] != [8, 512, 512, 3] or rep["tp shape"] != [8, 512, 512, 3]:
+            fail(f"distribution rank {r}: images {rep['dp shape']} and {rep['tp shape']}")
+        print(f"distribution rank {r} ({rep['device']}, rows {rep['rows']} of the train batch): "
+              + ", ".join(f"{leg} {rep[leg]['s']:.3f} s peak {rep[leg]['peak_gib']:.1f} GiB"
+                          for leg in (*expect, "rehearsal leg"))
+              + f"; {rep['s']:.1f} s in all ({card_line})", flush=True)
+    r0 = reports[0]
+    for key in ("dp", "tp"):
+        mx, mean = r0[f"{key} image diff"]
+        print(f"distribution: {key} images against one process: diff max {mx:.3e} mean {mean:.3e} "
+              f"(limits 1e-1, 1e-2)", flush=True)
+        if not (mx <= 1e-1 and mean <= 1e-2):
+            fail(f"distribution: the {key} images disagree with the one-process images")
+    for i, leg in enumerate(r0["train"]):
+        rel = [abs(a - b) / abs(b) for a, b in zip(leg["losses"], leg["ref losses"])]
+        equal = len({rep["train"][i]["lora sha256"] for rep in reports}) == 1
+        print(f"distribution: DP train seed {leg['seed']}: losses {leg['losses']} against one process "
+              f"{leg['ref losses']} (rel diff {max(rel):.3e}, limit 1e-2); LoRA update cosine "
+              f"{leg['update cosine']:.6f} (limit 0.99); the LoRA {'bit-equal' if equal else 'DIFFERENT'} "
+              f"across ranks", flush=True)
+        if not (max(rel) <= 1e-2 and leg["update cosine"] >= 0.99):
+            fail("distribution: the data-parallel train steps disagree with one process")
+        if not equal:
+            fail("distribution: the replicated LoRA differs across ranks")
+    if len(r0["train"]) > 1:
+        cos = [leg["update cosine"] for leg in r0["train"]]
+        print(f"distribution: LoRA update cosine over {len(cos)} seeds: min {min(cos):.6f} mean "
+              f"{sum(cos) / len(cos):.6f} max {max(cos):.6f} ({card_line})", flush=True)
+    verdicts = [rep["rehearsal"] for rep in reports]
+    for v in verdicts:
+        if not (v["ok"] and v["processes"] == 2 and v["global_devices"] == 2 and v["mesh"] == {"data": 2, "model": 1}
+                and abs(v["loss2"] - v["loss2_restored"]) < 1e-6
+                and all(math.isfinite(v[k]) for k in ("loss1", "loss2", "sample_mean", "rolling_mean"))):
+            fail(f"distribution: pod rehearsal verdict {v}")
+        if (v["loss1"], v["loss2"]) != (verdicts[0]["loss1"], verdicts[0]["loss2"]):
+            fail(f"distribution: pod rehearsal ranks disagree: {verdicts}")
+    print(f"distribution: pod rehearsal 2 × 1 on the card over gloo: {json.dumps(verdicts[0])}", flush=True)
+    s_req = [rep["dp sample"]["s"] for rep in reports]
+    s_step = [rep["train step 1"]["s"] for rep in reports]
+    print(f"distribution: per rank, two ranks sharing one card (correctness, not a speedup): DP s/request "
+          f"{[round(x, 3) for x in s_req]} (4 of the 8 rows each) beside phase 4's {default_secs:.3f}; TP "
+          f"({DIST_TP_STEPS} steps) s/request {[round(rep['tp sample']['s'], 3) for rep in reports]}; DP s/step "
+          f"{[round(x, 3) for x in s_step]} (4 of the 8 rows each) beside phase 7's {train_secs:.3f}; phase 18 in "
+          f"{rig:.1f} s ({card_line})", flush=True)
+    return total, [dict(r, phase=18) for r in fwd_rows], [dict(r, phase=18) for r in bwd_rows]
+
+
 def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32, launches, ptxas, sass=None):
     """The kernels line: one entry per counted kernel. `ptxas` holds each
     wgmma or fp32 kernel function's registers and spills by instance;
@@ -4760,14 +5120,16 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
             bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=top["library_ms"],
             shape=f"{top['shape']} B{top['B']}", lse_max_err=max(r["lse_max_err"] or 0.0 for r in mine),
             tflops=top["tflops"], **({"ptxas": ptxas[f"{name}_kernel"]} if f"{name}_kernel" in ptxas else {}),
-            # phase 12's shapes (ToMe, decode_chunk), phase 14's (the rolling tick and decode) and
-            # phase 16's (the eval ViTs, GradCAM, make_heatmap_fn), each with the contract's numbers
-            # and the launches a request (tick, batch, probe, call) its phase makes
+            # phase 12's shapes (ToMe, decode_chunk), phase 14's (the rolling tick and decode),
+            # phase 16's (the eval ViTs, GradCAM, make_heatmap_fn) and phase 18's (a rank's heads
+            # under tensor parallelism, a rank's 4 rows of the data-parallel train step), each with
+            # the contract's numbers and the launches a request (tick, batch, probe, call, step)
+            # its phase makes
             shapes=[dict(shape=f"{r['shape']} B{r['B']}", B=r["B"], H=r["H"], Sq=r["Sq"], Skv=r["Skv"], D=r["D"],
                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                          library_ms=r["library_ms"], max_abs_err=r["max_abs_err"], tflops=r["tflops"],
                          lse_max_err=r["lse_max_err"], **{k: v for k, v in r.items() if k.startswith("launches_per_")})
-                    for r in mine if r.get("phase") in (12, 14, 16)],
+                    for r in mine if r.get("phase") in (12, 14, 16, 18)],
         ))
     top = max(f32["fwd"], key=lambda r: r["bound_ms"])
     kernels.append(dict(
@@ -4804,13 +5166,14 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
                 # K6's three passes are instances of one template (dV and dK for the dK/dV entry)
                 **({"ptxas": ptxas.get("flash_bwd_wide_kernel"), "sass": sass.get("flash_bwd_wide_kernel")}
                    if kind == "wide" else {}),
-                # phase 16's gradient shapes (GradCAM, make_heatmap_fn)
+                # phase 16's gradient shapes (GradCAM, make_heatmap_fn) and phase 18's (a rank's
+                # data-parallel train step)
                 shapes=[dict(shape=f"{r['shape']} B{r['B']}", B=r["B"], H=r["H"], Sq=r["Sq"], Skv=r["Skv"], D=r["D"],
                              ms=r[f"{p}_ms"], pair_ms=r["pair_ms"], plain_ms=r["plain_ms"],
                              bound_ms=r[f"{p}_bound_ms"], bound_by=r[f"{p}_bound_by"], library_ms=r["library_ms"],
                              max_abs_err=max(r[e][0] for e in errs), grad_max_abs=r["grad_max_abs"],
                              **{k: v for k, v in r.items() if k.startswith("launches_per_")})
-                        for r in mine if r.get("phase") == 16],
+                        for r in mine if r.get("phase") in (16, 18)],
             ))
     # K7 and K8: no single library call computes their function (the int8
     # GEMM alone, bf16 F.linear and exact SDPA are yardsticks, in extra keys).
@@ -5012,6 +5375,11 @@ def main() -> int:
         quality, quality_counts = run_quality_eval(torch, card_line, data)
         torch.cuda.empty_cache()
         command_line = run_cli(torch, card_line, model_dir, serve_refs, cli_inputs(data), driver_step_s)
+        torch.cuda.empty_cache()
+        distribution, dist_fwd, dist_bwd = run_distribution(torch, fa, card, card_line, model_dir, txt2img_secs,
+                                                            train_secs)
+        fwd_rows += dist_fwd
+        bwd_rows += dist_bwd
     torch.cuda.empty_cache()
     for r in fwd_rows + bwd_rows:  # phases 12's, 14's and 16's shapes: the launches their runs measured
         if r.get("phase") == 12:
@@ -5024,14 +5392,15 @@ def main() -> int:
              "fused train": fused_train, "fp32 txt2img": fp32_txt2img, "fp32 fused txt2img": fp32_fused,
              "fp32 routes at 2×128²": fp32_routes, "fp32 train check": fp32_train, "checkpoints": checkpoints,
              "training driver": driver, "serving and sweep": serving, "identity stack and FR (no TPU kernel)": identity,
-             "quality and identity evaluation": quality, "command line": command_line}
+             "quality and identity evaluation": quality, "command line": command_line,
+             "distribution": distribution}
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in REPLACES}
     print("launches on the main paths: " + ", ".join(f"{k} {json.dumps(v)}" for k, v in paths.items()), flush=True)
     for name, count in launches.items():
         if count == 0:
             fail(f"{name} was not launched on the main paths")
 
-    print(f"chip_smoke: all 17 phases in {time.time() - t_start:.1f} s ({card_line})", flush=True)
+    print(f"chip_smoke: all 18 phases in {time.time() - t_start:.1f} s ({card_line})", flush=True)
     print(json.dumps({"kernels": _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32,
                                                  launches, ptxas, sass)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
@@ -5040,4 +5409,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:  # a rank of phase 18's gloo rig
+        sys.exit(dist_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6],
+                           *map(int, sys.argv[7:8])))
     sys.exit(main())

@@ -25,13 +25,22 @@ without one they raise; "cpu" runs on the CPU. pyeer and analyze run on the
 host. The command-line refusals (argparse errors) come before the device is
 resolved and before any file is read.
 
+Distribution (one process a device, joined by torch.distributed):
+`generate --data_parallel N` and `train-idbooth --identity_parallel N`,
+run from one shell command, spawn N ranks on the first N cards (NCCL), or
+on the CPU with `--device cpu` (gloo); more ranks than visible cards raise.
+Under a launcher's `FPG_COORDINATOR` / `FPG_NUM_PROCESSES` /
+`FPG_PROCESS_ID` (or torch's own RANK / WORLD_SIZE / MASTER_ADDR /
+MASTER_PORT) each process is one rank of the job, and the mesh flags take
+the job's ranks. As in JAX, train-idbooth without `--identity_parallel`
+and train-fr pass no mesh under such a launch: every process trains the
+whole job. `pod-rehearsal` runs the multi-process rehearsal
+(`parallel/pod_rehearsal.py`).
+
 Not ported yet, so these raise and name their ROADMAP.md queue 1 item:
 `parity` and `parity-all` (items 17-18, the torch mirror and full-chain
-runbook), `pod-rehearsal`, `--data_parallel N` and `--identity_parallel N`
-for N > 1, and a multi-process launch through `FPG_COORDINATOR`,
-`FPG_NUM_PROCESSES` or `FPG_PROCESS_ID` (item 9b, distribution). With N of
-0 or 1 the mesh flags run on the one card: a one-device mesh computes the
-same thing.
+runbook) and `serve --data_parallel N` for N > 1 (item 9c, the threaded
+servers over a mesh).
 
 Where this differs from the JAX commands:
   - random weights without a weight file (the ArcFace of train-idbooth and
@@ -55,7 +64,7 @@ import json
 import os
 import sys
 
-_ITEM_9B = "ROADMAP.md queue 1, item 9b (distribution: core/dist.py, core/mesh.py)"
+_ITEM_9C = "ROADMAP.md queue 1, item 9c (the threaded servers over a mesh)"
 _LAUNCH_ENV = ("FPG_COORDINATOR", "FPG_NUM_PROCESSES", "FPG_PROCESS_ID")
 
 
@@ -83,21 +92,42 @@ def _reject_preset_conflicts(ap, args, flag_defaults: dict):
         )
 
 
-def _refuse_mesh(flag: str, n: int):
-    """A mesh of more than one device is not in the port yet."""
-    if n > 1:
-        raise NotImplementedError(f"--{flag} {n} needs a device mesh, which the port does not have yet "
-                                  f"({_ITEM_9B}); pass 0 or 1 to run on one card")
+def _launched() -> bool:
+    """This process is a rank of a launched job (FPG_* or torch's launcher)."""
+    return any(os.environ.get(k) for k in _LAUNCH_ENV + ("WORLD_SIZE",))
 
 
-def _refuse_multi_process():
-    """JAX's `maybe_init_from_env()`: a launcher's FPG_* variables ask for a
-    multi-process run, which the port does not have yet; without them,
-    nothing happens."""
-    given = [k for k in _LAUNCH_ENV if os.environ.get(k)]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)} ask for a multi-process launch, which the port does not "
-                                  f"have yet ({_ITEM_9B}); unset them to run on one card")
+def _spawn_ranks(command: str, argv, n: int, device: str, flag: str) -> None:
+    """Run `command argv` as the n ranks of one job on this machine: one
+    process a rank, on cards 0..n-1 (NCCL) or on the CPU (gloo), joined
+    through FPG_COORDINATOR / FPG_NUM_PROCESSES / FPG_PROCESS_ID. A rank
+    that fails stops the others, and the exit code is the first failure's."""
+    import torch
+
+    from .core.device import resolve_device
+    from .core.dist import SpawnError, free_port, spawn
+
+    if resolve_device(device).type == "cuda" and n > torch.cuda.device_count():
+        raise RuntimeError(f"--{flag} {n} runs a rank a card, but {torch.cuda.device_count()} "
+                           f"card{'s are' if torch.cuda.device_count() != 1 else ' is'} visible")
+    port = free_port()
+    try:
+        spawn([[sys.executable, "-m", "faceposegenerator_tpu_torch.cli", command, *argv]] * n,
+              lambda i: dict(FPG_COORDINATOR=f"127.0.0.1:{port}", FPG_NUM_PROCESSES=str(n), FPG_PROCESS_ID=str(i),
+                             LOCAL_RANK=str(i)))
+    except SpawnError as e:
+        raise SystemExit(e.returncode) from None
+
+
+def _job_mesh(flag: str, n: int, device):
+    """The ("data",) mesh of this launched job's ranks for `--flag n`."""
+    from .core import dist
+    from .core.mesh import make_mesh
+
+    info = dist.init_distributed(platform=device.type)
+    if n != info.process_count:
+        raise ValueError(f"--{flag} {n} in a job of {info.process_count} ranks: they must agree")
+    return make_mesh(data=n, device=dist.device() or device)
 
 
 def _iresnet(cfg, device, weights=None, seed=0, dtype=None):
@@ -162,21 +192,26 @@ def cmd_train_idbooth(argv):
     )
     ap.add_argument(
         "--identity_parallel", type=int, default=0, metavar="N",
-        help="shard the K stacked identities over an N-device mesh (not "
-        "ported yet for N > 1; requires --vmap_identities)",
+        help="shard the K stacked identities over an N-rank mesh, a card "
+        "a rank (requires --vmap_identities)",
     )
     _add_device(ap)
     args = ap.parse_args(argv)
     if args.identity_parallel and args.vmap_identities < 2:
         ap.error("--identity_parallel requires --vmap_identities K >= 2")
-    _refuse_multi_process()
-    _refuse_mesh("identity_parallel", args.identity_parallel)
     if args.model_dir is None:
         ap.error("--model_dir with SD2.1 weights is required for real training")
+    if args.identity_parallel > 1 and not _launched():
+        return _spawn_ranks("train-idbooth", argv, args.identity_parallel, args.device, "identity_parallel")
 
     from .core.device import resolve_device
+    from .core.dist import maybe_init_from_env
 
+    maybe_init_from_env(platform=args.device)
     device = resolve_device(args.device)
+    extra = {}
+    if args.identity_parallel:
+        extra["mesh"] = _job_mesh("identity_parallel", args.identity_parallel, device)
 
     from .data.tokenizer import CLIPTokenizer
     from .pipelines.txt2img import StableDiffusionPipeline
@@ -204,7 +239,7 @@ def cmd_train_idbooth(argv):
     idbooth_driver.run_experiment_sweep(
         cfg, bundle, frozen, args.source_folder, args.output_folder,
         tokenizer=tokenizer, embeds_root=args.embeds_root, class_dir=args.class_data_dir,
-        vmap_identities=args.vmap_identities,
+        vmap_identities=args.vmap_identities, **extra,
     )
 
 
@@ -237,8 +272,8 @@ def cmd_generate(argv):
     ap.add_argument("--fiqa_network", default="r100")
     ap.add_argument(
         "--data_parallel", type=int, default=0, metavar="N",
-        help="generate over an N-device data-parallel mesh (not ported yet "
-             "for N > 1; batch_size must divide N)",
+        help="generate over an N-rank data-parallel mesh, a card a rank "
+             "(batch_size must divide N)",
     )
     ap.add_argument(
         "--pack_variants", action="store_true",
@@ -297,11 +332,17 @@ def cmd_generate(argv):
     if args.data_parallel and args.batch_size % args.data_parallel != 0:
         ap.error(f"--batch_size {args.batch_size} must divide "
                  f"--data_parallel {args.data_parallel}")
-    _refuse_mesh("data_parallel", args.data_parallel)
+    if args.data_parallel > 1 and not _launched():
+        return _spawn_ranks("generate", argv, args.data_parallel, args.device, "data_parallel")
 
     from .core.device import resolve_device
+    from .core.dist import maybe_init_from_env
 
+    maybe_init_from_env(platform=args.device)
     device = resolve_device(args.device)
+    mesh = None
+    if args.data_parallel:
+        mesh = _job_mesh("data_parallel", args.data_parallel, device)
 
     from .pipelines.sweep import run_sweep
     from .pipelines.txt2img import StableDiffusionPipeline
@@ -322,10 +363,14 @@ def cmd_generate(argv):
             pipe.calibrate_quant(
                 ["face portrait photo of sks person"], steps=args.quant_calibrate
             )
+    if mesh is not None:
+        pipe.to_mesh(mesh)
+    # every rank renders its rows and holds the whole batch; rank 0 writes
+    coordinator = mesh is None or mesh.rank == 0
 
     on_images = None
     finish_eval = None
-    if args.eval:
+    if args.eval and coordinator:
         import numpy as np
         import torch
 
@@ -376,7 +421,7 @@ def cmd_generate(argv):
         guidance_scale=args.guidance, batch_size=args.batch_size, seed=args.seed,
         on_images=on_images, pack_variants=args.pack_variants,
         deepcache_interval=args.deepcache, deepcache_depth=args.deepcache_depth,
-        tome_ratio=args.tome, cfg_interval=_parse_interval(args.cfg_interval),
+        tome_ratio=args.tome, cfg_interval=_parse_interval(args.cfg_interval), write=coordinator,
     )
     if finish_eval is not None:
         finish_eval()
@@ -491,10 +536,11 @@ def cmd_train_fr(argv):
     ap.add_argument("--val_bin", action="append", default=[], help="name=path.bin")
     _add_device(ap)
     args = ap.parse_args(argv)
-    _refuse_multi_process()
 
     from .core.device import resolve_device
+    from .core.dist import maybe_init_from_env
 
+    maybe_init_from_env(platform=args.device)
     device = resolve_device(args.device)
 
     from .data.augment import get_aug_policy
@@ -691,7 +737,7 @@ def cmd_serve(argv):
     ap.add_argument(
         "--data_parallel", type=int, default=0, metavar="N",
         help="serve over an N-device data-parallel mesh (not ported yet for "
-             "N > 1); 0 = single device",
+             "N > 1: item 9c); 0 = single device",
     )
     ap.add_argument("--max_queue", type=int, default=None)
     ap.add_argument("--request_timeout_s", type=float, default=None)
@@ -773,7 +819,10 @@ def cmd_serve(argv):
                  quant_calibrate=0, steps=30, scheduler="ddpm",
                  parallel_window=0),
         )
-    _refuse_mesh("data_parallel", args.data_parallel)
+    if args.data_parallel > 1:
+        raise NotImplementedError(f"serve --data_parallel {args.data_parallel} needs the threaded server over a "
+                                  f"mesh, which the port does not have yet ({_ITEM_9C}); pass 0 or 1 to serve "
+                                  "on one card")
 
     from .core.device import resolve_device
 
@@ -913,9 +962,11 @@ def cmd_accel_report(argv):
 
 
 def cmd_pod_rehearsal(argv):
-    """Multi-process pod-launch rehearsal: not ported yet."""
-    raise NotImplementedError(f"pod-rehearsal needs the multi-process launch, which the port does not have yet "
-                              f"({_ITEM_9B}: parallel/pod_rehearsal.py)")
+    """Multi-process pod-launch rehearsal (`parallel/pod_rehearsal.py`):
+    JAX's flags, plus `--device` and `--backend`."""
+    from .parallel import pod_rehearsal
+
+    pod_rehearsal.main(argv)
 
 
 COMMANDS = {

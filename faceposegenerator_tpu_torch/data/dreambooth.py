@@ -25,6 +25,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..core.mesh import host_row_slice
+
 
 def _natural_key(s: str):
     return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", s)]
@@ -33,18 +35,6 @@ def _natural_key(s: str):
 def list_images(folder: str) -> List[str]:
     exts = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
     return sorted((f for f in os.listdir(folder) if f.lower().endswith(exts)), key=_natural_key)
-
-
-def _host_row_slice(global_rows: int, num_hosts: int, host_id: int) -> slice:
-    """The contiguous rows of a global batch that host `host_id` loads
-    (JAX `core/mesh.host_row_slice`): the hosts' slices in host order make
-    the single-process batch."""
-    if global_rows % num_hosts != 0:
-        raise ValueError(f"global rows {global_rows} % hosts {num_hosts} != 0")
-    if not (0 <= host_id < num_hosts):
-        raise ValueError(f"host_id {host_id} not in [0, {num_hosts})")
-    per = global_rows // num_hosts
-    return slice(host_id * per, (host_id + 1) * per)
 
 
 class DreamBoothDataset:
@@ -175,7 +165,7 @@ class DreamBoothDataset:
         n_full = len(order) // b_global if drop_last else -(-len(order) // b_global)
         for bi in range(n_full):
             idx = order[bi * b_global: (bi + 1) * b_global]
-            rows = _host_row_slice(2 * b_global, num_shards, shard_index)
+            rows = host_row_slice(2 * b_global, num_shards, shard_index)
             items = [self._instance_row(idx[r]) if r < b_global else self._class_row(idx[r - b_global])
                      for r in range(rows.start, rows.stop)]
             yield {

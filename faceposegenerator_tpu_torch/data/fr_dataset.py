@@ -21,7 +21,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from .dreambooth import _host_row_slice
+from ..core.mesh import host_row_slice
 
 
 def _load_image(path: str, size: int = 112) -> np.ndarray:
@@ -90,7 +90,7 @@ class FlatDirDataset:
                 self.rng.shuffle(order)
         b_global = batch_size * num_shards
         n = len(order) // b_global if drop_last else -(-len(order) // b_global)
-        rows = _host_row_slice(b_global, num_shards, shard_index)
+        rows = host_row_slice(b_global, num_shards, shard_index)
         for bi in range(n):
             idx = order[bi * b_global : (bi + 1) * b_global][rows]
             imgs, labels = zip(*(self[i] for i in idx))

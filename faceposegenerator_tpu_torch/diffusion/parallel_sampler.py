@@ -16,7 +16,7 @@ the sequential chain one step an iteration.
 JAX runs the loop as a `while_loop` on the device; here it is an eager loop
 whose stride is read back to the host once an iteration (one small copy).
 The window is a batch axis, so more cards on one image is a placement of
-that axis over a mesh: that is ROADMAP queue 1, item 9, and `mesh=` raises
+that axis over a mesh: that is ROADMAP queue 1, item 9c, and `mesh=` raises
 until then.
 """
 
@@ -71,7 +71,7 @@ def sample_parallel(
     each half of the UNet's [W·B uncond; W·B cond] rows (parallel_sampler.py:118-139).
     """
     if mesh is not None:
-        raise ValueError("mesh= is not ported: placing the window over a mesh is ROADMAP queue 1, item 9")
+        raise ValueError("mesh= is not ported: placing the window over a mesh is ROADMAP queue 1, item 9c")
     if not isinstance(schedule, DDPMSchedule):
         raise TypeError(f"sample_parallel takes a DDPMSchedule, got {type(schedule).__name__}")
     policy.configure_backends()

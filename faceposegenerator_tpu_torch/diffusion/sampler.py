@@ -14,6 +14,9 @@ the text context, each segment carries its own DeepCache cache, and a
 segment's first step and every step whose index is a multiple of the
 interval run the full UNet. Capturing the loop in a CUDA graph is later work.
 
+`sample_data_parallel` and `sample_2d_parallel` run this loop on every
+rank of a mesh, each on its rows of the batch (and its slice of the UNet).
+
 `per_prompt_noise` draws a `noise_override` table whose slot streams depend
 only on (identity, prompt) (sampler.py:413): the bits are the port's own,
 from `core/rng.prompt_generator` (a `SeedSequence([identity, prompt])`), as
@@ -70,6 +73,7 @@ def sample(
     tome_ops: str = "attn",
     cfg_interval: Optional[tuple] = None,
     return_trajectory: bool = False,
+    batch_rows: Optional[tuple] = None,
 ):
     """Generate (B, H, W, 3) fp32 images in [0, 1].
 
@@ -94,6 +98,9 @@ def sample(
     B and is smaller than B (sampler.py:398-406); the whole batch otherwise.
     return_trajectory: also return the latents after each step, (S, B, h, w,
     4); exact paths only.
+    batch_rows=(G, rows): these B prompts are rows `rows` of a batch of G
+    (a data-parallel shard): `generator` draws the noise of all G rows, as
+    one process does, and the rows are kept.
     """
     expected = DDPMSchedule if scheduler == "ddpm" else DPMSolverSchedule if scheduler == "dpm" else None
     if expected is None:
@@ -123,10 +130,12 @@ def sample(
         if noise_override.shape != (S + 1, B, h, w, 4):
             raise ValueError(f"noise_override {tuple(noise_override.shape)} != {(S + 1, B, h, w, 4)}")
 
+    G, rows = batch_rows if batch_rows is not None else (B, slice(0, B))
+
     def noise(i):
         if noise_override is not None:
             return noise_override[i]
-        return torch.randn((B, h, w, 4), generator=generator, device=device, dtype=torch.float32)
+        return torch.randn((G, h, w, 4), generator=generator, device=device, dtype=torch.float32)[rows]
 
     # per-request adapters: the cond-only passes take them as given, the
     # CFG batch tiled ×2
@@ -193,3 +202,49 @@ def per_prompt_noise(identity_index: int, prompt_idx, S: int, h: int, w: int, de
     streams = [torch.randn((S + 1, h, w, 4), generator=prompt_generator(identity_index, int(p), device),
                            device=device, dtype=torch.float32) for p in prompt_idx]
     return torch.stack(streams, dim=1)
+
+
+def sample_data_parallel(mesh, nets: dict, schedule, input_ids, negative_input_ids, **kw):
+    """Data-parallel sampling (sampler.py:433-448): the prompt batch shards
+    over the mesh's "data" axis, each rank renders its rows with its own
+    copy of the networks, and the images are gathered, so every rank
+    returns the whole (B, H, W, 3) batch. B must divide the data axis.
+
+    The noise is the one-process run's: every rank draws the global batch
+    from the same `generator` and keeps its rows (`batch_rows`), or takes
+    its rows of a global `noise_override` (S+1, B, h, w, 4). Per-sample
+    adapters ((B, r, in) leaves, a (B,) scale) shard with their rows."""
+    from ..core.mesh import DATA_AXIS, all_gather_rows, rows_of
+
+    B = input_ids.shape[0]
+    rows = rows_of(mesh, B)
+    noise_override = kw.pop("noise_override", None)
+    if noise_override is not None:
+        noise_override = noise_override[:, rows]
+    lora, scale = kw.pop("lora", None), kw.pop("lora_scale", 1.0)
+    leaves = tree_leaves(lora)
+    if leaves and leaves[0].dim() == 3:
+        lora = tree_map(lambda t: t[rows], lora)
+    if isinstance(scale, torch.Tensor) and scale.dim() == 1:
+        scale = scale[rows]
+    images = sample(nets, schedule, torch.as_tensor(input_ids)[rows], torch.as_tensor(negative_input_ids)[rows],
+                    noise_override=noise_override, batch_rows=(B, rows), lora=lora, lora_scale=scale, **kw)
+    if kw.get("return_trajectory"):
+        images, traj = images
+        return (all_gather_rows(mesh, images, DATA_AXIS),
+                all_gather_rows(mesh, traj.transpose(0, 1).contiguous(), DATA_AXIS).transpose(0, 1))
+    return all_gather_rows(mesh, images, DATA_AXIS)
+
+
+def sample_2d_parallel(mesh, nets: dict, schedule, input_ids, negative_input_ids, **kw):
+    """2-D parallel sampling (sampler.py:451-475): the batch shards over
+    "data" and the UNet's attention and MLP over "model" (the Megatron
+    placement of `parallel.tp`, a level whose head count does not divide
+    the axis kept whole); the text encoder and the VAE stay whole on every
+    rank. `nets["unet"]` must already be placed with
+    `parallel.tp.shard_unet_params_tp(unet, mesh)`: placing it here would
+    slice the caller's module on every call."""
+    if mesh.model > 1 and not any(getattr(m, "tp", None) is not None for m in nets["unet"].modules()):
+        raise ValueError("sample_2d_parallel needs a UNet placed by parallel.tp.shard_unet_params_tp "
+                         f"over the mesh's {mesh.model} model ranks")
+    return sample_data_parallel(mesh, nets, schedule, input_ids, negative_input_ids, **kw)

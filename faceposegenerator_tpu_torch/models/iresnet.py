@@ -86,14 +86,19 @@ class BatchNorm(nn.Module):
         self.mean = nn.Parameter(torch.empty(c), requires_grad=False)
         self.var = nn.Parameter(torch.empty(c), requires_grad=False)
 
-    def forward(self, x: torch.Tensor, cfg: IResNetConfig, train: bool = False, fixed_weight: bool = False):
+    def forward(self, x: torch.Tensor, cfg: IResNetConfig, train: bool = False, fixed_weight: bool = False,
+                bn_sync=None):
         """Inference: the normalised x. Training: (normalised x, {"mean",
-        "var"}: the new running statistics)."""
+        "var"}: the new running statistics); `bn_sync` = (group,
+        global_stats) syncs the statistics over a process group
+        (`ops.norms.batch_norm_train`)."""
         gamma = torch.ones_like(self.weight) if fixed_weight else self.weight
         if not train:
             return batch_norm_inference(x, gamma, self.bias, self.mean, self.var, cfg.bn_eps)
+        group, global_stats = bn_sync or (None, False)
         out, mean, var = batch_norm_train(x, gamma, self.bias, self.mean, self.var,
-                                          momentum=cfg.bn_momentum, eps=cfg.bn_eps)
+                                          momentum=cfg.bn_momentum, eps=cfg.bn_eps, group=group,
+                                          global_stats=global_stats)
         return out, {"mean": mean, "var": var}
 
 
@@ -124,13 +129,13 @@ class IBasicBlock(nn.Module):
         else:
             self.se_fc1 = self.se_fc2 = None
 
-    def forward(self, x, cfg: IResNetConfig, train: bool = False):
+    def forward(self, x, cfg: IResNetConfig, train: bool = False, bn_sync=None):
         """Inference: the block's output. Training: (output, the new running
         statistics of its BatchNorms)."""
         stats = {}
 
         def bn(name, h):
-            out = getattr(self, name)(h, cfg, train)
+            out = getattr(self, name)(h, cfg, train, bn_sync=bn_sync)
             if train:
                 out, stats[name] = out
             return out
@@ -183,7 +188,7 @@ class IResNet(nn.Module):
 
     def forward(self, images: torch.Tensor, policy: Policy = DEFAULT_POLICY, return_features: bool = False,
                 train: bool = False, generator: Optional[torch.Generator] = None,
-                dropout_mask: Optional[torch.Tensor] = None):
+                dropout_mask: Optional[torch.Tensor] = None, bn_group=None, bn_global: bool = False):
         """(B, 112, 112, C) → (B, num_features) fp32 embedding; in training
         mode (embedding, new state tree). With `return_features`, the
         flattened post-bn2 feature map (B, 512·7·7) in fp32 comes last, the
@@ -191,12 +196,18 @@ class IResNet(nn.Module):
 
         Training dropout keeps each feature with probability 1 − dropout,
         drawn from `generator` as `rand < keep`, or given as the boolean
-        `dropout_mask` (the test's seam for JAX's Bernoulli draws)."""
+        `dropout_mask` (the test's seam for JAX's Bernoulli draws).
+
+        `bn_group` (a process group; JAX's `axis_name`, iresnet.py:137-219)
+        syncs every training BatchNorm's statistics over its ranks: their
+        averaged local moments, or with `bn_global` the moments of the
+        union of their batches (`ops.norms.batch_norm_train`)."""
         cfg = self.cfg
         state = {}
+        sync = None if bn_group is None else (bn_group, bn_global)
 
         def bn(name, module, h, fixed=False):
-            out = module(h, cfg, train, fixed_weight=fixed)
+            out = module(h, cfg, train, fixed_weight=fixed, bn_sync=sync)
             if train:
                 out, state[name] = out
             return out
@@ -207,9 +218,9 @@ class IResNet(nn.Module):
             layer_state = []
             for block in getattr(self, f"layer{s + 1}"):
                 if cfg.remat and torch.is_grad_enabled():
-                    out = checkpoint(block, x, cfg, train, use_reentrant=False)
+                    out = checkpoint(block, x, cfg, train, sync, use_reentrant=False)
                 else:
-                    out = block(x, cfg, train)
+                    out = block(x, cfg, train, sync)
                 if train:
                     out, block_state = out
                     layer_state.append(block_state)

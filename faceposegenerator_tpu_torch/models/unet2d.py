@@ -110,6 +110,11 @@ class ResBlock(nn.Module):
 
 
 class Attention(nn.Module):
+    # `parallel.tp.TPSlice` when this rank holds a slice of the heads
+    # (`parallel.tp.shard_unet_params_tp`): q/k/v hold its out-rows, `out` its
+    # in-columns, and `out`'s partial sums are reduced over "model"
+    tp = None
+
     def __init__(self, dim: int, ctx_dim: int):
         super().__init__()
         self.q = nn.Linear(dim, dim, bias=False)
@@ -124,31 +129,41 @@ class Attention(nn.Module):
         `qdense_fused` when the layers are quantized; the q/k/v views of its
         output go to the kernel without a copy."""
         b, s, c = x.shape
-        nh = c // head_dim
+        tp, self_attn = self.tp, ctx is x
+        inner = c if tp is None else tp.width
+        nh = inner // head_dim
+        if tp is not None:
+            x = tp.enter(x)
+            ctx = x if self_attn else tp.enter(ctx)
+
+        def pair(name):
+            la = None if lora is None else lora.get(name)
+            if la is None:
+                return None, None
+            return (la["a"], la["b"]) if tp is None else tp.lora(name, la["a"], la["b"])
 
         def proj(name, inp):
             layer = getattr(self, name)
-            la = None if lora is None else lora.get(name)
-            return lora_dense(
-                inp, layer.weight, layer.bias,
-                lora_a=None if la is None else la["a"],
-                lora_b=None if la is None else la["b"], scale=lora_scale,
-            )
+            a, bb = pair(name)
+            if tp is not None and name == "out":  # partial sums: the bias after the reduce
+                return tp.leave(lora_dense(inp, layer.weight, None, lora_a=a, lora_b=bb, scale=lora_scale),
+                                layer.bias)
+            return lora_dense(inp, layer.weight, layer.bias, lora_a=a, lora_b=bb, scale=lora_scale)
 
-        if ctx is x:
+        if self_attn:
             ws = [self.q.weight, self.k.weight, self.v.weight]
             if is_quantized(ws[0]):
                 qkv = qdense_fused(x, ws)
             else:
                 qkv = F.linear(x, torch.cat(ws, dim=0).to(x.dtype))
-            qkv = list(qkv.split(c, dim=-1))
+            qkv = list(qkv.split(inner, dim=-1))
             for i, name in enumerate(("q", "k", "v")):
-                la = None if lora is None else lora.get(name)
-                if la is None:
+                a, bb = pair(name)
+                if a is None:
                     continue
                 # autograd refuses in-place ops on split views; without grad
                 # the add is in place and the views stay views of one buffer
-                qkv[i] = add_delta(qkv[i], lora_delta(x, la["a"], la["b"]), lora_scale,
+                qkv[i] = add_delta(qkv[i], lora_delta(x, a, bb), lora_scale,
                                    inplace=not torch.is_grad_enabled())
             q, k, v = qkv
             skv = s
@@ -158,7 +173,7 @@ class Attention(nn.Module):
         q = q.reshape(b, s, nh, head_dim)
         k = k.reshape(b, skv, nh, head_dim)
         v = v.reshape(b, skv, nh, head_dim)
-        o = dot_product_attention(q, k, v, impl=attn_impl, kv_len=kv_len).reshape(b, s, c)
+        o = dot_product_attention(q, k, v, impl=attn_impl, kv_len=kv_len).reshape(b, s, inner)
         return proj("out", o)
 
 
@@ -172,6 +187,20 @@ class BasicTransformerBlock(nn.Module):
         self.ln3 = Affine(dim)
         self.ff_in = nn.Linear(dim, dim * 8)  # GEGLU: 2 × 4·dim
         self.ff_out = nn.Linear(dim * 4, dim)
+
+    # `parallel.tp.TPSlice` when this rank holds a slice of the MLP:
+    # ff_in's value and gate rows of its range, ff_out's in-columns
+    tp = None
+
+    def feed_forward(self, x):
+        """GEGLU MLP: ff_out(value · gelu(gate))."""
+        tp = self.tp
+        if tp is not None:
+            x = tp.enter(x)
+        val, gate = lora_dense(x, self.ff_in.weight, self.ff_in.bias).chunk(2, dim=-1)
+        if tp is None:
+            return lora_dense(val * F.gelu(gate), self.ff_out.weight, self.ff_out.bias)
+        return tp.leave(lora_dense(val * F.gelu(gate), self.ff_out.weight), self.ff_out.bias)
 
 
 class Transformer2D(nn.Module):
@@ -214,8 +243,7 @@ class Transformer2D(nn.Module):
             h = h + (tome.unmerge(a2, m) if xm else a2)
             hn = layer_norm(h, blk.ln3.weight, blk.ln3.bias)
             mm = m is not None and "mlp" in tome_ops
-            val, gate = lora_dense(tome.merge(hn, m) if mm else hn, blk.ff_in.weight, blk.ff_in.bias).chunk(2, dim=-1)
-            ff = lora_dense(val * F.gelu(gate), blk.ff_out.weight, blk.ff_out.bias)
+            ff = blk.feed_forward(tome.merge(hn, m) if mm else hn)
             h = h + (tome.unmerge(ff, m) if mm else ff)
         h = lora_dense(h, self.proj_out.weight, self.proj_out.bias)
         return res + h.reshape(b, hh, ww, c)

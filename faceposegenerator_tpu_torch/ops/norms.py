@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from . import fused_gn
@@ -96,22 +97,41 @@ def batch_norm_train(
     running_var: torch.Tensor,
     momentum: float = 0.1,
     eps: float = 1e-5,
-    axis_name: Optional[str] = None,
+    group=None,
+    global_stats: bool = False,
 ):
     """Training-mode BatchNorm over (N, ..., C): statistics over every axis
     but the last, in fp32, with var = E[x²] − mean² (norms.py:113-145).
     Returns (out in x's dtype, new running mean, new running var); the
     running variance takes the unbiased n/(n−1) form, momentum weighting the
-    batch. `axis_name` (JAX's cross-replica sync of the statistics) needs
-    the mesh, which the port does not have yet."""
-    if axis_name is not None:
-        raise ValueError("batch_norm_train(axis_name=...) syncs statistics over a mesh, which the port does not "
-                         "have yet (ROADMAP.md queue 1, item 9: the data-parallel mesh)")
+    batch.
+
+    `group` (a process group, JAX's `axis_name`): the local mean and the
+    local E[x²] − mean² are each averaged over the group's ranks, and n in
+    the unbiased factor stays the local count, as JAX's pmean does (this is
+    not the variance of the union, and not what torch's SyncBatchNorm
+    computes). With `global_stats=True` the group's ranks instead sum Σx,
+    Σx² and the count: the statistics of the union of their batches, what
+    one process computes on the whole batch. Both reductions are
+    differentiable; their backward sums the cotangents over the group."""
     x32 = x.float()
     axes = tuple(range(x.dim() - 1))
-    mean = x32.mean(dim=axes)
-    var = x32.square().mean(dim=axes) - mean.square()
     n = x.numel() // x.shape[-1]
+    if group is not None and global_stats:
+        from ..core.mesh import psum
+
+        sums = psum(torch.cat([x32.sum(dim=axes), x32.square().sum(dim=axes)]), group)
+        n = n * dist.get_world_size(group)  # equal local batches
+        mean, ex2 = sums.chunk(2)
+        mean, ex2 = mean / n, ex2 / n
+        var = ex2 - mean.square()
+    else:
+        mean = x32.mean(dim=axes)
+        var = x32.square().mean(dim=axes) - mean.square()
+        if group is not None:
+            from ..core.mesh import psum
+
+            mean, var = (psum(torch.cat([mean, var]), group) / dist.get_world_size(group)).chunk(2)
     unbiased = var * (n / max(n - 1, 1))
     new_mean = (1 - momentum) * running_mean + momentum * mean
     new_var = (1 - momentum) * running_var + momentum * unbiased

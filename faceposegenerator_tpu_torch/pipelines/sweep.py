@@ -158,6 +158,7 @@ def run_sweep(
     seed: int = 0,
     on_images=None,
     write_pngs: bool = True,
+    write: bool = True,
     writer_threads: int = 8,
     pack_variants: bool = False,
     variant_loras: Optional[Dict[str, dict]] = None,
@@ -185,6 +186,9 @@ def run_sweep(
     or None for a pad slot. `variant_loras` gives adapter trees by variant
     name in place of checkpoint directories (packed mode; a variant missing
     from both gets the zero adapter). `images` are uint8 on the card.
+    `write_pngs=False` writes the comparison grids but not the PNG tree;
+    `write=False` writes no file at all (a data-parallel run's ranks other
+    than 0).
     """
     from ..diffusion.lora_io import load_lora_safetensors, zero_lora
     from ..diffusion.sampler import per_prompt_noise
@@ -234,7 +238,7 @@ def run_sweep(
             have = firsts.setdefault(m, [])
             if len(have) < GRID_IMAGES:
                 have.append(imgs[i])
-        if write_pngs and paths:
+        if write and write_pngs and paths:
             write_futs.append(writers.submit(_write_pngs, imgs[sel], paths))
 
     def variant_tree(model_name, identity):
@@ -299,7 +303,7 @@ def run_sweep(
                     drain()
                     pending = (identity, [(model_name, start + i) for i in range(len(chunk))], model_name, copy)
         drain()
-        for identity, firsts in grid_firsts.items():
+        for identity, firsts in (grid_firsts.items() if write else ()):
             per_model = [np.stack(firsts[m]) for m in models_to_test if m in firsts]
             if per_model:
                 save_image_grid(np.concatenate(per_model),

@@ -17,6 +17,7 @@ overrides the pipeline's adapter and may be per-sample. The turbo preset
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import List, Optional, Union
 
@@ -30,7 +31,7 @@ from ..core.rng import sampler_generator
 from ..data.tokenizer import CLIPTokenizer
 from ..diffusion.lora_io import load_lora_safetensors
 from ..diffusion.parallel_sampler import sample_parallel
-from ..diffusion.sampler import SamplerModels, sample
+from ..diffusion.sampler import SamplerModels, sample, sample_data_parallel
 from ..diffusion.schedulers import SchedulerConfig, make_ddpm, make_dpm_solver
 from ..models.clip_text import CLIPTextModel
 from ..models.unet2d import UNet2DCondition
@@ -42,7 +43,7 @@ from ..ops.image import quantize_u8
 class StableDiffusionPipeline:
     def __init__(self, nets: dict, models: SamplerModels = SamplerModels(),
                  policy: Optional[Policy] = None,
-                 scheduler_config: SchedulerConfig = SchedulerConfig(), tokenizer=None):
+                 scheduler_config: SchedulerConfig = SchedulerConfig(), tokenizer=None, mesh=None):
         self.nets = nets
         self.models = models
         dtype = nets["unet"].conv_in.weight.dtype
@@ -52,6 +53,24 @@ class StableDiffusionPipeline:
         self.scheduler_kind = "ddpm"
         self.lora = None
         self.lora_scale = 1.0
+        self.mesh = None
+        if mesh is not None:
+            self.to_mesh(mesh)
+
+    def to_mesh(self, mesh):
+        """Serve this pipeline data-parallel over a `core.mesh.Mesh`
+        (txt2img.py:43-70): every call's prompt batch shards over the mesh's
+        "data" axis (`sampler.sample_data_parallel`), and every rank returns
+        the whole batch. The weights and the LoRA are made equal on every
+        rank here, once, from rank 0's (a broadcast, so every rank calls
+        this); `set_lora` after it does the same for a new adapter, which
+        swaps tensors only. The batch of a call must divide the data axis."""
+        from ..core.mesh import replicate
+
+        self.mesh = mesh
+        replicate(mesh, self.nets)
+        if self.lora is not None:
+            replicate(mesh, self.lora)
 
     @property
     def device(self) -> torch.device:
@@ -105,6 +124,10 @@ class StableDiffusionPipeline:
     def set_lora(self, lora: Optional[dict], scale: float = 1.0):
         """lora: {"unet": tree, "text_encoder": tree or None} in the layout
         of `models.unet2d.init_lora`; tensors on the pipeline's device."""
+        if lora is not None and self.mesh is not None:
+            from ..core.mesh import replicate
+
+            replicate(self.mesh, lora)
         self.lora = lora
         self.lora_scale = scale
 
@@ -251,9 +274,10 @@ class StableDiffusionPipeline:
                       tome_ratio=tome_ratio, tome_min_tokens=tome_min_tokens, tome_ops=tome_ops)
         if parallel_window > 0:
             images = sample_parallel(self.nets, sched, input_ids, negative_input_ids, window=parallel_window,
-                                     tolerance=parallel_tolerance, **common)
+                                     tolerance=parallel_tolerance, mesh=self.mesh, **common)
         else:
-            images = sample(
+            run = sample if self.mesh is None else functools.partial(sample_data_parallel, self.mesh)
+            images = run(
                 self.nets, sched, input_ids, negative_input_ids, scheduler=self.scheduler_kind,
                 decode_chunk=decode_chunk, deepcache_interval=deepcache_interval, deepcache_depth=deepcache_depth,
                 cfg_interval=None if cfg_interval is None else tuple(cfg_interval), **common,

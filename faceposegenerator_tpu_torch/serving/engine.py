@@ -20,7 +20,7 @@ quantized to uint8 on the card before the one copy to the host.
 The worker thread issues the sampling work and sets the pipeline's device
 itself. An exception in a batch fails that batch's futures; one outside a
 batch (collecting it) fails every pending request; nothing is swallowed.
-Placing the batch over a mesh is ROADMAP queue 1, item 9: `mesh=` raises.
+Placing the batch over a mesh is ROADMAP queue 1, item 9c: `mesh=` raises.
 """
 
 from __future__ import annotations
@@ -118,7 +118,8 @@ class SamplerServer:
         cfg_interval: Optional[tuple] = None,
     ):
         if mesh is not None:
-            raise ValueError("mesh= is not ported: data-parallel serving over a mesh is ROADMAP queue 1, item 9")
+            raise ValueError("mesh= is not ported: data-parallel serving over a mesh is ROADMAP queue 1, item 9c "
+                             "(a rank-0 request front with lockstep worker ranks)")
         if scheduler not in ("ddpm", "dpm"):
             raise ValueError(
                 f"unknown scheduler {scheduler!r}: serving supports 'ddpm' "

@@ -190,28 +190,54 @@ def _to_device(x, device, dtype=None):
 
 
 def make_train_step(cfg: FRConfig, optimizer: SGDOptimizer, policy: Policy = DEFAULT_POLICY,
-                    axis_name: Optional[str] = None):
+                    group=None, mesh=None):
     """Returns `train_step(params, state, opt_state, batch, generator=None,
     draws=None) -> (params, state, opt_state, metrics)`. `batch` holds
     "images" (B, 112, 112, 3) in [-1, 1] and "labels" (B,), numpy or
     tensors. The generator draws the dropout mask, then ElasticCosFace's
     margins; `draws` may give them instead: {"dropout": bool (B, 512·49),
     "margin": (B,) standard normals}. Metrics: "loss", "train_acc" and
-    "grad_norm", tensors on the device."""
-    if axis_name is not None:
-        raise ValueError("make_train_step(axis_name=...) syncs BatchNorm over a mesh, which the port does not have "
-                         "yet (ROADMAP.md queue 1, item 9)")
+    "grad_norm", tensors on the device.
+
+    `group` (a process group; JAX's `axis_name`, fr.py:139-151): every
+    BatchNorm averages its local moments over the group's ranks, nothing
+    else is reduced, as in JAX.
+
+    `mesh` (`core.mesh.Mesh`): the data-parallel step of the driver, equal
+    to one process's step on the global batch, whose rows are sharded over
+    the mesh's "data" axis (`batch` holds this rank's). Under a mesh JAX
+    computes BatchNorm over the global batch (jit semantics), so here every
+    BatchNorm sums Σx, Σx² and the count over the data ranks; AdaFace's
+    EMA takes the global batch's norms, the loss and accuracy are global
+    means, the generator draws the global batch's dropout mask and margins
+    (every rank the same, keeping its rows; `draws` are global too), and
+    the gradients are summed over the data ranks before the update, so the
+    replicas stay equal."""
+    if group is not None and mesh is not None:
+        raise ValueError("make_train_step takes a BatchNorm group or a data-parallel mesh, not both")
     policy.configure_backends()
+    bn_group, bn_global = group, False
+    if mesh is not None and mesh.data > 1:
+        from ..core.mesh import DATA_AXIS
+
+        bn_group, bn_global = mesh.group(DATA_AXIS), True
 
     def loss_fn(params, state, images, labels, generator, draws):
         emb_raw, new_bn = params["backbone"](images, policy, train=True, generator=generator,
-                                             dropout_mask=draws.get("dropout"))
+                                             dropout_mask=draws.get("dropout"), bn_group=bn_group,
+                                             bn_global=bn_global)
         kernel = params["kernel"]
         new_state = {"bn": new_bn}
         if cfg.loss == "AdaFace":
             norms = torch.linalg.norm(emb_raw, dim=1)
             emb = emb_raw / torch.clamp(norms[:, None], min=1e-12)
-            logits, new_state["adaface"] = L.adaface_logits(kernel, emb, norms, labels, state["adaface"])
+            batch_norms = None
+            if mesh is not None:
+                from ..core.mesh import all_gather_rows
+
+                batch_norms = all_gather_rows(mesh, norms.detach())
+            logits, new_state["adaface"] = L.adaface_logits(kernel, emb, norms, labels, state["adaface"],
+                                                            batch_norms=batch_norms)
         elif cfg.loss == "ArcFace":
             logits = L.arcface_logits(kernel, emb_raw, labels, cfg.s, cfg.m)
         elif cfg.loss == "CosFace":
@@ -223,21 +249,50 @@ def make_train_step(cfg: FRConfig, optimizer: SGDOptimizer, policy: Policy = DEF
             raise ValueError(cfg.loss)
         loss = L.cross_entropy(logits, labels)
         acc = (logits.argmax(dim=1) == labels).float().mean()
+        if mesh is not None:  # this rank's share of the global means
+            share = labels.shape[0] / (labels.shape[0] * mesh.data)
+            loss, acc = loss * share, acc * share
         return loss, new_state, acc
+
+    def global_draws(generator, draws, n_local, device, bcfg):
+        """This rank's rows of the global batch's draws, made as one process
+        makes them: the dropout mask inside the backbone, then the margins."""
+        from ..core.mesh import rows_of
+
+        n = n_local * mesh.data
+        rows = rows_of(mesh, n)
+        if not draws and generator is not None:
+            draws = {}
+            if bcfg.dropout > 0:
+                feat = 512 * bcfg.fc_scale
+                draws["dropout"] = torch.rand((n, feat), generator=generator, device=device) < 1.0 - cfg.dropout
+            if cfg.loss == "ElasticCosFace":
+                draws["margin"] = torch.randn((n,), generator=generator, device=generator.device)
+        return {k: v[rows] for k, v in (draws or {}).items()}
 
     def train_step(params, state, opt_state, batch, generator=None, draws=None):
         device = params["kernel"].device
         images = _to_device(batch["images"], device)
         labels = _to_device(batch["labels"], device, torch.long)
-        loss, new_state, acc = loss_fn(params, state, images, labels, generator, draws or {})
+        draws = draws or {}
+        if mesh is not None:
+            draws = global_draws(generator, draws, labels.shape[0], device, params["backbone"].cfg)
+        loss, new_state, acc = loss_fn(params, state, images, labels, generator, draws)
         leaves = param_leaves(params)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        loss, acc = loss.detach(), acc.detach()
+        if mesh is not None and mesh.data > 1:
+            from ..core.mesh import DATA_AXIS, all_reduce_
+
+            flat = all_reduce_(mesh, torch.cat([g.reshape(-1) for g in grads] + [loss[None], acc[None]]), DATA_AXIS)
+            loss, acc = flat[-2], flat[-1]
+            grads = [f.view_as(g) for f, g in zip(flat[:-2].split([g.numel() for g in grads]), grads)]
         grad_norm = optimizer.update(grads, opt_state, params)
         params["backbone"].load_state_tree(tree_map(torch.Tensor.detach, new_state["bn"]))
         if "adaface" in new_state:
             state["adaface"] = {k: v.detach() for k, v in new_state["adaface"].items()}
-        return params, state, opt_state, {"loss": loss.detach(), "train_acc": acc, "grad_norm": grad_norm}
+        return params, state, opt_state, {"loss": loss, "train_acc": acc, "grad_norm": grad_norm}
 
     return train_step
 

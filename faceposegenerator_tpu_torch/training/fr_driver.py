@@ -34,10 +34,6 @@ from ..data.fr_dataset import FlatDirDataset, prefetch
 from ..evaluation import verification
 from . import fr
 
-_MESH = ("needs the data-parallel mesh, which the port does not have yet (ROADMAP.md queue 1, item 9: "
-         "core/dist.py and core/mesh.py)")
-
-
 def train_fr_run(
     cfg: fr.FRConfig,
     dataset: FlatDirDataset,
@@ -56,12 +52,26 @@ def train_fr_run(
     """One FR training run on `device` (the card unless "cpu"). val_bins:
     {benchmark: (images, issame)}. `checkpoint_every_epoch` saves backbone
     and header each epoch beside the best-model file
-    (`CallBackModelCheckpointOld`). `mesh` and `num_hosts > 1` raise: the
-    port has no mesh yet."""
-    if mesh is not None or num_hosts > 1:
-        raise ValueError(f"train_fr_run(mesh=..., num_hosts=...) {_MESH}")
+    (`CallBackModelCheckpointOld`).
+
+    `mesh` (`core.mesh.Mesh`): data-parallel training (fr_driver.py:45-100),
+    equal to one process's run on the global batch: the weights made equal
+    on every rank, each global batch from `dataset.batches(num_shards=,
+    shard_index=)` and each rank training on its rows of it
+    (`core.mesh.form_global_batch`) with `fr.make_train_step(mesh=)`, whose
+    BatchNorm takes the statistics of the global batch as JAX's jit does
+    under a mesh. On a job of several hosts pass `num_hosts`/`host_id`: each
+    host loads only its rows. `cfg.batch_size` is the batch of a host. Every
+    rank validates (the same weights, the same verdicts); only the mesh's
+    rank 0 writes."""
     device = resolve_device(device)
-    logger = logger or setup_logging(output_dir)
+    coordinator = mesh is None or mesh.rank == 0
+    if mesh is not None:  # every rank takes an equal share of each global batch
+        from ..core.mesh import local_batch_size
+
+        local_batch_size(mesh, cfg.batch_size * max(num_hosts, 1))
+    if logger is None:
+        logger = setup_logging(output_dir if coordinator else None)
     best_path = os.path.join(output_dir, "best_backbone.npz")
     if os.path.exists(best_path):
         logger.info(f"skip: {best_path} exists (reference skip-if-done)")
@@ -69,13 +79,20 @@ def train_fr_run(
 
     os.makedirs(output_dir, exist_ok=True)
     cfg = cfg.replace(num_classes=dataset.num_classes)
-    snapshot_config(cfg, output_dir, "fr_config.json")
+    if coordinator:
+        snapshot_config(cfg, output_dir, "fr_config.json")
 
     params, state = fr.init_train_state(cfg, seed, device)
-    steps_per_epoch = max(len(dataset) // cfg.batch_size, 1)
+    global_batch = cfg.batch_size * max(num_hosts, 1)
+    steps_per_epoch = max(len(dataset) // global_batch, 1)
     optimizer = fr.make_optimizer(cfg, steps_per_epoch)
     opt_state = optimizer.init(params)
-    step_fn = fr.make_train_step(cfg, optimizer, policy=policy)
+    step_fn = fr.make_train_step(cfg, optimizer, policy=policy, mesh=mesh)
+    if mesh is not None:
+        from ..core.mesh import form_global_batch, replicate
+
+        replicate(mesh, params)
+        replicate(mesh, state)
     plateau = fr.PlateauScheduler(cfg) if cfg.lr_schedule == "plateau" else None
 
     throughput = ThroughputLogger(frequency=100, logger=logger)
@@ -83,16 +100,28 @@ def train_fr_run(
     history: List[Dict] = []
 
     def save(path):
-        save_pytree(fr.fr_checkpoint_tree(params, state), path)
+        if coordinator:
+            save_pytree(fr.fr_checkpoint_tree(params, state), path)
+        if mesh is not None and mesh.size > 1:
+            from ..core.dist import barrier
+
+            barrier("fr_written")
 
     for epoch in range(cfg.num_epochs):
-        for i, batch in enumerate(prefetch(dataset.batches(cfg.batch_size))):
+        if mesh is None and num_hosts == 1:
+            batches = dataset.batches(cfg.batch_size)
+        else:
+            batches = dataset.batches(cfg.batch_size, num_shards=max(num_hosts, 1), shard_index=host_id,
+                                      epoch=epoch, order_seed=seed)
+        for i, batch in enumerate(prefetch(batches)):
             if max_steps_per_epoch and i >= max_steps_per_epoch:
                 break
+            if mesh is not None:
+                batch = form_global_batch(mesh, batch, max(num_hosts, 1), host_id)
             params, state, opt_state, metrics = step_fn(
                 params, state, opt_state, batch, train_step_generator(seed, global_step, device))
             global_step += 1
-            throughput(global_step, cfg.batch_size)
+            throughput(global_step, global_batch)
             if global_step % 100 == 0:
                 logger.info(f"step {global_step} loss={float(metrics['loss']):.4f}")
 
@@ -124,8 +153,9 @@ def train_fr_run(
         else:
             save(best_path)
 
-    with open(os.path.join(output_dir, "history.json"), "w") as f:
-        json.dump(history, f, indent=2)
+    if coordinator:
+        with open(os.path.join(output_dir, "history.json"), "w") as f:
+            json.dump(history, f, indent=2)
     return {"best_acc": best_acc, "history": history, "skipped": False}
 
 

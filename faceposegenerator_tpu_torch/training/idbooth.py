@@ -263,7 +263,7 @@ def draw(latent_shape, n: int, num_train_timesteps: int, generator: torch.Genera
 
 def make_loss_fn(cfg: IDBoothConfig, models: ModelBundle, schedule: DDPMSchedule,
                  policy: Policy = DEFAULT_POLICY, detect_fn: Callable = full_image_boxes,
-                 identities: Optional[int] = None):
+                 identities: Optional[int] = None, mesh=None):
     """loss_fn(trainable, frozen, batch, generator=None, draws=None) →
     (loss, metrics), a scalar tensor with its graph and detached scalars.
 
@@ -279,16 +279,41 @@ def make_loss_fn(cfg: IDBoothConfig, models: ModelBundle, schedule: DDPMSchedule
     each row with its identity's LoRA (per-row adapters: the stacked leaves
     gathered by row, so autograd sums each identity's gradient into its own
     slice). Each identity's loss is computed on its own rows as above, the
-    loss returned is their sum, and the metrics have shape (K,)."""
+    loss returned is their sum, and the metrics have shape (K,).
+
+    `mesh` (`core.mesh.Mesh`): the data-parallel loss. `batch` holds this
+    rank's rows of the global batch, sharded contiguously over "data"
+    (`core.mesh.shard_batch`), and the global batch is laid out
+    [instance × B; class × B] as one process's, so a rank may hold only
+    instance rows or only class rows: each rank knows which global rows it
+    holds. The MSE terms are this rank's sums over the global counts; the
+    identity term's numerator is this rank's, its denominator (the faces
+    found) is summed over the ranks before the division; a triplet's
+    negative, global row B + i, may live on another rank, so the embeddings
+    are gathered. A rank with no instance rows runs no decode and no
+    ArcFace. Summed over the ranks, the losses and their gradients are one
+    process's on the global batch; the metrics returned are already summed.
+    `generator` draws the global batch's draws (every rank the same) and
+    `draws` are the global batch's; each rank keeps its rows."""
     T = schedule.num_train_timesteps
     stacked = identities is not None
     K = identities if stacked else 1
+    if stacked and mesh is not None:
+        raise ValueError("stacked identities shard over a mesh by identity (training.multi_identity), "
+                         "not by row")
+    if mesh is not None:
+        from ..core.mesh import DATA_AXIS, all_gather_rows, all_reduce_, rows_of
 
     def loss_fn(trainable, frozen, batch, generator=None, draws=None):
         for net in frozen.values():
             net.requires_grad_(False)
         lora = trainable
         n = batch["pixel_values"].shape[1 if stacked else 0]
+        if mesh is not None:  # the global batch's size, and this rank's rows of it
+            n = n * mesh.data
+            mine = rows_of(mesh, n)
+        else:
+            mine = slice(0, n * K)
         b = n // 2 if cfg.with_prior_preservation else n
         if stacked:
             def rows(x):  # (K, n, ...) → (K·n, ...): [instance rows of 0..K-1; class rows of 0..K-1]
@@ -301,6 +326,7 @@ def make_loss_fn(cfg: IDBoothConfig, models: ModelBundle, schedule: DDPMSchedule
             lora = tree_map(lambda leaf: leaf.index_select(0, owner), trainable)
         pix = batch["pixel_values"]
         b_inst = K * b  # the instance rows, identity by identity
+        ni = max(0, min(mine.stop, b_inst) - mine.start)  # this call's instance rows
         with torch.no_grad():  # the latent encode (train_ID-Booth.py:1001)
             moments = frozen["vae"].encode_moments(pix, policy)
         shape = (n,) + tuple(moments[0].shape[1:])
@@ -309,6 +335,8 @@ def make_loss_fn(cfg: IDBoothConfig, models: ModelBundle, schedule: DDPMSchedule
                      else draw(shape, n, T, generator, pix.device))
         if stacked:
             draws = {k: rows(torch.stack([d[k].to(pix.device) for d in draws])) for k in draws[0]}
+        elif mesh is not None:
+            draws = {k: v[mine] for k, v in draws.items()}
         with torch.no_grad():
             latents = frozen["vae"].sample_latents(moments, draws["latent_noise"].to(pix.device))
             noise = draws["noise"].to(pix.device, torch.float32)
@@ -328,25 +356,32 @@ def make_loss_fn(cfg: IDBoothConfig, models: ModelBundle, schedule: DDPMSchedule
             pred = pred[..., : latents.shape[-1]]
         target = noise  # epsilon prediction (SD2.1-base)
 
-        def mean(x):  # per identity
-            return x.reshape(K, -1).mean(1)
-
         sq = torch.square(pred - target)
+        per_row = sq[0].numel()
+
+        def mean(x, rows_total):  # per identity; under a mesh this rank's share of the global mean
+            if mesh is None:
+                return x.reshape(K, -1).mean(1)
+            return x.sum().reshape(1) / (rows_total * per_row)
+
         metrics = {}
         if cfg.with_prior_preservation:
-            instance_loss, prior_loss = mean(sq[:b_inst]), mean(sq[b_inst:])
+            instance_loss, prior_loss = mean(sq[:ni], b_inst), mean(sq[ni:], n - b_inst)
             loss = instance_loss + cfg.prior_loss_weight * prior_loss
             metrics["prior_loss"] = prior_loss
         else:
-            instance_loss = loss = mean(sq)
+            instance_loss = loss = mean(sq, n)
         metrics["instance_loss"] = instance_loss
 
         if cfg.which_loss in ("identity", "triplet_prior"):
-            t_inst = timesteps[:b_inst]
-            x0 = schedule.pred_original(pred[:b_inst], t_inst, noisy[:b_inst])
+            t_inst = timesteps[:ni]
+            x0 = schedule.pred_original(pred[:ni], t_inst, noisy[:ni])
             gt = batch["gt_embeds"]
-            gt_inst = gt[:b_inst]
-            gt_neg = gt[b_inst:] if cfg.with_prior_preservation else gt_inst
+            if mesh is not None:  # a negative may live on another rank
+                gt = all_gather_rows(mesh, gt.to(pix.device), DATA_AXIS)
+            g0 = mine.start
+            gt_inst = gt[g0:g0 + ni]
+            gt_neg = gt[b_inst + g0:b_inst + g0 + ni] if cfg.with_prior_preservation else gt_inst
 
             def identity_terms(x0, gt_inst, gt_neg, t_inst):
                 """(mask·w·term, mask) of each of these samples."""
@@ -378,16 +413,26 @@ def make_loss_fn(cfg: IDBoothConfig, models: ModelBundle, schedule: DDPMSchedule
                     f"identity_chunk={ck} does not evenly divide the instance batch {b}; "
                     "choose a divisor of the (instance) batch size or unset it"
                 )
-            ck = ck or b_inst
+            ck = ck or max(ni, 1)
             parts = [branch(x0[i:i + ck], gt_inst[i:i + ck], gt_neg[i:i + ck], t_inst[i:i + ck])
-                     for i in range(0, b_inst, ck)]
-            num = torch.cat([p[0] for p in parts]).reshape(K, b).sum(1)
-            den = torch.cat([p[1] for p in parts]).reshape(K, b).sum(1)
+                     for i in range(0, ni, ck)]
+            if mesh is None:
+                num = torch.cat([p[0] for p in parts]).reshape(K, b).sum(1)
+                den = torch.cat([p[1] for p in parts]).reshape(K, b).sum(1)
+            else:  # the faces found anywhere divide this rank's numerator
+                zero = torch.zeros(1, device=pix.device)
+                num = torch.cat([p[0] for p in parts]).sum().reshape(1) if parts else zero
+                den = torch.cat([p[1] for p in parts]).sum().reshape(1) if parts else zero
+                den = all_reduce_(mesh, den.detach().clone(), DATA_AXIS)
             id_loss = num / torch.clamp(den, min=1.0)
             loss = loss + id_loss
             metrics["id_loss"] = id_loss
 
         metrics["loss"] = loss
+        if mesh is not None:
+            names = list(metrics)
+            summed = all_reduce_(mesh, torch.cat([metrics[k].detach() for k in names]), DATA_AXIS)
+            metrics = dict(zip(names, summed[:, None]))
         metrics = {k: v.detach() if stacked else v.detach()[0] for k, v in metrics.items()}
         return (loss.sum() if stacked else loss[0]), metrics
 
@@ -396,25 +441,50 @@ def make_loss_fn(cfg: IDBoothConfig, models: ModelBundle, schedule: DDPMSchedule
 
 def make_train_step(cfg: IDBoothConfig, models: ModelBundle, optimizer: LoRAOptimizer,
                     schedule: Optional[DDPMSchedule] = None, policy: Policy = DEFAULT_POLICY,
-                    detect_fn: Callable = full_image_boxes, identities: Optional[int] = None):
+                    detect_fn: Callable = full_image_boxes, identities: Optional[int] = None, mesh=None):
     """Returns `train_step(trainable, opt_state, frozen, batch, generator=None,
     draws=None) -> (trainable, opt_state, metrics)`; metrics carry the loss
     terms and `grad_norm`, the global norm of the gradients before the clip.
     With `identities=K`, the step of K stacked fine-tunes: the loss of
-    `make_loss_fn(identities=K)` and the optimizer's per-identity update."""
+    `make_loss_fn(identities=K)` and the optimizer's per-identity update.
+
+    With `mesh`, the data-parallel step (`make_loss_fn(mesh=)`): equal to
+    one process's step on the global batch. The gradients are summed over
+    the ranks before the clip and the update, so the replicated LoRA and
+    the optimizer state stay equal on every rank. Under a "model" axis
+    (the UNet placed by `parallel.tp.shard_unet_params_tp`), a sharded
+    attention's LoRA gradients are summed over its model ranks too, and the
+    others, which every model rank holds whole, count once."""
     if schedule is None:
         schedule = make_ddpm()
-    loss_fn = make_loss_fn(cfg, models, schedule, policy, detect_fn, identities=identities)
+    loss_fn = make_loss_fn(cfg, models, schedule, policy, detect_fn, identities=identities, mesh=mesh)
 
     def train_step(trainable, opt_state, frozen, batch, generator=None, draws=None):
         loss, metrics = loss_fn(trainable, frozen, batch, generator, draws)
         params = tree_leaves(trainable)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if mesh is not None and mesh.size > 1:
+            grads = _sum_over_mesh(mesh, grads, trainable, frozen["unet"])
         metrics["grad_norm"] = optimizer.update(grads, opt_state, trainable, per_identity=identities is not None)
         return trainable, opt_state, metrics
 
     return train_step
+
+
+def _sum_over_mesh(mesh, grads: list, trainable: dict, unet) -> list:
+    """The gradients summed over every rank of the mesh, in one all-reduce."""
+    from ..core.mesh import all_reduce_
+
+    if mesh.model > 1:
+        from ..parallel.tp import lora_grad_scale
+
+        scale = {"unet_lora": lora_grad_scale(unet, trainable["unet_lora"], mesh.model)}
+        if "text_lora" in trainable:
+            scale["text_lora"] = tree_map(lambda _: 1.0 / mesh.model, trainable["text_lora"])
+        grads = [g * f for g, f in zip(grads, tree_leaves(scale))]
+    flat = all_reduce_(mesh, torch.cat([g.float().reshape(-1) for g in grads]), None)
+    return [f.view_as(g).to(g.dtype) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
 
 def init_trainable(generator, cfg: IDBoothConfig, models: ModelBundle,

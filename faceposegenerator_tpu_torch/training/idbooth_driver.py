@@ -19,9 +19,11 @@ A checkpoint also holds the dataset's random state (`data_rng.json`: the
 shuffles and crops to come), as the reference's `save_state` keeps its RNG
 states, so a resumed run repeats an uninterrupted one; a checkpoint without
 it (one the JAX package wrote) restarts the data order.
-Data-parallel runs over a device mesh or several hosts (`mesh`,
-`num_hosts`, `host_id`) are not available in the port; the driver raises
-when they are asked for.
+Data-parallel runs (`mesh`, and `num_hosts`/`host_id` for a job whose
+hosts each load only their rows) train one process's run on the global
+batch over the mesh's ranks; only the mesh's rank 0 writes logs,
+checkpoints, validation images and the export, and every rank waits at a
+barrier after each write.
 """
 
 from __future__ import annotations
@@ -47,13 +49,6 @@ from ..pipelines.sweep import save_image_grid
 from . import idbooth
 
 DATA_RNG = "data_rng.json"
-
-
-def _single_device(mesh, num_hosts: int, host_id: int):
-    if mesh is not None or num_hosts != 1 or host_id != 0:
-        raise NotImplementedError(
-            "data-parallel training over a mesh or several hosts is not available in the port; "
-            "run with mesh=None, num_hosts=1, host_id=0")
 
 
 def net_device(frozen: Dict) -> torch.device:
@@ -157,9 +152,25 @@ def run_identity(
     after the last (with a tokenizer), and `pytorch_lora_weights.safetensors`.
     With `resume`, training continues after the latest checkpoint's epoch.
     Step i's noise comes from `train_step_generator(cfg.seed, i)`, so a
-    resumed run repeats an uninterrupted one."""
-    _single_device(mesh, num_hosts, host_id)
-    logger = logger or setup_logging(output_dir)
+    resumed run repeats an uninterrupted one.
+
+    `mesh` (`core.mesh.Mesh`): the epoch loop runs data-parallel
+    (idbooth_driver.py:123-204): the LoRA made equal on every rank, each
+    global batch from `DreamBoothDataset.sharded_batches` (its order from
+    (seed, epoch)), each rank training on its rows of it
+    (`core.mesh.form_global_batch`) with `idbooth.make_train_step(mesh=)`.
+    On a job of several hosts pass `num_hosts`/`host_id`: each host loads
+    only its rows of every global batch. `cfg.train_batch_size` is the
+    batch of a host; the global batch is that × `num_hosts`. Only the
+    mesh's rank 0 writes into `output_dir`; all ranks pass a barrier after
+    each write."""
+    coordinator = mesh is None or mesh.rank == 0
+    if mesh is not None:  # every rank takes an equal share of each global batch
+        from ..core.mesh import local_batch_size
+
+        local_batch_size(mesh, cfg.train_batch_size * max(num_hosts, 1) * (1 + cfg.with_prior_preservation))
+    if logger is None:
+        logger = setup_logging(output_dir if coordinator else None)
     if instance_ids is None:
         instance_ids = tokenizer([cfg.instance_prompt])[0]
     if class_ids is None and cfg.with_prior_preservation:
@@ -172,13 +183,15 @@ def run_identity(
         class_ids=class_ids, embeds_dir=embeds_dir, resolution=cfg.resolution, seed=cfg.seed,
         embed_dim=bundle.arcface_cfg.num_features,
     )
-    steps_per_epoch = max(len(dataset) // cfg.train_batch_size, 1)
+    global_batch = cfg.train_batch_size * max(num_hosts, 1)
+    steps_per_epoch = max(len(dataset) // global_batch, 1)
     total_steps = steps_per_epoch * cfg.num_train_epochs
 
     trainable = idbooth.init_trainable(cfg.seed, cfg, bundle, frozen["unet"], frozen.get("text_encoder"))
     optimizer = idbooth.make_optimizer(cfg, total_steps)
     opt_state = optimizer.init(trainable)
-    train_step = idbooth.make_train_step(cfg, bundle, optimizer, make_ddpm(), policy=policy, detect_fn=detect_fn)
+    train_step = idbooth.make_train_step(cfg, bundle, optimizer, make_ddpm(), policy=policy, detect_fn=detect_fn,
+                                         mesh=mesh)
 
     ckpt = CheckpointManager(output_dir, cfg.checkpoints_total_limit)
     first_epoch, global_step = 0, 0
@@ -187,40 +200,73 @@ def run_identity(
         restore_data_rng(ckpt.latest(), dataset)
         first_epoch += 1
         logger.info(f"resumed from {ckpt.latest()} (epoch {first_epoch})")
+    if mesh is not None:
+        from ..core.mesh import replicate
+
+        replicate(mesh, trainable)
+
+    def written():
+        """Every rank waits until rank 0's files are there."""
+        if mesh is not None and mesh.size > 1:
+            from ..core.dist import barrier
+
+            barrier("idbooth_written")
+
+    def epoch_batches(epoch):
+        if mesh is None and num_hosts == 1:
+            yield from (to_device(b, device) for b in dataset.batches(cfg.train_batch_size))
+            return
+        for b in dataset.sharded_batches(cfg.train_batch_size, num_shards=max(num_hosts, 1), shard_index=host_id,
+                                         epoch=epoch, order_seed=cfg.seed):
+            if mesh is None:
+                yield to_device(b, device)
+            else:
+                from ..core.mesh import form_global_batch
+
+                yield form_global_batch(mesh, b, max(num_hosts, 1), host_id)
 
     throughput = ThroughputLogger(frequency=50, total_steps=total_steps, logger=logger)
-    tracker = Tracker(os.path.join(output_dir, "logs"))
+    tracker = Tracker(os.path.join(output_dir, "logs")) if coordinator else None
     history: List[Dict] = []
     try:
         for epoch in range(first_epoch, cfg.num_train_epochs):
             meters = {k: AverageMeter() for k in ("loss", "instance_loss", "prior_loss", "id_loss")}
-            for batch in dataset.batches(cfg.train_batch_size):
+            for batch in epoch_batches(epoch):
                 trainable, opt_state, metrics = train_step(
-                    trainable, opt_state, frozen, to_device(batch, device),
-                    train_step_generator(cfg.seed, global_step, device))
+                    trainable, opt_state, frozen, batch, train_step_generator(cfg.seed, global_step, device))
                 global_step += 1
                 for k, m in meters.items():
                     if k in metrics:
                         m.update(float(metrics[k]))
-                throughput(global_step, cfg.train_batch_size)
+                throughput(global_step, global_batch)
             epoch_stats = {k: m.avg for k, m in meters.items() if m.count}
             epoch_stats["epoch"] = epoch
             history.append(epoch_stats)
-            tracker.log_scalars(global_step, {k: v for k, v in epoch_stats.items() if k != "epoch"})
+            if tracker is not None:
+                tracker.log_scalars(global_step, {k: v for k, v in epoch_stats.items() if k != "epoch"})
             logger.info(f"epoch {epoch}: " + ", ".join(f"{k}={v:.4f}" for k, v in epoch_stats.items()
                                                        if k != "epoch"))
 
             last = epoch == cfg.num_train_epochs - 1
             if (epoch + 1) % cfg.checkpointing_epochs == 0 or last:
-                save_data_rng(ckpt.save(epoch, global_step, trainable, opt_state, lora_export(trainable)), dataset)
+                if coordinator:
+                    save_data_rng(ckpt.save(epoch, global_step, trainable, opt_state, lora_export(trainable)),
+                                  dataset)
+                written()
             if tokenizer is not None and ((epoch + 1) % cfg.validation_epochs == 0 or last):
-                imgs = validation_images(frozen, trainable, cfg, bundle, tokenizer, policy)
-                save_image_grid(imgs, os.path.join(output_dir, "validation", f"epoch_{epoch}.png"))
-                tracker.log_images(global_step, "validation", imgs)
+                if coordinator:
+                    imgs = validation_images(frozen, trainable, cfg, bundle, tokenizer, policy)
+                    save_image_grid(imgs, os.path.join(output_dir, "validation", f"epoch_{epoch}.png"))
+                    tracker.log_images(global_step, "validation", imgs)
+                written()
 
-        save_lora_safetensors(lora_export(trainable), os.path.join(output_dir, "pytorch_lora_weights.safetensors"))
+        if coordinator:
+            save_lora_safetensors(lora_export(trainable),
+                                  os.path.join(output_dir, "pytorch_lora_weights.safetensors"))
+        written()
     finally:
-        tracker.close()
+        if tracker is not None:
+            tracker.close()
     return trainable, history
 
 
@@ -262,8 +308,9 @@ def run_experiment_sweep(
     `training_config.json`, each identity in its own folder. With
     `vmap_identities=K > 1`, identities of equal steps per epoch train K at
     a time in one stacked run (`multi_identity.run_identities_vmapped`, the
-    same artifacts as serial runs); the rest run one by one. Returns
-    {(loss, identity): history}."""
+    same artifacts as serial runs); the rest run one by one. A `mesh` in
+    `kw` goes to both: the stacked groups shard by identity, the serial
+    runs by row. Returns {(loss, identity): history}."""
     if identities is None:
         identities = sorted((d for d in os.listdir(source_folder) if os.path.isdir(os.path.join(source_folder, d))),
                             key=_natural_key)
@@ -272,7 +319,8 @@ def run_experiment_sweep(
         run_cfg = cfg.replace(which_loss=which_loss)
         run_root = os.path.join(output_folder, idbooth.LOSS_TO_FOLDER[which_loss])
         os.makedirs(run_root, exist_ok=True)
-        snapshot_config(run_cfg, run_root)
+        if kw.get("mesh") is None or kw["mesh"].rank == 0:
+            snapshot_config(run_cfg, run_root)
         serial = list(identities)
         if vmap_identities > 1:
             from .multi_identity import run_identities_vmapped

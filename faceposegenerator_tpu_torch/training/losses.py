@@ -90,14 +90,17 @@ def adaface_init_state(device=None) -> dict:
 
 
 def adaface_logits(kernel, embeddings, norms, labels, state: dict, cfg: AdaFaceConfig = AdaFaceConfig(),
-                   train: bool = True) -> Tuple[torch.Tensor, dict]:
+                   train: bool = True, batch_norms: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
     """`embeddings` already L2-normalised, `norms` their pre-norm magnitudes.
-    Returns (scaled logits, new EMA state); the norms carry no gradient."""
+    Returns (scaled logits, new EMA state); the norms carry no gradient.
+    `batch_norms`: the norms of the whole batch when this is one shard of it
+    (data-parallel training), whose mean and std the EMA takes."""
     cos = torch.clamp(embeddings @ _l2(kernel, dim=0), -1 + cfg.eps, 1 - cfg.eps)
     safe = torch.clamp(norms, 0.001, 100.0).detach()
     if train:
-        mean = safe.mean()
-        std = safe.std(correction=1)
+        whole = safe if batch_norms is None else torch.clamp(batch_norms, 0.001, 100.0).detach()
+        mean = whole.mean()
+        std = whole.std(correction=1)
         new_state = {
             "batch_mean": cfg.t_alpha * mean + (1 - cfg.t_alpha) * state["batch_mean"],
             "batch_std": cfg.t_alpha * std + (1 - cfg.t_alpha) * state["batch_std"],

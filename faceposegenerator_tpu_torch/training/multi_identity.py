@@ -20,12 +20,15 @@ K independent fine-tunes:
 
 Where JAX maps the single step over the identity axis with `vmap`, the
 port concatenates: a stacked step launches the attention kernels as often
-as one step at the same number of rows. Sharding the identity axis over
-devices (`shard_identity_axis`) is not available in the port.
+as one step at the same number of rows. Over a mesh the identity axis
+shards over "data" (`shard_identity_axis`, multi_identity.py:54-70): rank r
+trains its K/n identities with no gradient collective, and the metrics and
+the trees to save are gathered to the mesh's rank 0, which writes them.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -41,7 +44,7 @@ from ..data.dreambooth import DreamBoothDataset
 from ..diffusion.lora_io import save_lora_safetensors
 from ..diffusion.schedulers import DDPMSchedule
 from . import idbooth
-from .idbooth_driver import lora_export, net_device, restore_data_rng, save_data_rng, to_device
+from .idbooth_driver import DATA_RNG, lora_export, net_device, restore_data_rng, to_device
 
 
 def stack_pytrees(trees: Sequence):
@@ -57,6 +60,46 @@ def stack_pytrees(trees: Sequence):
         return first
 
     return tree_map(stack, trees[0], *trees[1:])
+
+
+def shard_identity_axis(mesh, tree):
+    """This rank's slice of a stacked tree's identity axis (K, ...), the
+    K identities sharded contiguously over the mesh's "data" axis; numbers
+    pass through."""
+    from ..core.mesh import rows_of
+
+    def take(leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        return leaf[rows_of(mesh, leaf.shape[0])].detach().clone().requires_grad_(leaf.requires_grad)
+
+    return tree_map(take, tree)
+
+
+def gather_identity_axis(mesh, tree):
+    """The inverse of `shard_identity_axis`: every rank's slices, in rank
+    order, on every rank (detached)."""
+    from ..core.mesh import DATA_AXIS, all_gather_rows
+
+    return tree_map(lambda leaf: all_gather_rows(mesh, leaf.detach(), DATA_AXIS)
+                    if isinstance(leaf, torch.Tensor) else leaf, tree)
+
+
+def _data_rng_states(mesh, datasets) -> List[dict]:
+    """Every identity's dataset random state (the data order to come, known
+    where the identity trained), on every rank: the JSON of each state,
+    padded to a fixed length, gathered as bytes."""
+    states = [ds.rng.bit_generator.state for ds in datasets]
+    if mesh is None:
+        return states
+    from ..core.mesh import DATA_AXIS, all_gather_rows
+
+    n = 1024
+    raw = [json.dumps(st).encode().ljust(n) for st in states]
+    if any(len(r) > n for r in raw):
+        raise ValueError("a dataset random state longer than its gather buffer")
+    codes = torch.tensor([list(r) for r in raw], dtype=torch.uint8, device=mesh.device)
+    return [json.loads(bytes(row.tolist()).decode()) for row in all_gather_rows(mesh, codes, DATA_AXIS).cpu()]
 
 
 def unstack_pytree(tree, k: int) -> List:
@@ -103,16 +146,26 @@ def run_identities_vmapped(
     `run_identity` calls (checkpoint-{epoch}-{step} directories, the final
     `pytorch_lora_weights.safetensors`); no validation images, as in JAX.
     The identities must have the same steps per epoch (one schedule), and
-    when resumed, the same latest (epoch, step)."""
-    if mesh is not None:
-        raise NotImplementedError("sharding the identity axis over a mesh is not available in the port; "
-                                  "run with mesh=None")
+    when resumed, the same latest (epoch, step).
+
+    `mesh` (`core.mesh.Mesh`): the K identities shard over its "data" axis
+    (multi_identity.py:213-253), K a multiple of its size; each rank trains
+    its own with no gradient collective, and only the mesh's rank 0 writes
+    the checkpoints and the LoRAs, the trees and each identity's dataset
+    random state gathered to it; every rank returns all K."""
     K = len(instance_dirs)
+    if mesh is not None and K % mesh.data != 0:
+        raise ValueError(
+            f"vmapped identity group K={K} must divide the mesh data "
+            f"axis ({mesh.data}) — pad the group or change vmap_identities"
+        )
+    coordinator = mesh is None or mesh.rank == 0
     if len(output_dirs) != K:
         raise ValueError(f"{len(output_dirs)} output directories for {K} identities")
     if embeds_dirs is None:
         embeds_dirs = [None] * K
-    logger = logger or setup_logging(output_dirs[0])
+    if logger is None:
+        logger = setup_logging(output_dirs[0] if coordinator else None)
     if instance_ids is None:
         instance_ids = tokenizer([cfg.instance_prompt])[0]
     if class_ids is None and cfg.with_prior_preservation:
@@ -158,21 +211,36 @@ def run_identities_vmapped(
             f"{sum(1 for c in ckpts if not c.latest())} unstarted)")
     trainables = stack_pytrees(per_id_trainables)
     opt_states = stack_pytrees(per_id_opts)
-    multi_step = make_multi_train_step(cfg, bundle, optimizer, K, policy=policy, detect_fn=detect_fn)
+    mine = range(K)
+    if mesh is not None:
+        from ..core.mesh import rows_of
+
+        trainables, opt_states = shard_identity_axis(mesh, trainables), shard_identity_axis(mesh, opt_states)
+        mine = range(K)[rows_of(mesh, K)]
+    multi_step = make_multi_train_step(cfg, bundle, optimizer, len(mine), policy=policy, detect_fn=detect_fn)
+
+    def whole(tree):
+        return tree if mesh is None else gather_identity_axis(mesh, tree)
+
+    def written():
+        if mesh is not None and mesh.size > 1:
+            from ..core.dist import barrier
+
+            barrier("multi_identity_written")
 
     throughput = ThroughputLogger(frequency=50, total_steps=total_steps, logger=logger)
     histories: List[List[Dict]] = [[] for _ in range(K)]
     for epoch in range(first_epoch, cfg.num_train_epochs):
         sums, count = None, 0
-        for batch_tuple in zip(*[ds.batches(cfg.train_batch_size) for ds in datasets]):
+        for batch_tuple in zip(*[datasets[i].batches(cfg.train_batch_size) for i in mine]):
             batches = {k: np.stack([b[k] for b in batch_tuple]) for k in batch_tuple[0]}
             # each identity's noise stream is a serial run's: cfg.seed at this step
-            gens = [train_step_generator(cfg.seed, global_step, device) for _ in range(K)]
+            gens = [train_step_generator(cfg.seed, global_step, device) for _ in mine]
             trainables, opt_states, metrics = multi_step(trainables, opt_states, frozen,
                                                          to_device(batches, device), gens)
             global_step += 1
             count += 1
-            vals = {k: v.double().cpu().numpy() for k, v in metrics.items()}
+            vals = {k: v.double().cpu().numpy() for k, v in whole(metrics).items()}
             sums = vals if sums is None else {k: sums[k] + vals[k] for k in sums}
             throughput(global_step, cfg.train_batch_size * K)
         if count:
@@ -184,12 +252,19 @@ def run_identities_vmapped(
 
         last = epoch == cfg.num_train_epochs - 1
         if (epoch + 1) % cfg.checkpointing_epochs == 0 or last:
-            t_list, o_list = unstack_pytree(trainables, K), unstack_pytree(opt_states, K)
-            for i in range(K):
-                save_data_rng(ckpts[i].save(epoch, global_step, t_list[i], o_list[i], lora_export(t_list[i])),
-                              datasets[i])
+            t_list, o_list = unstack_pytree(whole(trainables), K), unstack_pytree(whole(opt_states), K)
+            rng_states = _data_rng_states(mesh, [datasets[i] for i in mine])
+            if coordinator:
+                for i in range(K):
+                    path = ckpts[i].save(epoch, global_step, t_list[i], o_list[i], lora_export(t_list[i]))
+                    with open(os.path.join(path, DATA_RNG), "w") as f:
+                        json.dump(rng_states[i], f)
+            written()
 
-    t_list = unstack_pytree(trainables, K)
-    for i in range(K):
-        save_lora_safetensors(lora_export(t_list[i]), os.path.join(output_dirs[i], "pytorch_lora_weights.safetensors"))
+    t_list = unstack_pytree(whole(trainables), K)
+    if coordinator:
+        for i in range(K):
+            save_lora_safetensors(lora_export(t_list[i]),
+                                  os.path.join(output_dirs[i], "pytorch_lora_weights.safetensors"))
+    written()
     return t_list, histories

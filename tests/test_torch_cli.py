@@ -5,16 +5,24 @@ configs against the JAX package's.
   packages by making `parse_args` raise with the parser (nothing runs):
   every action's option strings, dest, default, type, choices, nargs,
   required flag and class. The port's set is JAX's, plus `--device` on the
-  eleven commands that put a network on a device. parity, parity-all and
-  pod-rehearsal only raise in the port, naming their ROADMAP item.
+  eleven commands that put a network on a device; pod-rehearsal also takes
+  `--device`, and `--backend` besides. parity and
+  parity-all only raise in the port, naming their ROADMAP item.
 - `main`: help lists the 16 commands (rc 0), an unknown command gives rc 2.
 - The argparse refusals come before the device is resolved and before any
   file is read: without `--device cpu`, on a machine without a card, they
   still give SystemExit(2) (JAX's give the same).
 - Without `--device`, each of the eleven resolves the card and raises
   without one (tests/test_torch_rules.py).
-- The mesh flags above 1, the FPG_* launch and the three unported commands
-  raise NotImplementedError naming ROADMAP item 9b or items 17-18.
+- Distribution from the command line: without `--device`, `generate
+  --data_parallel 2`, `train-idbooth --identity_parallel 2` and
+  `pod-rehearsal` resolve the card before they spawn a rank and raise
+  without one; a partial FPG_* launch raises JAX's error word for word;
+  `serve --data_parallel 2` (item 9c) and the two unported commands raise
+  NotImplementedError naming their item. `generate --data_parallel 2
+  --device cpu` spawns two gloo ranks whose PNGs are bit-equal to the
+  one-process command's; the ranks' other paths run in
+  tests/test_torch_data_parallel.py and tests/test_torch_pod_rehearsal.py.
 - The JAX command against the port's (`--device cpu`) on the same files:
   `pyeer` and `analyze` (printed JSON and written files within 1e-6; the
   plots by name: a curve 1e-7 away may move a pixel), `dgm-eval --model
@@ -59,7 +67,11 @@ from test_torch_serving import one_torch_thread  # noqa: F401 (autouse)
 
 COMMANDS = sorted(jcli.COMMANDS)
 DEVICE_COMMANDS = tuple(CLI_MINIMAL)
-RAISING = {"parity": "items 17-18", "parity-all": "items 17-18", "pod-rehearsal": "item 9b"}
+RAISING = {"parity": "items 17-18", "parity-all": "items 17-18"}
+# pod-rehearsal's flag beyond JAX's and --device
+PORT_EXTRA = {"pod-rehearsal": {
+    (("--backend",), "backend", "None", None, "['nccl', 'gloo']", None, False, "_StoreAction"),
+}}
 PSNR_DB = 0.1
 
 
@@ -94,7 +106,7 @@ def test_parser_surface_matches_jax(command, monkeypatch):
     want = _surface(jcli, command, monkeypatch)
     if command in DEVICE_COMMANDS:
         want = want | {DEVICE_ACTION}
-    assert _surface(cli, command, monkeypatch) == want
+    assert _surface(cli, command, monkeypatch) == want | PORT_EXTRA.get(command, set())
 
 
 def test_main_help_and_unknown(capsys):
@@ -139,30 +151,39 @@ def test_refusals_come_before_the_device_and_the_files(case, package, tmp_path, 
     assert not any(tmp_path.iterdir())
 
 
+NO_CARD = (RuntimeError, "no CUDA device")
+PARTIAL = (ValueError, "partial multi-process configuration")
 MESH_REFUSALS = {
-    "generate --data_parallel 2": (["generate", "--lora_root", "{d}/none", "--data_parallel", "2"], {}),
-    "serve --data_parallel 2": (["serve", "--model_dir", "{d}/none", "--data_parallel", "2"], {}),
+    "generate --data_parallel 2": (["generate", "--lora_root", "{d}/none", "--data_parallel", "2"], {}, NO_CARD),
+    "serve --data_parallel 2": (["serve", "--model_dir", "{d}/none", "--data_parallel", "2"], {},
+                                (NotImplementedError, "item 9c")),
     "train-idbooth --identity_parallel 2": (["train-idbooth", "--source_folder", "{d}/none", "--model_dir",
-                                             "{d}/none", "--vmap_identities", "2", "--identity_parallel", "2"], {}),
+                                             "{d}/none", "--vmap_identities", "2", "--identity_parallel", "2"], {},
+                                            NO_CARD),
     "train-idbooth under FPG_NUM_PROCESSES": (["train-idbooth", "--source_folder", "{d}/none", "--model_dir",
-                                               "{d}/none"], {"FPG_NUM_PROCESSES": "2"}),
-    "train-fr under FPG_COORDINATOR": (["train-fr", "--dataset_root", "{d}/none"], {"FPG_COORDINATOR": "h:1"}),
-    "train-fr under FPG_PROCESS_ID": (["train-fr", "--dataset_root", "{d}/none"], {"FPG_PROCESS_ID": "0"}),
-    "parity": (["parity", "--model_dir", "{d}/none"], {}),
-    "parity-all": (["parity-all"], {}),
-    "pod-rehearsal": (["pod-rehearsal", "--processes", "2"], {}),
+                                               "{d}/none"], {"FPG_NUM_PROCESSES": "2"}, PARTIAL),
+    "train-fr under FPG_COORDINATOR": (["train-fr", "--dataset_root", "{d}/none"], {"FPG_COORDINATOR": "h:1"},
+                                       PARTIAL),
+    # JAX's maybe_init_from_env reads FPG_PROCESS_ID only beside the other two
+    "train-fr under FPG_PROCESS_ID": (["train-fr", "--dataset_root", "{d}/none"], {"FPG_PROCESS_ID": "0"}, NO_CARD),
+    "parity": (["parity", "--model_dir", "{d}/none"], {}, (NotImplementedError, "items 17-18")),
+    "parity-all": (["parity-all"], {}, (NotImplementedError, "items 17-18")),
+    "pod-rehearsal": (["pod-rehearsal", "--processes", "2"], {}, NO_CARD),
 }
 
 
 @pytest.mark.parametrize("case", sorted(MESH_REFUSALS))
 def test_unported_distribution_and_parity_raise_naming_their_item(case, tmp_path, monkeypatch):
-    argv, env = MESH_REFUSALS[case]
-    for k in cli._LAUNCH_ENV:
+    """Each distribution case stops before it spawns, loads or writes
+    anything: the card resolved first, a partial launch refused as JAX
+    refuses it, the 9c server and the parity commands naming their item."""
+    argv, env, (exc, match) = MESH_REFUSALS[case]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for k in cli._LAUNCH_ENV + ("WORLD_SIZE", "RANK", "MASTER_ADDR"):
         monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    item = "items 17-18" if case.startswith("parity") else "item 9b"
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=match):
         cli.main([a.format(d=tmp_path) for a in argv])
     assert not any(tmp_path.iterdir())
 

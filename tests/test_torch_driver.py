@@ -361,8 +361,15 @@ def test_run_identities_vmapped_matches_serial_runs(tmp_path, one_thread):
 
 
 def test_run_identity_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        idbooth_driver.run_identity(idbooth.IDBoothConfig(), TINY, {}, str(tmp_path), str(tmp_path), num_hosts=2)
+    """A mesh whose data axis does not divide the global batch (here
+    [instance; class] = 2 rows over 3 ranks) is refused before anything
+    loads or is written."""
+    from faceposegenerator_tpu_torch.core.mesh import make_mesh
+
+    mesh = make_mesh(world_size=3, rank=0, device="cpu")
+    with pytest.raises(ValueError, match="data axis"):
+        idbooth_driver.run_identity(idbooth.IDBoothConfig(), TINY, {}, str(tmp_path), str(tmp_path), mesh=mesh)
+    assert not any(tmp_path.iterdir())
 
 
 def test_validation_images_and_grid(tmp_path, one_thread):

@@ -109,8 +109,11 @@ def test_batch_norm_train_matches_jax():
         _close(t.numpy(), w, 1e-5, what)
     out, *_ = norms.batch_norm_train(torch.from_numpy(x).bfloat16(), *map(torch.from_numpy, (g, b, rm, rv)))
     assert out.dtype == torch.bfloat16
-    with pytest.raises(ValueError, match="item 9"):
-        norms.batch_norm_train(*map(torch.from_numpy, (x, g, b, rm, rv)), axis_name="data")
+    # no group: nothing to reduce, global statistics or not (the group= cases
+    # run on two ranks in tests/test_torch_data_parallel.py)
+    alone = norms.batch_norm_train(*map(torch.from_numpy, (x, g, b, rm, rv)), momentum=0.1, global_stats=True)
+    for w, t, what in zip(want, alone, ("out", "running mean", "running var")):
+        _close(t.numpy(), w, 1e-5, what)
 
 
 @pytest.mark.parametrize("use_se", [False, True])

@@ -207,6 +207,10 @@ def test_train_fr_run_matches_jax_driver(tmp_path, monkeypatch):
                                 policy=PARITY_POLICY, device="cpu")
     assert res["lfw"]["accuracy"] == got["best_acc"] and os.path.exists(tmp_path / "test.json")
     assert fr_driver.train_fr_run(cfg, fr_dataset.FlatDirDataset(root, image_size=RES), out, device="cpu")["skipped"]
-    with pytest.raises(ValueError, match="item 9"):
+    # a mesh whose data axis does not divide the batch is refused before anything is written
+    from faceposegenerator_tpu_torch.core.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="data axis"):
         fr_driver.train_fr_run(cfg, fr_dataset.FlatDirDataset(root, image_size=RES), str(tmp_path / "m"),
-                               device="cpu", num_hosts=2)
+                               device="cpu", mesh=make_mesh(world_size=cfg.batch_size + 1, rank=0, device="cpu"))
+    assert not os.path.exists(tmp_path / "m")

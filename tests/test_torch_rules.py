@@ -48,7 +48,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "evaluation.heatmaps", "evaluation.metrics.prdc", "evaluation.eer", "evaluation.pairs",
                 "evaluation.pyeer_driver", "evaluation.analysis", "models.dinov2", "models.clip_vision",
                 "models.inception_v3", "models.resnet50", "models.simclr_resnet", "models.convnext",
-                "models.data2vec_vision", "cli", "configs"):
+                "models.data2vec_vision", "cli", "configs", "core.dist", "core.mesh", "parallel.tp",
+                "parallel.pod_rehearsal"):
         assert f"faceposegenerator_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -139,6 +140,13 @@ CLI_MINIMAL = {
     "serve": ["--model_dir", "{d}/model"],
     "accel-report": ["--model_dir", "{d}/model", "--mode", "deepcache=2"],
     "dgm-eval": ["{d}/real", "{d}/gen", "--output_dir", "{d}/out"],
+    "pod-rehearsal": ["--processes", "2", "--local_devices", "1"],
+}
+# the mesh flags spawn their ranks on the card: resolved before the spawn
+CLI_MESH = {
+    "generate": ["--lora_root", "{d}/loras", "--model_dir", "{d}/model", "--data_parallel", "2"],
+    "train-idbooth": ["--source_folder", "{d}/src", "--model_dir", "{d}/model", "--vmap_identities", "2",
+                      "--identity_parallel", "2"],
 }
 
 
@@ -176,10 +184,18 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch, tmp_path):
         monkeypatch.delenv(k, raising=False)
     cli_dir = tmp_path / "cli"
     cli_dir.mkdir()
-    for command, argv in CLI_MINIMAL.items():
+    for command, argv in list(CLI_MINIMAL.items()) + list(CLI_MESH.items()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([command] + [a.format(d=cli_dir) for a in argv])
     assert not any(cli_dir.iterdir())
+    # the distribution entry points: the process group and the mesh
+    from faceposegenerator_tpu_torch.core import dist, mesh
+    from faceposegenerator_tpu_torch.parallel import pod_rehearsal
+
+    for entry in (lambda: dist.init_distributed("127.0.0.1:1", 2, 0), mesh.make_mesh,
+                  lambda: pod_rehearsal.main(["--processes", "2"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
 
 
 def _eval_entries(tmp_path):
