@@ -287,8 +287,8 @@ Phases, in order; any failure exits non-zero without the final result line:
      "serving on" line and /healthz under a timeout, POST /generate twice,
      cold and warm, within the gate of phase 14's request 0, /stats, no
      kernel built); `train-idbooth`
-     (1 identity of 2 images, 200 class images, triplet_prior, 1 epoch:
-     200 steps with phase 7's counts each, the validation's, the exported
+     (1 identity of 2 images, 100 class images, triplet_prior, 1 epoch:
+     100 steps with phase 7's counts each, the validation's, the exported
      LoRA loaded); `accel-report --mode deepcache=3 --mode attn=flash_int8`
      (exact K1, K2 and K8 counts, finite fields); extract-embeds (folder,
      --streaming), align-crop, train-fr and test-fr (the same accuracy),
@@ -320,6 +320,27 @@ Phases, in order; any failure exits non-zero without the final result line:
      and peak memory a leg; the per-rank s/request and s/step print beside
      phases 4 and 7 (two ranks sharing one card: correctness, not a
      speedup). A rank's failure or timeout fails the phase.
+ 19. the servers over a mesh (`run_mesh_serving`; alone:
+     `perf/torch_mesh_serving.py`), on phase 12's directory: `serve
+     --data_parallel 1` as one NCCL rank (torch's launcher variables), its
+     PNG bit-equal to phase 17's one-process `serve` with the same flags; K1
+     at a rolling rank's 2 of 4 slots (20 × 4096²) and K2 at a mesh server
+     rank's decode of 4 images (4 × 4096² × 512) against their plain
+     versions; then the gloo rig, two ranks sharing the card
+     (`chip_smoke.py --mesh-rank`): `SamplerServer(mesh=)` at batch 8 (4
+     rows a rank, DDPM 30, 512²), 8 requests under one adapter twice (the
+     same images) and 8 under `multi_lora` over two adapters registered
+     after the start, K1 960 and K2 1 a rank a batch; `RollingServer(mesh=)`
+     at 4 slots, 5 requests staggered, K1 32 a rank a tick and K2 1 a
+     finished slot on its rank; `sample_parallel(mesh=)` at batch 1, window
+     8, tolerance 0 (4 positions a rank: 30 iterations, K1 960 and K2 1 a
+     rank); each image within 1e-1 / 1e-2 of rank 0's one-process result;
+     MoCo over the data axis (iresnet50 at 112², 64 rows a rank, the
+     BatchNorm over both ranks' rows, key width 512, queue 65536, 5 SGD
+     steps, fp32 with TF32 off): losses, queue and key encoder within 1e-4
+     relative of one process on the 128 rows; then `serve --data_parallel
+     2` from one command under FPG_BACKEND=gloo, /healthz and one request
+     within the per-sample gate of the one-process PNG.
 Phases 3-7 run the default configuration (GN_IMPL and GN_CONV_IMPL at xla)
 whatever the environment says. The line before the last is a JSON object
 with one entry per kernel; the last is {"ok": true, "device": {...}}.
@@ -691,6 +712,31 @@ def check_kernels(torch, fa, card, shapes=SHAPES, with_lse=False, per="request")
         del q, k, v, out
         torch.cuda.empty_cache()
     return rows
+
+
+def check_layer_norm(torch):
+    """`ops.norms.layer_norm` on bf16 x and bf16 gamma and beta at the
+    UNet's widths: the output bf16, at most 0.01% of its elements off the
+    fp32 LayerNorm rounded once to bf16 (JAX's), and a gradient through it
+    (the eval ViTs' GradCAM takes one)."""
+    from faceposegenerator_tpu_torch.ops.norms import layer_norm
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for rows, width in ((16 * 4096, 320), (16 * 256, 1280)):
+        x = (torch.randn(rows, width, generator=g, device="cuda") * 3 + 0.5).bfloat16().requires_grad_(True)
+        gamma = (1 + 0.2 * torch.randn(width, generator=g, device="cuda")).bfloat16()
+        beta = (0.2 * torch.randn(width, generator=g, device="cuda")).bfloat16()
+        out = layer_norm(x, gamma, beta)
+        ref = torch.nn.functional.layer_norm(x.detach().float(), (width,), gamma.float(), beta.float()).bfloat16()
+        differ = float((out != ref).float().mean())
+        (dx,) = torch.autograd.grad(out.float().square().sum(), x)
+        ms = time_ms(lambda: layer_norm(x, gamma, beta), torch)
+        affine_ms = time_ms(lambda: torch.nn.functional.layer_norm(x, (width,), gamma, beta), torch)
+        print(f"layer_norm bf16, {rows} × {width}: {out.dtype}, {differ:.4%} of the elements off the fp32 LayerNorm "
+              f"rounded once; gradient {dx.dtype}, finite {bool(dx.isfinite().all())}; {ms:.4f} ms a call (the op "
+              f"with its affine in bf16: {affine_ms:.4f} ms)", flush=True)
+        if out.dtype != torch.bfloat16 or differ > 1e-4 or not dx.isfinite().all():
+            fail("layer_norm's mixed-dtype path on the card")
 
 
 def check_backward(torch, fa, card, shapes, per="step"):
@@ -4272,9 +4318,10 @@ CLI_TURBO_PROMPTS = 2  # 3 variants × 2 prompts: one packed batch of 8 with 2 p
 # (K > 1280 or fewer than 2048 rows): every cross k/v projection (32), L1's
 # GEGLU output (5), the rest of L2's (40) and of the mid block's (8) calls
 CLI_CALIB_LAUNCHES = {"qdense": 8 * 160, "qdense_quant": 8 * 85}
-# the config's num_class_images, as a reference class folder holds them: the
-# epoch is as long as the folder (200 steps of 1 + 1 rows)
-CLI_CLASS_IMAGES = 200
+# a class folder of half the config's num_class_images (200), a depth cut
+# that keeps the script inside its time limit: the epoch is as long as the
+# folder (100 steps of 1 + 1 rows)
+CLI_CLASS_IMAGES = 100
 # dgm-eval on 2 of phase 16's 16 folders of each set (64 PNGs: one batch
 # each): the reference subsamples --nsample images only from a set larger
 # than nsample + 2000, so the folders, not the flag, keep the run small
@@ -4478,16 +4525,18 @@ def _cli_generate(torch, card_line, model_dir, refs, root):
     return total
 
 
-def _cli_serve(torch, card_line, model_dir, refs, root):
-    """`serve --multi_lora` with phase 14's adapter l1 as "a", started as a
-    child process: the "serving on" line, then /healthz (the startup's
-    end), POST /generate of request 0 twice (cold, then warm; its PNG
-    against the batch engine's image) and GET /stats; the child loads the
-    kernels phase 2 built and builds none."""
+def serve_child(argv, env, err_path, body, requests=1, timeout=300):
+    """`cli serve argv` as a child process group with `env` over this
+    process's environment (its ranks, if it spawns any, in the group): its
+    "serving on" line, then /healthz (the startup's end), POST /generate of
+    `body` `requests` times and GET /stats. Returns (line, startup_s,
+    request_s, images, stats); the group is killed after, also on a
+    failure."""
     import base64
     import io
     import os
     import queue
+    import signal
     import socket
     import threading
     import urllib.request
@@ -4496,32 +4545,26 @@ def _cli_serve(torch, card_line, model_dir, refs, root):
     import numpy as np
     from PIL import Image
 
-    from faceposegenerator_tpu_torch.ops import _build
-
     repo = Path(__file__).resolve().parent
-    libs = lambda: {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.iterdir()}  # noqa: E731
-    before = libs()
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    torch.cuda.empty_cache()
-    err_path = os.path.join(root, "serve.stderr")
-    argv = [sys.executable, "-m", "faceposegenerator_tpu_torch.cli", "serve", "--model_dir", model_dir,
-            "--lora", f"a={refs['lora_file']}", "--multi_lora", "--port", str(port)]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(repo)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    req = refs["request"]
+    argv = [sys.executable, "-m", "faceposegenerator_tpu_torch.cli", "serve", *argv, "--port", str(port)]
+    env = dict(os.environ, **env)
+    env["PYTHONPATH"] = os.pathsep.join([str(repo)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
     with open(err_path, "w") as err:
         t0 = time.time()
-        child = subprocess.Popen(argv, cwd=str(repo), env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+        child = subprocess.Popen(argv, cwd=str(repo), env=env, stdout=subprocess.PIPE, stderr=err, text=True,
+                                 start_new_session=True)
     lines = queue.Queue()
     threading.Thread(target=lambda: [lines.put(line) for line in child.stdout], daemon=True).start()
     try:
-        line, deadline = "", time.time() + 300
+        line, deadline = "", time.time() + timeout
         while "serving on" not in line:
             if child.poll() is not None:
                 fail(f"cli serve exited with {child.returncode} before serving: {open(err_path).read()[-2000:]}")
             if time.time() > deadline:
-                fail("cli serve printed no 'serving on' line within 300 s")
+                fail(f"cli serve printed no 'serving on' line within {timeout} s")
             try:
                 line = lines.get(timeout=0.5)
             except queue.Empty:
@@ -4536,16 +4579,15 @@ def _cli_serve(torch, card_line, model_dir, refs, root):
                         break
             except OSError:
                 if time.time() > deadline:
-                    fail("cli serve did not answer /healthz within 300 s of its start")
+                    fail(f"cli serve did not answer /healthz within {timeout} s of its start")
                 time.sleep(0.05)
         startup_s = time.time() - t0
-        body = json.dumps({"prompt": req.prompt, "negative_prompt": req.negative_prompt, "seed": req.seed,
-                           "lora_id": "a"}).encode()
         request_s, images = [], []
-        for _ in range(2):  # the first request pays the child's first launches; the second is warm
+        for _ in range(requests):
             t1 = time.time()
-            with urllib.request.urlopen(urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=body,
-                                                               method="POST"), timeout=300) as r:
+            with urllib.request.urlopen(urllib.request.Request(f"http://127.0.0.1:{port}/generate",
+                                                               data=json.dumps(body).encode(), method="POST"),
+                                        timeout=timeout) as r:
                 status, out = r.status, json.load(r)
             request_s.append(time.time() - t1)
             if status != 200:
@@ -4556,9 +4598,37 @@ def _cli_serve(torch, card_line, model_dir, refs, root):
         if child.poll() is not None:
             fail(f"cli serve exited with {child.returncode} while serving: {open(err_path).read()[-2000:]}")
     finally:
-        child.kill()
+        try:
+            os.killpg(child.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
         child.wait(timeout=60)
-    print(f"cli serve (child process, --multi_lora, batch 8, 30 steps): '{line.strip()}', /healthz after "
+    return line.strip(), startup_s, request_s, images, stats
+
+
+def _cli_serve(torch, card_line, model_dir, refs, root):
+    """`serve --multi_lora` with phase 14's adapter l1 as "a", started as a
+    child process: the "serving on" line, then /healthz (the startup's
+    end), POST /generate of request 0 twice (cold, then warm; its PNG
+    against the batch engine's image) and GET /stats; the child loads the
+    kernels phase 2 built and builds none. The served PNG goes into
+    `refs["served"]`, with the command's flags, for phase 19."""
+    import os
+
+    import numpy as np
+
+    from faceposegenerator_tpu_torch.ops import _build
+
+    libs = lambda: {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.iterdir()}  # noqa: E731
+    before = libs()
+    torch.cuda.empty_cache()
+    req = refs["request"]
+    argv = ["--model_dir", model_dir, "--lora", f"a={refs['lora_file']}", "--multi_lora"]
+    body = {"prompt": req.prompt, "negative_prompt": req.negative_prompt, "seed": req.seed, "lora_id": "a"}
+    # the first request pays the child's first launches; the second is warm
+    line, startup_s, request_s, images, stats = serve_child(argv, {}, os.path.join(root, "serve.stderr"), body,
+                                                            requests=2)
+    print(f"cli serve (child process, --multi_lora, batch 8, 30 steps): '{line}', /healthz after "
           f"{startup_s:.2f} s; POST /generate twice in {[round(x, 3) for x in request_s]} s; /stats "
           f"{json.dumps(stats)} ({card_line})", flush=True)
     if images[0].shape != refs["image"].shape or stats["requests"] != 2 or not np.array_equal(*images):
@@ -4568,14 +4638,16 @@ def _cli_serve(torch, card_line, model_dir, refs, root):
     after = libs()
     if after != before:
         fail(f"cli serve changed build/kernels: {sorted(set(after.items()) ^ set(before.items()))}")
+    refs["served"] = {"argv": argv, "body": body, "png": images[0]}
     return {"startup_s": startup_s, "request_s": request_s[0], "warm_request_s": request_s[1]}
 
 
 def _cli_train(torch, card_line, model_dir, root, driver_step_s):
-    """train-idbooth on one identity of 2 JPEGs of 512², 200 class images
-    already in their folder, embeddings from `extract-embeds`, triplet_prior,
-    one epoch (200 steps of 1 + 1 rows: the dataset is as long as its class
-    folder), each step launching phase 7's counts, the validation its own;
+    """train-idbooth on one identity of 2 JPEGs of 512², CLI_CLASS_IMAGES
+    class images already in their folder, embeddings from `extract-embeds`,
+    triplet_prior, one epoch (a step of 1 + 1 rows a class image: the
+    dataset is as long as its class folder), each step launching phase 7's
+    counts, the validation its own;
     the exported LoRA loaded into the CLI's pipeline."""
     import os
     import statistics
@@ -4600,7 +4672,7 @@ def _cli_train(torch, card_line, model_dir, root, driver_step_s):
              f"{CLI_CLASS_IMAGES} and 1")
     run = os.path.join(out, "ID-Booth", "id_0")
     names = sorted(os.listdir(run))
-    if "pytorch_lora_weights.safetensors" not in names or "checkpoint-0-200" not in names:
+    if "pytorch_lora_weights.safetensors" not in names or f"checkpoint-0-{CLI_CLASS_IMAGES}" not in names:
         fail(f"cli train-idbooth left {names}")
     pipe = made.pipes[0]
     pipe.load_lora_weights(run)
@@ -4608,7 +4680,8 @@ def _cli_train(torch, card_line, model_dir, root, driver_step_s):
     if not moved > 0:
         fail("the exported LoRA's B matrices load as zeros: training did not move them")
     step_s = [r["s"] for r in steps.records[1:]]
-    print(f"cli train-idbooth (1 identity × 2 images + 200 class images, 512², triplet_prior, r100, 1 epoch): "
+    print(f"cli train-idbooth (1 identity × 2 images + {CLI_CLASS_IMAGES} class images, 512², triplet_prior, r100, "
+          f"1 epoch): "
           f"{secs:.2f} s; {len(steps.records)} steps, s/step median {statistics.median(step_s):.4f} min "
           f"{min(step_s):.4f} (1 + 1 rows) beside phase 13's {driver_step_s:.4f} (4 + 4 rows); validation "
           f"{val.records[0]['s']:.2f} s; the exported LoRA loads into the pipeline (B max {moved:.3e}); files "
@@ -5099,6 +5172,343 @@ def run_distribution(torch, fa, card, card_line, model_dir, default_secs, train_
     return total, [dict(r, phase=18) for r in fwd_rows], [dict(r, phase=18) for r in bwd_rows]
 
 
+# Phase 19: the servers over a mesh. The gloo rig's two ranks share the
+# card, as in phase 18: a check of the lockstep and the images, not a
+# speedup
+MESH_WORLD, MESH_TIMEOUT_S = 2, 420.0
+# K1 and K2 at a rank's new shapes: a rolling rank's 2 of the 4 slots (4
+# UNet rows: L0's 5 self-attentions a tick), and the decode of a mesh
+# server rank's 4 of the 8 images (a batch rank's UNet rows, 8, are the
+# 4-slot tick's of phase 14, and so are a Picard rank's 4 window positions)
+MESH_TICK_SHAPES = [("mesh rolling rank self L0, 2 of 4 slots", 4, 5, 4096, 4096, 64, 5)]
+MESH_DECODE_SHAPES = [("mesh server rank vae mid, 4 of 8 images", 4, 1, 4096, 4096, 512, 1)]
+MESH_ROLL_REQUESTS, MESH_WINDOW = 5, 8
+# MoCo over the data axis: iresnet50 at 112², batch 64 a rank, the embedding
+# width as the key width, fp32 with TF32 off (the gate is 1e-4 relative)
+MESH_MOCO = dict(network="r50", batch=64, res=112, dim=512, queue=65536, steps=5, lr=0.1)
+
+
+def _u8_errs(got, want):
+    """[max, mean] of |got - want| on [0, 1] for each of two stacks of uint8 images."""
+    import numpy as np
+
+    d = np.abs(np.asarray(got, np.float32) - np.asarray(want, np.float32)) / 255.0
+    return [[float(x.max()), float(x.mean())] for x in d]
+
+
+def _moco_run(torch, mesh, steps_batches):
+    """MESH_MOCO's steps on this rank's rows (the whole batch without a
+    mesh): the encoder's BatchNorm over the union of the ranks' rows, so
+    that the data-parallel run computes the one-process step. Returns
+    (losses, queue on the host, the key encoder's fc weight on the host)."""
+    from faceposegenerator_tpu_torch.core.mesh import DATA_AXIS
+    from faceposegenerator_tpu_torch.core.precision import PARITY_POLICY
+    from faceposegenerator_tpu_torch.models import iresnet
+    from faceposegenerator_tpu_torch.training import moco
+
+    cfg = moco.MoCoConfig(dim=MESH_MOCO["dim"], queue_size=MESH_MOCO["queue"])
+    model = iresnet.IResNet(iresnet.config_for(MESH_MOCO["network"], num_features=MESH_MOCO["dim"]), seed=3)
+    group = None if mesh is None else mesh.group(DATA_AXIS)
+
+    def apply(params, x):
+        return torch.func.functional_call(model, params, (x,), dict(policy=PARITY_POLICY, train=True,
+                                                                   bn_group=group, bn_global=True))[0]
+
+    def init(g):
+        return {n: p.detach().clone() for n, p in model.named_parameters()
+                if n.rsplit(".", 1)[-1] not in iresnet.STATE_NAMES}
+
+    state = moco.init_moco(torch.Generator(device="cuda").manual_seed(5), init, cfg)
+    opt = moco.sgd(MESH_MOCO["lr"])
+    opt_state = opt.init(state["params_q"])
+    losses = []
+    with tf32(False):
+        for q, k in steps_batches:
+            loss, state, opt_state, _ = moco.moco_step(state, apply, opt, opt_state, q, k, cfg, mesh=mesh)
+            losses.append(float(loss))
+    return losses, state["queue"].cpu().numpy(), state["params_k"]["fc.weight"].cpu().numpy()
+
+
+def _moco_batches(torch, rows):
+    """MESH_MOCO's (query, key) batches of MESH_WORLD × batch images, `rows` of each."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    n, res = MESH_WORLD * MESH_MOCO["batch"], MESH_MOCO["res"]
+    out = []
+    for _ in range(MESH_MOCO["steps"]):
+        q = torch.rand(n, res, res, 3, generator=g, device="cuda") * 2 - 1
+        k = q + 0.05 * torch.randn(q.shape, generator=g, device="cuda")
+        out.append((q[rows], k[rows]))
+    return out
+
+
+def mesh_rank(rank: int, world: int, port: int, model_dir: str, work: str) -> int:
+    """One rank of phase 19's gloo rig (`python3 chip_smoke.py --mesh-rank
+    RANK WORLD PORT MODEL_DIR WORK`): the ranks share cuda:0 over gloo. Rank 0
+    runs the one-process references first; then both run the servers over
+    the mesh, one at a time, `sample_parallel(mesh=)` and the MoCo steps.
+    Each writes its report (launches, seconds, peak memory a leg; rank 0 the
+    errors against its references) to WORK/rank{RANK}.json."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from faceposegenerator_tpu_torch.core import dist
+    from faceposegenerator_tpu_torch.core.mesh import make_mesh, rows_of
+    from faceposegenerator_tpu_torch.diffusion import sampler
+    from faceposegenerator_tpu_torch.diffusion.lora_io import zero_lora
+    from faceposegenerator_tpu_torch.diffusion.parallel_sampler import sample_parallel
+    from faceposegenerator_tpu_torch.diffusion.schedulers import make_ddpm
+    from faceposegenerator_tpu_torch.ops import fused_gn, fused_gn_conv
+    from faceposegenerator_tpu_torch.ops.image import quantize_u8
+    from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+    from faceposegenerator_tpu_torch.serving import GenerationRequest, RollingServer, SamplerServer
+    from faceposegenerator_tpu_torch.serving.engine import request_noise
+
+    fused_gn._GN_IMPL = fused_gn_conv._IMPL = "xla"
+    t_rank = time.time()
+    dist.init_distributed(f"127.0.0.1:{port}", world, rank, platform="cuda", backend="gloo",
+                          timeout_s=MESH_TIMEOUT_S)
+    mesh = make_mesh(data=world)
+    dev = mesh.device
+    report = {"rank": rank, "device": str(dev)}
+    pipe = StableDiffusionPipeline.from_pretrained(model_dir, dtype=torch.bfloat16)
+    adapters = {}
+    for name, seed in (("a", 71), ("b", 72)):
+        adapters[name] = zero_lora(pipe.nets["unet"], pipe.nets["text_encoder"], dtype=torch.bfloat16)
+        adapters[name]["unet"] = make_lora(pipe.nets["unet"], seed, torch)["unet"]
+
+    def req(i, seed, lora=None):
+        return GenerationRequest(prompt=PROMPTS[i % len(PROMPTS)], negative_prompt=NEGATIVE_PROMPT, seed=seed,
+                                 lora_id=lora)
+
+    uniform = [req(i, 300 + i, "a") for i in range(8)]
+    mixed = [req(i, 400 + i, lora) for i, lora in enumerate(("a", "b", None, "a", "b", "a", None, "b"))]
+    rolled = [req(i, 500 + i, lora) for i, lora in enumerate((None, "a", "b", "a", None)[:MESH_ROLL_REQUESTS])]
+    served = SERVED
+    steps = served["num_inference_steps"]
+    ids, neg = pipe.tokenize([PROMPTS[3]]), pipe.tokenize([NEGATIVE_PROMPT])
+    noise = request_noise([600], steps, 64, 64, dev)
+    picard = dict(guidance_scale=served["guidance_scale"], height=512, width=512, policy=pipe.policy,
+                  attn_impl=pipe.models.attn_impl, noise_override=noise)
+    schedule = make_ddpm(pipe.scheduler_config, steps)
+
+    def register(srv):
+        for name, tree in adapters.items():
+            srv.register_lora(name, tree)
+        return srv
+
+    def images(results):
+        return np.stack([r.image for r in results])
+
+    def staggered(srv, ticks):
+        futs = [srv.submit(r) for r in rolled[:2]]
+        _wait_ticks(ticks.records, 3, futs)
+        futs += [srv.submit(r) for r in rolled[2:]]  # the fifth waits for a free slot
+        return np.stack([f.result(timeout=MESH_TIMEOUT_S).image for f in futs])
+
+    refs = {}
+    if rank == 0:  # one process on the same card
+        for key, spec, multi in (("uniform", uniform, False), ("mixed", mixed, True)):
+            srv = register(SamplerServer(pipe, batch_size=8, max_wait_s=0.5, multi_lora=multi, **served))
+            refs[key] = images(srv.generate(spec))
+            srv.shutdown()
+        srv = register(RollingServer(pipe, batch_size=4, max_wait_s=0.0, **served))
+        with step_probe(srv, "_tick", factory=False) as ticks:
+            refs["rolling"] = staggered(srv, ticks)
+        srv.shutdown()
+        refs["picard"] = quantize_u8(sampler.sample(pipe.nets, schedule, ids, neg, **picard)).cpu().numpy()
+        refs["moco"] = _moco_run(torch, None, _moco_batches(torch, slice(None)))
+        torch.cuda.empty_cache()
+    dist.coordination_barrier("refs", MESH_TIMEOUT_S)
+    pipe.to_mesh(mesh)  # rank 0's weights, broadcast once; the servers then broadcast none
+    got = {}
+
+    for key, spec, multi in (("uniform", uniform, False), ("mixed", mixed, True)):
+        srv = SamplerServer(pipe, batch_size=8, max_wait_s=0.5, multi_lora=multi, mesh=mesh, **served)
+        with step_probe(sampler, "sample", factory=False) as batches:
+            torch.cuda.reset_peak_memory_stats()
+            if rank == 0:
+                register(srv)  # after the start: through the worker thread to every rank
+                got[key] = images(srv.generate(spec))
+                if key == "uniform":
+                    got["again"] = images(srv.generate(spec))
+                report[f"{key} stats"] = srv.stats()
+                srv.shutdown()
+            srv.join()
+        report[f"{key} batches"] = [{k: r[k] for k in ("s", "launches")} for r in batches.records]
+        report[f"{key} peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        report[f"{key} adapters"] = [n for n in srv._lora_names]
+
+    # the probes on the class: the worker thread may tick before an instance's probe is set
+    with step_probe(RollingServer, "_tick", factory=False) as ticks, \
+            step_probe(RollingServer, "_decode1_u8", factory=False) as decodes:
+        torch.cuda.reset_peak_memory_stats()
+        srv = RollingServer(pipe, batch_size=4, max_wait_s=0.0, mesh=mesh, **served)
+        t0 = time.time()
+        if rank == 0:
+            register(srv)
+            got["rolling"] = staggered(srv, ticks)
+            report["rolling stats"] = srv.stats()
+            srv.shutdown()
+        srv.join()
+    report["rolling"] = {"s": time.time() - t0, "ticks": [r["launches"] for r in ticks.records],
+                         "tick_s": [r["s"] for r in ticks.records],
+                         "decodes": [r["launches"] for r in decodes.records],
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    out = _leg(torch, report, "picard", lambda: sample_parallel(
+        pipe.nets, schedule, ids, neg, window=MESH_WINDOW, tolerance=0.0, mesh=mesh, return_stats=True, **picard))
+    report["picard iters"] = int(out[1])
+    got["picard"] = quantize_u8(out[0]).cpu().numpy()
+    del pipe, srv, out
+    torch.cuda.empty_cache()
+
+    moco_rows = rows_of(mesh, MESH_WORLD * MESH_MOCO["batch"])
+    moco = _leg(torch, report, "moco", lambda: _moco_run(torch, mesh, _moco_batches(torch, moco_rows)))
+    report["moco losses"] = moco[0]
+    if rank == 0:
+        for key in ("uniform", "mixed", "rolling", "picard"):
+            report[f"{key} errs"] = _u8_errs(got[key], refs[key])
+        report["again equal"] = bool(np.array_equal(got["again"], got["uniform"]))
+        ref_losses, ref_queue, ref_fc = refs["moco"]
+        report["moco ref losses"] = ref_losses
+        report["moco loss rel"] = max(abs(a - b) / abs(b) for a, b in zip(moco[0], ref_losses))
+        report["moco queue rel"] = float(np.abs(moco[1] - ref_queue).max() / np.abs(ref_queue).max())
+        report["moco key fc rel"] = float(np.abs(moco[2] - ref_fc).max() / np.abs(ref_fc).max())
+    report["s"] = time.time() - t_rank
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.coordination_barrier("reports", MESH_TIMEOUT_S)
+    return 0
+
+
+def run_mesh_serving(torch, fa, card, card_line, model_dir, served=None):
+    """Phase 19: the servers over a mesh. `serve --data_parallel 1` as one
+    NCCL rank (torch's launcher variables, world size 1) against the
+    one-process `serve` (`served`: phase 17's flags, request and PNG; run
+    here when None); K1 and K2 at a rank's new shapes; the gloo rig of
+    MESH_WORLD ranks sharing the card (`chip_smoke.py --mesh-rank`), gated
+    here; `serve --data_parallel 2` from one command under FPG_BACKEND=gloo.
+    Returns (the phase's launches, its forward kernel rows)."""
+    import os
+
+    from faceposegenerator_tpu_torch.core.dist import SpawnError, free_port, spawn
+    from faceposegenerator_tpu_torch.diffusion.lora_io import save_lora_safetensors, zero_lora
+    from faceposegenerator_tpu_torch.models.unet2d import UNet2DCondition
+
+    t_phase = time.time()
+    total = {}
+    with build_dir("mesh_serving") as root:
+        os.makedirs(root)
+        if served is None:  # phase 17's command: --multi_lora with one adapter file as "a"
+            unet = UNet2DCondition(dtype=torch.bfloat16, seed=1)
+            tree = zero_lora(unet, None, dtype=torch.bfloat16)
+            tree["unet"] = make_lora(unet, 41, torch)["unet"]
+            lora_file = os.path.join(root, "lora", "pytorch_lora_weights.safetensors")
+            save_lora_safetensors(tree, lora_file)
+            del unet, tree
+            torch.cuda.empty_cache()
+            argv = ["--model_dir", model_dir, "--lora", f"a={lora_file}", "--multi_lora"]
+            body = {"prompt": PROMPTS[0], "negative_prompt": NEGATIVE_PROMPT, "seed": 100, "lora_id": "a"}
+            _, one_s, _, pngs, _ = serve_child(argv, {}, os.path.join(root, "serve_one.stderr"), body)
+            served = {"argv": argv, "body": body, "png": pngs[0]}
+            print(f"mesh serving: one-process serve for the reference, /healthz after {one_s:.2f} s", flush=True)
+        nccl_env = {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+                    "LOCAL_RANK": "0"}
+        line, startup_s, request_s, pngs, stats = serve_child(served["argv"] + ["--data_parallel", "1"], nccl_env,
+                                                              os.path.join(root, "serve_nccl.stderr"), served["body"])
+        if "1 data-parallel rank over nccl" not in line or stats["requests"] != 1:
+            fail(f"serve --data_parallel 1: '{line}', stats {stats}")
+        equal = pngs[0].shape == served["png"].shape and (pngs[0] == served["png"]).all()
+        print(f"mesh serving: serve --data_parallel 1 (one NCCL rank): '{line}', /healthz after {startup_s:.2f} s, "
+              f"request {request_s[0]:.3f} s; its PNG {'bit-equal to' if equal else 'DIFFERS from'} the one-process "
+              f"serve's ({card_line})", flush=True)
+        if not equal:
+            fail("serve --data_parallel 1's PNG differs from the one-process serve's")
+
+        fwd_rows = check_kernels(torch, fa, card, MESH_TICK_SHAPES, per="tick")
+        fwd_rows += check_kernels(torch, fa, card, MESH_DECODE_SHAPES, per="batch")
+        torch.cuda.empty_cache()
+
+        port = free_port()
+        try:
+            spawn([[sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r), str(MESH_WORLD), str(port),
+                    model_dir, root] for r in range(MESH_WORLD)], timeout=MESH_TIMEOUT_S, log_dir=root)
+        except SpawnError as e:
+            fail(f"mesh serving: {e}")
+        reports = [json.load(open(os.path.join(root, f"rank{r}.json"))) for r in range(MESH_WORLD)]
+        rig_s = time.time() - t_phase
+
+        line, dp_startup_s, dp_request_s, dp_pngs, dp_stats = serve_child(
+            served["argv"] + ["--data_parallel", "2"], {"FPG_BACKEND": "gloo"},
+            os.path.join(root, "serve_dp2.stderr"), served["body"])
+        if "2 data-parallel ranks over gloo" not in line or dp_stats["requests"] != 1:
+            fail(f"serve --data_parallel 2: '{line}', stats {dp_stats}")
+        print(f"mesh serving: serve --data_parallel 2 (two gloo ranks on the card, one command): '{line}', /healthz "
+              f"after {dp_startup_s:.2f} s, request {dp_request_s[0]:.3f} s ({card_line})", flush=True)
+        _u8_diff(dp_pngs[0], served["png"], "serve --data_parallel 2's PNG vs the one-process serve's")
+
+    expect_batch = dict(REQUEST_LAUNCHES)
+    for rep in reports:
+        r = rep["rank"]
+        for key in ("uniform", "mixed"):
+            batches = rep[f"{key} batches"]
+            if len(batches) != (2 if key == "uniform" else 1):
+                fail(f"mesh rank {r} {key}: {len(batches)} batches")
+            for b in batches:
+                if b["launches"] != expect_batch:
+                    fail(f"mesh rank {r} {key} batch launched {b['launches']}, expected {expect_batch}")
+                _add_counts(total, b["launches"])
+            if rep[f"{key} adapters"] != [None, "a", "b"]:
+                fail(f"mesh rank {r} {key}: adapters {rep[f'{key} adapters']}")
+        roll = rep["rolling"]
+        for t in roll["ticks"]:
+            if t != TICK_LAUNCHES:
+                fail(f"mesh rank {r} rolling tick launched {t}, expected {TICK_LAUNCHES}")
+            _add_counts(total, t)
+        for d in roll["decodes"]:
+            if d != DECODE1_LAUNCHES:
+                fail(f"mesh rank {r} rolling decode launched {d}, expected {DECODE1_LAUNCHES}")
+            _add_counts(total, d)
+        if sum(len(rr["rolling"]["decodes"]) for rr in reports) != MESH_ROLL_REQUESTS:
+            fail(f"mesh rolling: decodes a rank {[len(rr['rolling']['decodes']) for rr in reports]} for "
+                 f"{MESH_ROLL_REQUESTS} requests")
+        want = {"flash_fwd_d64": 32 * rep["picard iters"], "flash_fwd_wide": 1}
+        if rep["picard iters"] != SERVED["num_inference_steps"] or rep["picard"]["launches"] != want:
+            fail(f"mesh rank {r} Picard: {rep['picard iters']} iterations, {rep['picard']['launches']}")
+        _add_counts(total, rep["picard"]["launches"])
+        if rep["moco"]["launches"]:
+            fail(f"mesh rank {r} MoCo launched {rep['moco']['launches']}: its encoder has no attention")
+        print(f"mesh rank {r} ({rep['device']}): s/batch uniform {[round(b['s'], 3) for b in rep['uniform batches']]}"
+              f" (4 of 8 rows, peak {rep['uniform peak_gib']:.1f} GiB), multi_lora "
+              f"{[round(b['s'], 3) for b in rep['mixed batches']]} (peak {rep['mixed peak_gib']:.1f} GiB); rolling "
+              f"{len(roll['ticks'])} ticks, s/tick median {sorted(roll['tick_s'])[len(roll['tick_s']) // 2]:.4f}, "
+              f"{len(roll['decodes'])} decodes, {roll['s']:.2f} s (peak {roll['peak_gib']:.1f} GiB); Picard "
+              f"{rep['picard']['s']:.2f} s ({rep['picard iters']} iterations of 4 of 8 positions, peak "
+              f"{rep['picard']['peak_gib']:.1f} GiB); MoCo {rep['moco']['s']:.2f} s for {MESH_MOCO['steps']} steps "
+              f"(peak {rep['moco']['peak_gib']:.1f} GiB); {rep['s']:.1f} s in all ({card_line})", flush=True)
+    r0 = reports[0]
+    for key, what in (("uniform", "batch, one adapter"), ("mixed", "multi_lora batch"), ("rolling", "rolling"),
+                      ("picard", "sample_parallel(mesh=) tolerance 0 vs the sequential chain")):
+        errs = r0[f"{key} errs"]
+        worst = max(e[0] for e in errs), max(e[1] for e in errs)
+        print(f"mesh serving: {what}: {len(errs)} images against one process, worst max {worst[0]:.3e} mean "
+              f"{worst[1]:.3e} (limits 1e-1, 1e-2 each)", flush=True)
+        if not all(e[0] <= 1e-1 and e[1] <= 1e-2 for e in errs):
+            fail(f"mesh serving: {what} beyond the per-sample gate: {errs}")
+    if not r0["again equal"]:
+        fail("mesh serving: the same requests again gave other images")
+    print(f"mesh serving: MoCo {MESH_MOCO} over 2 ranks: losses {r0['moco losses']} against one process "
+          f"{r0['moco ref losses']}: loss rel {r0['moco loss rel']:.2e}, queue {r0['moco queue rel']:.2e}, key "
+          f"encoder fc {r0['moco key fc rel']:.2e} of its max abs (limit 1e-4 each) ({card_line})", flush=True)
+    if not (r0["moco loss rel"] <= 1e-4 and r0["moco queue rel"] <= 1e-4 and r0["moco key fc rel"] <= 1e-4):
+        fail("mesh serving: the data-parallel MoCo steps disagree with one process")
+    print(f"mesh serving: phase 19 in {time.time() - t_phase:.1f} s (the rig {rig_s:.1f} s) ({card_line})",
+          flush=True)
+    return total, [dict(r, phase=19) for r in fwd_rows]
+
+
 def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32, launches, ptxas, sass=None):
     """The kernels line: one entry per counted kernel. `ptxas` holds each
     wgmma or fp32 kernel function's registers and spills by instance;
@@ -5121,15 +5531,16 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
             shape=f"{top['shape']} B{top['B']}", lse_max_err=max(r["lse_max_err"] or 0.0 for r in mine),
             tflops=top["tflops"], **({"ptxas": ptxas[f"{name}_kernel"]} if f"{name}_kernel" in ptxas else {}),
             # phase 12's shapes (ToMe, decode_chunk), phase 14's (the rolling tick and decode),
-            # phase 16's (the eval ViTs, GradCAM, make_heatmap_fn) and phase 18's (a rank's heads
-            # under tensor parallelism, a rank's 4 rows of the data-parallel train step), each with
-            # the contract's numbers and the launches a request (tick, batch, probe, call, step)
-            # its phase makes
+            # phase 16's (the eval ViTs, GradCAM, make_heatmap_fn), phase 18's (a rank's heads
+            # under tensor parallelism, a rank's 4 rows of the data-parallel train step) and phase
+            # 19's (a rolling rank's 2 slots, a mesh server rank's decode), each with the
+            # contract's numbers and the launches a request (tick, batch, probe, call, step) its
+            # phase makes
             shapes=[dict(shape=f"{r['shape']} B{r['B']}", B=r["B"], H=r["H"], Sq=r["Sq"], Skv=r["Skv"], D=r["D"],
                          ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                          library_ms=r["library_ms"], max_abs_err=r["max_abs_err"], tflops=r["tflops"],
                          lse_max_err=r["lse_max_err"], **{k: v for k, v in r.items() if k.startswith("launches_per_")})
-                    for r in mine if r.get("phase") in (12, 14, 16, 18)],
+                    for r in mine if r.get("phase") in (12, 14, 16, 18, 19)],
         ))
     top = max(f32["fwd"], key=lambda r: r["bound_ms"])
     kernels.append(dict(
@@ -5314,6 +5725,7 @@ def main() -> int:
     # phases 3-7 run the default configuration, whatever GN_IMPL and
     # GN_CONV_IMPL say; phases 9 and 10 switch both to pallas
     fused_gn._GN_IMPL = fused_gn_conv._IMPL = "xla"
+    check_layer_norm(torch)
     fwd_rows = check_kernels(torch, fa, card)
     fwd_rows += check_kernels(torch, fa, card, TRAIN_SHAPES, with_lse=True, per="step")
     fwd_rows += [dict(r, phase=12) for r in check_kernels(torch, fa, card, CKPT_SHAPES)]
@@ -5380,6 +5792,9 @@ def main() -> int:
                                                             train_secs)
         fwd_rows += dist_fwd
         bwd_rows += dist_bwd
+        torch.cuda.empty_cache()
+        mesh_serving, mesh_fwd = run_mesh_serving(torch, fa, card, card_line, model_dir, serve_refs.get("served"))
+        fwd_rows += mesh_fwd
     torch.cuda.empty_cache()
     for r in fwd_rows + bwd_rows:  # phases 12's, 14's and 16's shapes: the launches their runs measured
         if r.get("phase") == 12:
@@ -5393,14 +5808,14 @@ def main() -> int:
              "fp32 routes at 2×128²": fp32_routes, "fp32 train check": fp32_train, "checkpoints": checkpoints,
              "training driver": driver, "serving and sweep": serving, "identity stack and FR (no TPU kernel)": identity,
              "quality and identity evaluation": quality, "command line": command_line,
-             "distribution": distribution}
+             "distribution": distribution, "servers over a mesh": mesh_serving}
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in REPLACES}
     print("launches on the main paths: " + ", ".join(f"{k} {json.dumps(v)}" for k, v in paths.items()), flush=True)
     for name, count in launches.items():
         if count == 0:
             fail(f"{name} was not launched on the main paths")
 
-    print(f"chip_smoke: all 18 phases in {time.time() - t_start:.1f} s ({card_line})", flush=True)
+    print(f"chip_smoke: all 19 phases in {time.time() - t_start:.1f} s ({card_line})", flush=True)
     print(json.dumps({"kernels": _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32,
                                                  launches, ptxas, sass)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
@@ -5412,4 +5827,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:  # a rank of phase 18's gloo rig
         sys.exit(dist_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6],
                            *map(int, sys.argv[7:8])))
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 19's gloo rig
+        sys.exit(mesh_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6]))
     sys.exit(main())

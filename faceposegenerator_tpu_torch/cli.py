@@ -26,9 +26,12 @@ host. The command-line refusals (argparse errors) come before the device is
 resolved and before any file is read.
 
 Distribution (one process a device, joined by torch.distributed):
-`generate --data_parallel N` and `train-idbooth --identity_parallel N`,
-run from one shell command, spawn N ranks on the first N cards (NCCL), or
-on the CPU with `--device cpu` (gloo); more ranks than visible cards raise.
+`generate --data_parallel N`, `serve --data_parallel N` and `train-idbooth
+--identity_parallel N`, run from one shell command, spawn N ranks on the
+first N cards (NCCL), or on the CPU with `--device cpu` (gloo); more ranks
+than visible cards raise, unless FPG_BACKEND=gloo puts the ranks on one
+card over gloo (a rig for checks, not for speed). `serve`'s rank 0 answers
+HTTP on `--port`, the other ranks follow its batches (`serving/engine.py`).
 Under a launcher's `FPG_COORDINATOR` / `FPG_NUM_PROCESSES` /
 `FPG_PROCESS_ID` (or torch's own RANK / WORLD_SIZE / MASTER_ADDR /
 MASTER_PORT) each process is one rank of the job, and the mesh flags take
@@ -37,10 +40,9 @@ and train-fr pass no mesh under such a launch: every process trains the
 whole job. `pod-rehearsal` runs the multi-process rehearsal
 (`parallel/pod_rehearsal.py`).
 
-Not ported yet, so these raise and name their ROADMAP.md queue 1 item:
+Not ported yet, so these raise and name their ROADMAP.md queue 1 items:
 `parity` and `parity-all` (items 17-18, the torch mirror and full-chain
-runbook) and `serve --data_parallel N` for N > 1 (item 9c, the threaded
-servers over a mesh).
+runbook).
 
 Where this differs from the JAX commands:
   - random weights without a weight file (the ArcFace of train-idbooth and
@@ -64,7 +66,6 @@ import json
 import os
 import sys
 
-_ITEM_9C = "ROADMAP.md queue 1, item 9c (the threaded servers over a mesh)"
 _LAUNCH_ENV = ("FPG_COORDINATOR", "FPG_NUM_PROCESSES", "FPG_PROCESS_ID")
 
 
@@ -99,15 +100,17 @@ def _launched() -> bool:
 
 def _spawn_ranks(command: str, argv, n: int, device: str, flag: str) -> None:
     """Run `command argv` as the n ranks of one job on this machine: one
-    process a rank, on cards 0..n-1 (NCCL) or on the CPU (gloo), joined
-    through FPG_COORDINATOR / FPG_NUM_PROCESSES / FPG_PROCESS_ID. A rank
-    that fails stops the others, and the exit code is the first failure's."""
+    process a rank, on cards 0..n-1 (NCCL), on cuda:0 under FPG_BACKEND=gloo,
+    or on the CPU (gloo), joined through FPG_COORDINATOR / FPG_NUM_PROCESSES
+    / FPG_PROCESS_ID. A rank that fails stops the others, and the exit code
+    is the first failure's."""
     import torch
 
     from .core.device import resolve_device
     from .core.dist import SpawnError, free_port, spawn
 
-    if resolve_device(device).type == "cuda" and n > torch.cuda.device_count():
+    if resolve_device(device).type == "cuda" and n > torch.cuda.device_count() and \
+            os.environ.get("FPG_BACKEND") != "gloo":
         raise RuntimeError(f"--{flag} {n} runs a rank a card, but {torch.cuda.device_count()} "
                            f"card{'s are' if torch.cuda.device_count() != 1 else ' is'} visible")
     port = free_port()
@@ -117,6 +120,16 @@ def _spawn_ranks(command: str, argv, n: int, device: str, flag: str) -> None:
                              LOCAL_RANK=str(i)))
     except SpawnError as e:
         raise SystemExit(e.returncode) from None
+
+
+def _ranks_note(mesh) -> str:
+    """", N data-parallel ranks over <backend>" for a job's mesh."""
+    import torch.distributed as dist
+
+    if mesh is None:
+        return ""
+    backend = dist.get_backend() if dist.is_available() and dist.is_initialized() else "one process"
+    return f", {mesh.data} data-parallel rank{'s' if mesh.data > 1 else ''} over {backend}"
 
 
 def _job_mesh(flag: str, n: int, device):
@@ -736,8 +749,8 @@ def cmd_serve(argv):
     )
     ap.add_argument(
         "--data_parallel", type=int, default=0, metavar="N",
-        help="serve over an N-device data-parallel mesh (not ported yet for "
-             "N > 1: item 9c); 0 = single device",
+        help="serve over an N-device data-parallel mesh, a card a rank "
+             "(batch_size must divide N); 0 = single device",
     )
     ap.add_argument("--max_queue", type=int, default=None)
     ap.add_argument("--request_timeout_s", type=float, default=None)
@@ -819,18 +832,25 @@ def cmd_serve(argv):
                  quant_calibrate=0, steps=30, scheduler="ddpm",
                  parallel_window=0),
         )
-    if args.data_parallel > 1:
-        raise NotImplementedError(f"serve --data_parallel {args.data_parallel} needs the threaded server over a "
-                                  f"mesh, which the port does not have yet ({_ITEM_9C}); pass 0 or 1 to serve "
-                                  "on one card")
+    if args.data_parallel and args.batch_size % args.data_parallel != 0:
+        ap.error(f"--batch_size {args.batch_size} must divide "
+                 f"--data_parallel {args.data_parallel}")
+    if args.data_parallel > 1 and not _launched():
+        return _spawn_ranks("serve", argv, args.data_parallel, args.device, "data_parallel")
 
     from .core.device import resolve_device
+    from .core.dist import maybe_init_from_env
 
+    maybe_init_from_env(platform=args.device)
     device = resolve_device(args.device)
+    mesh = None
+    if args.data_parallel:
+        mesh = _job_mesh("data_parallel", args.data_parallel, device)
+    front = mesh is None or mesh.rank == 0
 
     from .pipelines.txt2img import StableDiffusionPipeline
     from .serving import SamplerServer
-    from .serving.http_api import serve_http
+    from .serving.http_api import serve_http, start_http_background
 
     pipe = StableDiffusionPipeline.from_pretrained(args.model_dir, device=device)
     if preset is not None:
@@ -843,20 +863,22 @@ def cmd_serve(argv):
         args.cfg_interval = f"{civ[0]}:{civ[1]}" if civ else None
     else:
         pipe.set_scheduler(args.scheduler)
+    # every rank quantizes; the server gives every rank rank 0's static scales
     if args.quantize:
         pipe.quantize(args.quantize)
         if args.quant_calibrate:
-            pipe.calibrate_quant(
-                ["face portrait photo of sks person"], steps=args.quant_calibrate
-            )
-            if args.quant_scales:
-                pipe.save_quant_scales(args.quant_scales)
+            if front:
+                pipe.calibrate_quant(
+                    ["face portrait photo of sks person"], steps=args.quant_calibrate
+                )
+                if args.quant_scales:
+                    pipe.save_quant_scales(args.quant_scales)
         elif args.quant_scales:
             pipe.load_quant_scales(args.quant_scales)
     common = dict(batch_size=args.batch_size, max_wait_s=args.max_wait_ms / 1e3,
                   num_inference_steps=args.steps, guidance_scale=args.guidance,
                   height=args.size, width=args.size, scheduler=args.scheduler,
-                  max_queue=args.max_queue, request_timeout_s=args.request_timeout_s)
+                  max_queue=args.max_queue, request_timeout_s=args.request_timeout_s, mesh=mesh)
     if args.rolling:
         from .serving import RollingServer
 
@@ -869,14 +891,28 @@ def cmd_serve(argv):
             parallel_window=args.parallel_window, parallel_tolerance=args.parallel_tol,
             cfg_interval=_parse_interval(args.cfg_interval), **common,
         )
+    if not front:  # follow rank 0's batches until its stop; a failure exits non-zero
+        server.join()
+        return
     for spec in args.lora:
         name, _, path = spec.partition("=")
         if not path:
             raise SystemExit(f"--lora expects NAME=CKPT_DIR, got {spec!r}")
         server.register_lora(name, path)
     print(f"serving on http://{args.host}:{args.port} (batch {args.batch_size}, "
-          f"{args.steps} steps, loras: {[s.split('=')[0] for s in args.lora] or '[]'})", flush=True)
-    serve_http(server, args.host, args.port)
+          f"{args.steps} steps, loras: {[s.split('=')[0] for s in args.lora] or '[]'}"
+          f"{_ranks_note(mesh)})", flush=True)
+    if mesh is None:
+        serve_http(server, args.host, args.port)
+        return
+    # over a mesh: HTTP on a thread; this one waits on the server, whose
+    # failure (the ranks out of step) ends the command non-zero
+    httpd, _ = start_http_background(server, args.host, args.port)
+    try:
+        server.join()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
 
 
 def cmd_accel_report(argv):

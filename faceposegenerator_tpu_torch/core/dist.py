@@ -13,7 +13,9 @@ This module is the one place process topology is decided:
 
 - `init_distributed()`: idempotent `init_process_group`. NCCL when the
   device is a card, gloo on the CPU; `backend="gloo"` on a card only when
-  the caller asks for it (two ranks sharing one card as a test rig). There
+  the caller asks for it (two ranks sharing one card as a test rig), by
+  argument or by FPG_BACKEND=gloo in the environment (what lets a command's
+  `--data_parallel N` run N ranks on one card). There
   is no silent switch between backends, and NCCL with a rank whose card is
   not there raises naming both counts. Pass the coordinator address and
   the process counts, or set FPG_COORDINATOR / FPG_NUM_PROCESSES /
@@ -115,9 +117,9 @@ def init_distributed(
     variables are set, and is a no-op otherwise.
 
     `platform`: "cpu" or "cuda" (the default: this rank's card). `backend`:
-    None picks NCCL for a card and gloo for the CPU; "gloo" on a card is the
-    explicit rig of several ranks sharing one card. Every process group
-    waits at most `timeout_s` for its peers.
+    None takes FPG_BACKEND when it is set, else NCCL for a card and gloo for
+    the CPU; "gloo" on a card is the explicit rig of several ranks sharing
+    one card. Every process group waits at most `timeout_s` for its peers.
     """
     global _INITIALIZED, _DEVICE
     coordinator_address = coordinator_address or os.environ.get("FPG_COORDINATOR")
@@ -152,6 +154,9 @@ def init_distributed(
 
     if not _INITIALIZED:
         device = torch.device(platform or "cuda")
+        backend = backend or os.environ.get("FPG_BACKEND") or None
+        if backend not in (None, "nccl", "gloo"):
+            raise ValueError(f"backend {backend!r}: 'nccl' or 'gloo'")
         if backend is None:
             backend = "nccl" if device.type == "cuda" else "gloo"
         if backend == "nccl" and device.type != "cuda":

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .tree import tree_map
+from .tree import tree_map, tree_paths
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -255,3 +255,91 @@ def form_global_batch(mesh: Mesh, host_local_batch, num_hosts: int = 1, host_id:
         return x[mine.start - host.start:mine.stop - host.start]
 
     return tree_map(_rows, host_local_batch)
+
+
+# --------------------------------------------------------------------------
+# the control channel
+# --------------------------------------------------------------------------
+
+OP_IDLE, OP_BATCH, OP_TICK, OP_REGISTER, OP_STOP = range(5)
+_SCALARS = 3  # op, count, value (a float64's bits)
+
+
+@dataclasses.dataclass
+class Header:
+    """One step of a mesh server, from rank 0. `count` entries, each a slot
+    index, a seed, an adapter index and the (negative) prompt's token ids:
+    a batch's requests in slot order (OP_BATCH) or a tick's admissions
+    (OP_TICK). OP_REGISTER carries the adapter's name and its scale in
+    `value` (every rank appends a new name to its registry, so the ranks'
+    adapter indices agree); OP_IDLE keeps the ranks' collectives inside
+    their timeout while the front waits; OP_STOP ends the ranks' loops."""
+
+    op: int
+    count: int = 0
+    value: float = 0.0
+    slots: Optional[torch.Tensor] = None     # (count,) int64
+    seeds: Optional[torch.Tensor] = None     # (count,)
+    adapters: Optional[torch.Tensor] = None  # (count,)
+    ids: Optional[torch.Tensor] = None       # (count, tokens)
+    neg: Optional[torch.Tensor] = None       # (count, tokens)
+    name: Optional[str] = None
+
+    @staticmethod
+    def size(entries: int, tokens: int) -> int:
+        """The int64 length of a header of at most `entries` entries."""
+        return _SCALARS + entries * (3 + 2 * tokens)
+
+    def encode(self, entries: int, tokens: int) -> torch.Tensor:
+        h = torch.zeros(self.size(entries, tokens), dtype=torch.int64)
+        body = h[_SCALARS:].view(entries, 3 + 2 * tokens)
+        count = self.count
+        if self.name is not None:
+            raw = torch.tensor(list(self.name.encode()), dtype=torch.int64)
+            if len(raw) > body.numel():
+                raise ValueError(f"adapter name of {len(raw)} bytes: a header holds at most {body.numel()}")
+            body.view(-1)[:len(raw)] = raw
+            count = len(raw)
+        elif count:
+            body[:count, 0], body[:count, 1], body[:count, 2] = self.slots, self.seeds, self.adapters
+            body[:count, 3:3 + tokens], body[:count, 3 + tokens:] = self.ids, self.neg
+        h[0], h[1] = self.op, count
+        h[2] = torch.tensor([self.value], dtype=torch.float64).view(torch.int64)[0]
+        return h
+
+    @classmethod
+    def decode(cls, h: torch.Tensor, entries: int, tokens: int) -> "Header":
+        op, count = int(h[0]), int(h[1])
+        value = float(h[2:3].view(torch.float64)[0])
+        body = h[_SCALARS:].view(entries, 3 + 2 * tokens)
+        if op == OP_REGISTER:
+            return cls(op, count, value, name=bytes(body.view(-1)[:count].tolist()).decode())
+        rows = body[:count]
+        return cls(op, count, value, rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3:3 + tokens], rows[:, 3 + tokens:])
+
+
+def send_header(mesh: Mesh, header: Header, entries: int, tokens: int) -> None:
+    """Rank 0: broadcast `header` to every rank of the mesh."""
+    broadcast_(mesh, header.encode(entries, tokens).to(mesh.device))
+
+
+def recv_header(mesh: Mesh, entries: int, tokens: int) -> Header:
+    """Any other rank: the next header rank 0 sends."""
+    h = torch.empty(Header.size(entries, tokens), dtype=torch.int64, device=mesh.device)
+    return Header.decode(broadcast_(mesh, h).cpu(), entries, tokens)
+
+
+@torch.no_grad()
+def broadcast_tree(mesh: Mesh, tree, like, src: int = 0):
+    """Rank `src`'s `tree` on every rank, leaf by leaf in `like`'s
+    `tree_paths` order (the paths, shapes and dtypes must be `like`'s). On
+    `src` it returns `tree`; elsewhere new buffers in `like`'s structure."""
+    if mesh.rank == src:
+        leaves = dict(tree_paths(tree))
+        for path, _ in tree_paths(like):
+            broadcast_(mesh, leaves[path].contiguous(), src)
+        return tree
+    out = tree_map(torch.empty_like, like)
+    for _, leaf in tree_paths(out):
+        broadcast_(mesh, leaf, src)
+    return out

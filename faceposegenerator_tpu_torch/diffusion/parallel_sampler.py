@@ -16,8 +16,12 @@ the sequential chain one step an iteration.
 JAX runs the loop as a `while_loop` on the device; here it is an eager loop
 whose stride is read back to the host once an iteration (one small copy).
 The window is a batch axis, so more cards on one image is a placement of
-that axis over a mesh: that is ROADMAP queue 1, item 9c, and `mesh=` raises
-until then.
+that axis over a mesh (parallel_sampler.py:157-167): with `mesh=`, each of
+the N data ranks runs W/N window positions with both CFG halves, combines
+the guidance locally, and `all_gather_rows` gathers the guided ε of the
+whole window; the Picard update and the acceptance test then run the same
+on every rank, and rank 0's stride is broadcast, so that the ranks cannot
+diverge.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.mesh import all_gather_rows, broadcast_object
 from ..core.precision import DEFAULT_POLICY, Policy
 from ..core.tree import tree_leaves, tree_map
 from .schedulers import DDPM_COEFS, DDPMSchedule
@@ -69,18 +74,23 @@ def sample_parallel(
     `generator`, in that order. Per-request adapters ((B, r, in) leaves, a
     (B,) scale) are tiled ×2 for CLIP's [uncond; cond] rows and W× inside
     each half of the UNet's [W·B uncond; W·B cond] rows (parallel_sampler.py:118-139).
+    mesh: a `core.mesh.Mesh` whose "data" ranks split the window (W a
+    multiple of the data axis); every rank returns the whole batch.
     """
-    if mesh is not None:
-        raise ValueError("mesh= is not ported: placing the window over a mesh is ROADMAP queue 1, item 9c")
     if not isinstance(schedule, DDPMSchedule):
         raise TypeError(f"sample_parallel takes a DDPMSchedule, got {type(schedule).__name__}")
+    S = schedule.num_inference_steps
+    W = min(window, S)
+    data = 1 if mesh is None else mesh.data
+    if W % data != 0:
+        raise ValueError(f"window {W} must divide the mesh data axis ({data})")
     policy.configure_backends()
     unet = nets["unet"]
     device = unet.conv_in.weight.device
     B = input_ids.shape[0]
     h, w = height // 8, width // 8
-    S = schedule.num_inference_steps
-    W = min(window, S)
+    Wl = W // data  # this rank's window positions: lo, ..., lo + Wl - 1
+    lo = 0 if mesh is None else mesh.data_index * Wl
     if max_iters is None:
         max_iters = 4 * S
     lora = lora or {}
@@ -92,14 +102,14 @@ def sample_parallel(
     unet_lora, unet_scale = lora.get("unet"), lora_scale
     if per_request:
         text_lora = tree_map(lambda t: torch.cat([t, t]), text_lora)
-        unet_lora = tree_map(lambda t: torch.cat([t.repeat(W, 1, 1)] * 2), unet_lora)
+        unet_lora = tree_map(lambda t: torch.cat([t.repeat(Wl, 1, 1)] * 2), unet_lora)
         if per_scale:
             text_scale = torch.cat([lora_scale, lora_scale])
-            unet_scale = torch.cat([lora_scale.repeat(W)] * 2)
+            unet_scale = torch.cat([lora_scale.repeat(Wl)] * 2)
 
     ids = torch.cat([torch.as_tensor(negative_input_ids), torch.as_tensor(input_ids)]).to(device)
     ctx = nets["text_encoder"](ids, policy, lora=text_lora, lora_scale=text_scale)
-    ctx_w = torch.cat([ctx[:B].repeat(W, 1, 1), ctx[B:].repeat(W, 1, 1)])
+    ctx_w = torch.cat([ctx[:B].repeat(Wl, 1, 1), ctx[B:].repeat(Wl, 1, 1)])
 
     if noise_override is not None:
         if not isinstance(noise_override, torch.Tensor):
@@ -127,11 +137,14 @@ def sample_parallel(
         pos = s + offs
         idxs = pos.clamp(0, S - 1)
         X_win = X[s: s + W]
-        flat = X_win.reshape(W * B, h, w, 4)
-        t2 = timesteps[idxs].repeat_interleave(B).repeat(2)
-        eps = unet(torch.cat([flat, flat]), t2, ctx_w, **kw)
+        mine = X_win[lo: lo + Wl].reshape(Wl * B, h, w, 4)
+        t2 = timesteps[idxs[lo: lo + Wl]].repeat_interleave(B).repeat(2)
+        eps = unet(torch.cat([mine, mine]), t2, ctx_w, **kw)
         eps_u, eps_c = eps.chunk(2)
         g = eps_u + guidance_scale * (eps_c - eps_u)
+        if mesh is not None:
+            g = all_gather_rows(mesh, g.reshape(Wl, B * h, w, 4)).reshape(W * B, h, w, 4)
+        flat = X_win.reshape(W * B, h, w, 4)
         f, _ = schedule.step_per_slot(g, idxs.repeat_interleave(B), flat, Z[idxs].reshape(W * B, h, w, 4))
         f = f.reshape(W, B, h, w, 4)
         new = torch.cumsum(torch.cat([f[:1], (f - X_win)[1:]]), dim=0)
@@ -140,6 +153,8 @@ def sample_parallel(
         ok = (err <= tolerance**2 * variance[idxs]) | (pos >= S)
         ok[0] = True
         stride = int(torch.cumprod(ok.int(), 0).sum())
+        if mesh is not None:
+            stride = int(broadcast_object(mesh, stride))
         X[s + 1: s + 1 + W] = new
         s = min(s + stride, S)
         n_iters += 1

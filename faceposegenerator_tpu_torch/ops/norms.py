@@ -69,9 +69,11 @@ def group_norm_plain(
 def layer_norm(
     x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
-    """LayerNorm over the last axis, output in x's dtype; the kernel keeps
-    its statistics and affine in fp32 whatever x's dtype."""
-    return F.layer_norm(x, (x.shape[-1],), gamma.to(x.dtype), beta.to(x.dtype), eps)
+    """LayerNorm over the last axis, output in x's dtype, rounded once: the
+    statistics and the affine in fp32 whatever x's dtype (norms.py:78-86).
+    The op on the card takes no bf16 x with fp32 gamma and beta, so a bf16
+    x goes through an fp32 copy (an fp32 x through none)."""
+    return F.layer_norm(x.float(), (x.shape[-1],), gamma.float(), beta.float(), eps).to(x.dtype)
 
 
 def batch_norm_inference(

@@ -25,7 +25,9 @@ rescale). On the CPU the codes convolve in float64, exact always.
 
 Calibration (`observe_act_scales`, `freeze_act_scales`) keys its records on
 the `QuantizedWeight` object, not on execution order, so a DeepCache
-partial pass or a cond-only segment observes whatever sites it runs.
+partial pass or a cond-only segment observes whatever sites it runs. Over a
+mesh, `replicate_act_scales` gives every rank rank 0's static scales, so
+that every rank runs the same codes.
 """
 
 from __future__ import annotations
@@ -273,3 +275,19 @@ def load_act_scales(modules, path: str) -> None:
                          f"(tree layout drift?): {unused[:5]}")
     for p, a in scales.items():
         sites[p].a = float(np.float32(a))
+
+
+def replicate_act_scales(mesh, modules) -> None:
+    """Rank 0's static activation scales (None: dynamic) on every rank of
+    `mesh`, in place: one float64 broadcast over the sites in path order.
+    The sites must be the same on every rank (every rank quantized)."""
+    from ..core.mesh import broadcast_
+
+    sites = quantized_sites(modules)
+    if mesh.size == 1 or not sites:  # every rank quantized alike, or none did
+        return
+    paths = sorted(sites)
+    t = torch.tensor([np.nan if sites[p].a is None else sites[p].a for p in paths], dtype=torch.float64,
+                     device=mesh.device)
+    for p, a in zip(paths, broadcast_(mesh, t).tolist()):
+        sites[p].a = None if np.isnan(a) else float(np.float32(a))

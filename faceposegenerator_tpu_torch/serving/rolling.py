@@ -26,6 +26,16 @@ the step counters live on the card and advance inside the tick, and host
 inputs go over by pinned, non-blocking copies. DeepCache, ToMe, the
 guidance interval and parallel sampling keep state in step across a batch
 and do not compose with slots; quantization composes (`pipe.quantize`).
+
+Over a mesh the B slots split over the data ranks, B/N contiguous slots a
+rank (rolling.py:242-255). Rank 0 keeps the slot table and decides the
+admissions; each tick it broadcasts a header that carries them (slot,
+seed, adapter, token ids). Every rank admits into its own slots, running
+CLIP on its own rows, and ticks its B/N slots; every rank mirrors every
+slot's step count from the headers, so all know which slots finish. The
+rank that owns a finished slot runs its batch-1 decode, and one
+`all_reduce` of a zero-filled buffer brings the tick's finished images to
+rank 0 (JAX replicates the latent and decodes it SPMD: the same image).
 """
 
 from __future__ import annotations
@@ -36,9 +46,11 @@ import time
 import numpy as np
 import torch
 
+from ..core import mesh as mesh_lib
+from ..core.mesh import Header
 from ..core.tree import tree_leaves, tree_map
 from ..ops.image import quantize_u8
-from .engine import GenerationResult, SamplerServer, log, to_device
+from .engine import TOKENS, GenerationResult, MeshFault, SamplerServer, log, to_device
 
 
 class RollingServer(SamplerServer):
@@ -54,17 +66,24 @@ class RollingServer(SamplerServer):
         kw["multi_lora"] = True
         super().__init__(pipe, **kw)
 
-    @torch.inference_mode()
     def _admit(self, slot: int, req, ctx_buf, noise_buf, latents):
         """Write request `req` into `slot` of the buffers, in place."""
-        pipe, B = self.pipe, self.batch_size
-        ids = torch.cat([pipe.tokenize([req.negative_prompt]), pipe.tokenize([req.prompt])])
-        lora, scale = self._loras[req.lora_id]
-        ctx = pipe.nets["text_encoder"](to_device(ids, self.device), pipe.policy, lora=lora.get("text_encoder"),
-                                        lora_scale=scale)  # (2, 77, D): [uncond; cond]
+        pipe = self.pipe
+        self._admit_ids(slot, pipe.tokenize([req.prompt])[0], pipe.tokenize([req.negative_prompt])[0], req.seed,
+                        req.lora_id, ctx_buf, noise_buf, latents)
+
+    @torch.inference_mode()
+    def _admit_ids(self, slot: int, ids, neg, seed: int, lora_id, ctx_buf, noise_buf, latents):
+        """Write a request given by its token ids into `slot` of this rank's
+        buffers (the slot a row of `latents`), in place."""
+        pipe, B = self.pipe, latents.shape[0]
+        with self._loras_lock:
+            lora, scale = self._loras[lora_id]
+        ctx = pipe.nets["text_encoder"](to_device(torch.stack([neg, ids]), self.device), pipe.policy,
+                                        lora=lora.get("text_encoder"), lora_scale=scale)  # (2, 77, D): [uncond; cond]
         ctx_buf[slot] = ctx[0]
         ctx_buf[B + slot] = ctx[1]
-        stream = self._per_request_noise([req.seed])[:, 0]  # index 0 the initial latent, i + 1 step i's noise
+        stream = self._per_request_noise([seed])[:, 0]  # index 0 the initial latent, i + 1 step i's noise
         noise_buf[:, slot] = stream
         latents[slot] = stream[0]
 
@@ -86,7 +105,7 @@ class RollingServer(SamplerServer):
     def _tick(self, latents, step_idx, ctx_buf, noise_buf, lora, scale):
         """One DDPM step of every live slot (step_idx < S); returns the new
         (latents, step_idx)."""
-        S, B = self.num_inference_steps, self.batch_size
+        S, B = self.num_inference_steps, latents.shape[0]
         eps, safe = self._guided_eps(latents, step_idx, ctx_buf, lora, scale)
         step_noise = noise_buf[safe + 1, torch.arange(B, device=latents.device)]
         x_new, _ = self._schedule.step_per_slot(eps, safe, latents, step_noise)
@@ -105,91 +124,161 @@ class RollingServer(SamplerServer):
         return (torch.where(mask, x_new, latents), torch.where(mask, m0_new, m0), torch.where(mask, m1_new, m1),
                 torch.where(live, step_idx + 1, step_idx))
 
-    @torch.inference_mode()
     def _decode1(self, latent) -> np.ndarray:
         """One slot's (h, w, 4) latent → (H, W, 3) uint8 on the host."""
+        return self._decode1_u8(latent).cpu().numpy()
+
+    @torch.inference_mode()
+    def _decode1_u8(self, latent) -> torch.Tensor:
+        """One slot's (h, w, 4) latent → (H, W, 3) uint8 on the card."""
         img = self.pipe.nets["vae"].decode(latent[None], self.pipe.policy, attn_impl=self.pipe.models.attn_impl)
-        return quantize_u8((img * 0.5 + 0.5).clamp(0.0, 1.0))[0].cpu().numpy()
+        return quantize_u8((img * 0.5 + 0.5).clamp(0.0, 1.0))[0]
 
     def _run(self):
+        """Every rank's loop: rank 0 admits and sends each tick's header, the
+        others follow it; all tick their own slots and decode their own
+        finished ones."""
         B, S = self.batch_size, self.num_inference_steps
         h, w = self.height // 8, self.width // 8
         device = self.device
-        # the host mirror: per slot (request, future, t_submit, t_admit) or
-        # None, and the ticks since its admission
-        meta = [None] * B
+        front = self.is_front
+        # this rank's slots: a contiguous range of the B, rows of its buffers
+        mine = range(B) if self.mesh is None else range(B)[mesh_lib.rows_of(self.mesh, B)]
+        Bl = len(mine)
+        # every rank mirrors every slot: its adapter (or free) and its ticks
+        # since admission; rank 0 also holds its (request, future, t_submit,
+        # t_admit)
+        slot_lora = [None] * B
         steps = [S] * B
+        meta = [None] * B
         self._completions = collections.deque(maxlen=4096)
         try:
             with torch.inference_mode():
                 # the context's width and dtype, from one encode
-                probe = self.pipe.nets["text_encoder"](torch.zeros((1, 77), dtype=torch.long, device=device),
+                probe = self.pipe.nets["text_encoder"](torch.zeros((1, TOKENS), dtype=torch.long, device=device),
                                                        self.pipe.policy)
-                ctx_buf = probe.new_zeros((2 * B, 77, probe.shape[-1]))
-                noise_buf = torch.zeros((S + 1, B, h, w, 4), dtype=torch.float32, device=device)
-                latents = torch.zeros((B, h, w, 4), dtype=torch.float32, device=device)
-                step_dev = torch.full((B,), S, dtype=torch.long, device=device)
+                ctx_buf = probe.new_zeros((2 * Bl, TOKENS, probe.shape[-1]))
+                noise_buf = torch.zeros((S + 1, Bl, h, w, 4), dtype=torch.float32, device=device)
+                latents = torch.zeros((Bl, h, w, 4), dtype=torch.float32, device=device)
+                step_dev = torch.full((Bl,), S, dtype=torch.long, device=device)
                 dpm = self.scheduler == "dpm"
                 if dpm:
                     m0, m1 = torch.zeros_like(latents), torch.zeros_like(latents)
 
-            while not self._stop.is_set():
-                with self._pending_cv:
-                    self._expire_deadlined_locked()
-                    free = [i for i in range(B) if meta[i] is None]
-                    take = [self._pending.popleft() for _ in range(min(len(free), len(self._pending)))]
-                # into the mirror first: a failing admission fails every request taken
-                for slot, (req, fut, t_sub) in zip(free, take):
-                    meta[slot] = (req, fut, t_sub, time.perf_counter())
-                for slot, (req, _, _) in zip(free, take):
-                    self._admit(slot, req, ctx_buf, noise_buf, latents)
-                    with torch.inference_mode():
-                        step_dev[slot] = 0
-                    steps[slot] = 0
-
-                if all(m is None for m in meta):
-                    with self._pending_cv:
-                        self._pending_cv.wait_for(lambda: self._pending or self._stop.is_set(), timeout=0.1)
-                    continue
-
-                lora, scale = self._stacked_lora(tuple(m[0].lora_id if m else None for m in meta))
+            while True:
+                if front:
+                    if self._stop.is_set():
+                        break
+                    self._send_registrations()
+                    header = self._admissions(meta, S)
+                    if header is None:
+                        self._beat()
+                        continue
+                    self._send(header)
+                else:
+                    header = self._recv()
+                    if header.op == mesh_lib.OP_STOP:
+                        break
+                    if header.op != mesh_lib.OP_TICK:
+                        raise MeshFault(f"unexpected header op {header.op} at a rolling server")
+                for g, seed, a, ids, neg in zip(header.slots.tolist(), header.seeds.tolist(),
+                                                header.adapters.tolist(), header.ids, header.neg):
+                    with self._loras_lock:
+                        slot_lora[g] = self._lora_names[a]
+                    steps[g] = 0
+                    if g in mine:
+                        j = g - mine.start
+                        self._admit_ids(j, ids, neg, seed, slot_lora[g], ctx_buf, noise_buf, latents)
+                        with torch.inference_mode():
+                            step_dev[j] = 0
+                lora, scale = self._stacked_lora(tuple(slot_lora[g] for g in mine))
                 t0 = time.perf_counter()
                 if dpm:
                     latents, m0, m1, step_dev = self._tick_dpm(latents, m0, m1, step_dev, ctx_buf, lora, scale)
                 else:
                     latents, step_dev = self._tick(latents, step_dev, ctx_buf, noise_buf, lora, scale)
+                occupied = [g for g in range(B) if steps[g] < S]
+                for g in occupied:
+                    steps[g] += 1
+                done = [g for g in occupied if steps[g] >= S]
+                images = self._finished_images(done, mine, latents) if done else None
+                for g in done:
+                    slot_lora[g] = None
+                if not front:
+                    continue
                 with self._stats_lock:
                     self._stats["batches"] += 1  # ticks
-                    self._stats["batch_sizes"].append(sum(m is not None for m in meta))
-                for i in range(B):
-                    if meta[i] is not None:
-                        steps[i] += 1
-
-                for i in range(B):
-                    if meta[i] is not None and steps[i] >= S:
-                        req, fut, t_sub, t_adm = meta[i]
-                        img = self._decode1(latents[i])  # the loop's one copy to the host
-                        t1 = time.perf_counter()
-                        with self._stats_lock:
-                            self._stats["requests"] += 1
-                            self._stats["queue_times"].append(t_adm - t_sub)
-                            self._stats["batch_times"].append(t1 - t0)
-                        self._completions.append(t1)
-                        if not fut.done():
-                            fut.set_result(GenerationResult(image=img, seed=req.seed, lora_id=req.lora_id,
-                                                            queue_s=t_adm - t_sub, batch_s=t1 - t_adm))
-                        meta[i] = None
+                    self._stats["batch_sizes"].append(len(occupied))
+                for k, g in enumerate(done):
+                    req, fut, t_sub, t_adm = meta[g]
+                    t1 = time.perf_counter()
+                    with self._stats_lock:
+                        self._stats["requests"] += 1
+                        self._stats["queue_times"].append(t_adm - t_sub)
+                        self._stats["batch_times"].append(t1 - t0)
+                    self._completions.append(t1)
+                    if not fut.done():
+                        fut.set_result(GenerationResult(image=images[k], seed=req.seed, lora_id=req.lora_id,
+                                                        queue_s=t_adm - t_sub, batch_s=t1 - t_adm))
+                    meta[g] = None
         except Exception as e:  # fail the requests in flight and queued rather than hang them
             log.exception("rolling server failed")
+            err = e.__cause__ if isinstance(e, MeshFault) and e.__cause__ is not None else e
             for m in meta:
                 if m is not None and not m[1].done():
-                    m[1].set_exception(e)
-            self._fail_all_pending(e)
+                    m[1].set_exception(err)
+            if self._distributed:  # the ranks are out of step: stop; join() raises it
+                self._fault(err)
+                return
+            self._fail_all_pending(err)
         err = RuntimeError("server shut down")
         for m in meta:
             if m is not None and not m[1].done():
                 m[1].set_exception(err)
-        self._fail_all_pending(err)
+        if front:
+            self._stop_ranks()
+
+    def _follow(self):
+        self._run()
+
+    def _admissions(self, meta, S):
+        """Rank 0: take queued requests into free slots (into the table
+        first: a failing admission fails every request taken) and return the
+        tick's header, or None when no slot is occupied and none was taken."""
+        with self._pending_cv:
+            self._expire_deadlined_locked()
+            free = [i for i in range(self.batch_size) if meta[i] is None]
+            take = [self._pending.popleft() for _ in range(min(len(free), len(self._pending)))]
+        for slot, (req, fut, t_sub) in zip(free, take):
+            meta[slot] = (req, fut, t_sub, time.perf_counter())
+        if all(m is None for m in meta):
+            with self._pending_cv:
+                self._pending_cv.wait_for(lambda: self._pending or self._registrations or self._stop.is_set(),
+                                          timeout=0.1)
+            return None
+        reqs = [req for req, _, _ in take]
+        with self._loras_lock:
+            adapters = [self._lora_names.index(r.lora_id) for r in reqs]
+        empty = torch.zeros((0, TOKENS), dtype=torch.long)
+        return Header(mesh_lib.OP_TICK, len(reqs), slots=torch.tensor(free[:len(reqs)], dtype=torch.long),
+                      seeds=torch.tensor([r.seed for r in reqs], dtype=torch.long),
+                      adapters=torch.tensor(adapters, dtype=torch.long),
+                      ids=self.pipe.tokenize([r.prompt for r in reqs]) if reqs else empty,
+                      neg=self.pipe.tokenize([r.negative_prompt for r in reqs]) if reqs else empty)
+
+    @torch.inference_mode()
+    def _finished_images(self, done, mine, latents):
+        """The (H, W, 3) uint8 images of the finished slots `done` (every
+        rank knows them), each decoded by the rank that owns it; on rank 0
+        on the host, None elsewhere."""
+        if not self._distributed:
+            return [self._decode1(latents[g - mine.start]) for g in done]
+        out = torch.zeros((len(done), self.height, self.width, 3), dtype=torch.uint8, device=self.device)
+        for k, g in enumerate(done):
+            if g in mine:
+                out[k] = self._decode1_u8(latents[g - mine.start])
+        mesh_lib.all_reduce_(self.mesh, out)
+        return out.cpu().numpy() if self.is_front else None
 
     def stats(self) -> dict:
         base = super().stats()

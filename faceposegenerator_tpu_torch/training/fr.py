@@ -113,15 +113,17 @@ class SGDOptimizer:
     weight included; the momentum is optax's `trace` (t ← g + μ·t) and the
     update p ← p − lr·t. `lr_of(count)` is the step schedule; without one the
     learning rate is `opt_state["learning_rate"]` (what `inject_hyperparams`
-    exposes and the plateau scheduler sets)."""
+    exposes and the plateau scheduler sets). `leaves_of(params)` lists the
+    updated tensors (the FR params tree's by default)."""
 
     def __init__(self, lr: float, max_grad_norm: float, weight_decay: float, momentum: float,
-                 lr_of: Optional[Callable[[int], float]] = None):
+                 lr_of: Optional[Callable[[int], float]] = None, leaves_of: Callable = param_leaves):
         self.lr, self.max_grad_norm = lr, max_grad_norm
         self.weight_decay, self.momentum, self.lr_of = weight_decay, momentum, lr_of
+        self.leaves_of = leaves_of
 
     def init(self, params: dict) -> dict:
-        state = {"count": 0, "trace": [torch.zeros_like(p, dtype=torch.float32) for p in param_leaves(params)]}
+        state = {"count": 0, "trace": [torch.zeros_like(p, dtype=torch.float32) for p in self.leaves_of(params)]}
         if self.lr_of is None:
             state["learning_rate"] = self.lr
         return state
@@ -129,7 +131,7 @@ class SGDOptimizer:
     @torch.no_grad()
     def update(self, grads: list, opt_state: dict, params: dict) -> torch.Tensor:
         """Apply one update in place; returns the global norm of `grads`."""
-        leaves = param_leaves(params)
+        leaves = self.leaves_of(params)
         grads = [g.float().clone() for g in grads]
         norm = torch.sqrt(sum(g.square().sum() for g in grads))
         below = norm < self.max_grad_norm

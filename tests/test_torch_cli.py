@@ -15,14 +15,15 @@ configs against the JAX package's.
 - Without `--device`, each of the eleven resolves the card and raises
   without one (tests/test_torch_rules.py).
 - Distribution from the command line: without `--device`, `generate
-  --data_parallel 2`, `train-idbooth --identity_parallel 2` and
-  `pod-rehearsal` resolve the card before they spawn a rank and raise
-  without one; a partial FPG_* launch raises JAX's error word for word;
-  `serve --data_parallel 2` (item 9c) and the two unported commands raise
-  NotImplementedError naming their item. `generate --data_parallel 2
-  --device cpu` spawns two gloo ranks whose PNGs are bit-equal to the
-  one-process command's; the ranks' other paths run in
-  tests/test_torch_data_parallel.py and tests/test_torch_pod_rehearsal.py.
+  --data_parallel 2`, `serve --data_parallel 2`, `train-idbooth
+  --identity_parallel 2` and `pod-rehearsal` resolve the card before they
+  spawn a rank and raise without one; a partial FPG_* launch raises JAX's
+  error word for word; the two unported commands raise NotImplementedError
+  naming their item. `generate --data_parallel 2 --device cpu` spawns two
+  gloo ranks whose PNGs are bit-equal to the one-process command's; the
+  ranks' other paths run in tests/test_torch_data_parallel.py,
+  tests/test_torch_pod_rehearsal.py and (`serve --data_parallel 2 --device
+  cpu`) tests/test_torch_mesh_serving.py.
 - The JAX command against the port's (`--device cpu`) on the same files:
   `pyeer` and `analyze` (printed JSON and written files within 1e-6; the
   plots by name: a curve 1e-7 away may move a pixel), `dgm-eval --model
@@ -155,8 +156,7 @@ NO_CARD = (RuntimeError, "no CUDA device")
 PARTIAL = (ValueError, "partial multi-process configuration")
 MESH_REFUSALS = {
     "generate --data_parallel 2": (["generate", "--lora_root", "{d}/none", "--data_parallel", "2"], {}, NO_CARD),
-    "serve --data_parallel 2": (["serve", "--model_dir", "{d}/none", "--data_parallel", "2"], {},
-                                (NotImplementedError, "item 9c")),
+    "serve --data_parallel 2": (["serve", "--model_dir", "{d}/none", "--data_parallel", "2"], {}, NO_CARD),
     "train-idbooth --identity_parallel 2": (["train-idbooth", "--source_folder", "{d}/none", "--model_dir",
                                              "{d}/none", "--vmap_identities", "2", "--identity_parallel", "2"], {},
                                             NO_CARD),
@@ -176,7 +176,7 @@ MESH_REFUSALS = {
 def test_unported_distribution_and_parity_raise_naming_their_item(case, tmp_path, monkeypatch):
     """Each distribution case stops before it spawns, loads or writes
     anything: the card resolved first, a partial launch refused as JAX
-    refuses it, the 9c server and the parity commands naming their item."""
+    refuses it, the parity commands naming their items."""
     argv, env, (exc, match) = MESH_REFUSALS[case]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for k in cli._LAUNCH_ENV + ("WORLD_SIZE", "RANK", "MASTER_ADDR"):

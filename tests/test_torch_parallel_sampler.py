@@ -23,6 +23,7 @@ import torch
 from faceposegenerator_tpu.core.precision import PARITY_POLICY as JPOLICY
 from faceposegenerator_tpu.diffusion import schedulers as jsched
 from faceposegenerator_tpu.diffusion.parallel_sampler import sample_parallel as jsample_parallel
+from faceposegenerator_tpu_torch.core.mesh import make_mesh
 from faceposegenerator_tpu_torch.core.precision import PARITY_POLICY
 from faceposegenerator_tpu_torch.core.tree import tree_map
 from faceposegenerator_tpu_torch.diffusion.parallel_sampler import sample_parallel
@@ -110,8 +111,17 @@ def test_pipeline_and_engine_routes(setup):
             pipe(parallel_window=W, **kw)
     finally:
         pipe.set_scheduler("ddpm")
-    with pytest.raises(ValueError, match="item 9"):
-        sample_parallel(pipe.nets, make_ddpm(num_inference_steps=S), ids, ids, mesh=object())
+    # a mesh of one rank takes the mesh path (its gather and broadcast are
+    # no-ops) and gives the same images; a window that does not divide the
+    # data axis raises
+    noise = torch.from_numpy(_noise()[:, :1])
+    plain, one_rank = (sample_parallel(pipe.nets, make_ddpm(num_inference_steps=S), ids[:1], ids[:1], window=W,
+                                       tolerance=0.0, height=H, width=H, noise_override=noise, policy=pipe.policy,
+                                       mesh=mesh) for mesh in (None, make_mesh(world_size=1, rank=0, device="cpu")))
+    torch.testing.assert_close(one_rank, plain, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="data axis"):
+        sample_parallel(pipe.nets, make_ddpm(num_inference_steps=S), ids, ids, window=W,
+                        mesh=make_mesh(data=3, world_size=3, rank=0, device="cpu"))
     req = GenerationRequest(prompt=PROMPTS[0], seed=11)
     servers = [SamplerServer(pipe, batch_size=1, max_wait_s=0.0, num_inference_steps=S, height=H, width=H, **extra)
                for extra in (dict(parallel_window=W, parallel_tolerance=0.0), {})]

@@ -2,7 +2,8 @@
 steps, the rolling engine's ticks, per-request determinism, the rolling
 engine against the batch engine, and the engines' contracts (queue cap,
 deadlines, shutdown, seed range, adapter structure, arrival order, a
-failing collector, HTTP codes, refusals).
+failing collector, HTTP codes, refusals). The servers over a mesh are in
+tests/test_torch_mesh_serving.py.
 
 The models are the tiny ones of the JAX serving tests
 (tests/test_serving.py:25-33: 64², 3 steps), fp32 `PARITY_POLICY`, JAX
@@ -395,11 +396,14 @@ def test_http_codes(pipes):
 
 
 def test_refusals(pipes):
+    from faceposegenerator_tpu_torch.core.mesh import make_mesh
+
     pipe = pipes["pipe"]
-    with pytest.raises(ValueError, match="item 9"):
-        SamplerServer(pipe, mesh=object(), **KW)
-    with pytest.raises(ValueError, match="item 9"):
-        RollingServer(pipe, mesh=object(), **KW)
+    # over a mesh: the batch must divide the data axis, whose model axis is 1
+    with pytest.raises(ValueError, match="data axis"):
+        SamplerServer(pipe, batch_size=3, mesh=make_mesh(data=2, world_size=2, rank=0, device="cpu"), **KW)
+    with pytest.raises(ValueError, match="model axis of 1"):
+        RollingServer(pipe, batch_size=2, mesh=make_mesh(data=1, model=2, world_size=2, rank=1, device="cpu"), **KW)
     with pytest.raises(ValueError, match="ddpm"):
         SamplerServer(pipe, scheduler="dpm", parallel_window=2, **KW)
     with pytest.raises(ValueError, match="cfg_interval"):
