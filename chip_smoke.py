@@ -341,6 +341,48 @@ Phases, in order; any failure exits non-zero without the final result line:
      relative of one process on the 128 rows; then `serve --data_parallel
      2` from one command under FPG_BACKEND=gloo, /healthz and one request
      within the per-sample gate of the one-process PNG.
+ 20. the data layer and the parity runbook (`run_data_parity`; alone:
+     `perf/torch_data_parity.py`), on phase 12's directory and phase 15's
+     files: the native loader built with g++ and libjpeg (its seconds; a
+     missing g++ or jpeglib.h is named on its own line and leaves out only
+     the native legs; a failed build with both there fails); an
+     insightface-layout .rec of 1000 identities × 4 JPEGs of 112² with a meta
+     record, `MXFaceDataset` native against PIL on its first 4 batches of
+     128 (labels equal, images within 1.5/255, host img/s of each), then
+     `train_fr_run` on it at phase 15's op point (iresnet50 + AdaFace, batch
+     128, bf16, 2 epochs × 4 steps, the 600-pair .bin) and `test_fr_run`
+     reproducing the best accuracy, its s/step with the batch load beside
+     phase 15's JPEG-folder driver; RGBN: phase 15's FR gate at
+     in_channels=4 (AdaFace), iresnet50 on 4 channels at batch 128 for 10
+     steps on `VISNIRDataset` batches (a NIR file for half the images:
+     s/step with the load, img/s, peak memory), the step alone on one
+     batch on the card as phase 15 times it, beside phase 15's 3-channel
+     s/step, `load_bin_4channel` on the 600-pair VIS
+     .bin and its grayscale NIR twin, `verification.test` with a 4-channel
+     IResNet (1, 1, 1, 1) at fp32 on the card (all pairs) and the same
+     accuracy card against CPU on the first 32 pairs; the conditional
+     layouts there and back on 200 of its files, byte-equal; phase 15's 520-JPEG tree through
+     `extract_embeddings_streaming` with the native decode (every batch
+     through it) and with PIL, where the loader builds: the same files
+     without faces, cosine >= 0.99, img/s of each; these legs launch no TPU
+     kernel. `cli parity-all` (fp32, TF32 off) on sd/ (phase 12's
+     directory), arcface.pth (phase 15's damped r100 in insightface keys)
+     and mtcnn/ (the bright-square cascade as facenet-pytorch .pt files) at
+     `--steps 5 --report_steps 10 --resolution 512`: its parity leg, `cli
+     parity --full_chain` (the port against the torch mirrors: text, ε̂ per
+     step and decode within 5e-4, the full chain's latents and image within
+     5e-3, flash_fwd_f32 exactly 320 at head dim 64 and 2 at 512,
+     flash_f32_split 322); its default gates relative to the seed floor
+     (each preset's PSNR 3 dB above the floor's, its ArcFace cosine
+     distance to the exact render at most half the floor's; the floor's
+     cosine printed): verdict pass, nothing skipped, the accel-report's
+     K1 1480, K2 5 and K7 2320 (exact and seed floor 10 full passes each,
+     latency and turbo at phases 12's and 6's counts, turbo's calibration 8
+     full passes and a decode), seconds a leg. Last, `core.flops`: one UNet
+     call at batch 2 × 512² and one call each of K1, K2, K4 and K7 count the
+     same FLOPs on the kernel route as on the plain route (K1 4·B·H·Sq·Skv·D),
+     and the txt2img request's TFLOP with its rate at phase 4's s/request
+     against the 989 TFLOP/s bf16 peak.
 Phases 3-7 run the default configuration (GN_IMPL and GN_CONV_IMPL at xla)
 whatever the environment says. The line before the last is a JSON object
 with one entry per kernel; the last is {"ok": true, "device": {...}}.
@@ -355,6 +397,8 @@ import sys
 import time
 
 MAX_ERR, MEAN_ERR, LSE_ERR = 2e-2, 2e-3, 1e-3
+# numbers one phase measures and a later phase prints beside its own
+READINGS: dict = {}
 # K7 and K8 reproduce their plain versions' codes and roundings: each output
 # within 1 bf16 ulp + INT8_REL_ERR of it, and K8's mean abs err within
 # INT8_MEAN_ERR
@@ -3297,9 +3341,10 @@ def _fr_pair(torch, fr, cfg, bcfg):
     return cpu, card
 
 
-def _fr_gate(torch, fr, card_line):
-    """Each head, 2 steps of the tiny backbone at 112², fp32 with TF32 off,
-    the card against the port on the CPU from the same weights and draws."""
+def _fr_gate(torch, fr, card_line, heads=("AdaFace", "ArcFace", "CosFace", "ElasticCosFace"), in_channels=3):
+    """Each head, 2 steps of the tiny backbone at 112² on `in_channels`
+    channels (4: RGBN), fp32 with TF32 off, the card against the port on the
+    CPU from the same weights and draws."""
     import numpy as np
 
     from faceposegenerator_tpu_torch.core.precision import PARITY_POLICY
@@ -3307,13 +3352,13 @@ def _fr_gate(torch, fr, card_line):
 
     n, res, classes = FR_GATE["batch"], FR_GATE["res"], FR_GATE["classes"]
     g = torch.Generator().manual_seed(11)
-    batch = {"images": torch.rand(n, res, res, 3, generator=g) * 2 - 1,
+    batch = {"images": torch.rand(n, res, res, in_channels, generator=g) * 2 - 1,
              "labels": torch.randint(0, classes, (n,), generator=g)}
     out = {}
     with tf32(False):
-        for head in ("AdaFace", "ArcFace", "CosFace", "ElasticCosFace"):
+        for head in heads:
             cfg = fr.FRConfig(loss=head, batch_size=n, num_classes=classes)
-            bcfg = fr.backbone_config(cfg, depths=FR_GATE["depths"])
+            bcfg = fr.backbone_config(cfg, depths=FR_GATE["depths"], in_channels=in_channels)
             (cp, cs), (gp, gs) = _fr_pair(torch, fr, cfg, bcfg)
             runs = []
             for params, state in ((cp, cs), (gp, gs)):
@@ -3334,7 +3379,7 @@ def _fr_gate(torch, fr, card_line):
                 want = dict(tree_paths(cpu_tree[part]))
                 scale = max(float(np.abs(v).max()) for v in want.values())
                 errs[part] = max(float(np.abs(v - want[p]).max()) for p, v in tree_paths(card_tree[part])) / scale
-            print(f"fr gate {head}: loss {card_losses} (cpu {cpu_losses}), loss rel err {loss_err:.2e}, "
+            print(f"fr gate {head}{' RGBN' if in_channels == 4 else ''}: loss {card_losses} (cpu {cpu_losses}), loss rel err {loss_err:.2e}, "
                   f"params err {errs['params']:.2e}, state err {errs['state']:.2e} of the max abs", flush=True)
             if not (loss_err <= 1e-4 and errs["params"] <= 1e-4 and errs["state"] <= 1e-5):
                 fail(f"FR gate {head}: loss {loss_err:.2e} (1e-4), params {errs['params']:.2e} (1e-4), "
@@ -3343,10 +3388,11 @@ def _fr_gate(torch, fr, card_line):
     return out
 
 
-def _fr_bench(torch, fr, card_line):
+def _fr_bench(torch, fr, card_line, in_channels=3, others=True):
     """iresnet50 + AdaFace at the bench op point (batch 128, 112², 1000
-    classes, fp32 params, bf16 compute): 10 steps on one batch; then one step
-    of each other head and of the SE variant."""
+    classes, fp32 params, bf16 compute): 10 steps on one batch on the card;
+    then, with `others`, one step of each other head and of the SE
+    variant. Phase 20 runs it at in_channels=4."""
     import statistics
 
     from faceposegenerator_tpu_torch.core.precision import DEFAULT_POLICY
@@ -3354,7 +3400,7 @@ def _fr_bench(torch, fr, card_line):
 
     n, res = FR_BENCH["batch"], FR_BENCH["res"]
     g = torch.Generator(device="cuda").manual_seed(12)
-    batch = {"images": torch.rand(n, res, res, 3, generator=g, device="cuda") * 2 - 1,
+    batch = {"images": torch.rand(n, res, res, in_channels, generator=g, device="cuda") * 2 - 1,
              "labels": torch.randint(0, FR_BENCH["classes"], (n,), generator=g, device="cuda")}
 
     def one_run(head, steps, **bkw):
@@ -3377,18 +3423,20 @@ def _fr_bench(torch, fr, card_line):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    secs, losses = one_run("AdaFace", FR_BENCH["steps"])
+    secs, losses = one_run("AdaFace", FR_BENCH["steps"], in_channels=in_channels)
     steady = statistics.median(secs[1:])
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"fr bench: iresnet50 AdaFace, batch {n}, {res}², {FR_BENCH['classes']} classes, fp32 params, bf16 "
+    print(f"fr bench: iresnet50 AdaFace, in_channels={in_channels}, batch {n}, {res}², {FR_BENCH['classes']} "
+          f"classes, fp32 params, bf16 "
           f"compute: {steady:.4f} s/step (median of steps 2-{len(secs)}; first {secs[0]:.2f} s), "
           f"{n / steady:.1f} train img/s, peak memory {peak:.2f} GiB, losses {losses[0]:.3f} → {losses[-1]:.3f} "
           f"({card_line})", flush=True)
-    others = {}
-    for head, kw in (("ArcFace", {}), ("CosFace", {}), ("ElasticCosFace", {}), ("AdaFace", {"use_se": True})):
-        s, l_ = one_run(head, 1, **kw)
-        others[head + (" SE" if kw else "")] = l_[0]
-    print(f"fr bench: one step each, loss {json.dumps(others)}", flush=True)
+    if others:
+        losses = {}
+        for head, kw in (("ArcFace", {}), ("CosFace", {}), ("ElasticCosFace", {}), ("AdaFace", {"use_se": True})):
+            s, l_ = one_run(head, 1, **kw)
+            losses[head + (" SE" if kw else "")] = l_[0]
+        print(f"fr bench: one step each, loss {json.dumps(losses)}", flush=True)
     return {"s_per_step": steady, "img_per_s": n / steady, "peak_gib": peak}
 
 
@@ -3430,23 +3478,34 @@ def _write_fr_data(root, torch):
 def _fr_driver(torch, fr, card_line, root):
     """train_fr_run at the bench op point on 2000 JPEGs (2 epochs of at most 4
     steps, verification each epoch), then test_fr_run on its best file."""
-    import os
-
-    from faceposegenerator_tpu_torch.core.precision import DEFAULT_POLICY
     from faceposegenerator_tpu_torch.data.fr_dataset import FlatDirDataset
     from faceposegenerator_tpu_torch.evaluation import verification
-    from faceposegenerator_tpu_torch.training import fr_driver
 
     t0 = time.time()
     flat, bin_path = _write_fr_data(root, torch)
     bins = {"lfw": verification.load_bin(bin_path)}
     t_data = time.time() - t0
+    out = _fr_run(torch, fr, card_line, FlatDirDataset(flat), bins, root, "fr driver")
+    print(f"fr driver: data written in {t_data:.1f} s", flush=True)
+    return out
+
+
+def _fr_run(torch, fr, card_line, dataset, bins, root, label):
+    """train_fr_run of iresnet50 + AdaFace at batch 128 on `dataset` (2
+    epochs of at most 4 steps, verification on `bins` each epoch), then
+    test_fr_run on its best file, which must give the best epoch's accuracy.
+    Returns s/step with the batch load and the verification seconds."""
+    import os
+    import statistics
+
+    from faceposegenerator_tpu_torch.core.precision import DEFAULT_POLICY
+    from faceposegenerator_tpu_torch.training import fr_driver
+
     cfg = fr.FRConfig(network=FR_BENCH["network"], loss="AdaFace", batch_size=FR_BENCH["batch"],
                       num_epochs=FR_DRIVER["epochs"])
     out = os.path.join(root, "run")
-    ver_secs = []
     with step_probe(fr, "make_train_step") as steps, step_probe(fr_driver.verification, "test", factory=False) as ver:
-        res = fr_driver.train_fr_run(cfg, FlatDirDataset(flat), out, val_bins=bins, policy=DEFAULT_POLICY,
+        res = fr_driver.train_fr_run(cfg, dataset, out, val_bins=bins, policy=DEFAULT_POLICY,
                                      max_steps_per_epoch=FR_DRIVER["max_steps"])
     ver_secs = [r["s"] for r in ver.records]
     ends = [r["end"] for r in steps.records]
@@ -3456,20 +3515,18 @@ def _fr_driver(torch, fr, card_line, root):
                                                                    ends[e * per + 1 : (e + 1) * per])]
     for name in ("best_backbone.npz", "history.json", "fr_config.json"):
         if not os.path.exists(os.path.join(out, name)):
-            fail(f"train_fr_run left no {name}")
+            fail(f"{label}: train_fr_run left no {name}")
     if len(steps.records) != FR_DRIVER["epochs"] * per or len(res["history"]) != FR_DRIVER["epochs"]:
-        fail(f"train_fr_run ran {len(steps.records)} steps and {len(res['history'])} epochs")
-    test = fr_driver.test_fr_run(cfg.replace(num_classes=FR_DRIVER["identities"]), os.path.join(out, "best_backbone.npz"),
+        fail(f"{label}: train_fr_run ran {len(steps.records)} steps and {len(res['history'])} epochs")
+    test = fr_driver.test_fr_run(cfg.replace(num_classes=dataset.num_classes), os.path.join(out, "best_backbone.npz"),
                                  bins, os.path.join(out, "test.json"), policy=DEFAULT_POLICY)
     if test["lfw"]["accuracy"] != res["best_acc"]:
-        fail(f"test_fr_run gives accuracy {test['lfw']['accuracy']} where the run's best epoch had {res['best_acc']}")
-    import statistics
-
-    print(f"fr driver: {len(steps.records)} steps of batch {cfg.batch_size}, {statistics.median(gaps):.4f} s/step "
+        fail(f"{label}: test_fr_run gives accuracy {test['lfw']['accuracy']} where the run's best epoch had "
+             f"{res['best_acc']}")
+    print(f"{label}: {len(steps.records)} steps of batch {cfg.batch_size}, {statistics.median(gaps):.4f} s/step "
           f"with the batch load (median), verification {', '.join(f'{s:.2f}' for s in ver_secs)} s an epoch "
-          f"({2 * FR_DRIVER['pairs']} images and their flips), history {json.dumps(res['history'])}, "
-          f"test_fr_run accuracy {test['lfw']['accuracy']:.4f} = best epoch's; data written in {t_data:.1f} s "
-          f"({card_line})", flush=True)
+          f"({2 * len(bins['lfw'][1])} images and their flips), history {json.dumps(res['history'])}, "
+          f"test_fr_run accuracy {test['lfw']['accuracy']:.4f} = best epoch's ({card_line})", flush=True)
     return {"s_per_step_with_load": statistics.median(gaps), "verification_s": ver_secs}
 
 
@@ -3744,9 +3801,11 @@ def run_identity_stack(torch, card_line, keep=None):
     gate = _fr_gate(torch, fr, card_line)
     torch.cuda.empty_cache()
     bench = _fr_bench(torch, fr, card_line)
+    READINGS["fr_bench_s_per_step"] = bench["s_per_step"]
     torch.cuda.empty_cache()
     with build_dir("fr_driver", keep) as root:
         driver = _fr_driver(torch, fr, card_line, root)
+    READINGS["fr_folder_s_per_step"] = driver["s_per_step_with_load"]
     torch.cuda.empty_cache()
     with build_dir("embed_extract", keep) as root:
         embed = _embed_stack(torch, card_line, root)
@@ -5509,6 +5568,543 @@ def run_mesh_serving(torch, fa, card, card_line, model_dir, served=None):
     return total, [dict(r, phase=19) for r in fwd_rows]
 
 
+# Phase 20: the data layer and the parity runbook. DATA_PARITY holds its
+# sizes (a CPU rehearsal can shrink them): the .rec at the FR op point, the
+# loader comparison's batches, the RGBN bench, the CPU side of the RGBN
+# verification, and the parity runbook's steps and resolution.
+DATA_PARITY = dict(identities=1000, per_identity=4, loader_batches=4, rgbn_steps=10, nir_share=2, cpu_pairs=32,
+                   conditional_files=200, parity_steps=5, report_steps=10, resolution=512, unet_batch=2)
+NATIVE_GATE = 1.5 / 255  # JAX's tests/test_native_loader.py: native decode against PIL, 112² records
+PARITY_TOL, CHAIN_TOL = 5e-4, 5e-3  # cli parity's --tolerance and --full_chain_tolerance defaults
+H100_BF16_PEAK = 989e12  # dense bf16 tensor-core FLOP/s, H100 SXM data sheet (700 W)
+DEV = "cuda"  # phase 20's device (a CPU rehearsal sets "cpu")
+# the kernel calls whose FLOPs phase 20 counts on both routes: K1 and K2 at
+# the request's largest shapes (B, H, S, D), K4 at the fused request's L0
+# conv (N, H, W, Cin, Cout), K7 at a level-0 projection (M, K, N)
+FLOP_SHAPES = dict(k1=(16, 5, 4096, 64), k2=(8, 1, 4096, 512), k4=(16, 64, 64, 320, 320), k7=(8192, 320, 1280))
+
+
+def _parity_expect(steps, report_steps):
+    """The launches of `cli parity --full_chain` at `steps` (fp32: the per-step
+    leg and the full chain, each `steps` UNet calls of 32 attentions and one
+    decode, every fp32 forward after one split launch) and of parity-all's
+    accel-report at `report_steps` with the two presets and the seed floor
+    (bf16: exact and floor renders of report_steps full passes; latency, 8
+    full + 12 DeepCache partial passes of 10 attentions (LATENCY_LAUNCHES);
+    turbo's calibration, 8 full passes of 160 K7 and a decode; its render,
+    phase 6's counts; a VAE decode on K2 for each of the five)."""
+    f32 = 2 * (steps * 32 + 1)
+    parity = {"flash_fwd_f32": f32, "flash_f32_split": f32}
+    report = {"flash_fwd_d64": 2 * report_steps * 32 + LATENCY_LAUNCHES["flash_fwd_d64"] + 8 * 32
+              + TURBO_LAUNCHES["auto"]["flash_fwd_d64"], "flash_fwd_wide": 5,
+              "qdense": CLI_CALIB_LAUNCHES["qdense"] + TURBO_LAUNCHES["auto"]["qdense"]}
+    return parity, report
+
+
+def _write_rec(root):
+    """An insightface-layout train.rec/.idx under `root`: the meta record 0
+    (labels [first id record, end], empty payload), then identities ×
+    per_identity JPEGs of 112² (phase 15's FR images: an identity's colour
+    plus noise, quality 90) labelled by identity. Returns the .rec path."""
+    import io
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from faceposegenerator_tpu_torch.data import recordio
+
+    n_ids, per = DATA_PARITY["identities"], DATA_PARITY["per_identity"]
+    rng = np.random.default_rng(20)
+    base = rng.integers(30, 225, (n_ids, 1, 1, 3))
+    records = [(np.asarray([n_ids * per + 1, n_ids * per + 1 + n_ids], np.float32), b"")]
+    for i in range(n_ids):
+        for _ in range(per):
+            buf = io.BytesIO()
+            img = np.clip(base[i] + rng.normal(0, 25, (112, 112, 3)), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(buf, format="JPEG", quality=90)
+            records.append((np.asarray([i], np.float32), buf.getvalue()))
+    os.makedirs(root, exist_ok=True)
+    rec = os.path.join(root, "train.rec")
+    recordio.write_records(rec, os.path.join(root, "train.idx"), records)
+    return rec
+
+
+def _recordio_leg(torch, fr, card_line, root, bins, native_ok):
+    """(a): the .rec at the FR op point, the native loader against PIL on the
+    first batches, train_fr_run on it and test_fr_run."""
+    import numpy as np
+
+    from faceposegenerator_tpu_torch.data import recordio
+
+    t0 = time.time()
+    rec = _write_rec(root)
+    t_write = time.time() - t0
+    batch, n = FR_BENCH["batch"], DATA_PARITY["loader_batches"]
+    loaders = {}
+    for name, use_native in (("native", True), ("PIL", False)):
+        if use_native and not native_ok:
+            continue
+        ds = recordio.MXFaceDataset(rec, use_native=use_native)
+        t0 = time.time()
+        got = [b for _, b in zip(range(n), ds.batches(batch, seed=0))]
+        loaders[name] = (ds, got, n * batch / (time.time() - t0))
+    if native_ok:
+        (ds, got, _), (_, want, _) = loaders["native"], loaders["PIL"]
+        err = max(float(np.abs(a["images"] - b["images"]).max()) for a, b in zip(got, want))
+        same = all(np.array_equal(a["labels"], b["labels"]) for a, b in zip(got, want))
+        if not same or err > NATIVE_GATE or ds.pil_batches:
+            fail(f"MXFaceDataset native against PIL: labels equal {same}, images {err:.2e} (gate {NATIVE_GATE:.2e}), "
+                 f"{ds.pil_batches} batches handed to PIL")
+        print(f"recordio: native decode within {err:.2e} of PIL ({err * 255:.2f}/255), labels equal", flush=True)
+    print(f"recordio: {DATA_PARITY['identities'] * DATA_PARITY['per_identity']} JPEGs of 112² written as .rec in "
+          f"{t_write:.1f} s; host loader img/s over the first {n} batches of {batch}: "
+          + ", ".join(f"{k} {v[2]:.1f}" for k, v in loaders.items()) + f" ({card_line})", flush=True)
+    train_ds = loaders["native" if native_ok else "PIL"][0]
+    run = _fr_run(torch, fr, card_line, train_ds, bins, root, "fr driver on .rec")
+    if native_ok and train_ds.pil_batches:
+        fail(f"fr driver on .rec: {train_ds.pil_batches} batches fell back to PIL")
+    folder = READINGS.get("fr_folder_s_per_step")
+    print(f"fr driver on .rec ({'native' if native_ok else 'PIL'} loader): {run['s_per_step_with_load']:.4f} s/step "
+          f"with the batch load, beside phase 15's JPEG-folder driver: "
+          f"{'not measured in this run' if folder is None else f'{folder:.4f} s/step'} ({card_line})", flush=True)
+    return {"loader_img_per_s": {k: v[2] for k, v in loaders.items()}, **run}
+
+
+def _write_nir(vis_dir, nir_dir, bin_path, nir_bin):
+    """Grayscale copies (the NIR channel) of every `nir_share`-th VIS image,
+    and a 600-pair NIR .bin of the VIS .bin's images in grayscale."""
+    import io
+    import os
+    import pickle
+
+    from PIL import Image
+
+    os.makedirs(nir_dir, exist_ok=True)
+    for i, name in enumerate(sorted(os.listdir(vis_dir))):
+        if i % DATA_PARITY["nir_share"] == 0:
+            Image.open(os.path.join(vis_dir, name)).convert("L").save(os.path.join(nir_dir, name), quality=90)
+    with open(bin_path, "rb") as f:
+        bins, issame = pickle.load(f)
+    gray = []
+    for b in bins:
+        buf = io.BytesIO()
+        Image.open(io.BytesIO(b)).convert("L").save(buf, format="JPEG", quality=90)
+        gray.append(buf.getvalue())
+    with open(nir_bin, "wb") as f:
+        pickle.dump((gray, issame), f)
+
+
+def _rgbn_leg(torch, fr, card_line, root, vis_dir, bin_path):
+    """(b): phase 15's FR gate at in_channels=4 (AdaFace); iresnet50 on 4
+    channels + AdaFace at batch 128 on VISNIRDataset batches; the 600-pair
+    VIS and NIR bins through load_bin_4channel and verification.test, the card
+    against the CPU."""
+    import copy
+    import os
+    import statistics
+
+    from faceposegenerator_tpu_torch.core.precision import DEFAULT_POLICY, PARITY_POLICY
+    from faceposegenerator_tpu_torch.core.rng import train_step_generator
+    from faceposegenerator_tpu_torch.data.fr_dataset import prefetch
+    from faceposegenerator_tpu_torch.data.visnir import VISNIRDataset, load_bin_4channel
+    from faceposegenerator_tpu_torch.evaluation import verification
+    from faceposegenerator_tpu_torch.models import iresnet
+
+    gate = _fr_gate(torch, fr, card_line, heads=("AdaFace",), in_channels=4)
+    nir_dir, nir_bin = os.path.join(root, "nir"), os.path.join(root, "nir.bin")
+    t0 = time.time()
+    _write_nir(vis_dir, nir_dir, bin_path, nir_bin)
+    t_write = time.time() - t0
+
+    ds = VISNIRDataset(vis_dir, nir_dir)
+    n, steps = FR_BENCH["batch"], DATA_PARITY["rgbn_steps"]
+    cfg = fr.FRConfig(network=FR_BENCH["network"], loss="AdaFace", batch_size=n, num_classes=ds.num_classes)
+    params, state = fr.init_train_state(cfg, 0, DEV, fr.backbone_config(cfg, in_channels=4))
+    opt = fr.make_optimizer(cfg, steps_per_epoch=steps)
+    opt_state, step = opt.init(params), fr.make_train_step(cfg, opt, DEFAULT_POLICY)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ends, losses = [], []
+    batches = prefetch(ds.batches(n))
+    for i in range(steps):
+        b = next(batches)
+        if b["images"].shape[-1] != 4:
+            fail(f"VISNIRDataset gave {b['images'].shape}, not RGBN")
+        params, state, opt_state, m = step(params, state, opt_state, b, train_step_generator(0, i, DEV))
+        losses.append(float(m["loss"]))
+        ends.append(time.time())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with_load = statistics.median(b - a for a, b in zip(ends[1:], ends[2:]))
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"RGBN iresnet50 losses {losses}")
+    print(f"rgbn driver: iresnet50 in_channels=4 AdaFace, batch {n}, {ds.num_classes} classes, bf16 compute, {steps} "
+          f"steps on VISNIRDataset batches ({len(os.listdir(nir_dir))} of {len(ds)} images with a NIR file; "
+          f"written in {t_write:.1f} s): {with_load:.4f} s/step with the batch load and its copy to the card "
+          f"(median), {n / with_load:.1f} train img/s, peak memory {peak:.2f} GiB, losses "
+          f"{losses[0]:.3f} → {losses[-1]:.3f} ({card_line})", flush=True)
+    del params, state, opt_state, step
+    torch.cuda.empty_cache()
+    # the step alone, as phase 15 times it: one batch already on the card, 4 channels against 3
+    bench = _fr_bench(torch, fr, card_line, in_channels=4, others=False)
+    torch.cuda.empty_cache()
+    three = READINGS.get("fr_bench_s_per_step")
+    if three is None:  # phase 15 did not run (perf/torch_data_parity.py alone)
+        three = _fr_bench(torch, fr, card_line, others=False)["s_per_step"]
+        torch.cuda.empty_cache()
+    print(f"rgbn bench: the step on one batch on the card, {bench['s_per_step']:.4f} s/step at in_channels=4 "
+          f"against {three:.4f} at 3 (phase 15's fr bench), {bench['s_per_step'] / three:.3f}× ({card_line})",
+          flush=True)
+
+    images, issame = load_bin_4channel(bin_path, nir_bin)
+    if images.shape[1:] != (112, 112, 4) or len(images) != 2 * len(issame):
+        fail(f"load_bin_4channel gave {images.shape} for {len(issame)} pairs")
+    cpu = iresnet.IResNet(iresnet.IResNetConfig(depths=FR_GATE["depths"], in_channels=4), device="cpu", seed=21)
+    card = copy.deepcopy(cpu).to(DEV)
+
+    def embed_fn(model, device):
+        def embed(x):
+            with torch.no_grad():
+                return model(torch.as_tensor(x, device=device), PARITY_POLICY).cpu().numpy()
+
+        return embed
+
+    k = 2 * DATA_PARITY["cpu_pairs"]
+    with tf32(False):
+        t0 = time.time()
+        acc_all = verification.test((images, issame), embed_fn(card, DEV))[0]
+        t_card = time.time() - t0
+        acc_card = verification.test((images[:k], issame[: k // 2]), embed_fn(card, DEV))[0]
+    t0 = time.time()
+    acc_cpu = verification.test((images[:k], issame[: k // 2]), embed_fn(cpu, "cpu"))[0]
+    t_cpu = time.time() - t0
+    print(f"rgbn verification: load_bin_4channel on 2 × {len(issame)} pairs {images.shape}; a 4-channel IResNet "
+          f"{FR_GATE['depths']} at fp32 (TF32 off): accuracy {acc_all:.4f} on the card over all pairs "
+          f"({t_card:.2f} s); first {k // 2} pairs card {acc_card:.4f}, CPU {acc_cpu:.4f} ({t_cpu:.1f} s on the host) "
+          f"({card_line})", flush=True)
+    if acc_card != acc_cpu:
+        fail(f"RGBN verification: the card's accuracy {acc_card} on {k // 2} pairs, the CPU's {acc_cpu}")
+    return {"gate": gate, "s_per_step_with_load": with_load, "s_per_step": bench["s_per_step"],
+            "s_per_step_3ch": three, "peak_gib": peak, "accuracy": acc_all}
+
+
+def _conditional_leg(vis_dir, root):
+    """flat_to_conditional on the first `conditional_files` images of the VIS
+    folder, conditional_to_flat back: the same files, byte for byte, and one
+    folder an identity."""
+    import os
+
+    from faceposegenerator_tpu_torch.data.conditional import conditional_to_flat, flat_to_conditional
+
+    t0 = time.time()
+    names = sorted(os.listdir(vis_dir))[: DATA_PARITY["conditional_files"]]
+    flat = os.path.join(root, "flat")
+    os.makedirs(flat)
+    for f in names:
+        os.symlink(os.path.join(vis_dir, f), os.path.join(flat, f))
+    counts = flat_to_conditional(flat, os.path.join(root, "cond"))
+    n = conditional_to_flat(os.path.join(root, "cond"), os.path.join(root, "flat_again"))
+    same = names == sorted(os.listdir(os.path.join(root, "flat_again"))) and all(
+        open(os.path.join(vis_dir, f), "rb").read() == open(os.path.join(root, "flat_again", f), "rb").read()
+        for f in names)
+    ids = {f.split("_")[0] for f in names}
+    if not same or n != len(names) or sum(counts.values()) != n or set(counts) != ids:
+        fail(f"conditional layouts: {len(counts)} identities of {len(ids)}, {n} files back of {len(names)}, "
+             f"same bytes {same}")
+    print(f"conditional layouts: {n} files into {len(counts)} identity folders and back, byte-equal, "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+
+def _native_embed_leg(torch, card_line, images, root, native_ok):
+    """(c): phase 15's JPEG tree through extract_embeddings_streaming with the
+    native decode (the default) and with PIL: the same files without faces,
+    the embeddings' cosines, img/s. Without the native loader it runs
+    nothing: PIL's streaming embed alone is phase 15's."""
+    import os
+
+    import numpy as np
+
+    if not native_ok:
+        print("streaming embed, native decode against PIL: left out (no native loader)", flush=True)
+        return {}
+
+    from faceposegenerator_tpu_torch import native
+    from faceposegenerator_tpu_torch.core.precision import DEFAULT_POLICY
+    from faceposegenerator_tpu_torch.models import iresnet, mtcnn
+    from faceposegenerator_tpu_torch.pipelines import embed_extract as ee
+
+    r100 = iresnet.IResNet(iresnet.config_for("r100"), dtype=torch.bfloat16, device=DEV, seed=5)
+    _damp_residuals(torch, r100)
+    crop_embed = ee.make_crop_embed_fn(r100, DEFAULT_POLICY, device=DEV)
+    det = mtcnn.MTCNN(mtcnn.brightness_cascade_params(), device=DEV)
+    runs = {}
+    for name, use_native in (("native", True), ("PIL", False)):
+        if use_native and not native_ok:
+            continue
+        calls = []
+        if use_native:  # every batch must go through the native decoder: no quiet fallback to PIL
+            mod = native.load()
+            saved = mod.decode_batch
+            mod.decode_batch = lambda *a, **kw: (calls.append(1), saved(*a, **kw))[1]
+        out = os.path.join(root, name)
+        try:
+            t0 = time.time()
+            res = ee.extract_embeddings_streaming(images, out, crop_embed, det, batch_size=EMBED_BENCH["batch"],
+                                                  use_native=use_native)
+            secs = time.time() - t0
+        finally:
+            if use_native:
+                mod.decode_batch = saved
+        n_files = sum(len(fs) for _, _, fs in os.walk(images))
+        if use_native and len(calls) != -(-n_files // EMBED_BENCH["batch"]):
+            fail(f"streaming embed: {len(calls)} native decodes for {n_files} JPEGs at batch {EMBED_BENCH['batch']}")
+        runs[name] = (sorted(res["files_without_faces"]), out, n_files / secs)
+    if native_ok:
+        (miss_n, out_n, _), (miss_p, out_p, _) = runs["native"], runs["PIL"]
+        files = sorted(os.path.join(d, f) for d in os.listdir(out_p) if os.path.isdir(os.path.join(out_p, d))
+                       for f in os.listdir(os.path.join(out_p, d)))
+        cos = [float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+               for a, b in ((np.load(os.path.join(out_n, f)), np.load(os.path.join(out_p, f))) for f in files)]
+        with open(os.path.join(out_n, "files_without_faces.json")) as fa_, \
+                open(os.path.join(out_p, "files_without_faces.json")) as fb:
+            same_json = json.load(fa_) == json.load(fb)
+        print(f"streaming embed, native decode against PIL: {len(files)} embeddings, cosine min {min(cos):.5f} "
+              f"mean {np.mean(cos):.5f}; files without faces equal {same_json and miss_n == miss_p} "
+              f"({len(miss_p)})", flush=True)
+        if not (same_json and miss_n == miss_p) or min(cos) < 0.99:
+            fail(f"streaming embed native against PIL: files without faces {miss_n} / {miss_p}, cosine min {min(cos)}")
+    print(f"streaming embed img/s (r100 bf16, batch {EMBED_BENCH['batch']}, the bright-square cascade): "
+          + ", ".join(f"{k} {v[2]:.1f}" for k, v in runs.items()) + f" ({card_line})", flush=True)
+    return {k: v[2] for k, v in runs.items()}
+
+
+def _weights_root(torch, root, model_dir):
+    """parity-all's layout (cli.py:899-913): sd/ → phase 12's directory,
+    arcface.pth (phase 15's damped r100 in insightface keys, its convs
+    bias-free), mtcnn/ (the bright-square cascade as facenet-pytorch
+    pnet.pt, rnet.pt, onet.pt)."""
+    import os
+
+    from faceposegenerator_tpu_torch.bridge.torch_weights import export_iresnet_state_dict
+    from faceposegenerator_tpu_torch.models import iresnet, mtcnn
+
+    os.makedirs(os.path.join(root, "mtcnn"), exist_ok=True)
+    os.symlink(model_dir, os.path.join(root, "sd"))
+    r100 = iresnet.IResNet(iresnet.config_for("r100"), device="cpu", seed=5)
+    _damp_residuals(torch, r100)
+    with torch.no_grad():
+        for m in r100.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.bias.zero_()
+    torch.save({k: torch.from_numpy(v) for k, v in export_iresnet_state_dict(r100).items()},
+               os.path.join(root, "arcface.pth"))
+    sd = mtcnn.export_mtcnn_state_dict(mtcnn.brightness_cascade_params())
+    for net in ("pnet", "rnet", "onet"):
+        torch.save({k[len(net) + 1:]: torch.from_numpy(v) for k, v in sd.items() if k.startswith(net + ".")},
+                   os.path.join(root, "mtcnn", f"{net}.pt"))
+
+
+def _parity_leg(torch, card_line, model_dir, root):
+    """(d): `cli parity-all` on a weights root of phase 12's directory, phase
+    15's r100 and the bright-square MTCNN, on the card at fp32 with TF32 off.
+    Its parity leg is `cli parity --full_chain` at SD2.1-base widths, held
+    to the tolerances and the exact fp32 attention counts; its accel-report
+    to the presets' default gates and their counts. Returns its launches."""
+    import os
+
+    from faceposegenerator_tpu_torch import cli
+
+    steps, res = DATA_PARITY["parity_steps"], DATA_PARITY["resolution"]
+    want_parity, want_report = _parity_expect(steps, DATA_PARITY["report_steps"])
+    weights = os.path.join(root, "weights")
+    os.makedirs(root, exist_ok=True)
+    _weights_root(torch, weights, model_dir)
+    out_all = os.path.join(root, "parity_all.json")
+    tallies, saved = [], cli.cmd_parity
+
+    def parity_tallied(argv):  # the parity leg's attention shapes, apart from the accel-report's
+        with shape_tally() as tally:
+            out = saved(argv)
+        tallies.append(tally.shapes)
+        return out
+
+    cli.cmd_parity = parity_tallied
+    try:
+        # the default gates: every preset's PSNR and ArcFace cosine against the seed floor measured here
+        with tf32(False), step_probe(cli, "cmd_parity", factory=False) as legs, \
+                step_probe(cli, "cmd_accel_report", factory=False) as reports:
+            text, launches, secs = _run_cli(
+                torch, ["parity-all", "--weights_root", weights, "--steps", str(steps), "--report_steps",
+                        str(DATA_PARITY["report_steps"]), "--resolution", str(res), "--output", out_all], card_line)
+    finally:
+        cli.cmd_parity = saved
+    with open(out_all) as f:
+        verdict_all = json.load(f)
+    verdict = verdict_all["legs"]["parity"]
+    chain = verdict["full_chain"]
+    by_dim = {}
+    for (b, h, sq, skv, d), c in tallies[0].items():
+        by_dim[d] = by_dim.get(d, 0) + c
+    f32 = {64: steps * 32 * 2, 512: 2}  # K1's fp32 instance 32 a UNet call, K2's 1 a decode, in both legs
+    print(f"parity at {res}², {steps} steps, fp32 (TF32 off): text {verdict['text_max_abs']:.2e}, ε̂ per step "
+          f"{', '.join(f'{v:.2e}' for v in verdict['eps_max_abs_per_step'])}, decode {verdict['image_max_abs']:.2e} "
+          f"(tolerance {PARITY_TOL}); full chain latents per step "
+          f"{', '.join(f'{v:.2e}' for v in chain['latent_max_abs_per_step'])}, image {chain['image_max_abs']:.2e} "
+          f"(tolerance {CHAIN_TOL}); missing keys text {verdict['text_missing_keys']} unet "
+          f"{verdict['unet_missing_keys']} vae {verdict['vae_missing_keys']}; fp32 attention launches by head dim "
+          f"{json.dumps(by_dim)}; {legs.records[0]['s']:.1f} s ({card_line})", flush=True)
+    if not (verdict["pass"] and chain["pass"] and max(verdict["eps_max_abs_per_step"]) < PARITY_TOL
+            and verdict["image_max_abs"] < PARITY_TOL and verdict["text_max_abs"] < PARITY_TOL
+            and chain["latent_max_abs"] < CHAIN_TOL and chain["image_max_abs"] < CHAIN_TOL):
+        fail(f"cli parity: verdict {json.dumps(verdict)}")
+    if legs.records[0]["launches"] != want_parity or by_dim != f32:
+        fail(f"cli parity launched {legs.records[0]['launches']} ({by_dim} by head dim), expected {want_parity} "
+             f"({f32})")
+    gates = verdict_all["legs"]["preset_quality"]["gates"]
+    report_launches = reports.records[0]["launches"]
+    print(f"parity-all: pass {verdict_all['pass']}, skipped {verdict_all['skipped']}; parity leg "
+          f"{legs.records[0]['s']:.1f} s (arcface: {json.dumps({k: v for k, v in verdict['arcface'].items() if k != 'pth'})}"
+          f", mtcnn net max abs {max(verdict['mtcnn']['net_max_abs'].values()):.2e}, cascade detections "
+          f"{verdict['mtcnn']['cascade_detections']}), accel-report {reports.records[0]['s']:.1f} s launching "
+          f"{json.dumps(report_launches)}; seed floor {json.dumps(verdict_all['legs']['preset_quality']['report']['seed_floor'])}; "
+          f"gates {json.dumps(gates)}; {secs:.1f} s in all ({card_line})", flush=True)
+    report_gated = {k: report_launches.get(k, 0) for k in want_report}
+    if not verdict_all["pass"] or verdict_all["skipped"] or report_gated != want_report:
+        fail(f"cli parity-all: pass {verdict_all['pass']}, skipped {verdict_all['skipped']}, accel-report "
+             f"{report_gated} (expected {want_report})")
+    return launches, {"parity_all_s": secs, "parity_leg_s": legs.records[0]["s"],
+                      "accel_report_s": reports.records[0]["s"]}
+
+
+def _flops_leg(torch, card_line, default_secs):
+    """(e): core.flops.cost_analysis of a UNet call at batch 2 × 512² and of
+    K1, K2, K4 and K7 calls on their kernel routes against their plain
+    routes (the library's aten counts), then the txt2img request's FLOPs and
+    its rate at phase 4's s/request."""
+    from faceposegenerator_tpu_torch.core import flops
+    from faceposegenerator_tpu_torch.core.precision import DEFAULT_POLICY
+    from faceposegenerator_tpu_torch.ops import flash_attention as fa
+    from faceposegenerator_tpu_torch.ops import fused_gn_conv as fgc
+    from faceposegenerator_tpu_torch.ops import qdense as qd
+    from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+
+    pipe = StableDiffusionPipeline.from_random(seed=0, dtype=torch.bfloat16, device=DEV)
+    nets, res, b = pipe.nets, DATA_PARITY["resolution"], DATA_PARITY["unet_batch"]
+    g = torch.Generator(device=DEV).manual_seed(22)
+    lat = torch.randn(b, res // 8, res // 8, 4, generator=g, device=DEV)
+    ctx = torch.randn(b, 77, pipe.models.unet_cfg.cross_attention_dim, generator=g, device=DEV).to(torch.bfloat16)
+    t = torch.full((b,), 500, device=DEV)
+    rows = {}
+    with torch.inference_mode():
+        rows["unet"] = [flops.cost_analysis(nets["unet"], lat, t, ctx, DEFAULT_POLICY, attn_impl=a)
+                        for a in ("auto", "reference")]
+        bb, h, s_, d = FLOP_SHAPES["k1"]
+        q, k, v = _inputs(torch, g, bb, h, s_, s_, d)
+        rows["flash_fwd_d64"] = [flops.cost_analysis(fa.flash_fwd_d64, q, k, v, d**-0.5),
+                                 flops.cost_analysis(fa.attention_plain, q, k, v, d**-0.5)]
+        want_attn = 4.0 * bb * h * s_ * s_ * d
+        bb, h, s_, d = FLOP_SHAPES["k2"]
+        q, k, v = _inputs(torch, g, bb, h, s_, s_, d)
+        rows["flash_fwd_wide"] = [flops.cost_analysis(fa.flash_fwd_wide, q, k, v, d**-0.5),
+                                  flops.cost_analysis(fa.attention_plain, q, k, v, d**-0.5)]
+        del q, k, v
+        x, gamma, beta, conv = _conv_inputs(torch, g, *FLOP_SHAPES["k4"])
+        rows["gn_silu_conv3x3"] = [
+            flops.cost_analysis(fgc.gn_silu_conv3x3, x, gamma, beta, conv, 32, 1e-5),
+            flops.cost_analysis(fgc.gn_silu_conv3x3_plain, x, gamma, beta, conv.weight, conv.bias, 32, 1e-5)]
+        m, kk, n = FLOP_SHAPES["k7"]
+        xq = torch.randn(m, kk, generator=g, device=DEV).to(torch.bfloat16)
+        wq = torch.randint(-127, 128, (n, kk), generator=g, device=DEV).to(torch.int8)
+        sq = torch.rand(n, generator=g, device=DEV) * 1e-2
+        rows["qdense"] = [flops.cost_analysis(qd.qdense_kernel, xq, wq, sq), flops.cost_analysis(qd.qdense_plain, xq, wq, sq)]
+    for name, (kernel, plain) in rows.items():
+        print(f"flops {name}: kernel route {kernel['flops']:.6e} (aten {sum(kernel['aten_flops'].values()):.6e}, "
+              f"kernels {json.dumps(kernel['kernel_flops'])}), plain route {plain['flops']:.6e}", flush=True)
+        if kernel["flops"] != plain["flops"] or kernel["flops"] <= 0 or plain["kernel_flops"]:
+            fail(f"flops {name}: the kernel route counts {kernel['flops']}, the plain route {plain['flops']}")
+    if rows["flash_fwd_d64"][0]["flops"] != want_attn:
+        fail(f"flops flash_fwd_d64: {rows['flash_fwd_d64'][0]['flops']} where 4·B·H·Sq·Skv·D is {want_attn}")
+
+    ids = torch.zeros((16, 77), dtype=torch.long, device=DEV)
+    lat16 = torch.randn(8, res // 8, res // 8, 4, generator=g, device=DEV)
+
+    def request():  # phase 4's request: CLIP on 16 rows, 30 UNet calls on the CFG batch of 16, the VAE on 8
+        with torch.inference_mode():
+            c = nets["text_encoder"](ids, DEFAULT_POLICY)
+            for _ in range(30):
+                nets["unet"](torch.cat([lat16, lat16]), 500, c, DEFAULT_POLICY)
+            nets["vae"].decode(lat16, DEFAULT_POLICY)
+
+    s = flops.summarize(request, peak_flops_per_sec=H100_BF16_PEAK,
+                        runtime_s=default_secs if math.isfinite(default_secs) else None)
+    rate = (f"{s['achieved_flops_per_sec'] / 1e12:.1f} TFLOP/s at phase 4's {default_secs:.3f} s/request, "
+            f"{100 * s['tensor_core_utilization']:.1f}% of the {H100_BF16_PEAK / 1e12:.0f} TFLOP/s bf16 peak"
+            if "achieved_flops_per_sec" in s else "no rate: phase 4 did not run")
+    print(f"flops: txt2img request (batch 8, 512², 30 steps, CFG) {s['flops'] / 1e12:.3f} TFLOP; {rate} "
+          f"({card_line})", flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    return {"request_tflop": s["flops"] / 1e12, "utilization": s.get("tensor_core_utilization"),
+            "unet_call_tflop": rows["unet"][0]["flops"] / 1e12}
+
+
+def run_data_parity(torch, card_line, model_dir, data, default_secs=float("nan")):
+    """Phase 20: the data layer and the parity runbook (alone:
+    `perf/torch_data_parity.py`). On phase 12's directory and phase 15's
+    files under `data` (`cli_inputs`): the native loader's build, the
+    RecordIO leg, the RGBN leg, the conditional layouts and the streaming
+    embed with native decode, which launch no TPU kernel; the parity runbook
+    (`cli parity-all`, whose first leg is `cli parity`), whose launches it
+    returns; the FLOP
+    counts, whose comparison launches it does not count. A missing g++ or
+    jpeglib.h is printed on its own line and leaves out the native legs only;
+    a build failure with both there fails the phase."""
+    import os
+
+    from faceposegenerator_tpu_torch import native
+    from faceposegenerator_tpu_torch.evaluation import verification
+    from faceposegenerator_tpu_torch.training import fr
+
+    t_phase = time.time()
+    inputs = cli_inputs(data)
+    missing = native.toolchain_missing()
+    t0 = time.time()
+    if missing:
+        print(f"native loader: {missing} is missing on this machine; the native legs are left out", flush=True)
+    elif native.load() is None:
+        fail(f"native loader: g++ and jpeglib.h are here, and the build failed: {native.build_error()}")
+    else:
+        print(f"native loader: built in {time.time() - t0:.2f} s ({native.load().path.name})", flush=True)
+    native_ok = missing is None
+    _reset_launch_counts()
+    bins = {"lfw": verification.load_bin(inputs["fr_bin"])}
+    leg_s = {}
+
+    def leg(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        leg_s[name] = round(time.time() - t0, 1)
+        return out
+
+    with build_dir("data_parity") as root:
+        recordio = leg("recordio", _recordio_leg, torch, fr, card_line, os.path.join(root, "rec"), bins, native_ok)
+        rgbn = leg("rgbn", _rgbn_leg, torch, fr, card_line, os.path.join(root, "rgbn"), inputs["fr_flat"],
+                   inputs["fr_bin"])
+        leg("conditional", _conditional_leg, inputs["fr_flat"], os.path.join(root, "conditional"))
+        embed = leg("embed", _native_embed_leg, torch, card_line, inputs["embed_images"], os.path.join(root, "embed"),
+                    native_ok)
+        data_launches = {k: v for k, v in _launch_counts().items() if v}
+        if data_launches:
+            fail(f"phase 20's data legs launched {data_launches}: they run no TPU kernel")
+        launches, secs = leg("parity", _parity_leg, torch, card_line, model_dir, os.path.join(root, "parity"))
+    flop = leg("flops", _flops_leg, torch, card_line, default_secs)  # its launches compare routes: not counted
+    print(f"data and parity: phase 20 in {time.time() - t_phase:.1f} s, seconds a leg {json.dumps(leg_s)} "
+          f"({card_line}); summary {json.dumps({'recordio': recordio, 'rgbn': {k: v for k, v in rgbn.items() if k != 'gate'}, 'embed_img_per_s': embed, 'parity': secs, 'flops': flop})}",
+          flush=True)
+    return launches
+
+
 def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32, launches, ptxas, sass=None):
     """The kernels line: one entry per counted kernel. `ptxas` holds each
     wgmma or fp32 kernel function's registers and spills by instance;
@@ -5795,6 +6391,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         mesh_serving, mesh_fwd = run_mesh_serving(torch, fa, card, card_line, model_dir, serve_refs.get("served"))
         fwd_rows += mesh_fwd
+        torch.cuda.empty_cache()
+        data_parity = run_data_parity(torch, card_line, model_dir, data, txt2img_secs)
     torch.cuda.empty_cache()
     for r in fwd_rows + bwd_rows:  # phases 12's, 14's and 16's shapes: the launches their runs measured
         if r.get("phase") == 12:
@@ -5808,14 +6406,15 @@ def main() -> int:
              "fp32 routes at 2×128²": fp32_routes, "fp32 train check": fp32_train, "checkpoints": checkpoints,
              "training driver": driver, "serving and sweep": serving, "identity stack and FR (no TPU kernel)": identity,
              "quality and identity evaluation": quality, "command line": command_line,
-             "distribution": distribution, "servers over a mesh": mesh_serving}
+             "distribution": distribution, "servers over a mesh": mesh_serving,
+             "data layer and parity runbook": data_parity}
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in REPLACES}
     print("launches on the main paths: " + ", ".join(f"{k} {json.dumps(v)}" for k, v in paths.items()), flush=True)
     for name, count in launches.items():
         if count == 0:
             fail(f"{name} was not launched on the main paths")
 
-    print(f"chip_smoke: all 19 phases in {time.time() - t_start:.1f} s ({card_line})", flush=True)
+    print(f"chip_smoke: all 20 phases in {time.time() - t_start:.1f} s ({card_line})", flush=True)
     print(json.dumps({"kernels": _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32,
                                                  launches, ptxas, sass)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -128,6 +128,50 @@ def convert_iresnet_state_dict(sd: Dict[str, np.ndarray], cfg: iresnet.IResNetCo
     return params, state
 
 
+def export_iresnet_state_dict(model) -> Dict[str, np.ndarray]:
+    """The port's IResNet → an insightface state dict (the port's addition:
+    the inverse of `convert_iresnet_state_dict`, for writing an `arcface.pth`
+    from a port model). The convs must be bias-free (all zero), as the
+    reference's are; the fc weight goes back to torch's (c, h, w) flatten."""
+    from .jax_params import export_jax_params
+
+    params, state = export_jax_params(model)
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(key, p):
+        if np.any(p["b"]):
+            raise ValueError(f"{key}: the insightface layout has bias-free convs, this one has a bias")
+        sd[f"{key}.weight"] = p["w"].transpose(3, 2, 0, 1)
+
+    def bn(key, p, s):
+        sd.update({f"{key}.weight": p["g"], f"{key}.bias": p["b"], f"{key}.running_mean": s["mean"],
+                   f"{key}.running_var": s["var"]})
+
+    conv("conv1", params["conv1"])
+    bn("bn1", params["bn1"], state["bn1"])
+    sd["prelu.weight"] = params["prelu1"]
+    for li in range(1, 5):
+        for bi, (bp, bs) in enumerate(zip(params[f"layer{li}"], state[f"layer{li}"])):
+            p = f"layer{li}.{bi}"
+            bn(f"{p}.bn1", bp["bn1"], bs["bn1"])
+            conv(f"{p}.conv1", bp["conv1"])
+            bn(f"{p}.bn2", bp["bn2"], bs["bn2"])
+            sd[f"{p}.prelu.weight"] = bp["prelu"]
+            conv(f"{p}.conv2", bp["conv2"])
+            bn(f"{p}.bn3", bp["bn3"], bs["bn3"])
+            if "down_conv" in bp:
+                conv(f"{p}.downsample.0", bp["down_conv"])
+                bn(f"{p}.downsample.1", bp["down_bn"], bs["down_bn"])
+    bn("bn2", params["bn2"], state["bn2"])
+    w = params["fc"]["w"]
+    nf = w.shape[0]
+    side = int(round((w.shape[1] // 512) ** 0.5))
+    sd["fc.weight"] = w.reshape(nf, side, side, 512).transpose(0, 3, 1, 2).reshape(nf, -1)
+    sd["fc.bias"] = params["fc"]["b"]
+    bn("features", params["features_bn"], state["features_bn"])
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in sd.items()}
+
+
 # ---------------------------------------------------------------------------
 # UNet
 # ---------------------------------------------------------------------------

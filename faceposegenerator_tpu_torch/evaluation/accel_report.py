@@ -148,7 +148,8 @@ def compare_modes(pipe, modes: Sequence[str], *, prompts: Optional[List[str]] = 
     identity-cosine rows. `seed_floor=True` adds `report["seed_floor"]`: the
     PSNR between the exact output and a second exact render at seed + 1,
     the PSNR of unrelated samples of the same model; a mode's PSNR means
-    something only above it."""
+    something only above it. With `embed_fn` the floor also holds the two
+    renders' identity cosine, which a mode's cosine must likewise beat."""
     gen_kw = dict(num_inference_steps=num_inference_steps, guidance_scale=guidance_scale, height=height,
                   width=width, seed=seed, output_type="u8")
     if input_ids is not None:
@@ -179,6 +180,10 @@ def compare_modes(pipe, modes: Sequence[str], *, prompts: Optional[List[str]] = 
             "psnr_mean": round(float(np.mean(fl_finite)), 2) if fl_finite else None,
             "seeds": [seed, seed + 1],
         }
+        if emb_exact is not None:  # the identity cosine of unrelated samples: parity-all's identity floor
+            cos = (emb_exact * embed_fn(other).cpu().numpy()).sum(axis=-1)
+            report["seed_floor"]["identity_cos_min"] = round(float(cos.min()), 4)
+            report["seed_floor"]["identity_cos_mean"] = round(float(cos.mean()), 4)
     calib_kw = dict(height=height, width=width, guidance_scale=guidance_scale)
     if input_ids is not None:
         calib_kw["input_ids"] = torch.as_tensor(input_ids)

@@ -470,6 +470,28 @@ def convert_mtcnn_state_dict(sd: Dict[str, np.ndarray]) -> Dict:
     }
 
 
+def export_mtcnn_state_dict(params: Dict) -> Dict[str, np.ndarray]:
+    """A JAX-layout MTCNN tree → facenet-pytorch keys (`pnet.conv4_1.weight`
+    and the like): the inverse of `convert_mtcnn_state_dict` (the port's
+    addition, for writing `pnet.pt`/`rnet.pt`/`onet.pt` from a tree)."""
+    names = {
+        "pnet": {"cls": "conv4_1", "reg": "conv4_2"},
+        "rnet": {"fc": "dense4", "cls": "dense5_1", "reg": "dense5_2"},
+        "onet": {"fc": "dense5", "cls": "dense6_1", "reg": "dense6_2", "lmk": "dense6_3"},
+    }
+    sd: Dict[str, np.ndarray] = {}
+    for net, layers in params.items():
+        for layer, p in layers.items():
+            key = f"{net}.{names[net].get(layer, layer)}"
+            if layer.startswith("prelu"):
+                sd[f"{key}.weight"] = np.asarray(p, np.float32)
+            else:
+                w = np.asarray(p["w"], np.float32)
+                sd[f"{key}.weight"] = w.transpose(3, 2, 0, 1) if w.ndim == 4 else w
+                sd[f"{key}.bias"] = np.asarray(p["b"], np.float32)
+    return {k: np.ascontiguousarray(v) for k, v in sd.items()}
+
+
 def brightness_cascade_params() -> Dict:
     """Deterministic hand-made weights (a JAX-layout numpy tree) that fire on
     a BRIGHT SQUARE: P-Net channel 0 averages brightness through the stack

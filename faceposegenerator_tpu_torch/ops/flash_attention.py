@@ -42,6 +42,8 @@ kernels recompute the normalised p from it. A CPU tensor goes to the plain
 version; a CUDA tensor goes to its kernel or raises. Each wrapper adds one to
 `LAUNCHES[name]` where it launches its kernel, and nowhere else; a forward
 launch that writes the log-sum-exp also adds one to `LSE_LAUNCHES[name]`.
+Where a wrapper launches, it also adds the FLOPs of the function it computes
+to `core.flops.count_kernel` (4·B·H·Sq·Skv·D a forward, 10· a backward pair).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from typing import Optional
 
 import torch
 
+from ..core.flops import count_kernel
 from . import _build
 from .qdense import INV127, quantize
 
@@ -288,6 +291,7 @@ def _launch_fwd(name: str, q, k, v, scale: float, kv_len, with_lse: bool):
         head = [b, h, sq, kv_end] + ([d] if name != "flash_fwd_d64" else [])
         _call(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr, *head, *strides,
               float(scale), stream)
+    count_kernel(name, 4.0 * b * h * sq * skv * d)
     if not with_lse:
         return o
     LSE_LAUNCHES[name] += 1
@@ -334,6 +338,10 @@ def _bwd(kind: str, q, k, v, o, lse, do, scale: float, kv_len, passes=("dkv", "d
     others are None), which is how chip_smoke.py times each kernel."""
     if not q.is_cuda:
         return attention_bwd_plain(q, k, v, o, lse, do, scale, kv_len)
+    return _launch_bwd(kind, q, k, v, o, lse, do, scale, kv_len, passes)
+
+
+def _launch_bwd(kind: str, q, k, v, o, lse, do, scale: float, kv_len, passes):
     dkv, dqn = f"flash_bwd_{kind}_dkv", f"flash_bwd_{kind}_dq"
     b, sq, skv, h, d, kv_end = _shapes(dkv, q, k, v, kv_len)
     _head_dim_ok(dkv, d)
@@ -350,6 +358,8 @@ def _bwd(kind: str, q, k, v, o, lse, do, scale: float, kv_len, passes=("dkv", "d
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device) if "dkv" in passes else None
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device) if "dkv" in passes else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    # S recomputed, dP, and dV + dK (the dK/dV pass) and/or dQ (the dQ pass)
+    count_kernel(f"flash_bwd_{kind}", (4.0 + 4.0 * (dk is not None) + 2.0 * (dq is not None)) * b * h * sq * skv * d)
     if kind == "f32":
         _launch_bwd_f32(q, k, v, do, lse, dd, dq, dk, dv, kv_end, scale, stream)
         return dq, dk, dv
@@ -567,6 +577,7 @@ def int8_attend(q8, k8, vt, ws, shape, dtype, kv_end: int) -> torch.Tensor:
     name = "flash_int8_f32" if dtype == torch.float32 else "flash_int8"
     _call(name, q8.data_ptr(), k8.data_ptr(), vt.data_ptr(), o.data_ptr(), ws.data_ptr() + 16, b, h, sq,
           k8.shape[1], kv_end, torch.cuda.current_stream(q8.device).cuda_stream)
+    count_kernel(name, 4.0 * b * h * sq * k8.shape[1] * 64)
     return o
 
 

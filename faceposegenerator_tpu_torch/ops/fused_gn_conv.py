@@ -17,7 +17,9 @@ ones, as JAX's kernel keeps its slab in x's dtype) or raises. The fp32
 kernel runs in 3xTF32 on the tensor cores and reads the weight as tf32 hi
 and lo planes, which `gn_conv_f32_split` writes first (one more launch per
 fp32 call; `weight_split_plain` is its plain version). The wrappers add one
-to `LAUNCHES[name]` where they launch kernel `name`, and nowhere else.
+to `LAUNCHES[name]` where they launch kernel `name`, and nowhere else; the
+conv launch also adds its 2·N·H·W·9·Cin·Cout FLOPs to
+`core.flops.count_kernel`.
 
 When a gradient is taken through any operand, `GNSiLUConv3x3` runs the
 kernel forward and recomputes the backward with autograd through the plain
@@ -34,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..core.flops import count_kernel
 from . import _build
 from .flash_attention import tf32_split_plain
 from .fused_gn import check_stats_operands, group_scale_shift, recompute_grads, stats_split
@@ -194,6 +197,7 @@ def _forward(x, gamma, beta, weight, bias, num_groups, eps):
         if err != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {err}")
         LAUNCHES[name] += 1
+        count_kernel(name, 2.0 * n * h * w * 9 * cin * cout)
     return y
 
 

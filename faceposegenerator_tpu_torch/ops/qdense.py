@@ -19,7 +19,8 @@ the GEGLU outputs at 640 and 1280 channels (K 2560, 5120), every
 cross-attention k/v projection (1232 rows of text states under CFG) and
 the mid block's ten (1024 rows): 50 of 160 calls; the DeepCache partial
 passes' level-0 k/v projections, 10 of 50. The wrapper adds one to
-`LAUNCHES[name]` where it launches kernel `name`, and nowhere else.
+`LAUNCHES[name]` where it launches kernel `name`, and nowhere else, and
+where it launches the GEMM, 2·M·N·K FLOPs to `core.flops.count_kernel`.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.flops import count_kernel
 from . import _build
 
 LAUNCHES = {"qdense": 0, "qdense_f32": 0, "qdense_quant": 0}
@@ -181,4 +183,5 @@ def qdense_kernel(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, a: Optional
               None if codes is None else codes.data_ptr(), None if sx is None else sx.data_ptr(), M, N, K,
               0.0 if a is None else float(a), run_length(M, N, K, _sm_count(x.device)), int(a is None),
               torch.cuda.current_stream(x.device).cuda_stream)
+        count_kernel(name, 2.0 * M * N * K)
     return y.reshape(*lead, N)

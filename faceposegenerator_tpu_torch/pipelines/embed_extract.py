@@ -11,9 +11,9 @@ Detection failures are listed in `files_without_faces.json`.
 `extract_embeddings_streaming` is the fast path: fixed-size batches across
 identity folders, the decode of batch i+1 overlapping batch i, and crop,
 normalisation and IResNet as one call on the card (`make_crop_embed_fn`).
-The JAX package decodes JPEGs with its C++ loader where it builds
-(`use_native`); the port decodes with PIL, which is what JAX does without
-that loader.
+Its JPEGs decode on the native loader's threads where that loader builds
+(`use_native`, `faceposegenerator_tpu_torch.native`), with PIL otherwise,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -140,10 +140,30 @@ def calibrate_embed_quant(model, images, policy: Optional[Policy] = None, margin
     return model
 
 
-def _decode_files_batch(paths: List[str]) -> np.ndarray:
-    """JPEG/PNG files → one (B, H, W, 3) [0, 255] fp32 stack (PIL)."""
+def _decode_files_batch(paths: List[str], native_mod=None, expect_hw=None) -> np.ndarray:
+    """JPEG/PNG files → one (B, H, W, 3) [0, 255] fp32 stack. JPEGs of a
+    square `expect_hw` go through the native loader's thread-parallel decoder
+    when `native_mod` is given (its [-1, 1] output rescaled here); PIL
+    decodes otherwise, and where libjpeg rejects a payload
+    (embed_extract.py:199-218)."""
     from PIL import Image
 
+    if (
+        native_mod is not None
+        and expect_hw is not None
+        and expect_hw[0] == expect_hw[1]
+        and all(p.lower().endswith((".jpg", ".jpeg")) for p in paths)
+    ):
+        payloads = []
+        for p in paths:
+            with open(p, "rb") as f:
+                payloads.append(f.read())
+        out = np.empty((len(paths), expect_hw[0], expect_hw[1], 3), np.float32)
+        try:
+            native_mod.decode_batch(payloads, out, expect_hw[0], 8)
+            return out * 127.5 + 127.5
+        except ValueError:
+            pass  # a payload libjpeg rejects: PIL below
     return np.stack([np.asarray(Image.open(p).convert("RGB"), np.float32) for p in paths])
 
 
@@ -153,7 +173,7 @@ def extract_embeddings_streaming(
     crop_embed_fn: Callable,
     detector,
     batch_size: int = 64,
-    use_native: bool = False,
+    use_native: bool = True,
 ) -> Dict[str, List[str]]:
     """End-to-end streaming extraction: decode → batched MTCNN detect →
     crop + embed on the card, with batch i+1's decode overlapping batch i's
@@ -162,13 +182,16 @@ def extract_embeddings_streaming(
     All images must share one resolution. Writes per-image `.npy` embeds and
     `files_without_faces.json` like `extract_folder_embeddings`.
 
-    `use_native=True` (the JAX package's C++ JPEG loader) raises: that loader
-    is not ported yet (ROADMAP.md queue 1, item 13)."""
+    `use_native=True` decodes the JPEGs with the native loader
+    (`faceposegenerator_tpu_torch.native`) where it builds, and with PIL
+    where it does not, as JAX does (embed_extract.py:235-240)."""
     from concurrent.futures import ThreadPoolExecutor
 
+    native_mod = None
     if use_native:
-        raise NotImplementedError("use_native=True needs the native JPEG loader (faceposegenerator_tpu/native/), "
-                                  "which the port does not have yet (ROADMAP.md queue 1, item 13); PIL decodes")
+        from .. import native as native_pkg
+
+        native_mod = native_pkg.load()
 
     os.makedirs(output_root, exist_ok=True)
     entries: List[tuple] = []  # (id_folder, name, path)
@@ -195,7 +218,7 @@ def extract_embeddings_streaming(
     pool = ThreadPoolExecutor(max_workers=1)
 
     def decode(batch):
-        return _decode_files_batch([p for _, _, p in batch])
+        return _decode_files_batch([p for _, _, p in batch], native_mod, expect_hw)
 
     try:
         fut = pool.submit(decode, batches[0])

@@ -17,8 +17,8 @@ its variant's adapter (per-sample adapters) and its prompt's noise
 
 Batch i+1 is queued on the card before batch i's images are waited for:
 each batch's uint8 images are copied to pinned host memory behind it on the
-stream, and only that copy's event is waited on, so PNG encoding (PIL, on a
-thread pool) and the `on_images` hooks of batch i overlap the card's work
+stream, and only that copy's event is waited on, so PNG encoding (the
+native stored-deflate writer where it builds, else PIL; on a thread pool) and the `on_images` hooks of batch i overlap the card's work
 on batch i+1. `on_images` gets the images on the card.
 """
 
@@ -97,9 +97,7 @@ def build_prompts(
 
 def save_image_grid(images: np.ndarray, path: str, per_row: Optional[int] = None):
     """Tile (N, H, W, 3) images ([0, 1] float or uint8) into one PNG grid,
-    `per_row` to a row (all N by default), written with PIL."""
-    from PIL import Image
-
+    `per_row` to a row (all N by default), written as `_write_pngs` writes."""
     images = np.asarray(images)
     if images.dtype != np.uint8:
         images = (np.clip(images, 0.0, 1.0) * 255).astype(np.uint8)
@@ -111,10 +109,21 @@ def save_image_grid(images: np.ndarray, path: str, per_row: Optional[int] = None
         r, c = divmod(i, per_row)
         grid[r * h: (r + 1) * h, c * w: (c + 1) * w] = img
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    Image.fromarray(grid).save(path)
+    _write_pngs(grid[None], [path], threads=1)
 
 
-def _write_pngs(images: np.ndarray, paths: List[str]):
+def _write_pngs(images: np.ndarray, paths: List[str], threads: int = 4):
+    """uint8 (N, H, W, 3) images, one PNG a path: the native loader's
+    stored-deflate writer (lossless, about the speed of a copy, GIL
+    released) where it builds, PIL's zlib encode otherwise (sweep.py:119-132,
+    209-229)."""
+    from .. import native
+
+    mod = native.load()
+    if mod is not None:
+        images = np.ascontiguousarray(images)
+        mod.write_png_batch(images, images.shape[1], images.shape[2], paths, threads)
+        return
     from PIL import Image
 
     for img, path in zip(images, paths):

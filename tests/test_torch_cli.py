@@ -5,9 +5,8 @@ configs against the JAX package's.
   packages by making `parse_args` raise with the parser (nothing runs):
   every action's option strings, dest, default, type, choices, nargs,
   required flag and class. The port's set is JAX's, plus `--device` on the
-  eleven commands that put a network on a device; pod-rehearsal also takes
-  `--device`, and `--backend` besides. parity and
-  parity-all only raise in the port, naming their ROADMAP item.
+  thirteen commands that put a network on a device (parity and parity-all
+  among them); pod-rehearsal also takes `--device`, and `--backend` besides.
 - `main`: help lists the 16 commands (rc 0), an unknown command gives rc 2.
 - The argparse refusals come before the device is resolved and before any
   file is read: without `--device cpu`, on a machine without a card, they
@@ -18,8 +17,8 @@ configs against the JAX package's.
   --data_parallel 2`, `serve --data_parallel 2`, `train-idbooth
   --identity_parallel 2` and `pod-rehearsal` resolve the card before they
   spawn a rank and raise without one; a partial FPG_* launch raises JAX's
-  error word for word; the two unported commands raise NotImplementedError
-  naming their item. `generate --data_parallel 2 --device cpu` spawns two
+  error word for word; parity and parity-all resolve the card before they
+  read a file (they run on the CPU in tests/test_torch_parity.py). `generate --data_parallel 2 --device cpu` spawns two
   gloo ranks whose PNGs are bit-equal to the one-process command's; the
   ranks' other paths run in tests/test_torch_data_parallel.py,
   tests/test_torch_pod_rehearsal.py and (`serve --data_parallel 2 --device
@@ -67,8 +66,7 @@ from test_torch_rules import CLI_MINIMAL
 from test_torch_serving import one_torch_thread  # noqa: F401 (autouse)
 
 COMMANDS = sorted(jcli.COMMANDS)
-DEVICE_COMMANDS = tuple(CLI_MINIMAL)
-RAISING = {"parity": "items 17-18", "parity-all": "items 17-18"}
+DEVICE_COMMANDS = tuple(CLI_MINIMAL) + ("parity", "parity-all")
 # pod-rehearsal's flag beyond JAX's and --device
 PORT_EXTRA = {"pod-rehearsal": {
     (("--backend",), "backend", "None", None, "['nccl', 'gloo']", None, False, "_StoreAction"),
@@ -100,10 +98,6 @@ DEVICE_ACTION = (("--device",), "device", "'cuda'", None, "None", None, False, "
 
 @pytest.mark.parametrize("command", COMMANDS)
 def test_parser_surface_matches_jax(command, monkeypatch):
-    if command in RAISING:
-        with pytest.raises(NotImplementedError, match=RAISING[command]):
-            cli.COMMANDS[command]([])
-        return
     want = _surface(jcli, command, monkeypatch)
     if command in DEVICE_COMMANDS:
         want = want | {DEVICE_ACTION}
@@ -166,8 +160,8 @@ MESH_REFUSALS = {
                                        PARTIAL),
     # JAX's maybe_init_from_env reads FPG_PROCESS_ID only beside the other two
     "train-fr under FPG_PROCESS_ID": (["train-fr", "--dataset_root", "{d}/none"], {"FPG_PROCESS_ID": "0"}, NO_CARD),
-    "parity": (["parity", "--model_dir", "{d}/none"], {}, (NotImplementedError, "items 17-18")),
-    "parity-all": (["parity-all"], {}, (NotImplementedError, "items 17-18")),
+    "parity": (["parity", "--model_dir", "{d}/none"], {}, NO_CARD),
+    "parity-all": (["parity-all", "--weights_root", "{d}/none"], {}, NO_CARD),
     "pod-rehearsal": (["pod-rehearsal", "--processes", "2"], {}, NO_CARD),
 }
 
@@ -176,7 +170,7 @@ MESH_REFUSALS = {
 def test_unported_distribution_and_parity_raise_naming_their_item(case, tmp_path, monkeypatch):
     """Each distribution case stops before it spawns, loads or writes
     anything: the card resolved first, a partial launch refused as JAX
-    refuses it, the parity commands naming their items."""
+    refuses it; the parity commands too resolve the card before any file."""
     argv, env, (exc, match) = MESH_REFUSALS[case]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for k in cli._LAUNCH_ENV + ("WORLD_SIZE", "RANK", "MASTER_ADDR"):

@@ -26,6 +26,7 @@ from faceposegenerator_tpu.models import iresnet as jir
 from faceposegenerator_tpu.models import mtcnn as jmtcnn
 from faceposegenerator_tpu.ops import quant as jquant
 from faceposegenerator_tpu.pipelines import embed_extract as jembed
+from faceposegenerator_tpu_torch import native
 from faceposegenerator_tpu_torch.bridge.jax_params import load_jax_params
 from faceposegenerator_tpu_torch.core.precision import PARITY_POLICY
 from faceposegenerator_tpu_torch.data import align, align_driver
@@ -173,7 +174,7 @@ def test_norm_crop_and_bbox_crop_resize_match_jax_opencv():
             assert diff.max() <= 1.0 and (diff > 1e-3).mean() <= 1e-2, (seed, diff.max(), (diff > 1e-3).mean())
 
 
-def _write_tree(root, ids=2, per_id=3, black=1):
+def _write_tree(root, ids=2, per_id=3, black=1, ext="png"):
     os.makedirs(root, exist_ok=True)
     imgs = _graded_squares()
     rng = np.random.default_rng(3)
@@ -183,9 +184,9 @@ def _write_tree(root, ids=2, per_id=3, black=1):
         for j in range(per_id):
             shift = rng.integers(-8, 9, 2)
             img = np.roll(imgs[j % 3], tuple(shift), axis=(0, 1))
-            Image.fromarray(img.astype(np.uint8)).save(os.path.join(d, f"img_{j}.png"))
+            Image.fromarray(img.astype(np.uint8)).save(os.path.join(d, f"img_{j}.{ext}"), quality=95)
         for j in range(black):
-            Image.fromarray(np.zeros((96, 96, 3), np.uint8)).save(os.path.join(d, f"black_{j}.png"))
+            Image.fromarray(np.zeros((96, 96, 3), np.uint8)).save(os.path.join(d, f"black_{j}.{ext}"), quality=95)
     return root
 
 
@@ -234,8 +235,21 @@ def test_extract_embeddings_streaming_matches_jax(tmp_path, embedders):
         batch_size=3, use_native=False)
     _same_embeddings(str(tmp_path / "ours"), str(tmp_path / "theirs"), got["files_without_faces"],
                      want["files_without_faces"], 2e-4)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        embed_extract.extract_embeddings_streaming(root, str(tmp_path / "n"), None, ours, use_native=True)
+    # JPEGs decode on the native loader by default (JAX's default): the same
+    # files without faces as PIL's decode, each embedding at cosine >= 0.999
+    assert native.available(), native.build_error()
+    jpegs = _write_tree(str(tmp_path / "jpegs"), ext="jpg")
+    crop_embed = embed_extract.make_crop_embed_fn(model, PARITY_POLICY, device="cpu")
+    runs = {}
+    for name, use_native in (("native", True), ("pil", False)):
+        runs[name] = embed_extract.extract_embeddings_streaming(
+            jpegs, str(tmp_path / name), crop_embed, ours, batch_size=3, use_native=use_native)["files_without_faces"]
+    assert runs["native"] == runs["pil"] and len(runs["pil"]) == 2
+    files = [(d.name, f) for d in sorted((tmp_path / "pil").iterdir()) if d.is_dir() for f in sorted(os.listdir(d))]
+    assert len(files) == 6
+    for d, f in files:
+        a, b = (np.load(tmp_path / name / d / f) for name in ("native", "pil"))
+        assert float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b))) >= 0.999, f
 
 
 def _quantized_sites(tree, prefix=""):
