@@ -29,7 +29,9 @@ Phases, in order; any failure exits non-zero without the final result line:
      bf16 with a rank-4 UNet LoRA, first against its own plain-attention
      path on a small input, then 3 requests at batch 8, 512², 30 DDPM steps,
      CFG 5.0, swapping the LoRA before the third; each request must launch
-     the d=64 kernel 960 times and the wide kernel once;
+     the d=64 kernel 960 times and the wide kernel once; the three are the
+     key's eager warm-up, its capture and a replay, and the replay's
+     seconds are the "phase 4" s/request that later phases print;
   5. K7 and K8 against plain: qdense (csrc/qdense.cu) in its dynamic and
      static modes at the turbo request's dense shapes, against qdense_plain
      on the same bf16 inputs (the same codes, so within 1 bf16 ulp of the
@@ -48,7 +50,9 @@ Phases, in order; any failure exits non-zero without the final result line:
      one more is the 640² self-attention (2 × 5 × 6400², two 4096-key
      blocks); at every row its flash_int8_amax and flash_int8_codes
      launches bit-exact against int8_codes_plain, each of the three
-     launches timed alone (the attention on ready codes: `attend_ms`);
+     launches timed alone (the attention on ready codes: `attend_ms`), the
+     amax beside torch._foreach_norm(·, inf) over q, k and v, one library
+     call of the same function (`amax_library_ms`);
   6. turbo: the turbo preset at SD2.1-base widths in bf16 with a rank-4
      LoRA: first the kernel routes against the plain routes of qdense,
      flash_int8 and attention on 2×128² (image diff max 1e-1, mean 1e-2),
@@ -84,22 +88,24 @@ Phases, in order; any failure exits non-zero without the final result line:
      on which a pad-before-activation variant must fail the gate;
   9. fused txt2img: GN_IMPL and GN_CONV_IMPL at pallas on a new pipeline as
      in phase 4, first against the default routes on 2×128² (image diff max
-     1e-1, mean 1e-2), then 2 requests at batch 8, 512², 30 DDPM steps, CFG
-     5.0, each launching exactly K4 480, K3 371, K1 960 and K2 1 times,
-     their s/request beside phase 4's; then GN_IMPL alone at pallas (K4 left
+     1e-1, mean 1e-2), then 3 requests at batch 8, 512², 30 DDPM steps, CFG
+     5.0 (the key's warm-up, its capture, a replay), each launching exactly
+     K4 480, K3 371, K1 960 and K2 1 times, the replay's s/request beside
+     phase 4's replay; then GN_IMPL alone at pallas (K4 left
      at xla: K3 is the only GroupNorm kernel, and takes K4's 480 norms too)
      on the same pipeline: against the default routes on 2×128² (the same
      limits), then 1 request launching exactly K3 851, K1 960 and K2 1
-     times, its s/request beside the default's;
+     times, its s/request (eager: its key's warm-up) printed beside them;
  10. fused train: the train step of phase 7's op point in that
      configuration, first against the default routes at 2(+2)×128² (loss
-     within 1e-2 relative, LoRA gradient cosine >= 0.99), then 2 steps, each
+     within 1e-2 relative, LoRA gradient cosine >= 0.99), then 3 steps, each
      launching exactly K4 16 and K3 33 times besides phase 7's counts (the
      backward recomputes K3 and K4's functions in plain torch), moving the
      LoRA and leaving the frozen weights untouched; then GN_IMPL alone at
      pallas (K4 at xla): the same gate, then 1 step launching exactly K3 49
      times (its 33 and the GroupNorm+SiLU of K4's 16 sites) besides phase
-     7's counts;
+     7's counts; the fused steps' s/step is the replay's (step 2), beside
+     phase 7's replay; the GN_IMPL-alone step is eager (its key's warm-up);
  11. fp32: with TF32 off, each fp32 instance against its plain version in
      fp32: flash_fwd_f32 (csrc/flash_f32.cu, 3xTF32 on the tensor cores) at
      every sampling shape and, with the log-sum-exp, every train shape (max
@@ -227,11 +233,11 @@ Phases, in order; any failure exits non-zero without the final result line:
      600-pair .bin in the reference's pickle layout: best_backbone.npz,
      history.json), test_fr_run reproducing the best epoch's accuracy
      exactly; s/step with the batch load and the verification seconds.
-     Embedding extraction at the bench op point: 512 JPEGs of 250² in 16
+     Embedding extraction at the bench op point: 256 JPEGs of 250² in 16
      folders (bright squares of random codes in [246, 255], so that P-Net's
      cells score apart by more than rounding) + 8 black ones, the
      bright-square MTCNN,
-     batch 64, r100 bf16: 512 .npy and exactly the 8 black images in
+     batch 64, r100 bf16: 256 .npy and exactly the 8 black images in
      files_without_faces.json; s/batch, img/s, detect / crop+embed / the
      rest. Gates: 8 images' detections card against CPU (fp32, TF32 off:
      the same counts, boxes and landmarks within 0.5 px, probs 1e-4); r100
@@ -251,8 +257,8 @@ Phases, in order; any failure exits non-zero without the final result line:
      batch 64 bf16 finite with img/s, batch 2 fp32 (TF32 off) within 1e-4
      of the max abs of the CPU port.
  16. quality and identity evaluation (`run_quality_eval`; alone:
-     `perf/torch_quality_eval.py`): 512 real, 512 generated (integer file
-     names) and 256 held-out PNGs of 512² in 16 folders under build/ (smooth
+     `perf/torch_quality_eval.py`): 256 real, 256 generated (integer file
+     names) and 128 held-out PNGs of 512² in 16 folders under build/ (smooth
      random fields tinted per folder, from a seed). `dgm.main` with dinov2
      (ViT-L/14 at 224², bf16, batch 64, seeded random weights), every metric
      (fd fd_infinity kd prdc realism vendi authpct sw ct fls, with the
@@ -262,7 +268,8 @@ Phases, in order; any failure exits non-zero without the final result line:
      host's PIL resize and normalise against the device's forward per
      batch, GradCAM s an image, seconds per metric. PRDC with its distances
      on the card against the CPU within 2/N, FD and KD recomputed equal. The
-     other ten encoders on the generated set at batch 64 (arcface on the
+     other ten encoders at batch 64 on 4 of the 16 generated folders (64
+     images, a depth cut for the time limit; arcface on all 256 and on the
      real set too): finite (N, D) at JAX's D, img/s, exactly 24 K1 a batch
      for mae, 12 for clip, no kernel for the rest; make_heatmap_fn at batch 4
      (24 K1 with the log-sum-exp, 24 K5 pairs). Then each encoder's features
@@ -287,8 +294,8 @@ Phases, in order; any failure exits non-zero without the final result line:
      "serving on" line and /healthz under a timeout, POST /generate twice,
      cold and warm, within the gate of phase 14's request 0, /stats, no
      kernel built); `train-idbooth`
-     (1 identity of 2 images, 100 class images, triplet_prior, 1 epoch:
-     100 steps with phase 7's counts each, the validation's, the exported
+     (1 identity of 2 images, 50 class images, triplet_prior, 1 epoch:
+     50 steps with phase 7's counts each, the validation's, the exported
      LoRA loaded); `accel-report --mode deepcache=3 --mode attn=flash_int8`
      (exact K1, K2 and K8 counts, finite fields); extract-embeds (folder,
      --streaming), align-crop, train-fr and test-fr (the same accuracy),
@@ -361,7 +368,7 @@ Phases, in order; any failure exits non-zero without the final result line:
      .bin and its grayscale NIR twin, `verification.test` with a 4-channel
      IResNet (1, 1, 1, 1) at fp32 on the card (all pairs) and the same
      accuracy card against CPU on the first 32 pairs; the conditional
-     layouts there and back on 200 of its files, byte-equal; phase 15's 520-JPEG tree through
+     layouts there and back on 200 of its files, byte-equal; phase 15's 264-JPEG tree through
      `extract_embeddings_streaming` with the native decode (every batch
      through it) and with PIL, where the loader builds: the same files
      without faces, cosine >= 0.99, img/s of each; these legs launch no TPU
@@ -382,7 +389,33 @@ Phases, in order; any failure exits non-zero without the final result line:
      call at batch 2 × 512² and one call each of K1, K2, K4 and K7 count the
      same FLOPs on the kernel route as on the plain route (K1 4·B·H·Sq·Skv·D),
      and the txt2img request's TFLOP with its rate at phase 4's s/request
-     against the 989 TFLOP/s bf16 peak.
+     (its replay) against the 989 TFLOP/s bf16 peak.
+ 21. captured graphs (`run_graphs`; alone: `perf/torch_graphs.py`): the
+     slice's paths through `core.compile.jit`, each eagerly under
+     `compile.disable()` and as a captured CUDA graph from the same inputs.
+     The txt2img request of phase 4 (batch 8, 512², DDPM 30, CFG 5.0,
+     rank-4 LoRA) and the latency preset at batch 1: the key's warm-up,
+     3 eager requests, the capture and 2 replays, each call launching
+     phase 4's (or the preset's) exact counts with replays counted (the
+     counts set to 0 before the leg and read after it, the profiled
+     requests included); the captured and replayed images (and the later
+     eager ones) bit-equal to the first eager request or within 1e-1 / 1e-2
+     (the difference printed); a LoRA swap with a new seed changes the images and keeps
+     `_cache_size()` at 1; s/request eager and graphed (medians of 3), the
+     capture call's seconds, the pool's bytes, busy against wall time from
+     torch.profiler for one request of each, and one eager request without
+     the LoRA. The rolling server at 8 slots,
+     30 DDPM steps, 16 requests of mixed seeds over two adapters, eager then
+     graphed: every image within the per-sample gate of the eager server's
+     (the uint8 difference printed), ms a tick of each, K1 32 a tick and K2
+     1 a finished slot, the admission key count after every admission no
+     more than after the first and one tick key. The ID-Booth step at
+     phase 7's op point, 10 steps eager and 10 graphed from the same
+     state and draws: losses and grad_norm within 1e-2 relative, the LoRA
+     update's cosine >= 0.99 (bit-equality printed), the optimizer's count
+     a tensor on the card, phase 7's launches every step (the profiled
+     ones too, read from the counters), s/step (medians) and the idle share
+     of one profiled step of each.
 Phases 3-7 run the default configuration (GN_IMPL and GN_CONV_IMPL at xla)
 whatever the environment says. The line before the last is a JSON object
 with one entry per kernel; the last is {"ok": true, "device": {...}}.
@@ -390,6 +423,7 @@ with one entry per kernel; the last is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -962,6 +996,8 @@ def _int8_launches(torch, fa, card, q, k, v, scale):
         codes_exact=exact,
         amax_ms=time_ms(lambda: fa.int8_amax(q, k, v, ws), torch),
         amax_plain_ms=time_ms(lambda: [t.abs().amax() for t in (q, k, v)], torch),
+        # one library call of the same function: each tensor's max |x|
+        amax_library_ms=time_ms(lambda: torch._foreach_norm([q, k, v], math.inf), torch),
         amax_bound_ms=_bound(card, 0.0, q.element_size() * elems)[0],
         codes_ms=time_ms(lambda: fa.int8_quantize(q, k, v, ws, scale), torch),
         codes_plain_ms=time_ms(lambda: fa.int8_codes_plain(q, k, v, scale), torch),
@@ -1309,10 +1345,11 @@ def run_pipeline(torch, fa, card_line):
         fail("images do not differ between seeds")
     if float(np.abs(images[1] - images[2]).max()) < 1e-3:
         fail("images do not change with the LoRA and seed")
-    print(f"pipeline: bs8 512² 30-step DDPM CFG 5.0: {secs} s per request; steady "
-          f"{min(secs[1:]):.3f} s = {8 / min(secs[1:]):.3f} img/s; peak memory "
+    # request 0 is the key's eager warm-up, 1 its capture, 2 a replay
+    print(f"pipeline: bs8 512² 30-step DDPM CFG 5.0: {secs} s per request (warm-up, capture, replay); "
+          f"steady (the replay) {secs[2]:.3f} s = {8 / secs[2]:.3f} img/s; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card_line})", flush=True)
-    return launches, min(secs[1:])
+    return launches, secs[2]
 
 
 def _launch_counts():
@@ -1342,15 +1379,20 @@ class plain_route:
         from faceposegenerator_tpu_torch.ops import flash_attention as fa
         from faceposegenerator_tpu_torch.ops import qdense as qd
 
+        from faceposegenerator_tpu_torch.core import compile as cc
+
         self.saved = (quant.qdense_kernel, attention.flash_attention_int8)
         quant.qdense_kernel = qd.qdense_plain
         attention.flash_attention_int8 = fa.attention_int8_plain
+        self.eager = cc.disable()  # a graph would replay the routes it was captured on
+        self.eager.__enter__()
         return self
 
     def __exit__(self, *exc):
         from faceposegenerator_tpu_torch.ops import attention, quant
 
         quant.qdense_kernel, attention.flash_attention_int8 = self.saved
+        self.eager.__exit__(*exc)
 
 
 def _check_images(img, b, res, label):
@@ -1531,8 +1573,9 @@ def _train_steps(torch, op, steps, expect, label, card_line):
     """`steps` train steps at the op point, each launching exactly `expect`,
     moving the LoRA and leaving the frozen weights untouched; the launch
     counts are set to 0 just before the first and read just after the last.
-    Returns (launches, the fastest step after the first (the only one
-    when there is one), the peak device memory in GiB)."""
+    Returns (launches, the steady s/step, the peak device memory in GiB):
+    the fastest replay (the steps from the third on), or the eager first
+    step when it is the only one."""
     from faceposegenerator_tpu_torch.core.rng import train_step_generator
     from faceposegenerator_tpu_torch.training import idbooth
 
@@ -1570,9 +1613,10 @@ def _train_steps(torch, op, steps, expect, label, card_line):
         fail(f"{label}: no LoRA B factor moved off zero")
     if _frozen_checksum(torch, frozen) != checksum:
         fail(f"{label}: the frozen weights changed")
-    steady = min(secs[1:] or secs)
+    steady = min(secs[2:] or secs)
+    mode = "eager (the key's warm-up)" if steps == 1 else "the fastest replay"
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"{label}: bs4(+prior) 512² triplet_prior r100: {secs} s per step; steady {steady:.3f} s/step = "
+    print(f"{label}: bs4(+prior) 512² triplet_prior r100: {secs} s per step; steady ({mode}) {steady:.3f} s/step = "
           f"{4 / steady:.3f} train img/s; peak memory {peak:.1f} GiB; "
           f"LoRA B max {moved:.3e}; frozen weights unchanged ({card_line})", flush=True)
     return launches, steady, peak
@@ -1599,7 +1643,8 @@ def run_train(torch, card_line):
 def run_fused_txt2img(torch, card_line, default_secs):
     """The txt2img request in the fused configuration (GN_IMPL and
     GN_CONV_IMPL at pallas): the kernel routes against the default routes on
-    a small input, then 2 requests with exact launch counts; then the same
+    a small input, then 3 requests with exact launch counts (warm-up,
+    capture, replay); then the same
     with GN_IMPL alone at pallas (K3 without K4), 1 request. Returns the
     phase's launch counts."""
     import numpy as np
@@ -1623,7 +1668,7 @@ def run_fused_txt2img(torch, card_line, default_secs):
     images, secs = [], []
     with gn_route("pallas"):
         _reset_launch_counts()
-        for r, seed in enumerate((0, 1)):
+        for r, seed in enumerate((0, 1, 2)):  # the key's warm-up, its capture, a replay
             before = _launch_counts()
             torch.cuda.synchronize()
             t0 = time.time()
@@ -1639,10 +1684,10 @@ def run_fused_txt2img(torch, card_line, default_secs):
         launches = _launch_counts()
     if float(np.abs(images[0] - images[1]).max()) < 1e-3:
         fail("fused txt2img: images do not differ between seeds")
-    best = min(secs)
-    print(f"fused txt2img: bs8 512² 30-step DDPM CFG 5.0: {secs} s per request; best {best:.3f} s = "
-          f"{8 / best:.3f} img/s against the default configuration's {default_secs:.3f} s = "
-          f"{8 / default_secs:.3f} img/s in this process ({card_line})", flush=True)
+    best = secs[2]
+    print(f"fused txt2img: bs8 512² 30-step DDPM CFG 5.0: {secs} s per request (warm-up, capture, replay); "
+          f"the replay {best:.3f} s = {8 / best:.3f} img/s against the default configuration's replay "
+          f"{default_secs:.3f} s = {8 / default_secs:.3f} img/s in this process ({card_line})", flush=True)
 
     # GN_IMPL alone at pallas (GN_CONV_IMPL at xla): K3 is the only GroupNorm kernel
     with gn_route("pallas", conv="xla"):
@@ -1660,8 +1705,9 @@ def run_fused_txt2img(torch, card_line, default_secs):
         alone_secs = time.time() - t0
         alone = _launch_counts()
     per = {n: c for n, c in alone.items() if c}
-    print(f"GN_IMPL alone request: seed 0, {alone_secs:.3f} s = {8 / alone_secs:.3f} img/s against the default "
-          f"configuration's {default_secs:.3f} s and the fused one's {best:.3f} s in this process, launches "
+    print(f"GN_IMPL alone request: seed 0, {alone_secs:.3f} s = {8 / alone_secs:.3f} img/s (eager: its key's "
+          f"warm-up) beside the default configuration's {default_secs:.3f} s and the fused one's {best:.3f} s "
+          f"(replays) in this process, launches "
           f"{json.dumps(per)} ({card_line})", flush=True)
     _check_images(img, 8, 512, "GN_IMPL alone request")
     if per != GN_ALONE_LAUNCHES:
@@ -1679,16 +1725,17 @@ def run_fused_train(torch, card_line, op, default_steady):
                        {route: (models, route) for route in ("pallas", "xla")})
     expect = dict(FUSED_STEP_LAUNCHES, flash_fwd_wide=3 if cfg.remat_identity else 2)
     with gn_route("pallas"):
-        launches, steady, _ = _train_steps(torch, op, 2, expect, "fused train", card_line)
+        launches, steady, _ = _train_steps(torch, op, 3, expect, "fused train", card_line)
     print(f"fused train: {steady:.3f} s/step against the default configuration's {default_steady:.3f} s/step "
-          f"in this process ({card_line})", flush=True)
+          f"in this process, both replays ({card_line})", flush=True)
     _small_train_check(torch, op, "GN_IMPL alone train: K3 route vs the default routes",
                        {"alone": (models, ("pallas", "xla")), "xla": (models, "xla")})
     expect = dict(GN_ALONE_STEP_LAUNCHES, flash_fwd_wide=3 if cfg.remat_identity else 2)
     with gn_route("pallas", conv="xla"):
         alone, alone_s, _ = _train_steps(torch, op, 1, expect, "GN_IMPL alone train", card_line)
-    print(f"GN_IMPL alone train: {alone_s:.3f} s/step (one step) against the default configuration's "
-          f"{default_steady:.3f} and the fused one's {steady:.3f} in this process ({card_line})", flush=True)
+    print(f"GN_IMPL alone train: {alone_s:.3f} s/step (one step, eager: its key's warm-up) beside the default "
+          f"configuration's {default_steady:.3f} and the fused one's {steady:.3f} (replays) in this process "
+          f"({card_line})", flush=True)
     return {n: c + alone[n] for n, c in launches.items()}
 
 
@@ -2278,6 +2325,7 @@ class shape_tally:
     log-sum-exp, `lse` those with it."""
 
     def __enter__(self):
+        from faceposegenerator_tpu_torch.core import compile as cc
         from faceposegenerator_tpu_torch.ops import attention
         from faceposegenerator_tpu_torch.ops import flash_attention as fa
 
@@ -2295,6 +2343,8 @@ class shape_tally:
             return call
 
         attention.flash_fwd, fa.flash_fwd = (tally(f) for f in self.saved)
+        self.eager = cc.disable()  # a replay runs no Python: only eager calls tally
+        self.eager.__enter__()
         return self
 
     def __exit__(self, *exc):
@@ -2302,6 +2352,7 @@ class shape_tally:
         from faceposegenerator_tpu_torch.ops import flash_attention as fa
 
         attention.flash_fwd, fa.flash_fwd = self.saved
+        self.eager.__exit__(*exc)
 
 
 def _stack_loras(trees, torch):
@@ -2429,7 +2480,8 @@ def run_checkpoints(torch, card_line, default_secs, root):
         fail(f"the prompted images are not bit-equal to the source pipeline's on the same ids "
              f"(max diff {np.abs(img - want).max():.3e})")
     print(f"checkpoints: prompted request bit-equal to the source pipeline; {min(secs, secs2):.3f} s/request "
-          f"against phase 4's {default_secs:.3f} ({card_line})", flush=True)
+          f"(the faster of its key's eager warm-up and its capture call) beside phase 4's replay "
+          f"{default_secs:.3f} ({card_line})", flush=True)
     del src
     torch.cuda.empty_cache()
 
@@ -2914,7 +2966,7 @@ def run_driver(torch, card_line, model_dir, work, train_secs, train_peak):
                                                      train_step_generator(acfg.seed, i, "cuda"))
                 same = {tree: _tree_equal(torch, trainable[tree], before[tree]) for tree in trees}
                 print(f"driver: {label} micro-step {i + 1}: loss {float(metrics['loss']):.6f}, LoRA unchanged "
-                      f"{json.dumps(same)}, update count {opt_state['count']}", flush=True)
+                      f"{json.dumps(same)}, update count {int(opt_state['count'])}", flush=True)
                 if any(same.values()) != (i % 2 == 0) or all(same.values()) != (i % 2 == 0):
                     fail(f"{label} micro-step {i + 1}: LoRA unchanged {same}, expected {i % 2 == 0} for each")
         acc[label] = (_probe_summary(asteps.records, f"driver: {label} micro-step", STEP_LAUNCHES, card_line),
@@ -3002,6 +3054,7 @@ def run_serving(torch, card_line, model_dir, work, default_secs):
     import numpy as np
     from PIL import Image
 
+    from faceposegenerator_tpu_torch.core import compile as cc
     from faceposegenerator_tpu_torch.diffusion import parallel_sampler, sampler
     from faceposegenerator_tpu_torch.diffusion.lora_io import save_lora_safetensors, zero_lora
     from faceposegenerator_tpu_torch.evaluation import fiqa, pose
@@ -3160,7 +3213,8 @@ def run_serving(torch, card_line, model_dir, work, default_secs):
         one = req(2, 300, None)
         seq = SamplerServer(pipe, batch_size=1, max_wait_s=0.0, **served)
         servers.append(seq)
-        with step_probe(sampler, "sample", factory=False) as sq:
+        # eager, as the Picard sampler it is compared with runs (its capture is later work)
+        with step_probe(sampler, "sample", factory=False) as sq, cc.disable():
             seq_img = [seq.generate([one])[0] for _ in range(2)][-1]
         add(sq.records)
         _expect_each(sq.records, SERVE_BATCH_LAUNCHES, "sequential batch-1 request")
@@ -3300,7 +3354,8 @@ def run_serving(torch, card_line, model_dir, work, default_secs):
 FR_GATE = dict(batch=8, res=112, classes=16, depths=(1, 1, 1, 1), steps=2)
 FR_BENCH = dict(network="iresnet50", batch=128, res=112, classes=1000, steps=10)
 FR_DRIVER = dict(identities=1000, per_identity=2, pairs=600, epochs=2, max_steps=4)
-EMBED_BENCH = dict(folders=16, per_folder=32, black=8, res=250, batch=64)
+# 16 JPEGs a folder (a depth cut from 32 for the time limit)
+EMBED_BENCH = dict(folders=16, per_folder=16, black=8, res=250, batch=64)
 BF16_MAX, BF16_MEAN = 2e-2, 2e-3
 
 
@@ -3821,13 +3876,18 @@ def run_identity_stack(torch, card_line, keep=None):
 
 
 # Phase 16: the dgm-eval op point (`main_DGM_EVAL.ipynb`'s DINOv2 ViT-L/14 at
-# 224², batch 64) on 512 real, 512 generated and 256 held-out 512² PNGs in 16
-# folders each, the other ten encoders on the generated set, and PyEER on the
+# 224², batch 64) on 256 real, 256 generated and 128 held-out 512² PNGs in 16
+# folders each, the other ten encoders on 4 of the generated folders, and PyEER on the
 # r100 embeddings. K1 runs every ViT attention: one launch a layer a batch;
 # a GradCAM probe runs the 23 layers before its tap on K1 and the tapped one
 # on K1 with the log-sum-exp and one K5 pair; make_heatmap_fn takes every
 # layer through K1 with the log-sum-exp and K5.
-QUALITY = dict(folders=16, real=32, gen=32, test=16, res=512, batch=64, heatmaps=4, heat_batch=4)
+# 16 real, 16 generated and 8 held-out images a folder (cut from 32, 32 and
+# 16) and encoder_folders, the other encoders reading 4 of the 16
+# generated folders (64 images, one batch; arcface all of them, for PyEER):
+# depth cuts for the time limit
+QUALITY = dict(folders=16, real=16, gen=16, test=8, res=512, batch=64, heatmaps=4, heat_batch=4,
+               encoder_folders=4)
 QUALITY_METRICS = ["fd", "fd_infinity", "kd", "prdc", "realism", "vendi", "authpct", "sw", "ct", "fls"]
 QUALITY_SHAPES = [("dinov2 L/14 224²", 64, 16, 257, 257, 64, 24), ("mae L/16 224²", 64, 16, 197, 197, 64, 24),
                   ("clip B/32 224²", 64, 12, 50, 50, 64, 12)]
@@ -4142,25 +4202,35 @@ def _encoder_gate(torch, name, enc, batch_u8):
 
 
 def _encoders(torch, card_line, sets, tally):
-    """The other ten encoders on the generated set at batch 64 (arcface on
-    the real set too): finite (N, D) at JAX's D, exact launches a batch,
-    img/s and the host/device split. Returns (summary, the arcface
+    """The other ten encoders at batch 64 on QUALITY["encoder_folders"] of
+    the generated folders (arcface on all of them and on the real set too):
+    finite (N, D) at JAX's D, exact launches a batch, img/s and the
+    host/device split. Returns (summary, the arcface
     embeddings, the encoders, each encoder's launches a batch)."""
     import numpy as np
 
     from faceposegenerator_tpu_torch.evaluation import dgm
 
+    import os
+
     q, out, emb, encs, per_batch = QUALITY, {}, {}, {}, {}
     names = [n for n in ENCODERS if n != "dinov2"]
-    n = q["folders"] * q["gen"]
+    part = sets["gen"] + f"_{q['encoder_folders']}_folders"  # hard links to the first folders' PNGs
+    for f in sorted(os.listdir(sets["gen"]))[:q["encoder_folders"]]:
+        os.makedirs(os.path.join(part, f), exist_ok=True)
+        for png in os.listdir(os.path.join(sets["gen"], f)):
+            if not os.path.exists(os.path.join(part, f, png)):
+                os.link(os.path.join(sets["gen"], f, png), os.path.join(part, f, png))
     with timed_encoder(names, tally) as probe:
         for name in names:
             dim = ENCODERS[name][0]
+            root, folders = (sets["gen"], q["folders"]) if name == "arcface" else (part, q["encoder_folders"])
+            n = folders * q["gen"]
             t0 = time.time()
             enc = encs[name] = dgm._ENCODERS[name]()
             build_s = time.time() - t0
             t0 = time.time()
-            reps, labels = dgm.compute_representations(sets["gen"], enc, name, batch_size=q["batch"])
+            reps, labels = dgm.compute_representations(root, enc, name, batch_size=q["batch"])
             secs = time.time() - t0
             if reps.shape != (n, dim) or not np.isfinite(reps).all():
                 fail(f"encoder {name}: features {reps.shape}, expected ({n}, {dim}), finite {np.isfinite(reps).all()}")
@@ -4342,8 +4412,8 @@ def run_quality_eval(torch, card_line, keep=None):
         torch.cuda.empty_cache()
         pyeer, pyeer_diffs = _pyeer(torch, emb, arcface, sets, root)
     dgm_batches = q["folders"] * (q["real"] + q["gen"] + q["test"]) // q["batch"]
-    gen_batches = q["folders"] * q["gen"] // q["batch"]
-    expect = {"flash_fwd_d64": 24 * dgm_batches + 24 * q["heatmaps"] + (24 + 12) * gen_batches + 24,
+    enc_batches = q["encoder_folders"] * q["gen"] // q["batch"]  # mae's and clip's
+    expect = {"flash_fwd_d64": 24 * dgm_batches + 24 * q["heatmaps"] + (24 + 12) * enc_batches + 24,
               "flash_bwd_d64_dkv": q["heatmaps"] + 24, "flash_bwd_d64_dq": q["heatmaps"] + 24}
     if launches != expect or counts["flash_fwd_d64 +lse"] != q["heatmaps"] + 24:
         fail(f"phase 16 launched {launches} ({counts['flash_fwd_d64 +lse']} K1 with the log-sum-exp), expected "
@@ -4377,10 +4447,10 @@ CLI_TURBO_PROMPTS = 2  # 3 variants × 2 prompts: one packed batch of 8 with 2 p
 # (K > 1280 or fewer than 2048 rows): every cross k/v projection (32), L1's
 # GEGLU output (5), the rest of L2's (40) and of the mid block's (8) calls
 CLI_CALIB_LAUNCHES = {"qdense": 8 * 160, "qdense_quant": 8 * 85}
-# a class folder of half the config's num_class_images (200), a depth cut
-# that keeps the script inside its time limit: the epoch is as long as the
-# folder (100 steps of 1 + 1 rows)
-CLI_CLASS_IMAGES = 100
+# a class folder of a quarter of the config's num_class_images (200), a
+# depth cut that keeps the script inside its time limit with phase 21: the
+# epoch is as long as the folder (50 steps of 1 + 1 rows)
+CLI_CLASS_IMAGES = 50
 # dgm-eval on 2 of phase 16's 16 folders of each set (64 PNGs: one batch
 # each): the reference subsamples --nsample images only from a set larger
 # than nsample + 2000, so the folders, not the flag, keep the run small
@@ -4678,7 +4748,7 @@ def _cli_serve(torch, card_line, model_dir, refs, root):
 
     from faceposegenerator_tpu_torch.ops import _build
 
-    libs = lambda: {p.name: p.stat().st_mtime_ns for p in _build.BUILD_DIR.iterdir()}  # noqa: E731
+    libs = lambda: {p.name: p.stat().st_mtime_ns for p in _build.build_dir().iterdir()}  # noqa: E731
     before = libs()
     torch.cuda.empty_cache()
     req = refs["request"]
@@ -6037,7 +6107,7 @@ def _flops_leg(torch, card_line, default_secs):
 
     s = flops.summarize(request, peak_flops_per_sec=H100_BF16_PEAK,
                         runtime_s=default_secs if math.isfinite(default_secs) else None)
-    rate = (f"{s['achieved_flops_per_sec'] / 1e12:.1f} TFLOP/s at phase 4's {default_secs:.3f} s/request, "
+    rate = (f"{s['achieved_flops_per_sec'] / 1e12:.1f} TFLOP/s at phase 4's replay {default_secs:.3f} s/request, "
             f"{100 * s['tensor_core_utilization']:.1f}% of the {H100_BF16_PEAK / 1e12:.0f} TFLOP/s bf16 peak"
             if "achieved_flops_per_sec" in s else "no rate: phase 4 did not run")
     print(f"flops: txt2img request (batch 8, 512², 30 steps, CFG) {s['flops'] / 1e12:.3f} TFLOP; {rate} "
@@ -6103,6 +6173,318 @@ def run_data_parity(torch, card_line, model_dir, data, default_secs=float("nan")
           f"({card_line}); summary {json.dumps({'recordio': recordio, 'rgbn': {k: v for k, v in rgbn.items() if k != 'gate'}, 'embed_img_per_s': embed, 'parity': secs, 'flops': flop})}",
           flush=True)
     return launches
+
+
+# Phase 21: the slice's three paths eager (`core.compile.disable()`) and as
+# captured CUDA graphs, from the same inputs. A graphed call launches what
+# its eager call launches: the capture records each counter's increase and
+# every replay adds it.
+GRAPH_TRAIN_STEPS = 10
+GRAPH_ROLLING = dict(slots=8, requests=16)
+
+
+def _busy_ms(torch, fn):
+    """fn() once under torch.profiler, tracing the device only: (device busy
+    ms, wall ms, its result); busy sums the device's kernel and copy times,
+    read from the raw trace (building the event tree of an eager request
+    takes tens of seconds)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+    return busy, 1e3 * wall, out
+
+
+def _idle(busy, wall_ms):
+    return "not measured (the profiler saw no device time)" if busy == 0 else \
+        f"busy {busy:.1f} of {wall_ms:.1f} ms, idle {100 * (1 - busy / wall_ms):.1f}%"
+
+
+def _timed_call(torch, fn):
+    """(seconds, launches, result) of fn(), between two synchronisations."""
+    before = _launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    return secs, {n: c - before[n] for n, c in _launch_counts().items() if c != before[n]}, out
+
+
+def _graph_request_leg(torch, card_line, label, run, expect):
+    """A request path eager and graphed: run(seed, lora) → images (a tensor
+    on the card; lora an index into the run's adapters, None for none). The
+    key's warm-up, then 3 eager requests under disable(), the capture and 2
+    replays from the same inputs, then a LoRA swap with a new seed; one
+    profiled request of each, and one eager request without a LoRA. Every
+    call launches `expect`; the counts are set to 0 before the first call
+    and read after the last. Returns the leg's readings and launches."""
+    import statistics
+
+    from faceposegenerator_tpu_torch.core import compile as cc
+    from faceposegenerator_tpu_torch.diffusion import sampler
+
+    calls = []
+
+    def call(seed, lora, what):
+        secs, per, img = _timed_call(torch, lambda: run(seed, lora))
+        calls.append(what)
+        if per != expect:
+            fail(f"{label} {what}: launched {per}, expected {expect}")
+        if not (bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0 and float(img.max()) <= 1.0):
+            fail(f"{label} {what}: images not finite or outside [0, 1]")
+        return secs, img
+
+    t_leg = time.time()
+    sampler._sample.clear()
+    _reset_launch_counts()
+    warm_s, _ = call(0, 0, "warm-up")  # the key's first call: eager, and the path's lazy set-up
+    with cc.disable():
+        eager_runs = [call(0, 0, f"eager {i}") for i in range(3)]
+    want = eager_runs[0][1]
+    capture_s, first = call(0, 0, "capture")
+    graphed_runs = [call(0, 0, f"replay {i}") for i in range(2)]
+    n = sampler._sample._cache_size()
+    swap_s, swapped = call(7, 1, "replay after a LoRA swap and a new seed")
+    if sampler._sample._cache_size() != n or n != 1:
+        fail(f"{label}: {sampler._sample._cache_size()} keys after a LoRA swap and a new seed, {n} before")
+    replayed = graphed_runs[-1][1]
+    if float((swapped - replayed).abs().max()) < 1e-3:
+        fail(f"{label}: the images did not change with the LoRA and the seed")
+    errs = [float((img - want).abs().max()) for img in [first] + [r[1] for r in graphed_runs + eager_runs[1:]]]
+    mean = max(float((img - want).abs().mean()) for img in [first] + [r[1] for r in graphed_runs])
+    bit_equal = all(e == 0.0 for e in errs)
+    print(f"{label}: graphed (and the later eager requests) against the first eager request: "
+          f"{'bit-equal' if bit_equal else 'max abs ' + str(errs)} (mean {mean:.3e}; gate 1e-1 / 1e-2) "
+          f"({card_line})", flush=True)
+    if not (max(errs) <= 1e-1 and mean <= 1e-2):
+        fail(f"{label}: graphed images differ from eager by {max(errs)} max, {mean} mean")
+    with cc.disable():
+        busy_e, wall_e, _ = _busy_ms(torch, lambda: run(0, 0))
+        calls.append("profiled eager")
+        plain_s, _ = call(0, None, "eager without a LoRA")
+    busy_g, wall_g, _ = _busy_ms(torch, lambda: run(0, 0))
+    calls.append("profiled replay")
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    if launches != {k: v * len(calls) for k, v in expect.items()}:
+        fail(f"{label}: {len(calls)} calls launched {launches}, expected {json.dumps(expect)} each")
+    eager = statistics.median(r[0] for r in eager_runs)
+    graphed = statistics.median([r[0] for r in graphed_runs] + [swap_s])
+    pool = sampler._sample.pool_bytes()
+    print(f"{label}: eager {eager:.3f} s/request (median of {[round(r[0], 3) for r in eager_runs]}), graphed "
+          f"{graphed:.3f} s/request (median of {[round(r[0], 3) for r in graphed_runs] + [round(swap_s, 3)]}) "
+          f"({eager / graphed:.3f}x); eager without a LoRA {plain_s:.3f} s; warm-up {warm_s:.3f} s, capture call "
+          f"{capture_s:.3f} s; keys {n}; pool {pool / 2**30:.3f} GiB; profiled eager {_idle(busy_e, wall_e)}, "
+          f"graphed {_idle(busy_g, wall_g)}; {len(calls)} calls launched {json.dumps(launches)}; the leg "
+          f"{time.time() - t_leg:.1f} s ({card_line})", flush=True)
+    return {"eager_s": eager, "graphed_s": graphed, "capture_s": capture_s, "pool_bytes": pool,
+            "eager_no_lora_s": plain_s, "busy_ms": [busy_e, busy_g], "wall_ms": [wall_e, wall_g],
+            "max_abs": max(errs)}, launches
+
+
+def _graph_rolling_leg(torch, card_line, pipe, trees):
+    """The rolling server at 8 slots, 30 DDPM steps, 16 requests of mixed
+    seeds over two adapters: eager under disable(), then graphed; every
+    image equal (or within the per-sample gate), ms a tick of each, and
+    the admission and tick keys after all 16 admissions no more than after
+    the first."""
+    from faceposegenerator_tpu_torch.core import compile as cc
+    from faceposegenerator_tpu_torch.serving import GenerationRequest, RollingServer, rolling
+
+    reqs = [GenerationRequest(prompt=PROMPTS[i % len(PROMPTS)], negative_prompt=NEGATIVE_PROMPT, seed=300 + i,
+                              lora_id=("A", "B")[i % 2]) for i in range(GRAPH_ROLLING["requests"])]
+    for core in (rolling._admit_core, rolling._tick_core, rolling._decode1_core):
+        core.clear()
+    sizes = []
+    saved = RollingServer._admit_ids
+
+    def admit(self, *a, **kw):
+        saved(self, *a, **kw)
+        sizes.append(rolling._admit_core._cache_size())
+
+    def serve():
+        srv = RollingServer(pipe, batch_size=GRAPH_ROLLING["slots"], max_wait_s=0.0, num_inference_steps=30,
+                            height=512, width=512)
+        try:
+            for name, tree in zip("AB", trees):
+                srv.register_lora(name, tree)
+            with step_probe(RollingServer, "_tick", factory=False) as ticks:
+                _reset_launch_counts()
+                out = srv.generate(reqs)
+                launches = _launch_counts()
+        finally:
+            srv.shutdown()
+        tick_ms = sorted(1e3 * r["s"] for r in ticks.records[3:])
+        return [r.image for r in out], tick_ms[len(tick_ms) // 2], len(ticks.records), launches
+
+    t_leg = time.time()
+    RollingServer._admit_ids = admit
+    try:
+        with cc.disable():
+            want, eager_ms, n_eager, eager_launches = serve()
+        sizes.clear()
+        got, graphed_ms, n_ticks, launches = serve()
+    finally:
+        RollingServer._admit_ids = saved
+    worst = max(_u8_diff(g, w, f"rolling graphed image {i} against eager")[0]
+                for i, (g, w) in enumerate(zip(got, want)))
+    tick_keys = rolling._tick_core._cache_size()
+    print(f"rolling: {GRAPH_ROLLING['requests']} requests on {GRAPH_ROLLING['slots']} slots, 30 DDPM steps, "
+          f"{n_eager} and {n_ticks} ticks: eager {eager_ms:.1f} ms/tick, graphed {graphed_ms:.1f} ms/tick "
+          f"({eager_ms / graphed_ms:.3f}x); uint8 max diff {worst}; admission keys after each admission "
+          f"{sizes}, tick keys {tick_keys}; pool {rolling._tick_core.pool_bytes() / 2**30:.3f} GiB (ticks), "
+          f"{rolling._admit_core.pool_bytes() / 2**30:.3f} (admissions); the leg {time.time() - t_leg:.1f} s; "
+          f"launches eager {json.dumps({k: v for k, v in eager_launches.items() if v})}, graphed "
+          f"{json.dumps({k: v for k, v in launches.items() if v})} ({card_line})", flush=True)
+    if len(sizes) != len(reqs) or max(sizes) > sizes[0] or tick_keys != 1:
+        fail(f"rolling: admission keys {sizes}, tick keys {tick_keys}: a slot or a request captured anew")
+    for name, run_launches, ticks in (("eager", eager_launches, n_eager), ("graphed", launches, n_ticks)):
+        want = {"flash_fwd_d64": 32 * ticks, "flash_fwd_wide": len(reqs)}  # K1 32 a tick, K2 1 a finished slot
+        if {k: v for k, v in run_launches.items() if v} != want:
+            fail(f"rolling: the {name} server launched {run_launches} in {ticks} ticks, expected {want}")
+    return {"eager_ms": eager_ms, "graphed_ms": graphed_ms, "max_u8": worst}, launches
+
+
+def _graph_train_leg(torch, card_line):
+    """The ID-Booth step at phase 7's op point, GRAPH_TRAIN_STEPS steps from
+    the same state and draws, eager and graphed: the loss and grad_norm of
+    every step within phase 7's 1e-2 relative, the LoRA after the last
+    within cosine 0.99 (both printed), the count on the card, s/step (the
+    median of the eager steps after the first, of the replays) and the
+    idle share of one step of each. Every step launches phase 7's counts;
+    they are set to 0 before the first step and read after the last."""
+    import statistics
+
+    from faceposegenerator_tpu_torch.core import compile as cc
+    from faceposegenerator_tpu_torch.core.rng import train_step_generator
+    from faceposegenerator_tpu_torch.training import idbooth
+
+    t0 = time.time()
+    policy, models, frozen, cfg = op = build_train_op_point(torch)
+    batch = make_train_batch(torch, 8, 512, seed=5)
+    print(f"graphs: train op point built in {time.time() - t0:.1f} s", flush=True)
+    expect = dict(STEP_LAUNCHES, flash_fwd_wide=3 if cfg.remat_identity else 2)
+    runs = {}
+    calls = 0
+    _reset_launch_counts()
+    for mode in ("eager", "graphed"):
+        trainable = idbooth.init_trainable(4, cfg, models, frozen["unet"])
+        optimizer = idbooth.make_optimizer(cfg, total_steps=1000)
+        opt_state = optimizer.init(trainable)
+        step = idbooth.make_train_step(cfg, models, optimizer, policy=policy)
+        secs, metrics = [], []
+        ctx = cc.disable() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            for i in range(GRAPH_TRAIN_STEPS):
+                s, per, (trainable, opt_state, m) = _timed_call(torch, lambda: step(
+                    trainable, opt_state, frozen, batch, train_step_generator(cfg.seed, i, "cuda")))
+                if per != expect:
+                    fail(f"graphs: {mode} train step {i} launched {per}, expected {expect}")
+                secs.append(s)
+                metrics.append({k: float(v) for k, v in m.items()})
+            busy, wall, _ = _busy_ms(torch, lambda: step(trainable, opt_state, frozen, batch,
+                                                           train_step_generator(cfg.seed, 99, "cuda")))
+            calls += GRAPH_TRAIN_STEPS + 1
+        count = opt_state["count"]
+        if not (isinstance(count, torch.Tensor) and count.is_cuda and int(count) == GRAPH_TRAIN_STEPS + 1):
+            fail(f"graphs: {mode} optimizer count {count!r}, expected {GRAPH_TRAIN_STEPS + 1} on the card")
+        lora = torch.cat([leaf.detach().float().reshape(-1) for leaf in idbooth.tree_leaves(trainable)])
+        runs[mode] = dict(secs=secs, metrics=metrics, busy=busy, wall=wall, lora=lora, step=step, count=count)
+    e, g = runs["eager"], runs["graphed"]
+    rel = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12) for a, b in zip(e["metrics"], g["metrics"])
+              for k in ("loss", "grad_norm"))
+    # the LoRA's update from its start, compared by cosine
+    start = torch.cat([leaf.detach().float().reshape(-1) for leaf in idbooth.tree_leaves(
+        idbooth.init_trainable(4, cfg, models, frozen["unet"]))])
+    cos = float(torch.nn.functional.cosine_similarity(e["lora"] - start, g["lora"] - start, dim=0))
+    equal = bool(torch.equal(e["lora"], g["lora"]))
+    print(f"graphs: train {GRAPH_TRAIN_STEPS} steps graphed against eager: loss and grad_norm max relative diff "
+          f"{rel:.3e} (gate 1e-2), LoRA after step {GRAPH_TRAIN_STEPS} {'bit-equal' if equal else 'differs'}, "
+          f"update cosine {cos:.6f} (gate 0.99); losses eager {[round(m['loss'], 5) for m in e['metrics']]}, "
+          f"graphed {[round(m['loss'], 5) for m in g['metrics']]}; the optimizer's count {g['count']!r} "
+          f"({card_line})", flush=True)
+    if not (rel <= 1e-2 and cos >= 0.99):
+        fail(f"graphs: the graphed train step left eager's gates: relative {rel}, cosine {cos}")
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    if launches != {k: v * calls for k, v in expect.items()}:
+        fail(f"graphs: {calls} train steps launched {launches}, expected {json.dumps(expect)} each")
+    eager_s, graphed_s = statistics.median(e["secs"][1:]), statistics.median(g["secs"][2:])
+    pool = g["step"].graphed.pool_bytes()
+    print(f"graphs: train step eager {eager_s:.3f} s/step, graphed {graphed_s:.3f} s/step "
+          f"({eager_s / graphed_s:.3f}x; medians of {[round(x, 3) for x in e['secs'][1:]]} and "
+          f"{[round(x, 3) for x in g['secs'][2:]]}); capture step {g['secs'][1]:.3f} s; pool {pool / 2**30:.3f} GiB; "
+          f"profiled eager {_idle(e['busy'], e['wall'])}, "
+          f"graphed {_idle(g['busy'], g['wall'])}; {calls} steps launched {json.dumps(launches)}; the leg "
+          f"{time.time() - t0:.1f} s ({card_line})", flush=True)
+    return {"eager_s": eager_s, "graphed_s": graphed_s, "capture_s": g["secs"][1], "pool_bytes": pool,
+            "rel": rel, "cos": cos}, launches
+
+
+def run_graphs(torch, card_line):
+    """Phase 21: the txt2img request, the latency preset, the rolling server
+    and the ID-Booth train step, eager and as captured CUDA graphs. Returns
+    the launches of the phase's main-path calls."""
+    from faceposegenerator_tpu_torch.core import compile as cc
+    from faceposegenerator_tpu_torch.data.tokenizer import CLIPTokenizer
+    from faceposegenerator_tpu_torch.diffusion.lora_io import zero_lora
+    from faceposegenerator_tpu_torch.pipelines.presets import get_preset
+    from faceposegenerator_tpu_torch.pipelines.txt2img import StableDiffusionPipeline
+
+    t_phase = time.time()
+    cc.clear_all()
+    torch.cuda.empty_cache()
+    pipe = StableDiffusionPipeline.from_random(seed=0, dtype=torch.bfloat16,
+                                               tokenizer=CLIPTokenizer(*synthetic_vocab([])))
+    loras = [make_lora(pipe.nets["unet"], s, torch) for s in (10, 11)]
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 49408, (8, 77), generator=g)
+    total = {n: 0 for n in _launch_counts()}
+
+    def add(launches):  # the launches a leg read from the counters
+        for k, v in launches.items():
+            total[k] += v
+
+    def adapter(i):
+        return None if i is None else loras[i]
+
+    txt, txt_launches = _graph_request_leg(
+        torch, card_line, "graphs: txt2img bs8 512² DDPM 30 CFG 5.0 rank-4 LoRA",
+        lambda seed, i: pipe(input_ids=ids, num_inference_steps=30, guidance_scale=5.0, height=512, width=512,
+                             seed=seed, lora=adapter(i), output_type="pt"), REQUEST_LAUNCHES)
+    add(txt_launches)
+    kw = get_preset("latency").apply(pipe)
+    lat, lat_launches = _graph_request_leg(
+        torch, card_line, "graphs: latency preset batch 1 (DPM++ 20, DeepCache-3, (3, 13))",
+        lambda seed, i: pipe(PROMPTS[0], negative_prompt=NEGATIVE_PROMPT, seed=seed, num_inference_steps=20,
+                             height=512, width=512, lora=adapter(i), output_type="pt", **kw), LATENCY_LAUNCHES)
+    add(lat_launches)
+    pipe.set_scheduler("ddpm")
+    trees = []
+    for lora in loras:
+        tree = zero_lora(pipe.nets["unet"], pipe.nets["text_encoder"], dtype=torch.bfloat16)
+        tree["unet"] = lora["unet"]
+        trees.append(tree)
+    roll, roll_launches = _graph_rolling_leg(torch, card_line, pipe, trees)
+    add(roll_launches)
+    del pipe, loras, trees
+    cc.clear_all()
+    torch.cuda.empty_cache()
+    train, train_launches = _graph_train_leg(torch, card_line)
+    add(train_launches)
+    cc.clear_all()
+    torch.cuda.empty_cache()
+    print(f"graphs: phase 21 in {time.time() - t_phase:.1f} s; eager → graphed: txt2img {txt['eager_s']:.3f} → "
+          f"{txt['graphed_s']:.3f} s/request, latency {lat['eager_s']:.3f} → {lat['graphed_s']:.3f} s/request "
+          f"(eager without a LoRA {lat['eager_no_lora_s']:.3f}), "
+          f"rolling {roll['eager_ms']:.1f} → {roll['graphed_ms']:.1f} ms/tick, train {train['eager_s']:.3f} → "
+          f"{train['graphed_s']:.3f} s/step ({card_line})", flush=True)
+    return {k: v for k, v in total.items() if v}
 
 
 def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32, launches, ptxas, sass=None):
@@ -6221,7 +6603,8 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
         kernels.append(dict(
             name=name, route="cuda", source=sources[name], replaces=REPLACES[name], launches=launches[name],
             max_abs_err=0.0, ms=top[f"{key}_ms"], plain_ms=top[f"{key}_plain_ms"], bound_ms=top[f"{key}_bound_ms"],
-            bound_by="bytes", library_ms=None, shape=f"{top['shape']} B{top['B']}", ptxas=ptxas.get(fn),
+            bound_by="bytes", library_ms=top.get(f"{key}_library_ms"), shape=f"{top['shape']} B{top['B']}",
+            ptxas=ptxas.get(fn),
         ))
     # K3 and K4: the library time is F.group_norm (+ F.silu), and the default
     # route's plain GroupNorm+SiLU with cuDNN's conv. K3's ms is its launch
@@ -6245,6 +6628,15 @@ def _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32
                if k3 else {}),
         ))
     return kernels
+
+
+def release(torch):
+    """Between phases: drop every captured graph (their pools hold device
+    memory the next phase may need) and return the cached blocks."""
+    from faceposegenerator_tpu_torch.core import compile as cc
+
+    cc.clear_all()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -6334,11 +6726,11 @@ def main() -> int:
     q_rows = check_qdense(torch, card)
     i8_rows = check_int8(torch, fa, card)
     txt2img, txt2img_secs = run_pipeline(torch, fa, card_line)
-    torch.cuda.empty_cache()
+    release(torch)
     turbo = run_turbo(torch, card_line)
-    torch.cuda.empty_cache()
+    release(torch)
     train, train_op, train_secs, train_peak = run_train(torch, card_line)
-    torch.cuda.empty_cache()
+    release(torch)
     gn_rows = check_gn(torch, card, GN_SHAPES, "request") + check_gn(torch, card, GN_TRAIN_SHAPES, "step")
     gn_rows += check_gn(torch, card, GN_ALONE_SHAPES, "gn_alone_request")
     # K3's cluster sizes: how many the card holds at once, one 227 KB CTA an
@@ -6351,10 +6743,10 @@ def main() -> int:
     conv_rows = check_conv(torch, card, CONV_SHAPES, "request", border=True)
     conv_rows += check_conv(torch, card, CONV_TRAIN_SHAPES, "step")
     fused_txt2img = run_fused_txt2img(torch, card_line, txt2img_secs)
-    torch.cuda.empty_cache()
+    release(torch)
     fused_train = run_fused_train(torch, card_line, train_op, train_secs)
     del train_op
-    torch.cuda.empty_cache()
+    release(torch)
     f32 = {"fwd": check_f32_forward(torch, fa, card, SHAPES)}
     f32["fwd"] += check_f32_forward(torch, fa, card, TRAIN_SHAPES, with_lse=True, per="step")
     f32["tf32"] = check_tf32_refused(torch, fa)
@@ -6368,32 +6760,33 @@ def main() -> int:
         f32["gn"] = check_gn(torch, card, GN_F32_SHAPES, "fp32_request", torch.float32)
     fp32_txt2img, fp32_fused, fp32_routes = run_fp32_pipeline(torch, card_line)
     fp32_train = run_fp32_train(torch, card_line)
-    torch.cuda.empty_cache()
+    release(torch)
     # phase 17 runs the command line on what phases 12 and 14-16 leave
     with build_dir("sd21_base_synthetic") as model_dir, build_dir("serving") as serve_work, \
             build_dir("phase_data") as data:
         checkpoints, ckpt_counts = run_checkpoints(torch, card_line, txt2img_secs, model_dir)
         with build_dir("idbooth_driver") as work:
             driver, driver_step_s = run_driver(torch, card_line, model_dir, work, train_secs, train_peak)
-        torch.cuda.empty_cache()
+        release(torch)
         serving, serve_counts, serve_refs = run_serving(torch, card_line, model_dir, serve_work, txt2img_secs)
-        torch.cuda.empty_cache()
+        release(torch)
         identity = run_identity_stack(torch, card_line, data)
-        torch.cuda.empty_cache()
+        release(torch)
         quality, quality_counts = run_quality_eval(torch, card_line, data)
-        torch.cuda.empty_cache()
+        release(torch)
         command_line = run_cli(torch, card_line, model_dir, serve_refs, cli_inputs(data), driver_step_s)
-        torch.cuda.empty_cache()
+        release(torch)
         distribution, dist_fwd, dist_bwd = run_distribution(torch, fa, card, card_line, model_dir, txt2img_secs,
                                                             train_secs)
         fwd_rows += dist_fwd
         bwd_rows += dist_bwd
-        torch.cuda.empty_cache()
+        release(torch)
         mesh_serving, mesh_fwd = run_mesh_serving(torch, fa, card, card_line, model_dir, serve_refs.get("served"))
         fwd_rows += mesh_fwd
-        torch.cuda.empty_cache()
+        release(torch)
         data_parity = run_data_parity(torch, card_line, model_dir, data, txt2img_secs)
-    torch.cuda.empty_cache()
+    release(torch)
+    graphs = run_graphs(torch, card_line)
     for r in fwd_rows + bwd_rows:  # phases 12's, 14's and 16's shapes: the launches their runs measured
         if r.get("phase") == 12:
             r["launches_per_request"] = ckpt_counts[r["shape"]]
@@ -6407,14 +6800,14 @@ def main() -> int:
              "training driver": driver, "serving and sweep": serving, "identity stack and FR (no TPU kernel)": identity,
              "quality and identity evaluation": quality, "command line": command_line,
              "distribution": distribution, "servers over a mesh": mesh_serving,
-             "data layer and parity runbook": data_parity}
+             "data layer and parity runbook": data_parity, "captured graphs": graphs}
     launches = {n: sum(p.get(n, 0) for p in paths.values()) for n in REPLACES}
     print("launches on the main paths: " + ", ".join(f"{k} {json.dumps(v)}" for k, v in paths.items()), flush=True)
     for name, count in launches.items():
         if count == 0:
             fail(f"{name} was not launched on the main paths")
 
-    print(f"chip_smoke: all 20 phases in {time.time() - t_start:.1f} s ({card_line})", flush=True)
+    print(f"chip_smoke: all 21 phases in {time.time() - t_start:.1f} s ({card_line})", flush=True)
     print(json.dumps({"kernels": _kernel_entries(fwd_rows, bwd_rows, q_rows, i8_rows, gn_rows, conv_rows, f32,
                                                  launches, ptxas, sass)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

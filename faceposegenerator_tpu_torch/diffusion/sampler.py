@@ -6,13 +6,22 @@ DeepCache (`deepcache_interval`, `deepcache_depth`), and ToMe (`tome_*`).
 Adapters may be per-request (`(B, r, in)` / `(B, out, r)` leaves and a
 `(B,)` scale); `decode_chunk` decodes the batch in pieces.
 
-The JAX package compiles this into one program; here it is an eager Python
-loop whose step indices are host ints, so the loop never waits on the card.
-The JAX loop's static segmentation is kept: under `cfg_interval=(i0, i1)`
-the steps [0, i0) and [i1, S) run cond-only at batch B on the cond half of
-the text context, each segment carries its own DeepCache cache, and a
-segment's first step and every step whose index is a multiple of the
-interval run the full UNet. Capturing the loop in a CUDA graph is later work.
+The JAX package compiles this into one program; here `sample` draws the
+noise and runs `_sample`, which `core.compile.jit` captures as one CUDA
+graph per static key (JAX's `static_argnames`, and the port's `attn_impl`)
+and replays. The loop is a Python loop whose step indices are host ints,
+unrolled into the graph: the timesteps are one gather from the schedule's
+device table, each step's coefficients are fp32 host scalars that the
+schedule's `cache_key()` puts in the key, and no random number is drawn
+inside it: the (S+1, B, h, w, 4) noise table is drawn before, from the
+caller's generator, in the order the loop used to draw it (index 0, then
+step i's noise at i + 1; DPM-Solver++ draws index 0 only). The JAX loop's
+static segmentation is kept: under `cfg_interval=(i0, i1)` the steps
+[0, i0) and [i1, S) run cond-only at batch B on the cond half of the text
+context, each segment carries its own DeepCache cache, and a segment's
+first step and every step whose index is a multiple of the interval run
+the full UNet. ToMe's lattice tables are cached on the device by the
+warm-up call.
 
 `sample_data_parallel` and `sample_2d_parallel` run this loop on every
 rank of a mesh, each on its rows of the batch (and its slice of the UNet).
@@ -31,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.compile import jit, over_mesh, over_ranks
 from ..core.precision import DEFAULT_POLICY, Policy
 from ..core.rng import prompt_generator
 from ..core.tree import tree_leaves, tree_map
@@ -46,6 +56,15 @@ class SamplerModels:
     unet_cfg: unet2d.UNetConfig = unet2d.SD21_UNET_CONFIG
     vae_cfg: vae.VAEConfig = vae.SD_VAE_CONFIG
     attn_impl: str = "auto"
+
+
+# the static arguments of `_sample`: JAX's `sampler.sample` static_argnames
+# (sampler.py:52-57) less `models` (here the modules carry their configs)
+# and `unroll` (XLA's loop unrolling; a graph unrolls every step), plus the
+# port's `attn_impl`
+STATIC_ARGNAMES = ("guidance_scale", "height", "width", "policy", "scheduler", "attn_impl", "decode_chunk",
+                   "deepcache_interval", "deepcache_depth", "tome_ratio", "tome_min_tokens", "tome_ops",
+                   "cfg_interval", "return_trajectory")
 
 
 @torch.inference_mode()
@@ -74,6 +93,7 @@ def sample(
     cfg_interval: Optional[tuple] = None,
     return_trajectory: bool = False,
     batch_rows: Optional[tuple] = None,
+    mesh=None,
 ):
     """Generate (B, H, W, 3) fp32 images in [0, 1].
 
@@ -101,6 +121,13 @@ def sample(
     batch_rows=(G, rows): these B prompts are rows `rows` of a batch of G
     (a data-parallel shard): `generator` draws the noise of all G rows, as
     one process does, and the rows are kept.
+    mesh: the mesh this call runs on, where it runs on one.
+
+    The loop runs in `_sample`, one captured CUDA graph per static key on
+    the card (`core.compile`); a LoRA swap, a new seed or new prompts
+    replay it. Over a mesh of more than one rank, or with a UNet placed
+    over one (`parallel.tp`), it runs eagerly (`core.compile`'s argument
+    rule).
     """
     expected = DDPMSchedule if scheduler == "ddpm" else DPMSolverSchedule if scheduler == "dpm" else None
     if expected is None:
@@ -108,15 +135,13 @@ def sample(
     if not isinstance(schedule, expected):
         raise TypeError(f"scheduler {scheduler!r} takes a {expected.__name__}, got {type(schedule).__name__}")
     policy.configure_backends()
-    unet = nets["unet"]
-    device = unet.conv_in.weight.device
+    device = nets["unet"].conv_in.weight.device
     B = input_ids.shape[0]
     h, w = height // 8, width // 8
     S = schedule.num_inference_steps
-    lora = lora or {}
     if cfg_interval is not None:
-        i0, i1 = int(cfg_interval[0]), int(cfg_interval[1])
-        if not (0 <= i0 <= i1 <= S):
+        cfg_interval = (int(cfg_interval[0]), int(cfg_interval[1]))
+        if not (0 <= cfg_interval[0] <= cfg_interval[1] <= S):
             raise ValueError(f"cfg_interval {cfg_interval} not within [0, {S}]")
     if return_trajectory and (deepcache_interval > 1 or tome_ratio > 0.0 or cfg_interval is not None):
         raise ValueError(
@@ -129,14 +154,52 @@ def sample(
         noise_override = noise_override.to(device=device, dtype=torch.float32)
         if noise_override.shape != (S + 1, B, h, w, 4):
             raise ValueError(f"noise_override {tuple(noise_override.shape)} != {(S + 1, B, h, w, 4)}")
+    else:
+        noise_override = draw_noise(generator, S, B, h, w, device, scheduler, batch_rows)
+    ids = torch.cat([torch.as_tensor(negative_input_ids), torch.as_tensor(input_ids)]).to(device)
+    if isinstance(lora_scale, torch.Tensor):
+        lora_scale = lora_scale.to(device)
+    schedule.device_timesteps(device)  # the table on the card before any capture
+    return _sample(nets, schedule, ids, noise_override, lora, lora_scale, guidance_scale=guidance_scale,
+                   height=height, width=width, policy=policy, scheduler=scheduler, attn_impl=attn_impl,
+                   decode_chunk=decode_chunk, deepcache_interval=deepcache_interval,
+                   deepcache_depth=deepcache_depth, tome_ratio=tome_ratio, tome_min_tokens=tome_min_tokens,
+                   tome_ops=tome_ops, cfg_interval=cfg_interval, return_trajectory=return_trajectory,
+                   ranks=1 if mesh is None else mesh.size)
 
+
+def draw_noise(generator, S: int, B: int, h: int, w: int, device, scheduler: str = "ddpm",
+               batch_rows: Optional[tuple] = None) -> torch.Tensor:
+    """The (S+1, B, h, w, 4) fp32 noise table of a request, drawn from
+    `generator` as the step loop drew it: index 0 the initial latent, index
+    i + 1 step i's noise, each a (G, h, w, 4) draw of which rows `rows`
+    are kept (`batch_rows=(G, rows)`, else all B). DPM-Solver++ draws
+    index 0 only; its other rows are zeros, never read."""
     G, rows = batch_rows if batch_rows is not None else (B, slice(0, B))
+    n = S + 1 if scheduler == "ddpm" else 1
+    draws = [torch.randn((G, h, w, 4), generator=generator, device=device, dtype=torch.float32)[rows]
+             for _ in range(n)]
+    table = torch.stack(draws)
+    if n < S + 1:
+        table = torch.cat([table, table.new_zeros((S + 1 - n,) + tuple(table.shape[1:]))])
+    return table
 
-    def noise(i):
-        if noise_override is not None:
-            return noise_override[i]
-        return torch.randn((G, h, w, 4), generator=generator, device=device, dtype=torch.float32)[rows]
 
+@jit(static_argnames=STATIC_ARGNAMES,
+     eager_if=lambda nets, *a, ranks=1, **kw: over_ranks(ranks=ranks) or over_mesh(nets["unet"]))
+def _sample(nets: dict, schedule, ids: torch.Tensor, noise: torch.Tensor, lora: Optional[dict], lora_scale, *,
+            guidance_scale: float, height: int, width: int, policy: Policy, scheduler: str, attn_impl: str,
+            decode_chunk: Optional[int], deepcache_interval: int, deepcache_depth: int, tome_ratio: float,
+            tome_min_tokens: int, tome_ops: str, cfg_interval: Optional[tuple], return_trajectory: bool,
+            ranks: int = 1):
+    """The step loop and the decode of `sample`: ids the (2B, 77) [negative;
+    prompt] ids on the card, noise the (S+1, B, h, w, 4) table; `ranks` the
+    size of the mesh the call runs over (the argument rule)."""
+    unet = nets["unet"]
+    B = ids.shape[0] // 2
+    S = schedule.num_inference_steps
+    timesteps = schedule.device_timesteps(ids.device)
+    lora = lora or {}
     # per-request adapters: the cond-only passes take them as given, the
     # CFG batch tiled ×2
     tome = dict(tome_ratio=tome_ratio, tome_min_tokens=tome_min_tokens, tome_ops=tome_ops)
@@ -146,7 +209,6 @@ def sample(
         lora = tree_map(lambda t: torch.cat([t, t]), lora)
         if isinstance(lora_scale, torch.Tensor) and lora_scale.dim() == 1:
             lora_scale = torch.cat([lora_scale, lora_scale])
-    ids = torch.cat([torch.as_tensor(negative_input_ids), torch.as_tensor(input_ids)]).to(device)
     ctx = nets["text_encoder"](ids, policy, lora=lora.get("text_encoder"), lora_scale=lora_scale)
     kw = dict(policy=policy, lora=lora.get("unet"), lora_scale=lora_scale, attn_impl=attn_impl, **tome)
 
@@ -165,21 +227,24 @@ def sample(
             eps = eps_u + guidance_scale * (eps_c - eps_u)
         return eps, cache
 
-    segments = [(0, S, False)] if cfg_interval is None else [(0, i0, True), (i0, i1, False), (i1, S, True)]
-    x = noise(0)
+    if cfg_interval is None:
+        segments = [(0, S, False)]
+    else:
+        i0, i1 = cfg_interval
+        segments = [(0, i0, True), (i0, i1, False), (i1, S, True)]
+    x = noise[0]
     state = schedule.init_state(x) if scheduler == "dpm" else None
     traj = []
     for lo, hi, cond_only in segments:
         cache = None
         for i in range(lo, hi):
-            t = int(schedule.timesteps[i])
             full = i == lo or i % deepcache_interval == 0
-            eps, cache = guided_eps(x, t, cond_only, cache, full)
+            eps, cache = guided_eps(x, timesteps[i], cond_only, cache, full)
             if scheduler == "dpm":
                 state, _ = schedule.step(eps, i, state)
                 x = state[0]
             else:
-                x, _ = schedule.step(eps, i, x, noise(i + 1))
+                x, _ = schedule.step(eps, i, x, noise[i + 1])
             if return_trajectory:
                 traj.append(x)
 
@@ -228,7 +293,7 @@ def sample_data_parallel(mesh, nets: dict, schedule, input_ids, negative_input_i
     if isinstance(scale, torch.Tensor) and scale.dim() == 1:
         scale = scale[rows]
     images = sample(nets, schedule, torch.as_tensor(input_ids)[rows], torch.as_tensor(negative_input_ids)[rows],
-                    noise_override=noise_override, batch_rows=(B, rows), lora=lora, lora_scale=scale, **kw)
+                    noise_override=noise_override, batch_rows=(B, rows), lora=lora, lora_scale=scale, mesh=mesh, **kw)
     if kw.get("return_trajectory"):
         images, traj = images
         return (all_gather_rows(mesh, images, DATA_AXIS),

@@ -10,7 +10,10 @@ timestep tensor and gather from the tables on the device.
 
 Each schedule also holds its per-step coefficients as an fp32 table of
 length S, made once with the schedule, from which `step` reads its
-scalars. `step_per_slot` gathers the same values on the device by a (B,)
+scalars. A captured sampler graph bakes those scalars in, so `cache_key()`
+(the class, S, the settings and a hash of the tables) is part of its key:
+two schedules with the same S and other betas never share a graph.
+`step_per_slot` gathers the same values on the device by a (B,)
 tensor of step indices (the rolling engine's slots and the parallel
 sampler's window, which JAX writes as `jax.vmap(schedule.step)`), so row b
 of its result is bit for bit `step` at `step_idx[b]` on that row.
@@ -23,6 +26,7 @@ steps_offset 1, fixed_small variance, no sample clipping.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -108,6 +112,16 @@ DDPM_COEFS = ("sqrt_acp", "sqrt_1m", "x0_coef", "xt_coef", "std", "variance", "n
 DPM_COEFS = ("sqrt_a", "sqrt_s", "ratio", "c1", "c2", "r0", "last")
 
 
+def _cache_key(schedule, arrays: tuple, scalars: tuple) -> tuple:
+    """The schedule's identity for `core.compile.jit`: its class, step
+    count and settings, and a hash of its tables. A graph bakes each step's
+    coefficients in, so two schedules share a graph only if these agree."""
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return (type(schedule).__name__, schedule.num_inference_steps, scalars, h.hexdigest())
+
+
 def _on_device(schedule, name: str, device) -> torch.Tensor:
     """The schedule's table `name` on `device`, copied there on first use
     (timesteps as int64)."""
@@ -138,6 +152,10 @@ class DDPMSchedule:
     def __post_init__(self):
         object.__setattr__(self, "coefs", np.array([self._coefs(i) for i in range(len(self.timesteps))],
                                                    np.float32).reshape(-1, len(DDPM_COEFS)).T.copy())
+
+    def cache_key(self) -> tuple:
+        return _cache_key(self, (self.betas, self.alphas_cumprod, self.timesteps, self.prev_timesteps, self.coefs),
+                          (self.clip_sample, self.clip_sample_range, self.prediction_type))
 
     @property
     def num_train_timesteps(self) -> int:
@@ -171,7 +189,7 @@ class DDPMSchedule:
     def _acp_per_sample(self, t: torch.Tensor, ndim: int) -> torch.Tensor:
         """alphas_cumprod[t] for a (B,) timestep tensor, fp32, shaped to
         broadcast against a (B, ...) tensor of `ndim` dims."""
-        table = torch.from_numpy(self.alphas_cumprod).to(t.device)
+        table = _on_device(self, "alphas_cumprod", t.device)
         return table[t.long()].reshape((-1,) + (1,) * (ndim - 1))
 
     def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -284,6 +302,10 @@ class DPMSolverSchedule:
     def __post_init__(self):
         object.__setattr__(self, "coefs", np.array([self._coefs(i) for i in range(len(self.timesteps))],
                                                    np.float32).reshape(-1, len(DPM_COEFS)).T.copy())
+
+    def cache_key(self) -> tuple:
+        return _cache_key(self, (self.alphas_cumprod, self.timesteps, self.sigma_t, self.alpha_t, self.lambda_t,
+                                 self.coefs), (self.prediction_type, self.solver_order, self.lower_order_final))
 
     def _coefs(self, i: int) -> tuple:
         """The fp32 scalars of step position i, in DPM_COEFS order."""

@@ -369,7 +369,8 @@ class UNet2DCondition(nn.Module):
 
         def unit(fn, *args):
             if remat and torch.is_grad_enabled():
-                return checkpoint(fn, *args, use_reentrant=False)
+                # no random op inside: nothing to save, and a captured step cannot read the RNG
+                return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
             return fn(*args)
 
         def level_unit(x, rb, tr, tlora):

@@ -8,8 +8,9 @@ The source is the port's own copy, `loader.cpp`, with a plain C interface.
 
     g++ -O3 -shared -fPIC -std=c++17 loader.cpp -o <lib> -ljpeg -lpthread
 
-into `build/native/` at the repository root (`.gitignore`d), named by a hash
-of the source and the command, and loads it with ctypes, which releases the
+into `build/native/<toolchain>/` at the repository root (`.gitignore`d;
+`build_dir()`: a hash of the `g++ --version` line and the host's CPU
+flags), named by a hash of the source and the command, and loads it with ctypes, which releases the
 GIL for each call, as the JAX package's CPython extension does. It needs
 g++ and libjpeg (`jpeglib.h`), and no Python headers. As in JAX, the loader
 is optional: `load()` returns None where it cannot be built, `build_error()`
@@ -51,10 +52,19 @@ _mod = None
 _build_error: str | None = None
 
 
+def build_dir() -> Path:
+    """`BUILD_DIR/<hash>`: the directory of this g++ and this host's CPU
+    (`core.compile.machine_scoped_cache_dir`), so a `build/` copied to
+    another machine rebuilds the loader instead of loading a foreign one."""
+    from ..core.compile import machine_scoped_cache_dir, native_toolchain_tag
+
+    return machine_scoped_cache_dir(BUILD_DIR, native_toolchain_tag(shutil.which("g++") or "g++"))
+
+
 def _target() -> Path:
     h = hashlib.sha256(SRC.read_bytes())
     h.update(" ".join(GXX_FLAGS + LIBS).encode())
-    return BUILD_DIR / f"libfpg_loader-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libfpg_loader-{h.hexdigest()[:16]}.so"
 
 
 def _build() -> Path:
@@ -65,7 +75,7 @@ def _build() -> Path:
     gxx = shutil.which("g++")
     if gxx is None:
         raise FileNotFoundError("g++ not found on PATH: the native loader needs g++ and libjpeg")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target.parent.mkdir(parents=True, exist_ok=True)
     # a per-process temporary: concurrent first builds never write one file
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     r = subprocess.run([gxx, *GXX_FLAGS, str(SRC), "-o", str(tmp), *LIBS], capture_output=True, text=True)

@@ -1,9 +1,12 @@
 """Build and load the port's CUDA kernels (`csrc/*.cu`).
 
 Each source compiles with `nvcc` into its own shared library with a plain C
-interface under `build/kernels/` at the repository root, named by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged one
-is reused. The library is loaded with `ctypes`. Nothing here runs at import
+interface under `build/kernels/<toolchain>/` at the repository root
+(`build_dir()`: `core.compile.machine_scoped_cache_dir` of `nvcc --version`
+and the card's compute capability), named by a hash of the source and the
+flags, so an edited source rebuilds, an unchanged one is reused, and a
+`build/` copied to a machine with another toolkit or card is rebuilt there,
+never loaded. The library is loaded with `ctypes`. Nothing here runs at import
 time: the first kernel launch builds what it needs, and `build_all` builds
 every source at once (one `nvcc` process per source, started together).
 """
@@ -19,7 +22,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,6 +41,7 @@ KERNELS = {
 SOURCE_OF = {kernel: src for src, kernels in KERNELS.items() for kernel in kernels}
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_build_dir: list = []  # this process's build_dir(), computed once
 
 
 def _nvcc() -> str:
@@ -47,12 +51,21 @@ def _nvcc() -> str:
     return nvcc
 
 
+def build_dir() -> Path:
+    """`build/kernels/<hash>`: this toolkit's and this card's directory."""
+    if not _build_dir:
+        from ..core.compile import kernel_toolchain_tag, machine_scoped_cache_dir
+
+        _build_dir.append(machine_scoped_cache_dir(BUILD_ROOT, kernel_toolchain_tag(_nvcc())))
+    return _build_dir[0]
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256()
     for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -61,7 +74,7 @@ def _start(name: str):
     target = _target(name)
     if target.exists():
         return target, None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     with open(target.with_suffix(".log"), "w") as log:
         proc = subprocess.Popen(

@@ -53,18 +53,19 @@ from typing import Optional
 
 import torch
 
+from ..core.compile import register_counters
 from ..core.flops import count_kernel
 from . import _build
 from .qdense import INV127, quantize
 
-LAUNCHES = {
+LAUNCHES = register_counters({
     "flash_fwd_d64": 0, "flash_fwd_wide": 0,
     "flash_bwd_d64_dkv": 0, "flash_bwd_d64_dq": 0,
     "flash_bwd_wide_dkv": 0, "flash_bwd_wide_dq": 0, "flash_int8": 0,
     "flash_fwd_f32": 0, "flash_bwd_f32_dkv": 0, "flash_bwd_f32_dq": 0, "flash_int8_f32": 0,
     "flash_f32_split": 0, "flash_int8_amax": 0, "flash_int8_codes": 0,
-}
-LSE_LAUNCHES = {"flash_fwd_d64": 0, "flash_fwd_wide": 0, "flash_fwd_f32": 0}
+})
+LSE_LAUNCHES = register_counters({"flash_fwd_d64": 0, "flash_fwd_wide": 0, "flash_fwd_f32": 0})
 _WIDE_DIMS = (128, 256, 384, 512)
 _F32_DIMS = (64, *_WIDE_DIMS)
 _INT32_MAX = 2**31 - 1

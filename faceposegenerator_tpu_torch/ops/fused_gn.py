@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..core.compile import register_counters, register_route
 from . import _build
 
 _GN_IMPL = os.environ.get("GN_IMPL", "xla")  # xla | pallas
@@ -56,7 +57,8 @@ CONSUMERS = _THREADS
 # this table by tests/test_torch_kernels_cuda.py and printed by chip_smoke.py
 _WAVE_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 _DTYPES = (torch.bfloat16, torch.float32)
-LAUNCHES = {"fused_group_norm": 0}
+LAUNCHES = register_counters({"fused_group_norm": 0})
+register_route(lambda: (_GN_IMPL, _MAX_SLAB_ELEMS))  # which GroupNorms go to K3
 _fn = None
 
 

@@ -36,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..core.compile import register_counters, register_route
 from ..core.flops import count_kernel
 from . import _build
 from .flash_attention import tf32_split_plain
@@ -47,7 +48,8 @@ _ROWS_PER_CHUNK = int(os.environ.get("GN_CONV_ROWS", "8"))  # image rows / chunk
 # the kernels' tile of output pixels: a power-of-two width TW of
 # _TILE_PIXELS / TW image rows
 _TILE_PIXELS = 128
-LAUNCHES = {"gn_silu_conv3x3": 0, "gn_silu_conv3x3_f32": 0, "gn_conv_f32_split": 0}
+LAUNCHES = register_counters({"gn_silu_conv3x3": 0, "gn_silu_conv3x3_f32": 0, "gn_conv_f32_split": 0})
+register_route(lambda: (_IMPL, _ROWS_PER_CHUNK))  # which convolutions go to K4, in what chunks
 _fns: dict = {}
 
 

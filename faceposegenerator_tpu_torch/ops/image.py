@@ -54,7 +54,8 @@ def resize_bilinear(images: torch.Tensor, out_hw) -> torch.Tensor:
     triangle filter widened when shrinking (antialiased)."""
     b, h, w, _ = images.shape
     if out_hw[0] == out_hw[1]:
-        boxes = torch.tensor([[0.0, 0.0, float(w - 1), float(h - 1)]], device=images.device).expand(b, 4)
+        boxes = torch.zeros((b, 4), device=images.device)  # filled on the card: no copy from the host
+        boxes[:, 2], boxes[:, 3] = float(w - 1), float(h - 1)
         return crop_and_resize(images, boxes, out_hw[0])
     x = F.interpolate(images.permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear", align_corners=False,
                       antialias=True)

@@ -32,10 +32,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.compile import register_counters
 from ..core.flops import count_kernel
 from . import _build
 
-LAUNCHES = {"qdense": 0, "qdense_f32": 0, "qdense_quant": 0}
+LAUNCHES = register_counters({"qdense": 0, "qdense_f32": 0, "qdense_quant": 0})
 _EPS = 1e-8
 FUSED_MAX_K = 1280  # csrc/qdense.cu: the widest K whose 128-row codes the GEMM keeps in shared memory
 FUSED_MIN_M = 2048  # below 16 row blocks the fused quantize (a serial phase of each CTA) runs on few SMs

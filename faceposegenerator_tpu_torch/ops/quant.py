@@ -69,6 +69,11 @@ class QuantizedWeight(nn.Module):
     def shape(self):
         return self.q.shape
 
+    def compile_key(self):
+        """The static scale, a host number a captured graph bakes in
+        (`core.compile.module_fingerprint`)."""
+        return self.a
+
 
 def is_quantized(w) -> bool:
     return isinstance(w, QuantizedWeight)

@@ -168,7 +168,9 @@ class StableDiffusionPipeline:
         every quantized site (txt2img.py:167-248): a `steps`-step DDPM CFG
         denoise without LoRA and one decode run under
         `quant.observe_act_scales`, with the generator of `seed`. Call after
-        `quantize()`. Returns the observations."""
+        `quantize()`. Returns the observations. It runs eagerly, as JAX runs
+        it: the scales it freezes are host numbers that the sampler's graphs
+        key on."""
         input_ids, negative_input_ids = self._ids(prompt, negative_prompt, input_ids, negative_input_ids)
         self.policy.configure_backends()
         nets, device = self.nets, self.device

@@ -611,7 +611,7 @@ class SamplerServer:
         else:
             images = sample(pipe.nets, self._schedule, h.ids[rows], h.neg[rows], scheduler=self.scheduler,
                             deepcache_interval=self.deepcache_interval, deepcache_depth=self.deepcache_depth,
-                            cfg_interval=self.cfg_interval, **common)
+                            cfg_interval=self.cfg_interval, mesh=self.mesh, **common)
         images = quantize_u8(images)
         if not whole:
             images = mesh_lib.all_gather_rows(self.mesh, images)

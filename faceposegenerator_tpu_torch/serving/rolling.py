@@ -23,9 +23,18 @@ into any free slot at once and leaves after exactly S ticks:
 The host mirrors every slot's step count (it admitted the slot and counts
 the ticks), so the loop copies nothing from the card but finished images;
 the step counters live on the card and advance inside the tick, and host
-inputs go over by pinned, non-blocking copies. DeepCache, ToMe, the
-guidance interval and parallel sampling keep state in step across a batch
-and do not compose with slots; quantization composes (`pipe.quantize`).
+inputs go over by pinned, non-blocking copies. The admission, the two
+ticks and the decode are `core.compile.jit` functions (`_admit_core`,
+`_tick_core`, `_tick_dpm_core`, `_decode1_core`, as JAX jits `_admit`,
+`_tick`, `_tick_dpm` and `_decode1`): on the card each is one captured CUDA
+graph, replayed every call (over a mesh of more than one rank, eagerly:
+`core.compile`'s argument rule). The admitted slot is a device index, as
+JAX keeps it a traced scalar, so B slots share one graph; the per-tick
+stacked adapters and the buffers are inputs, copied into the graph's own.
+
+DeepCache, ToMe, the guidance interval and parallel sampling keep state in
+step across a batch and do not compose with slots; quantization composes
+(`pipe.quantize`).
 
 Over a mesh the B slots split over the data ranks, B/N contiguous slots a
 rank (rolling.py:242-255). Rank 0 keeps the slot table and decides the
@@ -47,6 +56,7 @@ import numpy as np
 import torch
 
 from ..core import mesh as mesh_lib
+from ..core.compile import jit, over_ranks
 from ..core.mesh import Header
 from ..core.tree import tree_leaves, tree_map
 from ..ops.image import quantize_u8
@@ -65,6 +75,9 @@ class RollingServer(SamplerServer):
                 raise ValueError(f"{bad} is not composable with RollingServer")
         kw["multi_lora"] = True
         super().__init__(pipe, **kw)
+        # the argument rule of core.compile: over more than one rank the
+        # admissions, ticks and decodes run eagerly
+        self._ranks = 1 if self.mesh is None else self.mesh.size
 
     def _admit(self, slot: int, req, ctx_buf, noise_buf, latents):
         """Write request `req` into `slot` of the buffers, in place."""
@@ -76,63 +89,39 @@ class RollingServer(SamplerServer):
     def _admit_ids(self, slot: int, ids, neg, seed: int, lora_id, ctx_buf, noise_buf, latents):
         """Write a request given by its token ids into `slot` of this rank's
         buffers (the slot a row of `latents`), in place."""
-        pipe, B = self.pipe, latents.shape[0]
+        pipe, device = self.pipe, latents.device
         with self._loras_lock:
             lora, scale = self._loras[lora_id]
-        ctx = pipe.nets["text_encoder"](to_device(torch.stack([neg, ids]), self.device), pipe.policy,
-                                        lora=lora.get("text_encoder"), lora_scale=scale)  # (2, 77, D): [uncond; cond]
-        ctx_buf[slot] = ctx[0]
-        ctx_buf[B + slot] = ctx[1]
         stream = self._per_request_noise([seed])[:, 0]  # index 0 the initial latent, i + 1 step i's noise
-        noise_buf[:, slot] = stream
-        latents[slot] = stream[0]
+        new = _admit_core(pipe.nets["text_encoder"], to_device(torch.stack([neg, ids]), device),
+                          torch.full((1,), slot, dtype=torch.long, device=device), stream, ctx_buf, noise_buf,
+                          latents, lora.get("text_encoder"), scale, policy=pipe.policy, ranks=self._ranks)
+        for buf, value in zip((ctx_buf, noise_buf, latents), new):
+            if value is not buf:  # a replay returns copies
+                buf.copy_(value)
 
-    def _guided_eps(self, latents, step_idx, ctx_buf, lora, scale):
-        """ε̂ of every slot at its own step (clamped to S - 1 for frozen slots)."""
-        S = self.num_inference_steps
-        safe = step_idx.clamp(0, S - 1)
-        t = self._schedule.device_timesteps(latents.device)[safe]
-        unet_lora = lora.get("unet")
-        if tree_leaves(unet_lora):  # per-slot adapters: slot b rides rows b and B + b
-            unet_lora = tree_map(lambda x: torch.cat([x, x]), unet_lora)
-            scale = torch.cat([scale, scale])
-        eps = self.pipe.nets["unet"](torch.cat([latents, latents]), torch.cat([t, t]), ctx_buf, self.pipe.policy,
-                                     lora=unet_lora, lora_scale=scale, attn_impl=self.pipe.models.attn_impl)
-        eps_u, eps_c = eps.chunk(2)
-        return eps_u + self.guidance_scale * (eps_c - eps_u), safe
-
-    @torch.inference_mode()
     def _tick(self, latents, step_idx, ctx_buf, noise_buf, lora, scale):
         """One DDPM step of every live slot (step_idx < S); returns the new
         (latents, step_idx)."""
-        S, B = self.num_inference_steps, latents.shape[0]
-        eps, safe = self._guided_eps(latents, step_idx, ctx_buf, lora, scale)
-        step_noise = noise_buf[safe + 1, torch.arange(B, device=latents.device)]
-        x_new, _ = self._schedule.step_per_slot(eps, safe, latents, step_noise)
-        live = step_idx < S
-        return torch.where(live[:, None, None, None], x_new, latents), torch.where(live, step_idx + 1, step_idx)
+        return _tick_core(self.pipe.nets["unet"], self._schedule, latents, step_idx, ctx_buf, noise_buf, lora,
+                          scale, guidance_scale=self.guidance_scale, policy=self.pipe.policy,
+                          attn_impl=self.pipe.models.attn_impl, ranks=self._ranks)
 
-    @torch.inference_mode()
     def _tick_dpm(self, latents, m0, m1, step_idx, ctx_buf, lora, scale):
         """One DPM-Solver++ 2M step of every live slot; returns the new
         (latents, m0, m1, step_idx)."""
-        S = self.num_inference_steps
-        eps, safe = self._guided_eps(latents, step_idx, ctx_buf, lora, scale)
-        x_new, m0_new, m1_new = self._schedule.step_per_slot(eps, safe, latents, m0, m1)
-        live = step_idx < S
-        mask = live[:, None, None, None]
-        return (torch.where(mask, x_new, latents), torch.where(mask, m0_new, m0), torch.where(mask, m1_new, m1),
-                torch.where(live, step_idx + 1, step_idx))
+        return _tick_dpm_core(self.pipe.nets["unet"], self._schedule, latents, m0, m1, step_idx, ctx_buf, lora,
+                              scale, guidance_scale=self.guidance_scale, policy=self.pipe.policy,
+                              attn_impl=self.pipe.models.attn_impl, ranks=self._ranks)
 
     def _decode1(self, latent) -> np.ndarray:
         """One slot's (h, w, 4) latent → (H, W, 3) uint8 on the host."""
         return self._decode1_u8(latent).cpu().numpy()
 
-    @torch.inference_mode()
     def _decode1_u8(self, latent) -> torch.Tensor:
         """One slot's (h, w, 4) latent → (H, W, 3) uint8 on the card."""
-        img = self.pipe.nets["vae"].decode(latent[None], self.pipe.policy, attn_impl=self.pipe.models.attn_impl)
-        return quantize_u8((img * 0.5 + 0.5).clamp(0.0, 1.0))[0]
+        return _decode1_core(self.pipe.nets["vae"], latent, policy=self.pipe.policy,
+                             attn_impl=self.pipe.models.attn_impl, ranks=self._ranks)
 
     def _run(self):
         """Every rank's loop: rank 0 admits and sends each tick's header, the
@@ -289,3 +278,74 @@ class RollingServer(SamplerServer):
         base.pop("padded_slots", None)
         return base
 
+
+
+@jit(static_argnames=("policy",), eager_if=over_ranks)
+@torch.inference_mode()
+def _admit_core(text_encoder, ids, slot, stream, ctx_buf, noise_buf, latents, text_lora, scale, *, policy,
+                ranks=1):
+    """CLIP on one request's (2, 77) [negative; positive] ids into rows slot
+    and B + slot of the (2B, 77, D) context buffer, its (S+1, h, w, 4)
+    noise stream into column `slot` of the noise buffer and its initial
+    latent into row `slot` of the latents; `slot` a (1,) device index.
+    Writes in place and returns the three buffers."""
+    B = latents.shape[0]
+    ctx = text_encoder(ids, policy, lora=text_lora, lora_scale=scale)  # (2, 77, D): [uncond; cond]
+    ctx_buf.index_copy_(0, torch.cat([slot, slot + B]), ctx)
+    noise_buf.index_copy_(1, slot, stream[:, None])
+    latents.index_copy_(0, slot, stream[:1])
+    return ctx_buf, noise_buf, latents
+
+
+def _guided_eps(unet, schedule, latents, step_idx, ctx_buf, lora, scale, guidance_scale, policy, attn_impl):
+    """ε̂ of every slot at its own step (clamped to S - 1 for frozen slots)."""
+    S = schedule.num_inference_steps
+    safe = step_idx.clamp(0, S - 1)
+    t = schedule.device_timesteps(latents.device)[safe]
+    unet_lora = lora.get("unet")
+    if tree_leaves(unet_lora):  # per-slot adapters: slot b rides rows b and B + b
+        unet_lora = tree_map(lambda x: torch.cat([x, x]), unet_lora)
+        scale = torch.cat([scale, scale])
+    eps = unet(torch.cat([latents, latents]), torch.cat([t, t]), ctx_buf, policy, lora=unet_lora, lora_scale=scale,
+               attn_impl=attn_impl)
+    eps_u, eps_c = eps.chunk(2)
+    return eps_u + guidance_scale * (eps_c - eps_u), safe
+
+
+@jit(static_argnames=("guidance_scale", "policy", "attn_impl"), eager_if=over_ranks)
+@torch.inference_mode()
+def _tick_core(unet, schedule, latents, step_idx, ctx_buf, noise_buf, lora, scale, *, guidance_scale, policy,
+               attn_impl, ranks=1):
+    """One DDPM step of every live slot (step_idx < S); returns the new
+    (latents, step_idx)."""
+    S, B = schedule.num_inference_steps, latents.shape[0]
+    eps, safe = _guided_eps(unet, schedule, latents, step_idx, ctx_buf, lora, scale, guidance_scale, policy,
+                            attn_impl)
+    step_noise = noise_buf[safe + 1, torch.arange(B, device=latents.device)]
+    x_new, _ = schedule.step_per_slot(eps, safe, latents, step_noise)
+    live = step_idx < S
+    return torch.where(live[:, None, None, None], x_new, latents), torch.where(live, step_idx + 1, step_idx)
+
+
+@jit(static_argnames=("guidance_scale", "policy", "attn_impl"), eager_if=over_ranks)
+@torch.inference_mode()
+def _tick_dpm_core(unet, schedule, latents, m0, m1, step_idx, ctx_buf, lora, scale, *, guidance_scale, policy,
+                   attn_impl, ranks=1):
+    """One DPM-Solver++ 2M step of every live slot; returns the new
+    (latents, m0, m1, step_idx)."""
+    S = schedule.num_inference_steps
+    eps, safe = _guided_eps(unet, schedule, latents, step_idx, ctx_buf, lora, scale, guidance_scale, policy,
+                            attn_impl)
+    x_new, m0_new, m1_new = schedule.step_per_slot(eps, safe, latents, m0, m1)
+    live = step_idx < S
+    mask = live[:, None, None, None]
+    return (torch.where(mask, x_new, latents), torch.where(mask, m0_new, m0), torch.where(mask, m1_new, m1),
+            torch.where(live, step_idx + 1, step_idx))
+
+
+@jit(static_argnames=("policy", "attn_impl"), eager_if=over_ranks)
+@torch.inference_mode()
+def _decode1_core(vae, latent, *, policy, attn_impl, ranks=1):
+    """One slot's (h, w, 4) latent → (H, W, 3) uint8 on the card."""
+    img = vae.decode(latent[None], policy, attn_impl=attn_impl)
+    return quantize_u8((img * 0.5 + 0.5).clamp(0.0, 1.0))[0]

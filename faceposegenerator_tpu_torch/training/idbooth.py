@@ -39,6 +39,7 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..core.compile import jit, over_mesh
 from ..core.config import ConfigBase
 from ..core.precision import DEFAULT_POLICY, Policy
 from ..core.tree import tree_leaves, tree_map
@@ -110,7 +111,8 @@ class ModelBundle:
 def full_image_boxes(images: torch.Tensor):
     """Default detector stub: the whole image, always found."""
     b, h, w, _ = images.shape
-    boxes = torch.tensor([[0.0, 0.0, float(w), float(h)]], device=images.device).expand(b, 4)
+    boxes = torch.zeros((b, 4), device=images.device)  # filled on the card: no copy from the host
+    boxes[:, 2], boxes[:, 3] = float(w), float(h)
     return boxes, torch.ones(b, dtype=torch.bool, device=images.device)
 
 
@@ -123,10 +125,16 @@ class LoRAOptimizer:
     learning rate of the n-th update is schedule(n - 1).
 
     The state is a tree of tensors and numbers, so a checkpoint holds it
-    whole: {"count": the updates applied (AdamW's step), "exp_avg" and
-    "exp_avg_sq": AdamW's moments in the layout of the trainable tree}, and
-    under accumulation {"mini_step": micro-steps since the last update,
-    "acc_grads": their running mean}.
+    whole: {"count": the updates applied (AdamW's step), a 0-d int64 tensor
+    on the parameters' device, "exp_avg" and "exp_avg_sq": AdamW's moments
+    in the layout of the trainable tree}, and under accumulation
+    {"mini_step": micro-steps since the last update, a host int, and
+    "acc_grads": their running mean}. The learning rate and both bias
+    corrections are fp32 device ops on `count`, as JAX's jitted optax
+    computes them, so an update never reads the card and a captured train
+    step replays it (`make_train_step`). A state restored with an int count
+    (checkpoints written before the count moved to the card) is converted
+    on its first update.
 
     Stacked mode (`update(..., per_identity=True)`): every leaf carries a
     leading identity axis of K independent fine-tunes that share one
@@ -144,7 +152,8 @@ class LoRAOptimizer:
 
     def init(self, trainable) -> dict:
         zeros = lambda: tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), trainable)  # noqa: E731
-        state = {"count": 0, "exp_avg": zeros(), "exp_avg_sq": zeros()}
+        device = tree_leaves(trainable)[0].device
+        state = {"count": torch.zeros((), dtype=torch.int64, device=device), "exp_avg": zeros(), "exp_avg_sq": zeros()}
         if self.accumulate > 1:
             state.update(mini_step=0, acc_grads=zeros())
         return state
@@ -161,20 +170,32 @@ class LoRAOptimizer:
         """Take `grads` (one per leaf of `trainable`, in `tree_leaves` order);
         on an update, clip by the global norm and apply AdamW in place.
         Returns the global norm of `grads`."""
+        n = opt_state.get("mini_step", 0)
+        apply = n == self.accumulate - 1 or self.accumulate == 1
+        count_on_device(opt_state, tree_leaves(trainable)[0].device)
+        norm = self.device_update(grads, opt_state, trainable, per_identity, apply, n)
+        if self.accumulate > 1:
+            opt_state["mini_step"] = 0 if apply else n + 1
+        return norm
+
+    @torch.no_grad()
+    def device_update(self, grads: list, opt_state: dict, trainable, per_identity: bool, apply: bool,
+                      n) -> torch.Tensor:
+        """`update` without its host bookkeeping: the device work of micro-step
+        `n` (a number, or a 0-d tensor on the card) of an accumulation, which
+        applies the update iff `apply`. `opt_state["mini_step"]` is neither
+        read nor written."""
         params = tree_leaves(trainable)
         if len(grads) != len(params):
             raise ValueError(f"{len(grads)} gradients for {len(params)} parameters")
         grads = [g.float() for g in grads]
         norm = self.global_norm(grads, per_identity)
         if self.accumulate > 1:
-            n = opt_state["mini_step"]
             acc = tree_leaves(opt_state["acc_grads"])
             for a, g in zip(acc, grads):  # MultiSteps' running mean (Welford)
                 a.add_((g - a) / (n + 1))
-            if n < self.accumulate - 1:
-                opt_state["mini_step"] = n + 1
+            if not apply:
                 return norm
-            opt_state["mini_step"] = 0
             grads = [a.clone() for a in acc]
             for a in acc:
                 a.zero_()
@@ -194,9 +215,10 @@ class LoRAOptimizer:
             torch._foreach_div_(grads, denom)
             torch._foreach_mul_(grads, scale)
 
-        lr = self.schedule(opt_state["count"])
-        opt_state["count"] += 1
-        t = opt_state["count"]
+        count = opt_state["count"]
+        lr = self.schedule(count)
+        count.add_(1)
+        t = count.float()
         (b1, b2), eps, wd = self.betas, self.eps, self.weight_decay
         exp_avg, exp_avg_sq = tree_leaves(opt_state["exp_avg"]), tree_leaves(opt_state["exp_avg_sq"])
         torch._foreach_mul_(params, 1 - lr * wd)
@@ -204,26 +226,38 @@ class LoRAOptimizer:
         torch._foreach_mul_(exp_avg_sq, b2)
         torch._foreach_addcmul_(exp_avg_sq, grads, grads, 1 - b2)
         denom = torch._foreach_sqrt(exp_avg_sq)
-        torch._foreach_div_(denom, math.sqrt(1 - b2 ** t))
+        torch._foreach_div_(denom, torch.sqrt(1 - torch.pow(b2, t)))
         torch._foreach_add_(denom, eps)
-        torch._foreach_addcdiv_(params, exp_avg, denom, -lr / (1 - b1 ** t))
+        step = torch._foreach_div(exp_avg, denom)
+        torch._foreach_mul_(step, -lr / (1 - torch.pow(b1, t)))
+        torch._foreach_add_(params, step)
         return norm
 
 
+def count_on_device(opt_state: dict, device) -> None:
+    """A state restored with an int count (a checkpoint written while the
+    count lived on the host) takes it as a 0-d int64 tensor on `device`."""
+    if not isinstance(opt_state["count"], torch.Tensor):
+        opt_state["count"] = torch.tensor(int(opt_state["count"]), dtype=torch.int64, device=device)
+
+
 def _cosine_schedule(lr: float, warmup_steps: int, decay_steps: int, end_value: float = 0.0):
-    """optax.warmup_cosine_decay_schedule (init 0 under warmup, else lr)."""
+    """optax.warmup_cosine_decay_schedule (init 0 under warmup, else lr): of
+    the optimizer's 0-d tensor count a 0-d fp32 tensor on its device,
+    computed in fp32 as optax computes it."""
     init = 0.0 if warmup_steps else lr
     alpha = 0.0 if lr == 0.0 else end_value / lr
 
     if decay_steps <= warmup_steps:
         raise ValueError(f"the cosine schedule needs decay_steps > warmup_steps, got {decay_steps}")
 
-    def schedule(count: int) -> float:
-        if count < warmup_steps:
-            return init + (lr - init) * count / warmup_steps
-        c = min(count - warmup_steps, decay_steps - warmup_steps)
-        cosine = 0.5 * (1 + math.cos(math.pi * c / (decay_steps - warmup_steps)))
-        return lr * ((1 - alpha) * cosine + alpha)
+    def schedule(count):
+        c = count.float()
+        warm = (init - lr) * (1 - c / max(warmup_steps, 1)) + lr
+        k = torch.clamp(c - warmup_steps, min=0, max=decay_steps - warmup_steps)
+        cosine = 0.5 * (1 + torch.cos(math.pi * k / (decay_steps - warmup_steps)))
+        decayed = lr * ((1 - alpha) * cosine + alpha)
+        return torch.where(c < warmup_steps, warm, decayed)
 
     return schedule
 
@@ -238,7 +272,8 @@ def make_optimizer(cfg: IDBoothConfig, total_steps: int, num_replicas: int = 1) 
     if cfg.lr_scheduler == "cosine":
         schedule = _cosine_schedule(lr, cfg.lr_warmup_steps, max(total_steps, 1))
     elif cfg.lr_scheduler == "constant":
-        schedule = lambda count: lr  # noqa: E731
+        def schedule(count):
+            return torch.full((), lr, device=torch.as_tensor(count).device)
     else:
         raise ValueError(cfg.lr_scheduler)
     return LoRAOptimizer(schedule, cfg.max_grad_norm, (cfg.adam_beta1, cfg.adam_beta2),
@@ -404,7 +439,8 @@ def make_loss_fn(cfg: IDBoothConfig, models: ModelBundle, schedule: DDPMSchedule
 
             def branch(*args):
                 if cfg.remat_identity:
-                    return checkpoint(identity_terms, *args, use_reentrant=False)
+                    # no random op inside: nothing to save, and a captured step cannot read the RNG
+                    return checkpoint(identity_terms, *args, use_reentrant=False, preserve_rng_state=False)
                 return identity_terms(*args)
 
             ck = cfg.identity_chunk
@@ -448,6 +484,17 @@ def make_train_step(cfg: IDBoothConfig, models: ModelBundle, optimizer: LoRAOpti
     With `identities=K`, the step of K stacked fine-tunes: the loss of
     `make_loss_fn(identities=K)` and the optimizer's per-identity update.
 
+    The forward pass, `torch.autograd.grad`, the clip and the update run as
+    one `core.compile.jit` function: on the card one captured CUDA graph per
+    key, the "apply the update on this micro-step" choice of an
+    accumulation part of the key (two graphs at most, where optax
+    `MultiSteps` uses `lax.cond`). `draws` (or the draws of `generator`,
+    made before the graph runs) and the batch are its inputs; the LoRA and
+    the optimizer state are updated in place. Two cases run eagerly, by
+    the argument rule of `core.compile`: a `detect_fn` other than
+    `full_image_boxes` (MTCNN's NMS runs on the host and cannot be
+    captured), and a mesh of more than one rank (its collectives).
+
     With `mesh`, the data-parallel step (`make_loss_fn(mesh=)`): equal to
     one process's step on the global batch. The gradients are summed over
     the ranks before the clip and the update, so the replicated LoRA and
@@ -458,18 +505,55 @@ def make_train_step(cfg: IDBoothConfig, models: ModelBundle, optimizer: LoRAOpti
     if schedule is None:
         schedule = make_ddpm()
     loss_fn = make_loss_fn(cfg, models, schedule, policy, detect_fn, identities=identities, mesh=mesh)
+    stacked = identities is not None
+    eager = detect_fn is not full_image_boxes or over_mesh(mesh)
 
-    def train_step(trainable, opt_state, frozen, batch, generator=None, draws=None):
-        loss, metrics = loss_fn(trainable, frozen, batch, generator, draws)
+    def step(trainable, opt_tensors, frozen, batch, draws, n, *, apply):
+        loss, metrics = loss_fn(trainable, frozen, batch, None, draws)
         params = tree_leaves(trainable)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         if mesh is not None and mesh.size > 1:
             grads = _sum_over_mesh(mesh, grads, trainable, frozen["unet"])
-        metrics["grad_norm"] = optimizer.update(grads, opt_state, trainable, per_identity=identities is not None)
+        metrics["grad_norm"] = optimizer.device_update(grads, opt_tensors, trainable, stacked, apply, n)
+        return trainable, opt_tensors, metrics
+
+    graphed = jit(step, static_argnames=("apply",), eager_if=lambda *a, **kw: eager)
+
+    def train_step(trainable, opt_state, frozen, batch, generator=None, draws=None):
+        if draws is None:
+            draws = _draws_of(batch, frozen, schedule, generator, stacked, mesh)
+        n = opt_state.get("mini_step", 0)
+        apply = optimizer.accumulate == 1 or n == optimizer.accumulate - 1
+        count_on_device(opt_state, tree_leaves(trainable)[0].device)
+        opt_tensors = {k: v for k, v in opt_state.items() if k != "mini_step"}
+        micro = torch.full((), float(n), device=opt_state["count"].device) if optimizer.accumulate > 1 else 0
+        new_trainable, new_opt, metrics = graphed(trainable, opt_tensors, frozen, batch, draws, micro, apply=apply)
+        with torch.no_grad():  # a replay returns copies of the graph's buffers
+            for dst, src in zip(tree_leaves((trainable, opt_tensors)), tree_leaves((new_trainable, new_opt))):
+                if dst is not src:
+                    dst.copy_(src)
+        if optimizer.accumulate > 1:
+            opt_state["mini_step"] = 0 if apply else n + 1
         return trainable, opt_state, metrics
 
+    train_step.graphed = graphed
     return train_step
+
+
+def _draws_of(batch, frozen, schedule, generator, stacked: bool, mesh):
+    """The step's draws from `generator` (a list of K under `stacked`), made
+    before the step runs, in the order and shapes `make_loss_fn` draws them:
+    the global batch's under a mesh."""
+    pix = batch["pixel_values"]
+    n = pix.shape[1 if stacked else 0] * (mesh.data if mesh is not None else 1)
+    vae = frozen["vae"]
+    f = 2 ** (len(vae.cfg.block_out_channels) - 1)
+    shape = (n, pix.shape[-3] // f, pix.shape[-2] // f, vae.cfg.latent_channels)
+    T = schedule.num_train_timesteps
+    if stacked:
+        return [draw(shape, n, T, g, pix.device) for g in generator]
+    return draw(shape, n, T, generator, pix.device)
 
 
 def _sum_over_mesh(mesh, grads: list, trainable: dict, unet) -> list:

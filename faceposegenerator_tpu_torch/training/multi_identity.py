@@ -50,14 +50,14 @@ from .idbooth_driver import DATA_RNG, lora_export, net_device, restore_data_rng,
 def stack_pytrees(trees: Sequence):
     """Stack K trees of one structure leafwise on a new leading identity
     axis. Tensors stack (a stacked leaf requires grad where the first
-    does); numbers, such as the optimizer's update count, must agree and
-    stay one number: the K identities share the schedule."""
+    does); numbers, such as the optimizer's update count (a 0-d tensor),
+    must agree and stay one number: the K identities share the schedule."""
     def stack(first, *others):
-        if isinstance(first, torch.Tensor):
+        if isinstance(first, torch.Tensor) and first.dim() > 0:
             return torch.stack([t.detach() for t in (first,) + others]).requires_grad_(first.requires_grad)
-        if any(t != first for t in others):
+        if any(bool(t != first) for t in others):
             raise ValueError(f"the identities disagree on a shared number: {[first, *others]}")
-        return first
+        return first.clone() if isinstance(first, torch.Tensor) else first
 
     return tree_map(stack, trees[0], *trees[1:])
 
@@ -65,11 +65,11 @@ def stack_pytrees(trees: Sequence):
 def shard_identity_axis(mesh, tree):
     """This rank's slice of a stacked tree's identity axis (K, ...), the
     K identities sharded contiguously over the mesh's "data" axis; numbers
-    pass through."""
+    (a 0-d tensor too: the shared update count) pass through."""
     from ..core.mesh import rows_of
 
     def take(leaf):
-        if not isinstance(leaf, torch.Tensor):
+        if not isinstance(leaf, torch.Tensor) or leaf.dim() == 0:
             return leaf
         return leaf[rows_of(mesh, leaf.shape[0])].detach().clone().requires_grad_(leaf.requires_grad)
 
@@ -82,7 +82,7 @@ def gather_identity_axis(mesh, tree):
     from ..core.mesh import DATA_AXIS, all_gather_rows
 
     return tree_map(lambda leaf: all_gather_rows(mesh, leaf.detach(), DATA_AXIS)
-                    if isinstance(leaf, torch.Tensor) else leaf, tree)
+                    if isinstance(leaf, torch.Tensor) and leaf.dim() > 0 else leaf, tree)
 
 
 def _data_rng_states(mesh, datasets) -> List[dict]:
@@ -105,8 +105,14 @@ def _data_rng_states(mesh, datasets) -> List[dict]:
 def unstack_pytree(tree, k: int) -> List:
     """Inverse of `stack_pytrees`: K trees with their own copies of slice i."""
     def take(i):
-        return lambda leaf: (leaf[i].detach().clone().requires_grad_(leaf.requires_grad)
-                             if isinstance(leaf, torch.Tensor) else leaf)
+        def leaf_i(leaf):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            if leaf.dim() == 0:  # a shared number: each tree its own copy
+                return leaf.clone()
+            return leaf[i].detach().clone().requires_grad_(leaf.requires_grad)
+
+        return leaf_i
 
     return [tree_map(take(i), tree) for i in range(k)]
 

@@ -141,6 +141,6 @@ def test_without_gxx_the_build_error_is_named(records, monkeypatch, tmp_path):
 
 def test_the_build_lands_under_build_native_keyed_by_the_source(loaders):
     mine, _ = loaders
-    assert mine.path.parent == native.BUILD_DIR and mine.path.parent.parts[-2:] == ("build", "native")
+    assert mine.path.parent == native.build_dir() and mine.path.parent.parts[-3:-1] == ("build", "native")
     assert mine.path == native._target() and mine.path.exists()
     assert native.toolchain_missing() is None
